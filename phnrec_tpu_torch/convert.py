@@ -1,0 +1,58 @@
+"""Carry phnrec_tpu's parameters, given as numpy arrays, into the port.
+
+Takes duck-typed objects (any array-likes ``np.asarray`` accepts), so the
+port never imports JAX or phnrec_tpu:
+
+* ``mlp_from_device``: a phnrec_tpu ``MLPDevice`` (padded and transposed,
+  phnrec_tpu/posteriors/mlp.py:42-88) -> ``MLP``, sliced back to
+  n_inp/n_hid/n_out;
+* ``mlp_from_params``: an ``MLPParams`` (the on-disk layout) -> ``MLP``;
+* ``lcrc_from_taps``: an LCRC spec and its ``m_left``/``m_right`` taps ->
+  ``LCRCAssembler``;
+* ``frontend_from_matrices``: a ``MelSpec`` and its ``dft``/``mel``
+  matrices -> ``MelFrontend``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from phnrec_tpu_torch.frontend.melbanks import MelFrontend, MelSpec
+from phnrec_tpu_torch.posteriors.mlp import MLP
+from phnrec_tpu_torch.posteriors.stc import LCRCAssembler, LCRCSpec
+
+
+def mlp_from_device(net) -> MLP:
+    i, h, o = net.n_inp, net.n_hid, net.n_out
+    a = {f: np.asarray(getattr(net, f))
+         for f in ("w1", "b1", "w2", "b2", "mean", "dev")}
+    return MLP(a["w1"][:i, :h], a["b1"][:h], a["w2"][:h, :o], a["b2"][:o],
+               a["mean"][:i], a["dev"][:i])
+
+
+def mlp_from_params(p) -> MLP:
+    return MLP(np.asarray(p.w1).T, np.asarray(p.b1), np.asarray(p.w2).T,
+               np.asarray(p.b2), np.asarray(p.mean), np.asarray(p.dev))
+
+
+def lcrc_from_taps(spec, m_left, m_right) -> LCRCAssembler:
+    """``spec`` is any (nbanks, trap_len, n_coefs, add_c0) sequence."""
+    spec = LCRCSpec(*spec)
+    hc = (spec.trap_len - 1) // 2 + 1
+    asm = LCRCAssembler(spec, np.ones(hc), np.ones(hc))
+    asm.m_left.copy_(torch.tensor(np.asarray(m_left, np.float32)))
+    asm.m_right.copy_(torch.tensor(np.asarray(m_right, np.float32)))
+    return asm
+
+
+def frontend_from_matrices(spec, dft, mel) -> MelFrontend:
+    """``spec`` is any dataclass with MelSpec's fields."""
+    fields = {f.name: getattr(spec, f.name)
+              for f in dataclasses.fields(MelSpec)}
+    fe = MelFrontend(MelSpec(**fields))
+    fe.dft.copy_(torch.tensor(np.asarray(dft, np.float32)))
+    fe.mel.copy_(torch.tensor(np.asarray(mel, np.float32)))
+    return fe

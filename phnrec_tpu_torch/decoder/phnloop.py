@@ -1,0 +1,211 @@
+"""Phoneme-loop Viterbi decoder on torch tensors.
+
+Counterpart of phnrec_tpu/decoder/phnloop.py.  Reference: PhnDec
+(phndec.cpp) — a Viterbi over a loop of left-to-right phoneme HMMs with S
+states each, self-loop/advance log-probs both log(0.5) (phndec.cpp:9), a
+word-insertion penalty on loop re-entry, and — a reference quirk kept for
+parity — the insertion penalty already applied at t=0 (phndec.cpp:81-88).
+
+The scan is kernel C (ops/phnloop_viterbi.py) and the device walk back is
+kernel D (ops/backtrack.py); on CPU tensors both run their plain versions.
+The host replay ``backtrack`` is the oracle they are held against.  Layouts
+are phnrec_tpu's: carry [P, S+1, B], History [T, B], Segments [B, Smax].
+
+Tie-breaking parity:
+  * within-model: ``tok_cur > tok_prev`` strictly — ties go to the advancing
+    token (phndec.cpp:106),
+  * loop argmax: first index wins ties (``tok > max``, phndec.cpp:129).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from phnrec_tpu_torch.io.labels import Label
+from phnrec_tpu_torch.ops import backtrack as backtrack_op
+from phnrec_tpu_torch.ops import phnloop_viterbi
+
+LOG_0_5 = np.float32(-0.69314718055994530941723212145818)
+NEG_INF = np.float32(-np.finfo(np.float32).max)  # -FLT_MAX, phndec.cpp:63
+
+
+class PhnLoopSpec(NamedTuple):
+    n_phonemes: int
+    n_states: int            # states per phoneme (decoder/num_states_per_phn)
+    w_penalty: float
+    log_tr_curr: float = float(LOG_0_5)
+    log_tr_next: float = float(LOG_0_5)
+
+
+class History(NamedTuple):
+    """Per-frame loop-node records, TIME-MAJOR: [T] for one utterance,
+    [T, B] for a batch.  The winning exit token of each frame is (its
+    phoneme, the frame it entered that phoneme, its path score)."""
+
+    max_phn: torch.Tensor    # int8  argmax exit phoneme this frame
+    ent: torch.Tensor        # int32 frame at which that token entered
+    alpha: torch.Tensor      # f32   winning exit score
+
+
+def init_carry(spec: PhnLoopSpec, batch: int, device="cpu"):
+    """PhnDec::Init state (phndec.cpp:62-88): -FLT_MAX alphas, entry column
+    seeded with the insertion penalty (the reference's t=0 quirk).
+    Layout [P, S+1, B]."""
+    P, S = spec.n_phonemes, spec.n_states
+    alphas0 = torch.full((P, S + 1, batch), float(NEG_INF),
+                         dtype=torch.float32, device=device)
+    alphas0[:, 0, :] = float(np.float32(spec.w_penalty))
+    ent0 = torch.zeros((P, S + 1, batch), dtype=torch.int32, device=device)
+    return (alphas0, ent0)
+
+
+def viterbi_block(spec: PhnLoopSpec, carry, log_post: torch.Tensor,
+                  t0: int = 0, plain: bool = False):
+    """Scan a block of frames from an explicit carry: [B, T, >=P*S] ->
+    (carry', History [T, B]).  Phoneme p state s reads log_post[..., p*S+s]
+    (CreatePdfIndexes, phndec.cpp:352-368); ``t0`` is the global index of
+    the block's first frame.  ``plain`` runs the plain version on any
+    device (the reference run)."""
+    fn = (phnloop_viterbi.viterbi_block_plain if plain
+          else phnloop_viterbi.viterbi_block)
+    carry, hist = fn(carry, log_post.contiguous(), int(t0), spec.n_phonemes,
+                     spec.n_states, spec.w_penalty, spec.log_tr_curr,
+                     spec.log_tr_next)
+    return carry, History(*hist)
+
+
+def viterbi_scan_batch(spec: PhnLoopSpec, log_post: torch.Tensor,
+                       plain: bool = False) -> History:
+    """Whole-utterance batch decode: [B, T, >=P*S] -> History [T, B]."""
+    carry = init_carry(spec, log_post.shape[0], log_post.device)
+    return viterbi_block(spec, carry, log_post, plain=plain)[1]
+
+
+def backtrack(hist: History, phonemes: List[str]) -> List[Label]:
+    """Full-history replay of PhnDec::Done (phndec.cpp:236-302) on the
+    host: the oracle of the device walk."""
+    return backtrack_committed(hist, 0, 0, 0.0, phonemes)
+
+
+def backtrack_committed(hist: History, row_offset: int, frame0: int,
+                        alpha0: float, phonemes: List[str]) -> List[Label]:
+    """backtrack() over a retained history window whose row i is global
+    frame ``row_offset + i``; the walk stops at ``frame0``, clamping the
+    earliest label's start to it, and uses ``alpha0`` as the boundary's
+    cumulative like (phndec.cpp:191-234).  Copy of phnrec_tpu's."""
+    max_phn = np.asarray(hist.max_phn)
+    ent = np.asarray(hist.ent)
+    alpha = np.asarray(hist.alpha)
+    T = max_phn.shape[0]
+    end = row_offset + T
+    labels: List[Label] = []
+    while end > frame0:
+        i = end - 1 - row_offset
+        phn = int(max_phn[i])
+        if phn < 0:
+            break
+        start = max(int(ent[i]), frame0)     # forced-commit clamp
+        prev_alpha = (alpha0 if start <= frame0
+                      else float(alpha[start - 1 - row_offset]))
+        labels.append(Label(start, end, phonemes[phn],
+                            float(alpha[i]) - prev_alpha))
+        end = start
+    labels.reverse()
+    return labels
+
+
+def backtrack_batch(hist: History, n_frames: np.ndarray,
+                    phonemes: List[str]) -> List[List[Label]]:
+    """Host replay over [T, B] histories (columns valid up to
+    n_frames[b]).  phnrec_tpu's native C++ route is not ported."""
+    arrs = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+            for a in hist]
+    if arrs[0].ndim != 2:
+        raise ValueError("backtrack_batch expects [T, B] histories")
+    return [backtrack(History(*(a[: int(n_frames[b]), b] for a in arrs)),
+                      phonemes)
+            for b in range(arrs[0].shape[1])]
+
+
+class Segments(NamedTuple):
+    """Compacted backtrack output, segments in REVERSE time order (segment
+    0 ends at n_frames).  Shapes [B] / [B, Smax]."""
+
+    count: torch.Tensor      # [B] number of valid segments
+    phn: torch.Tensor        # [B, Smax] int8 phoneme id
+    start: torch.Tensor      # [B, Smax] start frame
+    alpha_end: torch.Tensor  # [B, Smax] path score at the segment's last frame
+
+
+def max_segments(spec: PhnLoopSpec, max_frames: int) -> int:
+    """A settled phoneme traverses all S emitting states, one frame each
+    minimum, so T frames hold at most T//S segments (+1 for the t=0
+    entry quirk)."""
+    return max_frames // spec.n_states + 1
+
+
+def backtrack_device(spec: PhnLoopSpec, hist: History,
+                     n_frames: torch.Tensor, plain: bool = False) -> Segments:
+    """PhnDec::Done (phndec.cpp:236-302) on the device: at most T//S + 1
+    hops per utterance, emitted as compact Segments so only ~7 bytes per
+    segment leave the device.  ``plain`` runs the plain version on any
+    device (the reference run)."""
+    T = hist.max_phn.shape[0]
+    if T >= 1 << 20:
+        raise ValueError("backtrack_device packs entry frames in 20 bits")
+    fn = backtrack_op.backtrack_plain if plain else backtrack_op.backtrack
+    n_frames = n_frames.to(device=hist.max_phn.device, dtype=torch.int32)
+    return Segments(*fn(hist.max_phn.contiguous(), hist.ent.contiguous(),
+                        hist.alpha.contiguous(), n_frames.contiguous(),
+                        max_segments(spec, T)))
+
+
+def fetch_segments(segs: Segments, cap: int = 128) -> Segments:
+    """Device -> host copy of a Segments batch as numpy arrays: the slots
+    are sliced to ``cap`` (the static T//S + 1 bound is ~5x what speech
+    needs) unless a row holds more.  Raises if a row's count reached the
+    Smax capacity, which would mean the walk truncated it."""
+    count = segs.count.cpu().numpy()
+    smax = segs.phn.shape[1]
+    cmax = int(count.max(initial=0))
+    k = smax if cmax > cap else min(smax, cap)
+    out = Segments(count, *(a[:, :k].cpu().numpy() for a in segs[1:]))
+    if smax and cmax >= smax:
+        raise AssertionError(
+            f"backtrack capacity overflow: count {cmax} reached Smax {smax}")
+    return out
+
+
+def labels_from_segments(segs: Segments, n_frames: np.ndarray,
+                         phonemes: List[str],
+                         row_offset: "np.ndarray | None" = None
+                         ) -> List[List[Label]]:
+    """Host-side formatting of backtracked segments (reverse time order)
+    into per-utterance Label lists.  Segment j's end frame is segment
+    j-1's start (j=0 ends at n_frames); its like is the alpha delta to the
+    previous-in-time segment (initial mPrevAlpha = 0).  Copy of
+    phnrec_tpu's."""
+    counts = np.asarray(segs.count)
+    start = np.asarray(segs.start, dtype=np.int64)
+    if row_offset is not None:
+        start = start + np.asarray(row_offset, np.int64)[:, None]
+    alpha_end = np.asarray(segs.alpha_end, dtype=np.float64)
+    B = counts.shape[0]
+    # like[j] = alpha_end[j] - alpha_end[j+1] in emission order; slots past
+    # count are zero, so the first-in-time segment subtracts the initial
+    # mPrevAlpha = 0.  end[j] = start[j-1] (j=0 ends at n_frames).
+    likes = alpha_end - np.concatenate(
+        [alpha_end[:, 1:], np.zeros((B, 1))], 1)
+    ends = np.concatenate(
+        [np.asarray(n_frames, dtype=np.int64)[:, None], start[:, :-1]], 1)
+    names = np.asarray(phonemes, dtype=object)[np.asarray(segs.phn)]
+    return [
+        list(map(Label, start[b, k - 1 :: -1].tolist(),
+                 ends[b, k - 1 :: -1].tolist(),
+                 names[b, k - 1 :: -1].tolist(),
+                 likes[b, k - 1 :: -1].tolist())) if k else []
+        for b, k in enumerate(counts.tolist())
+    ]

@@ -1,0 +1,75 @@
+"""Kernel A: the fused 2-layer MLP forward (csrc/mlp_fused.cu) and its plain
+PyTorch version.
+
+Counterpart of phnrec_tpu/ops/pallas_mlp.py::mlp_forward_fused.  Shapes are
+unpadded: x [N, n_inp], w1 [n_inp, n_hid], w2 [n_hid, n_out] (the 128-lane
+padding of the Pallas kernel was for the TPU's tiling only).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from phnrec_tpu_torch.ops import _build
+from phnrec_tpu_torch.posteriors import fexp
+
+LAUNCHES = 0
+
+
+def mlp_forward_plain(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
+                      apply_softmax: bool = True) -> torch.Tensor:
+    """The kernel's arithmetic in torch ops, on any device."""
+    xn = (x - mean) * dev
+    h = fexp.sigmoid(torch.matmul(xn, w1) + b1, fast)
+    o = torch.matmul(h, w2) + b2
+    return fexp.softmax(o, fast) if apply_softmax else o
+
+
+def _lib():
+    lib = _build.load("mlp_fused")
+    fn = lib.phn_mlp_fused
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.phn_mlp_fused_max_out.restype = ctypes.c_int
+    return lib
+
+
+def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
+                apply_softmax: bool = True) -> torch.Tensor:
+    """[N, n_inp] -> [N, n_out] float32.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, and anything the kernel does
+    not take raises."""
+    if x.device.type == "cpu":
+        return mlp_forward_plain(x, mean, dev, w1, b1, w2, b2, fast=fast,
+                                 apply_softmax=apply_softmax)
+    device = _build.cuda_device(x)
+    n_inp, n_hid = w1.shape
+    n_out = w2.shape[1]
+    n = x.shape[0]
+    f32 = torch.float32
+    for t, name, shape in ((x, "x", (n, n_inp)), (mean, "mean", (n_inp,)),
+                           (dev, "dev", (n_inp,)), (w1, "w1", (n_inp, n_hid)),
+                           (b1, "b1", (n_hid,)), (w2, "w2", (n_hid, n_out)),
+                           (b2, "b2", (n_out,))):
+        _build.require(t, name, f32, shape, device)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows exceed the kernel's int32 row index")
+    lib = _lib()
+    if n_out > lib.phn_mlp_fused_max_out():
+        raise ValueError(f"n_out {n_out} exceeds the kernel's "
+                         f"{lib.phn_mlp_fused_max_out()} columns")
+    out = torch.empty((n, n_out), dtype=f32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.phn_mlp_fused(
+            x.data_ptr(), mean.data_ptr(), dev.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            n, n_inp, n_hid, n_out, int(fast), int(apply_softmax), stream)
+    _build.check(err, "mlp_fused")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,187 @@
+"""Synthetic LCRC model packages and audio, made from a seed.
+
+``write_lcrc_package`` writes a model package in the reference's on-disk
+formats (config, phoneme list, ``weights/*.nbin``, ``windows/*.window``)
+that both phnrec_tpu.SpeechRec and phnrec_tpu_torch.SpeechRec load.  Two
+shapes:
+
+* ``"cz"``: the flagship CZ SpeechDat LCRC package's shapes — 15 mel banks
+  at 8 kHz, sentence mean norm, band nets 165->1500->138 (x2), merger
+  276->1500->138, a 46-phoneme x 3-state loop, wpenalty -4.6875;
+* ``"tiny"``: 5 banks, 4 phonemes x 3 states, hidden 32, for tests.
+
+The weights are random.  W1 is scaled so hidden pre-activations stay
+within about +-20 for unit-variance inputs, b2 cancels each output's mean
+drive from the hidden layer, and each net's input ``mean``/``dev`` are
+measured on a seeded batch of ``synth_audio`` run through the port's own
+frontend and LCRC assembly on the CPU.  The decode then finds several
+distinct phonemes per utterance.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from phnrec_tpu_torch.io.audio import ALAW_TABLE_D5
+from phnrec_tpu_torch.io.weights import MLPParams, save_nbin
+
+SHAPES = {
+    "cz": dict(nbanks=15, n_phonemes=46, n_hid=1500),
+    "tiny": dict(nbanks=5, n_phonemes=4, n_hid=32),
+}
+N_STATES = 3
+N_COEFS = 11            # C0 + 10 DCT coefficients per bank (add_c0=true)
+TRAP_LEN = 31
+WPENALTY = -4.6875
+
+CONFIG = """\
+[source]
+format={fmt}
+sample_freq=8000
+[melbanks]
+nbanks={nbanks}
+lower_freq=64
+higher_freq=4000
+vector_size=200
+vector_step=80
+[offlinenorm]
+sent_mean_norm=true
+[posteriors]
+enabled=true
+system=LCRC
+length={trap_len}
+add_c0=true
+softening_func=none 0 0 0
+[decoder]
+type=phndec
+num_states_per_phn={n_states}
+wpenalty={wpenalty}
+softening_func=log 0 0 0
+[dicts]
+phoneme_list=$C/phonemes
+"""
+
+
+def synth_audio(rng: np.random.Generator, n_samples: int,
+                fs: int = 8000) -> np.ndarray:
+    """Speech-like int16 audio: 40-200 ms segments, each a few random
+    tones plus noise at a random level, so the spectrum changes over
+    time."""
+    out = np.zeros(n_samples, np.float64)
+    pos = 0
+    while pos < n_samples:
+        n = min(int(rng.integers(fs // 25, fs // 5)), n_samples - pos)
+        t = np.arange(n) / fs
+        seg = rng.standard_normal(n) * rng.uniform(0.05, 0.5)
+        for f, a in zip(rng.uniform(100, 3600, 3), rng.uniform(0, 1, 3)):
+            seg += a * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+        out[pos: pos + n] = seg * rng.uniform(200, 6000)
+        pos += n
+    return np.clip(out, -32768, 32767).astype(np.int16)
+
+
+def alaw_encode(x: np.ndarray) -> np.ndarray:
+    """Nearest A-law code of each float sample under the decode table
+    (8 * ALAW_TABLE_D5)."""
+    table = 8.0 * ALAW_TABLE_D5.astype(np.float64)
+    order = np.argsort(table)
+    sorted_t = table[order]
+    i = np.clip(np.searchsorted(sorted_t, x), 1, len(sorted_t) - 1)
+    left_closer = np.abs(x - sorted_t[i - 1]) <= np.abs(sorted_t[i] - x)
+    return order[np.where(left_closer, i - 1, i)].astype(np.uint8)
+
+
+def write_audio_files(directory, n_files: int, seconds: Sequence[float],
+                      seed: int, fmt: str = "lin16") -> List[str]:
+    """``n_files`` raw files (lin16 or alaw) of uniform random length in
+    ``seconds`` = (lo, hi); returns their paths."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n_files):
+        n = int(rng.uniform(*seconds) * 8000)
+        x = synth_audio(rng, n)
+        data = x.astype("<i2").tobytes() if fmt == "lin16" else \
+            alaw_encode(x.astype(np.float64)).tobytes()
+        p = os.path.join(str(directory), f"utt{i:04d}.raw")
+        with open(p, "wb") as f:
+            f.write(data)
+        paths.append(p)
+    return paths
+
+
+def _net(rng, n_inp, n_hid, n_out) -> MLPParams:
+    w1 = rng.standard_normal((n_hid, n_inp)) * (4.0 / np.sqrt(n_inp))
+    w2 = rng.standard_normal((n_out, n_hid)) * (8.0 / np.sqrt(n_hid))
+    return MLPParams(
+        w1=w1.astype(np.float32),
+        b1=(rng.standard_normal(n_hid) * 0.5).astype(np.float32),
+        w2=w2.astype(np.float32),
+        b2=(-0.5 * w2.sum(1)).astype(np.float32),
+        mean=np.zeros(n_inp, np.float32),
+        dev=np.ones(n_inp, np.float32))
+
+
+def _norm_of(feats: torch.Tensor) -> tuple:
+    f = feats.reshape(-1, feats.shape[-1]).double().numpy()
+    return (f.mean(0).astype(np.float32),
+            (1.0 / np.maximum(f.std(0), 1e-3)).astype(np.float32))
+
+
+def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
+                       fmt: str = "lin16") -> str:
+    """Write a synthetic LCRC package under ``root``; returns its path."""
+    dims = SHAPES[shape]
+    nb, P, H = dims["nbanks"], dims["n_phonemes"], dims["n_hid"]
+    n_out = P * N_STATES
+    root = Path(root)
+    (root / "weights").mkdir(parents=True, exist_ok=True)
+    (root / "windows").mkdir(exist_ok=True)
+    (root / "config").write_text(CONFIG.format(
+        fmt=fmt, nbanks=nb, trap_len=TRAP_LEN, n_states=N_STATES,
+        wpenalty=WPENALTY))
+    (root / "phonemes").write_text("".join(f"ph{i:02d}\n" for i in range(P)))
+    ham = 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(TRAP_LEN)
+                               / (TRAP_LEN - 1))
+    half = (TRAP_LEN - 1) // 2
+    for i, win in enumerate((ham[: half + 1], ham[half:])):
+        (root / "windows" / f"band{i}.window").write_text(
+            " ".join(f"{v:.8f}" for v in win) + "\n")
+
+    rng = np.random.default_rng(seed)
+    bands = [_net(rng, nb * N_COEFS, H, n_out) for _ in range(2)]
+    merger = _net(rng, 2 * n_out, H, n_out)
+    for i, p in enumerate(bands):
+        save_nbin(str(root / "weights" / f"band{i}.nbin"), p)
+    save_nbin(str(root / "weights" / "merger.nbin"), merger)
+
+    # measure input norms on seeded audio through the port on the CPU
+    from phnrec_tpu_torch.pipeline import SpeechRec
+    sr = SpeechRec(str(root), device="cpu")
+    bp = sr.batch_pipeline
+    waves = [synth_audio(rng, 8000 * 3) for _ in range(4)]
+    wave, n_samples = bp.pad_batch(waves)
+    w, nf, max_frames, _ = bp.to_device(wave.astype(np.int16), n_samples)
+    with torch.inference_mode():
+        par = sr.frontend(bp.convert_wave(w), max_frames)
+        from phnrec_tpu_torch import normalization
+        par = normalization.sentence_norm(par, sr.sent_norm, n_valid=nf)
+        left, right = sr.estimator.assembler.batched(par, nf)
+        outs = []
+        for i, feats in enumerate((left, right)):
+            bands[i].mean, bands[i].dev = _norm_of(feats)
+            save_nbin(str(root / "weights" / f"band{i}.nbin"), bands[i])
+            x = (feats - torch.from_numpy(bands[i].mean)) * \
+                torch.from_numpy(bands[i].dev)
+            h = torch.sigmoid(x @ torch.from_numpy(bands[i].w1.T)
+                              + torch.from_numpy(bands[i].b1))
+            o = h @ torch.from_numpy(bands[i].w2.T) + \
+                torch.from_numpy(bands[i].b2)
+            outs.append(torch.log_softmax(o, dim=-1))
+        merger.mean, merger.dev = _norm_of(torch.cat(outs, dim=-1))
+    save_nbin(str(root / "weights" / "merger.nbin"), merger)
+    return str(root)

@@ -1,0 +1,171 @@
+"""phnrec_tpu_torch stands alone: it imports without JAX, no module of it
+imports jax or phnrec_tpu, its kernel wrappers run the plain version only
+for CPU tensors (counting no launch) and raise for any other non-CUDA
+tensor, and the kernel build raises rather than falling back."""
+
+import ast
+import os
+import pkgutil
+import stat
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import phnrec_tpu_torch
+from phnrec_tpu_torch.ops import _build, backtrack, mlp_fused, phnloop_viterbi
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(phnrec_tpu_torch.__file__)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG], prefix="phnrec_tpu_torch."))
+
+
+def _py_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_imports_without_jax():
+    mods = _modules()
+    assert "phnrec_tpu_torch.parallel.batch" in mods and len(mods) > 20
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['phnrec_tpu'] = None\n"
+            "import phnrec_tpu_torch\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
+            "sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", _py_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "phnrec_tpu"), \
+                f"{path}:{node.lineno} imports {n}"
+
+
+def _mlp_args(device="cpu"):
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=device)  # noqa: E731
+    return (t(5, 7), t(7), t(7), t(7, 6), t(6), t(6, 4), t(4))
+
+
+def _viterbi_args(device="cpu"):
+    P, S, B, T = 3, 2, 2, 9
+    lp = torch.log_softmax(torch.randn(B, T, P * S), -1).to(device)
+    carry = (torch.zeros(P, S + 1, B, device=device),
+             torch.zeros(P, S + 1, B, dtype=torch.int32, device=device))
+    return (carry, lp, 0, P, S, -2.0, -0.7, -0.7)
+
+
+def _hist_args(device="cpu"):
+    T, B = 12, 3
+    return (torch.zeros(T, B, dtype=torch.int8, device=device),
+            torch.arange(T, dtype=torch.int32, device=device)[:, None]
+            .expand(T, B).contiguous() // 3 * 3,
+            torch.zeros(T, B, device=device),
+            torch.full((B,), T, dtype=torch.int32, device=device), 5)
+
+
+def test_wrappers_run_plain_on_cpu_without_counting():
+    before = (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
+              backtrack.LAUNCHES)
+    a = _mlp_args()
+    assert torch.equal(mlp_fused.mlp_forward(*a),
+                       mlp_fused.mlp_forward_plain(*a))
+    v = _viterbi_args()
+    for x, y in zip(phnloop_viterbi.viterbi_block(*v),
+                    phnloop_viterbi.viterbi_block_plain(*v)):
+        for p, q in zip(x, y):
+            assert torch.equal(p, q)
+    h = _hist_args()
+    for p, q in zip(backtrack.backtrack(*h), backtrack.backtrack_plain(*h)):
+        assert torch.equal(p, q)
+    assert (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
+            backtrack.LAUNCHES) == before
+
+
+def test_wrappers_raise_off_cpu_without_cuda():
+    """A tensor on neither the CPU nor a CUDA device gets no plain
+    fallback: the wrapper raises and counts nothing."""
+    before = (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
+              backtrack.LAUNCHES)
+    with pytest.raises(ValueError, match="no kernel"):
+        mlp_fused.mlp_forward(*_mlp_args("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        phnloop_viterbi.viterbi_block(*_viterbi_args("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        backtrack.backtrack(*_hist_args("meta"))
+    assert (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
+            backtrack.LAUNCHES) == before
+
+
+def test_require_checks():
+    x = torch.zeros(4, 3)
+    _build.require(x, "x", torch.float32, (4, 3), x.device)
+    with pytest.raises(TypeError):
+        _build.require(x.double(), "x", torch.float32, (4, 3), x.device)
+    with pytest.raises(ValueError, match="shape"):
+        _build.require(x, "x", torch.float32, (3, 4), x.device)
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.require(x.t(), "x", torch.float32, (3, 4), x.device)
+
+
+def _fake_nvcc(tmp_path, body):
+    p = tmp_path / "nvcc"
+    p.write_text("#!/bin/sh\n" + body)
+    p.chmod(p.stat().st_mode | stat.S_IXUSR)
+    return str(p)
+
+
+def test_build_raises_with_compiler_output(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: _fake_nvcc(
+        tmp_path, "echo 'error: no such thing' >&2\nexit 2\n"))
+    with pytest.raises(_build.KernelBuildError, match="no such thing"):
+        _build.build("backtrack")
+    assert list((tmp_path / "out").iterdir()) == []
+
+
+def test_build_renames_and_caches(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    log = tmp_path / "calls"
+    # writes its -o argument, the second-to-last one
+    nvcc = _fake_nvcc(tmp_path, f'echo x >> {log}\n'
+                      'for a; do prev2=$prev; prev=$a; done\n'
+                      'echo lib > "$prev2"\n')
+    monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
+    out = _build.build("backtrack")
+    assert out.read_text() == "lib\n" and out.name.startswith("libbacktrack-")
+    assert [p.name for p in (tmp_path / "out").iterdir()] == [out.name]
+    assert _build.build("backtrack") == out
+    assert log.read_text().count("x") == 1
+
+
+def test_find_nvcc_raises_when_missing(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.find_nvcc()

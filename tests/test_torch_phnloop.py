@@ -1,0 +1,151 @@
+"""Kernels C and D's plain versions (the Viterbi scan and the device
+backtrack) against phnrec_tpu on the same log-posteriors: History and
+Segments bit-equal, labels equal to the host replay."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phnrec_tpu.decoder import phnloop as jpl
+
+from phnrec_tpu_torch.decoder import phnloop as tpl
+
+
+def _random_case(seed, B=5, T=64, P=7, S=3):
+    """The random cases of tests/test_device_backtrack.py."""
+    rng = np.random.default_rng(seed)
+    lp = np.log(rng.dirichlet(np.ones(P * S), size=(B, T))).astype(np.float32)
+    n_frames = rng.integers(S, T + 1, size=B).astype(np.int32)
+    n_frames[0] = T  # always one full-length row
+    return P, S, lp, n_frames
+
+
+def _specs(P, S, w_penalty=-2.5):
+    return (jpl.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=w_penalty),
+            tpl.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=w_penalty))
+
+
+def _assert_hist_equal(got, want):
+    for g, w, dt in zip(got, want, (np.int8, np.int32, np.float32)):
+        g = g.numpy()
+        assert g.dtype == dt
+        assert np.array_equal(g, np.asarray(w))
+
+
+CASES = [dict(seed=s) for s in range(4)] + [
+    dict(seed=7, P=46, S=3, T=50, B=3),       # the CZ loop
+    dict(seed=8, P=2, S=1, T=33, B=3),
+    dict(seed=9, P=5, S=5, T=40, B=2)]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_viterbi_history_bit_equal(case):
+    P, S, lp, n_frames = _random_case(**case)
+    jspec, tspec = _specs(P, S)
+    want = jpl.viterbi_scan_batch(jspec, jnp.asarray(lp))
+    got = tpl.viterbi_scan_batch(tspec, torch.from_numpy(lp))
+    _assert_hist_equal(got, want)
+
+
+def test_viterbi_carry_through_blocks_with_t0():
+    P, S, lp, _ = _random_case(11, B=4, T=70)
+    jspec, tspec = _specs(P, S, w_penalty=-4.6875)
+    jc = jpl.init_carry(jspec, 4)
+    tc = tpl.init_carry(tspec, 4)
+    for a, b in zip(tc, jc):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    t_hists = []
+    for lo, hi in ((0, 25), (25, 26), (26, 70)):
+        jc, jh = jpl.viterbi_block(jspec, jc, jnp.asarray(lp[:, lo:hi]),
+                                   jnp.int32(lo))
+        tc, th = tpl.viterbi_block(tspec, tc, torch.from_numpy(lp[:, lo:hi]),
+                                   lo)
+        _assert_hist_equal(th, jh)
+        for a, b in zip(tc, jc):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+        t_hists.append(th)
+    # the blocks equal one whole-utterance scan
+    whole = tpl.viterbi_scan_batch(tspec, torch.from_numpy(lp))
+    for w, parts in zip(whole, zip(*t_hists)):
+        assert torch.equal(w, torch.cat(parts))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_backtrack_segments_equal(case):
+    P, S, lp, n_frames = _random_case(**case)
+    jspec, tspec = _specs(P, S)
+    hist = jpl.viterbi_scan_batch(jspec, jnp.asarray(lp))
+    want = jpl.backtrack_device(jspec, hist, jnp.asarray(n_frames))
+    got = tpl.backtrack_device(
+        tspec, tpl.History(*(torch.tensor(np.asarray(a)) for a in hist)),
+        torch.from_numpy(n_frames))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_labels_equal_host_replay(case):
+    P, S, lp, n_frames = _random_case(**case)
+    jspec, tspec = _specs(P, S)
+    names = [f"p{i}" for i in range(P)]
+    want = jpl.backtrack_batch(
+        jpl.viterbi_scan_batch(jspec, jnp.asarray(lp)), n_frames, names)
+    hist = tpl.viterbi_scan_batch(tspec, torch.from_numpy(lp))
+    segs = tpl.fetch_segments(tpl.backtrack_device(
+        tspec, hist, torch.from_numpy(n_frames)))
+    got = tpl.labels_from_segments(segs, n_frames, names)
+    replay = tpl.backtrack_batch(hist, n_frames, names)
+    assert len(got) == len(want) == len(replay)
+    for g, w, r in zip(got, want, replay):
+        key = [(l.start_frames, l.end_frames, l.name) for l in w]
+        assert [(l.start_frames, l.end_frames, l.name) for l in g] == key
+        assert [(l.start_frames, l.end_frames, l.name) for l in r] == key
+        # scores: float64 deltas of the same float32 alphas here, float32
+        # deltas in phnrec_tpu's native replay: measured max 9.5e-7
+        # (1 ulp of scores of ~40)
+        np.testing.assert_allclose([l.score for l in g],
+                                   [l.score for l in w], rtol=0, atol=1e-5)
+        assert [l.score for l in g] == [l.score for l in r]
+
+
+def test_segment_capacity_and_limits():
+    P, S, lp, n_frames = _random_case(99, B=3, T=33, P=2, S=3)
+    _, tspec = _specs(P, S)
+    hist = tpl.viterbi_scan_batch(tspec, torch.from_numpy(lp))
+    segs = tpl.backtrack_device(tspec, hist, torch.from_numpy(n_frames))
+    assert int(segs.count.max()) <= tpl.max_segments(tspec, 33)
+    # past each row's count, every slot is exactly 0
+    for b, k in enumerate(segs.count.tolist()):
+        assert not segs.phn[b, k:].any() and not segs.start[b, k:].any()
+        assert not segs.alpha_end[b, k:].any()
+    # a row whose count reaches Smax was truncated: the fetch refuses it
+    full = tpl.Segments(torch.full_like(segs.count, segs.phn.shape[1]),
+                        *segs[1:])
+    with pytest.raises(AssertionError, match="capacity"):
+        tpl.fetch_segments(full)
+    big = tpl.History(torch.zeros((1 << 20, 1), dtype=torch.int8),
+                      torch.zeros((1 << 20, 1), dtype=torch.int32),
+                      torch.zeros((1 << 20, 1), dtype=torch.float32))
+    with pytest.raises(ValueError, match="20 bits"):
+        tpl.backtrack_device(tspec, big, torch.ones(1, dtype=torch.int32))
+
+
+def test_fetch_segments_caps_slots():
+    P, S, lp, n_frames = _random_case(5, B=2, T=64)
+    _, tspec = _specs(P, S)
+    segs = tpl.backtrack_device(
+        tspec, tpl.viterbi_scan_batch(tspec, torch.from_numpy(lp)),
+        torch.from_numpy(n_frames))
+    small = tpl.fetch_segments(segs, cap=int(segs.count.max()))
+    full = tpl.fetch_segments(segs, cap=1000)
+    assert small.phn.shape[1] == int(segs.count.max())
+    assert full.phn.shape[1] == segs.phn.shape[1]
+    names = [f"p{i}" for i in range(P)]
+    a = tpl.labels_from_segments(small, n_frames, names)
+    b = tpl.labels_from_segments(full, n_frames, names)
+    assert a == b
+    # a cap below the longest row fetches every slot
+    assert tpl.fetch_segments(segs, cap=1).phn.shape[1] == segs.phn.shape[1]
