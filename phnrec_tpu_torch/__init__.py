@@ -6,17 +6,29 @@ A port of phnrec_tpu (JAX) to one NVIDIA H100.  The numeric pipeline
     feature assembly -> band MLPs + merger MLP -> per-frame phoneme-state
     posteriors -> phoneme-loop Viterbi -> time-stamped phoneme labels
 
-runs as torch tensor code on batches of padded utterances, with three
-hand-written CUDA kernels (csrc/): the fused MLP, the Viterbi scan and the
-device backtrack.  Modules mirror phnrec_tpu's names:
+runs as torch tensor code on batches of padded utterances; multi-stream
+keyword spotting runs the same posterior stack over N live streams into a
+dense network Viterbi and the LRTrace keyword-candidate scan.  Five
+hand-written CUDA kernels (csrc/): the fused MLP, the phoneme-loop Viterbi
+scan, the device backtrack, the network-Viterbi block and the LRTrace scan.
+Modules mirror phnrec_tpu's names:
 
   config.py              typed INI config        (ref configz.{cpp,h}, srec.cpp:34-110)
-  io/                    label/weights/audio I/O (ref matrix.h, nn.cpp, traps.cpp)
+  io/                    label/weights/audio I/O (ref matrix.h, nn.cpp, traps.cpp),
+                         MMF, STK network and Xform parsers, online-norm files
   frontend/              mel-bank frontend       (ref melbanks.cpp, dspc.cpp)
+  normalization.py       frame/sentence/online norms (ref srec.cpp, norm.cpp)
   posteriors/            LCRC assembly + MLPs    (ref traps.cpp, nn.cpp, fexp.h)
-  decoder/               phoneme-loop Viterbi    (ref phndec.cpp)
+  decoder/phnloop.py     phoneme-loop Viterbi    (ref phndec.cpp)
+  decoder/stknet.py      STK network compile, dense KWS step, LRTrace
+                         (ref stkinterface.cpp, STKLib Viterbi.cc)
+  fsm.py, lexicon.py,    lexicon, G2P and KWS network generation
+  phntrans.py, gptrans.py, (ref fsm.cpp, lexicon.cpp, phntrans.cpp,
+  kws.py, netgen.py       gptrans.cpp, kwsnetg.cpp, netgen.cpp)
   ops/, csrc/            CUDA kernels, their builds and plain versions
   parallel/              batch pipeline + loader
+  streaming.py           chunk conversion + streaming posterior block
+  multistream.py         multi-stream serving: MultiStreamKWS
   pipeline.py            orchestration           (ref srec.cpp)
   cli.py                 phnrec CLI              (ref phnrec.cpp)
 """

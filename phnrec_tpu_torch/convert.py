@@ -10,7 +10,10 @@ port never imports JAX or phnrec_tpu:
 * ``lcrc_from_taps``: an LCRC spec and its ``m_left``/``m_right`` taps ->
   ``LCRCAssembler``;
 * ``frontend_from_matrices``: a ``MelSpec`` and its ``dft``/``mel``
-  matrices -> ``MelFrontend``.
+  matrices -> ``MelFrontend``;
+* ``dense_kws_from_jax``: a ``DenseKWSScan``'s tables (``A_in``, ``A_ex``,
+  ``A_cm``, ``R_cm``, ``A_cs``, ``_entry0``,
+  phnrec_tpu/decoder/stknet.py:833-906) -> the port's ``DenseKWSScan``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from phnrec_tpu_torch.decoder.stknet import DenseKWSScan
 from phnrec_tpu_torch.frontend.melbanks import MelFrontend, MelSpec
 from phnrec_tpu_torch.posteriors.mlp import MLP
 from phnrec_tpu_torch.posteriors.stc import LCRCAssembler, LCRCSpec
@@ -56,3 +60,11 @@ def frontend_from_matrices(spec, dft, mel) -> MelFrontend:
     fe.dft.copy_(torch.tensor(np.asarray(dft, np.float32)))
     fe.mel.copy_(torch.tensor(np.asarray(mel, np.float32)))
     return fe
+
+
+def dense_kws_from_jax(dense) -> DenseKWSScan:
+    """``dense`` is any object with DenseKWSScan's table attributes."""
+    return DenseKWSScan.from_tables(
+        *(np.asarray(getattr(dense, k)) for k in (
+            "A_in", "A_ex", "A_cm", "R_cm", "A_cs", "_entry0")),
+        n_sinks=int(dense.n_sinks))

@@ -1,0 +1,760 @@
+"""HMM-network Viterbi decoding over STK networks, as keyword-spotting
+serving needs it.
+
+Counterpart of phnrec_tpu/decoder/stknet.py.  The reference adapts STKLib's
+token-passing engine (stkinterface.{cpp,h} -> STKLib/Viterbi.cc); the
+network compiles to dense arrays (``compile_network``, a copy of
+phnrec_tpu/decoder/stknet.py:54-298, host numpy), and the per-frame
+recursion runs on torch tensors:
+
+  * ``NetworkDecoder``: the compiled tables, the initial entry closure,
+    ``state_observations`` (PDFObsVec column gather or DiagC GMM
+    log-likelihoods) and ``init_carry``;
+  * ``DenseKWSScan``: the dense max-plus ViterbiStep over [n] streams
+    (``step``); its frame loop is kernel B's plain version
+    (ops/netstep.py);
+  * the LRTrace candidate state machine of stkinterface.cpp:240-289,
+    349-380 (``lrtrace_init_state``, ``lrtrace_step_fn``), whose frame
+    loop is kernel F's plain version (ops/lrtrace.py), and the host
+    decode of its flush events;
+  * ``StkNetworkDecoder``, the pipeline-facing adapter.
+
+Offline decoding (``NetworkDecoder.decode``/``decode_batch``, the
+edge-list ``scan_block`` and traceback) and the decode-mode dense step
+(kernel E) are not ported yet: they raise NotImplementedError naming the
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from phnrec_tpu_torch.io.labels import Label
+from phnrec_tpu_torch.io.mmf import LOG_0, ModelSet
+from phnrec_tpu_torch.io.stknet import NetNode, StkNetwork
+
+NEG = np.float32(-1e30)
+OFF_BEAM = np.float32(1e30)   # beam width that never prunes (default off)
+
+_OFFLINE = ("offline stkint decoding (the edge-list scan and traceback) is "
+            "not ported yet (ROADMAP.md, Queue 1 item 10: offline stkint "
+            "decode and KWS)")
+
+
+# ---------------------------------------------------------------------------
+# compilation
+# ---------------------------------------------------------------------------
+@dataclass
+class ClosureEdge:
+    src: int                 # source model index, or -1 for network START
+    dst: int                 # destination model index, or -1 (sink)
+    sink: Optional[int]      # sink index when dst == -1
+    score: float             # sum of lm*scale + word penalties along path
+    words: Tuple[str, ...]   # words crossed, in order
+    word_time_reset: bool    # True iff words were crossed (WLR time = now)
+
+
+@dataclass
+class CompiledNetwork:
+    # emitting states
+    n_states: int
+    n_models: int
+    obs_index: np.ndarray          # [E] posterior column per state (-1 = GMM)
+    gmm_index: np.ndarray          # [E] row into gmm loglik matrix (-1)
+    state_model: np.ndarray        # [E] owning model index
+    model_names: List[str]
+    # within-model + entry edges (targets are emitting states)
+    in_src: np.ndarray             # [Ein] source: emitting state id, or
+    in_src_is_entry: np.ndarray    # [Ein] bool: src is the model entry slot
+    in_dst: np.ndarray             # [Ein]
+    in_w: np.ndarray               # [Ein]
+    # exit edges (emitting state -> model exit slot)
+    ex_src: np.ndarray             # [Eex]
+    ex_dst_model: np.ndarray       # [Eex]
+    ex_w: np.ndarray               # [Eex]
+    # closure edges between models / start / sinks
+    closure: List[ClosureEdge]
+    # sinks (terminal node + KWS sticky ends)
+    sink_names: List[Optional[str]]   # word name or None (null sink)
+    terminal_sink: int
+    kws_word_sinks: List[int]
+    kws_filler_sink: Optional[int]
+    gmm_states: List                  # GMMState list for batch eval
+
+
+def compile_network(net: StkNetwork, models: ModelSet, wpenalty: float,
+                    lm_scale: float, mpenalty: float = 0.0,
+                    pron_scale: float = 1.0) -> CompiledNetwork:
+    model_nodes = [n for n in net.nodes if n.is_model]
+    model_index = {id(n): i for i, n in enumerate(model_nodes)}
+
+    # ---- emitting state table
+    obs_index: List[int] = []
+    gmm_index: List[int] = []
+    state_model: List[int] = []
+    gmm_states: List = []
+    in_src, in_entry, in_dst, in_w = [], [], [], []
+    ex_src, ex_dst, ex_w = [], [], []
+    state_base: List[int] = []
+    for mi, node in enumerate(model_nodes):
+        if node.model not in models.hmms:
+            raise ValueError(f"model {node.model!r} not in HMM set")
+        hmm = models.hmms[node.model]
+        N = hmm.n_states
+        base = len(obs_index)
+        state_base.append(base)
+        for j in range(N - 2):
+            oc = hmm.obs_coefs[j]
+            if oc is not None:
+                obs_index.append(oc)
+                gmm_index.append(-1)
+            else:
+                obs_index.append(-1)
+                gmm_index.append(len(gmm_states))
+                gmm_states.append(hmm.gmm_states[j])
+            state_model.append(mi)
+        lt = hmm.log_transp
+        for j in range(1, N - 1):           # to emitting state j
+            if lt[0, j] > LOG_0 / 2:        # entry edge
+                in_src.append(mi)
+                in_entry.append(True)
+                in_dst.append(base + j - 1)
+                in_w.append(float(lt[0, j]))
+            for i in range(1, N - 1):       # from emitting state i
+                if lt[i, j] > LOG_0 / 2:
+                    in_src.append(base + i - 1)
+                    in_entry.append(False)
+                    in_dst.append(base + j - 1)
+                    in_w.append(float(lt[i, j]))
+        for i in range(1, N - 1):           # exit edges
+            if lt[i, N - 1] > LOG_0 / 2:
+                ex_src.append(base + i - 1)
+                ex_dst.append(mi)
+                ex_w.append(float(lt[i, N - 1]))
+
+    # ---- sinks: terminal + sticky non-model nodes
+    sink_nodes: List[NetNode] = []
+    last = net.last
+    if not last.is_model:
+        sink_nodes.append(last)
+    for n in net.nodes:
+        if not n.is_model and n.is_sticky and n is not last:
+            sink_nodes.append(n)
+    sink_of = {id(n): i for i, n in enumerate(sink_nodes)}
+
+    # ---- closure over instantaneous nodes (nulls, word nodes, and TEE
+    # models — models with a direct entry->exit transition, Net.h:33-43,
+    # passed through within a frame by Viterbi.cc:1340-1500).
+    #
+    # Only the BEST-scoring instantaneous path between a (source, target)
+    # pair can ever win the runtime max, and closure scores are static,
+    # so the walk is single-source max-plus relaxation with per-node
+    # memoization and parent backpointers — O(V*E) worst case instead of
+    # path enumeration (exponential on diamond null lattices, recursion-
+    # depth-bound on deep chains).  Zero/negative-score cycles through
+    # null nodes converge (relaxation is strict-improvement only);
+    # positive cycles would let a token gain score within one frame and
+    # raise, as STK would loop.
+    #
+    # Tie policy: among EQUAL-score instantaneous paths between the same
+    # (source, target), the first-reached path in seed/BFS order wins.
+    # This matches STK's strictly-greater token passing in spirit but is
+    # not guaranteed to pick the same WORD SEQUENCE as STK's exact
+    # active-list order for pathological networks where two equal-score
+    # null paths carry different words (no generated phnrec network has
+    # such ties; the oracle suites pin the real networks' behavior).
+    closure: List[ClosureEdge] = []
+
+    tee_weight: Dict[int, float] = {}
+    for mi, node in enumerate(model_nodes):
+        lt = models.hmms[node.model].log_transp
+        if lt[0, lt.shape[0] - 1] > LOG_0 / 2:
+            tee_weight[mi] = float(lt[0, lt.shape[0] - 1])
+
+    node_doc_order = {id(n): i for i, n in enumerate(net.nodes)}
+
+    def emit_closures(src_model: int, seeds) -> None:
+        """seeds: [(target_node, arrival_score)] — arcs leaving the
+        source with lm like already applied.  Relax to fixpoint, then
+        emit one ClosureEdge per reached model entry / sink."""
+        from collections import deque
+
+        best: Dict[int, Tuple[float, Optional[int], Optional[str],
+                              NetNode]] = {}
+        # best[id] = (score, parent_id, word_emitted_at_node, node)
+        relax = {}
+        work = deque()
+        limit = len(net.nodes) + 1
+
+        def arrive(node: NetNode, score: float, parent: Optional[int]
+                   ) -> None:
+            word = None
+            if not node.is_model and node.word is not None:
+                score += wpenalty   # + pron_scale * pronprob (0 here)
+                word = node.word
+            cur = best.get(id(node))
+            if cur is not None and score <= cur[0]:
+                return              # strict improvement only: ties keep
+            relax[id(node)] = relax.get(id(node), 0) + 1
+            if relax[id(node)] > limit:
+                raise ValueError(
+                    "positive-score cycle through instantaneous nodes")
+            best[id(node)] = (score, parent, word, node)
+            work.append(node)
+
+        for tgt, s in seeds:
+            arrive(tgt, s, None)
+        while work:
+            node = work.popleft()
+            score = best[id(node)][0]
+            if node.is_model:
+                # continue only THROUGH tee models (entry->exit within
+                # the frame, + the model penalty applied on exit)
+                tw = tee_weight.get(model_index[id(node)])
+                if tw is None:
+                    continue
+                score = score + tw + mpenalty
+            for tgt, arc_lm in node.links:
+                arrive(tgt, score + arc_lm * lm_scale, id(node))
+
+        def words_of(nid: int) -> Tuple[str, ...]:
+            out: List[str] = []
+            while nid is not None:
+                score, parent, word, _ = best[nid]
+                if word is not None:
+                    out.append(word)
+                nid = parent
+            out.reverse()
+            return tuple(out)
+
+        # emit in document order of the target (the runtime dense-row
+        # argmax resolves ties to the lowest edge id, matching STK's
+        # document-order first-wins processing)
+        for nid, (score, parent, word, node) in sorted(
+                best.items(), key=lambda kv: node_doc_order[kv[0]]):
+            words = words_of(nid)
+            if node.is_model:
+                closure.append(ClosureEdge(
+                    src_model, model_index[id(node)], None, score,
+                    words, bool(words)))
+            elif nid in sink_of:
+                # sticky sinks keep propagating within the frame:
+                # StkInterface kills their tokens only AFTER the frame
+                # (stkinterface.cpp:279); propagation continued above
+                closure.append(ClosureEdge(
+                    src_model, -1, sink_of[nid], score, words,
+                    bool(words)))
+
+    # from network START
+    start = net.first
+    if start.is_model:
+        closure.append(ClosureEdge(-1, model_index[id(start)], None, 0.0,
+                                   (), False))
+    else:
+        emit_closures(-1, [(start, 0.0)])
+    # from each model's exit (model exit adds mMPenalty, Viterbi.cc:1406)
+    for mi, node in enumerate(model_nodes):
+        emit_closures(mi, [(tgt, mpenalty + arc_lm * lm_scale)
+                           for tgt, arc_lm in node.links])
+
+    kws_word_sinks = [i for i, n in enumerate(sink_nodes)
+                      if n.is_sticky and n.word is not None]
+    kws_filler = [i for i, n in enumerate(sink_nodes)
+                  if n.is_sticky and n.word is None and n is not net.last]
+    # the terminal may itself be the filler end (loop networks reuse it)
+    if not kws_filler and sink_nodes and sink_nodes[0].word is None:
+        kws_filler = [0]
+
+    return CompiledNetwork(
+        n_states=len(obs_index),
+        n_models=len(model_nodes),
+        obs_index=np.asarray(obs_index, np.int32),
+        gmm_index=np.asarray(gmm_index, np.int32),
+        state_model=np.asarray(state_model, np.int32),
+        model_names=[n.model for n in model_nodes],
+        in_src=np.asarray(in_src, np.int32),
+        in_src_is_entry=np.asarray(in_entry, bool),
+        in_dst=np.asarray(in_dst, np.int32),
+        in_w=np.asarray(in_w, np.float32),
+        ex_src=np.asarray(ex_src, np.int32),
+        ex_dst_model=np.asarray(ex_dst, np.int32),
+        ex_w=np.asarray(ex_w, np.float32),
+        closure=closure,
+        sink_names=[n.word for n in sink_nodes],
+        terminal_sink=0 if sink_nodes else -1,
+        kws_word_sinks=kws_word_sinks,
+        kws_filler_sink=kws_filler[0] if kws_filler else None,
+        gmm_states=gmm_states,
+    )
+
+
+# ---------------------------------------------------------------------------
+# dense Viterbi scan
+# ---------------------------------------------------------------------------
+def _device_cache(obj, device, build):
+    """``build(device)`` once per device, cached on ``obj``."""
+    cache = obj.__dict__.setdefault("_dev_cache", {})
+    key = str(torch.device(device))
+    if key not in cache:
+        cache[key] = build(torch.device(device))
+    return cache[key]
+
+
+class NetworkDecoder:
+    """The compiled network's tables, observation lookup and initial
+    carry."""
+
+    def __init__(self, compiled: CompiledNetwork):
+        self.c = c = compiled
+        # split closure edges: model->model (graph edges) and ->sink
+        self.cm = [e for e in c.closure if e.dst >= 0]
+        self.cs = [e for e in c.closure if e.dst < 0]
+        self.obs_idx = np.maximum(c.obs_index, 0).astype(np.int64)
+        self.n_sinks = len(c.sink_names)
+
+    # -- initial entry values (ViterbiInit: token like 0 in first node,
+    #    then one network propagation)
+    def _init_entry(self):
+        M = self.c.n_models
+        entry = np.full(M, NEG, np.float32)
+        entry_edge = np.full(M, -1, np.int32)
+        entry_wt = np.zeros(M, np.int32)
+        for k, e in enumerate(self.cm):
+            if e.src == -1 and e.score > entry[e.dst]:
+                entry[e.dst] = e.score
+                entry_edge[e.dst] = k
+        return entry, entry_edge, entry_wt
+
+    def _tables(self, device):
+        """Observation-lookup tensors on ``device``, built once: the column
+        index per state and, for DiagC GMM states, same-shape states
+        stacked into [G, M, D] tensors centred by the group's mean of
+        means (phnrec_tpu/decoder/stknet.py:372-401)."""
+        def build(dev):
+            out = {"obs_idx": torch.tensor(self.obs_idx, device=dev),
+                   "gmm": None}
+            if not self.c.gmm_states:
+                return out
+            f32 = lambda a: torch.tensor(  # noqa: E731
+                np.asarray(a, np.float32), device=dev)
+            by_shape: Dict[Tuple[int, int], List[int]] = {}
+            for gi, g in enumerate(self.c.gmm_states):
+                by_shape.setdefault(g.means.shape, []).append(gi)
+            groups, rows = [], []
+            for idxs in by_shape.values():
+                gs = [self.c.gmm_states[i] for i in idxs]
+                means = np.stack([g.means for g in gs])        # [G, M, D]
+                center = means.mean(axis=(0, 1))               # [D]
+                groups.append((
+                    f32(center), f32(means - center),
+                    f32(1.0 / np.stack([g.variances for g in gs])),
+                    f32(np.log(np.stack([g.weights for g in gs]))
+                        - 0.5 * np.stack([g.gconsts for g in gs]))))
+                rows.append(idxs)
+            n_gmm = len(self.c.gmm_states)
+            perm = np.empty(n_gmm, np.int64)
+            perm[np.concatenate(rows)] = np.arange(n_gmm)
+            out["gmm"] = groups
+            out["perm"] = torch.tensor(perm, device=dev)
+            out["is_gmm"] = torch.tensor(self.c.gmm_index >= 0, device=dev)
+            out["gidx"] = torch.tensor(
+                np.maximum(self.c.gmm_index, 0).astype(np.int64),
+                device=dev)
+            return out
+        return _device_cache(self, device, build)
+
+    def state_observations(self, obs: torch.Tensor) -> torch.Tensor:
+        """[..., D] decoder input -> [..., E] per-state observation
+        log-probs.  PDFObsVec states gather their posterior column; DiagC
+        GMM states get batched log-likelihoods, one quadratic-form einsum
+        + logsumexp per distinct (n_mix, dim) shape
+        (DiagCGaussianMixtureDensity, Viterbi.cc:719-755)."""
+        t = self._tables(obs.device)
+        cols = obs[..., t["obs_idx"]]
+        if t["gmm"] is None:
+            return cols
+        parts = []
+        for center, means, inv_var, logw_half in t["gmm"]:
+            oc = obs - center
+            o2 = torch.einsum("...d,gmd->...gm", oc * oc, inv_var)
+            om = torch.einsum("...d,gmd->...gm", oc, means * inv_var)
+            mm = torch.sum(means * means * inv_var, dim=-1)   # [G, M]
+            comp = logw_half - 0.5 * (o2 - 2.0 * om + mm)
+            parts.append(torch.logsumexp(comp, dim=-1))
+        gll = torch.cat(parts, dim=-1)[..., t["perm"]]
+        return torch.where(t["is_gmm"], gll[..., t["gidx"]], cols)
+
+    def init_carry(self, device="cpu"):
+        """Network state after ViterbiInit: empty models, initial entry
+        closure applied (stkinterface.cpp:163-211)."""
+        c = self.c
+        entry0, entry_edge0, entry_wt0 = self._init_entry()
+        return (torch.full((c.n_states,), float(NEG), device=device),
+                torch.zeros((c.n_states,), dtype=torch.int32, device=device),
+                torch.tensor(entry0, device=device),
+                torch.tensor(entry_edge0, device=device),
+                torch.tensor(entry_wt0, device=device))
+
+    def scan_block(self, *args, **kwargs):
+        raise NotImplementedError(_OFFLINE)
+
+    def decode(self, *args, **kwargs):
+        raise NotImplementedError(_OFFLINE)
+
+    def decode_batch(self, *args, **kwargs):
+        raise NotImplementedError(_OFFLINE)
+
+    def kws_scan(self, *args, **kwargs):
+        raise NotImplementedError(_OFFLINE)
+
+
+class DenseKWSScan:
+    """Dense max-plus formulation of ViterbiStep for multi-stream KWS
+    serving (phnrec_tpu/decoder/stknet.py:810-950).
+
+    Per destination, edge ids ascend with (entry slot, then source state /
+    source model), so laying the source axis out as [model entry slots
+    (M), then emitting states (E)] makes argmax's first-max-wins pick the
+    same winner as the edge-list scan's lowest-edge-id rule.  Parallel
+    edges between the same (src, dst) collapse at build time keeping the
+    first on ties.  Emits only the sink records (sink_val/sink_wt) the KWS
+    tracker consumes; the decode-mode step (kernel E) is not ported yet.
+    """
+
+    def __init__(self, decoder: NetworkDecoder):
+        c = decoder.c
+        M, E = c.n_models, c.n_states
+        S = decoder.n_sinks
+        A_in = np.full((M + E, E), NEG, np.float32)
+        I_in = np.full((M + E, E), -1, np.int32)
+        for k in range(len(c.in_src)):
+            row = (int(c.in_src[k]) if c.in_src_is_entry[k]
+                   else M + int(c.in_src[k]))
+            dst, w = int(c.in_dst[k]), np.float32(c.in_w[k])
+            if w > A_in[row, dst]:
+                A_in[row, dst] = w
+                I_in[row, dst] = k
+        A_ex = np.full((E, M), NEG, np.float32)
+        I_ex = np.full((E, M), -1, np.int32)
+        for k in range(len(c.ex_src)):
+            src, dst = int(c.ex_src[k]), int(c.ex_dst_model[k])
+            w = np.float32(c.ex_w[k])
+            if w > A_ex[src, dst]:
+                A_ex[src, dst] = w
+                I_ex[src, dst] = k
+        A_cm = np.full((M, M), NEG, np.float32)
+        R_cm = np.zeros((M, M), bool)
+        I_cm = np.full((M, M), -1, np.int32)
+        for k, e in enumerate(decoder.cm):
+            if e.src < 0:
+                continue           # START closure: handled by init_carry
+            w = np.float32(e.score)
+            if w > A_cm[e.src, e.dst]:
+                A_cm[e.src, e.dst] = w
+                R_cm[e.src, e.dst] = e.word_time_reset
+                I_cm[e.src, e.dst] = k
+        A_cs = np.full((M, max(S, 1)), NEG, np.float32)
+        I_cs = np.full((M, max(S, 1)), -1, np.int32)
+        for k, e in enumerate(decoder.cs):
+            if e.src < 0:
+                continue
+            w = np.float32(e.score)
+            if w > A_cs[e.src, e.sink]:
+                A_cs[e.src, e.sink] = w
+                I_cs[e.src, e.sink] = k
+        # tie-parity invariant, checked at build (stknet.py:886-901): per
+        # destination, edge ids must ascend with source row
+        for name, tab in (("in", I_in), ("ex", I_ex), ("cm", I_cm),
+                          ("cs", I_cs)):
+            for d in range(tab.shape[1]):
+                ids = tab[tab[:, d] >= 0, d]
+                if not np.all(np.diff(ids) > 0):
+                    raise AssertionError(
+                        f"dense {name}-table edge ids not ascending with "
+                        f"source row for dst {d}: tie-breaking would "
+                        "diverge from the edge-list scan")
+        self._set_tables(A_in, A_ex, A_cm, R_cm, A_cs,
+                         decoder._init_entry()[0], S)
+
+    @classmethod
+    def from_tables(cls, A_in, A_ex, A_cm, R_cm, A_cs, entry0,
+                    n_sinks: int) -> "DenseKWSScan":
+        """A scan over given tables (convert.py carries phnrec_tpu's)."""
+        self = cls.__new__(cls)
+        self._set_tables(A_in, A_ex, A_cm, R_cm, A_cs, entry0, n_sinks)
+        return self
+
+    def _set_tables(self, A_in, A_ex, A_cm, R_cm, A_cs, entry0,
+                    n_sinks: int) -> None:
+        self.A_in = np.asarray(A_in, np.float32)      # [M+E, E]
+        self.A_ex = np.asarray(A_ex, np.float32)      # [E, M]
+        self.A_cm = np.asarray(A_cm, np.float32)      # [M, M]
+        self.R_cm = np.asarray(R_cm, bool)            # [M, M]
+        self.A_cs = np.asarray(A_cs, np.float32)      # [M, max(S, 1)]
+        self._entry0 = np.asarray(entry0, np.float32)
+        self.E = self.A_in.shape[1]
+        self.M = self.A_in.shape[0] - self.E
+        self.n_sinks = n_sinks
+
+    def tables(self, device):
+        """The weight tables as tensors on ``device`` (cached)."""
+        return _device_cache(self, device, lambda d: {
+            k: torch.tensor(getattr(self, k), device=d)
+            for k in ("A_in", "A_ex", "A_cm", "R_cm", "A_cs", "_entry0")})
+
+    def init_carry(self, n: int, device="cpu"):
+        """[n]-stream carry: (alpha [n,E], wt [n,E], entry [n,M],
+        entry_wt [n,M]) — ViterbiInit + the initial entry closure."""
+        t = self.tables(device)
+        return (torch.full((n, self.E), float(NEG), device=device),
+                torch.zeros((n, self.E), dtype=torch.int32, device=device),
+                t["_entry0"][None].repeat(n, 1),
+                torch.zeros((n, self.M), dtype=torch.int32, device=device))
+
+    def step(self, carry, obs_t, t, live, beam):
+        """One ViterbiStep over [n] streams: obs_t [n, E], t [n] global
+        1-based frame times (int32), live [n] row mask, beam [n] per-stream
+        pruning widths.  Returns (carry', (sink_val [n, S], sink_wt
+        [n, S])).  Maxima are exact and argmaxes first-index, as in JAX."""
+        tb = self.tables(obs_t.device)
+        alpha, wt, entry, entry_wt = carry
+        src = torch.cat([entry, alpha], dim=1)               # [n, M+E]
+        s1 = src[:, :, None] + tb["A_in"][None]              # [n, M+E, E]
+        new_alpha = torch.amax(s1, dim=1) + obs_t
+        am1 = torch.argmax(s1, dim=1)
+        src_wt = torch.cat([entry_wt, wt], dim=1)
+        new_wt = torch.gather(src_wt, 1, am1)
+        thresh = torch.amax(new_alpha, dim=1, keepdim=True) \
+            - beam.reshape(-1, 1)
+        new_alpha = torch.where(new_alpha >= thresh, new_alpha, float(NEG))
+        s2 = new_alpha[:, :, None] + tb["A_ex"][None]        # [n, E, M]
+        exit_val = torch.amax(s2, dim=1)
+        exit_wt = torch.gather(new_wt, 1, torch.argmax(s2, dim=1))
+        s3 = exit_val[:, :, None] + tb["A_cm"][None]         # [n, M, M]
+        nentry = torch.amax(s3, dim=1)
+        am3 = torch.argmax(s3, dim=1)
+        nentry = torch.where(nentry >= thresh, nentry, float(NEG))
+        reset = tb["R_cm"][am3, torch.arange(self.M, device=am3.device)]
+        nentry_wt = torch.where(reset, t[:, None].to(torch.int32),
+                                torch.gather(exit_wt, 1, am3))
+        s4 = exit_val[:, :, None] + tb["A_cs"][None]         # [n, M, S]
+        sink_val = torch.amax(s4, dim=1)
+        sink_wt = torch.gather(exit_wt, 1, torch.argmax(s4, dim=1))
+        new = (new_alpha, new_wt, nentry, nentry_wt)
+        lv = live[:, None]
+        carry = tuple(torch.where(lv, n_, o_) for n_, o_ in zip(new, carry))
+        return carry, (sink_val, sink_wt)
+
+    def step_decode(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the decode-mode dense step (kernel E) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 10: MultiStreamStkDecode)")
+
+
+@dataclass
+class KWSHit:
+    word: str
+    start: int
+    end: int
+    score: float
+    new_estim: bool = False   # DECMSG_NEWESTIM re-emission (improveKwdEstim)
+
+
+def lrtrace_init_state(n_keywords: int, n_streams: Optional[int] = None,
+                       device="cpu"):
+    """Zero state for the LRTrace scan: six [K] lanes, or [n_streams, K]
+    (last_lr, cand_lr f32; cand_start, cand_end, prev_end i32; dumped
+    bool)."""
+    shape = ((n_keywords,) if n_streams is None
+             else (n_streams, n_keywords))
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.full(shape, -float("inf"), device=device),   # last_lr
+            torch.full(shape, -float("inf"), device=device),   # cand_lr
+            torch.zeros(shape, **i32),                         # cand_start
+            torch.zeros(shape, **i32),                         # cand_end
+            torch.zeros(shape, **i32),                         # prev_end
+            torch.zeros(shape, dtype=torch.bool, device=device))  # dumped
+
+
+def lrtrace_step_fn(time_pruning: float, score_pruning: float):
+    """Per-frame LRTrace transition (stkinterface.cpp:240-289, 349-380)
+    over [..., K] keyword lanes (phnrec_tpu/decoder/stknet.py:1114-1177,
+    batched over leading stream axes instead of vmapped), with the JAX
+    package's serving defaults: improveKwdEstim off, keyword 0's quirk
+    on.  ``inputs`` = (word_vals [..., K], filler [...], word_starts
+    [..., K] i32, t [...] i32, live [...] bool) — a dead frame passes the
+    state through and emits nothing.  Emits two flush-event slots per
+    frame (new-hypothesis flush, then the time-pruning flush), in the
+    reference's callback order."""
+    tp = float(time_pruning)
+    sp = float(np.float32(score_pruning))
+
+    def flush(cand_lr, cand_start, cand_end, prev_end, dumped, cond):
+        do = cond & (cand_end != 0) & ~dumped
+        emit = do & (cand_lr >= sp)
+        rec = dict(emit=emit, start=cand_start, end=cand_end,
+                   score=cand_lr, new_estim=dumped)
+        prev_end = torch.where(do, cand_end, prev_end)
+        dumped = dumped | do
+        return rec, prev_end, dumped
+
+    def step(st, inputs):
+        last_lr, cand_lr, cand_start, cand_end, prev_end, dumped = st
+        wv, fl, ws, t, live = inputs
+        fl = fl[..., None]
+        t = t[..., None]
+        active = (wv > NEG / 2) & (fl > NEG / 2)
+        lr = torch.where(active, wv - fl, -float("inf"))
+        growing = active & (lr >= last_lr)
+        new_hyp = growing & (cand_end <= ws)
+        take = growing & ((lr >= cand_lr) | new_hyp)
+        ev1 = new_hyp & take
+        rec1, prev_end, dumped = flush(
+            cand_lr, cand_start, cand_end, prev_end, dumped, ev1)
+        dumped = dumped & ~ev1
+        cand_start = torch.where(take, ws, cand_start)
+        cand_end = torch.where(take, t + 1, cand_end)
+        cand_lr = torch.where(take, lr, cand_lr)
+        last_lr = torch.where(active, lr, -float("inf"))
+        if tp < 1e9:
+            # the reference tests KEYWORD 0's candidate age for every
+            # keyword (stkinterface.cpp:285-288, kept)
+            ref_end = cand_end[..., :1].expand_as(cand_end)
+            stale = active & (ref_end != 0) & \
+                ((t + 1) - ref_end >= int(tp))
+            rec2, prev_end, dumped = flush(
+                cand_lr, cand_start, cand_end, prev_end, dumped, stale)
+        else:
+            rec2 = {k: torch.zeros_like(v) for k, v in rec1.items()}
+        new = (last_lr, cand_lr, cand_start, cand_end, prev_end, dumped)
+        lv = live[..., None]
+        st = tuple(torch.where(lv, n_, o_) for n_, o_ in zip(new, st))
+        rec1 = dict(rec1, emit=rec1["emit"] & lv)
+        rec2 = dict(rec2, emit=rec2["emit"] & lv)
+        return st, (rec1, rec2)
+
+    return step
+
+
+def flush_outstanding_candidates(state_np, keywords,
+                                 score_pruning: float) -> List[KWSHit]:
+    """StkInterface::Done's final candidate flush from a fetched LRTrace
+    state tuple ([K]-shaped leaves, one stream): emit each undumped
+    candidate that clears the kwsScorePruning floor, in keyword order
+    (mirrors KWSTracker._flush with improve_kwd_estim final semantics)."""
+    (_, cand_lr, cand_start, cand_end, _, dumped) = state_np
+    hits: List[KWSHit] = []
+    for j in range(len(keywords)):
+        if cand_end[j] != 0 and not dumped[j] \
+                and cand_lr[j] >= score_pruning:
+            hits.append(KWSHit(keywords[j], int(cand_start[j]),
+                               int(cand_end[j]), float(cand_lr[j])))
+    return hits
+
+
+def decode_lrtrace_events(events_np, keywords) -> List[KWSHit]:
+    """Host decode of fetched flush-event records for ONE stream:
+    (rec1, rec2) dicts of [F, K] arrays -> hits in the reference's
+    callback order (frame-major, new-hyp slot before time-prune slot)."""
+    rec1, rec2 = events_np
+    emit = np.stack([np.asarray(rec1["emit"]),
+                     np.asarray(rec2["emit"])], axis=1)     # [F, 2, K]
+    hits: List[KWSHit] = []
+    if not emit.any():
+        return hits
+    recs = [rec1, rec2]
+    for t, slot, j in zip(*np.nonzero(emit)):
+        r = recs[slot]
+        hits.append(KWSHit(
+            keywords[j],
+            int(np.asarray(r["start"])[t, j]),
+            int(np.asarray(r["end"])[t, j]),
+            float(np.asarray(r["score"])[t, j]),
+            new_estim=bool(np.asarray(r["new_estim"])[t, j])))
+    return hits
+
+
+class StkNetworkDecoder:
+    """Pipeline-facing adapter (the StkInterface equivalent): owns the
+    parsed HMM set + network and the engine knobs."""
+
+    def __init__(self, model_set: ModelSet, network: StkNetwork,
+                 wpenalty: float, lm_scale: float, mode: str = "decode",
+                 time_pruning: int = 40,
+                 keyword_thresholds=None,
+                 beam_pruning: Optional[float] = None,
+                 kws_score_pruning: float = -np.inf):
+        self.model_set = model_set
+        self.network = network
+        self.lm_scale = lm_scale
+        self.mode = mode
+        self.time_pruning = time_pruning
+        self.keyword_thresholds = keyword_thresholds
+        # stkinterface.h:107-113 knob surface: beamPruning (width against
+        # the best token like; off by default as in stkinterface.cpp:26)
+        # and kwsScorePruning (candidate LR floor)
+        self.beam_pruning = beam_pruning
+        self.kws_score_pruning = kws_score_pruning
+        self._build(wpenalty)
+
+    def _build(self, wpenalty: float) -> None:
+        self.wpenalty = wpenalty
+        self.compiled = compile_network(self.network, self.model_set,
+                                        wpenalty, self.lm_scale)
+        self.decoder = NetworkDecoder(self.compiled)
+
+    def set_wpenalty(self, wpenalty: float) -> None:
+        self._build(wpenalty)
+
+    # SetBeamPruning / SetKwsScorePruning / SetTimePruning
+    # (stkinterface.h:107-113)
+    def set_beam_pruning(self, v: Optional[float]) -> None:
+        self.beam_pruning = v
+
+    def set_kws_score_pruning(self, v: float) -> None:
+        self.kws_score_pruning = v
+
+    def set_time_pruning(self, v: int) -> None:
+        self.time_pruning = v
+
+    def keywords(self) -> List[str]:
+        return [self.compiled.sink_names[s]
+                for s in self.compiled.kws_word_sinks]
+
+    def decode(self, log_post) -> List[Label]:
+        raise NotImplementedError(_OFFLINE)
+
+    def decode_batch(self, log_post, n_frames) -> List[List[Label]]:
+        raise NotImplementedError(_OFFLINE)
+
+    @classmethod
+    def from_config(cls, sr, cfg) -> "StkNetworkDecoder":
+        from phnrec_tpu_torch.io.mmf import parse_mmf
+        from phnrec_tpu_torch.io.stknet import parse_stk_network
+        from phnrec_tpu_torch.netgen import generate_resources
+
+        generate_resources(cfg)
+        ms = parse_mmf(cfg.get_str("models", "hmm_defs"))
+        net = parse_stk_network(cfg.get_str("networks", "default"))
+        mode = cfg.get_str("decoder", "mode")
+        thr = None
+        if mode == "kws":
+            from phnrec_tpu_torch.kws import Thresholds
+            thr = Thresholds.from_config(cfg)
+        # beam_pruning/kws_score_pruning: the optional decoder/beam_pruning
+        # + kws/score_pruning config extension (stkinterface.h:107-113)
+        b = cfg.get_float("decoder", "beam_pruning")
+        beam = b if b > 0 else None
+        ksp = cfg.get_float("kws", "score_pruning")
+        return cls(ms, net,
+                   wpenalty=cfg.get_float("decoder", "wpenalty"),
+                   lm_scale=cfg.get_float("decoder", "lm_scale"),
+                   mode=mode,
+                   time_pruning=cfg.get_int("decoder", "time_pruning"),
+                   keyword_thresholds=thr,
+                   beam_pruning=beam,
+                   kws_score_pruning=ksp)

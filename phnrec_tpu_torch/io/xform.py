@@ -1,0 +1,197 @@
+"""HTK/STK Xform feature-transform graphs: the parser.
+
+Copy of the parser half of phnrec_tpu/io/xform.py (lines 1-202, host
+code without JAX, kept in step with it). Applying a transform is not
+ported yet (ROADMAP.md, Queue 1 item 12).
+
+Reference: the Xform machinery of STKLib/Models.h:891-1028 and the MMF
+readers in Models_IO.cc (ReadXform 1306, ReadXformInstance 1188,
+ReadLinearXform 1539, ReadBiasXform 1585, ReadFuncXform 1610,
+ReadCopyXform 1630, ReadStackingXform 1678, ReadCompositeXform 1360).
+Supported kinds — the complete set STK defines:
+
+  <Xform> out in M        linear, y[c] = sum_r M[c,r] x[r]
+  <Bias> n b              y = x + b
+  <Copy> out in specs     index selection, specs ``from[:step[:to]]`` 1-based
+  <Stacking> K in         FIFO frame stacking, output [x_{t-K+1}..x_t]
+                          (oldest first, delay K-1, zero-initialized stack
+                          as in StackingXform::Evaluate, Models.cc:2567+)
+  <Sigmoid>/<Log>/<Exp>/<Sqrt>/<SoftMax> n   (gFuncTable, Models.cc:32-37)
+  <NumLayers> L ... <Layer> i <NumBlocks>/<BlockInfo> k <Block> j ...
+                          composite: sequential layers of block-diagonal
+                          transforms (CompositeXform::Evaluate,
+                          Models.cc:2332+)
+
+Instances:  ~j "name" [<Input> <instance>] <VecSize> n <xform or ~x ref>
+(XformInstance with delay chaining; Models_IO.cc:1188-1300).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from phnrec_tpu_torch.io.mmf import _Tok
+
+_FUNC_KWDS = {"<SIGMOID>": "sigmoid", "<LOG>": "log", "<EXP>": "exp",
+              "<SQRT>": "sqrt", "<SOFTMAX>": "softmax"}
+
+
+@dataclass
+class Xform:
+    kind: str                      # linear|bias|copy|func|stacking|composite
+    in_size: int
+    out_size: int
+    delay: int = 0
+    matrix: Optional[np.ndarray] = None       # linear [out, in]
+    vector: Optional[np.ndarray] = None       # bias [n]
+    indices: Optional[np.ndarray] = None      # copy [out] 0-based
+    func: Optional[str] = None                # func
+    stack_size: int = 0                       # stacking
+    layers: List[List["Xform"]] = field(default_factory=list)  # composite
+
+
+@dataclass
+class XformInstance:
+    name: str
+    xform: Xform
+    input: Optional["XformInstance"] = None
+    out_size: int = 0
+
+    @property
+    def total_delay(self) -> int:
+        d = self.xform.delay
+        return d + (self.input.total_delay if self.input else 0)
+
+
+def _parse_copy_specs(tk: _Tok, out_size: int, in_size: int) -> np.ndarray:
+    idx: List[int] = []
+    while len(idx) < out_size:
+        spec = tk.next()
+        parts = spec.split(":")
+        if len(parts) == 3:
+            frm, step, to = int(parts[0]), int(parts[1]), int(parts[2])
+        elif len(parts) == 2:
+            frm, step, to = int(parts[0]), 1, int(parts[1])
+        else:
+            frm, step, to = int(parts[0]), 1, int(parts[0])
+        if to < 1 or to > in_size:
+            raise ValueError(f"copy index {to} out of range 1..{in_size}")
+        for n in range((to - frm) // step + 1):
+            idx.append(frm + n * step - 1)
+    return np.asarray(idx[:out_size], np.int32)
+
+
+def parse_xform(tk: _Tok, macros: Dict[str, Xform]) -> Xform:
+    t = tk.next()
+    u = t.upper()
+    if t == "~x":
+        name = tk.next().strip('"')
+        return macros[name]
+    if u == "<XFORM>":
+        out_size, in_size = tk.get_int(), tk.get_int()
+        m = tk.get_floats(out_size * in_size).reshape(out_size, in_size)
+        return Xform("linear", in_size, out_size, matrix=m)
+    if u == "<BIAS>":
+        n = tk.get_int()
+        return Xform("bias", n, n, vector=tk.get_floats(n))
+    if u == "<COPY>":
+        out_size, in_size = tk.get_int(), tk.get_int()
+        idx = _parse_copy_specs(tk, out_size, in_size)
+        return Xform("copy", in_size, out_size, indices=idx)
+    if u == "<STACKING>":
+        stack, in_size = tk.get_int(), tk.get_int()
+        return Xform("stacking", in_size, stack * in_size,
+                     delay=stack - 1, stack_size=stack)
+    if u in _FUNC_KWDS:
+        n = tk.get_int()
+        return Xform("func", n, n, func=_FUNC_KWDS[u])
+    if u in ("<NUMLAYERS>", "<NUMBLOCKS>", "<BLOCKINFO>"):
+        nlayers = 1
+        if u == "<NUMLAYERS>":
+            nlayers = tk.get_int()
+        else:
+            tk.pos -= 1
+        layers: List[List[Xform]] = [[] for _ in range(nlayers)]
+        for _ in range(nlayers):
+            t2 = tk.peek()
+            layer_id = 1
+            if t2 and t2.upper() == "<LAYER>":
+                tk.next()
+                layer_id = tk.get_int()
+            t2 = tk.peek()
+            nblocks = 1
+            if t2 and t2.upper() == "<NUMBLOCKS>":
+                tk.next()
+                nblocks = tk.get_int()
+            elif t2 and t2.upper() == "<BLOCKINFO>":
+                tk.next()
+                nblocks = tk.get_int()
+                for _ in range(nblocks):
+                    tk.get_int()          # block out sizes unused
+            blocks: List[Optional[Xform]] = [None] * nblocks
+            for _ in range(nblocks):
+                t3 = tk.peek()
+                block_id = 1
+                if t3 and t3.upper() == "<BLOCK>":
+                    tk.next()
+                    block_id = tk.get_int()
+                blocks[block_id - 1] = parse_xform(tk, macros)
+            layers[layer_id - 1] = blocks   # type: ignore[assignment]
+        in_size = sum(b.in_size for b in layers[0])
+        out_size = sum(b.out_size for b in layers[-1])
+        delay = sum(max((b.delay for b in lay), default=0) for lay in layers)
+        return Xform("composite", in_size, out_size, delay=delay,
+                     layers=layers)   # type: ignore[arg-type]
+    raise ValueError(f"invalid Xform definition at {t!r}")
+
+
+def parse_xform_instance(tk: _Tok, xmacros: Dict[str, Xform],
+                         jmacros: Dict[str, XformInstance],
+                         name: str = "") -> XformInstance:
+    inp: Optional[XformInstance] = None
+    t = tk.peek()
+    if t == "~j":
+        tk.next()
+        return jmacros[tk.next().strip('"')]
+    if t and t.upper() == "<INPUT>":
+        tk.next()
+        inp = parse_xform_instance(tk, xmacros, jmacros)
+    t = tk.next()
+    if t.upper() != "<VECSIZE>":
+        raise ValueError("keyword <VecSize> expected in XformInstance")
+    vec_size = tk.get_int()
+    xf = parse_xform(tk, xmacros)
+    if xf.out_size != vec_size:
+        raise ValueError("XformInstance <VecSize> must equal Xform output"
+                         f" size ({vec_size} != {xf.out_size})")
+    return XformInstance(name=name, xform=xf, input=inp, out_size=vec_size)
+
+
+def parse_mmf_xforms(path: str) -> Tuple[Dict[str, Xform],
+                                         Dict[str, XformInstance],
+                                         Optional[XformInstance]]:
+    """Scan an MMF for ~x / ~j macros and the global <InputXform> option
+    (Models_IO.cc:1781).  Returns (xforms, instances, input_xform)."""
+    tk = _Tok(open(path, "r", encoding="latin-1").read())
+    xmacros: Dict[str, Xform] = {}
+    jmacros: Dict[str, XformInstance] = {}
+    input_xform: Optional[XformInstance] = None
+    while tk.peek() is not None:
+        t = tk.next()
+        if t == "~x":
+            name = tk.next().strip('"')
+            if tk.peek() == "~x":        # reference elsewhere, not a def
+                continue
+            xmacros[name] = parse_xform(tk, xmacros)
+        elif t == "~j":
+            name = tk.next().strip('"')
+            if tk.peek() == "~j":
+                continue
+            jmacros[name] = parse_xform_instance(tk, xmacros, jmacros, name)
+        elif t.upper() == "<INPUTXFORM>":
+            input_xform = parse_xform_instance(tk, xmacros, jmacros,
+                                               "~defaultInputXform")
+    return xmacros, jmacros, input_xform

@@ -1,0 +1,678 @@
+"""Multi-stream streaming recognition: N concurrent audio streams decoded
+through ONE fused block per step, on one torch device.
+
+Counterpart of phnrec_tpu/multistream.py.  Per block the streams run
+together through
+
+    span [N, samples] -> mel -> online norm -> LCRC context windows
+    -> band + merger MLPs (kernel A) -> softening -> the subclass's
+    masked decoder block
+
+with the stream axis leading every carried tensor (mel tails, online-norm
+sums, decoder carry).  Streams advance unevenly: row b of a block holds
+v[b] new frames, rows past them are padding that the decoder masks.  The
+JAX package's "one jitted program" per block is one Python function over
+device tensors here (``_fused_impl``), and its scan over the blocks of a
+device-resident buffer is a Python loop over blocks
+(``decode_device_buffer``).
+
+``MultiStreamKWS`` serves keyword spotting (the stkint KWS chain).  The
+phoneme-loop server (the base class's decoder hooks, fixed-lag commit,
+results) is not ported yet, nor is sharding over a mesh: they raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from phnrec_tpu_torch import normalization
+from phnrec_tpu_torch.decoder.stknet import (
+    OFF_BEAM, DenseKWSScan, decode_lrtrace_events,
+    flush_outstanding_candidates, lrtrace_init_state)
+from phnrec_tpu_torch.io.labels import Label
+from phnrec_tpu_torch.io.normfile import save_norm_file
+from phnrec_tpu_torch.ops import lrtrace, netstep
+from phnrec_tpu_torch.streaming import _convert_chunk, _make_posterior_block_fn
+
+_PHNLOOP = ("the phoneme-loop multi-stream server is not ported yet "
+            "(ROADMAP.md, Queue 1 item 7: streaming and phnloop serving, "
+            "with kernels C' and D')")
+
+
+class MultiStreamRecognizer:
+    """Decode ``n_streams`` independent audio streams in lockstep-batched
+    fused blocks.  Feed bytes with process(i, raw), which pumps fused
+    blocks when streams have audio (or call pump() with auto_pump off);
+    finish() flushes tails and returns
+    per-stream label lists.  ``stage_hook``, when set, is called with a
+    stage name after each stage of a block (a tracing point; chip_smoke.py
+    records CUDA events there)."""
+
+    def __init__(self, sr, n_streams: int, block_frames: int = 128,
+                 auto_pump: bool = True, mesh=None,
+                 commit_horizon: Optional[int] = None,
+                 partial_pump: bool = False):
+        """``auto_pump``: process() pumps fused blocks itself; with False
+        the caller pumps.  ``partial_pump``: dispatch a block as soon as
+        ANY live stream has a full block pending, the others contributing
+        what they have (idle rows pass their carry through), so one slow
+        stream does not stall the rest; the default lockstep policy waits
+        for every live stream to fill a block."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharding streams over a mesh is not ported yet "
+                "(ROADMAP.md, Queue 1 item 16: distributed)")
+        if commit_horizon is not None:
+            raise NotImplementedError(_PHNLOOP)
+        if sr.estimator is None:
+            raise ValueError("streaming requires an enabled estimator")
+        self._check_decoder(sr)
+        self.online_norm = normalization.OnlineNorm.from_config(
+            sr.cfg, sr.frontend.spec.nbanks)
+        self.sr = sr
+        self.device = dev = sr.device
+        self.n = n_streams
+        self.block = block_frames
+        spec = sr.frontend.spec
+        self.vs, self.step_len = spec.vector_size, spec.step
+        self.nbanks = spec.nbanks
+        self.trap_shift = s = sr.estimator.trap_shift
+        self.auto_pump = auto_pump
+        self.partial_pump = partial_pump
+        self.stage_hook = None
+
+        self._i16 = (sr.wave_format == "lin16" and sr.wave_noise == 0.0)
+        dtype = np.int16 if self._i16 else np.float32
+        self._bufs = [np.zeros(0, dtype) for _ in range(n_streams)]
+        self._byte_rem = [b"" for _ in range(n_streams)]
+        self._ended = np.zeros(n_streams, bool)
+        self._n_mel = np.zeros(n_streams, np.int64)
+        self._n_dec = np.zeros(n_streams, np.int64)
+        self._primed_host = np.zeros(n_streams, bool)
+        self._flushed = False
+
+        self._mel_tail = torch.zeros((n_streams, 2 * s, self.nbanks),
+                                     device=dev)
+        self._primed = torch.zeros((n_streams,), dtype=torch.bool,
+                                   device=dev)
+        self._carry = self._init_decode_carry()
+        # per dispatch: (block output on the device, valid rows [N] np)
+        self._hist: List = []
+
+        # -- device-carried online normalization (norm.cpp:92-234): each
+        # stream accumulates its first estim_interval mel frames, then
+        # freezes and normalizes from the frame COMPLETING the estimate
+        # onward; estim_interval == 0 applies file-loaded channel params
+        on = self.online_norm
+        on.set_channel(sr.cfg.get_int("onlinenorm", "channel"))
+        self._on_E = on.estim_interval
+        ch = on._state(on.cur)
+        self._on_mean0 = torch.tensor(ch["mean"], device=dev)
+        self._on_inv0 = torch.tensor(
+            ch["inv_std"] * (ch["glob_std"] if on.scale_to_gvar else 1.0),
+            dtype=torch.float32, device=dev)
+        self._on_gstd = torch.tensor(ch["glob_std"], device=dev)
+        self._onorm_state = () if not on.enabled or self._on_E == 0 else (
+            torch.zeros((n_streams,), dtype=torch.int32, device=dev),
+            torch.zeros((n_streams, self.nbanks), device=dev),
+            torch.zeros((n_streams, self.nbanks), device=dev))
+
+        # the LCRC taps as a per-stream window gather at every stream
+        # count: on the H100 at block 512 it takes 0.94x the depthwise-conv
+        # form's time from 64 to 256 streams, the same at 16-32 and at most
+        # 0.08 ms more below, for 1.4x its memory (PERF.md)
+        self._post_fn = _make_posterior_block_fn(sr)
+
+    # -- decoder hooks (overridden by the stkint subclasses) -------------
+    def _check_decoder(self, sr) -> None:
+        if sr.stk_decoder is not None:
+            raise ValueError(
+                "MultiStreamRecognizer serves the phnloop decoder; for "
+                "stkint packages in kws mode use MultiStreamKWS")
+
+    def _init_decode_carry(self):
+        raise NotImplementedError(_PHNLOOP)
+
+    def _decode_block(self, carry, lp, n_dec, n_valid):
+        raise NotImplementedError(_PHNLOOP)
+
+    def _compact_scan(self, hists, skip0, K: int, N: int):
+        raise NotImplementedError(_PHNLOOP)
+
+    def results(self) -> List[List[Label]]:
+        raise NotImplementedError(_PHNLOOP)
+
+    def _mark(self, stage: str) -> None:
+        if self.stage_hook is not None:
+            self.stage_hook(stage)
+
+    # -- the fused block -------------------------------------------------
+    def _front(self, span: torch.Tensor) -> torch.Tensor:
+        """[N, samples] int16 or float -> [N, F, nb] normalized mel."""
+        sr = self.sr
+        w = span.to(torch.float32)
+        if self._i16 and sr.wave_dc_shift != 0.0:
+            w = w + torch.tensor(sr.wave_dc_shift, dtype=torch.float32)
+        if self._i16 and sr.wave_scale != 1.0:
+            w = w * torch.tensor(sr.wave_scale, dtype=torch.float32)
+        F = (span.shape[1] - self.vs) // self.step_len + 1
+        par = sr.frontend(w, F)
+        return normalization.frame_norm(par, sr.frame_shift, sr.frame_floor)
+
+    def _onorm(self, par, v, n_mel, onst):
+        """[N, F, nb] mel rows (row j of stream b = global mel frame
+        n_mel[b] + j; rows >= v[b] garbage) -> normalized rows + advanced
+        estimation state."""
+        on = self.online_norm
+        if not on.enabled:
+            return par, onst
+        if self._on_E == 0:                # frozen file-loaded params
+            out = par
+            if on.mean_norm:
+                out = out - self._on_mean0
+            if on.var_norm:
+                out = out * self._on_inv0
+            return out, onst
+        E = self._on_E
+        cnt, sx, sxx = onst
+        F = par.shape[1]
+        ar = torch.arange(F, dtype=torch.int32, device=par.device)
+        g = n_mel[:, None] + ar[None, :]
+        contrib = ((g < E) & (ar[None, :] < v[:, None]))[:, :, None]
+        sx = sx + torch.sum(torch.where(contrib, par, 0.0), dim=1)
+        sxx = sxx + torch.sum(torch.where(contrib, par * par, 0.0), dim=1)
+        cnt = cnt + torch.sum(contrib[:, :, 0], dim=1, dtype=torch.int32)
+        mean = sx / float(E)
+        var = torch.clamp(sxx / float(E) - mean * mean, min=1e-20)
+        inv = torch.rsqrt(var)
+        if on.scale_to_gvar:
+            inv = inv * self._on_gstd
+        out = par
+        if on.mean_norm:
+            out = out - mean[:, None, :]
+        if on.var_norm:
+            out = out * inv[:, None, :]
+        apply_row = (g >= E - 1)[:, :, None]
+        return torch.where(apply_row, out, par), (cnt, sx, sxx)
+
+    def _decode_ctx(self, ctx, skip, carry, n_dec, n_valid, cap: int):
+        """Posterior rows from the per-stream context, rolled so each row's
+        valid frames lead, then the subclass's masked decoder block."""
+        lp = self._post_fn(ctx)                             # [N, cap, D]
+        idx = torch.clamp(
+            skip[:, None] + torch.arange(cap, device=ctx.device)[None, :],
+            0, cap - 1).long()
+        lp = torch.gather(lp, 1, idx[:, :, None].expand(-1, -1,
+                                                         lp.shape[2]))
+        self._mark("posteriors")
+        return self._decode_block(carry, lp, n_dec.to(torch.int32),
+                                  n_valid.to(torch.int32))
+
+    def _fused_impl(self, span, v, mel_tail, primed, carry, n_mel, n_dec,
+                    onst):
+        """One multi-stream block: span [N, samples] with v[b] valid new
+        frames in row b (v, n_mel, n_dec int32 device tensors)."""
+        s = self.trap_shift
+        ts2 = 2 * s
+        par = self._front(span)                             # [N, block, nb]
+        par, onst = self._onorm(par, v, n_mel, onst)
+        tail_eff = torch.where(primed[:, None, None], mel_tail,
+                               par[:, :1].expand(-1, ts2, -1))
+        ctx = torch.cat([tail_eff, par], dim=1)
+        tidx = (v[:, None] + torch.arange(ts2, device=v.device)[None, :])
+        new_tail = torch.gather(
+            ctx, 1, tidx.long()[:, :, None].expand(-1, -1, ctx.shape[2]))
+        skip = torch.minimum(torch.clamp(s - n_mel, min=0), v)
+        carry, hist = self._decode_ctx(ctx, skip, carry, n_dec, v - skip,
+                                       self.block)
+        return new_tail, primed | (v > 0), carry, hist, onst
+
+    def _fused_flush(self, mel_tail, carry, n_mel, n_dec):
+        """ProcessTail per stream (srec.cpp:877-927): repeat each row's
+        last mel frame trap_shift times; rows with n_mel < s valid frames
+        flush only n_mel rows."""
+        s = self.trap_shift
+        reps = mel_tail[:, -1:].expand(-1, s, -1)
+        ctx = torch.cat([mel_tail, reps], dim=1)             # [N, 3s, nb]
+        skip = torch.clamp(s - n_mel, 0, s)
+        return self._decode_ctx(ctx, skip, carry, n_dec, s - skip, s)
+
+    def _i32(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    # -- feeding ---------------------------------------------------------
+    def process(self, i: int, raw: bytes) -> None:
+        """Push raw audio bytes for stream ``i``."""
+        if self._ended[i]:
+            raise ValueError(f"stream {i} already ended")
+        sr = self.sr
+        if sr.wave_format == "lin16":
+            raw = self._byte_rem[i] + raw
+            cut = len(raw) - (len(raw) % 2)
+            raw, self._byte_rem[i] = raw[:cut], raw[cut:]
+            wave = (np.frombuffer(raw, dtype="<i2") if self._i16
+                    else _convert_chunk(raw, sr))
+        else:
+            wave = _convert_chunk(raw, sr)
+        self._bufs[i] = np.concatenate([self._bufs[i], wave])
+        if self.auto_pump:
+            self.pump()
+
+    def end_stream(self, i: int) -> None:
+        """Mark stream ``i`` finished (no more audio will arrive); its
+        leftovers drain on subsequent pumps/finish."""
+        self._ended[i] = True
+
+    def _pending(self) -> np.ndarray:
+        lens = np.asarray([b.shape[0] for b in self._bufs])
+        return np.where(lens >= self.vs,
+                        (lens - self.vs) // self.step_len + 1, 0)
+
+    def _dispatch(self, v: np.ndarray) -> None:
+        """One fused block consuming v[b] frames from stream b."""
+        need = (self.block - 1) * self.step_len + self.vs
+        span = np.zeros((self.n, need), self._bufs[0].dtype)
+        for b in range(self.n):
+            if v[b] > 0:
+                take = (int(v[b]) - 1) * self.step_len + self.vs
+                span[b, :take] = self._bufs[b][:take]
+                self._bufs[b] = self._bufs[b][int(v[b]) * self.step_len:]
+        self._record(v, self._fused_impl(
+            torch.from_numpy(span).to(self.device), self._i32(v),
+            self._mel_tail, self._primed, self._carry,
+            self._i32(self._n_mel), self._i32(self._n_dec),
+            self._onorm_state))
+
+    def pump(self) -> int:
+        """Dispatch fused blocks per the pump policy: lockstep (every live
+        stream must fill a block; ended streams contribute what they have)
+        or partial (any live stream with a full block triggers a dispatch
+        and the rest contribute what they have).  Returns the number of
+        blocks dispatched."""
+        n_blocks = 0
+        while True:
+            pending = self._pending()
+            if self._ended.all():
+                go = pending.max(initial=0) >= 1
+            elif self.partial_pump:
+                go = bool((pending[~self._ended] >= self.block).any())
+            else:
+                ready = np.where(self._ended, pending > 0,
+                                 pending >= self.block)
+                go = bool(np.all(ready | self._ended)
+                          and pending.max(initial=0) >= self.block)
+            if not go:
+                return n_blocks
+            self._dispatch(np.minimum(pending, self.block))
+            n_blocks += 1
+
+    def _record(self, v: np.ndarray, out) -> None:
+        """Book-keep one fused dispatch's outputs."""
+        new_tail, primed, carry, hist, self._onorm_state = out
+        skip = np.clip(self.trap_shift - self._n_mel, 0, v)
+        self._mel_tail, self._primed, self._carry = new_tail, primed, carry
+        valid = (v - skip).astype(np.int64)
+        self._hist.append((hist, valid))
+        self._n_mel += v
+        self._n_dec += valid
+        self._primed_host |= v > 0
+
+    # -- device-resident feeding (serving and benchmark path) ------------
+    def decode_device_buffer(self, audio_dev: torch.Tensor, n_blocks: int,
+                             first_block: int = 0) -> None:
+        """Advance every stream by ``n_blocks`` * block frames from a
+        device-resident [N, L] sample buffer: one fused block per block
+        offset, all bookkeeping carried on the device, one merged block
+        output for the whole run."""
+        # the merged output removes ONE delay-gate gap, at the end of the
+        # first block; a stream whose remaining skip (trap_shift - n_mel)
+        # exceeds block_frames would spill skip into the next block
+        if np.any(self.trap_shift - self._n_mel > self.block):
+            raise ValueError(
+                "decode_device_buffer needs block_frames >= each "
+                "stream's remaining delay-gate skip (trap_shift - "
+                "frames_seen); feed more audio via process() first or "
+                "use a larger block")
+        if n_blocks <= 0:
+            return
+        need = (self.block - 1) * self.step_len + self.vs
+        spb = self.block * self.step_len
+        end = (first_block + n_blocks - 1) * spb + need
+        if audio_dev.dim() != 2 or audio_dev.shape[0] != self.n or \
+                end > audio_dev.shape[1]:
+            raise ValueError(f"audio buffer of shape "
+                             f"{tuple(audio_dev.shape)} does not hold "
+                             f"blocks {first_block}..{first_block + n_blocks}"
+                             f" of {self.n} streams ({end} samples)")
+        s = self.trap_shift
+        vb = torch.full((self.n,), self.block, dtype=torch.int32,
+                        device=self.device)
+        n_mel, n_dec = self._i32(self._n_mel), self._i32(self._n_dec)
+        st = (self._mel_tail, self._primed, self._carry, self._onorm_state)
+        hists = []
+        for k in range(first_block, first_block + n_blocks):
+            mel_tail, primed, carry, onst = st
+            span = audio_dev[:, k * spb: k * spb + need]
+            skip = torch.clamp(s - n_mel, 0, self.block)
+            new_tail, primed, carry, hist, onst = self._fused_impl(
+                span, vb, mel_tail, primed, carry, n_mel, n_dec, onst)
+            st = (new_tail, primed, carry, onst)
+            n_mel = n_mel + vb
+            n_dec = n_dec + vb - skip
+            hists.append(hist)
+        self._mel_tail, self._primed, self._carry, self._onorm_state = st
+        skip0 = np.clip(self.trap_shift - self._n_mel, 0, self.block)
+        valid = (np.int64(n_blocks) * self.block - skip0).astype(np.int64)
+        self._hist.append((self._compact_scan(hists, skip0, n_blocks,
+                                              self.n), valid))
+        self._n_mel += n_blocks * self.block
+        self._n_dec += valid
+        self._primed_host[:] = True
+
+    # -- results ---------------------------------------------------------
+    def finish(self) -> List[List[Label]]:
+        """Drain leftovers, flush the STC tail, return every stream's
+        results."""
+        if not self._flushed:
+            self._ended[:] = True
+            # pump() with every stream ended drains ALL pending frames
+            # (ragged final blocks included)
+            while self.pump():
+                pass
+            if self._primed_host.any():
+                carry, hist = self._fused_flush(
+                    self._mel_tail, self._carry, self._i32(self._n_mel),
+                    self._i32(self._n_dec))
+                self._carry = carry
+                valid = np.where(self._primed_host,
+                                 np.minimum(self.trap_shift, self._n_mel),
+                                 0).astype(np.int64)
+                self._hist.append((hist, valid))
+                self._n_dec += valid
+            self._flushed = True
+            self.save_norm_params()
+        return self.results()
+
+    def save_norm_params(self) -> None:
+        """Persist each stream's frozen online-norm estimate to the
+        config's onlinenorm/file, channel id = stream index — the
+        multi-stream form of the reference's per-channel XML save
+        (norm.cpp:230,309-364)."""
+        on = self.online_norm
+        if (not on.enabled or self._on_E == 0 or on.file in ("", "none")
+                or not self._onorm_state):
+            return
+        cnt, sx, sxx = (t.cpu().numpy() for t in self._onorm_state)
+        # start from channels already known to the host estimator so a
+        # re-save never drops them (norm.cpp:309 saves the full map)
+        chans = {cid: (st["mean"], st["inv_std"])
+                 for cid, st in on.channels.items()}
+        E = np.float32(self._on_E)
+        saved = 0
+        for b in range(self.n):
+            if int(cnt[b]) >= self._on_E:
+                mean = (sx[b] / E).astype(np.float32)
+                var = np.maximum(sxx[b] / E - mean * mean,
+                                 np.float32(1e-20))
+                chans[b] = (mean, (1.0 / np.sqrt(var)).astype(np.float32))
+                saved += 1
+        if saved:
+            save_norm_file(on.file, chans)
+
+
+class MultiStreamKWS(MultiStreamRecognizer):
+    """N concurrent LIVE KEYWORD-SPOTTING streams on one device: the
+    stkint KWS chain — posterior stack, the dense network Viterbi block
+    (kernel B, ops/netstep.py) and the LRTrace candidate scan (kernel F,
+    ops/lrtrace.py) — batched over streams inside the fused blocks.
+
+    The per-stream carry is (network state [N, ...], LRTrace state
+    [N, K], beam [N], ()); flush events go into per-stream hit rings on
+    the device and are decoded on the host at results()/hits_so_far().
+
+    Kernel B needs the uniform left-to-right structure every generated
+    KWS network has (``extract_structure``, the JAX package's gate): an
+    irregular network runs the plain dense step instead, and
+    ``net_path`` records which one runs ("kernel_b" or "dense_step").  A
+    network with more than 1024 models + states raises (the edge-list
+    scan is not ported), and so does a global <InputXform>."""
+
+    def __init__(self, sr, n_streams: int, block_frames: int = 128,
+                 auto_pump: bool = True, mesh=None,
+                 partial_pump: bool = False):
+        dec = sr.stk_decoder
+        if dec is None or dec.mode != "kws":
+            raise ValueError("MultiStreamKWS needs an stkint package "
+                             "with decoder/mode=kws")
+        if dec.model_set.input_xform is not None:
+            raise NotImplementedError(
+                "a global <InputXform> is not applied yet (ROADMAP.md, "
+                "Queue 1 item 12: feature transforms)")
+        self._dec = dec
+        self._keywords = dec.keywords()
+        c = dec.compiled
+        if c.kws_filler_sink is None or not c.kws_word_sinks:
+            raise ValueError(
+                "KWS network needs a filler-end sink and at least one "
+                "sticky keyword-end node (stkinterface.cpp:107-155 node "
+                "discovery found none in this network)")
+        if c.n_models + c.n_states > 1024:
+            raise NotImplementedError(
+                f"a KWS network of {c.n_models} models + {c.n_states} "
+                "states exceeds the dense step's 1024; the edge-list scan "
+                "it needs is not ported yet (ROADMAP.md, Queue 1 item 10: "
+                "offline stkint decode and KWS)")
+        self._kws_ws = torch.tensor(np.asarray(c.kws_word_sinks, np.int32),
+                                    device=sr.device)
+        self._kws_fs = c.kws_filler_sink
+        self._beam0 = float(OFF_BEAM if dec.beam_pruning is None
+                            else dec.beam_pruning)
+        self._tp = dec.time_pruning
+        self._sp = dec.kws_score_pruning
+        self._dense = DenseKWSScan(dec.decoder)
+        self._net_block = netstep.build_net_block_fn(self._dense)
+        self.net_path = ("kernel_b" if self._net_block is not None
+                         else "dense_step")
+        self._hits_emitted = [0] * n_streams
+        # per-stream Label lists, built incrementally as event blocks are
+        # fetched (decoded device blocks are dropped)
+        self._labels: List[List[Label]] = [[] for _ in range(n_streams)]
+        self._final_done = False
+        super().__init__(sr, n_streams, block_frames=block_frames,
+                         auto_pump=auto_pump, mesh=mesh,
+                         partial_pump=partial_pump)
+
+    def set_beam_pruning(self, v: Optional[float]) -> None:
+        """Live beam-pruning knob (SetBeamPruning, stkinterface.h:108):
+        the width rides in the decode carry, so it affects the next
+        block."""
+        beam = torch.full((self.n,), float(OFF_BEAM if v is None else v),
+                          device=self.device)
+        self._carry = self._carry[:2] + (beam, self._carry[3])
+
+    # -- decoder hooks ---------------------------------------------------
+    def _check_decoder(self, sr) -> None:
+        pass                                   # validated in __init__
+
+    def _init_decode_carry(self):
+        stk = self._dense.init_carry(self.n, self.device)
+        trk = lrtrace_init_state(len(self._keywords), self.n, self.device)
+        return (stk, trk, torch.full((self.n,), self._beam0,
+                                     device=self.device), ())
+
+    def _decode_block(self, carry, lp, n_dec, n_valid):
+        stk_c, trk, beam = carry[:3]
+        # [N, F, D] -> [F, N, E]: frame-major, as kernel B reads it
+        obs_fm = self._dec.decoder.state_observations(
+            lp.transpose(0, 1)).contiguous()
+        if self._net_block is not None:
+            stk_c, (sv, sw) = self._net_block(stk_c, obs_fm, n_valid, n_dec,
+                                              beam)
+        else:
+            stk_c, (sv, sw) = netstep.net_block_plain(
+                self._dense, stk_c, obs_fm, n_valid, n_dec, beam)
+        self._mark("netstep")
+        trk, events = lrtrace.lrtrace_scan(
+            trk, sv, sw, self._kws_ws, self._kws_fs, n_dec, n_valid,
+            self._tp, self._sp)
+        self._mark("lrtrace")
+        rings = self._compact_events(events)
+        self._mark("compact")
+        return (stk_c, trk, beam, carry[3]), rings
+
+    def _compact_events(self, events):
+        """Scatter the block's flush events into a small per-stream ring
+        of H slots (+1 dump slot) on the device: rows fill in flat (frame,
+        slot, keyword) order — the reference callback order — so the ring
+        IS the emission sequence.  A stream whose count exceeds H falls
+        back to the dense records, which are kept alongside."""
+        rec1, rec2 = events
+        N = self.n
+        F = rec1["emit"].shape[1]
+        Kw = len(self._keywords)
+        H = max(64, F // 4)
+        L = F * 2 * Kw
+
+        def stk(name):
+            return torch.stack([rec1[name], rec2[name]], dim=2)
+
+        em = stk("emit")                       # [N, F, 2, Kw]
+        flat = em.reshape(N, L)
+        pos = torch.cumsum(flat, dim=1, dtype=torch.int32) - 1
+        idx = torch.where(flat & (pos < H), pos, H).long()
+
+        def ring_of(vals, dt):
+            z = torch.zeros((N, H + 1), dtype=dt, device=flat.device)
+            return z.scatter_(1, idx, vals.reshape(N, L).to(dt))
+
+        dev = flat.device
+        slot_i = torch.arange(2, dtype=torch.int32,
+                              device=dev)[None, None, :, None]
+        k_i = torch.arange(Kw, dtype=torch.int32,
+                           device=dev)[None, None, None, :]
+        kid = (slot_i * Kw + k_i) * 2 + stk("new_estim").to(torch.int32)
+        return {
+            "count": torch.sum(flat, dim=1, dtype=torch.int32),
+            "start": ring_of(stk("start"), torch.int32),
+            "end": ring_of(stk("end"), torch.int32),
+            "score": ring_of(stk("score"), torch.float32),
+            "kid": ring_of(kid, torch.int32),
+            "dense": (rec1, rec2),
+        }
+
+    def _compact_scan(self, hists, skip0, K: int, N: int):
+        # per-block rings keep their block axis (each sub-ring has its own
+        # count); the dense fallback records merge on the frame axis (dead
+        # frames emit nothing, so no gather)
+        out = {k: torch.stack([h[k] for h in hists], dim=1)
+               for k in ("count", "start", "end", "score", "kid")}
+        out["dense"] = tuple(
+            {k: torch.cat([h["dense"][r][k] for h in hists], dim=1)
+             for k in hists[0]["dense"][r]} for r in range(2))
+        return out
+
+    # -- results ---------------------------------------------------------
+    def _fetch_rings(self):
+        """Every pending block's rings and counts in ONE device->host copy
+        (float scores travel bit-cast as int32)."""
+        keys = ("count", "start", "end", "score", "kid")
+        parts, shapes = [], []
+        for h, _ in self._hist:
+            for k in keys:
+                t = h[k]
+                shapes.append(tuple(t.shape))
+                if t.dtype == torch.float32:
+                    t = t.view(torch.int32)
+                parts.append(t.reshape(-1))
+        flat = torch.cat(parts).cpu().numpy()
+        out, off, j = [], 0, 0
+        for _ in self._hist:
+            comp = {}
+            for k in keys:
+                size = int(np.prod(shapes[j]))
+                a = flat[off: off + size].reshape(shapes[j])
+                comp[k] = a.view(np.float32) if k == "score" else a
+                off += size
+                j += 1
+            out.append(comp)
+        return out
+
+    def _sync(self) -> None:
+        """Fetch + decode the pending event blocks into the per-stream
+        Label lists, then DROP them (decoded blocks are never re-read),
+        and append the final candidate flush once after finish().  Only
+        the compact hit rings are fetched; a stream whose ring overflowed
+        (count > H) decodes that block from its dense records."""
+        if self._hist:
+            fetched = self._fetch_rings()
+            denses = [h["dense"] for h, _ in self._hist]
+            self._hist = []
+            Kw = len(self._keywords)
+            for comp, dense in zip(fetched, denses):
+                cnt = comp["count"]
+                multi = cnt.ndim == 2      # merged blocks: [N, Kb]
+                if not multi:
+                    cnt = cnt[:, None]
+                rings = {k: comp[k] for k in ("start", "end", "score",
+                                              "kid")}
+                if not multi:
+                    rings = {k: v[:, None] for k, v in rings.items()}
+                H = rings["start"].shape[2] - 1
+                ok_b = ~(cnt > H).any(axis=1)
+                mask = ((np.arange(H)[None, None, :]
+                         < np.minimum(cnt, H)[:, :, None])
+                        & ok_b[:, None, None])
+                bb, jj, rr = np.nonzero(mask)
+                starts = rings["start"][bb, jj, rr].tolist()
+                ends = rings["end"][bb, jj, rr].tolist()
+                scores = rings["score"][bb, jj, rr].astype(
+                    np.float64).tolist()
+                kids = rings["kid"][bb, jj, rr].tolist()
+                names = [self._keywords[(k >> 1) % Kw] for k in kids]
+                bounds = np.searchsorted(bb, np.arange(self.n + 1))
+                for b in range(self.n):
+                    lo, hi = bounds[b], bounds[b + 1]
+                    if lo != hi:
+                        self._labels[b].extend(map(
+                            Label, starts[lo:hi], ends[lo:hi],
+                            names[lo:hi], scores[lo:hi]))
+                for b in np.nonzero(~ok_b)[0]:
+                    # rare: some sub-ring overflowed -> decode this
+                    # stream's whole dispatch from the dense records
+                    sub = tuple({k2: v[b].cpu().numpy()
+                                 for k2, v in rec.items()}
+                                for rec in dense)
+                    self._labels[b].extend(
+                        Label(h.start, h.end, h.word, h.score)
+                        for h in decode_lrtrace_events(
+                            sub, self._keywords))
+        if self._flushed and not self._final_done:
+            # StkInterface::Done: flush outstanding candidates from the
+            # final tracker state, per stream in keyword order
+            self._final_done = True
+            trk = [t.cpu().numpy() for t in self._carry[1]]
+            sp = float(self._sp)
+            for b in range(self.n):
+                row = tuple(leaf[b] for leaf in trk)
+                self._labels[b].extend(
+                    Label(h.start, h.end, h.word, h.score)
+                    for h in flush_outstanding_candidates(
+                        row, self._keywords, sp))
+
+    def results(self) -> List[List[Label]]:
+        """Per-stream KWS hits flushed so far (live callback stream); at
+        finish() the outstanding candidates are force-flushed too."""
+        self._sync()
+        return [list(lb) for lb in self._labels]
+
+    def hits_so_far(self, i: int) -> List[Label]:
+        """Newly flushed hits for stream ``i`` since the last call — the
+        per-stream live callback (DECMSG_WORD emission)."""
+        self._sync()
+        new = self._labels[i][self._hits_emitted[i]:]
+        self._hits_emitted[i] = len(self._labels[i])
+        return list(new)

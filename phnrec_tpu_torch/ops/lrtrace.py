@@ -1,0 +1,129 @@
+"""Kernel F: the LRTrace keyword-candidate scan (csrc/lrtrace.cu) and its
+plain PyTorch version.
+
+Counterpart of the JAX package's vmapped ``lax.scan`` of
+``lrtrace_step_fn`` over a network block's sink records
+(phnrec_tpu/multistream.py:1017-1036, phnrec_tpu/decoder/stknet.py:
+1114-1177).  One call runs all F frames for n streams:
+
+    state = six [n, K] tensors (last_lr, cand_lr f32; cand_start,
+            cand_end, prev_end i32; dumped bool)
+    sink_val [F, n, S] f32, sink_wt [F, n, S] i32 (kernel B's records),
+    word_sinks [K] i32 columns, filler_sink column, n_dec, n_valid [n] i32
+      -> (state', (rec1, rec2)), each rec a dict of [n, F, K] tensors
+         emit (bool), start, end (i32), score (f32), new_estim (bool)
+
+Frame f of stream b is global frame n_dec[b] + f and live while
+f < n_valid[b].  The plain version is the frame loop of
+``lrtrace_step_fn``; the kernel is equal to it in every field.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from phnrec_tpu_torch.decoder.stknet import NEG, lrtrace_step_fn
+from phnrec_tpu_torch.ops import _build
+
+LAUNCHES = 0
+
+State = Tuple[torch.Tensor, ...]
+Events = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
+_FIELDS = ("emit", "start", "end", "score", "new_estim")
+_DTYPES = (torch.bool, torch.int32, torch.int32, torch.float32, torch.bool)
+
+
+def lrtrace_scan_plain(state: State, sink_val: torch.Tensor,
+                       sink_wt: torch.Tensor, word_sinks: torch.Tensor,
+                       filler_sink: int, n_dec: torch.Tensor,
+                       n_valid: torch.Tensor, time_pruning: float,
+                       score_pruning: float) -> Tuple[State, Events]:
+    """The scan as a Python loop of torch ops over frames, on any
+    device."""
+    step = lrtrace_step_fn(time_pruning, score_pruning)
+    F = sink_val.shape[0]
+    ws = word_sinks.to(device=sink_val.device, dtype=torch.long)
+    n_dec = n_dec.to(torch.int32)
+    n_valid = n_valid.to(torch.int32)
+    recs = ([], [])
+    for i in range(F):
+        state, out = step(state, (sink_val[i][:, ws],
+                                  sink_val[i][:, filler_sink],
+                                  sink_wt[i][:, ws].to(torch.int32),
+                                  n_dec + i, n_valid > i))
+        for acc, rec in zip(recs, out):
+            acc.append(rec)
+    return state, tuple({k: torch.stack([r[k] for r in acc], dim=1)
+                         for k in _FIELDS} for acc in recs)
+
+
+def _lib():
+    lib = _build.load("lrtrace")
+    fn = lib.lrtrace_scan
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 23)
+        fn.restype = ctypes.c_int
+        lib.lrtrace_max_keywords.restype = ctypes.c_int
+    return lib
+
+
+def lrtrace_scan(state: State, sink_val: torch.Tensor, sink_wt: torch.Tensor,
+                 word_sinks: torch.Tensor, filler_sink: int,
+                 n_dec: torch.Tensor, n_valid: torch.Tensor,
+                 time_pruning: float, score_pruning: float
+                 ) -> Tuple[State, Events]:
+    """One block of frames: CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one launch for all F frames), and anything
+    the kernel does not take raises."""
+    if sink_val.device.type == "cpu":
+        return lrtrace_scan_plain(state, sink_val, sink_wt, word_sinks,
+                                  filler_sink, n_dec, n_valid, time_pruning,
+                                  score_pruning)
+    device = _build.cuda_device(sink_val)
+    if sink_val.dim() != 3:
+        raise ValueError("sink_val must be [F, n, S]")
+    F, n, S = sink_val.shape
+    K = word_sinks.shape[0]
+    lib = _lib()
+    if not 0 < K <= lib.lrtrace_max_keywords() or \
+            not 0 <= filler_sink < S:
+        raise ValueError(f"kernel F takes 1..{lib.lrtrace_max_keywords()} "
+                         f"keywords and a filler column below {S}")
+    if F * n * max(S, K) >= 2 ** 31:
+        raise ValueError("block too large for 32-bit offsets")
+    _build.require(sink_val, "sink_val", torch.float32, (F, n, S), device)
+    _build.require(sink_wt, "sink_wt", torch.int32, (F, n, S), device)
+    _build.require(word_sinks, "word_sinks", torch.int32, (K,), device)
+    _build.require(n_dec, "n_dec", torch.int32, (n,), device)
+    _build.require(n_valid, "n_valid", torch.int32, (n,), device)
+    for name, t, dt in zip(
+            ("last_lr", "cand_lr", "cand_start", "cand_end", "prev_end",
+             "dumped"), state,
+            (torch.float32,) * 2 + (torch.int32,) * 3 + (torch.bool,)):
+        _build.require(t, name, dt, (n, K), device)
+    out_state = tuple(torch.empty_like(t) for t in state)
+    events = tuple(
+        {k: torch.empty((n, F, K), dtype=dt, device=device)
+         for k, dt in zip(_FIELDS, _DTYPES)} for _ in range(2))
+    tp = float(time_pruning)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.lrtrace_scan(
+            sink_val.data_ptr(), sink_wt.data_ptr(), word_sinks.data_ptr(),
+            int(filler_sink), n_dec.data_ptr(), n_valid.data_ptr(),
+            F, n, S, K, int(tp < 1e9), int(tp) if tp < 1e9 else 0,
+            float(np.float32(score_pruning)), float(NEG / 2),
+            *(t.data_ptr() for t in state),
+            *(t.data_ptr() for t in out_state),
+            *(ev[k].data_ptr() for ev in events for k in _FIELDS),
+            stream)
+    _build.check(err, "lrtrace")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out_state, events

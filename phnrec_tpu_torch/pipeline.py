@@ -5,7 +5,10 @@ srec.{cpp,h} — the integration class that owns config, frontend, posterior
 estimator and decoder.  The port covers the mel-bank frontend, the LCRC
 estimator and the phoneme-loop decoder (``phndec``), for waveform input
 and string output (wf -> str): file lists run batched through
-BatchPipeline, and single files run as a batch of one.
+BatchPipeline, and single files run as a batch of one.  An ``stkint``
+package loads its STK network decoder (``stk_decoder``), which the
+multi-stream KWS server (multistream.py) drives; offline stkint decoding
+of files is not ported yet.
 """
 
 from __future__ import annotations
@@ -119,10 +122,6 @@ class SpeechRec:
 
         # -- decoder (srec.cpp:627-665)
         self.decoder_type = cfg.get_str("decoder", "type")
-        if self.decoder_type == "stkint":
-            raise NotImplementedError(
-                "decoder/type 'stkint' is not ported yet (ROADMAP.md, Queue 1 "
-                "items 9-10: STK network stack and stkint serving)")
         self.phonemes = load_phoneme_list(
             cfg.get_str("dicts", "phoneme_list"))
         self.wpenalty = cfg.get_float("decoder", "wpenalty")
@@ -131,15 +130,30 @@ class SpeechRec:
             n_states=cfg.get_int("decoder", "num_states_per_phn"),
             w_penalty=self.wpenalty,
         )
+        self.stk_decoder = None
+        if self.decoder_type == "stkint":
+            from phnrec_tpu_torch.decoder.stknet import StkNetworkDecoder
+            self.stk_decoder = StkNetworkDecoder.from_config(self, cfg)
         self._bp = None
 
     def set_wpenalty(self, wpenalty: float) -> None:
         """CLI -p override (phnrec.cpp:212-221)."""
         self.wpenalty = wpenalty
         self.loop_spec = self.loop_spec._replace(w_penalty=wpenalty)
+        if self.stk_decoder is not None:
+            self.stk_decoder.set_wpenalty(wpenalty)
+
+    def _require_phnloop(self) -> None:
+        if self.stk_decoder is not None:
+            raise NotImplementedError(
+                "offline decoding of an stkint package is not ported yet "
+                "(ROADMAP.md, Queue 1 item 10: offline stkint decode and "
+                "KWS); its keywords are served by "
+                "phnrec_tpu_torch.multistream.MultiStreamKWS")
 
     @property
     def batch_pipeline(self):
+        self._require_phnloop()
         if self._bp is None:
             from phnrec_tpu_torch.parallel.batch import BatchPipeline
             self._bp = BatchPipeline(self)
@@ -151,6 +165,7 @@ class SpeechRec:
     def process_offline(self, inpf: str, outpf: str, data) -> DecodeResult:
         """wf -> str on raw waveform bytes, as a batch of one."""
         _require_wf_str(inpf, outpf)
+        self._require_phnloop()
         wave, _ = audio.convert_waveform(
             data, self.wave_format, scale=self.wave_scale,
             dc_shift=self.wave_dc_shift, noise_level=self.wave_noise)
@@ -185,6 +200,7 @@ class SpeechRec:
     def process_file_list(self, inpf: str, outpf: str, list_path: str,
                           mlf_path: Optional[str] = None) -> None:
         _require_wf_str(inpf, outpf)
+        self._require_phnloop()
         entries = []
         with open(list_path) as f:
             for raw in f:

@@ -41,6 +41,7 @@ class LCRCEstimator(nn.Module):
         n = os.path.join(model_dir, "norms")
         win = os.path.join(model_dir, "windows")
         half_context = (trap_len - 1) // 2 + 1
+        self.trap_shift = (trap_len - 1) // 2   # frames of context a side
 
         self.band = nn.ModuleList([
             MLP.from_params(load_net(os.path.join(w, f"band{i}.weights"),

@@ -2,13 +2,24 @@
 
 ``write_lcrc_package`` writes a model package in the reference's on-disk
 formats (config, phoneme list, ``weights/*.nbin``, ``windows/*.window``)
-that both phnrec_tpu.SpeechRec and phnrec_tpu_torch.SpeechRec load.  Two
+that both phnrec_tpu.SpeechRec and phnrec_tpu_torch.SpeechRec load.  Three
 shapes:
 
 * ``"cz"``: the flagship CZ SpeechDat LCRC package's shapes — 15 mel banks
   at 8 kHz, sentence mean norm, band nets 165->1500->138 (x2), merger
   276->1500->138, a 46-phoneme x 3-state loop, wpenalty -4.6875;
+* ``"en"``: the EN TIMIT LCRC N500 package's shapes — 23 mel banks at
+  16 kHz (vector 400, step 160), no sentence norm, band nets
+  253->500->120 (x2), merger 240->500->120, 40 phonemes x 3 states,
+  wpenalty -2.03125;
 * ``"tiny"``: 5 banks, 4 phonemes x 3 states, hidden 32, for tests.
+
+``write_kws_package`` turns such a package into an stkint keyword-spotting
+package (decoder/type=stkint, mode=kws): a keyword list and lexicon, and
+the HMM set and KWS network generated at load time by netgen, as the
+reference does.  ``"en"`` spots ``greasy`` (g r iy s iy) and ``wash``
+(w aa sh), the repo's KWS serving configuration
+(benchmarks/long_audio.py:56-88); ``"tiny"`` spots ``alpha`` and ``beta``.
 
 The weights are random.  W1 is scaled so hidden pre-activations stay
 within about +-20 for unit-variance inputs, b2 cancels each output's mean
@@ -30,27 +41,38 @@ import torch
 from phnrec_tpu_torch.io.audio import ALAW_TABLE_D5
 from phnrec_tpu_torch.io.weights import MLPParams, save_nbin
 
+# 40 TIMIT-style phoneme names, among them those of the EN keywords
+EN_PHONEMES = ("aa ae ah ao aw ay b ch d dh eh er ey f g hh ih iy jh k l m n "
+               "ng ow oy p r s sh t th uh uw v w y z zh sil").split()
+_8K = dict(fs=8000, vector_size=200, vector_step=80, sent_norm="true",
+           wpenalty=-4.6875)
 SHAPES = {
-    "cz": dict(nbanks=15, n_phonemes=46, n_hid=1500),
-    "tiny": dict(nbanks=5, n_phonemes=4, n_hid=32),
+    "cz": dict(nbanks=15, n_phonemes=46, n_hid=1500, **_8K),
+    "en": dict(nbanks=23, n_phonemes=40, n_hid=500, fs=16000,
+               vector_size=400, vector_step=160, sent_norm="false",
+               wpenalty=-2.03125, phonemes=EN_PHONEMES),
+    "tiny": dict(nbanks=5, n_phonemes=4, n_hid=32, **_8K),
+}
+KEYWORDS = {
+    "en": {"greasy": "g r iy s iy", "wash": "w aa sh"},
+    "tiny": {"alpha": "ph00 ph01 ph02", "beta": "ph03 ph01"},
 }
 N_STATES = 3
 N_COEFS = 11            # C0 + 10 DCT coefficients per bank (add_c0=true)
 TRAP_LEN = 31
-WPENALTY = -4.6875
 
 CONFIG = """\
 [source]
 format={fmt}
-sample_freq=8000
+sample_freq={fs}
 [melbanks]
 nbanks={nbanks}
 lower_freq=64
-higher_freq=4000
-vector_size=200
-vector_step=80
+higher_freq={hi}
+vector_size={vector_size}
+vector_step={vector_step}
 [offlinenorm]
-sent_mean_norm=true
+sent_mean_norm={sent_norm}
 [posteriors]
 enabled=true
 system=LCRC
@@ -64,6 +86,22 @@ wpenalty={wpenalty}
 softening_func=log 0 0 0
 [dicts]
 phoneme_list=$C/phonemes
+"""
+
+# the stkint KWS lines of benchmarks/long_audio.py:81-84, plus generated
+# models: a synthetic package ships no tmp/models
+KWS_CONFIG = """\
+[decoder]
+mode=kws
+[networks]
+gen_kws_net=true
+default=$T/kwsnet
+[dicts]
+keyword_list=$C/kwlist
+lexicon1=$C/kwlex
+[models]
+gen_from_phn_list=true
+hmm_defs=$T/models
 """
 
 
@@ -137,14 +175,17 @@ def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
     """Write a synthetic LCRC package under ``root``; returns its path."""
     dims = SHAPES[shape]
     nb, P, H = dims["nbanks"], dims["n_phonemes"], dims["n_hid"]
+    fs = dims["fs"]
     n_out = P * N_STATES
     root = Path(root)
     (root / "weights").mkdir(parents=True, exist_ok=True)
     (root / "windows").mkdir(exist_ok=True)
     (root / "config").write_text(CONFIG.format(
         fmt=fmt, nbanks=nb, trap_len=TRAP_LEN, n_states=N_STATES,
-        wpenalty=WPENALTY))
-    (root / "phonemes").write_text("".join(f"ph{i:02d}\n" for i in range(P)))
+        fs=fs, hi=fs // 2, **{k: dims[k] for k in (
+            "vector_size", "vector_step", "sent_norm", "wpenalty")}))
+    names = dims.get("phonemes") or [f"ph{i:02d}" for i in range(P)]
+    (root / "phonemes").write_text("".join(f"{p}\n" for p in names))
     ham = 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(TRAP_LEN)
                                / (TRAP_LEN - 1))
     half = (TRAP_LEN - 1) // 2
@@ -163,7 +204,7 @@ def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
     from phnrec_tpu_torch.pipeline import SpeechRec
     sr = SpeechRec(str(root), device="cpu")
     bp = sr.batch_pipeline
-    waves = [synth_audio(rng, 8000 * 3) for _ in range(4)]
+    waves = [synth_audio(rng, fs * 3, fs) for _ in range(4)]
     wave, n_samples = bp.pad_batch(waves)
     w, nf, max_frames, _ = bp.to_device(wave.astype(np.int16), n_samples)
     with torch.inference_mode():
@@ -185,3 +226,18 @@ def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
         merger.mean, merger.dev = _norm_of(torch.cat(outs, dim=-1))
     save_nbin(str(root / "weights" / "merger.nbin"), merger)
     return str(root)
+
+
+def write_kws_package(root, shape: str = "tiny", seed: int = 0) -> str:
+    """Write a synthetic stkint KWS package under ``root`` (the LCRC
+    package of ``shape`` plus the KWS config lines, keyword list and
+    lexicon); returns its path."""
+    pkg = Path(write_lcrc_package(root, shape, seed))
+    words = KEYWORDS[shape]
+    (pkg / "kwlist").write_text("".join(f"{w}\n" for w in words))
+    (pkg / "kwlex").write_text("".join(f"{w}\t{p}\n"
+                                       for w, p in words.items()))
+    (pkg / "tmp").mkdir(exist_ok=True)
+    cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
+    (pkg / "config").write_text(cfg + KWS_CONFIG)
+    return str(pkg)

@@ -159,9 +159,17 @@ def test_unported_paths_raise(tmp_path):
             cli.main(argv)
     cfg = os.path.join(pkg, "config")
     text = open(cfg).read()
-    for old, new in (("type=phndec", "type=stkint"),
-                     ("system=LCRC", "system=1BT"),
+    for old, new in (("system=LCRC", "system=1BT"),
                      ("[melbanks]", "[params]\nkind=plp\n[melbanks]")):
         open(cfg, "w").write(text.replace(old, new))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SpeechRec(pkg, device="cpu")
+    # an stkint package loads (MultiStreamKWS serves it); offline decoding
+    # of its files does not exist yet
+    kws = SpeechRec(synth.write_kws_package(tmp_path / "kws", "tiny"),
+                    device="cpu")
+    assert kws.stk_decoder is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kws.process_offline("wf", "str", b"\0\0" * 400)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kws.process_file_list("wf", "str", cfg)
