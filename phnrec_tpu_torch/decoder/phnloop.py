@@ -6,8 +6,10 @@ states each, self-loop/advance log-probs both log(0.5) (phndec.cpp:9), a
 word-insertion penalty on loop re-entry, and — a reference quirk kept for
 parity — the insertion penalty already applied at t=0 (phndec.cpp:81-88).
 
-The scan is kernel C (ops/phnloop_viterbi.py) and the device walk back is
-kernel D (ops/backtrack.py); on CPU tensors both run their plain versions.
+The scan is kernel C (ops/phnloop_viterbi.py), its ragged multi-stream
+form kernel C', the device walk back kernel D (ops/backtrack.py) and its
+committed-window form kernel D'; on CPU tensors all run their plain
+versions.
 The host replay ``backtrack`` is the oracle they are held against.  Layouts
 are phnrec_tpu's: carry [P, S+1, B], History [T, B], Segments [B, Smax].
 
@@ -19,7 +21,7 @@ Tie-breaking parity:
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import Callable, List, NamedTuple
 
 import numpy as np
 import torch
@@ -77,6 +79,23 @@ def viterbi_block(spec: PhnLoopSpec, carry, log_post: torch.Tensor,
     return carry, History(*hist)
 
 
+def viterbi_block_ragged(spec: PhnLoopSpec, carry, log_post: torch.Tensor,
+                         t0: torch.Tensor, n_valid: torch.Tensor):
+    """Per-row masked block scan for multi-stream serving: row b is a
+    stream at global frame t0[b] with n_valid[b] real frames this block;
+    past them its carry passes through and its History rows are undefined
+    (the caller tracks validity).  [B, T, >=P*S] -> (carry', History
+    [T, B])."""
+    dev = log_post.device
+    carry, hist = phnloop_viterbi.viterbi_block_ragged(
+        carry, log_post.contiguous(),
+        t0.to(device=dev, dtype=torch.int32).contiguous(),
+        n_valid.to(device=dev, dtype=torch.int32).contiguous(),
+        spec.n_phonemes, spec.n_states, spec.w_penalty, spec.log_tr_curr,
+        spec.log_tr_next)
+    return carry, History(*hist)
+
+
 def viterbi_scan_batch(spec: PhnLoopSpec, log_post: torch.Tensor,
                        plain: bool = False) -> History:
     """Whole-utterance batch decode: [B, T, >=P*S] -> History [T, B]."""
@@ -115,6 +134,26 @@ def backtrack_committed(hist: History, row_offset: int, frame0: int,
         end = start
     labels.reverse()
     return labels
+
+
+def commit_labels(labels: List[Label], horizon_end: int,
+                  like_at_horizon: Callable[[], float]):
+    """The fixed-lag commit policy of one stream.  ``labels`` is the
+    backtrack of its retained window in time order, likes relative to the
+    committed boundary (alpha0 = 0).  Labels ending by ``horizon_end``
+    commit; if none does, the label spanning the horizon is split there,
+    like the reference's ring (a forced commit), with the like
+    ``like_at_horizon()``, the path's at frame horizon_end - 1.  Returns
+    (labels to commit, the new boundary frame, its like: the committed
+    likes telescope), or None when nothing commits."""
+    commit = [l for l in labels if l.end_frames <= horizon_end]
+    if not commit:
+        if not labels or labels[0].start_frames >= horizon_end:
+            return None
+        l0 = labels[0]
+        commit = [Label(l0.start_frames, horizon_end, l0.name,
+                        float(like_at_horizon()))]
+    return commit, commit[-1].end_frames, float(sum(l.score for l in commit))
 
 
 def backtrack_batch(hist: History, n_frames: np.ndarray,
@@ -161,6 +200,27 @@ def backtrack_device(spec: PhnLoopSpec, hist: History,
     return Segments(*fn(hist.max_phn.contiguous(), hist.ent.contiguous(),
                         hist.alpha.contiguous(), n_frames.contiguous(),
                         max_segments(spec, T)))
+
+
+def backtrack_device_committed(spec: PhnLoopSpec, hist: History,
+                               n_frames: torch.Tensor, frame0: torch.Tensor,
+                               row_offset: torch.Tensor) -> Segments:
+    """backtrack_device over a retained window: row i of ``hist`` is
+    global frame row_offset[b] + i of stream b; the walk stops at the
+    committed boundary frame0[b] (global), clamping the earliest segment's
+    start to it.  History.ent is global and is rebased to window rows in
+    the walk, so the 20-bit packing limit bounds only the window.  Starts
+    come out window-relative (labels_from_segments adds row_offset back);
+    ``n_frames`` counts window rows."""
+    T = hist.max_phn.shape[0]
+    if T >= 1 << 20:
+        raise ValueError("backtrack_device packs entry frames in 20 bits")
+    dev = hist.max_phn.device
+    i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()  # noqa
+    return Segments(*backtrack_op.backtrack_committed(
+        hist.max_phn.contiguous(), hist.ent.contiguous(),
+        hist.alpha.contiguous(), i32(n_frames), i32(frame0),
+        i32(row_offset), max_segments(spec, T)))
 
 
 def fetch_segments(segs: Segments, cap: int = 128) -> Segments:

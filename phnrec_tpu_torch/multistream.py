@@ -16,10 +16,14 @@ device tensors here (``_fused_impl``), and its scan over the blocks of a
 device-resident buffer is a Python loop over blocks
 (``decode_device_buffer``).
 
-``MultiStreamKWS`` serves keyword spotting (the stkint KWS chain).  The
-phoneme-loop server (the base class's decoder hooks, fixed-lag commit,
-results) is not ported yet, nor is sharding over a mesh: they raise
-NotImplementedError naming their ROADMAP item.
+``MultiStreamRecognizer`` itself serves the phoneme loop: the masked
+decoder block is the ragged scan (kernel C'), results() walks the history
+back on the device (kernel D) when every stream advanced alike and replays
+each stream on the host otherwise, and the opt-in fixed-lag commit
+(``commit_horizon``) walks the retained window on the device (kernel D')
+in lockstep steady state.  ``MultiStreamKWS`` serves keyword spotting (the
+stkint KWS chain).  Sharding over a mesh is not ported: it raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from phnrec_tpu_torch import normalization
+from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import (
     OFF_BEAM, DenseKWSScan, decode_lrtrace_events,
     flush_outstanding_candidates, lrtrace_init_state)
@@ -38,19 +43,16 @@ from phnrec_tpu_torch.io.normfile import save_norm_file
 from phnrec_tpu_torch.ops import lrtrace, netstep
 from phnrec_tpu_torch.streaming import _convert_chunk, _make_posterior_block_fn
 
-_PHNLOOP = ("the phoneme-loop multi-stream server is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7: streaming and phnloop serving, "
-            "with kernels C' and D')")
-
-
 class MultiStreamRecognizer:
     """Decode ``n_streams`` independent audio streams in lockstep-batched
     fused blocks.  Feed bytes with process(i, raw), which pumps fused
-    blocks when streams have audio (or call pump() with auto_pump off);
-    finish() flushes tails and returns
-    per-stream label lists.  ``stage_hook``, when set, is called with a
-    stage name after each stage of a block (a tracing point; chip_smoke.py
-    records CUDA events there)."""
+    blocks when streams have audio (or call pump() with auto_pump off), or
+    samples already on the device with decode_device_buffer,
+    dispatch_block_device or dispatch_from_device_buffer; finish() flushes
+    tails and returns per-stream label lists.  ``stage_hook``, when set,
+    is called with a stage name after each stage of a block and of
+    results() (a tracing point; chip_smoke.py records CUDA events
+    there)."""
 
     def __init__(self, sr, n_streams: int, block_frames: int = 128,
                  auto_pump: bool = True, mesh=None,
@@ -61,16 +63,25 @@ class MultiStreamRecognizer:
         ANY live stream has a full block pending, the others contributing
         what they have (idle rows pass their carry through), so one slow
         stream does not stall the rest; the default lockstep policy waits
-        for every live stream to fill a block."""
+        for every live stream to fill a block.
+
+        ``commit_horizon`` (phoneme loop): opt-in fixed-lag commit for
+        unbounded sessions.  Labels ending at least that many frames behind
+        a stream's newest frame are committed and their history blocks
+        dropped once every stream's rows in them are committed (the
+        reference's TimePruning ring, phndec.cpp:191-234), so the retained
+        history is O(horizon), not O(session).  A label spanning the
+        horizon is split there (its like telescopes exactly), and committed
+        scores are rebased out of the carry so float32 stays healthy over
+        long sessions.  None keeps the whole history."""
         if mesh is not None:
             raise NotImplementedError(
                 "sharding streams over a mesh is not ported yet "
                 "(ROADMAP.md, Queue 1 item 16: distributed)")
-        if commit_horizon is not None:
-            raise NotImplementedError(_PHNLOOP)
         if sr.estimator is None:
             raise ValueError("streaming requires an enabled estimator")
         self._check_decoder(sr)
+        self.commit_horizon = commit_horizon
         self.online_norm = normalization.OnlineNorm.from_config(
             sr.cfg, sr.frontend.spec.nbanks)
         self.sr = sr
@@ -102,6 +113,13 @@ class MultiStreamRecognizer:
         self._carry = self._init_decode_carry()
         # per dispatch: (block output on the device, valid rows [N] np)
         self._hist: List = []
+        # fixed-lag commit state (commit_horizon): per-stream committed
+        # labels, boundary frames, path like at the boundary, and the
+        # global frame of each stream's first retained history row
+        self._committed: List[List[Label]] = [[] for _ in range(n_streams)]
+        self._frame0 = np.zeros(n_streams, np.int64)
+        self._alpha0 = np.zeros(n_streams, np.float64)
+        self._row_offset = np.zeros(n_streams, np.int64)
 
         # -- device-carried online normalization (norm.cpp:92-234): each
         # stream accumulates its first estim_interval mel frames, then
@@ -135,16 +153,33 @@ class MultiStreamRecognizer:
                 "stkint packages in kws mode use MultiStreamKWS")
 
     def _init_decode_carry(self):
-        raise NotImplementedError(_PHNLOOP)
+        return phnloop.init_carry(self.sr.loop_spec, self.n, self.device)
 
     def _decode_block(self, carry, lp, n_dec, n_valid):
-        raise NotImplementedError(_PHNLOOP)
+        """(decode carry, rolled log-posteriors [N, F, D], per-row global
+        frame offsets, per-row valid counts) -> (carry', History [F, N]):
+        one launch of the ragged scan.  (The JAX package's unroll choice
+        by stream count is a TPU matter; the kernel has no unroll.)"""
+        out = phnloop.viterbi_block_ragged(self.sr.loop_spec, carry, lp,
+                                           n_dec, n_valid)
+        self._mark("viterbi")
+        return out
 
     def _compact_scan(self, hists, skip0, K: int, N: int):
-        raise NotImplementedError(_PHNLOOP)
-
-    def results(self) -> List[List[Label]]:
-        raise NotImplementedError(_PHNLOOP)
+        """Merge the block outputs of one decode_device_buffer run into one
+        History: rows were rolled valid-first per block and only the first
+        block of a fresh stream skips (the delay gate), so one gather
+        removes the gap at the end of block 0's section."""
+        merged = [torch.cat([h[j] for h in hists], dim=0) for j in range(3)]
+        if skip0.any():
+            TT = K * self.block
+            j = torch.arange(TT, device=self.device)[:, None]
+            sk = torch.as_tensor(skip0, device=self.device)[None, :]
+            idx = torch.clamp(j + torch.where(j >= self.block - sk, sk, 0),
+                              0, TT - 1)
+            merged = [torch.gather(a, 0, idx) for a in merged]
+        self._mark("compact")
+        return phnloop.History(*merged)
 
     def _mark(self, stage: str) -> None:
         if self.stage_hook is not None:
@@ -320,8 +355,174 @@ class MultiStreamRecognizer:
         self._n_mel += v
         self._n_dec += valid
         self._primed_host |= v > 0
+        self._maybe_commit()
+
+    # -- fixed-lag commit (commit_horizon) --------------------------------
+    def _drop_committed_blocks(self) -> None:
+        """Drop leading history blocks once EVERY stream's rows in them are
+        committed (block 0 spans [row_offset_b, row_offset_b + v0_b))."""
+        while self._hist:
+            _, v0 = self._hist[0]
+            if np.all(self._row_offset + v0 <= self._frame0):
+                self._row_offset += v0.astype(np.int64)
+                self._hist.pop(0)
+            else:
+                break
+
+    def _hist_to_host(self) -> None:
+        """Bring the retained device History blocks to the host as numpy
+        arrays (the ragged and host-commit paths read them there)."""
+        for i, (h, v) in enumerate(self._hist):
+            if isinstance(h[0], torch.Tensor):
+                self._hist[i] = (phnloop.History(
+                    *(a.cpu().numpy() for a in h)), v)
+
+    def _stream_hist(self, b: int) -> Optional[phnloop.History]:
+        """Stream b's valid rows of the host-resident blocks, in order."""
+        cols = [tuple(a[: int(v[b]), b] for a in h)
+                for h, v in self._hist if v[b] > 0]
+        if not cols:
+            return None
+        return phnloop.History(
+            *(np.concatenate([c[j] for c in cols]) for j in range(3)))
+
+    def _hist_device_uniform(self):
+        """The per-block valid counts when every retained block is on the
+        device and stream-uniform (the lockstep serving steady state),
+        else None."""
+        if not self._hist or not isinstance(self._hist[0][0][0],
+                                            torch.Tensor):
+            return None
+        valids = np.stack([v for _, v in self._hist])
+        if not (valids == valids[:, :1]).all():
+            return None
+        return tuple(int(v[0]) for _, v in self._hist)
+
+    def _window(self, key) -> phnloop.History:
+        """The retained device blocks' valid rows, concatenated."""
+        return phnloop.History(*(
+            torch.cat([h[j][:k] for (h, _), k in zip(self._hist, key)])
+            for j in range(3)))
+
+    def _walk_window_device(self, key):
+        """The committed-window walk on the device (kernel D') over the
+        retained blocks, and each stream's rebased path like at its
+        horizon end (for forced splits).  Only the compact segments and
+        one [N] row cross to the host; the History stays on the device."""
+        T = sum(key)
+        if T == 0:
+            return [[] for _ in range(self.n)], np.zeros(self.n, np.float32)
+        hist = self._window(key)
+        n_rel = self._n_dec - self._row_offset
+        h_end_rel = np.clip(self._n_dec - (self.commit_horizon or 0) - 1
+                            - self._row_offset, 0, T - 1)
+        segs = phnloop.backtrack_device_committed(
+            self.sr.loop_spec, hist, self._i32(n_rel),
+            self._i32(self._frame0), self._i32(self._row_offset))
+        self._mark("backtrack")
+        a_h = hist.alpha.gather(0, self._i32(h_end_rel).long()[None])[0]
+        segs = phnloop.fetch_segments(segs, cap=min(4096, segs.phn.shape[1]))
+        labels = phnloop.labels_from_segments(
+            segs, self._n_dec, self.sr.phonemes, row_offset=self._row_offset)
+        return labels, a_h.cpu().numpy()
+
+    def _rebase_alphas(self) -> None:
+        """Subtract each stream's committed like (_alpha0) from its
+        retained scores and from its carried alphas, on whichever side
+        each block lives, sparing the NEG_INF sentinels (a shift would
+        overflow them to -inf): the recurrence is shift-invariant, and
+        |alpha| stays bounded by the window's like over long sessions,
+        where session-cumulative float32 scores would quantise below
+        log(0.5).  (phnrec_tpu's _rebase_device is the same on its
+        device blocks.)"""
+        r32 = self._alpha0.astype(np.float32)
+        if not r32.any():
+            return
+        rt = torch.from_numpy(r32).to(self.device)
+        alphas, ent = self._carry
+        self._carry = (torch.where(
+            alphas <= float(phnloop.NEG_INF / 2), alphas,
+            alphas - rt[None, None, :]), ent)
+        self._hist = [
+            (phnloop.History(h.max_phn, h.ent, h.alpha - (
+                r32[None, :] if isinstance(h.alpha, np.ndarray)
+                else rt[None, :])), v)
+            for h, v in self._hist]
+        self._alpha0[:] = 0.0
+
+    def _commit_device(self, key) -> None:
+        """The commit with the walk and the rebase on the device: per
+        cycle one launch of kernel D' and a fetch of ~7 bytes a segment,
+        whatever the stream count."""
+        labels_all, a_h = self._walk_window_device(key)
+        for b in range(self.n):
+            # a_h[b] is the rebased path like at horizon_end - 1
+            self._commit_stream(b, labels_all[b], lambda: a_h[b])
+        self._drop_committed_blocks()
+        self._rebase_alphas()
+
+    def _commit_stream(self, b: int, labels: List[Label],
+                       like_at_horizon) -> None:
+        got = phnloop.commit_labels(
+            labels, int(self._n_dec[b]) - self.commit_horizon,
+            like_at_horizon)
+        if got is not None:
+            commit, self._frame0[b], self._alpha0[b] = got
+            self._committed[b].extend(commit)
+
+    def _maybe_commit(self) -> None:
+        if self.commit_horizon is None or not self._hist:
+            return
+        retained = int((self._n_dec - self._row_offset).max(initial=0))
+        if retained <= 2 * self.commit_horizon + self.block:
+            return
+        key = self._hist_device_uniform()
+        if key is not None:
+            self._commit_device(key)
+            return
+        # streams advanced unevenly: replay each on the host
+        self._hist_to_host()
+        for b in range(self.n):
+            hist_b = self._stream_hist(b)
+            if hist_b is None:
+                continue
+            labels = phnloop.backtrack_committed(
+                hist_b, int(self._row_offset[b]), int(self._frame0[b]),
+                float(self._alpha0[b]), self.sr.phonemes)
+            h_row = int(self._n_dec[b]) - self.commit_horizon - 1 - \
+                int(self._row_offset[b])
+            self._commit_stream(b, labels, lambda: float(
+                hist_b.alpha[h_row]) - float(self._alpha0[b]))
+        self._drop_committed_blocks()
+        self._rebase_alphas()
 
     # -- device-resident feeding (serving and benchmark path) ------------
+    def dispatch_block_device(self, span_dev: torch.Tensor) -> None:
+        """Advance every stream by exactly ``block`` frames from a sample
+        span [N, (block - 1) * step + vs] already on the device (network
+        DMA in production, staged audio in benchmarks)."""
+        v = np.full(self.n, self.block, np.int64)
+        self._record(v, self._fused_impl(
+            span_dev, self._i32(v), self._mel_tail, self._primed,
+            self._carry, self._i32(self._n_mel), self._i32(self._n_dec),
+            self._onorm_state))
+
+    def dispatch_from_device_buffer(self, audio_dev: torch.Tensor,
+                                    sample_offset: int) -> None:
+        """Advance every stream by ``block`` frames reading samples
+        [sample_offset, sample_offset + span) of a device-resident [N, L]
+        buffer."""
+        need = (self.block - 1) * self.step_len + self.vs
+        if audio_dev.dim() != 2 or audio_dev.shape[0] != self.n or \
+                sample_offset < 0 or \
+                sample_offset + need > audio_dev.shape[1]:
+            raise ValueError(f"audio buffer of shape "
+                             f"{tuple(audio_dev.shape)} does not hold "
+                             f"samples {sample_offset}..{sample_offset + need}"
+                             f" of {self.n} streams")
+        self.dispatch_block_device(
+            audio_dev[:, sample_offset: sample_offset + need])
+
     def decode_device_buffer(self, audio_dev: torch.Tensor, n_blocks: int,
                              first_block: int = 0) -> None:
         """Advance every stream by ``n_blocks`` * block frames from a
@@ -372,6 +573,7 @@ class MultiStreamRecognizer:
         self._n_mel += n_blocks * self.block
         self._n_dec += valid
         self._primed_host[:] = True
+        self._maybe_commit()
 
     # -- results ---------------------------------------------------------
     def finish(self) -> List[List[Label]]:
@@ -422,6 +624,56 @@ class MultiStreamRecognizer:
                 saved += 1
         if saved:
             save_norm_file(on.file, chans)
+
+    def results(self) -> List[List[Label]]:
+        """Every stream's labels so far: the backtrack of its history
+        (stitched onto the committed prefix with commit_horizon)."""
+        phonemes = self.sr.phonemes
+        if self.commit_horizon is not None:
+            key = self._hist_device_uniform()
+            if key is not None:
+                window, _ = self._walk_window_device(key)
+                return [self._committed[b] + window[b]
+                        for b in range(self.n)]
+            self._hist_to_host()
+            out: List[List[Label]] = []
+            for b in range(self.n):
+                hist_b = self._stream_hist(b)
+                tail = [] if hist_b is None else \
+                    phnloop.backtrack_committed(
+                        hist_b, int(self._row_offset[b]),
+                        int(self._frame0[b]), float(self._alpha0[b]),
+                        phonemes)
+                out.append(self._committed[b] + tail)
+            return out
+        if not self._hist:
+            return [[] for _ in range(self.n)]
+        valids = np.stack([v for _, v in self._hist])      # [K, N]
+        if (valids == valids[:, :1]).all():
+            # lockstep: every row has the same per-block validity, so the
+            # window is a device concatenation and the walk runs there
+            # (kernel D); only ~7 bytes a segment cross to the host
+            key = tuple(int(v[0]) for _, v in self._hist)
+            T = sum(key)
+            if T == 0:
+                return [[] for _ in range(self.n)]
+            self._hist = [(phnloop.History(
+                *(torch.as_tensor(a, device=self.device) for a in h)), v)
+                for h, v in self._hist]
+            hist = self._window(key)
+            if T >= 1 << 20:
+                return phnloop.backtrack_batch(hist, self._n_dec, phonemes)
+            segs = phnloop.backtrack_device(self.sr.loop_spec, hist,
+                                            self._i32(self._n_dec))
+            self._mark("backtrack")
+            segs = phnloop.fetch_segments(
+                segs, cap=min(4096, segs.phn.shape[1]))
+            self._mark("fetch")
+            return phnloop.labels_from_segments(segs, self._n_dec, phonemes)
+        # ragged: fetch once, replay each stream on the host
+        self._hist_to_host()
+        return [[] if (h := self._stream_hist(b)) is None else
+                phnloop.backtrack(h, phonemes) for b in range(self.n)]
 
 
 class MultiStreamKWS(MultiStreamRecognizer):

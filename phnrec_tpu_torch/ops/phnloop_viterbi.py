@@ -1,10 +1,14 @@
-"""Kernel C: the phoneme-loop Viterbi scan (csrc/phnloop_viterbi.cu) and its
-plain PyTorch version.
+"""Kernels C and C': the phoneme-loop Viterbi scan (csrc/phnloop_viterbi.cu)
+and its ragged multi-stream form, each with its plain PyTorch version and
+its own launch count.
 
-Counterpart of phnrec_tpu/decoder/phnloop.py::viterbi_block.  Layouts are
-JAX's: carry [P, S+1, B] (alphas f32, entry frames i32), log_post
-[B, T, D >= P*S], History [T, B] (i8, i32, f32).  Both versions are adds,
-compares and first-index argmaxes, so their History is bit-equal to JAX's.
+Counterparts of phnrec_tpu/decoder/phnloop.py::viterbi_block (C) and
+::viterbi_block_ragged (C': per-row t0[b] and n_valid[b]; frames past
+n_valid[b] leave row b's carry as it was, and its History rows there are
+undefined).  Layouts are JAX's: carry [P, S+1, B] (alphas f32, entry frames
+i32), log_post [B, T, D >= P*S], History [T, B] (i8, i32, f32).  Both
+versions are adds, compares and first-index argmaxes, so their carry and
+valid History are bit-equal to JAX's.
 """
 
 from __future__ import annotations
@@ -16,10 +20,47 @@ import torch
 
 from phnrec_tpu_torch.ops import _build
 
-LAUNCHES = 0
+LAUNCHES = 0           # kernel C
+RAGGED_LAUNCHES = 0    # kernel C'
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 Hist = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _setup(log_post, n_phonemes, n_states, w_penalty, tr_curr, tr_next):
+    """Frame-major observations [T, P, S, B], empty History [T, B], and
+    the scalars as float32 tensors."""
+    P, S = n_phonemes, n_states
+    B, T = log_post.shape[0], log_post.shape[1]
+    dev = log_post.device
+    f32 = torch.float32
+    obs = log_post[:, :, : P * S].reshape(B, T, P, S).permute(1, 2, 3, 0)
+    hist = (torch.empty((T, B), dtype=torch.int8, device=dev),
+            torch.empty((T, B), dtype=torch.int32, device=dev),
+            torch.empty((T, B), dtype=f32, device=dev))
+    scalars = tuple(torch.tensor(v, dtype=f32, device=dev)
+                    for v in (w_penalty, tr_curr, tr_next))
+    return obs, hist, scalars
+
+
+def _step(alphas, ent, obs_t, t_next, w_pen, tr_c, tr_n):
+    """One frame of the scan -> (alphas', ent', (winner, its entry frame,
+    the max)); ``t_next`` (an int or a [B] tensor) is the global index of
+    the next frame, the new entry column's frame."""
+    P, B = alphas.shape[0], alphas.shape[2]
+    tok_cur = alphas[:, 1:, :] + tr_c            # self-loop
+    tok_prev = alphas[:, :-1, :] + tr_n          # advance from s-1
+    take_cur = tok_cur > tok_prev                # advance wins ties
+    new_a = torch.where(take_cur, tok_cur, tok_prev) + obs_t
+    new_e = torch.where(take_cur, ent[:, 1:, :], ent[:, :-1, :])
+    exit_a = new_a[:, -1, :]                     # [P, B]
+    maxi = torch.argmax(exit_a, dim=0, keepdim=True)   # first max wins
+    max_a = exit_a.gather(0, maxi)[0]
+    rec = (maxi[0].to(torch.int8), new_e[:, -1, :].gather(0, maxi)[0], max_a)
+    entry = torch.as_tensor(t_next, dtype=torch.int32,
+                            device=alphas.device).expand(P, 1, B)
+    return (torch.cat([(max_a + w_pen).expand(P, 1, B), new_a], dim=1),
+            torch.cat([entry, new_e], dim=1), rec)
 
 
 def viterbi_block_plain(carry: Carry, log_post: torch.Tensor, t0: int,
@@ -27,34 +68,37 @@ def viterbi_block_plain(carry: Carry, log_post: torch.Tensor, t0: int,
                         tr_curr: float, tr_next: float
                         ) -> Tuple[Carry, Hist]:
     """The scan as a Python loop of torch ops over frames, on any device."""
-    P, S = n_phonemes, n_states
     alphas, ent = carry
-    B, T = log_post.shape[0], log_post.shape[1]
-    dev = log_post.device
-    f32 = torch.float32
-    w_pen = torch.tensor(w_penalty, dtype=f32, device=dev)
-    tr_c = torch.tensor(tr_curr, dtype=f32, device=dev)
-    tr_n = torch.tensor(tr_next, dtype=f32, device=dev)
-    obs = log_post[:, :, : P * S].reshape(B, T, P, S).permute(1, 2, 3, 0)
-    h_phn = torch.empty((T, B), dtype=torch.int8, device=dev)
-    h_ent = torch.empty((T, B), dtype=torch.int32, device=dev)
-    h_alpha = torch.empty((T, B), dtype=f32, device=dev)
-    for t in range(T):
-        tok_cur = alphas[:, 1:, :] + tr_c            # self-loop
-        tok_prev = alphas[:, :-1, :] + tr_n          # advance from s-1
-        take_cur = tok_cur > tok_prev                # advance wins ties
-        new_a = torch.where(take_cur, tok_cur, tok_prev) + obs[t]
-        new_e = torch.where(take_cur, ent[:, 1:, :], ent[:, :-1, :])
-        exit_a = new_a[:, -1, :]                     # [P, B]
-        maxi = torch.argmax(exit_a, dim=0, keepdim=True)   # first max wins
-        max_a = exit_a.gather(0, maxi)[0]
-        h_phn[t] = maxi[0].to(torch.int8)
-        h_ent[t] = new_e[:, -1, :].gather(0, maxi)[0]
-        h_alpha[t] = max_a
-        alphas = torch.cat([(max_a + w_pen).expand(P, 1, B), new_a], dim=1)
-        ent = torch.cat([torch.full((P, 1, B), t0 + t + 1, dtype=torch.int32,
-                                    device=dev), new_e], dim=1)
-    return (alphas, ent), (h_phn, h_ent, h_alpha)
+    obs, hist, scalars = _setup(log_post, n_phonemes, n_states, w_penalty,
+                                tr_curr, tr_next)
+    for t in range(obs.shape[0]):
+        alphas, ent, rec = _step(alphas, ent, obs[t], t0 + t + 1, *scalars)
+        for h, r in zip(hist, rec):
+            h[t] = r
+    return (alphas, ent), hist
+
+
+def viterbi_block_ragged_plain(carry: Carry, log_post: torch.Tensor,
+                               t0: torch.Tensor, n_valid: torch.Tensor,
+                               n_phonemes: int, n_states: int,
+                               w_penalty: float, tr_curr: float,
+                               tr_next: float) -> Tuple[Carry, Hist]:
+    """The ragged scan as a Python loop of torch ops over frames, on any
+    device: every frame steps every row, and rows past n_valid[b] keep
+    their carry (their History rows hold whatever the step gave)."""
+    alphas, ent = carry
+    obs, hist, scalars = _setup(log_post, n_phonemes, n_states, w_penalty,
+                                tr_curr, tr_next)
+    t0 = t0.to(device=obs.device, dtype=torch.int32)
+    n_valid = n_valid.to(device=obs.device, dtype=torch.int32)
+    for t in range(obs.shape[0]):
+        na, ne, rec = _step(alphas, ent, obs[t], t0 + t + 1, *scalars)
+        live = (t < n_valid)[None, None, :]
+        alphas = torch.where(live, na, alphas)
+        ent = torch.where(live, ne, ent)
+        for h, r in zip(hist, rec):
+            h[t] = r
+    return (alphas, ent), hist
 
 
 def _lib():
@@ -62,22 +106,17 @@ def _lib():
     fn = lib.phn_viterbi
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 6)
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
         lib.phn_viterbi_max_states.restype = ctypes.c_int
         lib.phn_viterbi_max_phonemes.restype = ctypes.c_int
     return lib
 
 
-def viterbi_block(carry: Carry, log_post: torch.Tensor, t0: int,
-                  n_phonemes: int, n_states: int, w_penalty: float,
-                  tr_curr: float, tr_next: float) -> Tuple[Carry, Hist]:
-    """One block of frames: CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one launch for all T frames), and anything
-    the kernel does not take raises."""
-    if log_post.device.type == "cpu":
-        return viterbi_block_plain(carry, log_post, t0, n_phonemes, n_states,
-                                   w_penalty, tr_curr, tr_next)
+def _launch(carry: Carry, log_post: torch.Tensor, t0: int, t0_row, n_valid,
+            n_phonemes: int, n_states: int, w_penalty: float, tr_curr: float,
+            tr_next: float) -> Tuple[Carry, Hist]:
     device = _build.cuda_device(log_post)
     P, S = n_phonemes, n_states
     if log_post.dim() != 3:
@@ -92,6 +131,9 @@ def viterbi_block(carry: Carry, log_post: torch.Tensor, t0: int,
     _build.require(alphas, "carry alphas", torch.float32, (P, S + 1, B),
                    device)
     _build.require(ent, "carry ent", torch.int32, (P, S + 1, B), device)
+    for t, name in ((t0_row, "t0"), (n_valid, "n_valid")):
+        if t is not None:
+            _build.require(t, name, torch.int32, (B,), device)
     lib = _lib()
     if S > lib.phn_viterbi_max_states() or \
             P > lib.phn_viterbi_max_phonemes():
@@ -103,14 +145,47 @@ def viterbi_block(carry: Carry, log_post: torch.Tensor, t0: int,
     h_phn = torch.empty((T, B), dtype=torch.int8, device=device)
     h_ent = torch.empty((T, B), dtype=torch.int32, device=device)
     h_alpha = torch.empty((T, B), dtype=torch.float32, device=device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.phn_viterbi(
             alphas.data_ptr(), ent.data_ptr(), log_post.data_ptr(),
-            B, T, P, S, D, int(t0), w_penalty, tr_curr, tr_next,
-            out_a.data_ptr(), out_e.data_ptr(), h_phn.data_ptr(),
-            h_ent.data_ptr(), h_alpha.data_ptr(), stream)
+            B, T, P, S, D, int(t0), ptr(t0_row), ptr(n_valid), w_penalty,
+            tr_curr, tr_next, out_a.data_ptr(), out_e.data_ptr(),
+            h_phn.data_ptr(), h_ent.data_ptr(), h_alpha.data_ptr(), stream)
     _build.check(err, "phnloop_viterbi")
+    return (out_a, out_e), (h_phn, h_ent, h_alpha)
+
+
+def viterbi_block(carry: Carry, log_post: torch.Tensor, t0: int,
+                  n_phonemes: int, n_states: int, w_penalty: float,
+                  tr_curr: float, tr_next: float) -> Tuple[Carry, Hist]:
+    """Kernel C, one block of frames: CPU tensors take the plain version;
+    CUDA tensors launch the kernel (one launch for all T frames), and
+    anything the kernel does not take raises."""
+    args = (n_phonemes, n_states, w_penalty, tr_curr, tr_next)
+    if log_post.device.type == "cpu":
+        return viterbi_block_plain(carry, log_post, t0, *args)
+    out = _launch(carry, log_post, t0, None, None, *args)
     global LAUNCHES
     LAUNCHES += 1
-    return (out_a, out_e), (h_phn, h_ent, h_alpha)
+    return out
+
+
+def viterbi_block_ragged(carry: Carry, log_post: torch.Tensor,
+                         t0: torch.Tensor, n_valid: torch.Tensor,
+                         n_phonemes: int, n_states: int, w_penalty: float,
+                         tr_curr: float, tr_next: float
+                         ) -> Tuple[Carry, Hist]:
+    """Kernel C', one ragged block: t0 and n_valid are [B] int32 tensors
+    on the log-posteriors' device.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, and anything it does not take
+    raises."""
+    args = (n_phonemes, n_states, w_penalty, tr_curr, tr_next)
+    if log_post.device.type == "cpu":
+        return viterbi_block_ragged_plain(carry, log_post, t0, n_valid,
+                                          *args)
+    out = _launch(carry, log_post, 0, t0, n_valid, *args)
+    global RAGGED_LAUNCHES
+    RAGGED_LAUNCHES += 1
+    return out

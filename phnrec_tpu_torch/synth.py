@@ -171,9 +171,14 @@ def _norm_of(feats: torch.Tensor) -> tuple:
 
 
 def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
-                       fmt: str = "lin16") -> str:
-    """Write a synthetic LCRC package under ``root``; returns its path."""
-    dims = SHAPES[shape]
+                       fmt: str = "lin16", sent_norm=None) -> str:
+    """Write a synthetic LCRC package under ``root``; returns its path.
+    ``sent_norm`` (a bool) overrides the shape's sentence mean norm: the
+    streaming paths apply none, so a package measured without it suits
+    them."""
+    dims = dict(SHAPES[shape])
+    if sent_norm is not None:
+        dims["sent_norm"] = "true" if sent_norm else "false"
     nb, P, H = dims["nbanks"], dims["n_phonemes"], dims["n_hid"]
     fs = dims["fs"]
     n_out = P * N_STATES

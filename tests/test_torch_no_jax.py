@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import phnrec_tpu_torch
-from phnrec_tpu_torch.ops import _build, backtrack, mlp_fused, phnloop_viterbi
+from phnrec_tpu_torch.ops import (_build, backtrack, mlp_bf16x3, mlp_fused,
+                                  phnloop_viterbi)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(phnrec_tpu_torch.__file__)
@@ -72,12 +73,26 @@ def _mlp_args(device="cpu"):
     return (t(5, 7), t(7), t(7), t(7, 6), t(6), t(6, 4), t(4))
 
 
+def _bf16x3_args(device="cpu"):
+    x, mean, dev, w1, b1, w2, b2 = _mlp_args()
+    w1h, w1l, w2h, w2l = mlp_bf16x3.split_weights(w1, w2)
+    return tuple(a.to(device) for a in (x, mean, dev, w1h, w1l, b1, w2h,
+                                        w2l, b2))
+
+
 def _viterbi_args(device="cpu"):
     P, S, B, T = 3, 2, 2, 9
     lp = torch.log_softmax(torch.randn(B, T, P * S), -1).to(device)
     carry = (torch.zeros(P, S + 1, B, device=device),
              torch.zeros(P, S + 1, B, dtype=torch.int32, device=device))
     return (carry, lp, 0, P, S, -2.0, -0.7, -0.7)
+
+
+def _ragged_args(device="cpu"):
+    carry, lp, _, *rest = _viterbi_args(device)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
+                                 device=device)
+    return (carry, lp, i32([4, 0]), i32([9, 3]), *rest)
 
 
 def _hist_args(device="cpu"):
@@ -89,37 +104,68 @@ def _hist_args(device="cpu"):
             torch.full((B,), T, dtype=torch.int32, device=device), 5)
 
 
+def _committed_args(device="cpu"):
+    max_phn, ent, alpha, n_frames, smax = _hist_args(device)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
+                                 device=device)
+    return (max_phn, ent, alpha, n_frames, i32([2, 0, 5]), i32([0, 0, 3]),
+            smax)
+
+
+def _counts():
+    return (mlp_fused.LAUNCHES, mlp_bf16x3.LAUNCHES, phnloop_viterbi.LAUNCHES,
+            phnloop_viterbi.RAGGED_LAUNCHES, backtrack.LAUNCHES,
+            backtrack.COMMITTED_LAUNCHES)
+
+
+def _assert_nested_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b)
+    else:
+        for x, y in zip(a, b):
+            _assert_nested_equal(x, y)
+
+
 def test_wrappers_run_plain_on_cpu_without_counting():
-    before = (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
-              backtrack.LAUNCHES)
+    before = _counts()
     a = _mlp_args()
     assert torch.equal(mlp_fused.mlp_forward(*a),
                        mlp_fused.mlp_forward_plain(*a))
+    for passes in (1, 3):
+        a = _bf16x3_args()
+        assert torch.equal(
+            mlp_bf16x3.mlp_forward_bf16x3(*a, passes=passes),
+            mlp_bf16x3.mlp_forward_bf16x3_plain(*a, passes=passes))
     v = _viterbi_args()
-    for x, y in zip(phnloop_viterbi.viterbi_block(*v),
-                    phnloop_viterbi.viterbi_block_plain(*v)):
-        for p, q in zip(x, y):
-            assert torch.equal(p, q)
+    _assert_nested_equal(phnloop_viterbi.viterbi_block(*v),
+                         phnloop_viterbi.viterbi_block_plain(*v))
+    r = _ragged_args()
+    _assert_nested_equal(phnloop_viterbi.viterbi_block_ragged(*r),
+                         phnloop_viterbi.viterbi_block_ragged_plain(*r))
     h = _hist_args()
-    for p, q in zip(backtrack.backtrack(*h), backtrack.backtrack_plain(*h)):
-        assert torch.equal(p, q)
-    assert (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
-            backtrack.LAUNCHES) == before
+    _assert_nested_equal(backtrack.backtrack(*h),
+                         backtrack.backtrack_plain(*h))
+    c = _committed_args()
+    _assert_nested_equal(backtrack.backtrack_committed(*c),
+                         backtrack.backtrack_committed_plain(*c))
+    assert _counts() == before
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
     """A tensor on neither the CPU nor a CUDA device gets no plain
     fallback: the wrapper raises and counts nothing."""
-    before = (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
-              backtrack.LAUNCHES)
-    with pytest.raises(ValueError, match="no kernel"):
-        mlp_fused.mlp_forward(*_mlp_args("meta"))
-    with pytest.raises(ValueError, match="no kernel"):
-        phnloop_viterbi.viterbi_block(*_viterbi_args("meta"))
-    with pytest.raises(ValueError, match="no kernel"):
-        backtrack.backtrack(*_hist_args("meta"))
-    assert (mlp_fused.LAUNCHES, phnloop_viterbi.LAUNCHES,
-            backtrack.LAUNCHES) == before
+    before = _counts()
+    for fn, args in ((mlp_fused.mlp_forward, _mlp_args("meta")),
+                     (mlp_bf16x3.mlp_forward_bf16x3, _bf16x3_args("meta")),
+                     (phnloop_viterbi.viterbi_block, _viterbi_args("meta")),
+                     (phnloop_viterbi.viterbi_block_ragged,
+                      _ragged_args("meta")),
+                     (backtrack.backtrack, _hist_args("meta")),
+                     (backtrack.backtrack_committed,
+                      _committed_args("meta"))):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(*args)
+    assert _counts() == before
 
 
 def test_require_checks():
