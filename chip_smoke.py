@@ -5,8 +5,10 @@
 
 Builds the eight CUDA kernels from the six sources in phnrec_tpu_torch/csrc
 (one nvcc each, all started together) and holds each against its plain
-PyTorch version on the card at its path's shapes: A (fused MLP, float32)
-and A' (fused MLP, bf16 tensor-core passes, 3 and 1) at the CZ nets, C and
+PyTorch version on the card at its path's shapes: A (fused MLP, float32;
+also at row counts that fill no row tile, and timed beside cuBLAS's two
+products alone) and A' (fused MLP, bf16 tensor-core passes, 3 and 1) at the
+CZ nets, C and
 C' (phoneme-loop scan, uniform and ragged), D and D' (backtrack, whole and
 committed window), B (network-Viterbi block) and F (LRTrace scan).  Then it
 drives three paths of the port:
@@ -190,14 +192,56 @@ def _mlp_inputs(sr, dev, n: int):
     return nets, xs
 
 
+def sgemm_pair_ms(x, net) -> float:
+    """The two float32 products of a net alone (cuBLAS, no norm, bias or
+    activation, the hidden tensor through device memory): not the kernel's
+    function and never called by the port, but the share of the FP32 peak
+    that the library reaches on products this narrow."""
+    return cuda_ms(lambda: torch.matmul(torch.matmul(x, net.w1), net.w2))
+
+
+# row counts that are a multiple of no row tile: one row, less than a tile,
+# and the timed size plus a ragged last tile
+RAGGED_ROWS = (1, 37, 65536 + 37)
+
+
 def check_mlp(sr, dev, shapes: str = "cz") -> dict:
-    """Kernel A against its plain version at a package's three nets."""
+    """Kernel A against its plain version at a package's three nets: timed
+    at 65,536 rows, held to the same tolerances at the ragged row counts
+    (band0 and the merger; band0 alone at the EN shapes), and band0 timed
+    at 512 rows, the size of a single stream's call."""
     n = 65536
-    nets, xs = _mlp_inputs(sr, dev, n)
+    nets, xs_all = _mlp_inputs(sr, dev, max(RAGGED_ROWS))
+    xs = {k: v[:n] for k, v in xs_all.items()}
     worst, ms, plain_ms, work = 0.0, 0.0, 0.0, [0, 0]
     per_net = {}
+    for name in ("band0", "merger") if shapes == "cz" else ("band0",):
+        net = nets[name]
+        for rows in RAGGED_ROWS:
+            args = (xs_all[name][:rows], net.mean, net.dev, net.w1, net.b1,
+                    net.w2, net.b2)
+            for fast, smx in ((True, True), (False, False)):
+                kw = dict(fast=fast, apply_softmax=smx)
+                got = mlp_fused.mlp_forward(*args, **kw)
+                want = mlp_fused.mlp_forward_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = TOL_SOFTMAX if smx else TOL_LOGITS
+                phase("mlp_fused_ragged", shapes=shapes, net=name, rows=rows,
+                      fast=fast, softmax=smx, max_abs_err=err, tol=tol)
+                if got.shape != want.shape or \
+                        not torch.isfinite(got).all() or not err <= tol:
+                    raise AssertionError(
+                        f"mlp_fused {name} rows={rows} fast={fast} "
+                        f"softmax={smx}: err {err} > {tol}")
+                worst = max(worst, err)
+    b0 = nets["band0"]
+    small = (xs["band0"][:512], b0.mean, b0.dev, b0.w1, b0.b1, b0.w2, b0.b2)
+    phase("mlp_fused_small", shapes=shapes, net="band0", rows=512,
+          small_rows_ms=cuda_ms(lambda: mlp_fused.mlp_forward(*small)))
     for name, net in nets.items():
         args = (xs[name], net.mean, net.dev, net.w1, net.b1, net.w2, net.b2)
+        pair_ms = sgemm_pair_ms(xs[name], net)
         cases = [(True, True), (False, True)] + (
             [(True, False)] if name == "band0" else [])
         for fast, smx in cases:
@@ -213,7 +257,8 @@ def check_mlp(sr, dev, shapes: str = "cz") -> dict:
             t_p = cuda_ms(lambda: mlp_fused.mlp_forward_plain(*args, **kw))
             phase("mlp_fused", shapes=shapes, net=name, rows=n,
                   shape=[net.n_inp, net.n_hid, net.n_out], fast=fast,
-                  softmax=smx, max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p)
+                  softmax=smx, max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p,
+                  sgemm_pair_ms=pair_ms)
             if not err <= tol:
                 raise AssertionError(f"mlp_fused {name} fast={fast} "
                                      f"softmax={smx}: err {err} > {tol}")
@@ -227,6 +272,46 @@ def check_mlp(sr, dev, shapes: str = "cz") -> dict:
                 work[1] += o
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 **bound(work[0], work[1], PEAK_FP32), per_net=per_net)
+
+
+# (n_inp, n_hid, n_out) that no package has: n_hid of no multiple of 4 (rows
+# of W1 then start off 16-byte boundaries and are copied 4 bytes at a time),
+# one slab and one chunk only, every count of columns a lane, the widest
+# input and output the kernel takes
+ODD_SHAPES = ((7, 6, 4), (20, 16, 9), (55, 33, 12), (165, 70, 138),
+              (39, 1501, 183), (100, 257, 256), (480, 130, 200))
+
+
+def check_mlp_odd_shapes(dev) -> None:
+    """Kernel A against its plain version on seeded nets of odd widths, at
+    row counts that take the 64-row and the 128-row tile."""
+    rng = np.random.default_rng(6)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    for n_inp, n_hid, n_out in ODD_SHAPES:
+        # unit-variance pre-activations and logits, as check_mlp's
+        net = (t(n_inp), t(n_inp).abs() + 0.5,
+               t(n_inp, n_hid, scale=n_inp ** -0.5), t(n_hid, scale=0.1),
+               t(n_hid, n_out, scale=n_hid ** -0.5), t(n_out, scale=0.1))
+        for rows in (5, 200, 9000):
+            x = t(rows, n_inp)
+            for fast, smx in ((True, True), (False, False)):
+                kw = dict(fast=fast, apply_softmax=smx)
+                got = mlp_fused.mlp_forward(x, *net, **kw)
+                want = mlp_fused.mlp_forward_plain(x, *net, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = TOL_SOFTMAX if smx else TOL_LOGITS
+                phase("mlp_fused_odd", shape=[n_inp, n_hid, n_out],
+                      rows=rows, fast=fast, softmax=smx, max_abs_err=err,
+                      tol=tol)
+                if not torch.isfinite(got).all() or not err <= tol:
+                    raise AssertionError(
+                        f"mlp_fused {n_inp}->{n_hid}->{n_out} rows={rows} "
+                        f"fast={fast} softmax={smx}: err {err} > {tol}")
 
 
 def check_mlp_bf16x3(sr, dev, a_ms: dict) -> dict:
@@ -1188,6 +1273,7 @@ def main() -> int:
         sr = SpeechRec(pkg, device=dev)
         cpu_sr = SpeechRec(pkg, device="cpu")
         results = {"mlp_fused": check_mlp(sr, dev)}
+        check_mlp_odd_shapes(dev)
         a_ms = results["mlp_fused"].pop("per_net")
         results["mlp_bf16x3"] = check_mlp_bf16x3(sr, dev, a_ms)
         results["phnloop_viterbi"], results["backtrack"] = \

@@ -11,21 +11,52 @@
 // What bounds it on the H100: at the CZ shapes (165->1500->138 twice,
 // 276->1500->138) the two GEMMs are ~1.5M multiply-adds per row against
 // ~1.2 KB of input and output per row, so the chain is compute-bound once the
-// [N, n_hid] hidden activations stay on chip; unfused, that tensor is ~10x
-// the size of the input and output together and makes the chain
-// memory-bound.  Without tensor cores (float32 parity first) the ceiling is
-// the FP32 FMA rate.
+// [N, n_hid] hidden activations stay on chip.  The products are float32 FMAs
+// (TF32 keeps too few mantissa bits; the bf16 split is mlp_bf16x3.cu), so the
+// ceiling is the FP32 FMA rate (128 a clock an SM).  Two things keep a kernel
+// from it.  An SM sub-partition issues one warp instruction a clock, so only
+// the FMAs' share of the instruction stream can be FMAs.  And the operands
+// come from shared memory at 128 bytes a clock an SM: a 16-byte load of a
+// warp takes ~4 clocks (~2.5 when its lanes read at most 4 addresses), a
+// 4-byte load ~1, so a thread tile of r x c accumulators costs about
+// 4 (r + c) / (r c) bytes per FMA, and registers bound r c.
 //
-// Design: a block of 256 threads owns a tile of 32 rows.  It normalises its
-// x tile once into shared memory (transposed, [k][row]), then walks the
-// hidden axis in chunks of 64: each thread computes an 8-row x 1-unit strip
-// of the chunk's pre-activations with FMAs (one W1 load feeds 8 FMAs; the
-// x values are float4 broadcasts), applies the sigmoid and stores the chunk
-// to shared memory; then each warp accumulates h_chunk @ W2[chunk, :] for
-// its 4 rows into registers (lane = output column, NQ columns per lane).
-// The hidden tensor never reaches device memory.  The epilogue adds b2 and
-// takes the row softmax with warp shuffles.  No tensor cores, no TMA: those
-// come with a reduced-precision mode.
+// Design: the register-tiled SGEMM structure, twice, chained through shared
+// memory.  A block owns a tile of RT rows with 4 RT threads: 128 rows and
+// 512 threads for large calls, 64 rows and 256 threads for small ones and for
+// wide outputs.  It normalises its x tile once into shared memory,
+// transposed ([k][row], zero past n_inp and past the last row), and walks
+// the hidden axis in chunks of HC = 128 units.  One two-stage ring of slabs
+// in shared memory, filled by the whole block with 16-byte cp.async while the
+// slab before it is multiplied (one barrier a slab), carries the weights:
+// per chunk the slabs [KS = 16][128] of W1[:, chunk], then the slabs
+// [16][n_out] of W2[chunk, :] (contiguous spans of W2).
+//
+//   phase 1  pre[RT, 128] = xn @ W1[:, chunk].  A thread owns 4 rows x 8
+//            hidden units: per k one 16-byte load of x and two of W1 feed 32
+//            FMAs.
+//   sigmoid  on the registers, + b1, stored to shared memory as [unit][row].
+//   phase 2  o[RT, n_out] += h_chunk @ W2[chunk, :].  A warp owns 8 rows,
+//            lane = output column, NQ columns a lane: per hidden unit two
+//            16-byte broadcast loads of h and NQ loads of W2 feed 8 NQ FMAs.
+//            The output accumulators stay in registers across all chunks.
+//
+// The hidden tensor never reaches device memory; W1 and W2 are read from L2
+// once per RT rows.  The epilogue adds b2 and takes the row softmax with warp
+// shuffles.  Every output element is one fmaf chain in ascending k (phase 1)
+// and ascending hidden index (phase 2): no split of K, so the result does not
+// depend on RT.  Padded k rows, hidden units and W2 rows are exact zeros in
+// both operands.
+//
+// Budget a block (227 KB of dynamic shared memory, 65,536 registers an SM),
+// floats: x tile round4(n_inp) * RT, h chunk 128 * (RT + 4), ring
+// 2 * max(16 * 128, 16 * n_out + 256).  At RT = 128 the merger
+// (276->1500->138) takes 228,608 bytes, one block of 16 warps an SM at up to
+// 128 registers a thread (40 output and 32 phase-1 accumulators at NQ = 5); at
+// RT = 64 a band net takes 95 KB, two blocks an SM.  The 128-row tile is
+// taken when it fits, n_out <= 160 and the call has more rows than one 64-row
+// tile an SM (WIDE_MIN_ROWS); otherwise the 64-row tile, which fits every
+// n_inp <= MAX_INP = 480 at every n_out <= 256.
 //
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit: one float32
 // multiply by the float32-rounded constant, a saturating truncation
@@ -38,14 +69,34 @@
 
 namespace {
 
-constexpr int RT = 32;          // rows per block
-constexpr int HC = 64;          // hidden units per chunk
-constexpr int NT = 256;         // threads per block
-constexpr int XS = RT + 4;      // shared row stride: float4-aligned, fewer conflicts
+constexpr int HC = 128;         // hidden units per chunk
+constexpr int KS = 16;          // rows of W1 or W2 per slab of the ring
 constexpr int MAX_NQ = 8;       // n_out <= 32 * MAX_NQ
+constexpr int MAX_NQ_WIDE = 5;  // widest n_out / 32 the 128-row tile takes
+constexpr int MAX_INP = 480;    // widest x tile the 64-row tile takes
+constexpr int WIDE_MIN_ROWS = 64 * 132 + 1;   // one 64-row tile an SM
+constexpr size_t SMEM_MAX = 232448;
 
 constexpr float FEXP_A = 1512775.395195186f;   // 2^20 / ln 2, rounded to f32
 constexpr unsigned FEXP_K = 1072693248u - 60801u;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// floats of one stage of the ring: a slab [KS][HC] of W1 or [KS][n_out] of
+// W2, the latter with room for the lanes past n_out (up to 32 * MAX_NQ
+// columns a row) to read on
+__host__ __device__ constexpr int stage_floats(int n_out) {
+  return KS * n_out + 32 * MAX_NQ > KS * HC ? round4(KS * n_out + 32 * MAX_NQ)
+                                            : KS * HC;
+}
+
+// dynamic shared memory of a block, bytes
+__host__ __device__ constexpr size_t smem_bytes(int rt, int n_inp, int n_out) {
+  return sizeof(float) * ((size_t)round4(n_inp) * rt + (size_t)HC * (rt + 4) +
+                          2 * stage_floats(n_out));
+}
+static_assert(smem_bytes(64, MAX_INP, 32 * MAX_NQ) <= SMEM_MAX,
+              "MAX_INP does not fit the 64-row tile");
 
 __device__ __forceinline__ float pow2_int(int e) {
   if (e <= -126) return 0.0f;
@@ -57,103 +108,245 @@ __device__ __forceinline__ float fexp(float y) {
   const int i = __float2int_rz(FEXP_A * y);               // saturates
   const int t = (int)((unsigned)i + FEXP_K);               // wraps
   const int e = (t >> 20) - 1023;
-  const float m = (float)(t & 0xFFFFF) * (1.0f / 1048576.0f);
+  // (float)(t & 0xFFFFF) without the conversion unit: 2^23 + n is exact
+  const float n = __int_as_float(0x4B000000 | (t & 0xFFFFF)) - 8388608.0f;
+  const float m = n * (1.0f / 1048576.0f);
   return pow2_int(e) * (1.0f + m);
 }
 
-template <bool FAST>
-__device__ __forceinline__ float sigmoid(float a) {
-  return FAST ? 1.0f / (1.0f + fexp(-a)) : 1.0f / (1.0f + expf(-a));
+__device__ __forceinline__ float sigmoid(float a, bool fast) {
+  return 1.0f / (1.0f + (fast ? fexp(-a) : expf(-a)));
 }
 
-template <bool FAST, bool SOFTMAX, int NQ>
-__global__ void __launch_bounds__(NT)
+// Asynchronous global -> shared copies (LDGSTS).  dst and src must be
+// aligned to the size copied.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's newest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 floats of a row of which the first n_valid (0..4) exist: copied if they
+// do, zero if not.  vec: all 4 exist or none, src is 16-byte aligned.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      int n_valid, bool vec) {
+  if (vec && n_valid >= 4) {
+    cp_async16(dst, src);
+  } else if (n_valid <= 0) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n_valid)
+        cp_async4(dst + e, src + e);
+      else
+        dst[e] = 0.0f;
+    }
+  }
+}
+
+// slab [KS][HC] of W1: rows k0.., columns j0.., zero past n_inp and n_hid
+template <int NT>
+__device__ __forceinline__ void load_w1_slab(float* dst, const float* w1,
+                                             int k0, int j0, int n_inp,
+                                             int n_hid, bool vec, int tid) {
+#pragma unroll
+  for (int idx = tid; idx < KS * HC / 4; idx += NT) {
+    const int kk = idx / (HC / 4);
+    const int c4 = (idx % (HC / 4)) * 4;
+    const int k = k0 + kk;
+    const int j = j0 + c4;
+    const int n_valid = k < n_inp ? n_hid - j : 0;
+    copy4(dst + kk * HC + c4, w1 + (size_t)k * n_hid + j, n_valid, vec);
+  }
+}
+
+// slab [KS][n_out] of W2 from row j0, a contiguous span; zero past n_hid
+template <int NT>
+__device__ __forceinline__ void load_w2_slab(float* dst, const float* w2,
+                                             int j0, int n_hid, int n_out,
+                                             bool vec, int tid) {
+  const float* src = w2 + (size_t)j0 * n_out;
+  const int n_valid = min(KS, n_hid - j0) * n_out;
+  for (int e = tid * 4; e < KS * n_out; e += NT * 4)
+    copy4(dst + e, src + e, n_valid - e, vec);
+}
+
+// fast and softmax are uniform over the grid: run-time flags, so that the
+// source compiles one kernel per (RT, NQ)
+template <int RT, int NQ>
+__global__ void
+__launch_bounds__(RT * 4, (RT == 64 && NQ <= MAX_NQ_WIDE) ? 2 : 1)
 mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ dev, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ w2,
                  const float* __restrict__ b2, float* __restrict__ out,
-                 int n_rows, int n_inp, int n_hid, int n_out) {
+                 int n_rows, int n_inp, int n_hid, int n_out, bool fast,
+                 bool softmax) {
+  constexpr int NT = RT * 4;     // threads per block
+  constexpr int HS = RT + 4;     // row stride of the h chunk
+  constexpr int R2 = 8;          // phase 2: rows per warp (x NQ columns)
+  const int KP = round4(n_inp);
+  const int stage = stage_floats(n_out);
+
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);   // [n_inp][XS]
-  float* hs = xs + (size_t)n_inp * XS;           // [HC][XS]
+  float* xs = reinterpret_cast<float*>(smem4);   // [KP][RT]
+  float* hs = xs + (size_t)KP * RT;              // [HC][HS]
+  float* ring = hs + HC * HS;                    // [2][stage]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const long long row0 = (long long)blockIdx.x * RT;
 
-  // normalised x tile, zero past the last row
+  // 16-byte copies where every piece of a row starts 16-byte aligned
+  const bool vec1 = n_hid % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w1) % 16 == 0;
+  const bool vec2 = reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+
+  // the ring carries, chunk after chunk, the n1 slabs of W1[:, chunk] and
+  // then the slabs of W2[chunk, :]
+  const int n1 = (n_inp + KS - 1) / KS;
+  const int n_chunks = (n_hid + HC - 1) / HC;
+
+  load_w1_slab<NT>(ring, w1, 0, 0, n_inp, n_hid, vec1, tid);
+  cp_async_commit();
+
+  // normalised x tile [k][row], zero past the last row and past n_inp; a
+  // warp takes 32 rows of one k, so its stores do not collide
   for (int idx = tid; idx < RT * n_inp; idx += NT) {
-    const int r = idx / n_inp;
-    const int k = idx - r * n_inp;
+    const int r = idx % RT;
+    const int k = idx / RT;
     const long long row = row0 + r;
     float v = 0.0f;
     if (row < n_rows) v = (x[row * n_inp + k] - mean[k]) * dev[k];
-    xs[k * XS + r] = v;
+    xs[idx] = v;
   }
+  for (int idx = RT * n_inp + tid; idx < RT * KP; idx += NT) xs[idx] = 0.0f;
 
-  // phase-1 strip: hidden unit hj of the chunk, rows hr..hr+7
-  const int hj = tid % HC;
-  const int hr = (tid / HC) * 8;
-  // phase-2 strip: rows orow..orow+3, columns lane + 32*q
-  const int orow = warp * 4;
+  // phase-1 tile: units 4*hq.. and 64 + 4*hq.. of the chunk, rows 4*rg..:
+  // a warp reads 8 neighbouring float4 of x and, twice, 4 of W1 (the cheaper
+  // pattern for the operand with two loads)
+  const int hq = (warp & 3) * 4 + (lane >> 3);
+  const int rg = (warp >> 2) * 8 + (lane & 7);
+  // phase-2 tile: rows orow.., columns lane + 32*q
+  const int orow = warp * R2;
 
-  float acc[NQ][4];
+  float acc[NQ][R2];
 #pragma unroll
   for (int q = 0; q < NQ; ++q)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[q][i] = 0.0f;
+    for (int i = 0; i < R2; ++i) acc[q][i] = 0.0f;
 
-  __syncthreads();
-
-  for (int j0 = 0; j0 < n_hid; j0 += HC) {
-    const int j = j0 + hj;
-    float a[8];
+  int it = 0;   // slabs consumed so far: slab `it` sits in stage it & 1
+  for (int c = 0; c < n_chunks; ++c) {
+    const int j0 = c * HC;
+    const int n2 = (min(HC, n_hid - j0) + KS - 1) / KS;
+    float a[4][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = 0.0f;
-    if (j < n_hid) {
-      const float* wp = w1 + j;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) a[i][u] = 0.0f;
+
+    for (int t = 0; t < n1 + n2; ++t, ++it) {
+      cp_async_wait<0>();
+      __syncthreads();
+      // slab `it` has landed and every thread is past slab it-1: the other
+      // stage is free for the slab after this one
+      float* next = ring + ((it + 1) & 1) * stage;
+      if (t + 1 < n1)
+        load_w1_slab<NT>(next, w1, (t + 1) * KS, j0, n_inp, n_hid, vec1, tid);
+      else if (t + 1 < n1 + n2)
+        load_w2_slab<NT>(next, w2, j0 + (t + 1 - n1) * KS, n_hid, n_out, vec2,
+                     tid);
+      else if (c + 1 < n_chunks)
+        load_w1_slab<NT>(next, w1, 0, j0 + HC, n_inp, n_hid, vec1, tid);
+      cp_async_commit();
+      const float* slab = ring + (it & 1) * stage;
+
+      if (t < n1) {
+        const int kn = min(KS, KP - t * KS);   // a multiple of 4
+        const float* xp = xs + (size_t)(t * KS) * RT + rg * 4;
+        const float* wp = slab + hq * 4;
 #pragma unroll 4
-      for (int k = 0; k < n_inp; ++k) {
-        const float w = __ldg(wp + (size_t)k * n_hid);
-        const float4 xa = *reinterpret_cast<const float4*>(xs + k * XS + hr);
-        const float4 xb =
-            *reinterpret_cast<const float4*>(xs + k * XS + hr + 4);
-        a[0] = fmaf(xa.x, w, a[0]);
-        a[1] = fmaf(xa.y, w, a[1]);
-        a[2] = fmaf(xa.z, w, a[2]);
-        a[3] = fmaf(xa.w, w, a[3]);
-        a[4] = fmaf(xb.x, w, a[4]);
-        a[5] = fmaf(xb.y, w, a[5]);
-        a[6] = fmaf(xb.z, w, a[6]);
-        a[7] = fmaf(xb.w, w, a[7]);
-      }
-      const float bj = __ldg(b1 + j);
+        for (int kk = 0; kk < kn; kk += 4) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sigmoid<FAST>(a[i] + bj);
-    }
-    *reinterpret_cast<float4*>(hs + hj * XS + hr) =
-        make_float4(a[0], a[1], a[2], a[3]);
-    *reinterpret_cast<float4*>(hs + hj * XS + hr + 4) =
-        make_float4(a[4], a[5], a[6], a[7]);
-    __syncthreads();
-
-    const int jn = min(HC, n_hid - j0);
+          for (int u = 0; u < 4; ++u) {
+            const float4 wa =
+                *reinterpret_cast<const float4*>(wp + (kk + u) * HC);
+            const float4 wb =
+                *reinterpret_cast<const float4*>(wp + (kk + u) * HC + 64);
+            const float w[8] = {wa.x, wa.y, wa.z, wa.w,
+                                wb.x, wb.y, wb.z, wb.w};
+            const float4 x4 =
+                *reinterpret_cast<const float4*>(xp + (kk + u) * RT);
+            const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int v = 0; v < 8; ++v)
+                a[i][v] = fmaf(xv[i], w[v], a[i][v]);
+          }
+        }
+        if (t == n1 - 1) {
+          // sigmoid on the registers; units past n_hid are 0
+#pragma unroll
+          for (int v = 0; v < 8; ++v) {
+            const int jl = (v < 4 ? 0 : 60) + hq * 4 + v;
+            const bool live = j0 + jl < n_hid;
+            const float bj = live ? __ldg(b1 + j0 + jl) : 0.0f;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              a[i][v] = live ? sigmoid(a[i][v] + bj, fast) : 0.0f;
+            *reinterpret_cast<float4*>(hs + jl * HS + rg * 4) =
+                make_float4(a[0][v], a[1][v], a[2][v], a[3][v]);
+          }
+          // the next slab's barrier comes before phase 2 reads hs
+        }
+      } else {
+        // rows of W2 past n_hid and their h are zero in the slab and in hs
+        const float* hp = hs + (size_t)((t - n1) * KS) * HS + orow;
+        const float* w2p = slab + lane;
 #pragma unroll 4
-    for (int jj = 0; jj < jn; ++jj) {
-      const float4 h = *reinterpret_cast<const float4*>(hs + jj * XS + orow);
-      const float* w2p = w2 + (size_t)(j0 + jj) * n_out;
+        for (int e = 0; e < KS; ++e) {
+          float hv[R2];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int o = lane + 32 * q;
-        const float w = o < n_out ? __ldg(w2p + o) : 0.0f;
-        acc[q][0] = fmaf(h.x, w, acc[q][0]);
-        acc[q][1] = fmaf(h.y, w, acc[q][1]);
-        acc[q][2] = fmaf(h.z, w, acc[q][2]);
-        acc[q][3] = fmaf(h.w, w, acc[q][3]);
+          for (int i = 0; i < R2; i += 4) {
+            const float4 t4 =
+                *reinterpret_cast<const float4*>(hp + e * HS + i);
+            hv[i] = t4.x;
+            hv[i + 1] = t4.y;
+            hv[i + 2] = t4.z;
+            hv[i + 3] = t4.w;
+          }
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            // lanes past n_out read on into the next row or the stage's
+            // tail (finite or not); their sums are never used
+            const float w = w2p[e * n_out + 32 * q];
+#pragma unroll
+            for (int i = 0; i < R2; ++i)
+              acc[q][i] = fmaf(hv[i], w, acc[q][i]);
+          }
+        }
       }
     }
-    __syncthreads();
   }
 
   float bias[NQ];
@@ -164,12 +357,12 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R2; ++i) {
     const long long row = row0 + orow + i;
     float v[NQ];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) v[q] = acc[q][i] + bias[q];
-    if (SOFTMAX) {
+    if (softmax) {
       float mx = -INFINITY;
 #pragma unroll
       for (int q = 0; q < NQ; ++q)
@@ -181,7 +374,7 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
         const float s = v[q] - mx;
-        const float e = FAST ? fexp(s) : expf(s);
+        const float e = fast ? fexp(s) : expf(s);
         v[q] = lane + 32 * q < n_out ? e : 0.0f;
         sum += v[q];
       }
@@ -201,46 +394,57 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-template <bool FAST, bool SOFTMAX, int NQ>
+template <int RT, int NQ>
 cudaError_t launch(const float* x, const float* mean, const float* dev,
                    const float* w1, const float* b1, const float* w2,
                    const float* b2, float* out, int n_rows, int n_inp,
-                   int n_hid, int n_out, cudaStream_t stream) {
-  const size_t smem = (size_t)(n_inp + HC) * XS * sizeof(float);
-  auto kern = mlp_fused_kernel<FAST, SOFTMAX, NQ>;
+                   int n_hid, int n_out, bool fast, bool softmax,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(RT, n_inp, n_out);
+  auto kern = mlp_fused_kernel<RT, NQ>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = (unsigned)((n_rows + RT - 1) / RT);
-  kern<<<blocks, NT, smem, stream>>>(x, mean, dev, w1, b1, w2, b2, out,
-                                     n_rows, n_inp, n_hid, n_out);
+  kern<<<blocks, RT * 4, smem, stream>>>(x, mean, dev, w1, b1, w2, b2, out,
+                                         n_rows, n_inp, n_hid, n_out, fast,
+                                         softmax);
   return cudaGetLastError();
 }
 
-template <bool FAST, bool SOFTMAX>
-cudaError_t dispatch_nq(int nq, const float* x, const float* mean,
-                        const float* dev, const float* w1, const float* b1,
-                        const float* w2, const float* b2, float* out,
-                        int n_rows, int n_inp, int n_hid, int n_out,
-                        cudaStream_t s) {
-#define PHN_NQ_CASE(N)                                                      \
-  case N:                                                                   \
-    return launch<FAST, SOFTMAX, N>(x, mean, dev, w1, b1, w2, b2, out,     \
-                                    n_rows, n_inp, n_hid, n_out, s);
-  switch (nq) {
-    PHN_NQ_CASE(1) PHN_NQ_CASE(2) PHN_NQ_CASE(3) PHN_NQ_CASE(4)
-    PHN_NQ_CASE(5) PHN_NQ_CASE(6) PHN_NQ_CASE(7) PHN_NQ_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch(const float* x, const float* mean, const float* dev,
+                     const float* w1, const float* b1, const float* w2,
+                     const float* b2, float* out, int n_rows, int n_inp,
+                     int n_hid, int n_out, bool fast, bool softmax,
+                     cudaStream_t s) {
+  // columns a lane: n_out / 32 rounded up to one of 4, 5, 6, 8 (a kernel is
+  // compiled for each; the columns past n_out are masked)
+  const int cols = (n_out + 31) / 32;
+  const int nq = cols <= 4 ? 4 : cols <= 6 ? cols : 8;
+  const bool wide = nq <= MAX_NQ_WIDE && n_rows >= WIDE_MIN_ROWS &&
+                    smem_bytes(128, n_inp, n_out) <= SMEM_MAX;
+#define PHN_CASE(RT, N)                                                 \
+  case N:                                                               \
+    return launch<RT, N>(x, mean, dev, w1, b1, w2, b2, out, n_rows,    \
+                         n_inp, n_hid, n_out, fast, softmax, s);
+  if (wide) {
+    switch (nq) {
+      PHN_CASE(128, 4) PHN_CASE(128, 5)
+    }
   }
-#undef PHN_NQ_CASE
+  switch (nq) {
+    PHN_CASE(64, 4) PHN_CASE(64, 5) PHN_CASE(64, 6) PHN_CASE(64, 8)
+  }
+#undef PHN_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int phn_mlp_fused_max_out() { return 32 * MAX_NQ; }
+extern "C" int phn_mlp_fused_max_inp() { return MAX_INP; }
 
 // out[n_rows, n_out] = MLP(x[n_rows, n_inp]); w1 is [n_inp, n_hid], w2 is
 // [n_hid, n_out], all float32, contiguous, on the current device.  Launches
@@ -251,27 +455,16 @@ extern "C" int phn_mlp_fused(const void* x, const void* mean, const void* dev,
                              int n_hid, int n_out, int fast, int softmax,
                              void* stream) {
   if (n_rows <= 0) return cudaSuccess;
-  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 || n_out > 32 * MAX_NQ)
+  if (n_inp <= 0 || n_inp > MAX_INP || n_hid <= 0 || n_out <= 0 ||
+      n_out > 32 * MAX_NQ)
     return cudaErrorInvalidValue;
-  const int nq = (n_out + 31) / 32;
-  auto* xf = static_cast<const float*>(x);
-  auto* mf = static_cast<const float*>(mean);
-  auto* df = static_cast<const float*>(dev);
-  auto* w1f = static_cast<const float*>(w1);
-  auto* b1f = static_cast<const float*>(b1);
-  auto* w2f = static_cast<const float*>(w2);
-  auto* b2f = static_cast<const float*>(b2);
-  auto* of = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (fast && softmax)
-    return dispatch_nq<true, true>(nq, xf, mf, df, w1f, b1f, w2f, b2f, of,
-                                   n_rows, n_inp, n_hid, n_out, s);
-  if (fast)
-    return dispatch_nq<true, false>(nq, xf, mf, df, w1f, b1f, w2f, b2f, of,
-                                    n_rows, n_inp, n_hid, n_out, s);
-  if (softmax)
-    return dispatch_nq<false, true>(nq, xf, mf, df, w1f, b1f, w2f, b2f, of,
-                                    n_rows, n_inp, n_hid, n_out, s);
-  return dispatch_nq<false, false>(nq, xf, mf, df, w1f, b1f, w2f, b2f, of,
-                                   n_rows, n_inp, n_hid, n_out, s);
+  return dispatch(static_cast<const float*>(x),
+                  static_cast<const float*>(mean),
+                  static_cast<const float*>(dev),
+                  static_cast<const float*>(w1),
+                  static_cast<const float*>(b1),
+                  static_cast<const float*>(w2),
+                  static_cast<const float*>(b2), static_cast<float*>(out),
+                  n_rows, n_inp, n_hid, n_out, fast != 0, softmax != 0,
+                  static_cast<cudaStream_t>(stream));
 }

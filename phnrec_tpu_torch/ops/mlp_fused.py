@@ -4,6 +4,13 @@ PyTorch version.
 Counterpart of phnrec_tpu/ops/pallas_mlp.py::mlp_forward_fused.  Shapes are
 unpadded: x [N, n_inp], w1 [n_inp, n_hid], w2 [n_hid, n_out] (the 128-lane
 padding of the Pallas kernel was for the TPU's tiling only).
+
+The kernel keeps a block's normalised x tile in shared memory and its output
+accumulators in registers, which bounds the widths it takes: n_inp <=
+MAX_INP (480) and n_out <= MAX_OUT (256).  The wrapper raises beyond them,
+before anything is built; the source exports the same two numbers
+(phn_mlp_fused_max_inp, phn_mlp_fused_max_out) and the wrapper holds them
+to its own.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from phnrec_tpu_torch.ops import _build
 from phnrec_tpu_torch.posteriors import fexp
 
 LAUNCHES = 0
+MAX_INP = 480
+MAX_OUT = 256
 
 
 def mlp_forward_plain(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
@@ -35,7 +44,22 @@ def _lib():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.phn_mlp_fused_max_out.restype = ctypes.c_int
+        lib.phn_mlp_fused_max_inp.restype = ctypes.c_int
+        limits = (lib.phn_mlp_fused_max_inp(), lib.phn_mlp_fused_max_out())
+        if limits != (MAX_INP, MAX_OUT):
+            raise RuntimeError(f"mlp_fused.cu takes n_inp, n_out up to "
+                               f"{limits}, the wrapper {MAX_INP, MAX_OUT}")
     return lib
+
+
+def check_widths(n_inp: int, n_out: int) -> None:
+    """Raise for a net the kernel does not take."""
+    if n_inp > MAX_INP:
+        raise ValueError(f"n_inp {n_inp} exceeds the kernel's {MAX_INP}: "
+                         "its x tile would not fit shared memory")
+    if n_out > MAX_OUT:
+        raise ValueError(f"n_out {n_out} exceeds the kernel's {MAX_OUT} "
+                         "columns")
 
 
 def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
@@ -46,9 +70,10 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
     if x.device.type == "cpu":
         return mlp_forward_plain(x, mean, dev, w1, b1, w2, b2, fast=fast,
                                  apply_softmax=apply_softmax)
-    device = _build.cuda_device(x)
     n_inp, n_hid = w1.shape
     n_out = w2.shape[1]
+    check_widths(n_inp, n_out)
+    device = _build.cuda_device(x)
     n = x.shape[0]
     f32 = torch.float32
     for t, name, shape in ((x, "x", (n, n_inp)), (mean, "mean", (n_inp,)),
@@ -59,9 +84,6 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
     if n >= 2 ** 31:
         raise ValueError(f"{n} rows exceed the kernel's int32 row index")
     lib = _lib()
-    if n_out > lib.phn_mlp_fused_max_out():
-        raise ValueError(f"n_out {n_out} exceeds the kernel's "
-                         f"{lib.phn_mlp_fused_max_out()} columns")
     out = torch.empty((n, n_out), dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -102,6 +102,32 @@ def test_forward_matches_pallas_interpret(fast, apply_softmax):
                                atol=2e-6 if apply_softmax else 2e-5)
 
 
+@pytest.mark.parametrize("rows", [1, 37, 130])
+@pytest.mark.parametrize("n_inp, n_hid, n_out", [(165, 70, 138),
+                                                 (253, 130, 120)])
+@pytest.mark.parametrize("fast, apply_softmax", [(True, True),
+                                                 (False, False)])
+def test_forward_matches_pallas_interpret_ragged(rows, n_inp, n_hid, n_out,
+                                                 fast, apply_softmax):
+    """Shapes that fill no tile of the CUDA kernel: rows that are a multiple
+    of neither row tile, n_inp of no multiple of 4, n_hid of no multiple of
+    its slab or chunk, n_out of no multiple of 32."""
+    p = _params(seed=rows + n_inp, n_inp=n_inp, n_hid=n_hid, n_out=n_out)
+    net = jmlp.to_device(p, pad=128)
+    x = _x(rows, rows, n_inp)
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, net.w1.shape[0] - n_inp)))
+    want = np.asarray(mlp_forward_fused(
+        xp, net.mean, net.dev, net.w1, net.b1, net.w2, net.b2,
+        n_out=net.n_out, fast=fast, apply_softmax=apply_softmax,
+        interpret=True, prec=jax.lax.Precision.HIGHEST))[:, :n_out]
+    got = mlp_from_device(net)(torch.from_numpy(x), fast=fast,
+                               apply_softmax=apply_softmax).numpy()
+    assert got.shape == (rows, n_out)
+    # the tolerances of test_forward_matches_pallas_interpret
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 if apply_softmax else 2e-5)
+
+
 def test_convert_weights():
     p = _params(seed=5, n_inp=55, n_hid=32, n_out=12)
     ref = MLP.from_params(p)

@@ -168,6 +168,37 @@ def test_wrappers_raise_off_cpu_without_cuda():
     assert _counts() == before
 
 
+@pytest.mark.parametrize("n_inp, n_out, what", [
+    (mlp_fused.MAX_INP + 1, 4, "n_inp"), (7, mlp_fused.MAX_OUT + 1, "n_out")])
+def test_mlp_fused_raises_beyond_its_widths(n_inp, n_out, what, monkeypatch):
+    """Kernel A keeps the x tile in shared memory and the outputs in
+    registers: a wider net raises, before anything is built or launched,
+    and the CPU path (the plain version) still takes it."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(_build, "load", no_build)
+    before = _counts()
+    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    args = (z(5, n_inp), z(n_inp), z(n_inp), z(n_inp, 6), z(6), z(6, n_out),
+            z(n_out))
+    with pytest.raises(ValueError, match=f"{what} .* exceeds the kernel's"):
+        mlp_fused.mlp_forward(*args)
+    assert _counts() == before
+    cpu = tuple(torch.zeros_like(a, device="cpu") for a in args)
+    assert mlp_fused.mlp_forward(*cpu).shape == (5, n_out)
+    # the widest net it does take passes the check
+    mlp_fused.check_widths(mlp_fused.MAX_INP, mlp_fused.MAX_OUT)
+
+
+def test_mlp_fused_limits_match_the_source():
+    """The wrapper's limits are the ones the CUDA source exports."""
+    src = open(os.path.join(PKG, "csrc", "mlp_fused.cu")).read()
+    assert f"constexpr int MAX_INP = {mlp_fused.MAX_INP};" in src
+    assert "constexpr int MAX_NQ = 8;" in src and mlp_fused.MAX_OUT == 32 * 8
+    assert "phn_mlp_fused_max_inp() { return MAX_INP; }" in src
+    assert "phn_mlp_fused_max_out() { return 32 * MAX_NQ; }" in src
+
+
 def test_require_checks():
     x = torch.zeros(4, 3)
     _build.require(x, "x", torch.float32, (4, 3), x.device)
