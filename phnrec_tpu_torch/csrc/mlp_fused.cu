@@ -4,9 +4,9 @@
 // kernel `_kernel`, with `_fexp`, `_sigmoid` and `_finish`).
 //
 //   xn = (x - mean) * dev
-//   h  = sigmoid(xn @ W1 + b1)        (ICSI fast exp when FAST)
+//   h  = sigmoid(xn @ W1 + b1)        (ICSI fast exp when `fast`)
 //   o  = h @ W2 + b2
-//   out = softmax(o) over the n_out columns (fast exp when FAST), or o
+//   out = softmax(o) over the n_out columns (fast exp when `fast`), or o
 //
 // What bounds it on the H100: at the CZ shapes (165->1500->138 twice,
 // 276->1500->138) the two GEMMs are ~1.5M multiply-adds per row against
@@ -18,8 +18,9 @@
 // the FMAs' share of the instruction stream can be FMAs.  And the operands
 // come from shared memory at 128 bytes a clock an SM: a 16-byte load of a
 // warp takes ~4 clocks (~2.5 when its lanes read at most 4 addresses), a
-// 4-byte load ~1, so a thread tile of r x c accumulators costs about
-// 4 (r + c) / (r c) bytes per FMA, and registers bound r c.
+// 4-byte load ~1 (devtools/smem_microbench.py), so a thread tile of r x c
+// accumulators costs about 4 (r + c) / (r c) bytes per FMA, and registers
+// bound r c.
 //
 // Design: the register-tiled SGEMM structure, twice, chained through shared
 // memory.  A block owns a tile of RT rows with 4 RT threads: 128 rows and
@@ -53,7 +54,7 @@
 // 2 * max(16 * 128, 16 * n_out + 256).  At RT = 128 the merger
 // (276->1500->138) takes 228,608 bytes, one block of 16 warps an SM at up to
 // 128 registers a thread (40 output and 32 phase-1 accumulators at NQ = 5); at
-// RT = 64 a band net takes 95 KB, two blocks an SM.  The 128-row tile is
+// RT = 64 a band net takes 98 KB, two blocks an SM.  The 128-row tile is
 // taken when it fits, n_out <= 160 and the call has more rows than one 64-row
 // tile an SM (WIDE_MIN_ROWS); otherwise the 64-row tile, which fits every
 // n_inp <= MAX_INP = 480 at every n_out <= 256.
