@@ -109,11 +109,11 @@ def cases(dev):
         return torch.from_numpy((rng.standard_normal(shape) * scale)
                                 .astype(np.float32)).to(dev)
 
-    tmp = tempfile.mkdtemp()
-    est = {"cz": SpeechRec(synth.write_lcrc_package(tmp + "/cz", "cz", seed=0),
-                           device=dev).estimator,
-           "en": SpeechRec(synth.write_kws_package(tmp + "/en", "en", seed=0),
-                           device=dev).estimator}
+    with tempfile.TemporaryDirectory() as tmp:
+        est = {"cz": SpeechRec(synth.write_lcrc_package(
+                   tmp + "/cz", "cz", seed=0), device=dev).estimator,
+               "en": SpeechRec(synth.write_kws_package(
+                   tmp + "/en", "en", seed=0), device=dev).estimator}
     nets = {f"{k}.{n}": m for k, e in est.items()
             for n, m in (("band0", e.band[0]), ("merger", e.merger))}
     for n_inp, n_hid, n_out in ODD_SHAPES:
