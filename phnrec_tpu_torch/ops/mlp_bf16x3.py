@@ -14,6 +14,10 @@ outside the grid) and zero-padded to the kernel's tiles: W1 to
 [round16(n_inp), round128(n_hid)], W2 to [round128(n_hid), round16(n_out)].
 Padded lanes hold zero in both halves, so they add nothing.  x, mean, dev,
 b1 and b2 stay float32 and unpadded.
+
+The kernel takes the widths kernel A takes (n_inp <= 480, n_out <= 256):
+the wrapper raises beyond them through ``mlp_fused.check_widths``, before
+anything is built, and holds the limits the source exports to A's.
 """
 
 from __future__ import annotations
@@ -23,13 +27,13 @@ from typing import Tuple
 
 import torch
 
-from phnrec_tpu_torch.ops import _build
+from phnrec_tpu_torch.ops import _build, mlp_fused
 from phnrec_tpu_torch.posteriors import fexp
 
 LAUNCHES = 0
 
 K_TILE = 16      # the MMA depth
-H_TILE = 128     # hidden units per chunk of the kernel
+H_TILE = 128     # hidden-axis padding (a multiple of the kernel's chunk)
 O_TILE = 16      # the MMA width
 
 
@@ -99,6 +103,11 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.phn_mlp_bf16x3_max_out.restype = ctypes.c_int
         lib.phn_mlp_bf16x3_max_inp.restype = ctypes.c_int
+        limits = (lib.phn_mlp_bf16x3_max_inp(), lib.phn_mlp_bf16x3_max_out())
+        if limits != (mlp_fused.MAX_INP, mlp_fused.MAX_OUT):
+            raise RuntimeError(
+                f"mlp_bf16x3.cu takes n_inp, n_out up to {limits}, kernel A "
+                f"{mlp_fused.MAX_INP, mlp_fused.MAX_OUT}")
     return lib
 
 
@@ -113,9 +122,10 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
         return mlp_forward_bf16x3_plain(
             x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, fast=fast,
             apply_softmax=apply_softmax, passes=passes)
-    device = _build.cuda_device(x)
     n, n_inp = x.shape
     n_hid, n_out = b1.shape[0], b2.shape[0]
+    mlp_fused.check_widths(n_inp, n_out)
+    device = _build.cuda_device(x)
     kp, hp, op = (_round(n_inp, K_TILE), _round(n_hid, H_TILE),
                   _round(n_out, O_TILE))
     f32, bf16 = torch.float32, torch.bfloat16
@@ -128,13 +138,11 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
         _build.require(t, name, dt, shape, device)
     if n >= 2 ** 31:
         raise ValueError(f"{n} rows exceed the kernel's int32 row index")
+    for t, name in ((w1_hi, "w1_hi"), (w1_lo, "w1_lo"), (w2_hi, "w2_hi"),
+                    (w2_lo, "w2_lo")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     lib = _lib()
-    if n_out > lib.phn_mlp_bf16x3_max_out() or \
-            n_inp > lib.phn_mlp_bf16x3_max_inp():
-        raise ValueError(
-            f"the kernel takes at most {lib.phn_mlp_bf16x3_max_inp()} "
-            f"inputs and {lib.phn_mlp_bf16x3_max_out()} outputs, not "
-            f"{n_inp} and {n_out}")
     out = torch.empty((n, n_out), dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -229,3 +229,23 @@ def test_modes_agree_within_their_precision():
         out[mode] = m(x)
     assert float((out["high"] - out["highest"]).abs().max()) <= 5e-5
     assert float((out["default"] - out["highest"]).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize("shape,kws", [("cz", False), ("en", False),
+                                       ("tiny", False), ("en", True),
+                                       ("tiny", True)],
+                         ids=["cz", "en", "tiny", "kws_en", "kws_tiny"])
+def test_synthetic_package_widths_pass_the_shared_check(tmp_path, shape,
+                                                        kws):
+    """Kernels A and A' take the same widths (mlp_fused.check_widths, which
+    both wrappers call before anything is built): every net of every
+    synthetic package passes it."""
+    from phnrec_tpu_torch import synth
+    from phnrec_tpu_torch.pipeline import SpeechRec
+    write = synth.write_kws_package if kws else synth.write_lcrc_package
+    est = SpeechRec(write(str(tmp_path / shape), shape, seed=0),
+                    device="cpu").estimator
+    nets = (*est.band, est.merger)
+    assert len(nets) == 3
+    for net in nets:
+        mlp_fused.check_widths(net.n_inp, net.n_out)

@@ -168,35 +168,65 @@ def test_wrappers_raise_off_cpu_without_cuda():
     assert _counts() == before
 
 
-@pytest.mark.parametrize("n_inp, n_out, what", [
-    (mlp_fused.MAX_INP + 1, 4, "n_inp"), (7, mlp_fused.MAX_OUT + 1, "n_out")])
-def test_mlp_fused_raises_beyond_its_widths(n_inp, n_out, what, monkeypatch):
-    """Kernel A keeps the x tile in shared memory and the outputs in
-    registers: a wider net raises, before anything is built or launched,
-    and the CPU path (the plain version) still takes it."""
+def _wide_args(kernel, n_inp, n_out, device):
+    """Zero operands of kernel A or A' for a net of n_inp -> 6 -> n_out."""
+    z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+        *s, dtype=dt, device=device)
+    if kernel == "mlp_fused":
+        return (z(5, n_inp), z(n_inp), z(n_inp), z(n_inp, 6), z(6),
+                z(6, n_out), z(n_out))
+    kp, op, bf = -(-n_inp // 16) * 16, -(-n_out // 16) * 16, torch.bfloat16
+    return (z(5, n_inp), z(n_inp), z(n_inp), z(kp, 128, dt=bf),
+            z(kp, 128, dt=bf), z(6), z(128, op, dt=bf), z(128, op, dt=bf),
+            z(n_out))
+
+
+_FORWARD = {"mlp_fused": mlp_fused.mlp_forward,
+            "mlp_bf16x3": mlp_bf16x3.mlp_forward_bf16x3}
+
+
+@pytest.mark.parametrize("kernel, n_inp, n_out, what", [
+    pytest.param("mlp_fused", mlp_fused.MAX_INP + 1, 4, "n_inp",
+                 id=f"{mlp_fused.MAX_INP + 1}-4-n_inp"),
+    pytest.param("mlp_fused", 7, mlp_fused.MAX_OUT + 1, "n_out",
+                 id=f"7-{mlp_fused.MAX_OUT + 1}-n_out"),
+    pytest.param("mlp_bf16x3", mlp_fused.MAX_INP + 1, 4, "n_inp",
+                 id=f"bf16x3-{mlp_fused.MAX_INP + 1}-4-n_inp"),
+    pytest.param("mlp_bf16x3", 7, mlp_fused.MAX_OUT + 1, "n_out",
+                 id=f"bf16x3-7-{mlp_fused.MAX_OUT + 1}-n_out")])
+def test_mlp_fused_raises_beyond_its_widths(kernel, n_inp, n_out, what,
+                                            monkeypatch):
+    """Kernels A and A' keep the x tile in shared memory and the outputs in
+    registers, and take the same widths: a wider net raises, before
+    anything is built or launched, and the CPU path (the plain version)
+    still takes it."""
     def no_build(name):
         raise AssertionError(f"built {name}")
     monkeypatch.setattr(_build, "load", no_build)
     before = _counts()
-    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
-    args = (z(5, n_inp), z(n_inp), z(n_inp), z(n_inp, 6), z(6), z(6, n_out),
-            z(n_out))
     with pytest.raises(ValueError, match=f"{what} .* exceeds the kernel's"):
-        mlp_fused.mlp_forward(*args)
+        _FORWARD[kernel](*_wide_args(kernel, n_inp, n_out, "meta"))
     assert _counts() == before
-    cpu = tuple(torch.zeros_like(a, device="cpu") for a in args)
-    assert mlp_fused.mlp_forward(*cpu).shape == (5, n_out)
+    cpu = _wide_args(kernel, n_inp, n_out, "cpu")
+    assert _FORWARD[kernel](*cpu).shape == (5, n_out)
     # the widest net it does take passes the check
     mlp_fused.check_widths(mlp_fused.MAX_INP, mlp_fused.MAX_OUT)
 
 
-def test_mlp_fused_limits_match_the_source():
-    """The wrapper's limits are the ones the CUDA source exports."""
-    src = open(os.path.join(PKG, "csrc", "mlp_fused.cu")).read()
+@pytest.mark.parametrize("kernel", ["mlp_fused", "mlp_bf16x3"])
+def test_mlp_fused_limits_match_the_source(kernel):
+    """The wrapper's limits are the ones each CUDA source exports: one pair
+    for kernels A and A'."""
+    src = open(os.path.join(PKG, "csrc", f"{kernel}.cu")).read()
     assert f"constexpr int MAX_INP = {mlp_fused.MAX_INP};" in src
-    assert "constexpr int MAX_NQ = 8;" in src and mlp_fused.MAX_OUT == 32 * 8
-    assert "phn_mlp_fused_max_inp() { return MAX_INP; }" in src
-    assert "phn_mlp_fused_max_out() { return 32 * MAX_NQ; }" in src
+    assert f"phn_{kernel}_max_inp() {{ return MAX_INP; }}" in src
+    if kernel == "mlp_fused":
+        assert "constexpr int MAX_NQ = 8;" in src and \
+            mlp_fused.MAX_OUT == 32 * 8
+        assert "phn_mlp_fused_max_out() { return 32 * MAX_NQ; }" in src
+    else:
+        assert f"constexpr int MAX_OUT = {mlp_fused.MAX_OUT};" in src
+        assert "phn_mlp_bf16x3_max_out() { return MAX_OUT; }" in src
 
 
 def test_require_checks():
