@@ -252,8 +252,8 @@ struct Slabs {
 };
 
 template <int NT, int PASSES>
-__device__ __forceinline__ void issue_slab(unsigned char* stage,
-                                           const Slabs& w, int s, int tid) {
+__device__ __forceinline__ void load_slab(unsigned char* stage,
+                                          const Slabs& w, int s, int tid) {
   if (s < w.n_slabs) {
     bf16* d = reinterpret_cast<bf16*>(stage);
     const int c = s / w.per_chunk;
@@ -328,7 +328,7 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   const long long row0 = (long long)blockIdx.x * RT;
   const int n_chunks = (n_hid + HC - 1) / HC;
 
-  issue_slab<NT, PASSES>(ring, w, 0, tid);
+  load_slab<NT, PASSES>(ring, w, 0, tid);
 
   // normalised, split x tile; zero past the last row and past n_inp
   for (int idx = tid; idx < RT * kp; idx += NT) {
@@ -368,7 +368,7 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
       __syncthreads();
       // slab s has landed and every thread is past slab s-1: the other
       // stage is free for the slab after this one
-      issue_slab<NT, PASSES>(ring + ((s + 1) & 1) * stage, w, s + 1, tid);
+      load_slab<NT, PASSES>(ring + ((s + 1) & 1) * stage, w, s + 1, tid);
       const bf16* wh = reinterpret_cast<const bf16*>(ring + (s & 1) * stage);
       const bf16* wl = wh + w.ks1 * W1_LD;
       const int k0 = t * w.ks1;
@@ -415,7 +415,7 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
     for (int v = 0; v < n2; ++v, ++s) {
       cp_async_wait_all();
       __syncthreads();
-      issue_slab<NT, PASSES>(ring + ((s + 1) & 1) * stage, w, s + 1, tid);
+      load_slab<NT, PASSES>(ring + ((s + 1) & 1) * stage, w, s + 1, tid);
       const bf16* wh = reinterpret_cast<const bf16*>(ring + (s & 1) * stage);
       const int ld = op + 8;
       const bf16* wl = wh + w.ks2 * ld;
