@@ -747,67 +747,118 @@ def _live_equal(got, want, live) -> bool:
                        torch.where(live, want, torch.zeros_like(want)))
 
 
+def sm_clock_mhz(fn, ms: float) -> int:
+    """The SM clock nvidia-smi reads while launches of ``fn`` (``ms``
+    each) keep the card busy for about a second."""
+    for _ in range(max(1, int(1000 / max(ms, 1e-3)))):
+        fn()
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    return int(clk.stdout.split()[0])
+
+
+def _netstep_inputs(dense, dev, n: int, F: int, seed: int,
+                    ties: bool = False, dead: bool = False):
+    """Observations (normal, or small integers that tie many closure and
+    sink candidates), ragged n_valid (some 0, some F; all 0 with
+    ``dead``) and random n_dec, on the card."""
+    rng = np.random.default_rng(seed)
+    obs = (rng.integers(-3, 1, (F, n, dense.E)) if ties else
+           rng.normal(-3, 2, (F, n, dense.E))).astype(np.float32)
+    nv = rng.integers(1, F + 1, n)
+    nv[::7] = 0
+    nv[1::5] = F
+    if dead:
+        nv[:] = 0
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(obs), t(nv.astype(np.int32)),
+            t(rng.integers(0, 5000, n).astype(np.int32)))
+
+
 def check_netstep(dense, dev, n: int = 256, F: int = 512):
     """Kernel B against its plain version (the DenseKWSScan.step loop) on
-    the EN KWS net: ragged n_valid (some 0, some partial), random n_dec,
-    beam off and 8.0.  The same entries live (value > NEG / 2), and sink
-    records and carry bit-equal on them.  Returns B's result and its
+    the EN KWS net: the same entries live (value > NEG / 2), and sink
+    records and carry bit-equal on them.  Beam off and 8.0 on each of:
+    n 256 x F 512 with normal observations (timed) and with small-integer
+    ones (many ties, counted); n 4; n 13 (a multiple of no streams-per-block
+    count); F 1; every stream's n_valid 0; and the carry passed between two
+    blocks, which must equal one block.  Returns B's result and its
     beam-off output."""
     blk = netstep.build_net_block_fn(dense)
     if blk is None:
         raise AssertionError("the structure gate rejected the EN KWS net")
-    rng = np.random.default_rng(21)
-    obs = torch.from_numpy(rng.normal(-3, 2, (F, n, dense.E))
-                           .astype(np.float32)).to(dev)
-    nv = rng.integers(1, F + 1, n)
-    nv[::7] = 0
-    nv[1::5] = F
-    n_valid = torch.from_numpy(nv.astype(np.int32)).to(dev)
-    n_dec = torch.from_numpy(rng.integers(0, 5000, n).astype(np.int32)
-                             ).to(dev)
-    carry0 = dense.init_carry(n, dev)
-    out = {}
-    for bw in (float(OFF_BEAM), 8.0):
-        beam = torch.full((n,), bw, device=dev)
-        args = (carry0, obs, n_valid, n_dec, beam)
-        ck, (svk, swk) = blk(*args)
-        cp, (svp, swp) = netstep.net_block_plain(dense, *args)
-        torch.cuda.synchronize()
-        live = svp > NEG / 2
-        a_live = cp[0] > NEG / 2
-        e_live = cp[2] > NEG / 2
-        # both write never-winning values below NEG / 2 on dead paths, so
-        # the kernel must make live exactly what the plain version does
-        checks = {"sink_live": torch.equal(svk > NEG / 2, live),
-                  "alpha_live": torch.equal(ck[0] > NEG / 2, a_live),
-                  "entry_live": torch.equal(ck[2] > NEG / 2, e_live),
-                  "sink_val": _live_equal(svk, svp, live),
-                  "sink_wt": _live_equal(swk, swp, live),
-                  "alpha": _live_equal(ck[0], cp[0], a_live),
-                  "wt": _live_equal(ck[1], cp[1], a_live),
-                  "entry": _live_equal(ck[2], cp[2], e_live),
-                  "entry_wt": _live_equal(ck[3], cp[3], e_live)}
-        t_k = cuda_ms(lambda: blk(*args))
-        t_p = cuda_ms(lambda: netstep.net_block_plain(dense, *args),
-                      iters=2, warmup=1)
-        phase("netstep", n=n, F=F, M=dense.M, E=dense.E, S=dense.n_sinks,
-              beam=bw, live_sink_share=float(live.float().mean()),
-              bit_equal=checks, ms=t_k, plain_ms=t_p)
-        if not all(checks.values()):
-            raise AssertionError(f"netstep beam={bw}: {checks}")
-        # bytes: the live frames' observations read, the sink records
-        # written, the carry read and written; operations per live frame
-        # and stream: ~7 per state (three candidates, the observation,
-        # the beam max), one per model exit, two per closure or sink edge
-        live_rows = int(nv.sum())
-        E, M, S = dense.E, dense.M, dense.n_sinks
-        nnz = len(blk._host["cm_src"]) + len(blk._host["cs_src"])
-        n_bytes = live_rows * E * 4 + F * n * S * 8 + \
-            2 * n * (2 * E + 2 * M) * 4 + n * 12
-        ops = live_rows * (7 * E + M + 2 * nnz)
-        out[bw] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
-                       **bound(n_bytes, ops, PEAK_FP32),
-                       sinks=(svk, swk), n_valid=n_valid, n_dec=n_dec)
+    cases = {"main": (n, F, dict(seed=21)),
+             "ties": (n, F, dict(seed=23, ties=True)),
+             "n4": (4, F, dict(seed=24)),
+             "n13": (13, F, dict(seed=25)),
+             "F1": (n, 1, dict(seed=26)),
+             "all_dead": (n, 64, dict(seed=27, dead=True)),
+             "two_blocks": (n, F, dict(seed=28))}
+    out, bad = {}, []
+    for case, (cn, cF, kw) in cases.items():
+        obs, n_valid, n_dec = _netstep_inputs(dense, dev, cn, cF, **kw)
+        carry0 = dense.init_carry(cn, dev)
+        for bw in (float(OFF_BEAM), 8.0):
+            beam = torch.full((cn,), bw, device=dev)
+            args = (carry0, obs, n_valid, n_dec, beam)
+            got = blk(*args)
+            want = netstep.net_block_plain(dense, *args)
+            torch.cuda.synchronize()
+            checks = netstep.compare_live(got, want)
+            extra = {}
+            if case == "two_blocks":
+                # frames [0, h) then [h, F) with the carry, n_dec and
+                # n_valid passed on: the records and carry of one block
+                h = cF // 2 - 3
+                c1, (sv1, sw1) = blk(carry0, obs[:h].contiguous(),
+                                     n_valid.clamp(max=h), n_dec, beam)
+                c2, (sv2, sw2) = blk(c1, obs[h:].contiguous(),
+                                     (n_valid - h).clamp(min=0), n_dec + h,
+                                     beam)
+                two = (c2, (torch.cat([sv1, sv2]), torch.cat([sw1, sw2])))
+                checks.update({f"two_blocks_{k}": v for k, v in
+                               netstep.compare_live(two, want).items()})
+                extra["two_equal_one"] = all(
+                    torch.equal(a, b) for a, b in zip(
+                        (*two[0], *two[1]), (*got[0], *got[1])))
+                checks["two_blocks_equal_one"] = extra["two_equal_one"]
+            if case == "ties":
+                extra["ties_closure_sink"] = netstep.count_ties(dense, *args)
+            live = want[1][0] > NEG / 2
+            rec = dict(case=case, n=cn, F=cF, M=dense.M, E=dense.E,
+                       S=dense.n_sinks, beam=bw,
+                       live_sink_share=float(live.float().mean()),
+                       bit_equal=all(checks.values()), **extra)
+            if case == "main":
+                t_k = cuda_ms(lambda: blk(*args))
+                t_p = cuda_ms(lambda: netstep.net_block_plain(dense, *args),
+                              iters=2, warmup=1)
+                mhz = sm_clock_mhz(lambda: blk(*args), t_k)
+                rec.update(ms=t_k, plain_ms=t_p, sm_clock_mhz=mhz,
+                           clocks_a_frame=t_k * 1e-3 * mhz * 1e6 / cF)
+                # bytes: the live frames' observations read, the sink
+                # records written, the carry read and written; operations
+                # per live frame and stream: ~7 per state (three
+                # candidates, the observation, the beam max), one per model
+                # exit, two per live closure or sink edge
+                live_rows = int(n_valid.sum())
+                E, M, S = dense.E, dense.M, dense.n_sinks
+                nnz = int(np.isfinite(blk._host["tab"]).sum())
+                n_bytes = live_rows * E * 4 + cF * cn * S * 8 + \
+                    2 * cn * (2 * E + 2 * M) * 4 + cn * 12
+                ops = live_rows * (7 * E + M + 2 * nnz)
+                out[bw] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                               **bound(n_bytes, ops, PEAK_FP32),
+                               sinks=got[1], n_valid=n_valid, n_dec=n_dec)
+            phase("netstep", **rec)
+            if not all(checks.values()):
+                bad.append((case, bw, {k: v for k, v in checks.items()
+                                       if not v}))
+    if bad:
+        raise AssertionError(f"netstep differs from the plain version: "
+                             f"{bad}")
     return out
 
 

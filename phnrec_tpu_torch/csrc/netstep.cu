@@ -23,22 +23,30 @@
 // still written, from the carry).  Adds and compares only: the records are
 // bit-equal to DenseKWSScan.step on live entries.
 //
+// The edge tables.  The closure and the sinks read one dense table
+// tab[d][r] of D = M + S destination columns (models, then sinks) by
+// source model r, row stride P >= M: A_cm[r, d] or A_cs[r, d - M] where
+// the edge is live (> NEG / 2), -INFINITY where it is not (and in the
+// padding).  x[r] is finite, so a dead edge's candidate is -INFINITY and
+// never passes the strict-greater test against the running best (which
+// starts at NEG): a walk over all sources in ascending order therefore
+// takes the same decisions as a walk over the live edges alone.  The
+// reset flags R_cm[r, d] sit beside it as bytes, reset[d][r], read once
+// per column and frame for the winning source.  The tables are staged
+// once per launch into shared memory where they fit, else read from
+// global memory.
+//
 // What bounds it on the H100: the frame loop is sequential and each frame
 // needs a block-wide max (the beam) and two dependent passes (exit, then
-// closure), so it is latency-bound: ~6 barriers per frame and a few
-// hundred bytes of observations per stream and frame, far below the
-// memory rate.
+// closure), so it is latency-bound, far below the memory rate.
 //
-// Design: one thread block per stream, one thread per state (and per
-// model, and per sink: blockDim = max(E, M, S) rounded to a warp).  The
-// carry lives in shared memory for the whole block of frames, double
-// buffered so a frame reads the old carry while writing the new one; a
-// dead frame simply does not swap.  The next frame's observation is
-// loaded before the current frame's closure so its latency overlaps the
-// barriers.  The closure and sink edges come as per-destination lists
-// built on the host (ascending source), so a thread walks only its
-// destination's live edges.  Latency is hidden across streams: n blocks
-// in flight.
+// Design: one thread block per stream, one thread per state, and threads
+// over the destination columns of the closure and the sinks (a sink has a
+// thread of its own, beside the models').  The carry lives in shared
+// memory for the whole block of frames, double buffered so a frame reads
+// the old carry while writing the new one; a dead frame simply does not
+// swap.  The next frame's observation is loaded before the current
+// frame's closure so its latency overlaps the barriers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,6 +55,7 @@
 namespace {
 
 constexpr float NEG = -1e30f;
+constexpr int MAX_E = 1024;  // the wrapper's MAX_E (ops/netstep.py)
 
 __device__ __forceinline__ float block_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
@@ -66,25 +75,27 @@ __global__ void net_block_kernel(
     const int* __restrict__ wt0, const float* __restrict__ entry0,
     const int* __restrict__ ewt0, const float* __restrict__ w_self,
     const float* __restrict__ w_adv, const float* __restrict__ w_entry,
-    const float* __restrict__ w_exit, const int* __restrict__ cm_ptr,
-    const int* __restrict__ cm_src, const float* __restrict__ cm_w,
-    const int* __restrict__ cm_reset, const int* __restrict__ cs_ptr,
-    const int* __restrict__ cs_src, const float* __restrict__ cs_w,
-    const int* __restrict__ n_valid, const int* __restrict__ n_dec,
-    const float* __restrict__ beam, int F, int n, int E, int M, int S,
-    int S_M, float* __restrict__ alpha_out, int* __restrict__ wt_out,
+    const float* __restrict__ w_exit, const float* __restrict__ tab_g,
+    const int8_t* __restrict__ reset_g, const int* __restrict__ n_valid,
+    const int* __restrict__ n_dec, const float* __restrict__ beam, int F,
+    int n, int E, int M, int S, int S_M, int P, int tab_smem,
+    float* __restrict__ alpha_out, int* __restrict__ wt_out,
     float* __restrict__ entry_out, int* __restrict__ ewt_out,
     float* __restrict__ sink_val, int* __restrict__ sink_wt) {
-  extern __shared__ float smem[];
-  // [2][E] alpha, [2][E] wt, [2][M] entry, [2][M] entry_wt, [M] exit
-  // value, [M] exit word time, [32] reduction
-  float* alpha_s = smem;
+  extern __shared__ __align__(16) float smem[];
+  const int D = M + S;
+  // [D][P] table (if staged), [P] exit value, [M] exit word time, [2][E]
+  // alpha, [2][E] wt, [2][M] entry, [2][M] entry_wt, [32] reduction,
+  // [M][P] reset bytes (if staged)
+  float* tab_s = smem;
+  float* xv_s = tab_s + (tab_smem ? (size_t)D * P : 0);
+  int* xw_s = reinterpret_cast<int*>(xv_s + P);
+  float* alpha_s = reinterpret_cast<float*>(xw_s + M);
   int* wt_s = reinterpret_cast<int*>(alpha_s + 2 * E);
   float* entry_s = reinterpret_cast<float*>(wt_s + 2 * E);
   int* ewt_s = reinterpret_cast<int*>(entry_s + 2 * M);
-  float* xv_s = reinterpret_cast<float*>(ewt_s + 2 * M);
-  int* xw_s = reinterpret_cast<int*>(xv_s + M);
-  float* red = reinterpret_cast<float*>(xw_s + M);
+  float* red = reinterpret_cast<float*>(ewt_s + 2 * M);
+  int8_t* reset_s = reinterpret_cast<int8_t*>(red + 32);
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -92,8 +103,18 @@ __global__ void net_block_kernel(
   const int t_base = n_dec[b] + 1;
   const float bm = beam[b];
 
-  // thread tid owns state tid, model tid and sink tid where they exist
-  const bool has_e = tid < E, has_m = tid < M, has_s = tid < S;
+  if (tab_smem) {
+    for (int i = tid; i < D * P; i += blockDim.x) tab_s[i] = tab_g[i];
+    for (int i = tid; i < M * P; i += blockDim.x) reset_s[i] = reset_g[i];
+  }
+  const float* tab = tab_smem ? tab_s : tab_g;
+  const int8_t* reset = tab_smem ? reset_s : reset_g;
+  // the padding sources read a finite exit value, so their -INFINITY
+  // weights give -INFINITY candidates
+  for (int r = M + tid; r < P; r += blockDim.x) xv_s[r] = 0.f;
+
+  // thread tid owns state tid and model tid where they exist
+  const bool has_e = tid < E, has_m = tid < M;
   float ws = 0.f, wa = 0.f, we = 0.f, wx = 0.f;
   int m_of_e = 0;
   if (has_e) {
@@ -104,17 +125,10 @@ __global__ void net_block_kernel(
     alpha_s[tid] = alpha0[(size_t)b * E + tid];
     wt_s[tid] = wt0[(size_t)b * E + tid];
   }
-  int cm_lo = 0, cm_hi = 0, cs_lo = 0, cs_hi = 0;
   if (has_m) {
     wx = w_exit[tid];
     entry_s[tid] = entry0[(size_t)b * M + tid];
     ewt_s[tid] = ewt0[(size_t)b * M + tid];
-    cm_lo = cm_ptr[tid];
-    cm_hi = cm_ptr[tid + 1];
-  }
-  if (has_s) {
-    cs_lo = cs_ptr[tid];
-    cs_hi = cs_ptr[tid + 1];
   }
   int cur = 0;  // which half of each double buffer holds the carry
   float o = (has_e && F > 0) ? obs[(size_t)b * E + tid] : 0.f;
@@ -162,36 +176,29 @@ __global__ void net_block_kernel(
     }
     __syncthreads();
 
-    // -- closure (exits -> entries) and sinks
-    if (has_m) {
+    // -- closure (exits -> entries) and sinks: one column a thread, all
+    // sources ascending, the exit value read as a broadcast
+    for (int d = tid; d < D; d += blockDim.x) {
+      const float* col = tab + (size_t)d * P;
       float v = NEG;
-      int w = 0, rs = 0;
-      for (int j = cm_lo; j < cm_hi; ++j) {
-        const int r = cm_src[j];
-        const float c = xv_s[r] + cm_w[j];
+      int k = -1;
+      for (int r = 0; r < M; ++r) {
+        const float c = xv_s[r] + col[r];
         if (c > v) {
           v = c;
-          w = xw_s[r];
-          rs = cm_reset[j];
+          k = r;
         }
       }
-      entry_s[nxt * M + tid] = v >= thresh ? v : NEG;
-      ewt_s[nxt * M + tid] = rs ? t_base + f : w;
-    }
-    if (has_s) {
-      float v = NEG;
-      int w = 0;
-      for (int j = cs_lo; j < cs_hi; ++j) {
-        const int r = cs_src[j];
-        const float c = xv_s[r] + cs_w[j];
-        if (c > v) {
-          v = c;
-          w = xw_s[r];
-        }
+      const int w = k >= 0 ? xw_s[k] : 0;
+      if (d < M) {
+        const int rs = k >= 0 ? reset[(size_t)d * P + k] : 0;
+        entry_s[nxt * M + d] = v >= thresh ? v : NEG;
+        ewt_s[nxt * M + d] = rs ? t_base + f : w;
+      } else {
+        const size_t idx = ((size_t)f * n + b) * S + (d - M);
+        sink_val[idx] = v;
+        sink_wt[idx] = w;
       }
-      const size_t idx = ((size_t)f * n + b) * S + tid;
-      sink_val[idx] = v;
-      sink_wt[idx] = w;
     }
     __syncthreads();
     if (f < nv) cur = nxt;  // a dead frame keeps the carry
@@ -211,42 +218,53 @@ __global__ void net_block_kernel(
 
 // One block of frames of the dense network step for n streams: obs
 // [F, n, E] f32; carry alpha/wt [n, E], entry/entry_wt [n, M]; structured
-// weights w_self/w_adv/w_entry [E], w_exit [M]; closure lists by
-// destination model (cm_ptr [M+1], cm_src/cm_w/cm_reset) and by sink
-// (cs_ptr [S+1], cs_src/cs_w); n_valid/n_dec i32 [n], beam f32 [n] ->
-// carry out and sink records [F, n, S].  `threads` = max(E, M, S) rounded
-// up to a warp.  Launches on `stream`, allocates nothing, does not
+// weights w_self/w_adv/w_entry [E], w_exit [M]; the edge tables tab f32
+// [D_pad][P] (D_pad >= M + S, see the header) and reset i8 [M][P];
+// n_valid/n_dec i32 [n], beam f32 [n] -> carry out and sink records
+// [F, n, S].  Launches on `stream`, allocates nothing, does not
 // synchronise.
-extern "C" int net_block(
+extern "C" int phn_net_block(
     const void* obs, const void* alpha0, const void* wt0, const void* entry0,
     const void* ewt0, const void* w_self, const void* w_adv,
-    const void* w_entry, const void* w_exit, const void* cm_ptr,
-    const void* cm_src, const void* cm_w, const void* cm_reset,
-    const void* cs_ptr, const void* cs_src, const void* cs_w,
-    const void* n_valid, const void* n_dec, const void* beam, int F, int n,
-    int E, int M, int S, int S_M, int threads, void* alpha_out, void* wt_out,
-    void* entry_out, void* ewt_out, void* sink_val, void* sink_wt,
-    void* stream) {
+    const void* w_entry, const void* w_exit, const void* tab,
+    const void* reset, const void* n_valid, const void* n_dec,
+    const void* beam, int F, int n, int E, int M, int S, int S_M, int P,
+    void* alpha_out, void* wt_out, void* entry_out, void* ewt_out,
+    void* sink_val, void* sink_wt, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (F < 0 || E <= 0 || M <= 0 || S <= 0 || S_M <= 0 || E != M * S_M ||
-      threads % 32 || threads > 1024 || threads < E || threads < M ||
-      threads < S)
+      E > MAX_E || P < M || P % 4)
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (4 * (size_t)E + 6 * (size_t)M + 32);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const int D = M + S;
+  const int threads = (((E > D ? E : D) < 1024 ? (E > D ? E : D) : 1024)
+                       + 31) / 32 * 32;
+  const size_t base = sizeof(float) * ((size_t)P + 5 * (size_t)M +
+                                       4 * (size_t)E + 32);
+  const size_t tables = sizeof(float) * (size_t)D * P + (size_t)M * P;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const int tab_smem = base + tables <= (size_t)optin;
+  const size_t smem = base + (tab_smem ? tables : 0);
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      net_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
   net_block_kernel<<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(obs), static_cast<const float*>(alpha0),
       static_cast<const int*>(wt0), static_cast<const float*>(entry0),
       static_cast<const int*>(ewt0), static_cast<const float*>(w_self),
       static_cast<const float*>(w_adv), static_cast<const float*>(w_entry),
-      static_cast<const float*>(w_exit), static_cast<const int*>(cm_ptr),
-      static_cast<const int*>(cm_src), static_cast<const float*>(cm_w),
-      static_cast<const int*>(cm_reset), static_cast<const int*>(cs_ptr),
-      static_cast<const int*>(cs_src), static_cast<const float*>(cs_w),
-      static_cast<const int*>(n_valid), static_cast<const int*>(n_dec),
-      static_cast<const float*>(beam), F, n, E, M, S, S_M,
-      static_cast<float*>(alpha_out), static_cast<int*>(wt_out),
-      static_cast<float*>(entry_out), static_cast<int*>(ewt_out),
-      static_cast<float*>(sink_val), static_cast<int*>(sink_wt));
+      static_cast<const float*>(w_exit), static_cast<const float*>(tab),
+      static_cast<const int8_t*>(reset), static_cast<const int*>(n_valid),
+      static_cast<const int*>(n_dec), static_cast<const float*>(beam), F, n,
+      E, M, S, S_M, P, tab_smem, static_cast<float*>(alpha_out),
+      static_cast<int*>(wt_out), static_cast<float*>(entry_out),
+      static_cast<int*>(ewt_out), static_cast<float*>(sink_val),
+      static_cast<int*>(sink_wt));
   return cudaGetLastError();
 }
+
+extern "C" int phn_net_block_max_e() { return MAX_E; }

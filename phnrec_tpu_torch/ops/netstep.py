@@ -14,10 +14,11 @@ n_dec + 1 + frame.  The plain version is the frame loop of
 ``DenseKWSScan.step`` (decoder/stknet.py).  The kernel exploits the
 structure ``extract_structure`` verifies (uniform-S left-to-right models:
 three in-model candidates per state, the exit from each model's last
-state) and walks the exit->entry closure and the sinks over per-destination
-lists of live edges, ascending source, strict-greater updates.  All of it
-is adds and compares, so the kernel is bit-equal to the plain version on
-live entries (value > NEG / 2); dead entries hold different
+state) and reads the exit->entry closure and the sinks from one dense
+table by destination column and source model, -inf on dead edges, walked
+over all sources ascending with strict-greater updates (``dense_tables``).
+All of it is adds and compares, so the kernel is bit-equal to the plain
+version on live entries (value > NEG / 2); dead entries hold different
 never-winning values, as in the JAX package.
 """
 
@@ -33,6 +34,12 @@ from phnrec_tpu_torch.decoder.stknet import NEG, _device_cache
 from phnrec_tpu_torch.ops import _build
 
 LAUNCHES = 0
+# the networks the kernel takes: E states at most (csrc/netstep.cu,
+# MAX_E), any number of models and sinks
+MAX_E = 1024
+# destination columns a warp walks side by side (the tables' rows are
+# padded to a multiple)
+COLUMN_TILE = 64
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -98,21 +105,88 @@ def net_block_plain(dense, carry: Carry, obs: torch.Tensor,
     return carry, (torch.stack(svs), torch.stack(sws))
 
 
-def _csr(A: np.ndarray, extra: Optional[np.ndarray] = None):
-    """Per-destination lists of live edges (A[src, dst] > NEG / 2),
-    ascending source: (ptr [D+1], src [nnz], w [nnz], extra[src, dst])."""
-    live = A > NEG / 2
-    src, w, ex, ptr = [], [], [], [0]
-    for d in range(A.shape[1]):
-        rows = np.nonzero(live[:, d])[0]
-        src.extend(rows.tolist())
-        w.extend(A[rows, d].tolist())
-        if extra is not None:
-            ex.extend(extra[rows, d].astype(np.int32).tolist())
-        ptr.append(len(src))
-    as_i = lambda v: np.asarray(v, np.int32)  # noqa: E731
-    return (as_i(ptr), as_i(src), np.asarray(w, np.float32),
-            as_i(ex) if extra is not None else None)
+def compare_live(got, want) -> dict:
+    """Checks of a block's output ``got`` against the plain version's
+    ``want`` (both (carry, (sink_val, sink_wt))): the same entries live
+    (value > NEG / 2; both write never-winning values below NEG / 2 on
+    dead paths), and records and carry bit-equal on them."""
+    (ck, (svk, swk)), (cp, (svp, swp)) = got, want
+    live = {"sink": svp > NEG / 2, "alpha": cp[0] > NEG / 2,
+            "entry": cp[2] > NEG / 2}
+
+    def eq(g, w, m):
+        return torch.equal(torch.where(m, g, torch.zeros_like(g)),
+                           torch.where(m, w, torch.zeros_like(w)))
+    return {"sink_live": torch.equal(svk > NEG / 2, live["sink"]),
+            "alpha_live": torch.equal(ck[0] > NEG / 2, live["alpha"]),
+            "entry_live": torch.equal(ck[2] > NEG / 2, live["entry"]),
+            "sink_val": eq(svk, svp, live["sink"]),
+            "sink_wt": eq(swk, swp, live["sink"]),
+            "alpha": eq(ck[0], cp[0], live["alpha"]),
+            "wt": eq(ck[1], cp[1], live["alpha"]),
+            "entry": eq(ck[2], cp[2], live["entry"]),
+            "entry_wt": eq(ck[3], cp[3], live["entry"])}
+
+
+def check_limits(E: int, S: int, F: int, n: int) -> None:
+    """Raise where the kernel cannot run: more than MAX_E states (each
+    lane of a stream's warp holds up to 32), no sink, or a block whose
+    records overflow 32-bit offsets."""
+    if E > MAX_E or S < 1:
+        raise ValueError(f"kernel B takes E <= {MAX_E} states and S >= 1 "
+                         f"sinks (got E {E}, S {S})")
+    if F * n * max(E, S) >= 2 ** 31:
+        raise ValueError("block too large for 32-bit offsets")
+
+
+def count_ties(dense, carry: Carry, obs: torch.Tensor,
+               n_valid: torch.Tensor, n_dec: torch.Tensor,
+               beam: torch.Tensor) -> Tuple[int, int]:
+    """(closure, sink) decisions of the block's live frames where two or
+    more live edges tie for a live best candidate x[r] + A[r, d]: the
+    decisions the first-maximum rule settles.  Runs the plain loop."""
+    tb = dense.tables(obs.device)
+    A_cs = tb["A_cs"][:, :dense.n_sinks]
+    n_valid = n_valid.to(torch.int32)
+    n_dec = n_dec.to(torch.int32)
+    ties = [0, 0]
+    for i in range(obs.shape[0]):
+        live = n_valid > i
+        carry, _ = dense.step(carry, obs[i], n_dec + (1 + i), live, beam)
+        # a live frame's carry holds its beamed alpha: its exits
+        x = torch.amax(carry[0][:, :, None] + tb["A_ex"][None], dim=1)
+        for k, A in enumerate((tb["A_cm"], A_cs)):
+            c = x[:, :, None] + A[None]                     # [n, M, D]
+            best = c.amax(dim=1, keepdim=True)
+            n_best = ((c == best) & (A[None] > NEG / 2)).sum(1)
+            ties[k] += int(((n_best > 1) & (best[:, 0] > NEG / 2)
+                            & live[:, None]).sum())
+    return ties[0], ties[1]
+
+
+def _stride(M: int) -> int:
+    """The tables' row stride: M rounded up to 4 floats (16-byte rows),
+    and an odd number of 16-byte units, so the 16-byte loads of a warp's
+    lanes from rows one stride apart fall in distinct banks."""
+    P = -(-M // 4) * 4
+    return P + 4 if (P // 4) % 2 == 0 else P
+
+
+def dense_tables(A_cm: np.ndarray, R_cm: np.ndarray, A_cs: np.ndarray):
+    """The kernel's edge tables: tab f32 [D_pad, P], column d of the
+    closure (d < M: A_cm[:, d]) or of sink d - M (A_cs[:, d - M]) by source
+    model, -inf where the edge is dead (<= NEG / 2) and in the padding
+    (rows to a multiple of COLUMN_TILE, sources to the stride P); and
+    reset i8 [M, P], R_cm transposed (0 on dead edges)."""
+    M, S = A_cm.shape[0], A_cs.shape[1]
+    P = _stride(M)
+    D_pad = -(-(M + S) // COLUMN_TILE) * COLUMN_TILE
+    tab = np.full((D_pad, P), -np.inf, np.float32)
+    A = np.concatenate([A_cm, A_cs], axis=1).T      # [D, src M]
+    tab[:M + S, :M] = np.where(A > NEG / 2, A, -np.inf)
+    reset = np.zeros((M, P), np.int8)
+    reset[:, :M] = (R_cm.T & (A_cm.T > NEG / 2))
+    return tab, reset
 
 
 class NetBlock:
@@ -125,21 +199,18 @@ class NetBlock:
         self.dense = dense
         self.M, self.E, self.S = dense.M, dense.E, dense.n_sinks
         self.S_M = structure["S_M"]
-        cm_ptr, cm_src, cm_w, cm_rs = _csr(np.asarray(dense.A_cm),
-                                           np.asarray(dense.R_cm))
-        cs_ptr, cs_src, cs_w, _ = _csr(np.asarray(dense.A_cs)[:, :self.S])
+        tab, reset = dense_tables(np.asarray(dense.A_cm),
+                                  np.asarray(dense.R_cm, bool),
+                                  np.asarray(dense.A_cs)[:, :self.S])
+        self.P = tab.shape[1]
         self._host = dict(
             w_self=structure["w_self"], w_adv=structure["w_adv"],
             w_entry=structure["w_entry"], w_exit=structure["w_exit"],
-            cm_ptr=cm_ptr, cm_src=cm_src, cm_w=cm_w, cm_reset=cm_rs,
-            cs_ptr=cs_ptr, cs_src=cs_src, cs_w=cs_w)
-        self.threads = -(-max(self.E, self.M, self.S) // 32) * 32
+            tab=tab, reset=reset)
 
     def _tables(self, device):
-        # one element of padding keeps empty edge lists addressable
         return _device_cache(self, device, lambda d: {
-            k: torch.from_numpy(v if v.size else np.zeros(1, v.dtype)).to(d)
-            for k, v in self._host.items()})
+            k: torch.from_numpy(v).to(d) for k, v in self._host.items()})
 
     def __call__(self, carry: Carry, obs: torch.Tensor,
                  n_valid: torch.Tensor, n_dec: torch.Tensor,
@@ -147,17 +218,12 @@ class NetBlock:
         if obs.device.type == "cpu":
             return net_block_plain(self.dense, carry, obs, n_valid, n_dec,
                                    beam)
-        device = _build.cuda_device(obs)
-        if obs.dim() != 3:
-            raise ValueError("obs must be [F, n, E]")
+        if obs.dim() != 3 or obs.shape[2] != self.E:
+            raise ValueError(f"obs must be [F, n, {self.E}]")
         F, n, E = obs.shape
         M, S = self.M, self.S
-        if E != self.E or S < 1 or self.threads > 1024:
-            raise ValueError(f"kernel B takes E = {self.E}, 1 <= S and "
-                             f"max(E, M, S) <= 1024 (got E {E}, M {M}, "
-                             f"S {S})")
-        if F * n * max(E, S) >= 2 ** 31:
-            raise ValueError("block too large for 32-bit offsets")
+        check_limits(E, S, F, n)
+        device = _build.cuda_device(obs)
         alpha, wt, entry, ewt = carry
         _build.require(obs, "obs", torch.float32, (F, n, E), device)
         _build.require(alpha, "carry alpha", torch.float32, (n, E), device)
@@ -175,17 +241,14 @@ class NetBlock:
         lib = _lib()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.net_block(
+            err = lib.phn_net_block(
                 obs.data_ptr(), alpha.data_ptr(), wt.data_ptr(),
                 entry.data_ptr(), ewt.data_ptr(),
                 t["w_self"].data_ptr(), t["w_adv"].data_ptr(),
                 t["w_entry"].data_ptr(), t["w_exit"].data_ptr(),
-                t["cm_ptr"].data_ptr(), t["cm_src"].data_ptr(),
-                t["cm_w"].data_ptr(), t["cm_reset"].data_ptr(),
-                t["cs_ptr"].data_ptr(), t["cs_src"].data_ptr(),
-                t["cs_w"].data_ptr(),
+                t["tab"].data_ptr(), t["reset"].data_ptr(),
                 n_valid.data_ptr(), n_dec.data_ptr(), beam.data_ptr(),
-                F, n, E, M, S, self.S_M, self.threads,
+                F, n, E, M, S, self.S_M, self.P,
                 *(o.data_ptr() for o in out), sv.data_ptr(), sw.data_ptr(),
                 stream)
         _build.check(err, "netstep")
@@ -196,9 +259,9 @@ class NetBlock:
 
 def _lib():
     lib = _build.load("netstep")
-    fn = lib.net_block
+    fn = lib.phn_net_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p] * 7)
         fn.restype = ctypes.c_int
     return lib

@@ -2,9 +2,13 @@
 against phnrec_tpu's fused Pallas network block in interpret mode and its
 XLA dense scan, on the tiny KWS package's network: records and carry
 bit-equal on live entries (Pallas) and everywhere (dense), with ragged
-validity, word-time resets, and beam off and 8.0.  Mirrors
-tests/test_pallas_netstep.py:35-105.  Also the structure gate, the
-closure lists the kernel walks, and the wrapper's device rules."""
+validity, word-time resets, and beam off and 8.0, on normal observations
+and on small-integer ones (many tied closure and sink candidates, settled
+by the first-maximum rule).  Mirrors tests/test_pallas_netstep.py:35-105.
+Also the structure gate, the dense edge tables the kernel reads, the
+wrapper's device rules and its limits."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -29,9 +33,12 @@ def dense(tmp_path_factory):
     return jd, convert.dense_kws_from_jax(jd)
 
 
-def _inputs(td, n=8, F=16, seed=0):
+def _inputs(td, n=8, F=16, seed=0, ties=False):
     rng = np.random.default_rng(seed)
-    obs = rng.normal(-3, 2, (F, n, td.E)).astype(np.float32)
+    # small integers as float32 tie many exits + closure weights (the
+    # weights are dyadic), where normal draws almost never do
+    obs = (rng.integers(-3, 1, (F, n, td.E)) if ties else
+           rng.normal(-3, 2, (F, n, td.E))).astype(np.float32)
     nv = np.array([16, 12, 16, 3, 0, 16, 7, 16], np.int32)[:n]
     nd = rng.integers(0, 50, n).astype(np.int32)
     return obs, nv, nd
@@ -39,9 +46,25 @@ def _inputs(td, n=8, F=16, seed=0):
 
 @pytest.mark.parametrize("beam", [float(OFF_BEAM), 8.0])
 def test_plain_matches_pallas_and_dense_scan(dense, beam):
+    _check_against_jax(*dense, *_inputs(dense[1], 8, 16), beam)
+
+
+@pytest.mark.parametrize("beam", [float(OFF_BEAM), 8.0])
+def test_plain_matches_pallas_and_dense_scan_on_ties(dense, beam):
+    """Small-integer observations: many closure and sink decisions are
+    ties, and the plain version settles them as the XLA dense scan and the
+    Pallas block do."""
     jd, td = dense
-    n, F = 8, 16
-    obs, nv, nd = _inputs(td, n, F)
+    obs, nv, nd = _inputs(td, 8, 16, seed=5, ties=True)
+    closure, sinks = netstep.count_ties(
+        td, td.init_carry(8), torch.from_numpy(obs), torch.from_numpy(nv),
+        torch.from_numpy(nd), torch.full((8,), beam))
+    assert closure > 50 and sinks > 20
+    _check_against_jax(jd, td, obs, nv, nd, beam)
+
+
+def _check_against_jax(jd, td, obs, nv, nd, beam):
+    F, n = obs.shape[:2]
     bm = np.full(n, beam, np.float32)
     car0 = jd.init_carry(n)
 
@@ -118,27 +141,32 @@ def test_structure_matches_jax_and_gate_rejects_skip_edge(dense):
 
 
 def test_closure_lists(dense):
-    """The per-destination edge lists the kernel walks hold exactly the
-    live edges of A_cm (with R_cm) and A_cs, sources ascending."""
+    """The dense edge tables the kernel reads: column d of the closure
+    (A_cm[:, d]) or of sink d - M (A_cs[:, d - M]) by source, -inf on dead
+    edges (<= NEG / 2) and in the padding; the reset flags R_cm
+    transposed, 0 on dead edges; rows padded to whole column tiles and a
+    stride of an odd number of 16-byte units."""
     _, td = dense
     blk = netstep.build_net_block_fn(td)
-    h = blk._host
-    for ptr, src, w, rs, A, R in (
-            (h["cm_ptr"], h["cm_src"], h["cm_w"], h["cm_reset"], td.A_cm,
-             td.R_cm),
-            (h["cs_ptr"], h["cs_src"], h["cs_w"], None, td.A_cs, None)):
-        assert len(ptr) == A.shape[1] + 1
-        for d in range(A.shape[1]):
-            rows = src[ptr[d]: ptr[d + 1]]
-            want = np.nonzero(A[:, d] > NEG / 2)[0]
-            np.testing.assert_array_equal(rows, want)
-            np.testing.assert_array_equal(w[ptr[d]: ptr[d + 1]],
-                                          A[want, d])
-            if rs is not None:
-                np.testing.assert_array_equal(rs[ptr[d]: ptr[d + 1]],
-                                              R[want, d])
-    assert len(h["cm_src"]) > 0 and len(h["cs_src"]) > 0
-    assert blk.threads == 32
+    tab, reset = blk._host["tab"], blk._host["reset"]
+    M, S, P = td.M, td.n_sinks, blk.P
+    assert P >= M and P % 4 == 0 and (P // 4) % 2 == 1
+    assert tab.shape == (-(-(M + S) // netstep.COLUMN_TILE)
+                         * netstep.COLUMN_TILE, P)
+    assert tab.dtype == np.float32 and reset.dtype == np.int8
+    assert reset.shape == (M, P)
+    for d, col in enumerate(np.concatenate([td.A_cm, td.A_cs[:, :S]], 1).T):
+        live = col > NEG / 2
+        np.testing.assert_array_equal(tab[d, :M][live], col[live])
+        assert np.all(tab[d, :M][~live] == -np.inf)
+        if d < M:
+            np.testing.assert_array_equal(reset[d, :M],
+                                          td.R_cm[:, d] & live)
+    assert np.all(tab[M + S:] == -np.inf) and np.all(tab[:, M:] == -np.inf)
+    assert not reset[:, M:].any()
+    assert np.isfinite(tab).sum() == (td.A_cm > NEG / 2).sum() + \
+        (td.A_cs[:, :S] > NEG / 2).sum()
+    assert td.R_cm.any() and (td.A_cm <= NEG / 2).any()
 
 
 def test_wrapper_device_rules(dense):
@@ -160,3 +188,68 @@ def test_wrapper_device_rules(dense):
     with pytest.raises(ValueError, match="no kernel"):
         blk(*meta)
     assert netstep.LAUNCHES == before
+
+
+def _structured_net(M, S_M, S):
+    """A uniform left-to-right network of M models x S_M states with a
+    full closure and S sinks, as a DenseKWSScan."""
+    from phnrec_tpu_torch.decoder.stknet import DenseKWSScan
+    E = M * S_M
+    A_in = np.full((M + E, E), NEG, np.float32)
+    for e in range(E):
+        A_in[M + e, e] = -0.5
+        if e % S_M:
+            A_in[M + e - 1, e] = -0.75
+        else:
+            A_in[e // S_M, e] = 0.0
+    A_ex = np.full((E, M), NEG, np.float32)
+    A_ex[np.arange(M) * S_M + S_M - 1, np.arange(M)] = -0.25
+    return DenseKWSScan.from_tables(
+        A_in, A_ex, np.full((M, M), -1.0, np.float32), np.eye(M, dtype=bool),
+        np.zeros((M, S), np.float32), np.zeros(M, np.float32), S)
+
+
+@pytest.mark.parametrize("M, S_M, F, n, what", [
+    pytest.param(205, 5, 2, 3, "states", id="E-one-past"),
+    pytest.param(256, 4, 2 ** 21, 1, "offsets", id="offsets-one-past")])
+def test_wrapper_raises_one_past_its_limits(M, S_M, F, n, what,
+                                            monkeypatch):
+    """The kernel takes E <= MAX_E states (32 a lane of a stream's warp)
+    and blocks whose records fit 32-bit offsets: one past either raises
+    before anything is built or launched, the limit itself passes, and
+    the CPU path (the plain version) still takes the wider net."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(netstep._build, "load", no_build)
+    td = _structured_net(M, S_M, 2)
+    E = td.E
+    assert E == (netstep.MAX_E + 1 if what == "states" else netstep.MAX_E)
+    blk = netstep.build_net_block_fn(td)
+    assert blk is not None
+    before = netstep.LAUNCHES
+    meta = (tuple(t.to("meta") for t in td.init_carry(n)),
+            torch.empty((F, n, E), device="meta"),
+            torch.zeros(n, dtype=torch.int32, device="meta"),
+            torch.zeros(n, dtype=torch.int32, device="meta"),
+            torch.zeros(n, device="meta"))
+    with pytest.raises(ValueError, match=what):
+        blk(*meta)
+    assert netstep.LAUNCHES == before
+    if what == "states":
+        netstep.check_limits(netstep.MAX_E, 1, F, n)
+        got = blk(td.init_carry(1), torch.zeros((1, 1, E)),
+                  torch.ones(1, dtype=torch.int32),
+                  torch.zeros(1, dtype=torch.int32), torch.full((1,), 8.0))
+        assert got[1][0].shape == (1, 1, 2)
+    else:
+        netstep.check_limits(E, 1, F - 1, n)
+    with pytest.raises(ValueError, match="sinks"):
+        netstep.check_limits(E, 0, 1, 1)
+
+
+def test_limits_match_the_source():
+    """The wrapper's state limit is the one the CUDA source exports."""
+    src = open(os.path.join(os.path.dirname(netstep.__file__), "..", "csrc",
+                            "netstep.cu")).read()
+    assert f"constexpr int MAX_E = {netstep.MAX_E};" in src
+    assert "phn_net_block_max_e() { return MAX_E; }" in src
