@@ -782,8 +782,8 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
     the EN KWS net: the same entries live (value > NEG / 2), and sink
     records and carry bit-equal on them.  Beam off and 8.0 on each of:
     n 256 x F 512 with normal observations (timed) and with small-integer
-    ones (many ties, counted); n 4; n 13 (a multiple of no streams-per-block
-    count); F 1; every stream's n_valid 0; and the carry passed between two
+    ones (many ties, counted); n 4; n 13 (not a multiple of the kernel's
+    4 streams a block); F 1; every stream's n_valid 0; and the carry passed between two
     blocks, which must equal one block.  Returns B's result and its
     beam-off output."""
     blk = netstep.build_net_block_fn(dense)
@@ -845,7 +845,8 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
                 # exit, two per live closure or sink edge
                 live_rows = int(n_valid.sum())
                 E, M, S = dense.E, dense.M, dense.n_sinks
-                nnz = int(np.isfinite(blk._host["tab"]).sum())
+                nnz = int((dense.A_cm > NEG / 2).sum()
+                          + (dense.A_cs[:, :S] > NEG / 2).sum())
                 n_bytes = live_rows * E * 4 + cF * cn * S * 8 + \
                     2 * cn * (2 * E + 2 * M) * 4 + cn * 12
                 ops = live_rows * (7 * E + M + 2 * nnz)

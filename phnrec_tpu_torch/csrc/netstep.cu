@@ -23,30 +23,48 @@
 // still written, from the carry).  Adds and compares only: the records are
 // bit-equal to DenseKWSScan.step on live entries.
 //
-// The edge tables.  The closure and the sinks read one dense table
-// tab[d][r] of D = M + S destination columns (models, then sinks) by
-// source model r, row stride P >= M: A_cm[r, d] or A_cs[r, d - M] where
-// the edge is live (> NEG / 2), -INFINITY where it is not (and in the
-// padding).  x[r] is finite, so a dead edge's candidate is -INFINITY and
-// never passes the strict-greater test against the running best (which
-// starts at NEG): a walk over all sources in ascending order therefore
-// takes the same decisions as a walk over the live edges alone.  The
-// reset flags R_cm[r, d] sit beside it as bytes, reset[d][r], read once
-// per column and frame for the winning source.  The tables are staged
-// once per launch into shared memory where they fit, else read from
-// global memory.
+// The edge tables.  The closure and the sinks read the destination
+// columns (models, then sinks; D = M + S) of one dense table by source
+// model r: A_cm[r, d] or A_cs[r, d - M] where the edge is live (> NEG / 2),
+// -INFINITY where it is not.  Columns that are equal (a phone-loop
+// filler's models all share one) are stored once: tab[u][r] holds the U
+// distinct columns (rows padded to a multiple of 32, sources to the row
+// stride P with -INFINITY) and col_of[d] maps a destination to its row.
+// x[r] is finite (the padding sources read 0), so a dead edge's candidate
+// is -INFINITY and never passes the strict-greater test against the
+// running best, which starts at NEG: a walk over all sources in ascending
+// order takes the same decisions as a walk over the live edges alone, and
+// equal columns take equal decisions.  A walk split over G lanes keeps the
+// first maximum when it merges: the higher value wins, on equal values the
+// lower source.  The reset flags R_cm[r, d] sit beside it as bytes,
+// reset[d][r], read once per destination and frame for the winning
+// source.  The tables are staged once per launch into shared memory,
+// shared by the block's streams, where they fit (the EN KWS net: 11
+// distinct columns of 52, 9.4 KB), else read from global memory.
 //
-// What bounds it on the H100: the frame loop is sequential and each frame
-// needs a block-wide max (the beam) and two dependent passes (exit, then
-// closure), so it is latency-bound, far below the memory rate.
+// What bounds it on the H100: the 512-odd frames of a block depend on each
+// other, and a frame is a chain of dependent steps (in-model pass, beam
+// max, exits, a closure of M ascending compare-selects per column,
+// entries), so it is latency-bound, far below the memory rate; and with
+// n = 256 streams there is about one warp for each of the card's 528
+// schedulers, so nothing hides that latency but the instruction-level
+// parallelism inside a warp.
 //
-// Design: one thread block per stream, one thread per state, and threads
-// over the destination columns of the closure and the sinks (a sink has a
-// thread of its own, beside the models').  The carry lives in shared
-// memory for the whole block of frames, double buffered so a frame reads
-// the old carry while writing the new one; a dead frame simply does not
-// swap.  The next frame's observation is loaded before the current
-// frame's closure so its latency overlaps the barriers.
+// Design: one warp per stream, several streams per block sharing the
+// staged tables, and no block barrier in the frame loop (one after the
+// staging).  Lane l holds states l*EPL .. l*EPL + EPL-1 (alpha, word
+// times, their weights and the next frame's observations) in registers;
+// alpha[e-1] of a lane's first state comes from the lane below by shuffle,
+// the beam max is one warp reduction (redux on the floats' ordered integer
+// keys).  Exits pass through the warp's own slice of shared memory under
+// __syncwarp.  The closure and the sinks run in two passes: G lanes walk
+// each distinct column's sources (32 / G columns at a time), reading x[r]
+// as a broadcast and the weights as 16-byte loads, 4 sources a step, and
+// merge their bests by shuffle; then each destination (a sink has a lane
+// of its own, beside the models') takes its column's best, its word time
+// and reset, and writes the entry or the sink record.  The next frame's
+// observations are loaded before the beam and the closure, so their
+// latency overlaps them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,162 +73,269 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int MAX_E = 1024;  // the wrapper's MAX_E (ops/netstep.py)
+constexpr int MAX_E = 1024;         // the wrapper's MAX_E (ops/netstep.py)
+constexpr int MAX_STREAMS_PER_BLOCK = 4;
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < nw; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();  // red is reused by the next frame
-  return m;
+// The largest of a warp's floats, exactly: max over the integers that
+// order the floats as their values do (no NaN here).
+__device__ __forceinline__ float warp_max(float v) {
+  int i = __float_as_int(v);
+  i = __reduce_max_sync(0xffffffffu, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-__global__ void net_block_kernel(
+// strict-greater update: the first source of the best value wins
+__device__ __forceinline__ void take(float& v, int& k, float c, int r) {
+  if (c > v) {
+    v = c;
+    k = r;
+  }
+}
+
+template <int EPL, bool SMEM_TAB>
+__global__ void __launch_bounds__(32 * MAX_STREAMS_PER_BLOCK)
+net_block_kernel(
     const float* __restrict__ obs, const float* __restrict__ alpha0,
     const int* __restrict__ wt0, const float* __restrict__ entry0,
     const int* __restrict__ ewt0, const float* __restrict__ w_self,
     const float* __restrict__ w_adv, const float* __restrict__ w_entry,
     const float* __restrict__ w_exit, const float* __restrict__ tab_g,
-    const int8_t* __restrict__ reset_g, const int* __restrict__ n_valid,
-    const int* __restrict__ n_dec, const float* __restrict__ beam, int F,
-    int n, int E, int M, int S, int S_M, int P, int tab_smem,
-    float* __restrict__ alpha_out, int* __restrict__ wt_out,
+    const int* __restrict__ col_g, const int8_t* __restrict__ reset_g,
+    const int* __restrict__ n_valid, const int* __restrict__ n_dec,
+    const float* __restrict__ beam, int F, int n, int E, int M, int S,
+    int S_M, int P, int U, float* __restrict__ alpha_out,
+    int* __restrict__ wt_out,
     float* __restrict__ entry_out, int* __restrict__ ewt_out,
     float* __restrict__ sink_val, int* __restrict__ sink_wt) {
   extern __shared__ __align__(16) float smem[];
   const int D = M + S;
-  // [D][P] table (if staged), [P] exit value, [M] exit word time, [2][E]
-  // alpha, [2][E] wt, [2][M] entry, [2][M] entry_wt, [32] reduction,
-  // [M][P] reset bytes (if staged)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int U_pad = (U + 31) / 32 * 32;
+  // [U_pad][P] table, [D] column map and [M][P] reset bytes (if staged),
+  // then per warp: [P] exit value, [M] exit word time, [M] entry, [M]
+  // entry word time, [U] best value and [U] best source of each column
+  const size_t tab_floats =
+      SMEM_TAB ? (size_t)U_pad * P + (D + 3) / 4 * 4 +
+                     ((size_t)M * P + 15) / 16 * 4
+               : 0;
+  const int slice = P + (3 * M + 2 * U + 3) / 4 * 4;
   float* tab_s = smem;
-  float* xv_s = tab_s + (tab_smem ? (size_t)D * P : 0);
-  int* xw_s = reinterpret_cast<int*>(xv_s + P);
-  float* alpha_s = reinterpret_cast<float*>(xw_s + M);
-  int* wt_s = reinterpret_cast<int*>(alpha_s + 2 * E);
-  float* entry_s = reinterpret_cast<float*>(wt_s + 2 * E);
-  int* ewt_s = reinterpret_cast<int*>(entry_s + 2 * M);
-  float* red = reinterpret_cast<float*>(ewt_s + 2 * M);
-  int8_t* reset_s = reinterpret_cast<int8_t*>(red + 32);
+  int* col_s = reinterpret_cast<int*>(smem + (size_t)U_pad * P);
+  int8_t* reset_s = reinterpret_cast<int8_t*>(col_s + (D + 3) / 4 * 4);
+  float* xv = smem + tab_floats + (size_t)warp * slice;
+  int* xw = reinterpret_cast<int*>(xv + P);
+  float* en = reinterpret_cast<float*>(xw + M);
+  int* ew = reinterpret_cast<int*>(en + M);
+  float* uv = reinterpret_cast<float*>(ew + M);
+  int* uk = reinterpret_cast<int*>(uv + U);
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  if (SMEM_TAB) {
+    const float4* src = reinterpret_cast<const float4*>(tab_g);
+    float4* dst = reinterpret_cast<float4*>(tab_s);
+    for (int i = threadIdx.x; i < U_pad * P / 4; i += blockDim.x)
+      dst[i] = src[i];
+    for (int i = threadIdx.x; i < D; i += blockDim.x) col_s[i] = col_g[i];
+    const int* rsrc = reinterpret_cast<const int*>(reset_g);
+    int* rdst = reinterpret_cast<int*>(reset_s);
+    for (int i = threadIdx.x; i < M * P / 4; i += blockDim.x)
+      rdst[i] = rsrc[i];
+  }
+  __syncthreads();  // the tables are read by every warp of the block
+  const float* tab = SMEM_TAB ? tab_s : tab_g;
+  const int* col_of = SMEM_TAB ? col_s : col_g;
+  const int8_t* reset = SMEM_TAB ? reset_s : reset_g;
+  // G lanes split each distinct column's sources (G a power of two, as
+  // many as leave every lane a column and a group >= 4 sources), SG
+  // sources a lane
+  const int M4 = (M + 3) / 4 * 4;
+  int lg = 0;
+  while ((U << (lg + 1)) <= 32 && (4 << (lg + 1)) <= M4) ++lg;
+  const int G = 1 << lg;
+  const int SG = ((M4 + G - 1) / G + 3) / 4 * 4;
+
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= n) return;
   const int nv = n_valid[b];
   const int t_base = n_dec[b] + 1;
   const float bm = beam[b];
 
-  if (tab_smem) {
-    for (int i = tid; i < D * P; i += blockDim.x) tab_s[i] = tab_g[i];
-    for (int i = tid; i < M * P; i += blockDim.x) reset_s[i] = reset_g[i];
+  // lane-held states: alpha, word time, weights, model, observation.  The
+  // padding states (e >= E) have -INFINITY weights, so they never raise
+  // the beam max, and nothing reads them.
+  float a[EPL], ws[EPL], wa[EPL], we[EPL], wx[EPL], o[EPL];
+  int wt[EPL], mo[EPL];
+  unsigned last = 0;  // bit j: slot j is its model's last state
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const int e = lane * EPL + j;
+    const bool in = e < E;
+    a[j] = in ? alpha0[(size_t)b * E + e] : NEG;
+    wt[j] = in ? wt0[(size_t)b * E + e] : 0;
+    ws[j] = in ? w_self[e] : -INFINITY;
+    wa[j] = in ? w_adv[e] : -INFINITY;
+    we[j] = in ? w_entry[e] : -INFINITY;
+    mo[j] = in ? e / S_M : 0;
+    wx[j] = in ? w_exit[mo[j]] : 0.f;
+    if (in && e % S_M == S_M - 1) last |= 1u << j;
+    o[j] = (in && F > 0) ? obs[(size_t)b * E + e] : 0.f;
   }
-  const float* tab = tab_smem ? tab_s : tab_g;
-  const int8_t* reset = tab_smem ? reset_s : reset_g;
-  // the padding sources read a finite exit value, so their -INFINITY
-  // weights give -INFINITY candidates
-  for (int r = M + tid; r < P; r += blockDim.x) xv_s[r] = 0.f;
-
-  // thread tid owns state tid and model tid where they exist
-  const bool has_e = tid < E, has_m = tid < M;
-  float ws = 0.f, wa = 0.f, we = 0.f, wx = 0.f;
-  int m_of_e = 0;
-  if (has_e) {
-    ws = w_self[tid];
-    wa = w_adv[tid];
-    we = w_entry[tid];
-    m_of_e = tid / S_M;
-    alpha_s[tid] = alpha0[(size_t)b * E + tid];
-    wt_s[tid] = wt0[(size_t)b * E + tid];
+  for (int m = lane; m < M; m += 32) {
+    en[m] = entry0[(size_t)b * M + m];
+    ew[m] = ewt0[(size_t)b * M + m];
   }
-  if (has_m) {
-    wx = w_exit[tid];
-    entry_s[tid] = entry0[(size_t)b * M + tid];
-    ewt_s[tid] = ewt0[(size_t)b * M + tid];
-  }
-  int cur = 0;  // which half of each double buffer holds the carry
-  float o = (has_e && F > 0) ? obs[(size_t)b * E + tid] : 0.f;
-  __syncthreads();
+  for (int r = M + lane; r < P; r += 32) xv[r] = 0.f;
+  __syncwarp();
 
   for (int f = 0; f < F; ++f) {
-    const int nxt = cur ^ 1;
-    const float* a_c = alpha_s + cur * E;
-    const int* w_c = wt_s + cur * E;
-    const float* en_c = entry_s + cur * M;
-    const int* ew_c = ewt_s + cur * M;
-
-    // -- in-model pass
-    float na = -INFINITY;
-    int nw = 0;
-    if (has_e) {
-      na = a_c[tid] + ws;
-      nw = w_c[tid];
-      const float adv = (tid > 0 ? a_c[tid - 1] : NEG) + wa;
-      if (adv >= na) {
-        na = adv;
-        nw = tid > 0 ? w_c[tid - 1] : 0;
+    // -- in-model pass; the state below a lane's first is the last of the
+    // lane below
+    float pa = __shfl_up_sync(0xffffffffu, a[EPL - 1], 1);
+    int pw = __shfl_up_sync(0xffffffffu, wt[EPL - 1], 1);
+    if (lane == 0) {
+      pa = NEG;
+      pw = 0;
+    }
+    float na[EPL];
+    int nw[EPL];
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      float v = a[j] + ws[j];
+      int w = wt[j];
+      const float adv = (j ? a[j - 1] : pa) + wa[j];
+      if (adv >= v) {
+        v = adv;
+        w = j ? wt[j - 1] : pw;
       }
-      const float ent = en_c[m_of_e] + we;
-      if (ent >= na) {
-        na = ent;
-        nw = ew_c[m_of_e];
+      const float ent = en[mo[j]] + we[j];
+      if (ent >= v) {
+        v = ent;
+        w = ew[mo[j]];
       }
-      na = na + o;
-      if (f + 1 < F) o = obs[((size_t)(f + 1) * n + b) * E + tid];
+      na[j] = v + o[j];
+      nw[j] = w;
+    }
+    if (f + 1 < F) {
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        const int e = lane * EPL + j;
+        if (e < E) o[j] = obs[((size_t)(f + 1) * n + b) * E + e];
+      }
     }
     // -- beam against the stream's best state
-    const float thresh = block_max(na, red) - bm;
-    if (has_e) {
-      alpha_s[nxt * E + tid] = na >= thresh ? na : NEG;
-      wt_s[nxt * E + tid] = nw;
+    float mx = na[0];
+#pragma unroll
+    for (int j = 1; j < EPL; ++j) mx = fmaxf(mx, na[j]);
+    const float thresh = warp_max(mx) - bm;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      na[j] = na[j] >= thresh ? na[j] : NEG;
+      // -- exit pass: the last state of each model
+      if (last >> j & 1) {
+        xv[mo[j]] = na[j] + wx[j];
+        xw[mo[j]] = nw[j];
+      }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // -- exit pass: the last state of each model
-    if (has_m) {
-      const int last = (tid + 1) * S_M - 1;
-      xv_s[tid] = alpha_s[nxt * E + last] + wx;
-      xw_s[tid] = wt_s[nxt * E + last];
-    }
-    __syncthreads();
-
-    // -- closure (exits -> entries) and sinks: one column a thread, all
-    // sources ascending, the exit value read as a broadcast
-    for (int d = tid; d < D; d += blockDim.x) {
-      const float* col = tab + (size_t)d * P;
+    // -- closure (exits -> entries) and sinks, 1: the best source of
+    // each distinct column, its sources split over G lanes, each walked
+    // ascending, then merged keeping the first maximum
+    const bool live = f < nv;
+    for (int u0 = 0; u0 < U; u0 += 32 >> lg) {
+      const int u = u0 + (lane >> lg), g = lane & (G - 1);
+      const float* t = tab + (size_t)u * P;
       float v = NEG;
       int k = -1;
-      for (int r = 0; r < M; ++r) {
-        const float c = xv_s[r] + col[r];
-        if (c > v) {
-          v = c;
-          k = r;
+      const int r1 = min(g * SG + SG, M4);
+#pragma unroll 4
+      for (int r = g * SG; r < r1; r += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(xv + r);
+        const float4 p = *reinterpret_cast<const float4*>(t + r);
+        take(v, k, x.x + p.x, r);
+        take(v, k, x.y + p.y, r + 1);
+        take(v, k, x.z + p.z, r + 2);
+        take(v, k, x.w + p.w, r + 3);
+      }
+      for (int off = 1; off < G; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int ok = __shfl_xor_sync(0xffffffffu, k, off);
+        if (ov > v || (ov == v && ok < k)) {
+          v = ov;
+          k = ok;
         }
       }
-      const int w = k >= 0 ? xw_s[k] : 0;
+      if (g == 0 && u < U) {
+        uv[u] = v;
+        uk[u] = k;
+      }
+    }
+    __syncwarp();
+    // 2: each destination column takes its distinct column's best
+    for (int d = lane; d < D; d += 32) {
+      const int u = col_of[d];
+      const float v = uv[u];
+      const int k = uk[u];
+      const int w = k >= 0 ? xw[k] : 0;
       if (d < M) {
-        const int rs = k >= 0 ? reset[(size_t)d * P + k] : 0;
-        entry_s[nxt * M + d] = v >= thresh ? v : NEG;
-        ewt_s[nxt * M + d] = rs ? t_base + f : w;
+        if (live) {
+          const int rs = k >= 0 ? reset[(size_t)d * P + k] : 0;
+          en[d] = v >= thresh ? v : NEG;
+          ew[d] = rs ? t_base + f : w;
+        }
       } else {
         const size_t idx = ((size_t)f * n + b) * S + (d - M);
         sink_val[idx] = v;
         sink_wt[idx] = w;
       }
     }
-    __syncthreads();
-    if (f < nv) cur = nxt;  // a dead frame keeps the carry
+    if (live) {  // a dead frame keeps the carry
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        a[j] = na[j];
+        wt[j] = nw[j];
+      }
+    }
+    __syncwarp();
   }
 
-  if (has_e) {
-    alpha_out[(size_t)b * E + tid] = alpha_s[cur * E + tid];
-    wt_out[(size_t)b * E + tid] = wt_s[cur * E + tid];
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const int e = lane * EPL + j;
+    if (e < E) {
+      alpha_out[(size_t)b * E + e] = a[j];
+      wt_out[(size_t)b * E + e] = wt[j];
+    }
   }
-  if (has_m) {
-    entry_out[(size_t)b * M + tid] = entry_s[cur * M + tid];
-    ewt_out[(size_t)b * M + tid] = ewt_s[cur * M + tid];
+  for (int m = lane; m < M; m += 32) {
+    entry_out[(size_t)b * M + m] = en[m];
+    ewt_out[(size_t)b * M + m] = ew[m];
+  }
+}
+
+using Kernel = void (*)(const float*, const float*, const int*, const float*,
+                        const int*, const float*, const float*, const float*,
+                        const float*, const float*, const int*,
+                        const int8_t*, const int*, const int*, const float*,
+                        int, int, int, int, int, int, int, int, float*, int*,
+                        float*, int*, float*, int*);
+
+// the instantiated states-per-lane counts, ascending
+constexpr int EPLS[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
+
+template <bool SMEM_TAB>
+Kernel pick(int epl) {
+  switch (epl) {
+    case 1: return net_block_kernel<1, SMEM_TAB>;
+    case 2: return net_block_kernel<2, SMEM_TAB>;
+    case 3: return net_block_kernel<3, SMEM_TAB>;
+    case 4: return net_block_kernel<4, SMEM_TAB>;
+    case 5: return net_block_kernel<5, SMEM_TAB>;
+    case 6: return net_block_kernel<6, SMEM_TAB>;
+    case 8: return net_block_kernel<8, SMEM_TAB>;
+    case 12: return net_block_kernel<12, SMEM_TAB>;
+    case 16: return net_block_kernel<16, SMEM_TAB>;
+    case 24: return net_block_kernel<24, SMEM_TAB>;
+    default: return net_block_kernel<32, SMEM_TAB>;
   }
 }
 
@@ -218,49 +343,63 @@ __global__ void net_block_kernel(
 
 // One block of frames of the dense network step for n streams: obs
 // [F, n, E] f32; carry alpha/wt [n, E], entry/entry_wt [n, M]; structured
-// weights w_self/w_adv/w_entry [E], w_exit [M]; the edge tables tab f32
-// [D_pad][P] (D_pad >= M + S, see the header) and reset i8 [M][P];
-// n_valid/n_dec i32 [n], beam f32 [n] -> carry out and sink records
-// [F, n, S].  Launches on `stream`, allocates nothing, does not
-// synchronise.
+// weights w_self/w_adv/w_entry [E], w_exit [M]; the edge tables (see the
+// header) tab f32 [U rounded up to 32][P] of U distinct columns, col_of
+// i32 [M + S] and reset i8 [M][P]; n_valid/n_dec i32 [n], beam f32 [n] -> carry out and
+// sink records [F, n, S].  MAX_STREAMS_PER_BLOCK streams a block, fewer
+// where shared memory runs short; n need not be a multiple.  Launches
+// on `stream`, allocates nothing, does not synchronise.
 extern "C" int phn_net_block(
     const void* obs, const void* alpha0, const void* wt0, const void* entry0,
     const void* ewt0, const void* w_self, const void* w_adv,
     const void* w_entry, const void* w_exit, const void* tab,
-    const void* reset, const void* n_valid, const void* n_dec,
-    const void* beam, int F, int n, int E, int M, int S, int S_M, int P,
-    void* alpha_out, void* wt_out, void* entry_out, void* ewt_out,
+    const void* col_of, const void* reset, const void* n_valid,
+    const void* n_dec, const void* beam, int F, int n, int E, int M, int S,
+    int S_M, int P, int U, void* alpha_out, void* wt_out, void* entry_out, void* ewt_out,
     void* sink_val, void* sink_wt, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (F < 0 || E <= 0 || M <= 0 || S <= 0 || S_M <= 0 || E != M * S_M ||
-      E > MAX_E || P < M || P % 4)
+      E > MAX_E || P < M || P % 4 || U < 1 || U > M + S)
     return cudaErrorInvalidValue;
-  const int D = M + S;
-  const int threads = (((E > D ? E : D) < 1024 ? (E > D ? E : D) : 1024)
-                       + 31) / 32 * 32;
-  const size_t base = sizeof(float) * ((size_t)P + 5 * (size_t)M +
-                                       4 * (size_t)E + 32);
-  const size_t tables = sizeof(float) * (size_t)D * P + (size_t)M * P;
+  const int U_pad = (U + 31) / 32 * 32, D = M + S;
+  int epl = 32;
+  for (int c : EPLS)
+    if (c * 32 >= E) {
+      epl = c;
+      break;
+    }
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  const int tab_smem = base + tables <= (size_t)optin;
-  const size_t smem = base + (tab_smem ? tables : 0);
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  const size_t slice =
+      sizeof(float) * (P + (3 * (size_t)M + 2 * (size_t)U + 3) / 4 * 4);
+  const size_t tables = sizeof(float) * ((size_t)U_pad * P +
+                                         ((size_t)D + 3) / 4 * 4) +
+                        ((size_t)M * P + 15) / 16 * 16;
+  int w = MAX_STREAMS_PER_BLOCK;
+  bool smem_tab = tables + slice <= (size_t)optin;
+  if (smem_tab) {
+    while (w > 1 && tables + w * slice > (size_t)optin) --w;
+  } else {
+    while (w > 1 && w * slice > (size_t)optin) --w;
+    if (slice > (size_t)optin) return cudaErrorInvalidValue;
+  }
+  const size_t smem = (smem_tab ? tables : 0) + w * slice;
+  const Kernel k = smem_tab ? pick<true>(epl) : pick<false>(epl);
   cudaError_t err = cudaFuncSetAttribute(
-      net_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  net_block_kernel<<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  k<<<(n + w - 1) / w, 32 * w, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(obs), static_cast<const float*>(alpha0),
       static_cast<const int*>(wt0), static_cast<const float*>(entry0),
       static_cast<const int*>(ewt0), static_cast<const float*>(w_self),
       static_cast<const float*>(w_adv), static_cast<const float*>(w_entry),
       static_cast<const float*>(w_exit), static_cast<const float*>(tab),
-      static_cast<const int8_t*>(reset), static_cast<const int*>(n_valid),
-      static_cast<const int*>(n_dec), static_cast<const float*>(beam), F, n,
-      E, M, S, S_M, P, tab_smem, static_cast<float*>(alpha_out),
+      static_cast<const int*>(col_of), static_cast<const int8_t*>(reset),
+      static_cast<const int*>(n_valid), static_cast<const int*>(n_dec),
+      static_cast<const float*>(beam), F, n, E, M, S, S_M, P, U,
+      static_cast<float*>(alpha_out),
       static_cast<int*>(wt_out), static_cast<float*>(entry_out),
       static_cast<int*>(ewt_out), static_cast<float*>(sink_val),
       static_cast<int*>(sink_wt));

@@ -6,10 +6,13 @@ CUDA card.
 
 Builds every source given (all at once, with the package's nvcc flags, into
 build/phnrec_tpu_torch/variants/) and prints each build's registers and
-spills.  Two entry points are known: ``phn_net_block`` (csrc/netstep.cu:
-the dense edge tables of ops/netstep.py) and ``net_block`` (the first
-kernel B, which walked per-destination lists of live edges with one block a
-stream and one thread a state; its lists are rebuilt here).  With
+spills.  Three entry points are known, told apart by the source's text:
+``phn_net_block`` with a column map (csrc/netstep.cu: the distinct-column
+tables of ops/netstep.py), ``phn_net_block`` without one (an earlier
+dense kernel B that read every destination column; its table is rebuilt
+here), and ``net_block`` (the first kernel B, which walked
+per-destination lists of live edges with one block a stream and one
+thread a state; its lists are rebuilt here).  With
 ``--ablate``, each ``net_block`` source is also built three more times with
 a part cut out, to see what its time is made of: the closure walk, the
 sink walk, or every block barrier.  Those copies compute wrong records:
@@ -71,24 +74,20 @@ def _lists(A: np.ndarray, extra=None):
 
 
 class Dense:
-    """Entry point phn_net_block: the dense tables of NetBlock."""
-    symbol = "phn_net_block"
+    """Entry point phn_net_block with a column map: NetBlock's tables."""
+    keys = ("w_self", "w_adv", "w_entry", "w_exit", "tab", "col_of",
+            "reset")
 
     def __init__(self, blk, dev):
         self.blk, self.t = blk, blk._tables(dev)
-        self.dense = blk.dense
+        self.ints = (blk.P, blk.U)
 
-    @staticmethod
-    def bind(lib):
+    def bind(self, lib):
         fn = lib.phn_net_block
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * (8 + len(self.keys))
+                       + [ctypes.c_int] * (6 + len(self.ints))
                        + [ctypes.c_void_p] * 7)
         fn.restype = ctypes.c_int
-
-    def args(self):
-        t = self.t
-        return ([t[k].data_ptr() for k in ("w_self", "w_adv", "w_entry",
-                                           "w_exit", "tab", "reset")], [])
 
     def call(self, lib, carry, obs, n_valid, n_dec, beam):
         F, n, E = obs.shape
@@ -96,24 +95,39 @@ class Dense:
         out = [torch.empty_like(c) for c in carry]
         sv = torch.empty((F, n, b.S), dtype=torch.float32, device=obs.device)
         sw = torch.empty((F, n, b.S), dtype=torch.int32, device=obs.device)
-        ptrs, _ = self.args()
         err = lib.phn_net_block(
-            obs.data_ptr(), *(c.data_ptr() for c in carry), *ptrs,
+            obs.data_ptr(), *(c.data_ptr() for c in carry),
+            *(self.t[k].data_ptr() for k in self.keys),
             n_valid.data_ptr(), n_dec.data_ptr(), beam.data_ptr(), F, n, E,
-            b.M, b.S, b.S_M, b.P, *(o.data_ptr() for o in out),
+            b.M, b.S, b.S_M, *self.ints, *(o.data_ptr() for o in out),
             sv.data_ptr(), sw.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "phn_net_block")
         return tuple(out), (sv, sw)
 
 
-class Lists(Dense):
-    """Entry point net_block: per-destination edge lists, a block a
-    stream and a thread a state, model and sink."""
-    symbol = "net_block"
+class AllColumns(Dense):
+    """Entry point phn_net_block without a column map: every destination
+    column's row in the table, padded to 64 rows."""
+    keys = ("w_self", "w_adv", "w_entry", "w_exit", "tab", "reset")
 
     def __init__(self, blk, dev):
         super().__init__(blk, dev)
+        A = np.concatenate([np.asarray(blk.dense.A_cm),
+                            np.asarray(blk.dense.A_cs)[:, :blk.S]], 1).T
+        tab = np.full((-(-A.shape[0] // 64) * 64, blk.P), -np.inf,
+                      np.float32)
+        tab[:A.shape[0], :blk.M] = np.where(A > NEG / 2, A, -np.inf)
+        self.t = {**self.t, "tab": torch.from_numpy(tab).to(dev)}
+        self.ints = (blk.P,)
+
+
+class Lists(Dense):
+    """Entry point net_block: per-destination edge lists, a block a
+    stream and a thread a state, model and sink."""
+
+    def __init__(self, blk, dev):
+        self.blk = blk
         d = blk.dense
         cm = _lists(np.asarray(d.A_cm), np.asarray(d.R_cm))
         cs = _lists(np.asarray(d.A_cs)[:, :blk.S])
@@ -123,8 +137,7 @@ class Lists(Dense):
         self.dev = [torch.from_numpy(a).to(dev) for a in self.host]
         self.threads = -(-max(blk.E, blk.M, blk.S) // 32) * 32
 
-    @staticmethod
-    def bind(lib):
+    def bind(self, lib):
         fn = lib.net_block
         fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p] * 7)
@@ -215,9 +228,11 @@ def main(argv) -> int:
     blk = netstep.build_net_block_fn(dense)
     kinds = {}
     for name, lib in libs.items():
-        kind = Dense if hasattr(lib, Dense.symbol) else Lists
-        kind.bind(lib)
+        text = srcs[name].read_text()
+        kind = (Lists if 'extern "C" int net_block(' in text else
+                Dense if "const void* col_of" in text else AllColumns)
         kinds[name] = kind(blk, dev)
+        kinds[name].bind(lib)
 
     cases = {"main": (256, 512, dict(seed=21)),
              "ties": (256, 512, dict(seed=23, ties=True)),

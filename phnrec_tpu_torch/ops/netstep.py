@@ -15,8 +15,9 @@ n_dec + 1 + frame.  The plain version is the frame loop of
 structure ``extract_structure`` verifies (uniform-S left-to-right models:
 three in-model candidates per state, the exit from each model's last
 state) and reads the exit->entry closure and the sinks from one dense
-table by destination column and source model, -inf on dead edges, walked
-over all sources ascending with strict-greater updates (``dense_tables``).
+table by destination column and source model, -inf on dead edges, each
+distinct column once, walked over all sources ascending with the first
+maximum kept (``dense_tables``).
 All of it is adds and compares, so the kernel is bit-equal to the plain
 version on live entries (value > NEG / 2); dead entries hold different
 never-winning values, as in the JAX package.
@@ -37,9 +38,6 @@ LAUNCHES = 0
 # the networks the kernel takes: E states at most (csrc/netstep.cu,
 # MAX_E), any number of models and sinks
 MAX_E = 1024
-# destination columns a warp walks side by side (the tables' rows are
-# padded to a multiple)
-COLUMN_TILE = 64
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -173,20 +171,25 @@ def _stride(M: int) -> int:
 
 
 def dense_tables(A_cm: np.ndarray, R_cm: np.ndarray, A_cs: np.ndarray):
-    """The kernel's edge tables: tab f32 [D_pad, P], column d of the
-    closure (d < M: A_cm[:, d]) or of sink d - M (A_cs[:, d - M]) by source
-    model, -inf where the edge is dead (<= NEG / 2) and in the padding
-    (rows to a multiple of COLUMN_TILE, sources to the stride P); and
-    reset i8 [M, P], R_cm transposed (0 on dead edges)."""
+    """The kernel's edge tables.  The destination columns (d < M: the
+    closure's A_cm[:, d]; d >= M: sink d - M's A_cs[:, d - M]) by source
+    model, -inf where the edge is dead (<= NEG / 2): tab f32 [U_pad, P]
+    holds each distinct column once (a phone-loop filler's models share
+    one), rows padded to a multiple of 32 and sources to the stride P with
+    -inf; col_of i32 [M + S] maps each destination to its row; reset i8
+    [M, P] is R_cm transposed (0 on dead edges).  Returns (tab, col_of,
+    reset, U)."""
     M, S = A_cm.shape[0], A_cs.shape[1]
     P = _stride(M)
-    D_pad = -(-(M + S) // COLUMN_TILE) * COLUMN_TILE
-    tab = np.full((D_pad, P), -np.inf, np.float32)
     A = np.concatenate([A_cm, A_cs], axis=1).T      # [D, src M]
-    tab[:M + S, :M] = np.where(A > NEG / 2, A, -np.inf)
+    cols, col_of = np.unique(np.where(A > NEG / 2, A, -np.inf), axis=0,
+                             return_inverse=True)
+    U = cols.shape[0]
+    tab = np.full((-(-U // 32) * 32, P), -np.inf, np.float32)
+    tab[:U, :M] = cols
     reset = np.zeros((M, P), np.int8)
     reset[:, :M] = (R_cm.T & (A_cm.T > NEG / 2))
-    return tab, reset
+    return tab, col_of.reshape(-1).astype(np.int32), reset, U
 
 
 class NetBlock:
@@ -199,14 +202,14 @@ class NetBlock:
         self.dense = dense
         self.M, self.E, self.S = dense.M, dense.E, dense.n_sinks
         self.S_M = structure["S_M"]
-        tab, reset = dense_tables(np.asarray(dense.A_cm),
-                                  np.asarray(dense.R_cm, bool),
-                                  np.asarray(dense.A_cs)[:, :self.S])
+        tab, col_of, reset, self.U = dense_tables(
+            np.asarray(dense.A_cm), np.asarray(dense.R_cm, bool),
+            np.asarray(dense.A_cs)[:, :self.S])
         self.P = tab.shape[1]
         self._host = dict(
             w_self=structure["w_self"], w_adv=structure["w_adv"],
             w_entry=structure["w_entry"], w_exit=structure["w_exit"],
-            tab=tab, reset=reset)
+            tab=tab, col_of=col_of, reset=reset)
 
     def _tables(self, device):
         return _device_cache(self, device, lambda d: {
@@ -246,9 +249,10 @@ class NetBlock:
                 entry.data_ptr(), ewt.data_ptr(),
                 t["w_self"].data_ptr(), t["w_adv"].data_ptr(),
                 t["w_entry"].data_ptr(), t["w_exit"].data_ptr(),
-                t["tab"].data_ptr(), t["reset"].data_ptr(),
-                n_valid.data_ptr(), n_dec.data_ptr(), beam.data_ptr(),
-                F, n, E, M, S, self.S_M, self.P,
+                t["tab"].data_ptr(), t["col_of"].data_ptr(),
+                t["reset"].data_ptr(), n_valid.data_ptr(),
+                n_dec.data_ptr(), beam.data_ptr(),
+                F, n, E, M, S, self.S_M, self.P, self.U,
                 *(o.data_ptr() for o in out), sv.data_ptr(), sw.data_ptr(),
                 stream)
         _build.check(err, "netstep")
@@ -261,7 +265,7 @@ def _lib():
     lib = _build.load("netstep")
     fn = lib.phn_net_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 7)
         fn.restype = ctypes.c_int
     return lib
