@@ -61,8 +61,10 @@
 // each distinct column's sources (32 / G columns at a time), reading x[r]
 // as a broadcast and the weights as 16-byte loads, 4 sources a step, and
 // merge their bests by shuffle; then each destination (a sink has a lane
-// of its own, beside the models') takes its column's best, its word time
-// and reset, and writes the entry or the sink record.  The next frame's
+// of its own, beside the models'; two a lane, their loads issued together,
+// the first 64 destinations' column rows kept in registers) takes its
+// column's best, its word time and reset, and writes the entry or the
+// sink record.  The next frame's
 // observations are loaded before the beam and the closure, so their
 // latency overlaps them.
 
@@ -184,6 +186,9 @@ net_block_kernel(
     ew[m] = ewt0[(size_t)b * M + m];
   }
   for (int r = M + lane; r < P; r += 32) xv[r] = 0.f;
+  // the first 64 destinations' columns, frame-invariant
+  const int cu[2] = {lane < D ? col_of[lane] : 0,
+                     lane + 32 < D ? col_of[lane + 32] : 0};
   __syncwarp();
 
   for (int f = 0; f < F; ++f) {
@@ -270,22 +275,36 @@ net_block_kernel(
       }
     }
     __syncwarp();
-    // 2: each destination column takes its distinct column's best
-    for (int d = lane; d < D; d += 32) {
-      const int u = col_of[d];
-      const float v = uv[u];
-      const int k = uk[u];
-      const int w = k >= 0 ? xw[k] : 0;
-      if (d < M) {
-        if (live) {
-          const int rs = k >= 0 ? reset[(size_t)d * P + k] : 0;
-          en[d] = v >= thresh ? v : NEG;
-          ew[d] = rs ? t_base + f : w;
+    // 2: each destination column takes its distinct column's best, two
+    // destinations a lane side by side
+    for (int d0 = 0; d0 < D; d0 += 64) {
+      int dd[2], uu[2], kk[2];
+      float vv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dd[h] = d0 + 32 * h + lane;
+        uu[h] = d0 ? (dd[h] < D ? col_of[dd[h]] : 0) : cu[h];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        vv[h] = uv[uu[h]];
+        kk[h] = uk[uu[h]];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = dd[h], k = kk[h];
+        const int w = k >= 0 ? xw[k] : 0;
+        const bool rs = k >= 0 && d < M && reset[(size_t)d * P + k];
+        if (d < M) {
+          if (live) {
+            en[d] = vv[h] >= thresh ? vv[h] : NEG;
+            ew[d] = rs ? t_base + f : w;
+          }
+        } else if (d < D) {
+          const size_t idx = ((size_t)f * n + b) * S + (d - M);
+          sink_val[idx] = vv[h];
+          sink_wt[idx] = w;
         }
-      } else {
-        const size_t idx = ((size_t)f * n + b) * S + (d - M);
-        sink_val[idx] = v;
-        sink_wt[idx] = w;
       }
     }
     if (live) {  // a dead frame keeps the carry
