@@ -86,12 +86,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-// strict-greater update: the first source of the best value wins
+// strict-greater update: the first source of the best value wins.  The
+// value runs through fmaxf (equal to the update: on c == v both hold the
+// same float), so its chain is one instruction a source; the source index
+// follows the compare beside it.
 __device__ __forceinline__ void take(float& v, int& k, float c, int r) {
-  if (c > v) {
-    v = c;
-    k = r;
-  }
+  const bool gt = c > v;
+  v = fmaxf(v, c);
+  k = gt ? r : k;
 }
 
 template <int EPL, bool SMEM_TAB>
