@@ -87,8 +87,9 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // strict-greater update: the first source of the best value wins.  The
-// value runs through fmaxf (equal to the update: on c == v both hold the
-// same float), so its chain is one instruction a source; the source index
+// value runs through fmaxf, which equals the update (on c == v both are
+// the same number; only -0.0 against +0.0 could differ, and no sum here
+// is -0.0), so its chain is one instruction a source; the source index
 // follows the compare beside it.
 __device__ __forceinline__ void take(float& v, int& k, float c, int r) {
   const bool gt = c > v;
