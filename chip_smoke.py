@@ -55,6 +55,8 @@ import torch
 from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import NEG, OFF_BEAM, DenseKWSScan
+from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
+from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.io.labels import read_mlf
 from phnrec_tpu_torch.multistream import MultiStreamKWS, MultiStreamRecognizer
 from phnrec_tpu_torch.ops import (_build, backtrack, lrtrace, mlp_bf16x3,
@@ -747,59 +749,37 @@ def _live_equal(got, want, live) -> bool:
                        torch.where(live, want, torch.zeros_like(want)))
 
 
-def sm_clock_mhz(fn, ms: float) -> int:
-    """The SM clock nvidia-smi reads while launches of ``fn`` (``ms``
-    each) keep the card busy for about a second."""
-    for _ in range(max(1, int(1000 / max(ms, 1e-3)))):
-        fn()
-    clk = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, check=True)
-    torch.cuda.synchronize()
-    return int(clk.stdout.split()[0])
-
-
-def _netstep_inputs(dense, dev, n: int, F: int, seed: int,
-                    ties: bool = False, dead: bool = False):
-    """Observations (normal, or small integers that tie many closure and
-    sink candidates), ragged n_valid (some 0, some F; all 0 with
-    ``dead``) and random n_dec, on the card."""
-    rng = np.random.default_rng(seed)
-    obs = (rng.integers(-3, 1, (F, n, dense.E)) if ties else
-           rng.normal(-3, 2, (F, n, dense.E))).astype(np.float32)
-    nv = rng.integers(1, F + 1, n)
-    nv[::7] = 0
-    nv[1::5] = F
-    if dead:
-        nv[:] = 0
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return (t(obs), t(nv.astype(np.int32)),
-            t(rng.integers(0, 5000, n).astype(np.int32)))
-
-
 def check_netstep(dense, dev, n: int = 256, F: int = 512):
     """Kernel B against its plain version (the DenseKWSScan.step loop) on
     the EN KWS net: the same entries live (value > NEG / 2), and sink
     records and carry bit-equal on them.  Beam off and 8.0 on each of:
     n 256 x F 512 with normal observations (timed) and with small-integer
     ones (many ties, counted); n 4; n 13 (not a multiple of the kernel's
-    4 streams a block); F 1; every stream's n_valid 0; and the carry passed between two
-    blocks, which must equal one block.  Returns B's result and its
+    4 streams a block); F 1; every stream's n_valid 0; the carry passed
+    between two blocks, which must equal one block; and two random
+    networks wider than the EN one (synth.dense_kws_net, every closure
+    column distinct): 96 models x 2 states, whose tables fill shared
+    memory past 48 KB, and 340 x 3 (1,020 states), whose tables do not
+    fit and are read from global memory.  Returns B's result and its
     beam-off output."""
-    blk = netstep.build_net_block_fn(dense)
-    if blk is None:
-        raise AssertionError("the structure gate rejected the EN KWS net")
-    cases = {"main": (n, F, dict(seed=21)),
-             "ties": (n, F, dict(seed=23, ties=True)),
-             "n4": (4, F, dict(seed=24)),
-             "n13": (13, F, dict(seed=25)),
-             "F1": (n, 1, dict(seed=26)),
-             "all_dead": (n, 64, dict(seed=27, dead=True)),
-             "two_blocks": (n, F, dict(seed=28))}
+    nets = {"en": dense, "wide_smem": synth.dense_kws_net(96, 2, 2, seed=1),
+            "wide_global": synth.dense_kws_net(340, 3, 5, seed=2)}
+    blks = {k: netstep.build_net_block_fn(v) for k, v in nets.items()}
+    if None in blks.values():
+        raise AssertionError(f"the structure gate rejected a net: {blks}")
+    cases = {"main": ("en", n, F, dict(seed=21)),
+             "ties": ("en", n, F, dict(seed=23, ties=True)),
+             "n4": ("en", 4, F, dict(seed=24)),
+             "n13": ("en", 13, F, dict(seed=25)),
+             "F1": ("en", n, 1, dict(seed=26)),
+             "all_dead": ("en", n, 64, dict(seed=27, dead=True)),
+             "two_blocks": ("en", n, F, dict(seed=28)),
+             "wide_smem": ("wide_smem", 6, 24, dict(seed=29)),
+             "wide_global": ("wide_global", 6, 24, dict(seed=30))}
     out, bad = {}, []
-    for case, (cn, cF, kw) in cases.items():
-        obs, n_valid, n_dec = _netstep_inputs(dense, dev, cn, cF, **kw)
-        carry0 = dense.init_carry(cn, dev)
+    for case, (net, cn, cF, kw) in cases.items():
+        dense, blk = nets[net], blks[net]
+        carry0, obs, n_valid, n_dec = b_inputs(dense, dev, cn, cF, **kw)
         for bw in (float(OFF_BEAM), 8.0):
             beam = torch.full((cn,), bw, device=dev)
             args = (carry0, obs, n_valid, n_dec, beam)
@@ -828,14 +808,14 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
                 extra["ties_closure_sink"] = netstep.count_ties(dense, *args)
             live = want[1][0] > NEG / 2
             rec = dict(case=case, n=cn, F=cF, M=dense.M, E=dense.E,
-                       S=dense.n_sinks, beam=bw,
+                       S=dense.n_sinks, distinct_columns=blk.U, beam=bw,
                        live_sink_share=float(live.float().mean()),
                        bit_equal=all(checks.values()), **extra)
             if case == "main":
                 t_k = cuda_ms(lambda: blk(*args))
                 t_p = cuda_ms(lambda: netstep.net_block_plain(dense, *args),
                               iters=2, warmup=1)
-                mhz = sm_clock_mhz(lambda: blk(*args), t_k)
+                mhz = sm_clock(lambda: blk(*args), t_k)
                 rec.update(ms=t_k, plain_ms=t_p, sm_clock_mhz=mhz,
                            clocks_a_frame=t_k * 1e-3 * mhz * 1e6 / cF)
                 # bytes: the live frames' observations read, the sink

@@ -17,10 +17,10 @@ three in-model candidates per state, the exit from each model's last
 state) and reads the exit->entry closure and the sinks from one dense
 table by destination column and source model, -inf on dead edges, each
 distinct column once, walked over all sources ascending with the first
-maximum kept (``dense_tables``).
-All of it is adds and compares, so the kernel is bit-equal to the plain
-version on live entries (value > NEG / 2); dead entries hold different
-never-winning values, as in the JAX package.
+maximum kept (``dense_tables``).  All of it is adds and compares, so the
+kernel is bit-equal to the plain version on live entries (value >
+NEG / 2); dead entries hold different never-winning values, as in the
+JAX package.
 """
 
 from __future__ import annotations

@@ -246,3 +246,35 @@ def write_kws_package(root, shape: str = "tiny", seed: int = 0) -> str:
     cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
     (pkg / "config").write_text(cfg + KWS_CONFIG)
     return str(pkg)
+
+
+def dense_kws_net(M: int, S_M: int, S: int, seed: int = 0):
+    """A uniform left-to-right network of M models x S_M states and S
+    sinks with random weights, as a DenseKWSScan (the structure kernel B
+    takes): in-model, exit, closure and sink weights multiples of -1/8 in
+    (-2, 0], closure and sink edges each live with probability 1/2, a word
+    reset on a quarter of the live closure edges, model 0 the only
+    entry at the start."""
+    from phnrec_tpu_torch.decoder.stknet import NEG, DenseKWSScan
+    rng = np.random.default_rng(seed)
+    E = M * S_M
+
+    def w(*shape):
+        return (-rng.integers(0, 16, shape) / 8).astype(np.float32)
+
+    e = np.arange(E)
+    A_in = np.full((M + E, E), NEG, np.float32)
+    A_in[M + e, e] = w(E)
+    adv, first = e[e % S_M != 0], e[e % S_M == 0]
+    A_in[M + adv - 1, adv] = w(len(adv))
+    A_in[first // S_M, first] = w(len(first))
+    A_ex = np.full((E, M), NEG, np.float32)
+    A_ex[np.arange(M) * S_M + S_M - 1, np.arange(M)] = w(M)
+    live = rng.random((M, M)) < 0.5
+    A_cm = np.where(live, w(M, M), NEG).astype(np.float32)
+    R_cm = live & (rng.random((M, M)) < 0.25)
+    A_cs = np.where(rng.random((M, S)) < 0.5, w(M, S), NEG).astype(
+        np.float32)
+    entry0 = np.full(M, NEG, np.float32)
+    entry0[0] = 0.0
+    return DenseKWSScan.from_tables(A_in, A_ex, A_cm, R_cm, A_cs, entry0, S)

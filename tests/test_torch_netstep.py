@@ -193,25 +193,6 @@ def test_wrapper_device_rules(dense):
     assert netstep.LAUNCHES == before
 
 
-def _structured_net(M, S_M, S):
-    """A uniform left-to-right network of M models x S_M states with a
-    full closure and S sinks, as a DenseKWSScan."""
-    from phnrec_tpu_torch.decoder.stknet import DenseKWSScan
-    E = M * S_M
-    A_in = np.full((M + E, E), NEG, np.float32)
-    for e in range(E):
-        A_in[M + e, e] = -0.5
-        if e % S_M:
-            A_in[M + e - 1, e] = -0.75
-        else:
-            A_in[e // S_M, e] = 0.0
-    A_ex = np.full((E, M), NEG, np.float32)
-    A_ex[np.arange(M) * S_M + S_M - 1, np.arange(M)] = -0.25
-    return DenseKWSScan.from_tables(
-        A_in, A_ex, np.full((M, M), -1.0, np.float32), np.eye(M, dtype=bool),
-        np.zeros((M, S), np.float32), np.zeros(M, np.float32), S)
-
-
 @pytest.mark.parametrize("M, S_M, F, n, what", [
     pytest.param(205, 5, 2, 3, "states", id="E-one-past"),
     pytest.param(256, 4, 2 ** 21, 1, "offsets", id="offsets-one-past")])
@@ -224,7 +205,7 @@ def test_wrapper_raises_one_past_its_limits(M, S_M, F, n, what,
     def no_build(name):
         raise AssertionError(f"built {name}")
     monkeypatch.setattr(netstep._build, "load", no_build)
-    td = _structured_net(M, S_M, 2)
+    td = synth.dense_kws_net(M, S_M, 2)
     E = td.E
     assert E == (netstep.MAX_E + 1 if what == "states" else netstep.MAX_E)
     blk = netstep.build_net_block_fn(td)
