@@ -367,18 +367,19 @@ Kernel pick(int epl) {
 // [F, n, E] f32; carry alpha/wt [n, E], entry/entry_wt [n, M]; structured
 // weights w_self/w_adv/w_entry [E], w_exit [M]; the edge tables (see the
 // header) tab f32 [U rounded up to 32][P] of U distinct columns, col_of
-// i32 [M + S] and reset i8 [M][P]; n_valid/n_dec i32 [n], beam f32 [n] -> carry out and
-// sink records [F, n, S].  MAX_STREAMS_PER_BLOCK streams a block, fewer
-// where shared memory runs short; n need not be a multiple.  Launches
-// on `stream`, allocates nothing, does not synchronise.
+// i32 [M + S] and reset i8 [M][P]; n_valid/n_dec i32 [n], beam f32 [n]
+// -> carry out and sink records [F, n, S].  MAX_STREAMS_PER_BLOCK streams
+// a block, fewer where shared memory runs short; n need not be a
+// multiple.  Launches on `stream`, allocates nothing, does not
+// synchronise.
 extern "C" int phn_net_block(
     const void* obs, const void* alpha0, const void* wt0, const void* entry0,
     const void* ewt0, const void* w_self, const void* w_adv,
     const void* w_entry, const void* w_exit, const void* tab,
     const void* col_of, const void* reset, const void* n_valid,
     const void* n_dec, const void* beam, int F, int n, int E, int M, int S,
-    int S_M, int P, int U, void* alpha_out, void* wt_out, void* entry_out, void* ewt_out,
-    void* sink_val, void* sink_wt, void* stream) {
+    int S_M, int P, int U, void* alpha_out, void* wt_out, void* entry_out,
+    void* ewt_out, void* sink_val, void* sink_wt, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (F < 0 || E <= 0 || M <= 0 || S <= 0 || S_M <= 0 || E != M * S_M ||
       E > MAX_E || P < M || P % 4 || U < 1 || U > M + S)
