@@ -55,6 +55,7 @@ import torch
 from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import NEG, OFF_BEAM, DenseKWSScan
+from phnrec_tpu_torch.devtools import scan_variants
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
 from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.io.labels import read_mlf
@@ -179,6 +180,14 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def clocks(fn, ms: float, frames: int) -> dict:
+    """The SM clock under load while ``fn`` runs, and ``ms`` in clocks a
+    frame of a scan over ``frames`` frames."""
+    mhz = sm_clock(fn, ms)
+    return dict(sm_clock_mhz=mhz,
+                clocks_a_frame=ms * 1e-3 * mhz * 1e6 / frames)
 
 
 def _mlp_inputs(sr, dev, n: int):
@@ -512,10 +521,12 @@ def check_viterbi_backtrack(dev):
     t_k = cuda_ms(lambda: phnloop_viterbi.viterbi_block(carry, lp, 0, *args))
     t_p = cuda_ms(lambda: phnloop_viterbi.viterbi_block_plain(
         carry, lp, 0, *args), iters=2, warmup=1)
+    clk = clocks(lambda: phnloop_viterbi.viterbi_block(carry, lp, 0, *args),
+                 t_k, T)
     phase("phnloop_viterbi", P=P, S=S, B=B, T=T, bit_equal=True, ms=t_k,
-          plain_ms=t_p)
+          plain_ms=t_p, **clk)
     vit = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
-               **bound(*_scan_work(B * T, P, S, P * S, B), PEAK_FP32))
+               **bound(*_scan_work(B * T, P, S, P * S, B), PEAK_FP32), **clk)
 
     n_frames = torch.from_numpy(rng.integers(S, T + 1, size=B)
                                 .astype(np.int32)).to(dev)
@@ -579,13 +590,16 @@ def check_ragged_committed(dev):
     t_k = cuda_ms(lambda: phnloop_viterbi.viterbi_block_ragged(*rargs))
     t_p = cuda_ms(lambda: phnloop_viterbi.viterbi_block_ragged_plain(
         *rargs), iters=2, warmup=1)
+    clk = clocks(lambda: phnloop_viterbi.viterbi_block_ragged(*rargs), t_k,
+                 T)
     phase("phnloop_viterbi_ragged", P=P, S=S, B=B, T=T,
-          live_rows=int(nv.sum()), bit_equal=checks, ms=t_k, plain_ms=t_p)
+          live_rows=int(nv.sum()), bit_equal=checks, ms=t_k, plain_ms=t_p,
+          **clk)
     if not all(checks.values()):
         raise AssertionError(f"phnloop_viterbi_ragged: {checks}")
     ragged = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
                   **bound(*_scan_work(int(nv.sum()), P, S, P * S, B),
-                          PEAK_FP32))
+                          PEAK_FP32), **clk)
 
     # a retained window: row i of stream b is global frame ro[b] + i of a
     # scan from frame 0 (entry frames global)
@@ -621,6 +635,22 @@ def check_ragged_committed(dev):
         raise AssertionError(f"backtrack_committed: {checks}")
     return ragged, dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
                         **bound(*_walk_work(sk[0], smax, 2, 2), PEAK_FP32))
+
+
+def check_viterbi_cases(dev) -> None:
+    """Kernels C and C' against their plain versions on
+    scan_variants.VITERBI_CASES (every P and S width, B 1 and 13, T 1 and
+    one that fills no chunk, n_valid 0, T and ragged, two blocks chained
+    through the carry, tie-heavy observations with -0.0): carry and valid
+    History bit-equal."""
+    recs = scan_variants.check_viterbi_cases(
+        phnloop_viterbi.viterbi_block, phnloop_viterbi.viterbi_block_ragged,
+        dev)
+    bad = [r for r in recs if r["bad"]]
+    phase("phnloop_viterbi_cases", cases=len(recs), bit_equal=not bad,
+          bad=bad)
+    if bad:
+        raise AssertionError(f"phnloop_viterbi cases differ: {bad}")
 
 
 def label_key(labels):
@@ -815,9 +845,8 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
                 t_k = cuda_ms(lambda: blk(*args))
                 t_p = cuda_ms(lambda: netstep.net_block_plain(dense, *args),
                               iters=2, warmup=1)
-                mhz = sm_clock(lambda: blk(*args), t_k)
-                rec.update(ms=t_k, plain_ms=t_p, sm_clock_mhz=mhz,
-                           clocks_a_frame=t_k * 1e-3 * mhz * 1e6 / cF)
+                clk = clocks(lambda: blk(*args), t_k, cF)
+                rec.update(ms=t_k, plain_ms=t_p, **clk)
                 # bytes: the live frames' observations read, the sink
                 # records written, the carry read and written; operations
                 # per live frame and stream: ~7 per state (three
@@ -832,6 +861,7 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
                 ops = live_rows * (7 * E + M + 2 * nnz)
                 out[bw] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
                                **bound(n_bytes, ops, PEAK_FP32),
+                               **clk,
                                sinks=got[1], n_valid=n_valid, n_dec=n_dec)
             phase("netstep", **rec)
             if not all(checks.values()):
@@ -846,7 +876,11 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
 def check_lrtrace(c, b_out, dev, n: int = 256, F: int = 512):
     """Kernel F against its plain version, every field equal: on kernel
     B's beam-off output, and on sink records built to emit often
-    (random-walk LRs with dead stretches), time_pruning 40 and off."""
+    (random-walk LRs with dead stretches), time_pruning 40 and off; then
+    on scan_variants.LRTRACE_CASES (K 1, 2, 13, 33 and 128 on crafted
+    records, n 1, 13 and 256, F 1 and one that fills no chunk, every
+    stream dead, tie-heavy small-integer records) and two blocks chained
+    through the state."""
     from phnrec_tpu_torch.decoder.stknet import lrtrace_init_state
     ws = torch.tensor(c.kws_word_sinks, dtype=torch.int32, device=dev)
     fs, K = c.kws_filler_sink, len(c.kws_word_sinks)
@@ -883,6 +917,8 @@ def check_lrtrace(c, b_out, dev, n: int = 256, F: int = 512):
             if not same:
                 raise AssertionError(f"lrtrace {what} tp={tp} differs")
             if what == "netstep" and tp == 40:
+                clk = clocks(lambda: lrtrace.lrtrace_scan(*args), t_k, F)
+                phase("lrtrace_clocks", n=n, F=F, K=K, **clk)
                 # bytes: the live frames' keyword and filler sink values
                 # and keyword weights read, both event records written
                 # (14 bytes a keyword and frame), the state read and
@@ -892,7 +928,13 @@ def check_lrtrace(c, b_out, dev, n: int = 256, F: int = 512):
                 n_bytes = live_rows * (2 * K + 1) * 4 + \
                     2 * n * F * K * 14 + 2 * n * K * 21 + n * 8
                 res = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
-                           **bound(n_bytes, live_rows * K * 20, PEAK_FP32))
+                           **bound(n_bytes, live_rows * K * 20, PEAK_FP32),
+                           **clk)
+    recs = scan_variants.check_lrtrace_cases(lrtrace.lrtrace_scan, dev)
+    bad = [r for r in recs if r["bad"]]
+    phase("lrtrace_cases", cases=len(recs), equal=not bad, bad=bad)
+    if bad:
+        raise AssertionError(f"lrtrace cases differ: {bad}")
     return res
 
 
@@ -1400,6 +1442,7 @@ def main() -> int:
             check_viterbi_backtrack(dev)
         results["phnloop_viterbi_ragged"], \
             results["backtrack_committed"] = check_ragged_committed(dev)
+        check_viterbi_cases(dev)
         launches = run_cli(pkg, tmp, cpu_sr, dev)
         labels_highest = timed_batch(sr, dev)
         precision.set_mode("high")

@@ -24,25 +24,56 @@
 // A dead frame writes its records (emit 0) and keeps the state.  Compares,
 // selects and one subtraction per keyword: equal to the plain version.
 //
-// What bounds it on the H100: a sequential state machine over frames, a
-// few dozen dependent instructions per frame; latency-bound, with ~16
-// bytes read and ~40 written per keyword and frame.
+// What bounds it on the H100: not bytes (~16 read and ~28 written per
+// keyword and frame: microseconds at the memory rate for a serving block)
+// but the instructions of one frame, repeated F times by one warp: the
+// frames of a stream are sequential, and with one warp per stream there
+// is about one warp for each of the card's schedulers, so nothing hides a
+// stall but the warp's own instruction-level parallelism.  The first
+// kernel F loaded each frame's three inputs from device memory at the top
+// of the frame and used them at once (~780 clocks a frame; with every
+// frame's loads from frame 0, ~335), and stored ten scattered records a
+// keyword and frame.
 //
-// Design: one warp per stream, keyword k in lane k % 32 (KPL keywords a
-// lane), the whole frame loop inside the kernel.  Keyword 0's candidate
-// end, which every keyword's time-pruning test reads, reaches the other
-// lanes by a shuffle from lane 0, so a stream's coupled lanes stay in
-// one warp.  The kernel gathers the word and filler sink columns out of
-// the network block's [F, n, S] records itself.  Latency is hidden across
-// streams.
+// Design: one warp per stream (keyword k in lane k % 32, KPL keywords a
+// lane), the whole frame loop inside the kernel, and no device memory on
+// the frame's path:
+// * the sink columns a stream needs are staged into shared memory CHUNK
+//   frames ahead by cp.async, in a ring of STAGES stages, so chunk c+1
+//   and c+2 arrive while chunk c runs; the frame loop reads shared memory
+//   only (the next frame's values loaded while this one computes).  Where
+//   a row of the records is 16-byte aligned and short (S % 4 == 0, S <=
+//   ROW_MAX: the EN net's 4 sinks are 16 bytes) whole rows are copied, one
+//   16-byte copy a row and array; otherwise only the K word columns and
+//   the filler column, 4 bytes each;
+// * the event records of a chunk go to shared memory, REC words a keyword
+//   and frame, and out to device memory once per chunk, each field of a
+//   stream's chunk one contiguous run;
+// * the frame body has no branch and is unrolled, so one frame's stores
+//   and loads overlap the next frame's compares.
+// Keyword 0's candidate end, which every keyword's time-pruning test
+// reads, reaches the other lanes by a shuffle from the stream's first
+// lane; it feeds the flush-2 test only, so it is not on the loop-carried
+// chain (cand_end -> new_hyp -> take -> cand_end).  Measured (PERF.md):
+// a warp per block (4: +1%), not several streams a warp (PACK: 3.3x
+// slower, its scattered loads and the shuffle of the stream's lanes).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 4;  // streams per block
+constexpr int WARPS = 1;           // warps per block
+constexpr int CHUNK = 32;          // frames a ring stage (at most)
+constexpr int STAGES = 3;
+constexpr int ROW_MAX = 16;        // whole rows copied up to this many sinks
+constexpr int MAX_K = 128;
+constexpr int SMEM_BYTES = 48 * 1024 - 4 * MAX_K;  // dynamic, beside ws_s
+constexpr int REC = 10;            // event-record fields a keyword and frame
+constexpr bool PACK = false;       // several streams a warp where K <= 16
 
 struct Rec {
   uint8_t* emit;
@@ -52,106 +83,249 @@ struct Rec {
   uint8_t* new_estim;
 };
 
-template <int KPL>
-__global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(
-    const float* __restrict__ sink_val, const int* __restrict__ sink_wt,
-    const int* __restrict__ ws, int fs, const int* __restrict__ n_dec,
-    const int* __restrict__ n_valid, int F, int n, int S, int K,
-    int tp_on, int tp, float sp, float neg_half,
-    const float* __restrict__ last_lr0, const float* __restrict__ cand_lr0,
-    const int* __restrict__ cand_start0, const int* __restrict__ cand_end0,
-    const int* __restrict__ prev_end0, const uint8_t* __restrict__ dumped0,
-    float* __restrict__ last_lr1, float* __restrict__ cand_lr1,
-    int* __restrict__ cand_start1, int* __restrict__ cand_end1,
-    int* __restrict__ prev_end1, uint8_t* __restrict__ dumped1, Rec r1,
-    Rec r2) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= n) return;  // the whole warp leaves together
+struct Args {
+  const float* sink_val;
+  const int* sink_wt;
+  const int* ws;
+  const int* n_dec;
+  const int* n_valid;
+  int fs, F, n, S, K, tp_on, tp;
+  int row;         // whole rows staged (else the K + 1 columns)
+  int chunk;       // frames a stage
+  int warp_words;  // shared memory a warp, in 4-byte words
+  float sp, neg_half;
+  const float* last_lr0;
+  const float* cand_lr0;
+  const int* cand_start0;
+  const int* cand_end0;
+  const int* prev_end0;
+  const uint8_t* dumped0;
+  float* last_lr1;
+  float* cand_lr1;
+  int* cand_start1;
+  int* cand_end1;
+  int* prev_end1;
+  uint8_t* dumped1;
+  Rec r1, r2;
+};
+
+// Asynchronous global -> shared copies; dst and src aligned to the size.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// LPS lanes a stream (32 / LPS streams a warp), KPL keywords a lane.
+template <int LPS, int KPL>
+__global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
+  constexpr int SPW = 32 / LPS;
+  extern __shared__ __align__(16) float ring[];
+  __shared__ int ws_s[MAX_K];
+  const int K = a.K, F = a.F, n = a.n, S = a.S, C = a.chunk;
+  for (int k = threadIdx.x; k < K; k += WARPS * 32) ws_s[k] = a.ws[k];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = (blockIdx.x * WARPS + warp) * SPW;  // the warp's streams
+  if (b0 >= n) return;  // the whole warp leaves together
+  const int sl = lane / LPS, sub = lane % LPS;
+  const int b = b0 + sl;
+  const bool on = b < n;
+  // a staged frame holds SPW slots of W words per array: the whole row,
+  // or the K word columns then the filler column
+  const int W = a.row ? S : K + 1;
+  const int words = C * SPW * W;  // one array of one stage
+  // a warp's part: the value and word-time rings, then the chunk's event
+  // records, REC words a (stream, frame, keyword)
+  float* vring = ring + (size_t)warp * a.warp_words;
+  int* wring = reinterpret_cast<int*>(vring + STAGES * words);
+  int* rec = wring + STAGES * words;
 
   float last_lr[KPL], cand_lr[KPL];
-  int cand_start[KPL], cand_end[KPL], prev_end[KPL], col[KPL];
+  int cand_start[KPL], cand_end[KPL], prev_end[KPL], vi[KPL];
   bool dumped[KPL], has[KPL];
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
-    const int k = lane + 32 * i;
-    has[i] = k < K;
-    const size_t s = (size_t)b * K + (has[i] ? k : 0);
-    last_lr[i] = has[i] ? last_lr0[s] : -INFINITY;
-    cand_lr[i] = has[i] ? cand_lr0[s] : -INFINITY;
-    cand_start[i] = has[i] ? cand_start0[s] : 0;
-    cand_end[i] = has[i] ? cand_end0[s] : 0;
-    prev_end[i] = has[i] ? prev_end0[s] : 0;
-    dumped[i] = has[i] ? dumped0[s] != 0 : false;
-    col[i] = has[i] ? ws[k] : 0;
+    const int k = sub + LPS * i;
+    has[i] = on && k < K;
+    const size_t s = (size_t)b * K + k;
+    last_lr[i] = has[i] ? a.last_lr0[s] : -INFINITY;
+    cand_lr[i] = has[i] ? a.cand_lr0[s] : -INFINITY;
+    cand_start[i] = has[i] ? a.cand_start0[s] : 0;
+    cand_end[i] = has[i] ? a.cand_end0[s] : 0;
+    prev_end[i] = has[i] ? a.prev_end0[s] : 0;
+    dumped[i] = has[i] ? a.dumped0[s] != 0 : false;
+    vi[i] = has[i] ? (a.row ? ws_s[k] : k) : 0;
   }
-  const int t0 = n_dec[b];
-  const int nv = n_valid[b];
+  const int fi = a.row ? a.fs : K;
+  const int t0 = on ? a.n_dec[b] : 0;
+  const int nv = on ? a.n_valid[b] : 0;
 
-  for (int f = 0; f < F; ++f) {
-    const int t = t0 + f;
-    const bool live = f < nv;
-    const size_t row = ((size_t)f * n + b) * S;
-    const float fl = sink_val[row + fs];
-    float n_lr[KPL], n_clr[KPL];
-    int n_cs[KPL], n_ce[KPL], n_pe[KPL];
-    bool n_d[KPL], act[KPL];
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const float wv = has[i] ? sink_val[row + col[i]] : -INFINITY;
-      const int w0 = has[i] ? sink_wt[row + col[i]] : 0;
-      const bool active = has[i] && wv > neg_half && fl > neg_half;
-      const float lr = active ? wv - fl : -INFINITY;
-      const bool growing = active && lr >= last_lr[i];
-      const bool new_hyp = growing && cand_end[i] <= w0;
-      const bool take = growing && (lr >= cand_lr[i] || new_hyp);
-      const bool ev1 = new_hyp && take;
-      // flush 1: the new-hypothesis flush of the old candidate
-      const bool do1 = ev1 && cand_end[i] != 0 && !dumped[i];
-      if (has[i]) {
-        const size_t o = ((size_t)b * F + f) * K + lane + 32 * i;
-        r1.emit[o] = do1 && cand_lr[i] >= sp && live;
-        r1.start[o] = cand_start[i];
-        r1.end[o] = cand_end[i];
-        r1.score[o] = cand_lr[i];
-        r1.new_estim[o] = dumped[i];
+  // chunk c: frames c*C .. into stage c % STAGES, one commit group
+  auto issue = [&](int c) {
+    const int f0 = c * C, nf = min(C, F - f0);
+    float* vd = vring + (c % STAGES) * words;
+    int* wd = wring + (c % STAGES) * words;
+    if (a.row) {
+      const int q4 = S >> 2;
+      for (int u = lane; u < nf * SPW * q4; u += 32) {
+        const int q = u % q4, r = u / q4, s = r % SPW, fr = r / SPW;
+        if (b0 + s < n) {
+          const size_t g = ((size_t)(f0 + fr) * n + b0 + s) * S + 4 * q;
+          const int d = (fr * SPW + s) * S + 4 * q;
+          cp_async16(vd + d, a.sink_val + g);
+          cp_async16(wd + d, a.sink_wt + g);
+        }
       }
-      n_pe[i] = do1 ? cand_end[i] : prev_end[i];
-      n_d[i] = (dumped[i] || do1) && !ev1;
-      n_cs[i] = take ? w0 : cand_start[i];
-      n_ce[i] = take ? t + 1 : cand_end[i];
-      n_clr[i] = take ? lr : cand_lr[i];
-      n_lr[i] = active ? lr : -INFINITY;
-      act[i] = active;
+    } else {
+      const int w2 = 2 * K + 1;
+      for (int u = lane; u < nf * SPW * w2; u += 32) {
+        const int j = u % w2, r = u / w2, s = r % SPW, fr = r / SPW;
+        if (b0 + s < n) {
+          const size_t g = ((size_t)(f0 + fr) * n + b0 + s) * S;
+          const int d = (fr * SPW + s) * W;
+          if (j <= K)
+            cp_async4(vd + d + j, a.sink_val + g + (j < K ? ws_s[j] : a.fs));
+          else
+            cp_async4(wd + d + j - K - 1, a.sink_wt + g + ws_s[j - K - 1]);
+        }
+      }
     }
-    // keyword 0's updated candidate end, for every lane
-    const int end0 = __shfl_sync(0xffffffffu, n_ce[0], 0);
+  };
+
+  const int nch = (F + C - 1) / C;
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < nch) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    __syncwarp();  // every lane is done with the stage that chunk c+2 takes
+    if (c + STAGES - 1 < nch) issue(c + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // chunk c has landed, for every lane
+    __syncwarp();
+    const int f0 = c * C, nf = min(C, F - f0);
+    const float* vs = vring + (c % STAGES) * words + sl * W;
+    const int* wsm = wring + (c % STAGES) * words + sl * W;
+    const int step = SPW * W;  // words from one frame to the next
+
+    // this frame's inputs in registers, the next frame's loaded meanwhile
+    float fl = vs[fi], wv[KPL];
+    int w0[KPL];
 #pragma unroll
     for (int i = 0; i < KPL; ++i) {
-      bool do2 = false;
-      if (tp_on) {
-        const bool stale = act[i] && end0 != 0 && (t + 1) - end0 >= tp;
-        do2 = stale && n_ce[i] != 0 && !n_d[i];
+      wv[i] = vs[vi[i]];
+      w0[i] = wsm[vi[i]];
+    }
+#pragma unroll 4
+    for (int fr = 0; fr < nf; ++fr) {
+      const int f = f0 + fr;
+      const int t = t0 + f;
+      const bool live = f < nv;
+      const int fo = (fr + 1 < nf ? fr + 1 : fr) * step;
+      const float fl_next = vs[fo + fi];
+      float wv_next[KPL];
+      int w0_next[KPL];
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        wv_next[i] = vs[fo + vi[i]];
+        w0_next[i] = wsm[fo + vi[i]];
       }
-      if (has[i]) {
-        const size_t o = ((size_t)b * F + f) * K + lane + 32 * i;
-        r2.emit[o] = do2 && n_clr[i] >= sp && live;
-        r2.start[o] = tp_on ? n_cs[i] : 0;
-        r2.end[o] = tp_on ? n_ce[i] : 0;
-        r2.score[o] = tp_on ? n_clr[i] : 0.f;
-        r2.new_estim[o] = tp_on ? n_d[i] : false;
+
+      float n_lr[KPL], n_clr[KPL];
+      int n_cs[KPL], n_ce[KPL], n_pe[KPL];
+      bool n_d[KPL], act[KPL];
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const bool active = has[i] && wv[i] > a.neg_half && fl > a.neg_half;
+        const float lr = active ? wv[i] - fl : -INFINITY;
+        const bool growing = active && lr >= last_lr[i];
+        const bool new_hyp = growing && cand_end[i] <= w0[i];
+        const bool take = growing && (lr >= cand_lr[i] || new_hyp);
+        const bool ev1 = new_hyp && take;
+        // flush 1: the new-hypothesis flush of the old candidate
+        const bool do1 = ev1 && cand_end[i] != 0 && !dumped[i];
+        int* r = rec + ((sl * C + fr) * K + sub + LPS * i) * REC;
+        if (has[i]) {
+          r[0] = do1 && cand_lr[i] >= a.sp && live;
+          r[1] = cand_start[i];
+          r[2] = cand_end[i];
+          r[3] = __float_as_int(cand_lr[i]);
+          r[4] = dumped[i];
+        }
+        n_pe[i] = do1 ? cand_end[i] : prev_end[i];
+        n_d[i] = (dumped[i] || do1) && !ev1;
+        n_cs[i] = take ? w0[i] : cand_start[i];
+        n_ce[i] = take ? t + 1 : cand_end[i];
+        n_clr[i] = take ? lr : cand_lr[i];
+        n_lr[i] = active ? lr : -INFINITY;
+        act[i] = active;
       }
-      if (do2) {
-        n_pe[i] = n_ce[i];
-        n_d[i] = true;
+      // keyword 0's updated candidate end, for every lane of the stream
+      const int end0 = __shfl_sync(0xffffffffu, n_ce[0], lane & ~(LPS - 1));
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        const bool stale = act[i] && end0 != 0 && (t + 1) - end0 >= a.tp;
+        const bool do2 = a.tp_on && stale && n_ce[i] != 0 && !n_d[i];
+        int* r = rec + ((sl * C + fr) * K + sub + LPS * i) * REC;
+        if (has[i]) {
+          r[5] = do2 && n_clr[i] >= a.sp && live;
+          r[6] = a.tp_on ? n_cs[i] : 0;
+          r[7] = a.tp_on ? n_ce[i] : 0;
+          r[8] = __float_as_int(a.tp_on ? n_clr[i] : 0.f);
+          r[9] = a.tp_on && n_d[i];
+        }
+        if (do2) {
+          n_pe[i] = n_ce[i];
+          n_d[i] = true;
+        }
+        if (live) {
+          last_lr[i] = n_lr[i];
+          cand_lr[i] = n_clr[i];
+          cand_start[i] = n_cs[i];
+          cand_end[i] = n_ce[i];
+          prev_end[i] = n_pe[i];
+          dumped[i] = n_d[i];
+        }
+        wv[i] = wv_next[i];
+        w0[i] = w0_next[i];
       }
-      if (live) {
-        last_lr[i] = n_lr[i];
-        cand_lr[i] = n_clr[i];
-        cand_start[i] = n_cs[i];
-        cand_end[i] = n_ce[i];
-        prev_end[i] = n_pe[i];
-        dumped[i] = n_d[i];
+      fl = fl_next;
+    }
+    // the chunk's records, each stream's nf * K of each field contiguous
+    __syncwarp();
+    for (int s = 0; s < SPW && b0 + s < n; ++s) {
+      const size_t g = ((size_t)(b0 + s) * F + f0) * K;
+      const int* rs = rec + s * C * K * REC;
+      for (int u = lane; u < nf * K; u += 32) {
+        const int* x = rs + u * REC;
+        a.r1.emit[g + u] = (uint8_t)x[0];
+        a.r1.start[g + u] = x[1];
+        a.r1.end[g + u] = x[2];
+        a.r1.score[g + u] = __int_as_float(x[3]);
+        a.r1.new_estim[g + u] = (uint8_t)x[4];
+        a.r2.emit[g + u] = (uint8_t)x[5];
+        a.r2.start[g + u] = x[6];
+        a.r2.end[g + u] = x[7];
+        a.r2.score[g + u] = __int_as_float(x[8]);
+        a.r2.new_estim[g + u] = (uint8_t)x[9];
       }
     }
   }
@@ -159,19 +333,36 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     if (!has[i]) continue;
-    const size_t s = (size_t)b * K + lane + 32 * i;
-    last_lr1[s] = last_lr[i];
-    cand_lr1[s] = cand_lr[i];
-    cand_start1[s] = cand_start[i];
-    cand_end1[s] = cand_end[i];
-    prev_end1[s] = prev_end[i];
-    dumped1[s] = dumped[i];
+    const size_t s = (size_t)b * K + sub + LPS * i;
+    a.last_lr1[s] = last_lr[i];
+    a.cand_lr1[s] = cand_lr[i];
+    a.cand_start1[s] = cand_start[i];
+    a.cand_end1[s] = cand_end[i];
+    a.prev_end1[s] = prev_end[i];
+    a.dumped1[s] = dumped[i];
   }
+}
+
+template <int LPS, int KPL>
+cudaError_t launch(Args a, cudaStream_t st) {
+  constexpr int SPW = 32 / LPS;
+  const int W = a.row ? a.S : a.K + 1;
+  // a warp's words a frame: two rings of STAGES, the records; each warp's
+  // part a multiple of 16 bytes
+  const int per_frame = SPW * (STAGES * 2 * W + a.K * REC);
+  a.chunk = std::min(CHUNK, (SMEM_BYTES / (4 * WARPS) - 3) / per_frame);
+  if (a.chunk < 1) return cudaErrorInvalidValue;
+  a.warp_words = (a.chunk * per_frame + 3) & ~3;
+  const int warps = (a.n + SPW - 1) / SPW;
+  const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
+  lrtrace_kernel<LPS, KPL>
+      <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int lrtrace_max_keywords() { return 128; }
+extern "C" int lrtrace_max_keywords() { return MAX_K; }
 
 // The LRTrace scan over one block: sink records [F, n, S] (f32 values, i32
 // word times), word-sink columns ws [K] i32, filler column fs, n_dec and
@@ -190,37 +381,46 @@ extern "C" int lrtrace_scan(
     void* ne1, void* e2, void* s2, void* en2, void* sc2, void* ne2,
     void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (F < 0 || S <= 0 || K <= 0 || K > 128 || fs < 0 || fs >= S)
+  if (F < 0 || S <= 0 || K <= 0 || K > MAX_K || fs < 0 || fs >= S)
     return cudaErrorInvalidValue;
-  const Rec r1{static_cast<uint8_t*>(e1), static_cast<int*>(s1),
-               static_cast<int*>(en1), static_cast<float*>(sc1),
-               static_cast<uint8_t*>(ne1)};
-  const Rec r2{static_cast<uint8_t*>(e2), static_cast<int*>(s2),
-               static_cast<int*>(en2), static_cast<float*>(sc2),
-               static_cast<uint8_t*>(ne2)};
-  const unsigned blocks = (unsigned)((n + WARPS - 1) / WARPS);
+  const bool aligned = (reinterpret_cast<uintptr_t>(sink_val) |
+                        reinterpret_cast<uintptr_t>(sink_wt)) % 16 == 0;
+  Args a{static_cast<const float*>(sink_val), static_cast<const int*>(sink_wt),
+         static_cast<const int*>(ws), static_cast<const int*>(n_dec),
+         static_cast<const int*>(n_valid), fs, F, n, S, K, tp_on, tp,
+         (int)(S % 4 == 0 && S <= ROW_MAX && aligned), 0, 0, sp, neg_half,
+         static_cast<const float*>(last_lr0),
+         static_cast<const float*>(cand_lr0),
+         static_cast<const int*>(cand_start0),
+         static_cast<const int*>(cand_end0),
+         static_cast<const int*>(prev_end0),
+         static_cast<const uint8_t*>(dumped0), static_cast<float*>(last_lr1),
+         static_cast<float*>(cand_lr1), static_cast<int*>(cand_start1),
+         static_cast<int*>(cand_end1), static_cast<int*>(prev_end1),
+         static_cast<uint8_t*>(dumped1),
+         Rec{static_cast<uint8_t*>(e1), static_cast<int*>(s1),
+             static_cast<int*>(en1), static_cast<float*>(sc1),
+             static_cast<uint8_t*>(ne1)},
+         Rec{static_cast<uint8_t*>(e2), static_cast<int*>(s2),
+             static_cast<int*>(en2), static_cast<float*>(sc2),
+             static_cast<uint8_t*>(ne2)}};
   auto st = static_cast<cudaStream_t>(stream);
-#define LRT_LAUNCH(KPL)                                                      \
-  lrtrace_kernel<KPL><<<blocks, WARPS * 32, 0, st>>>(                        \
-      static_cast<const float*>(sink_val), static_cast<const int*>(sink_wt), \
-      static_cast<const int*>(ws), fs, static_cast<const int*>(n_dec),       \
-      static_cast<const int*>(n_valid), F, n, S, K, tp_on, tp, sp, neg_half, \
-      static_cast<const float*>(last_lr0),                                   \
-      static_cast<const float*>(cand_lr0),                                   \
-      static_cast<const int*>(cand_start0),                                  \
-      static_cast<const int*>(cand_end0),                                    \
-      static_cast<const int*>(prev_end0),                                    \
-      static_cast<const uint8_t*>(dumped0), static_cast<float*>(last_lr1),   \
-      static_cast<float*>(cand_lr1), static_cast<int*>(cand_start1),         \
-      static_cast<int*>(cand_end1), static_cast<int*>(prev_end1),            \
-      static_cast<uint8_t*>(dumped1), r1, r2)
+  if constexpr (PACK) {
+    if (K <= 16) {
+      switch (K) {
+        case 1: return launch<1, 1>(a, st);
+        case 2: return launch<2, 1>(a, st);
+        case 3: case 4: return launch<4, 1>(a, st);
+        case 5: case 6: case 7: case 8: return launch<8, 1>(a, st);
+        default: return launch<16, 1>(a, st);
+      }
+    }
+  }
   switch ((K + 31) / 32) {
-    case 1: LRT_LAUNCH(1); break;
-    case 2: LRT_LAUNCH(2); break;
-    case 3: LRT_LAUNCH(3); break;
-    case 4: LRT_LAUNCH(4); break;
+    case 1: return launch<32, 1>(a, st);
+    case 2: return launch<32, 2>(a, st);
+    case 3: return launch<32, 3>(a, st);
+    case 4: return launch<32, 4>(a, st);
     default: return cudaErrorInvalidValue;
   }
-#undef LRT_LAUNCH
-  return cudaGetLastError();
 }

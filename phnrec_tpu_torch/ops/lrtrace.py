@@ -61,8 +61,8 @@ def lrtrace_scan_plain(state: State, sink_val: torch.Tensor,
                          for k in _FIELDS} for acc in recs)
 
 
-def _lib():
-    lib = _build.load("lrtrace")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a kernel-F library's entry points."""
     fn = lib.lrtrace_scan
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
@@ -73,24 +73,21 @@ def _lib():
     return lib
 
 
-def lrtrace_scan(state: State, sink_val: torch.Tensor, sink_wt: torch.Tensor,
-                 word_sinks: torch.Tensor, filler_sink: int,
-                 n_dec: torch.Tensor, n_valid: torch.Tensor,
-                 time_pruning: float, score_pruning: float
-                 ) -> Tuple[State, Events]:
-    """One block of frames: CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one launch for all F frames), and anything
-    the kernel does not take raises."""
-    if sink_val.device.type == "cpu":
-        return lrtrace_scan_plain(state, sink_val, sink_wt, word_sinks,
-                                  filler_sink, n_dec, n_valid, time_pruning,
-                                  score_pruning)
+def _lib():
+    return bind(_build.load("lrtrace"))
+
+
+def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
+           sink_wt: torch.Tensor, word_sinks: torch.Tensor, filler_sink: int,
+           n_dec: torch.Tensor, n_valid: torch.Tensor, time_pruning: float,
+           score_pruning: float) -> Tuple[State, Events]:
+    """Launch the kernel of ``lib`` (a bound kernel-F library) on CUDA
+    tensors; raises on anything it does not take.  Counts nothing."""
     device = _build.cuda_device(sink_val)
     if sink_val.dim() != 3:
         raise ValueError("sink_val must be [F, n, S]")
     F, n, S = sink_val.shape
     K = word_sinks.shape[0]
-    lib = _lib()
     if not 0 < K <= lib.lrtrace_max_keywords() or \
             not 0 <= filler_sink < S:
         raise ValueError(f"kernel F takes 1..{lib.lrtrace_max_keywords()} "
@@ -124,6 +121,23 @@ def lrtrace_scan(state: State, sink_val: torch.Tensor, sink_wt: torch.Tensor,
             *(ev[k].data_ptr() for ev in events for k in _FIELDS),
             stream)
     _build.check(err, "lrtrace")
+    return out_state, events
+
+
+def lrtrace_scan(state: State, sink_val: torch.Tensor, sink_wt: torch.Tensor,
+                 word_sinks: torch.Tensor, filler_sink: int,
+                 n_dec: torch.Tensor, n_valid: torch.Tensor,
+                 time_pruning: float, score_pruning: float
+                 ) -> Tuple[State, Events]:
+    """One block of frames: CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one launch for all F frames), and anything
+    the kernel does not take raises."""
+    args = (state, sink_val, sink_wt, word_sinks, filler_sink, n_dec,
+            n_valid, time_pruning, score_pruning)
+    if sink_val.device.type == "cpu":
+        return lrtrace_scan_plain(*args)
+    _build.cuda_device(sink_val)       # raises before any build
+    out = launch(_lib(), *args)
     global LAUNCHES
     LAUNCHES += 1
-    return out_state, events
+    return out

@@ -101,8 +101,8 @@ def viterbi_block_ragged_plain(carry: Carry, log_post: torch.Tensor,
     return (alphas, ent), hist
 
 
-def _lib():
-    lib = _build.load("phnloop_viterbi")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a kernel-C library's entry points."""
     fn = lib.phn_viterbi
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -111,12 +111,22 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.phn_viterbi_max_states.restype = ctypes.c_int
         lib.phn_viterbi_max_phonemes.restype = ctypes.c_int
+        if hasattr(lib, "phn_viterbi_max_row"):
+            lib.phn_viterbi_max_row.restype = ctypes.c_int
     return lib
 
 
-def _launch(carry: Carry, log_post: torch.Tensor, t0: int, t0_row, n_valid,
-            n_phonemes: int, n_states: int, w_penalty: float, tr_curr: float,
-            tr_next: float) -> Tuple[Carry, Hist]:
+def _lib():
+    return bind(_build.load("phnloop_viterbi"))
+
+
+def launch(lib: ctypes.CDLL, carry: Carry, log_post: torch.Tensor, t0: int,
+           t0_row, n_valid, n_phonemes: int, n_states: int,
+           w_penalty: float, tr_curr: float, tr_next: float
+           ) -> Tuple[Carry, Hist]:
+    """Launch the kernel of ``lib`` (a bound kernel-C library) on CUDA
+    tensors: kernel C with ``t0_row`` and ``n_valid`` None, else C'.
+    Raises on anything it does not take; counts nothing."""
     device = _build.cuda_device(log_post)
     P, S = n_phonemes, n_states
     if log_post.dim() != 3:
@@ -134,12 +144,15 @@ def _launch(carry: Carry, log_post: torch.Tensor, t0: int, t0_row, n_valid,
     for t, name in ((t0_row, "t0"), (n_valid, "n_valid")):
         if t is not None:
             _build.require(t, name, torch.int32, (B,), device)
-    lib = _lib()
     if S > lib.phn_viterbi_max_states() or \
             P > lib.phn_viterbi_max_phonemes():
         raise ValueError(f"kernel takes at most "
                          f"{lib.phn_viterbi_max_phonemes()} phonemes of "
                          f"{lib.phn_viterbi_max_states()} states")
+    if hasattr(lib, "phn_viterbi_max_row") and \
+            D > lib.phn_viterbi_max_row():
+        raise ValueError(f"kernel takes rows of at most "
+                         f"{lib.phn_viterbi_max_row()} columns, not {D}")
     out_a = torch.empty_like(alphas)
     out_e = torch.empty_like(ent)
     h_phn = torch.empty((T, B), dtype=torch.int8, device=device)
@@ -166,7 +179,8 @@ def viterbi_block(carry: Carry, log_post: torch.Tensor, t0: int,
     args = (n_phonemes, n_states, w_penalty, tr_curr, tr_next)
     if log_post.device.type == "cpu":
         return viterbi_block_plain(carry, log_post, t0, *args)
-    out = _launch(carry, log_post, t0, None, None, *args)
+    _build.cuda_device(log_post)       # raises before any build
+    out = launch(_lib(), carry, log_post, t0, None, None, *args)
     global LAUNCHES
     LAUNCHES += 1
     return out
@@ -185,7 +199,8 @@ def viterbi_block_ragged(carry: Carry, log_post: torch.Tensor,
     if log_post.device.type == "cpu":
         return viterbi_block_ragged_plain(carry, log_post, t0, n_valid,
                                           *args)
-    out = _launch(carry, log_post, 0, t0, n_valid, *args)
+    _build.cuda_device(log_post)
+    out = launch(_lib(), carry, log_post, 0, t0, n_valid, *args)
     global RAGGED_LAUNCHES
     RAGGED_LAUNCHES += 1
     return out
