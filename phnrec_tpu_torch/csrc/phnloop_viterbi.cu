@@ -21,36 +21,44 @@
 // JAX's on the same log-posteriors.
 //
 // What bounds it on the H100: not bytes (~P*S*4 of log-posteriors a frame
-// and utterance, microseconds at the memory rate for a serving block) but
-// one frame's dependent chain, repeated T times: the state update, then a
-// loop-wide argmax whose winner is the next frame's entry value.  With one
-// warp per utterance there is about one warp for each of the card's
-// schedulers, so nothing hides a stall but the warp's own parallelism.
-// The first kernel C fetched each frame's observations one frame ahead
-// straight from device memory (a serving block's log-posteriors, 72 MB,
-// do not fit the 50 MB L2), hidden only behind the argmax, whose register
-// pass and 5-step butterfly of three shuffles was ~15 dependent shuffles
-// a frame (~880 clocks a frame in all).
+// and utterance: microseconds at the memory rate for a serving block) but
+// the instructions of one frame, repeated T times by one warp: the state
+// update, then a loop-wide argmax whose winner is the next frame's entry
+// value.  With one warp per utterance there is about one warp for each of
+// the card's schedulers, so nothing hides a stall but the warp's own
+// instruction-level parallelism.  The first kernel C fetched each frame's
+// observations one frame ahead straight from device memory (a serving
+// block's log-posteriors, 72 MB, do not fit the 50 MB L2), hidden only
+// behind the argmax: ~850 clocks a frame, ~450 with every frame's
+// observations from frame 0; its 5-step shuffle butterfly was ~25 of it.
 //
 // Design: one warp per utterance and the whole frame loop inside the
 // kernel, one launch per batch.  Lanes own phonemes (p = lane + 32*i, PPL
-// per lane), the carry lives in registers for the whole block.  Each
-// utterance's observations are staged into shared memory a chunk of
-// frames ahead by cp.async, in a ring of STAGES stages: a chunk is one
-// contiguous span of the utterance's rows (D floats a row; a CZ row is 552
-// bytes, 8-byte aligned, so the span's unaligned head and tail go by
-// 4-byte copies and the rest by 16-byte ones, the shared copy offset to
-// keep them aligned), and only the frames a row runs (< n_valid) are
-// read.  The frame loop reads shared memory only, the next frame's
-// observations loaded while this frame's argmax runs.  The argmax is a
-// register pass over a lane's phonemes (strict >: its lowest phoneme wins
-// ties), one redux.sync max over the lanes' bests as ordered integer keys,
-// a ballot per phoneme slot of FLOAT equality with that max (so -0.0 and
-// +0.0 tie, as under the compare of the plain version and argmax), the
-// lowest (slot, lane) of the ballots being the lowest phoneme, and one
-// shuffle each of the winner's own value and entry frame.
+// per lane), the carry lives in registers for the whole block.
+// * Each utterance's observations are staged into shared memory a chunk
+//   of frames ahead by cp.async, in a ring of STAGES stages: a chunk is
+//   one contiguous span of the utterance's rows (D floats a row; a CZ row
+//   is 552 bytes, 8-byte aligned, so the span's unaligned head and tail go
+//   by 4-byte copies and the rest by 16-byte ones, the shared copy offset
+//   to keep them aligned), and only the frames a row runs (< n_valid) are
+//   read.  The frame loop reads shared memory only, the next frame's
+//   observations loaded while this frame's argmax runs.
+// * The argmax is a register pass over a lane's phonemes (strict >: its
+//   lowest phoneme wins ties), one redux.sync max over the lanes' bests
+//   as ordered integer keys, a ballot per phoneme slot of FLOAT equality
+//   with that max (so -0.0 and +0.0 tie, as under the compare of the plain
+//   version and argmax), the lowest (slot, lane) of the ballots being the
+//   lowest phoneme, and one shuffle each of the winner's own value and
+//   entry frame.
+// * The frame body has no branch (every lane stores the same History
+//   record) and is unrolled: a frame's argmax waits only on its exit
+//   states, which need the entry value S frames back, so for S >= 2 the
+//   argmaxes of successive frames overlap (unrolled: ~320 clocks a frame;
+//   the same body not unrolled: ~455).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -173,6 +181,10 @@ viterbi_kernel(const float* __restrict__ carry_a,
         obs[i][s] = p < P ? ob[p * S + s] : 0.0f;
       }
 
+    // straight-line frames (no branch inside), unrolled: a frame's argmax
+    // waits only on its exit states, which the frame before computed, so
+    // the argmaxes of successive frames can overlap (for S >= 2)
+#pragma unroll 4
     for (int tt = 0; tt < nf; ++tt) {
       const int t = f0 + tt;
       // states update high-to-low, each reading the previous frame's s-1
@@ -187,15 +199,16 @@ viterbi_kernel(const float* __restrict__ carry_a,
           e[i][s] = take_cur ? e[i][s] : e[i][s - 1];
         }
 
-      // the next frame's observations, from shared memory
-      if (tt + 1 < nf) {
-        const float* row = ob + (tt + 1) * D;
+      // the next frame's observations, from shared memory (the chunk's
+      // last frame reads its own again)
+      {
+        const float* row = ob + min(tt + 1, nf - 1) * D;
 #pragma unroll
         for (int i = 0; i < PPL; ++i)
 #pragma unroll
           for (int s = 0; s < S; ++s) {
             const int p = lane + 32 * i;
-            if (p < P) obs[i][s] = row[p * S + s];
+            obs[i][s] = p < P ? row[p * S + s] : 0.0f;
           }
       }
 
@@ -236,12 +249,11 @@ viterbi_kernel(const float* __restrict__ carry_a,
         a[i][0] = entry;
         e[i][0] = tb + t + 1;
       }
-      if (lane == 0) {
-        const size_t h = (size_t)t * B + b;
-        h_phn[h] = (int8_t)(wl + 32 * wi);
-        h_ent[h] = we;
-        h_alpha[h] = wv;
-      }
+      // every lane stores the same record (one write a store)
+      const size_t h = (size_t)t * B + b;
+      h_phn[h] = (int8_t)(wl + 32 * wi);
+      h_ent[h] = we;
+      h_alpha[h] = wv;
     }
   }
 
@@ -266,7 +278,7 @@ cudaError_t launch(const float* ca, const int* ce, const float* lp, int B,
                    cudaStream_t stream) {
   // C frames a stage, the span's offset (< 4 floats) beside them, each
   // stage a multiple of 16 bytes
-  const int C = min(CHUNK, (SMEM_BYTES / (4 * WARPS * STAGES) - 7) / D);
+  const int C = std::min(CHUNK, (SMEM_BYTES / (4 * WARPS * STAGES) - 7) / D);
   if (C < 1) return cudaErrorInvalidValue;
   const int stage_words = (C * D + 3 + 3) & ~3;
   const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
