@@ -56,6 +56,7 @@ from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import NEG, OFF_BEAM, DenseKWSScan
 from phnrec_tpu_torch.devtools import scan_variants
+from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
 from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.io.labels import read_mlf
@@ -168,24 +169,10 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def clocks(fn, ms: float, frames: int) -> dict:
     """The SM clock under load while ``fn`` runs, and ``ms`` in clocks a
     frame of a scan over ``frames`` frames."""
-    mhz = sm_clock(fn, ms)
+    mhz = sm_clock(fn, max(ms, 0.2))
     return dict(sm_clock_mhz=mhz,
                 clocks_a_frame=ms * 1e-3 * mhz * 1e6 / frames)
 

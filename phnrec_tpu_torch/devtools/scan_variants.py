@@ -3,20 +3,20 @@
 scan, csrc/phnloop_viterbi.cu).
 
     python3 -m phnrec_tpu_torch.devtools.scan_variants [--ablate] \\
-        REF.cu [VARIANT.cu ...]
+        REF.cu [VARIANT.cu ...] [-- VARIANT.cu ...]
 
 The entry point follows the first source's exported symbol: ``lrtrace_scan``
 (kernel F) or ``phn_viterbi`` (kernels C and C').  Builds every source given
 (all at once, with the package's nvcc flags, into
 build/phnrec_tpu_torch/variants/) and prints each build's registers and
-spills.  With ``--ablate`` each source is also built once for each of the
-ABLATIONS below whose text it holds, with that part cut out, to see what
-its frame is made of; those copies compute wrong results: they are timed,
-not checked.  The parent's source is extracted by the caller, e.g.
+spills.  With ``--ablate`` each source before a ``--`` is also built once
+for each of the ABLATIONS below whose text it holds, with that part cut
+out, to see what its frame is made of; those copies compute wrong
+results: they are timed, not checked.  The parent's source is extracted by the caller, e.g.
 ``git show HEAD~1:phnrec_tpu_torch/csrc/lrtrace.cu > build/lrtrace_ref.cu``.
 
 Every build that is not an ablation is held to the plain version
-(ops/lrtrace.py::lrtrace_scan_plain, every field equal;
+(ops/lrtrace.py::lrtrace_scan_plain, every field bit-equal;
 ops/phnloop_viterbi.py::viterbi_block_plain and
 viterbi_block_ragged_plain, carry and valid History bit-equal) on the case
 lists LRTRACE_CASES and VITERBI_CASES, which chip_smoke.py holds the
@@ -70,7 +70,7 @@ ABLATIONS = (
     ("no_butterfly", [("for (int off = 16; off > 0; off >>= 1) {",
                        "for (int off = 16; off > 16; off >>= 1) {")]),
     # the staged kernel C: every frame's observations are its chunk's first
-    ("obs_chunk0", [("const float* row = ob + (tt + 1) * D;",
+    ("obs_chunk0", [("const float* row = ob + min(tt + 1, nf - 1) * D;",
                      "const float* row = ob;")]),
     # the staged kernel C: no warp max (each lane's own best) ...
     ("no_warp_max", [("return __reduce_max_sync(0xffffffffu, key);",
@@ -103,8 +103,8 @@ LRTRACE_SCORE = {False: -1e30, True: -3.0}   # score pruning by `ties`
 
 # kernels C and C': name -> (P, S, B, T, D, dict(seed, ties)); ties
 # "ints" are small-integer observations with the CZ loop's constants,
-# "zeros" mostly -0.0 observations with zero penalties (-0.0, +0.0 and
-# -0.0), so the exits tie at -0.0 and +0.0.  T 37 fills no 16-frame chunk.
+# "zeros" mostly +0.0 and -0.0 observations with zero penalties (-0.0,
+# +0.0 and -0.0), so exits of -0.0 and +0.0 tie.  T 37 fills no 16-frame chunk.
 VITERBI_CASES = {
     "P7_S1": (7, 1, 13, 37, 7, dict(seed=81, ties="zeros")),
     "P32_S3": (32, 3, 13, 37, 96, dict(seed=82)),
@@ -123,6 +123,14 @@ def _sync(dev) -> None:
     """Wait for the card, so a fault shows at the check that caused it."""
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: float32 compared as its bits, so -0.0 is not
+    +0.0 (torch.equal compares values)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def lrtrace_case(dev, n, F, K, S, seed, ties=False, dead=False):
@@ -162,13 +170,13 @@ def lrtrace_case(dev, n, F, K, S, seed, ties=False, dead=False):
 
 
 def lrtrace_equal(got, want) -> dict:
-    """Field -> equal, over the state and both event records."""
+    """Field -> bit-equal, over the state and both event records."""
     names = ("last_lr", "cand_lr", "cand_start", "cand_end", "prev_end",
              "dumped")
-    out = {k: torch.equal(a, b) for k, a, b in zip(names, got[0], want[0])}
+    out = {k: bit_equal(a, b) for k, a, b in zip(names, got[0], want[0])}
     for r in range(2):
         for k in got[1][r]:
-            out[f"rec{r + 1}_{k}"] = torch.equal(got[1][r][k], want[1][r][k])
+            out[f"rec{r + 1}_{k}"] = bit_equal(got[1][r][k], want[1][r][k])
     return out
 
 
@@ -210,15 +218,17 @@ def viterbi_case(dev, P, S, B, T, D, seed, ties=None):
     """Kernel C's inputs: (spec, log_post [B, T, D], t0 [B], n_valid [B]
     ragged with 0 and T among them, row 0 whole).  Dirichlet log-posteriors, or with
     ``ties`` small integers: "ints" 0, -1, -2, -3 (0 as -0.0) with the CZ
-    loop's constants, "zeros" -0.0 at 70% and -1, -2 elsewhere with
-    w_penalty -0.0, tr_curr +0.0 and tr_next -0.0."""
+    loop's constants, "zeros" +0.0 or -0.0 at 70% and -1, -2 elsewhere
+    with w_penalty -0.0, tr_curr +0.0 and tr_next -0.0 (so exits of -0.0
+    and +0.0 tie)."""
     rng = np.random.default_rng(seed)
     spec = phnloop.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=-4.6875)
     if ties == "ints":
         lp = -np.round(rng.uniform(0, 3, (B, T, D)))
     elif ties == "zeros":
-        lp = -np.where(rng.random((B, T, D)) < 0.7, 0,
-                       rng.integers(1, 3, (B, T, D)))
+        lp = np.where(rng.random((B, T, D)) < 0.7,
+                      rng.choice([0.0, -0.0], (B, T, D)),
+                      -rng.integers(1, 3, (B, T, D)))
         spec = phnloop.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=-0.0,
                                    log_tr_curr=0.0, log_tr_next=-0.0)
     else:
@@ -241,7 +251,7 @@ def viterbi_equal(got, want, n_valid=None) -> dict:
     """Part -> bit-equal: the carry, and the History on rows < n_valid[b]
     (all rows without n_valid)."""
     T, B = want[1][0].shape
-    out = {w: torch.equal(a, b)
+    out = {w: bit_equal(a, b)
            for a, b, w in zip(got[0], want[0], ("alphas", "ent"))}
     valid = torch.ones((T, B), dtype=torch.bool, device=want[1][0].device)
     if n_valid is not None:
@@ -249,8 +259,8 @@ def viterbi_equal(got, want, n_valid=None) -> dict:
             n_valid[None, :]
     for a, b, w in zip(got[1], want[1], ("max_phn", "h_ent", "h_alpha")):
         zero = torch.zeros((), dtype=a.dtype, device=a.device)
-        out[w] = torch.equal(torch.where(valid, a, zero),
-                             torch.where(valid, b, zero))
+        out[w] = bit_equal(torch.where(valid, a, zero),
+                           torch.where(valid, b, zero))
     return out
 
 
@@ -333,6 +343,8 @@ def serving_viterbi(dev):
 def main(argv) -> int:
     ablate = "--ablate" in argv
     argv = [a for a in argv if a != "--ablate"]
+    n_ablate = argv.index("--") if "--" in argv else len(argv)
+    argv = [a for a in argv if a != "--"]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -353,7 +365,7 @@ def main(argv) -> int:
         srcs[tag] = Path(a)
         checked.append(tag)
         text = Path(a).read_text()
-        for what, edits in ABLATIONS if ablate else ():
+        for what, edits in ABLATIONS if ablate and i < n_ablate else ():
             if not all(old in text for old, _ in edits):
                 continue
             cut = text
@@ -403,7 +415,7 @@ def main(argv) -> int:
         c = calls(libs[name])
         rec = {"time_ms": name, **t}
         for k, (fn, frames) in timed.items():
-            mhz = sm_clock(lambda: fn(c), t[k][0])
+            mhz = sm_clock(lambda: fn(c), max(t[k][0], 0.2))
             rec[f"{k} sm_clock_mhz"] = mhz
             rec[f"{k} clocks_a_frame"] = [v * 1e-3 * mhz * 1e6 / frames
                                           for v in t[k]]
