@@ -127,3 +127,51 @@ def test_wrapper_device_rules():
     with pytest.raises(ValueError, match="no kernel"):
         lrtrace.lrtrace_scan(*meta)
     assert lrtrace.LAUNCHES == before
+
+
+def _jax_scan_cols(sv, sw, nd, nv, tp, sp, ws, fs):
+    """_jax_scan with its own word and filler columns and score pruning."""
+    step = jst.lrtrace_step_fn(tp, sp)
+    Fb, n = sv.shape[:2]
+
+    def one(st, sv_b, sw_b, t0, nv_b):
+        tt = t0 + jnp.arange(Fb, dtype=jnp.int32)
+        live = jnp.arange(Fb) < nv_b
+        return jax.lax.scan(step, st, (sv_b[:, ws], sv_b[:, fs],
+                                       sw_b[:, ws], tt, live))
+
+    st0 = jax.tree_util.tree_map(
+        lambda a: jnp.tile(a[None], (n,) + (1,) * a.ndim),
+        jst.lrtrace_init_state(len(ws)))
+    return jax.vmap(one)(st0, jnp.asarray(sv.transpose(1, 0, 2)),
+                         jnp.asarray(sw.transpose(1, 0, 2)),
+                         jnp.asarray(nd), jnp.asarray(nv))
+
+
+@pytest.mark.parametrize("K,S", [(1, 4), (33, 34)])
+@pytest.mark.parametrize("tp", [40, 1e10])
+def test_plain_matches_jax_scan_tie_heavy(K, S, tp):
+    """Small-integer sink values (scan_variants' tie-heavy records: lr
+    equal to last_lr and to cand_lr on many frames, word starts equal to
+    the candidate end), K 1 and 33, score pruning -3: state and both
+    event records equal in every field to phnrec_tpu's scan."""
+    from phnrec_tpu_torch.devtools.scan_variants import lrtrace_case
+    st, sv, sw, ws, fs, nd, nv = lrtrace_case("cpu", 9, 90, K, S,
+                                              seed=K + 3, ties=True)
+    lr = sv[:, :, ws.long()] - sv[:, :, fs][:, :, None]
+    active = (sv[:, :, ws.long()] > tst.NEG / 2) & \
+        (sv[:, :, fs] > tst.NEG / 2)[:, :, None]
+    same = (lr[1:] == lr[:-1]) & active[1:] & active[:-1]
+    assert float(same.float().mean()) > 0.1     # lr == last_lr often
+    got_st, got_ev = lrtrace.lrtrace_scan_plain(st, sv, sw, ws, fs, nd, nv,
+                                                tp, -3.0)
+    jstate, jev = _jax_scan_cols(sv.numpy(), sw.numpy(), nd.numpy(),
+                                 nv.numpy(), tp, -3.0, ws.numpy(), fs)
+    for a, b in zip(got_st, jstate):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for r in range(2):
+        for k in got_ev[r]:
+            np.testing.assert_array_equal(got_ev[r][k].numpy(),
+                                          np.asarray(jev[r][k]),
+                                          err_msg=f"rec{r + 1} {k}")
+    assert got_ev[0]["emit"].sum() > 10

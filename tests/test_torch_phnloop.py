@@ -149,3 +149,62 @@ def test_fetch_segments_caps_slots():
     assert a == b
     # a cap below the longest row fetches every slot
     assert tpl.fetch_segments(segs, cap=1).phn.shape[1] == segs.phn.shape[1]
+
+
+def _exit_ties(spec, carry, lp):
+    """Frames whose loop maximum several phonemes reach, and frames whose
+    tied maxima hold both -0.0 and +0.0, over the plain scan."""
+    from phnrec_tpu_torch.ops.phnloop_viterbi import _setup, _step
+    alphas, ent = carry
+    obs, _, scalars = _setup(lp, spec.n_phonemes, spec.n_states,
+                             spec.w_penalty, spec.log_tr_curr,
+                             spec.log_tr_next)
+    tied = signed = 0
+    for t in range(obs.shape[0]):
+        alphas, ent, rec = _step(alphas, ent, obs[t], t + 1, *scalars)
+        exit_a = alphas[:, -1, :]
+        at_max = exit_a == rec[2][None, :]
+        tied += int((at_max.sum(0) > 1).sum())
+        neg = (at_max & torch.signbit(exit_a)).any(0)
+        pos = (at_max & ~torch.signbit(exit_a)).any(0)
+        signed += int((neg & pos).sum())
+    return tied, signed
+
+
+# small-integer observations: "ints" 0 (as -0.0), -1, -2, -3 with the CZ
+# loop's constants; "zeros" +0.0 or -0.0 at 70% with w_penalty -0.0,
+# tr_curr +0.0 and tr_next -0.0, so maxima tie at -0.0 against +0.0 (the
+# cases chip_smoke.py holds kernel C to)
+TIE_CASES = [dict(P=P, S=S, ties=ties) for P in (7, 33, 128)
+             for S in (1, 5) for ties in ("ints", "zeros")]
+
+
+@pytest.mark.parametrize("case", TIE_CASES)
+def test_viterbi_tie_heavy_bit_equal(case):
+    """Kernel C's plain version against phnrec_tpu's viterbi_block on
+    tie-heavy small-integer observations with -0.0: many frames' loop
+    maxima are reached by several phonemes (in the one-state "zeros"
+    cases some at -0.0 and +0.0 at once); the same winners, and carry and
+    History equal as floats, also over two blocks chained with t0.  (The
+    port records the lowest phoneme's own value, as the reference's
+    `tok > max` loop keeps its token; phnrec_tpu records jnp.max, which
+    may be +0.0 where the winner holds -0.0: equal as floats, so the
+    comparison is by value.)"""
+    from phnrec_tpu_torch.devtools.scan_variants import viterbi_case
+    P, S = case["P"], case["S"]
+    tspec, lp, _, _ = viterbi_case("cpu", P, S, 3, 30, P * S + 1,
+                                   seed=P + S, ties=case["ties"])
+    jspec = jpl.PhnLoopSpec(*tspec)
+    tc, jc = tpl.init_carry(tspec, 3), jpl.init_carry(jspec, 3)
+    tied, signed = _exit_ties(tspec, tc, lp)
+    assert tied >= 5
+    if case["ties"] == "zeros" and S == 1:
+        assert signed > 0
+    for lo, hi in ((0, 13), (13, 30)):
+        x = lp[:, lo:hi].contiguous()
+        jc, jh = jpl.viterbi_block(jspec, jc, jnp.asarray(x.numpy()),
+                                   jnp.int32(lo + 5))
+        tc, th = tpl.viterbi_block(tspec, tc, x, lo + 5)
+        _assert_hist_equal(th, jh)
+        for a, b in zip(tc, jc):
+            assert np.array_equal(a.numpy(), np.asarray(b))

@@ -188,3 +188,30 @@ def test_commit_labels(horizon):
         return
     assert commit == labels[:-1] and frame0 == labels[-2].end_frames
     assert alpha0 == float(col.alpha[frame0 - 1 - r])
+
+
+@pytest.mark.parametrize("P", [7, 33, 128])
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("ties", ["ints", "zeros"])
+def test_ragged_tie_heavy_bit_equal(P, S, ties):
+    """Kernel C''s plain version against phnrec_tpu's viterbi_block_ragged
+    on tie-heavy small-integer observations with -0.0 (scan_variants'
+    "ints" and "zeros" cases: loop maxima tied across phonemes, -0.0
+    against +0.0, cur == prev), two ragged blocks chained through the
+    carry and t0 + n_valid: carry and valid History rows equal (as
+    floats: phnrec_tpu records jnp.max, whose zero may carry another sign
+    than the winner's own value that the port records)."""
+    from phnrec_tpu_torch.devtools.scan_variants import viterbi_case
+    B, T = 5, 24
+    tspec, lp, t0, nv = viterbi_case("cpu", P, S, B, T, P * S, seed=7 * P + S,
+                                     ties=ties)
+    jspec = jpl.PhnLoopSpec(*tspec)
+    tc, jc = tpl.init_carry(tspec, B), jpl.init_carry(jspec, B)
+    for x, n_v in ((lp, nv), (lp.flip(1).contiguous(), nv.flip(0))):
+        jc, jh = jpl.viterbi_block_ragged(
+            jspec, jc, jnp.asarray(x.numpy()), jnp.asarray(t0.numpy()),
+            jnp.asarray(n_v.numpy()))
+        tc, th = tpl.viterbi_block_ragged(tspec, tc, x, t0, n_v)
+        _carry_equal(tc, jc)
+        _valid_rows_equal(th, jh, n_v.numpy())
+        t0 = t0 + n_v
