@@ -46,17 +46,17 @@
 //   ROW_MAX: the EN net's 4 sinks are 16 bytes) whole rows are copied, one
 //   16-byte copy a row and array; otherwise only the K word columns and
 //   the filler column, 4 bytes each;
-// * the event records of a chunk go to shared memory, REC words a keyword
-//   and frame, and out to device memory once per chunk, each field of a
-//   stream's chunk one contiguous run;
+// * the event records of a chunk go to shared memory, two 16-byte stores
+//   a keyword and frame (start, end, score, and emit | new_estim << 8 of
+//   each record), and out to device memory once per chunk, each field of
+//   a stream's chunk one contiguous run;
 // * the frame body has no branch and is unrolled, so one frame's stores
 //   and loads overlap the next frame's compares.
 // Keyword 0's candidate end, which every keyword's time-pruning test
 // reads, reaches the other lanes by a shuffle from the stream's first
-// lane; it feeds the flush-2 test only, so it is not on the loop-carried
-// chain (cand_end -> new_hyp -> take -> cand_end).  Measured (PERF.md):
-// a warp per block (4: +1%), not several streams a warp (PACK: 3.3x
-// slower, its scattered loads and the shuffle of the stream's lanes).
+// lane (each lane running keyword 0's take chain itself instead: +13%).
+// Measured (PERF.md): a warp per block (4 a block: +1%), and a warp per
+// stream (16 streams a warp, a lane per stream and keyword: 3.3x slower).
 
 #include <cuda_runtime.h>
 
@@ -72,8 +72,7 @@ constexpr int STAGES = 3;
 constexpr int ROW_MAX = 16;        // whole rows copied up to this many sinks
 constexpr int MAX_K = 128;
 constexpr int SMEM_BYTES = 48 * 1024 - 4 * MAX_K;  // dynamic, beside ws_s
-constexpr int REC = 10;            // event-record fields a keyword and frame
-constexpr bool PACK = false;       // several streams a warp where K <= 16
+constexpr int REC = 8;             // words of both event records a keyword and frame
 
 struct Rec {
   uint8_t* emit;
@@ -131,10 +130,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// LPS lanes a stream (32 / LPS streams a warp), KPL keywords a lane.
-template <int LPS, int KPL>
+// KPL keywords a lane
+template <int KPL>
 __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
-  constexpr int SPW = 32 / LPS;
   extern __shared__ __align__(16) float ring[];
   __shared__ int ws_s[MAX_K];
   const int K = a.K, F = a.F, n = a.n, S = a.S, C = a.chunk;
@@ -142,28 +140,25 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b0 = (blockIdx.x * WARPS + warp) * SPW;  // the warp's streams
-  if (b0 >= n) return;  // the whole warp leaves together
-  const int sl = lane / LPS, sub = lane % LPS;
-  const int b = b0 + sl;
-  const bool on = b < n;
-  // a staged frame holds SPW slots of W words per array: the whole row,
-  // or the K word columns then the filler column
+  const int b = blockIdx.x * WARPS + warp;  // the warp's stream
+  if (b >= n) return;  // the whole warp leaves together
+  // a staged frame holds W words per array: the whole row, or the K word
+  // columns then the filler column
   const int W = a.row ? S : K + 1;
-  const int words = C * SPW * W;  // one array of one stage
-  // a warp's part: the value and word-time rings, then the chunk's event
-  // records, REC words a (stream, frame, keyword)
-  float* vring = ring + (size_t)warp * a.warp_words;
+  const int words = C * W;  // one array of one stage
+  // a warp's part: the chunk's event records, REC words a (frame,
+  // keyword), then the value and word-time rings
+  int* rec = reinterpret_cast<int*>(ring + (size_t)warp * a.warp_words);
+  float* vring = reinterpret_cast<float*>(rec + C * K * REC);
   int* wring = reinterpret_cast<int*>(vring + STAGES * words);
-  int* rec = wring + STAGES * words;
 
   float last_lr[KPL], cand_lr[KPL];
   int cand_start[KPL], cand_end[KPL], prev_end[KPL], vi[KPL];
   bool dumped[KPL], has[KPL];
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
-    const int k = sub + LPS * i;
-    has[i] = on && k < K;
+    const int k = lane + 32 * i;
+    has[i] = k < K;
     const size_t s = (size_t)b * K + k;
     last_lr[i] = has[i] ? a.last_lr0[s] : -INFINITY;
     cand_lr[i] = has[i] ? a.cand_lr0[s] : -INFINITY;
@@ -174,8 +169,8 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
     vi[i] = has[i] ? (a.row ? ws_s[k] : k) : 0;
   }
   const int fi = a.row ? a.fs : K;
-  const int t0 = on ? a.n_dec[b] : 0;
-  const int nv = on ? a.n_valid[b] : 0;
+  const int t0 = a.n_dec[b];
+  const int nv = a.n_valid[b];
 
   // chunk c: frames c*C .. into stage c % STAGES, one commit group
   auto issue = [&](int c) {
@@ -184,27 +179,21 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
     int* wd = wring + (c % STAGES) * words;
     if (a.row) {
       const int q4 = S >> 2;
-      for (int u = lane; u < nf * SPW * q4; u += 32) {
-        const int q = u % q4, r = u / q4, s = r % SPW, fr = r / SPW;
-        if (b0 + s < n) {
-          const size_t g = ((size_t)(f0 + fr) * n + b0 + s) * S + 4 * q;
-          const int d = (fr * SPW + s) * S + 4 * q;
-          cp_async16(vd + d, a.sink_val + g);
-          cp_async16(wd + d, a.sink_wt + g);
-        }
+      for (int u = lane; u < nf * q4; u += 32) {
+        const int q = u % q4, fr = u / q4;
+        const size_t g = ((size_t)(f0 + fr) * n + b) * S + 4 * q;
+        cp_async16(vd + fr * S + 4 * q, a.sink_val + g);
+        cp_async16(wd + fr * S + 4 * q, a.sink_wt + g);
       }
     } else {
       const int w2 = 2 * K + 1;
-      for (int u = lane; u < nf * SPW * w2; u += 32) {
-        const int j = u % w2, r = u / w2, s = r % SPW, fr = r / SPW;
-        if (b0 + s < n) {
-          const size_t g = ((size_t)(f0 + fr) * n + b0 + s) * S;
-          const int d = (fr * SPW + s) * W;
-          if (j <= K)
-            cp_async4(vd + d + j, a.sink_val + g + (j < K ? ws_s[j] : a.fs));
-          else
-            cp_async4(wd + d + j - K - 1, a.sink_wt + g + ws_s[j - K - 1]);
-        }
+      for (int u = lane; u < nf * w2; u += 32) {
+        const int j = u % w2, fr = u / w2;
+        const size_t g = ((size_t)(f0 + fr) * n + b) * S;
+        if (j <= K)
+          cp_async4(vd + fr * W + j, a.sink_val + g + (j < K ? ws_s[j] : a.fs));
+        else
+          cp_async4(wd + fr * W + j - K - 1, a.sink_wt + g + ws_s[j - K - 1]);
       }
     }
   };
@@ -222,9 +211,8 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
     cp_async_wait<STAGES - 1>();  // chunk c has landed, for every lane
     __syncwarp();
     const int f0 = c * C, nf = min(C, F - f0);
-    const float* vs = vring + (c % STAGES) * words + sl * W;
-    const int* wsm = wring + (c % STAGES) * words + sl * W;
-    const int step = SPW * W;  // words from one frame to the next
+    const float* vs = vring + (c % STAGES) * words;
+    const int* wsm = wring + (c % STAGES) * words;
 
     // this frame's inputs in registers, the next frame's loaded meanwhile
     float fl = vs[fi], wv[KPL];
@@ -239,7 +227,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
       const int f = f0 + fr;
       const int t = t0 + f;
       const bool live = f < nv;
-      const int fo = (fr + 1 < nf ? fr + 1 : fr) * step;
+      const int fo = (fr + 1 < nf ? fr + 1 : fr) * W;
       const float fl_next = vs[fo + fi];
       float wv_next[KPL];
       int w0_next[KPL];
@@ -262,14 +250,13 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
         const bool ev1 = new_hyp && take;
         // flush 1: the new-hypothesis flush of the old candidate
         const bool do1 = ev1 && cand_end[i] != 0 && !dumped[i];
-        int* r = rec + ((sl * C + fr) * K + sub + LPS * i) * REC;
-        if (has[i]) {
-          r[0] = do1 && cand_lr[i] >= a.sp && live;
-          r[1] = cand_start[i];
-          r[2] = cand_end[i];
-          r[3] = __float_as_int(cand_lr[i]);
-          r[4] = dumped[i];
-        }
+        int4* r = reinterpret_cast<int4*>(
+            rec + (fr * K + lane + 32 * i) * REC);
+        if (has[i])
+          r[0] = make_int4(cand_start[i], cand_end[i],
+                           __float_as_int(cand_lr[i]),
+                           (int)(do1 && cand_lr[i] >= a.sp && live) |
+                               (int)dumped[i] << 8);
         n_pe[i] = do1 ? cand_end[i] : prev_end[i];
         n_d[i] = (dumped[i] || do1) && !ev1;
         n_cs[i] = take ? w0[i] : cand_start[i];
@@ -279,19 +266,18 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
         act[i] = active;
       }
       // keyword 0's updated candidate end, for every lane of the stream
-      const int end0 = __shfl_sync(0xffffffffu, n_ce[0], lane & ~(LPS - 1));
+      const int end0 = __shfl_sync(0xffffffffu, n_ce[0], 0);
 #pragma unroll
       for (int i = 0; i < KPL; ++i) {
         const bool stale = act[i] && end0 != 0 && (t + 1) - end0 >= a.tp;
         const bool do2 = a.tp_on && stale && n_ce[i] != 0 && !n_d[i];
-        int* r = rec + ((sl * C + fr) * K + sub + LPS * i) * REC;
-        if (has[i]) {
-          r[5] = do2 && n_clr[i] >= a.sp && live;
-          r[6] = a.tp_on ? n_cs[i] : 0;
-          r[7] = a.tp_on ? n_ce[i] : 0;
-          r[8] = __float_as_int(a.tp_on ? n_clr[i] : 0.f);
-          r[9] = a.tp_on && n_d[i];
-        }
+        int4* r = reinterpret_cast<int4*>(
+            rec + (fr * K + lane + 32 * i) * REC);
+        if (has[i])
+          r[1] = make_int4(a.tp_on ? n_cs[i] : 0, a.tp_on ? n_ce[i] : 0,
+                           __float_as_int(a.tp_on ? n_clr[i] : 0.f),
+                           (int)(do2 && n_clr[i] >= a.sp && live) |
+                               (int)(a.tp_on && n_d[i]) << 8);
         if (do2) {
           n_pe[i] = n_ce[i];
           n_d[i] = true;
@@ -309,31 +295,29 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
       }
       fl = fl_next;
     }
-    // the chunk's records, each stream's nf * K of each field contiguous
+    // the chunk's records, the nf * K of each field contiguous
     __syncwarp();
-    for (int s = 0; s < SPW && b0 + s < n; ++s) {
-      const size_t g = ((size_t)(b0 + s) * F + f0) * K;
-      const int* rs = rec + s * C * K * REC;
-      for (int u = lane; u < nf * K; u += 32) {
-        const int* x = rs + u * REC;
-        a.r1.emit[g + u] = (uint8_t)x[0];
-        a.r1.start[g + u] = x[1];
-        a.r1.end[g + u] = x[2];
-        a.r1.score[g + u] = __int_as_float(x[3]);
-        a.r1.new_estim[g + u] = (uint8_t)x[4];
-        a.r2.emit[g + u] = (uint8_t)x[5];
-        a.r2.start[g + u] = x[6];
-        a.r2.end[g + u] = x[7];
-        a.r2.score[g + u] = __int_as_float(x[8]);
-        a.r2.new_estim[g + u] = (uint8_t)x[9];
-      }
+    const size_t g = ((size_t)b * F + f0) * K;
+    for (int u = lane; u < nf * K; u += 32) {
+      const int4 x = reinterpret_cast<const int4*>(rec + u * REC)[0];
+      const int4 y = reinterpret_cast<const int4*>(rec + u * REC)[1];
+      a.r1.emit[g + u] = (uint8_t)(x.w & 1);
+      a.r1.start[g + u] = x.x;
+      a.r1.end[g + u] = x.y;
+      a.r1.score[g + u] = __int_as_float(x.z);
+      a.r1.new_estim[g + u] = (uint8_t)(x.w >> 8);
+      a.r2.emit[g + u] = (uint8_t)(y.w & 1);
+      a.r2.start[g + u] = y.x;
+      a.r2.end[g + u] = y.y;
+      a.r2.score[g + u] = __int_as_float(y.z);
+      a.r2.new_estim[g + u] = (uint8_t)(y.w >> 8);
     }
   }
 
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     if (!has[i]) continue;
-    const size_t s = (size_t)b * K + sub + LPS * i;
+    const size_t s = (size_t)b * K + lane + 32 * i;
     a.last_lr1[s] = last_lr[i];
     a.cand_lr1[s] = cand_lr[i];
     a.cand_start1[s] = cand_start[i];
@@ -343,19 +327,17 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   }
 }
 
-template <int LPS, int KPL>
+template <int KPL>
 cudaError_t launch(Args a, cudaStream_t st) {
-  constexpr int SPW = 32 / LPS;
   const int W = a.row ? a.S : a.K + 1;
   // a warp's words a frame: two rings of STAGES, the records; each warp's
   // part a multiple of 16 bytes
-  const int per_frame = SPW * (STAGES * 2 * W + a.K * REC);
+  const int per_frame = STAGES * 2 * W + a.K * REC;
   a.chunk = std::min(CHUNK, (SMEM_BYTES / (4 * WARPS) - 3) / per_frame);
   if (a.chunk < 1) return cudaErrorInvalidValue;
   a.warp_words = (a.chunk * per_frame + 3) & ~3;
-  const int warps = (a.n + SPW - 1) / SPW;
-  const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
-  lrtrace_kernel<LPS, KPL>
+  const unsigned blocks = (unsigned)((a.n + WARPS - 1) / WARPS);
+  lrtrace_kernel<KPL>
       <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
   return cudaGetLastError();
 }
@@ -405,22 +387,11 @@ extern "C" int lrtrace_scan(
              static_cast<int*>(en2), static_cast<float*>(sc2),
              static_cast<uint8_t*>(ne2)}};
   auto st = static_cast<cudaStream_t>(stream);
-  if constexpr (PACK) {
-    if (K <= 16) {
-      switch (K) {
-        case 1: return launch<1, 1>(a, st);
-        case 2: return launch<2, 1>(a, st);
-        case 3: case 4: return launch<4, 1>(a, st);
-        case 5: case 6: case 7: case 8: return launch<8, 1>(a, st);
-        default: return launch<16, 1>(a, st);
-      }
-    }
-  }
   switch ((K + 31) / 32) {
-    case 1: return launch<32, 1>(a, st);
-    case 2: return launch<32, 2>(a, st);
-    case 3: return launch<32, 3>(a, st);
-    case 4: return launch<32, 4>(a, st);
+    case 1: return launch<1>(a, st);
+    case 2: return launch<2>(a, st);
+    case 3: return launch<3>(a, st);
+    case 4: return launch<4>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
