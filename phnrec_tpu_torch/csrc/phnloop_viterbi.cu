@@ -50,11 +50,12 @@
 //   version and argmax), the lowest (slot, lane) of the ballots being the
 //   lowest phoneme, and one shuffle each of the winner's own value and
 //   entry frame.
-// * The frame body has no branch (every lane stores the same History
-//   record) and is unrolled: a frame's argmax waits only on its exit
-//   states, which need the entry value S frames back, so for S >= 2 the
-//   argmaxes of successive frames overlap (unrolled: ~320 clocks a frame;
-//   the same body not unrolled: ~455).
+// * The frame body has no branch and is unrolled: a frame's argmax waits
+//   only on its exit states, which need the entry value S frames back, so
+//   for S >= 2 the argmaxes of successive frames overlap (unrolled: ~320
+//   clocks a frame; the same body not unrolled: ~455).  Every lane writes
+//   the frame's History record to shared memory (the same words), and the
+//   chunk's records go out once per chunk, a lane a frame (-6%).
 
 #include <cuda_runtime.h>
 
@@ -122,7 +123,9 @@ viterbi_kernel(const float* __restrict__ carry_a,
   if (b >= B) return;  // the whole warp leaves together
   const int tb = t0_row ? t0_row[b] : t0;
   const int nv = n_valid ? max(0, min(n_valid[b], T)) : T;
-  float* wring = ring + (size_t)(threadIdx.x >> 5) * STAGES * stage_words;
+  float* wring =
+      ring + (size_t)(threadIdx.x >> 5) * (STAGES * stage_words + 3 * CHUNK);
+  int* hist = reinterpret_cast<int*>(wring + STAGES * stage_words);
 
   float a[PPL][S + 1];
   int e[PPL][S + 1];
@@ -249,11 +252,18 @@ viterbi_kernel(const float* __restrict__ carry_a,
         a[i][0] = entry;
         e[i][0] = tb + t + 1;
       }
-      // every lane stores the same record (one write a store)
-      const size_t h = (size_t)t * B + b;
-      h_phn[h] = (int8_t)(wl + 32 * wi);
-      h_ent[h] = we;
-      h_alpha[h] = wv;
+      // every lane writes the same record (one write a store)
+      hist[tt * 3] = wl + 32 * wi;
+      hist[tt * 3 + 1] = we;
+      hist[tt * 3 + 2] = __float_as_int(wv);
+    }
+    // the chunk's History, a lane a frame
+    __syncwarp();
+    if (lane < nf) {
+      const size_t h = (size_t)(f0 + lane) * B + b;
+      h_phn[h] = (int8_t)hist[lane * 3];
+      h_ent[h] = hist[lane * 3 + 1];
+      h_alpha[h] = __int_as_float(hist[lane * 3 + 2]);
     }
   }
 
@@ -278,12 +288,14 @@ cudaError_t launch(const float* ca, const int* ce, const float* lp, int B,
                    cudaStream_t stream) {
   // C frames a stage, the span's offset (< 4 floats) beside them, each
   // stage a multiple of 16 bytes
-  const int C = std::min(CHUNK, (SMEM_BYTES / (4 * WARPS * STAGES) - 7) / D);
+  const int C = std::min(
+      CHUNK, ((SMEM_BYTES / (4 * WARPS) - 3 * CHUNK) / STAGES - 7) / D);
   if (C < 1) return cudaErrorInvalidValue;
   const int stage_words = (C * D + 3 + 3) & ~3;
   const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
   viterbi_kernel<S, PPL>
-      <<<blocks, WARPS * 32, (size_t)WARPS * STAGES * stage_words * 4,
+      <<<blocks, WARPS * 32,
+         (size_t)WARPS * (STAGES * stage_words + 3 * CHUNK) * 4,
          stream>>>(ca, ce, lp, B, T, P, D, t0, t0r, nv, w_pen, tr_curr,
                    tr_next, oa, oe, hp, he, ha, C, stage_words);
   return cudaGetLastError();
@@ -310,7 +322,7 @@ extern "C" int phn_viterbi_max_states() { return 5; }
 extern "C" int phn_viterbi_max_phonemes() { return 128; }
 // the widest frame row (D) a stage of the ring holds
 extern "C" int phn_viterbi_max_row() {
-  return SMEM_BYTES / (4 * WARPS * STAGES) - 7;
+  return (SMEM_BYTES / (4 * WARPS) - 3 * CHUNK) / STAGES - 7;
 }
 
 // One block of frames of the phoneme-loop scan.  carry [P, S+1, B]
