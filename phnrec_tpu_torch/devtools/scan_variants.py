@@ -55,13 +55,14 @@ ABLATIONS = (
     # the first kernel F: every frame loads frame 0's inputs
     ("loads_frame0", [("const size_t row = ((size_t)f * n + b) * S;",
                        "const size_t row = (size_t)b * S;")]),
-    # kernel F, either: no event record is stored
+    # kernel F: no event record is stored (the first kernel, the staged)
     ("no_records", [("if (has[i]) {", "if (false) {")]),
+    ("no_records", [("if (has[i])\n          r[", "if (false)\n          r[")]),
     # the staged kernel F: every frame reads its chunk's first frame
     ("smem_frame0", [("const int fo = (fr + 1 < nf ? fr + 1 : fr) * step;",
                       "const int fo = 0;")]),
     # the staged kernel F: keyword 0's candidate end not shuffled
-    ("no_end0_shuffle", [("__shfl_sync(0xffffffffu, n_ce[0], lane & ~(LPS - 1))",
+    ("no_end0_shuffle", [("__shfl_sync(0xffffffffu, n_ce[0], 0)",
                           "n_ce[0]")]),
     # the first kernel C: every frame's observations are frame 0's
     ("obs_frame0", [("const float* row = up + (size_t)(t + 1) * D;",
