@@ -29,11 +29,11 @@
 // but the instructions of one frame, repeated F times by one warp: the
 // frames of a stream are sequential, and with one warp per stream there
 // is about one warp for each of the card's schedulers, so nothing hides a
-// stall but the warp's own instruction-level parallelism.  The first
-// kernel F loaded each frame's three inputs from device memory at the top
-// of the frame and used them at once (~780 clocks a frame; with every
-// frame's loads from frame 0, ~335), and stored ten scattered records a
-// keyword and frame.
+// stall but the warp's own instruction-level parallelism.  A frame that
+// loads its three inputs from device memory and uses them at once pays a
+// memory latency every frame (measured: ~780 clocks a frame, ~335 with
+// every frame's loads from one frame), and ten scattered record stores a
+// keyword and frame cost ~360 more.
 //
 // Design: one warp per stream (keyword k in lane k % 32, KPL keywords a
 // lane), the whole frame loop inside the kernel, and no device memory on

@@ -26,11 +26,11 @@
 // update, then a loop-wide argmax whose winner is the next frame's entry
 // value.  With one warp per utterance there is about one warp for each of
 // the card's schedulers, so nothing hides a stall but the warp's own
-// instruction-level parallelism.  The first kernel C fetched each frame's
-// observations one frame ahead straight from device memory (a serving
-// block's log-posteriors, 72 MB, do not fit the 50 MB L2), hidden only
-// behind the argmax: ~850 clocks a frame, ~450 with every frame's
-// observations from frame 0; its 5-step shuffle butterfly was ~25 of it.
+// instruction-level parallelism.  Observations fetched one frame ahead
+// straight from device memory (a serving block's log-posteriors, 72 MB,
+// do not fit the 50 MB L2) are hidden only behind the argmax (measured:
+// ~850 clocks a frame, ~450 with every frame's observations from one
+// frame; a 5-step shuffle butterfly for the argmax is ~25 of them).
 //
 // Design: one warp per utterance and the whole frame loop inside the
 // kernel, one launch per batch.  Lanes own phonemes (p = lane + 32*i, PPL
