@@ -12,7 +12,8 @@ build/phnrec_tpu_torch/variants/) and prints each build's registers and
 spills.  With ``--ablate`` each source before a ``--`` is also built once
 for each of the ABLATIONS below whose text it holds, with that part cut
 out, to see what its frame is made of; those copies compute wrong
-results: they are timed, not checked.  The parent's source is extracted by the caller, e.g.
+results: they are timed, not checked.  The parent's source is extracted
+by the caller, e.g.
 ``git show HEAD~1:phnrec_tpu_torch/csrc/lrtrace.cu > build/lrtrace_ref.cu``.
 
 Every build that is not an ablation is held to the plain version
@@ -57,7 +58,8 @@ ABLATIONS = (
                        "const size_t row = (size_t)b * S;")]),
     # kernel F: no event record is stored (the first kernel, the staged)
     ("no_records", [("if (has[i]) {", "if (false) {")]),
-    ("no_records", [("if (has[i])\n          r[", "if (false)\n          r[")]),
+    ("no_records", [("if (has[i])\n          r[",
+                     "if (false)\n          r[")]),
     # the staged kernel F: every frame reads its chunk's first frame
     ("smem_frame0", [("const int fo = (fr + 1 < nf ? fr + 1 : fr) * step;",
                       "const int fo = 0;")]),
@@ -105,7 +107,8 @@ LRTRACE_SCORE = {False: -1e30, True: -3.0}   # score pruning by `ties`
 # kernels C and C': name -> (P, S, B, T, D, dict(seed, ties)); ties
 # "ints" are small-integer observations with the CZ loop's constants,
 # "zeros" mostly +0.0 and -0.0 observations with zero penalties (-0.0,
-# +0.0 and -0.0), so exits of -0.0 and +0.0 tie.  T 37 fills no 16-frame chunk.
+# +0.0 and -0.0), so exits of -0.0 and +0.0 tie.  T 37 fills no
+# 16-frame chunk.
 VITERBI_CASES = {
     "P7_S1": (7, 1, 13, 37, 7, dict(seed=81, ties="zeros")),
     "P32_S3": (32, 3, 13, 37, 96, dict(seed=82)),
@@ -140,10 +143,10 @@ def lrtrace_case(dev, n, F, K, S, seed, ties=False, dead=False):
     to the current frame every 20-80 frames; or, with ``ties``,
     small-integer values (lr == last_lr and lr == cand_lr often) and, for
     about half the streams, word starts 0-2 frames behind the frame
-    (cand_end == w0 often).  Word
-    columns a permutation of the sinks but the filler's; ragged n_valid
-    (0 and F among them, stream 0 whole; all 0 with ``dead``); random n_dec.  -> the
-    lrtrace_scan arguments but the two prunings."""
+    (cand_end == w0 often).  Word columns a permutation of the sinks but
+    the filler's; ragged n_valid (0 and F among them, stream 0 whole; all
+    0 with ``dead``); random n_dec.  -> the lrtrace_scan arguments but
+    the two prunings."""
     rng = np.random.default_rng(seed)
     nd = rng.integers(0, 5000, n)
     f = np.arange(F)[:, None, None]
@@ -217,11 +220,11 @@ def check_lrtrace_cases(scan, dev) -> list:
 
 def viterbi_case(dev, P, S, B, T, D, seed, ties=None):
     """Kernel C's inputs: (spec, log_post [B, T, D], t0 [B], n_valid [B]
-    ragged with 0 and T among them, row 0 whole).  Dirichlet log-posteriors, or with
-    ``ties`` small integers: "ints" 0, -1, -2, -3 (0 as -0.0) with the CZ
-    loop's constants, "zeros" +0.0 or -0.0 at 70% and -1, -2 elsewhere
-    with w_penalty -0.0, tr_curr +0.0 and tr_next -0.0 (so exits of -0.0
-    and +0.0 tie)."""
+    ragged with 0 and T among them, row 0 whole).  Dirichlet
+    log-posteriors, or with ``ties`` small integers: "ints" 0, -1, -2, -3
+    (0 as -0.0) with the CZ loop's constants, "zeros" +0.0 or -0.0 at 70%
+    and -1, -2 elsewhere with w_penalty -0.0, tr_curr +0.0 and tr_next
+    -0.0 (so exits of -0.0 and +0.0 tie)."""
     rng = np.random.default_rng(seed)
     spec = phnloop.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=-4.6875)
     if ties == "ints":
@@ -313,7 +316,7 @@ def serving_lrtrace(dev):
 def serving_viterbi(dev):
     """Kernel C' and C's timed cases at the CZ loop (chip_smoke.py's): C'
     at B 256 x T 512 from a carry one ragged block in, C at B 256 x T 500
-    from the initial carry.  -> (C' args, its live rows, C args)."""
+    from the initial carry.  -> (C' args, C args)."""
     P, S, B, T = 46, 3, 256, 512
     rng = np.random.default_rng(5)
     spec = phnloop.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=-4.6875)
@@ -338,7 +341,7 @@ def serving_viterbi(dev):
     lpc = torch.from_numpy(np.log(rng_c.dirichlet(
         np.ones(P * S), size=(B, 500))).astype(np.float32)).to(dev)
     cargs = (phnloop.init_carry(spec, B, dev), lpc, 0, *args)
-    return rargs, int(nv.sum()), cargs
+    return rargs, cargs
 
 
 def main(argv) -> int:
@@ -404,7 +407,7 @@ def main(argv) -> int:
         fargs = serving_lrtrace(dev)
         timed = {"F n256 x F512 x K2": (lambda c: c["F"](*fargs), 512)}
     else:
-        rargs, live, cargs = serving_viterbi(dev)
+        rargs, cargs = serving_viterbi(dev)
         timed = {"C' B256 x T512": (lambda c: c["Cr"](*rargs), 512),
                  "C B256 x T500": (lambda c: c["C"](*cargs), 500)}
     ms = {name: {k: [] for k in timed} for name in libs}
