@@ -629,15 +629,27 @@ def check_viterbi_cases(dev) -> None:
     scan_variants.VITERBI_CASES (every P and S width, B 1 and 13, T 1 and
     one that fills no chunk, n_valid 0, T and ragged, two blocks chained
     through the carry, tie-heavy observations with -0.0): carry and valid
-    History bit-equal."""
+    History bit-equal; and a row wider than a ring stage raises."""
     recs = scan_variants.check_viterbi_cases(
         phnloop_viterbi.viterbi_block, phnloop_viterbi.viterbi_block_ragged,
         dev)
     bad = [r for r in recs if r["bad"]]
+    # a row wider than a ring stage holds is refused before any launch
+    wide = phnloop_viterbi._lib().phn_viterbi_max_row() + 1
+    spec = phnloop.PhnLoopSpec(n_phonemes=46, n_states=3, w_penalty=-4.6875)
+    try:
+        phnloop_viterbi.viterbi_block(
+            phnloop.init_carry(spec, 2, dev),
+            torch.zeros((2, 3, wide), device=dev), 0, 46, 3, -4.6875,
+            spec.log_tr_curr, spec.log_tr_next)
+        refused = False
+    except ValueError:
+        refused = True
     phase("phnloop_viterbi_cases", cases=len(recs), bit_equal=not bad,
-          bad=bad)
-    if bad:
-        raise AssertionError(f"phnloop_viterbi cases differ: {bad}")
+          bad=bad, row_of=wide, refused=refused)
+    if bad or not refused:
+        raise AssertionError(f"phnloop_viterbi cases differ: {bad}, "
+                             f"a row of {wide} refused: {refused}")
 
 
 def label_key(labels):

@@ -50,8 +50,10 @@
 //   a keyword and frame (start, end, score, and emit | new_estim << 8 of
 //   each record), and out to device memory once per chunk, each field of
 //   a stream's chunk one contiguous run;
-// * the frame body has no branch and is unrolled, so one frame's stores
-//   and loads overlap the next frame's compares.
+// * the frame body has no branch and is unrolled by 2 (1: +20%, 4: +23%,
+//   8: +42%), so one frame's stores and loads overlap the next frame's
+//   compares; time pruning on or off is a template parameter, so the
+//   body holds no test of it (-25%).
 // Keyword 0's candidate end, which every keyword's time-pruning test
 // reads, reaches the other lanes by a shuffle from the stream's first
 // lane (each lane running keyword 0's take chain itself instead: +13%).
@@ -130,8 +132,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// KPL keywords a lane
-template <int KPL>
+// KPL keywords a lane; TP: time pruning on
+template <int KPL, bool TP>
 __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   extern __shared__ __align__(16) float ring[];
   __shared__ int ws_s[MAX_K];
@@ -222,7 +224,9 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
       wv[i] = vs[vi[i]];
       w0[i] = wsm[vi[i]];
     }
-#pragma unroll 4
+    // (unrolled by 3 this loop gave wrong records and illegal addresses on
+    // the card with nvcc 12.8, cause not found; 1, 2, 4 and 8 are right)
+#pragma unroll 2
     for (int fr = 0; fr < nf; ++fr) {
       const int f = f0 + fr;
       const int t = t0 + f;
@@ -270,14 +274,14 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < KPL; ++i) {
         const bool stale = act[i] && end0 != 0 && (t + 1) - end0 >= a.tp;
-        const bool do2 = a.tp_on && stale && n_ce[i] != 0 && !n_d[i];
+        const bool do2 = TP && stale && n_ce[i] != 0 && !n_d[i];
         int4* r = reinterpret_cast<int4*>(
             rec + (fr * K + lane + 32 * i) * REC);
         if (has[i])
-          r[1] = make_int4(a.tp_on ? n_cs[i] : 0, a.tp_on ? n_ce[i] : 0,
-                           __float_as_int(a.tp_on ? n_clr[i] : 0.f),
+          r[1] = make_int4(TP ? n_cs[i] : 0, TP ? n_ce[i] : 0,
+                           __float_as_int(TP ? n_clr[i] : 0.f),
                            (int)(do2 && n_clr[i] >= a.sp && live) |
-                               (int)(a.tp_on && n_d[i]) << 8);
+                               (int)(TP && n_d[i]) << 8);
         if (do2) {
           n_pe[i] = n_ce[i];
           n_d[i] = true;
@@ -337,8 +341,12 @@ cudaError_t launch(Args a, cudaStream_t st) {
   if (a.chunk < 1) return cudaErrorInvalidValue;
   a.warp_words = (a.chunk * per_frame + 3) & ~3;
   const unsigned blocks = (unsigned)((a.n + WARPS - 1) / WARPS);
-  lrtrace_kernel<KPL>
-      <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
+  if (a.tp_on)
+    lrtrace_kernel<KPL, true>
+        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
+  else
+    lrtrace_kernel<KPL, false>
+        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
   return cudaGetLastError();
 }
 

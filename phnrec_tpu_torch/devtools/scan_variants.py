@@ -61,7 +61,7 @@ ABLATIONS = (
     ("no_records", [("if (has[i])\n          r[",
                      "if (false)\n          r[")]),
     # the staged kernel F: every frame reads its chunk's first frame
-    ("smem_frame0", [("const int fo = (fr + 1 < nf ? fr + 1 : fr) * step;",
+    ("smem_frame0", [("const int fo = (fr + 1 < nf ? fr + 1 : fr) * W;",
                       "const int fo = 0;")]),
     # the staged kernel F: keyword 0's candidate end not shuffled
     ("no_end0_shuffle", [("__shfl_sync(0xffffffffu, n_ce[0], 0)",
@@ -186,9 +186,10 @@ def lrtrace_equal(got, want) -> dict:
 
 def check_lrtrace_cases(scan, dev) -> list:
     """``scan`` (lrtrace_scan's arguments) against the plain version on
-    every case of LRTRACE_CASES, both time prunings, and on two blocks
-    chained through the state (n 13, F 77 split at 30) against one.  ->
-    one record per check, with its bad fields."""
+    every case of LRTRACE_CASES, both time prunings; on records 4 bytes
+    off 16-byte alignment (S 4, which the kernel then copies by column);
+    and on two blocks chained through the state (n 13, F 77 split at 30)
+    against one.  -> one record per check, with its bad fields."""
     recs = []
     for case, (n, F, K, S, kw) in LRTRACE_CASES.items():
         args = lrtrace_case(dev, n, F, K, S, **kw)
@@ -202,6 +203,15 @@ def check_lrtrace_cases(scan, dev) -> list:
                              emits=[int(want[1][r]["emit"].sum())
                                     for r in range(2)],
                              bad=[k for k, v in eq.items() if not v]))
+    st, sv, sw, ws, fs, nd, nv = lrtrace_case(dev, 13, 77, 2, 4, seed=74)
+    off = [torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+           .view(t.shape).copy_(t) for t in (sv, sw)]
+    got = scan(st, *off, ws, fs, nd, nv, 40, -1e30)
+    want = lrtrace.lrtrace_scan_plain(st, sv, sw, ws, fs, nd, nv, 40, -1e30)
+    _sync(dev)
+    eq = lrtrace_equal(got, want)
+    recs.append(dict(case="misaligned", n=13, F=77, K=2, S=4,
+                     time_pruning=40, bad=[k for k, v in eq.items() if not v]))
     st, sv, sw, ws, fs, nd, _ = lrtrace_case(dev, 13, 77, 2, 4, seed=73)
     full = torch.full_like(nd, 77)
     one = scan(st, sv, sw, ws, fs, nd, full, 40, -1e30)
