@@ -626,10 +626,11 @@ def check_ragged_committed(dev):
 
 def check_viterbi_cases(dev) -> None:
     """Kernels C and C' against their plain versions on
-    scan_variants.VITERBI_CASES (every P and S width, B 1 and 13, T 1 and
-    one that fills no chunk, n_valid 0, T and ragged, two blocks chained
-    through the carry, tie-heavy observations with -0.0): carry and valid
-    History bit-equal; and a row wider than a ring stage raises."""
+    scan_variants.VITERBI_CASES (S 1-5 at P up to 32, 64, 96 and 128:
+    every template instance; B 1 and 13, T 1 and one that fills no chunk,
+    n_valid 0, T and ragged, two blocks chained through the carry,
+    tie-heavy observations with -0.0): carry and valid History bit-equal;
+    and a row wider than a ring stage raises."""
     recs = scan_variants.check_viterbi_cases(
         phnloop_viterbi.viterbi_block, phnloop_viterbi.viterbi_block_ragged,
         dev)
@@ -876,10 +877,10 @@ def check_lrtrace(c, b_out, dev, n: int = 256, F: int = 512):
     """Kernel F against its plain version, every field equal: on kernel
     B's beam-off output, and on sink records built to emit often
     (random-walk LRs with dead stretches), time_pruning 40 and off; then
-    on scan_variants.LRTRACE_CASES (K 1, 2, 13, 33 and 128 on crafted
-    records, n 1, 13 and 256, F 1 and one that fills no chunk, every
-    stream dead, tie-heavy small-integer records) and two blocks chained
-    through the state."""
+    on scan_variants.LRTRACE_CASES (K 1, 2, 13, 33, 70, 96 and 128 on
+    crafted records, n 1, 13 and 256, F 1 and one that fills no chunk,
+    every stream dead, tie-heavy small-integer records) and two blocks
+    chained through the state."""
     from phnrec_tpu_torch.decoder.stknet import lrtrace_init_state
     ws = torch.tensor(c.kws_word_sinks, dtype=torch.int32, device=dev)
     fs, K = c.kws_filler_sink, len(c.kws_word_sinks)

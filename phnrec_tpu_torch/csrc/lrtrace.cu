@@ -45,7 +45,7 @@
 //   a row of the records is 16-byte aligned and short (S % 4 == 0, S <=
 //   ROW_MAX: the EN net's 4 sinks are 16 bytes) whole rows are copied, one
 //   16-byte copy a row and array; otherwise only the K word columns and
-//   the filler column, 4 bytes each;
+//   the filler column, 4 bytes each (the EN net by columns alone: +41%);
 // * the event records of a chunk go to shared memory, two 16-byte stores
 //   a keyword and frame (start, end, score, and emit | new_estim << 8 of
 //   each record), and out to device memory once per chunk, each field of
@@ -224,8 +224,9 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
       wv[i] = vs[vi[i]];
       w0[i] = wsm[vi[i]];
     }
-    // (unrolled by 3 this loop gave wrong records and illegal addresses on
-    // the card with nvcc 12.8, cause not found; 1, 2, 4 and 8 are right)
+    // (not by 3: nvcc 12.9 then emits the 3-frame body with no remainder,
+    // one exit test every third frame, so a chunk of another length runs
+    // past its last frame; 1, 2, 4 and 8 keep the remainder, PERF.md)
 #pragma unroll 2
     for (int fr = 0; fr < nf; ++fr) {
       const int f = f0 + fr;

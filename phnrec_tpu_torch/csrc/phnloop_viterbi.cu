@@ -186,9 +186,10 @@ viterbi_kernel(const float* __restrict__ carry_a,
 
     // straight-line frames (no branch inside), unrolled: a frame's argmax
     // waits only on its exit states, which the frame before computed, so
-    // the argmaxes of successive frames can overlap (for S >= 2).  (Unrolled
-    // by 3 this loop gave wrong History at T 1 and illegal addresses on the
-    // card with nvcc 12.8, cause not found; 1, 2, 4, 6 and 8 are right.)
+    // the argmaxes of successive frames can overlap (for S >= 2).  (Not by
+    // 3: nvcc 12.9 then emits the 3-frame body with no remainder, one exit
+    // test every third frame, so a chunk of another length runs past its
+    // last frame and its History buffer; 4 keeps the remainder, PERF.md.)
 #pragma unroll 4
     for (int tt = 0; tt < nf; ++tt) {
       const int t = f0 + tt;

@@ -212,18 +212,9 @@ class KernelA3:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Milliseconds of card time a call of ``fn`` takes: CUDA events around
-    ``iters`` calls after ``warmup``.  A spin kernel holds the card while
-    the host enqueues the calls (up to 50 ms of them), so a kernel that
-    runs shorter than its wrapper's host work is timed, not the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t
-    torch.cuda._sleep(int(2e9 * min(1.5 * host_s * iters, 0.05)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

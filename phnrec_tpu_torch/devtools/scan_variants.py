@@ -14,7 +14,9 @@ for each of the ABLATIONS below whose text it holds, with that part cut
 out, to see what its frame is made of; those copies compute wrong
 results: they are timed, not checked.  The parent's source is extracted
 by the caller, e.g.
-``git show HEAD~1:phnrec_tpu_torch/csrc/lrtrace.cu > build/lrtrace_ref.cu``.
+``git show HEAD~1:phnrec_tpu_torch/csrc/lrtrace.cu > build/lrtrace_ref.cu``;
+a kernel-C source older than the row limit (no ``phn_viterbi_max_row``)
+is taken to accept rows of any width.
 
 Every build that is not an ablation is held to the plain version
 (ops/lrtrace.py::lrtrace_scan_plain, every field bit-equal;
@@ -22,14 +24,19 @@ ops/phnloop_viterbi.py::viterbi_block_plain and
 viterbi_block_ragged_plain, carry and valid History bit-equal) on the case
 lists LRTRACE_CASES and VITERBI_CASES, which chip_smoke.py holds the
 package's kernels to as well: tie-heavy small-integer inputs (with -0.0
-among the phoneme-loop observations), every width the kernels
-instantiate, one stream or utterance, counts that fill no warp, a single
-frame, block lengths that fill no chunk, every row dead, and two blocks
-chained through the state.  Then it times all builds in turns (first to
-last, then last to first) at the serving shapes: kernel F at n 256 x F 512
-x K 2 (the EN net's sinks, time pruning 40), kernel C' at B 256 x T 512
-(chip_smoke.py's ragged case) and kernel C at B 256 x T 500, and reads
-the SM clock under load to give clocks a frame.  One JSON line per build,
+among the phoneme-loop observations); every template instance of the
+package's sources (kernel F: 1-4 keywords a lane, time pruning on and
+off, whole-row and column copies; kernels C and C': 1-5 states by 1-4
+phonemes a lane); one stream or utterance, counts that fill no warp, a
+single frame, block lengths that fill no chunk, every row dead, and two
+blocks chained through the state.
+Then it times all builds in turns (first to last, then last to first) at
+the serving shapes: kernel F at n 256 x F 512 x K 2 (the EN net's sinks,
+time pruning 40), kernel C' at B 256 x T 512 (chip_smoke.py's ragged
+case) and kernel C at B 256 x T 500, each by two timers: ``ms`` by
+mlp_variants.cuda_ms (chip_smoke.py's), and ``held_ms`` by held_ms below,
+which holds the card while the host enqueues the calls.  It reads the SM
+clock under load to give clocks a frame of each.  One JSON line per build,
 check and timing.
 """
 
@@ -38,6 +45,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -85,8 +93,9 @@ ABLATIONS = (
                          "const int wl = lane;")]),
 )
 
-# kernel F: name -> (n, F, K, S, dict(seed, ties, dead)); S >= K + 1.  S 4
-# and 16 take the whole-row copies, 34, 129 and 132 the column copies.
+# kernel F: name -> (n, F, K, S, dict(seed, ties, dead)); S >= K + 1.  K 1,
+# 2 and 13 run 1 keyword a lane, 33 2, 70 3, 96 and 128 4; S 4 and 16 take
+# the whole-row copies, the other S the column copies.
 LRTRACE_CASES = {
     "main": (256, 512, 2, 4, dict(seed=61)),
     "ties": (256, 512, 2, 4, dict(seed=62, ties=True)),
@@ -95,6 +104,9 @@ LRTRACE_CASES = {
     "K13_S16": (13, 77, 13, 16, dict(seed=65, ties=True)),
     "K33": (13, 77, 33, 34, dict(seed=66, ties=True)),
     "K33_walk": (13, 77, 33, 34, dict(seed=67)),
+    "K70": (13, 77, 70, 71, dict(seed=75, ties=True)),
+    "K70_walk": (13, 77, 70, 71, dict(seed=76)),
+    "K96": (13, 77, 96, 97, dict(seed=77, ties=True)),
     "K128": (13, 77, 128, 129, dict(seed=68, ties=True)),
     "K128_n1": (1, 100, 128, 132, dict(seed=69)),
     "n1_F1": (1, 1, 2, 4, dict(seed=70)),
@@ -108,19 +120,59 @@ LRTRACE_SCORE = {False: -1e30, True: -3.0}   # score pruning by `ties`
 # "ints" are small-integer observations with the CZ loop's constants,
 # "zeros" mostly +0.0 and -0.0 observations with zero penalties (-0.0,
 # +0.0 and -0.0), so exits of -0.0 and +0.0 tie.  T 37 fills no
-# 16-frame chunk.
+# 16-frame chunk.  Every S of 1-5 runs with P of each phonemes-a-lane
+# count: up to 32, 64, 96 and 128.
 VITERBI_CASES = {
     "P7_S1": (7, 1, 13, 37, 7, dict(seed=81, ties="zeros")),
+    "P20_S2": (20, 2, 13, 37, 41, dict(seed=91, ties="ints")),
     "P32_S3": (32, 3, 13, 37, 96, dict(seed=82)),
-    "P33_S5": (33, 5, 13, 37, 165, dict(seed=83, ties="ints")),
+    "P31_S4": (31, 4, 13, 37, 126, dict(seed=92, ties="zeros")),
+    "P9_S5": (9, 5, 13, 37, 45, dict(seed=93, ties="ints")),
+    "P50_S1": (50, 1, 13, 37, 53, dict(seed=94, ties="ints")),
+    "P40_S2": (40, 2, 13, 37, 80, dict(seed=95)),
     "P46_S3_D141": (46, 3, 13, 37, 141, dict(seed=84, ties="ints")),
     "P64_S3": (64, 3, 1, 37, 192, dict(seed=85, ties="zeros")),
-    "P128_S5": (128, 5, 13, 37, 640, dict(seed=86, ties="ints")),
+    "P63_S4": (63, 4, 13, 37, 254, dict(seed=96, ties="zeros")),
+    "P33_S5": (33, 5, 13, 37, 165, dict(seed=83, ties="ints")),
+    "P96_S1": (96, 1, 13, 37, 99, dict(seed=97, ties="zeros")),
+    "P80_S2": (80, 2, 13, 37, 160, dict(seed=98, ties="ints")),
+    "P65_S3": (65, 3, 13, 37, 195, dict(seed=99)),
+    "P80_S4": (80, 4, 13, 37, 322, dict(seed=100, ties="ints")),
+    "P70_S5": (70, 5, 1, 37, 350, dict(seed=101, ties="zeros")),
     "P128_S1": (128, 1, 13, 37, 128, dict(seed=87, ties="zeros")),
+    "P100_S2": (100, 2, 13, 37, 203, dict(seed=102, ties="zeros")),
+    "P97_S3": (97, 3, 13, 37, 291, dict(seed=103, ties="ints")),
+    "P120_S4": (120, 4, 13, 37, 480, dict(seed=104)),
+    "P128_S5": (128, 5, 13, 37, 640, dict(seed=86, ties="ints")),
     "T1": (46, 3, 13, 1, 138, dict(seed=88)),
     "cz_ties": (46, 3, 256, 512, 138, dict(seed=89, ties="ints")),
     "cz_zeros": (46, 3, 256, 512, 138, dict(seed=90, ties="zeros")),
 }
+
+
+def held_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Milliseconds of card time a call of ``fn`` takes, as
+    mlp_variants.cuda_ms (CUDA events around ``iters`` calls after
+    ``warmup``), but with the card held by a spin kernel while the host
+    enqueues the calls (up to 50 ms of them): a kernel that runs shorter
+    than its wrapper's host work is timed, where cuda_ms times the host's
+    rate of launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    torch.cuda._sleep(int(2e9 * min(1.5 * host_s * iters, 0.05)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _sync(dev) -> None:
@@ -392,6 +444,9 @@ def main(argv) -> int:
         libs = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
     bind = lrtrace.bind if kernel_f else phnloop_viterbi.bind
     for lib in libs.values():
+        if not kernel_f and not hasattr(lib, "phn_viterbi_max_row"):
+            # an older source, from before the row limit: any row
+            lib.phn_viterbi_max_row = lambda: 1 << 30
         bind(lib)
 
     def calls(lib):
@@ -420,19 +475,23 @@ def main(argv) -> int:
         rargs, cargs = serving_viterbi(dev)
         timed = {"C' B256 x T512": (lambda c: c["Cr"](*rargs), 512),
                  "C B256 x T500": (lambda c: c["C"](*cargs), 500)}
-    ms = {name: {k: [] for k in timed} for name in libs}
+    timers = {"ms": cuda_ms, "held_ms": held_ms}
+    ms = {name: {f"{k} {w}": [] for k in timed for w in timers}
+          for name in libs}
     for name in [*libs, *reversed(libs)]:
         c = calls(libs[name])
         for k, (fn, _) in timed.items():
-            ms[name][k].append(cuda_ms(lambda: fn(c), iters=20))
+            for w, timer in timers.items():
+                ms[name][f"{k} {w}"].append(timer(lambda: fn(c), iters=20))
     for name, t in ms.items():
         c = calls(libs[name])
         rec = {"time_ms": name, **t}
         for k, (fn, frames) in timed.items():
-            mhz = sm_clock(lambda: fn(c), max(t[k][0], 0.2))
+            mhz = sm_clock(lambda: fn(c), max(t[f"{k} ms"][0], 0.2))
             rec[f"{k} sm_clock_mhz"] = mhz
-            rec[f"{k} clocks_a_frame"] = [v * 1e-3 * mhz * 1e6 / frames
-                                          for v in t[k]]
+            for w in timers:
+                rec[f"{k} {w} clocks_a_frame"] = [
+                    v * 1e-3 * mhz * 1e6 / frames for v in t[f"{k} {w}"]]
         print(json.dumps(rec), flush=True)
     return 0 if ok else 1
 

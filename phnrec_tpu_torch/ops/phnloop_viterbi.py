@@ -111,8 +111,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.phn_viterbi_max_states.restype = ctypes.c_int
         lib.phn_viterbi_max_phonemes.restype = ctypes.c_int
-        if hasattr(lib, "phn_viterbi_max_row"):
-            lib.phn_viterbi_max_row.restype = ctypes.c_int
+        lib.phn_viterbi_max_row.restype = ctypes.c_int
     return lib
 
 
@@ -149,8 +148,7 @@ def launch(lib: ctypes.CDLL, carry: Carry, log_post: torch.Tensor, t0: int,
         raise ValueError(f"kernel takes at most "
                          f"{lib.phn_viterbi_max_phonemes()} phonemes of "
                          f"{lib.phn_viterbi_max_states()} states")
-    if hasattr(lib, "phn_viterbi_max_row") and \
-            D > lib.phn_viterbi_max_row():
+    if D > lib.phn_viterbi_max_row():
         raise ValueError(f"kernel takes rows of at most "
                          f"{lib.phn_viterbi_max_row()} columns, not {D}")
     out_a = torch.empty_like(alphas)
