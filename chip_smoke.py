@@ -10,7 +10,8 @@ also at row counts that fill no row tile, and timed beside cuBLAS's two
 products alone) and A' (fused MLP, bf16 tensor-core passes, 3 and 1) at the
 CZ nets, C and
 C' (phoneme-loop scan, uniform and ragged), D and D' (backtrack, whole and
-committed window), B (network-Viterbi block) and F (LRTrace scan).  Then it
+committed window, also on the case list of devtools/backtrack_variants.py,
+and D timed at the serving History), B (network-Viterbi block) and F (LRTrace scan).  Then it
 drives three paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
@@ -55,7 +56,7 @@ import torch
 from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import NEG, OFF_BEAM, DenseKWSScan
-from phnrec_tpu_torch.devtools import scan_variants
+from phnrec_tpu_torch.devtools import backtrack_variants, scan_variants
 from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
 from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
@@ -524,12 +525,11 @@ def check_viterbi_backtrack(dev):
     for a, b, what in zip(sk, sp, ("count", "phn", "start", "alpha_end")):
         if not torch.equal(a, b):
             raise AssertionError(f"backtrack: {what} differs")
-    t_k = cuda_ms(lambda: backtrack.backtrack(*hk, n_frames, smax))
-    t_p = cuda_ms(lambda: backtrack.backtrack_plain(*hk, n_frames, smax),
-                  iters=3, warmup=1)
-    phase("backtrack", T=T, B=B, smax=smax, equal=True,
-          mean_segments=float(sk[0].float().mean()), ms=t_k, plain_ms=t_p)
-    return vit, dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+    walk = _walk_times(lambda: backtrack.backtrack(*hk, n_frames, smax),
+                       lambda: backtrack.backtrack_plain(*hk, n_frames, smax),
+                       sk[0])
+    phase("backtrack", T=T, B=B, smax=smax, equal=True, **walk)
+    return vit, dict(max_abs_err=0.0, **walk,
                      **bound(*_walk_work(sk[0], smax, 2, 0), PEAK_FP32))
 
 
@@ -613,15 +613,47 @@ def check_ragged_committed(dev):
         sk, sp, ("count", "phn", "start", "alpha_end"))}
     checks["frame0 = row_offset = 0 == kernel D"] = all(
         torch.equal(a, b) for a, b in zip(zk, dk))
-    t_k = cuda_ms(lambda: backtrack.backtrack_committed(*dargs))
-    t_p = cuda_ms(lambda: backtrack.backtrack_committed_plain(*dargs),
-                  iters=3, warmup=1)
-    phase("backtrack_committed", T=T, B=B, smax=smax, equal=checks,
-          mean_segments=float(sk[0].float().mean()), ms=t_k, plain_ms=t_p)
+    walk = _walk_times(lambda: backtrack.backtrack_committed(*dargs),
+                       lambda: backtrack.backtrack_committed_plain(*dargs),
+                       sk[0])
+    phase("backtrack_committed", T=T, B=B, smax=smax, equal=checks, **walk)
     if not all(checks.values()):
         raise AssertionError(f"backtrack_committed: {checks}")
-    return ragged, dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+    return ragged, dict(max_abs_err=0.0, **walk,
                         **bound(*_walk_work(sk[0], smax, 2, 2), PEAK_FP32))
+
+
+def _walk_times(kernel, plain, count: torch.Tensor) -> dict:
+    """A walk's times by both timers (cuda_ms, the smoke's, and
+    scan_variants.held_ms, the card held while the host enqueues), the
+    plain version's, the held time in clocks a hop of the longest row,
+    and the hops a row (mean, max)."""
+    t_k = cuda_ms(kernel)
+    held = scan_variants.held_ms(kernel)
+    t_p = cuda_ms(plain, iters=3, warmup=1)
+    max_hops = int(count.max())
+    mhz = sm_clock(kernel, max(t_k, 0.2))
+    return dict(ms=t_k, held_ms=held, plain_ms=t_p, sm_clock_mhz=mhz,
+                clocks_a_hop=held * 1e-3 * mhz * 1e6 / max(max_hops, 1),
+                mean_count=float(count.float().mean()), max_count=max_hops)
+
+
+def check_walk_cases(dev) -> None:
+    """Kernels D and D' against their plain versions on
+    backtrack_variants.WALK_CASES (int16 and int32 starts; T below one
+    chunk, over many and the serving T 6,146; B 13, 1 and 256; hops of
+    exactly 1, 3, 4, 64, 128 and 256 frames landing on chunk edges; rows of
+    one segment; Smax below a row's hop count; pointers off alignment; D'
+    with frame0 before, at, inside and past the window and empty windows),
+    every output bit-equal with its dtype, and D' with frame0 = row_offset
+    = 0 equal to D."""
+    recs = backtrack_variants.check_walk_cases(
+        backtrack.backtrack, backtrack.backtrack_committed, dev)
+    bad = [r for r in recs if r["bad"]]
+    phase("backtrack_cases", cases=len(recs), bit_equal=not bad, bad=bad,
+          hops={r["case"]: r["hops_D"] for r in recs})
+    if bad:
+        raise AssertionError(f"backtrack cases differ: {bad}")
 
 
 def check_viterbi_cases(dev) -> None:
@@ -1220,14 +1252,16 @@ def _serving_audio(sr, dev, n: int, n_blocks: int, block: int):
 
 
 def phnloop_serving(sr, dev, n: int = 256, n_blocks: int = 12,
-                    block: int = 512, runs: int = 3) -> dict:
+                    block: int = 512, runs: int = 3,
+                    time_walk: bool = False) -> dict:
     """MultiStreamRecognizer over n streams x 12 blocks of 512 frames
     (61.44 s at 8 kHz) staged on the card as int16, through
     decode_device_buffer then finish(), in the current precision mode:
     launch counts of one run, whose labels (from kernel D's walk over the
     merged History) must equal the plain walk's over the same History,
     then the median of `runs` timed runs after a warm-up, with CUDA-event
-    stage times.  Returns (launches, labels)."""
+    stage times; with ``time_walk``, kernel D's times at that History.
+    Returns (launches, labels, the walk's times or None)."""
     fs = sr.cfg.get_int("source", "sample_freq")
     audio, L = _serving_audio(sr, dev, n, n_blocks, block)
 
@@ -1272,6 +1306,15 @@ def phnloop_serving(sr, dev, n: int = 256, n_blocks: int = 12,
     if walk_equal != n:
         raise AssertionError(f"kernel D's labels differ from the plain "
                              f"walk's on {n - walk_equal} streams")
+    walk = None
+    if time_walk:
+        args = (*(h.contiguous() for h in hist), ms._i32(ms._n_dec),
+                segs.phn.shape[1])
+        walk = dict(T=hist.max_phn.shape[0], B=n, smax=args[-1], launches=1,
+                    **_walk_times(lambda: backtrack.backtrack(*args),
+                                  lambda: backtrack.backtrack_plain(*args),
+                                  segs.count))
+        phase("backtrack_serving", **walk)
 
     walls, stage_runs, devs, fins = [], [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1310,7 +1353,7 @@ def phnloop_serving(sr, dev, n: int = 256, n_blocks: int = 12,
           launches=launches, labels_total=sum(map(len, labels)),
           wall_s=walls, audio_s_per_s=n * L / fs / wall, stage_ms=stages,
           max_memory_allocated_bytes=peak, device_busy_share=busy)
-    return launches, labels
+    return launches, labels, walk
 
 
 class _PFeed(MultiStreamRecognizer):
@@ -1443,6 +1486,7 @@ def main() -> int:
         results["phnloop_viterbi_ragged"], \
             results["backtrack_committed"] = check_ragged_committed(dev)
         check_viterbi_cases(dev)
+        check_walk_cases(dev)
         launches = run_cli(pkg, tmp, cpu_sr, dev)
         labels_highest = timed_batch(sr, dev)
         precision.set_mode("high")
@@ -1456,7 +1500,8 @@ def main() -> int:
         ssr = SpeechRec(spkg, device=dev)
         scpu = SpeechRec(spkg, device="cpu")
         phnloop_vs_cpu(ssr, scpu, dev)
-        serve, full = phnloop_serving(ssr, dev)
+        serve, full, walk = phnloop_serving(ssr, dev, time_walk=True)
+        results["backtrack"]["serving"] = walk
         launches["phnloop_viterbi_ragged"] = serve["phnloop_viterbi_ragged"]
         precision.set_mode("high")
         launches["mlp_bf16x3"] = phnloop_serving(ssr, dev)[0]["mlp_bf16x3"]

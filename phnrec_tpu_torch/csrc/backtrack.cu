@@ -21,51 +21,85 @@
 // negative.  Starts are window rows, so the 20-bit packing limit of the JAX
 // walk applies to the window length, not the session.
 //
-// What bounds it on the H100: a chain of dependent loads, one hop per
-// segment (T/S hops at most), so latency; the bytes touched are ~9 per
-// segment, against the 9 per frame a host walk would fetch.
+// What bounds it on the H100: not bytes (~9 a hop read, 7 a slot written)
+// but a chain of dependent loads, one hop per segment, and the stores of
+// every output slot, most of them the zero-fill past the count.
 //
-// Design: one thread per utterance, walking its own chain; the batch gives
-// the parallelism.  Output rows are written in place, no scatter.
+// Design: one warp per utterance, WARPS a block.  Every lane walks the row
+// (the same loads, one transaction); lane k % 32 keeps segment k's frame and
+// start, and each 32 segments the warp gathers their winners and scores, a
+// lane each, and stores them to consecutive slots.  The zero-fill past the
+// count goes by 16-byte stores where the row's alignment allows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int WARPS = 2;            // utterances a block
+
+// Zero bytes [p, p + n) by the warp's lanes: 16-byte stores over the
+// aligned middle, single bytes at the ends.
+__device__ __forceinline__ void zero_bytes(char* p, int n, int lane) {
+  const int head = min((int)((16 - ((uintptr_t)p & 15)) & 15), n);
+  if (lane < head) p[lane] = 0;
+  p += head;
+  n -= head;
+  uint4* q = reinterpret_cast<uint4*>(p);
+  const int nv = n >> 4;
+  for (int i = lane; i < nv; i += 32) q[i] = make_uint4(0, 0, 0, 0);
+  p += nv << 4;
+  n -= nv << 4;
+  if (lane < n) p[lane] = 0;
+}
+
 template <typename StartT>
-__global__ void backtrack_kernel(const int8_t* __restrict__ max_phn,
-                                 const int* __restrict__ ent,
-                                 const float* __restrict__ alpha,
-                                 const int* __restrict__ n_frames,
-                                 const int* __restrict__ frame0,
-                                 const int* __restrict__ row_offset, int T,
-                                 int B, int smax, int* __restrict__ count,
-                                 int8_t* __restrict__ phn,
-                                 StartT* __restrict__ start,
-                                 float* __restrict__ alpha_end) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(WARPS * 32)
+backtrack_kernel(const int8_t* __restrict__ max_phn,
+                 const int* __restrict__ ent,
+                 const float* __restrict__ alpha,
+                 const int* __restrict__ n_frames,
+                 const int* __restrict__ frame0,
+                 const int* __restrict__ row_offset, int T, int B, int smax,
+                 int* __restrict__ count, int8_t* __restrict__ phn,
+                 StartT* __restrict__ start, float* __restrict__ alpha_end) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (b >= B) return;
   const size_t base = (size_t)b * smax;
   const int ro = row_offset ? row_offset[b] : 0;
   const int f0 = frame0 ? max(frame0[b] - ro, 0) : 0;
   int end = n_frames[b];
   int k = 0;
-  for (; k < smax && end > f0; ++k) {
+  int my_t = 0, my_st = 0;          // segment k0 + lane's frame and start
+
+  // the segments [k0, k) of the warp's buffer to their slots
+  auto flush = [&](int k0) {
+    if (lane < k - k0) {
+      const size_t h = (size_t)my_t * B + b;
+      phn[base + k0 + lane] = max_phn[h];
+      start[base + k0 + lane] = (StartT)my_st;
+      alpha_end[base + k0 + lane] = alpha[h];
+    }
+  };
+
+  while (k < smax && end > f0) {
     const int t = min(end - 1, T - 1);
-    const size_t h = (size_t)t * B + b;
-    const int st = max(ent[h] - ro, f0);
-    phn[base + k] = max_phn[h];
-    start[base + k] = (StartT)st;
-    alpha_end[base + k] = alpha[h];
+    const int st = max(ent[(size_t)t * B + b] - ro, f0);
+    if (lane == (k & 31)) {
+      my_t = t;
+      my_st = st;
+    }
     end = st;
+    if ((++k & 31) == 0) flush(k - 32);
   }
-  count[b] = k;
-  for (; k < smax; ++k) {
-    phn[base + k] = 0;
-    start[base + k] = 0;
-    alpha_end[base + k] = 0.0f;
-  }
+  flush(k & ~31);
+  if (lane == 0) count[b] = k;
+  const int rest = smax - k;
+  zero_bytes(reinterpret_cast<char*>(phn + base + k), rest, lane);
+  zero_bytes(reinterpret_cast<char*>(start + base + k),
+             rest * (int)sizeof(StartT), lane);
+  zero_bytes(reinterpret_cast<char*>(alpha_end + base + k), rest * 4, lane);
 }
 
 }  // namespace
@@ -84,8 +118,7 @@ extern "C" int phn_backtrack(const void* max_phn, const void* ent,
   if (B <= 0) return cudaSuccess;
   if (T <= 0 || smax <= 0 || (start_bytes != 2 && start_bytes != 4))
     return cudaErrorInvalidValue;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
   auto s = static_cast<cudaStream_t>(stream);
   auto* mp = static_cast<const int8_t*>(max_phn);
   auto* en = static_cast<const int*>(ent);
@@ -97,10 +130,10 @@ extern "C" int phn_backtrack(const void* max_phn, const void* ent,
   auto* ph = static_cast<int8_t*>(phn);
   auto* ae = static_cast<float*>(alpha_end);
   if (start_bytes == 2)
-    backtrack_kernel<int16_t><<<blocks, threads, 0, s>>>(
+    backtrack_kernel<int16_t><<<blocks, WARPS * 32, 0, s>>>(
         mp, en, al, nf, f0, ro, T, B, smax, ct, ph, static_cast<int16_t*>(start), ae);
   else
-    backtrack_kernel<int><<<blocks, threads, 0, s>>>(
+    backtrack_kernel<int><<<blocks, WARPS * 32, 0, s>>>(
         mp, en, al, nf, f0, ro, T, B, smax, ct, ph, static_cast<int*>(start), ae);
   return cudaGetLastError();
 }

@@ -85,8 +85,8 @@ def backtrack_committed_plain(max_phn: torch.Tensor, ent: torch.Tensor,
     return count, phn, start, alpha_end
 
 
-def _lib():
-    lib = _build.load("backtrack")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a kernel-D library's entry point."""
     fn = lib.phn_backtrack
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
@@ -95,8 +95,21 @@ def _lib():
     return lib
 
 
-def _launch(max_phn, ent, alpha, n_frames, frame0, row_offset,
-            smax: int) -> Segs:
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(_build.load("backtrack"))
+    return _LIB
+
+
+def launch(lib: ctypes.CDLL, max_phn, ent, alpha, n_frames, frame0,
+           row_offset, smax: int) -> Segs:
+    """Kernel D (frame0 and row_offset None) or D' of ``lib`` (None: the
+    package's, built at first use) on the current stream; raises on what
+    the kernel does not take, before any build."""
     device = _build.cuda_device(max_phn)
     if max_phn.dim() != 2:
         raise ValueError("History arrays must be [T, B]")
@@ -115,16 +128,29 @@ def _launch(max_phn, ent, alpha, n_frames, frame0, row_offset,
     phn = torch.empty((B, smax), dtype=torch.int8, device=device)
     start = torch.empty((B, smax), dtype=sdt, device=device)
     alpha_end = torch.empty((B, smax), dtype=torch.float32, device=device)
+    if lib is None:
+        lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _lib().phn_backtrack(
-            max_phn.data_ptr(), ent.data_ptr(), alpha.data_ptr(),
+    args = (max_phn.data_ptr(), ent.data_ptr(), alpha.data_ptr(),
             n_frames.data_ptr(), ptr(frame0), ptr(row_offset), T, B, smax,
             2 if sdt == torch.int16 else 4, count.data_ptr(), phn.data_ptr(),
-            start.data_ptr(), alpha_end.data_ptr(), stream)
+            start.data_ptr(), alpha_end.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    # the launch goes to the thread's current device: enter ours only if
+    # it is another
+    if device.index == torch.cuda.current_device():
+        err = lib.phn_backtrack(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.phn_backtrack(*args)
     _build.check(err, "backtrack")
     return count, phn, start, alpha_end
+
+
+def _launch(max_phn, ent, alpha, n_frames, frame0, row_offset,
+            smax: int) -> Segs:
+    return launch(None, max_phn, ent, alpha, n_frames, frame0, row_offset,
+                  smax)
 
 
 def backtrack(max_phn: torch.Tensor, ent: torch.Tensor, alpha: torch.Tensor,

@@ -86,6 +86,62 @@ def test_backtrack_segments_equal(case):
         assert np.array_equal(g.numpy(), w)
 
 
+def _synthetic_history(seed, B, T, hop=(3, 22), one_segment=False):
+    """A numpy History [T, B]: frame t enters at t + 1 - L (clipped at 0),
+    L drawn from [hop[0], hop[1]); with ``one_segment`` every other column
+    enters at 0.  -> (max_phn, ent, alpha, n_frames), n_frames in [1, T]
+    with T in column 0."""
+    rng = np.random.default_rng(seed)
+    L = rng.integers(hop[0], hop[1], (T, B))
+    ent = np.maximum(np.arange(T)[:, None] + 1 - L, 0).astype(np.int32)
+    if one_segment:
+        ent[:, ::2] = 0
+    max_phn = rng.integers(0, 46, (T, B)).astype(np.int8)
+    alpha = rng.normal(-50, 30, (T, B)).astype(np.float32)
+    n_frames = rng.integers(1, T + 1, B).astype(np.int32)
+    n_frames[0] = T
+    return max_phn, ent, alpha, n_frames
+
+
+# kernel D's walk over numpy-made Histories: a serving session's length,
+# int32 starts (T >= 2^15), hops of exactly S frames (count = T // S on
+# the whole row) and rows of one segment
+SYNTHETIC = {
+    "long_T6146_B3": dict(seed=21, B=3, T=6146),
+    "i32_T33000_B2": dict(seed=22, B=2, T=33000),
+    "hops_exactly_S3": dict(seed=23, B=4, T=384, hop=(3, 4)),
+    "hops_exactly_S4": dict(seed=24, B=3, T=512, hop=(4, 5)),
+    "one_segment": dict(seed=25, B=4, T=300, one_segment=True),
+}
+
+
+@pytest.mark.parametrize("case", SYNTHETIC)
+def test_backtrack_synthetic_history_equal(case):
+    """The port's D (its plain version here) against phnrec_tpu's
+    backtrack_device: every field equal, the same dtype."""
+    kw = SYNTHETIC[case]
+    S = kw.get("hop", (3,))[0]
+    jspec, tspec = _specs(46, S)
+    max_phn, ent, alpha, n_frames = _synthetic_history(**kw)
+    want = jpl.backtrack_device(
+        jspec, jpl.History(jnp.asarray(max_phn), jnp.asarray(ent),
+                           jnp.asarray(alpha)), jnp.asarray(n_frames))
+    got = tpl.backtrack_device(
+        tspec, tpl.History(*(torch.from_numpy(a)
+                             for a in (max_phn, ent, alpha))),
+        torch.from_numpy(n_frames))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        assert np.array_equal(g.numpy(), w)
+    T = kw["T"]
+    assert got.start.dtype == (torch.int32 if T >= 2 ** 15 else torch.int16)
+    if "hop" in kw:
+        assert int(got.count[0]) == -(-T // S)
+    if kw.get("one_segment"):
+        assert (got.count[::2] == 1).all()
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_labels_equal_host_replay(case):
     P, S, lp, n_frames = _random_case(**case)

@@ -129,6 +129,59 @@ def test_committed_backtrack_equal(seed):
         assert np.array_equal(g.numpy(), w)
 
 
+# kernel D' over numpy-made windows: a serving session's length, int32
+# starts (T >= 2^15), hops of exactly S frames and rows of one segment
+SYNTHETIC = {
+    "long_T6146_B3": dict(seed=31, B=3, T=6146),
+    "i32_T33000_B2": dict(seed=32, B=2, T=33000),
+    "hops_exactly_S3": dict(seed=33, B=5, T=384, hop=(3, 4)),
+    "one_segment": dict(seed=34, B=5, T=300, one_segment=True),
+}
+
+
+@pytest.mark.parametrize("case", SYNTHETIC)
+def test_committed_backtrack_synthetic_window_equal(case):
+    """The port's D' (its plain version here) against phnrec_tpu's
+    backtrack_device_committed on a window whose row i is global frame
+    row_offset[b] + i (entry frames global), with the boundary before, at,
+    inside and past the window and an empty window: every field equal, the
+    same dtype."""
+    kw = SYNTHETIC[case]
+    B, T = kw["B"], kw["T"]
+    hop = kw.get("hop", (3, 22))
+    rng = np.random.default_rng(kw["seed"])
+    jspec, tspec = _specs(46, hop[0])
+    ro = rng.integers(0, 101, B)
+    L = rng.integers(hop[0], hop[1], (T, B))
+    ent = np.maximum(ro[None, :] + np.arange(T)[:, None] + 1 - L, 0)
+    if kw.get("one_segment"):
+        ent[:, ::2] = 0
+    max_phn = rng.integers(0, 46, (T, B)).astype(np.int8)
+    alpha = rng.normal(-50, 30, (T, B)).astype(np.float32)
+    n_rel = rng.integers(1, T + 1, B)
+    n_rel[0] = T
+    n_rel[-1] = 0
+    f0 = np.choose(np.arange(B) % 4, [ro - 5, ro, ro + n_rel // 2,
+                                      ro + n_rel + 3])
+    f0[0] = ro[0]
+    win = (max_phn, ent.astype(np.int32), alpha)
+    args = [a.astype(np.int32) for a in (n_rel, f0, ro)]
+    want = jpl.backtrack_device_committed(
+        jspec, jpl.History(*(jnp.asarray(a) for a in win)),
+        *(jnp.asarray(a) for a in args))
+    got = tpl.backtrack_device_committed(
+        tspec, tpl.History(*(_t(a) for a in win)), *(_t(a) for a in args))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        assert np.array_equal(g.numpy(), w)
+    assert got.start.dtype == (torch.int32 if T >= 2 ** 15 else torch.int16)
+    if "hop" in kw:
+        assert int(got.count[0]) == -(-T // hop[0])
+    if kw.get("one_segment"):
+        assert (got.count[::2] <= 1).all()
+
+
 def test_committed_backtrack_labels_equal_host_walk():
     """The segments of D', turned into labels, are the host walk's
     (backtrack_committed) on each stream's window, boundary clamp
