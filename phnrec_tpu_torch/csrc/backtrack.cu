@@ -25,18 +25,54 @@
 // but a chain of dependent loads, one hop per segment, and the stores of
 // every output slot, most of them the zero-fill past the count.
 //
-// Design: one warp per utterance, WARPS a block.  Every lane walks the row
-// (the same loads, one transaction); lane k % 32 keeps segment k's frame and
-// start, and each 32 segments the warp gathers their winners and scores, a
-// lane each, and stores them to consecutive slots.  The zero-fill past the
-// count goes by 16-byte stores where the row's alignment allows.
+// Design: a block walks G consecutive utterances, a warp each.
+// * The block streams its G columns of entry frames into shared memory
+//   backwards, CHUNK frames at a time, through a cp.async ring of STAGES
+//   stages, starting from the chunk that holds the block's latest end.  A
+//   frame's G entry frames are one 32-byte sector, two 16-byte copies when
+//   the rows are 16-byte aligned (else G 4-byte ones).  Hops only go
+//   backwards, so each warp hops inside the staged chunk at shared-memory
+//   latency, and one barrier a chunk recycles its stage.  A hop that went
+//   forward (no History of a scan has one) reads device memory.
+// * Every lane of a warp walks the row (the same shared word, a
+//   broadcast); lane k % 32 keeps segment k's frame and start.  Each 32
+//   segments the lanes load their segments' winners and scores from
+//   device memory, a lane each, and store them to consecutive slots at the
+//   next 32 (or at the end), so those loads overlap the walk.  Staging the
+//   winners and scores too costs every warp a chunk's worth of copies and
+//   three shared loads a hop (measured: as slow as the walk from device
+//   memory).  The zero-fill past the count goes by 16-byte stores where
+//   the row's alignment allows, as soon as the warp's walk ends.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 2;            // utterances a block
+constexpr int G = 8;                // utterances a block, a warp each
+constexpr int CHUNK = 256;          // frames a ring stage
+constexpr int STAGES = 4;           // STAGES - 1 chunks in flight
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Zero bytes [p, p + n) by the warp's lanes: 16-byte stores over the
 // aligned middle, single bytes at the ends.
@@ -54,7 +90,7 @@ __device__ __forceinline__ void zero_bytes(char* p, int n, int lane) {
 }
 
 template <typename StartT>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(G * 32)
 backtrack_kernel(const int8_t* __restrict__ max_phn,
                  const int* __restrict__ ent,
                  const float* __restrict__ alpha,
@@ -63,43 +99,123 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
                  const int* __restrict__ row_offset, int T, int B, int smax,
                  int* __restrict__ count, int8_t* __restrict__ phn,
                  StartT* __restrict__ start, float* __restrict__ alpha_end) {
+  __shared__ __align__(16) int ring[STAGES][CHUNK][G];
+  __shared__ int top[G];
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= B) return;
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * G;
+  const int nb = min(G, B - b0);    // utterances of this block
+  const int b = b0 + w;
   const size_t base = (size_t)b * smax;
-  const int ro = row_offset ? row_offset[b] : 0;
-  const int f0 = frame0 ? max(frame0[b] - ro, 0) : 0;
-  int end = n_frames[b];
-  int k = 0;
-  int my_t = 0, my_st = 0;          // segment k0 + lane's frame and start
+  // a frame's G entry frames as two 16-byte copies
+  const bool vec = nb == G && (B & 3) == 0 && ((uintptr_t)ent & 15) == 0;
 
-  // the segments [k0, k) of the warp's buffer to their slots
-  auto flush = [&](int k0) {
-    if (lane < k - k0) {
-      const size_t h = (size_t)my_t * B + b;
-      phn[base + k0 + lane] = max_phn[h];
-      start[base + k0 + lane] = (StartT)my_st;
-      alpha_end[base + k0 + lane] = alpha[h];
+  // the row's walk, the same in every lane of its warp
+  int ro = 0, f0 = 0, end = 0;
+  if (w < nb) {
+    ro = row_offset ? row_offset[b] : 0;
+    f0 = frame0 ? max(frame0[b] - ro, 0) : 0;
+    end = n_frames[b];
+  }
+  bool active = w < nb && end > f0;
+  int t = min(end - 1, T - 1);
+  if (lane == 0) top[w] = active ? t : -1;
+  int k = 0;
+  int my_t = 0, my_st = 0;          // segment (k & ~31) + lane
+  int g_k0 = -1, g_st = 0;          // the 32 before: gathered, not stored
+  int8_t g_phn = 0;
+  float g_al = 0.0f;
+  bool written = w >= nb;
+
+  // frames [c * CHUNK, +CHUNK) of the block's columns into c's stage (an
+  // empty group for c < 0, so every thread commits one group a chunk)
+  auto issue = [&](int c) {
+    if (c >= 0) {
+      int(*s)[G] = ring[c % STAGES];
+      const int lo = c * CHUNK;
+      const int nf = min(CHUNK, T - lo);
+      const int* src = ent + (size_t)lo * B + b0;
+      if (vec) {
+        for (int i = threadIdx.x; i < 2 * nf; i += G * 32)
+          cp_async16(&s[i >> 1][(i & 1) * 4],
+                     src + (size_t)(i >> 1) * B + (i & 1) * 4);
+      } else {
+        for (int i = threadIdx.x; i < nf * G; i += G * 32)
+          if (i % G < nb)
+            cp_async4(&s[i / G][i % G], src + (size_t)(i / G) * B + i % G);
+      }
     }
+    cp_async_commit();
   };
 
-  while (k < smax && end > f0) {
-    const int t = min(end - 1, T - 1);
-    const int st = max(ent[(size_t)t * B + b] - ro, f0);
-    if (lane == (k & 31)) {
-      my_t = t;
-      my_st = st;
+  // store the gathered 32 segments [g_k0, +32); gather [k0, k) of the
+  // warp's buffer (all 32 when full) to store later, or now at the end
+  auto store_gathered = [&]() {
+    if (g_k0 >= 0) {
+      const size_t o = base + g_k0 + lane;
+      phn[o] = g_phn;
+      start[o] = (StartT)g_st;
+      alpha_end[o] = g_al;
     }
-    end = st;
-    if ((++k & 31) == 0) flush(k - 32);
+  };
+  auto gather = [&](int k0) {
+    const size_t h = (size_t)my_t * B + b;
+    g_phn = max_phn[h];
+    g_al = alpha[h];
+    g_st = my_st;
+    g_k0 = k0;
+  };
+  auto finish = [&]() {
+    store_gathered();
+    const int k0 = k & ~31;
+    if (lane < k - k0) {
+      const size_t h = (size_t)my_t * B + b;
+      const size_t o = base + k0 + lane;
+      phn[o] = max_phn[h];
+      start[o] = (StartT)my_st;
+      alpha_end[o] = alpha[h];
+    }
+    if (lane == 0) count[b] = k;
+    const int rest = smax - k;
+    zero_bytes(reinterpret_cast<char*>(phn + base + k), rest, lane);
+    zero_bytes(reinterpret_cast<char*>(start + base + k),
+               rest * (int)sizeof(StartT), lane);
+    zero_bytes(reinterpret_cast<char*>(alpha_end + base + k), rest * 4, lane);
+    written = true;
+  };
+
+  __syncthreads();
+  int t_top = -1;
+  for (int i = 0; i < G; ++i) t_top = max(t_top, top[i]);
+  const int c_top = t_top / CHUNK;   // -1 / CHUNK == 0, but then no loop
+  if (t_top >= 0)
+    for (int i = 0; i < STAGES - 1; ++i) issue(c_top - i);
+  for (int c = c_top; t_top >= 0 && c >= 0; --c) {
+    cp_async_wait<STAGES - 2>();      // chunk c has landed, for this thread
+    if (!__syncthreads_or(active)) break;   // ... for every thread
+    issue(c - (STAGES - 1));          // into chunk c + 1's stage, now free
+    const int(*s)[G] = ring[c % STAGES];
+    const int lo = c * CHUNK;
+    while (active && t >= lo) {
+      const int e = t < lo + CHUNK ? s[t - lo][w]
+                                   : ent[(size_t)t * B + b];  // forward hop
+      const int st = max(e - ro, f0);
+      if (lane == (k & 31)) {
+        my_t = t;
+        my_st = st;
+      }
+      end = st;
+      if ((++k & 31) == 0) {
+        store_gathered();
+        gather(k - 32);
+      }
+      active = k < smax && end > f0;
+      t = min(end - 1, T - 1);
+    }
+    if (!active && !written) finish();
   }
-  flush(k & ~31);
-  if (lane == 0) count[b] = k;
-  const int rest = smax - k;
-  zero_bytes(reinterpret_cast<char*>(phn + base + k), rest, lane);
-  zero_bytes(reinterpret_cast<char*>(start + base + k),
-             rest * (int)sizeof(StartT), lane);
-  zero_bytes(reinterpret_cast<char*>(alpha_end + base + k), rest * 4, lane);
+  if (!written) finish();
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -118,7 +234,7 @@ extern "C" int phn_backtrack(const void* max_phn, const void* ent,
   if (B <= 0) return cudaSuccess;
   if (T <= 0 || smax <= 0 || (start_bytes != 2 && start_bytes != 4))
     return cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
+  const unsigned blocks = (unsigned)((B + G - 1) / G);
   auto s = static_cast<cudaStream_t>(stream);
   auto* mp = static_cast<const int8_t*>(max_phn);
   auto* en = static_cast<const int*>(ent);
@@ -130,10 +246,10 @@ extern "C" int phn_backtrack(const void* max_phn, const void* ent,
   auto* ph = static_cast<int8_t*>(phn);
   auto* ae = static_cast<float*>(alpha_end);
   if (start_bytes == 2)
-    backtrack_kernel<int16_t><<<blocks, WARPS * 32, 0, s>>>(
+    backtrack_kernel<int16_t><<<blocks, G * 32, 0, s>>>(
         mp, en, al, nf, f0, ro, T, B, smax, ct, ph, static_cast<int16_t*>(start), ae);
   else
-    backtrack_kernel<int><<<blocks, WARPS * 32, 0, s>>>(
+    backtrack_kernel<int><<<blocks, G * 32, 0, s>>>(
         mp, en, al, nf, f0, ro, T, B, smax, ct, ph, static_cast<int*>(start), ae);
   return cudaGetLastError();
 }

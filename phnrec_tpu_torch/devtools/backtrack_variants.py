@@ -28,7 +28,7 @@ Then it times all builds in turns (first to last, then last to first) at
 chip_smoke.py's shapes, D at B 256 x T 500 and D' at B 256 x T 512 (the
 same inputs: Histories of the plain phoneme-loop scan of Dirichlet
 log-posteriors), and D at the serving shape B 256 x T 6,146 (a synthetic
-History, hops of 3-21 frames), each by two timers: ``ms`` by
+History, hops of 3-9 frames), each by two timers: ``ms`` by
 mlp_variants.cuda_ms (chip_smoke.py's) and ``held_ms`` by
 scan_variants.held_ms.  It reads the SM clock under load to give clocks a
 hop of the longest row, and prints the hops a row (mean, max) of each
@@ -76,6 +76,20 @@ ABLATIONS = (
                      "    const int st = max(ent[h] - ro, f0);",
                      "const size_t h = (size_t)b;\n"
                      "    const int st = max(end - 12 + min(ent[h], 0), f0);")]),
+    # the staged kernel D: no walk (every chunk streamed, then the
+    # zero-fill of every slot)
+    ("no_walk", [("    while (active && t >= lo) {",
+                  "    while (false && active && t >= lo) {")]),
+    # ... no gathers and stores of full buffers in the walk
+    ("no_flush", [("      if ((++k & 31) == 0) {\n        store_gathered();\n"
+                   "        gather(k - 32);\n      }", "      ++k;")]),
+    # ... no segment kept by its lane
+    ("no_record", [("      if (lane == (k & 31)) {\n        my_t = t;\n"
+                    "        my_st = st;\n      }", "")]),
+    # ... no check for a forward hop
+    ("no_forward_check", [("t < lo + CHUNK ? s[t - lo][w]\n"
+                           "                                   : ent[(size_t)t * B + b];",
+                           "s[t - lo][w];")]),
 )
 
 # name -> (B, T, dict(seed, hop, smax, one_segment, offset)): hop lengths
@@ -205,7 +219,8 @@ def timed_walks(dev) -> dict:
     D' at B 256 x T 512 on chip_smoke.py's inputs (the same random draws,
     the History from the plain scan, which kernel C equals bit for bit);
     D at the serving shape, B 256 x T 6,146, all rows whole, on a
-    synthetic History with hops of 3-21 frames."""
+    synthetic History with hops of 3-9 frames (~1,000 hops a row, as
+    chip_smoke.py's serving History has)."""
     B, T, P, S = 256, 500, 46, 3
     rng = np.random.default_rng(4)
     lp = np.log(rng.dirichlet(np.ones(P * S), size=(B, T)))
@@ -237,7 +252,7 @@ def timed_walks(dev) -> dict:
         np.asarray(a, np.int32)).to(dev)
     dp512 = (*win, i32(n_rel), i32(f0), i32(ro), T // S + 1)
 
-    d, _ = walk_case(dev, 256, 6146, seed=14)
+    d, _ = walk_case(dev, 256, 6146, seed=14, hop=(3, 10))
     serving = (*d[:3], torch.full((256,), 6146, dtype=torch.int32,
                                   device=dev), d[4])
     return {"D B256 x T500": ("D", d500), "D' B256 x T512": ("D'", dp512),
