@@ -23,7 +23,10 @@
 //
 // What bounds it on the H100: not bytes (~9 a hop read, 7 a slot written)
 // but a chain of dependent loads, one hop per segment, and the stores of
-// every output slot, most of them the zero-fill past the count.
+// every output slot, most of them the zero-fill past the count.  The first
+// kernel (a thread per utterance, each slot stored by its row's thread)
+// spent ~78% of its time on the uncoalesced zero-fill at B 256 x T 500 and
+// walked its chain at device-memory latency (~400 clocks a hop).
 //
 // Design: a block walks G consecutive utterances, a warp each.
 // * The block streams its G columns of entry frames into shared memory
@@ -31,18 +34,19 @@
 //   stages, starting from the chunk that holds the block's latest end.  A
 //   frame's G entry frames are one 32-byte sector, two 16-byte copies when
 //   the rows are 16-byte aligned (else G 4-byte ones).  Hops only go
-//   backwards, so each warp hops inside the staged chunk at shared-memory
-//   latency, and one barrier a chunk recycles its stage.  A hop that went
-//   forward (no History of a scan has one) reads device memory.
+//   backwards, so each warp hops inside the staged chunk on shared memory
+//   alone (~130 clocks a hop at the serving shape), and one barrier a
+//   chunk recycles its stage.  A hop that went forward (no History of a
+//   scan has one) leaves that loop and reads device memory.
 // * Every lane of a warp walks the row (the same shared word, a
 //   broadcast); lane k % 32 keeps segment k's frame and start.  Each 32
 //   segments the lanes load their segments' winners and scores from
 //   device memory, a lane each, and store them to consecutive slots at the
 //   next 32 (or at the end), so those loads overlap the walk.  Staging the
-//   winners and scores too costs every warp a chunk's worth of copies and
-//   three shared loads a hop (measured: as slow as the walk from device
-//   memory).  The zero-fill past the count goes by 16-byte stores where
-//   the row's alignment allows, as soon as the warp's walk ends.
+//   winners and scores too cost every warp a chunk's copies and two more
+//   shared loads a hop, and was slower.  The zero-fill past the count goes
+//   by 16-byte stores where the row's alignment allows, as soon as the
+//   warp's walk ends.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,8 +54,8 @@
 namespace {
 
 constexpr int G = 8;                // utterances a block, a warp each
-constexpr int CHUNK = 256;          // frames a ring stage
-constexpr int STAGES = 4;           // STAGES - 1 chunks in flight
+constexpr int CHUNK = 512;          // frames a ring stage
+constexpr int STAGES = 2;           // STAGES - 1 chunks in flight
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -121,7 +125,8 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
   int t = min(end - 1, T - 1);
   if (lane == 0) top[w] = active ? t : -1;
   int k = 0;
-  int my_t = 0, my_st = 0;          // segment (k & ~31) + lane
+  int k_flushed = 0;                // segments below it are gathered
+  int my_t = 0, my_st = 0;          // segment k_flushed + lane
   int g_k0 = -1, g_st = 0;          // the 32 before: gathered, not stored
   int8_t g_phn = 0;
   float g_al = 0.0f;
@@ -148,8 +153,8 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
     cp_async_commit();
   };
 
-  // store the gathered 32 segments [g_k0, +32); gather [k0, k) of the
-  // warp's buffer (all 32 when full) to store later, or now at the end
+  // store the 32 segments gathered at the last flush, [g_k0, +32); then
+  // gather the full buffer [k_flushed, +32), to store at the next flush
   auto store_gathered = [&]() {
     if (g_k0 >= 0) {
       const size_t o = base + g_k0 + lane;
@@ -158,19 +163,31 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
       alpha_end[o] = g_al;
     }
   };
-  auto gather = [&](int k0) {
+  auto flush = [&]() {
+    store_gathered();
     const size_t h = (size_t)my_t * B + b;
     g_phn = max_phn[h];
     g_al = alpha[h];
     g_st = my_st;
-    g_k0 = k0;
+    g_k0 = k_flushed;
+    k_flushed += 32;
+  };
+  // one hop: frame t's entry frame is e
+  auto hop = [&](int e) {
+    const int st = max(e - ro, f0);
+    if (lane == k - k_flushed) {
+      my_t = t;
+      my_st = st;
+    }
+    ++k;
+    end = st;
+    t = min(end - 1, T - 1);
   };
   auto finish = [&]() {
     store_gathered();
-    const int k0 = k & ~31;
-    if (lane < k - k0) {
+    if (lane < k - k_flushed) {
       const size_t h = (size_t)my_t * B + b;
-      const size_t o = base + k0 + lane;
+      const size_t o = base + k_flushed + lane;
       phn[o] = max_phn[h];
       start[o] = (StartT)my_st;
       alpha_end[o] = alpha[h];
@@ -194,23 +211,19 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
     cp_async_wait<STAGES - 2>();      // chunk c has landed, for this thread
     if (!__syncthreads_or(active)) break;   // ... for every thread
     issue(c - (STAGES - 1));          // into chunk c + 1's stage, now free
-    const int(*s)[G] = ring[c % STAGES];
-    const int lo = c * CHUNK;
-    while (active && t >= lo) {
-      const int e = t < lo + CHUNK ? s[t - lo][w]
-                                   : ent[(size_t)t * B + b];  // forward hop
-      const int st = max(e - ro, f0);
-      if (lane == (k & 31)) {
-        my_t = t;
-        my_st = st;
-      }
-      end = st;
-      if ((++k & 31) == 0) {
-        store_gathered();
-        gather(k - 32);
-      }
+    const int lo = c * CHUNK, hi = lo + CHUNK;
+    const int* col = &ring[c % STAGES][0][w];   // frame lo + i at i * G
+    while (active) {
+      // hops inside the stage, up to a full buffer, on shared memory only
+      const int k_end = min(k_flushed + 32, smax);
+      while (k < k_end && end > f0 && t >= lo && t < hi)
+        hop(col[(t - lo) * G]);
+      if (k == k_flushed + 32) flush();
       active = k < smax && end > f0;
-      t = min(end - 1, T - 1);
+      if (!active || t < lo) break;
+      // a hop that went forward (no History of a scan has one): device
+      // memory
+      if (t >= hi) hop(ent[(size_t)t * B + b]);
     }
     if (!active && !written) finish();
   }

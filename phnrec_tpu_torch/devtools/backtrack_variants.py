@@ -33,7 +33,8 @@ mlp_variants.cuda_ms (chip_smoke.py's) and ``held_ms`` by
 scan_variants.held_ms.  It reads the SM clock under load to give clocks a
 hop of the longest row, and prints the hops a row (mean, max) of each
 shape.  With ``--wrapper`` it also times the host's work in one call of
-that file's ``_launch`` and of the package's, in turns (host_cost).  One
+that file's ``_launch`` and of the package's, six times each in turns
+(host_cost), with the medians.  One
 JSON line per build, check and timing.
 """
 
@@ -78,18 +79,13 @@ ABLATIONS = (
                      "    const int st = max(end - 12 + min(ent[h], 0), f0);")]),
     # the staged kernel D: no walk (every chunk streamed, then the
     # zero-fill of every slot)
-    ("no_walk", [("    while (active && t >= lo) {",
-                  "    while (false && active && t >= lo) {")]),
+    ("no_walk", [("    while (active) {", "    while (false) {")]),
     # ... no gathers and stores of full buffers in the walk
-    ("no_flush", [("      if ((++k & 31) == 0) {\n        store_gathered();\n"
-                   "        gather(k - 32);\n      }", "      ++k;")]),
+    ("no_flush", [("      if (k == k_flushed + 32) flush();",
+                   "      if (k == k_flushed + 32) k_flushed += 32;")]),
     # ... no segment kept by its lane
-    ("no_record", [("      if (lane == (k & 31)) {\n        my_t = t;\n"
-                    "        my_st = st;\n      }", "")]),
-    # ... no check for a forward hop
-    ("no_forward_check", [("t < lo + CHUNK ? s[t - lo][w]\n"
-                           "                                   : ent[(size_t)t * B + b];",
-                           "s[t - lo][w];")]),
+    ("no_record", [("    if (lane == k - k_flushed) {\n      my_t = t;\n"
+                    "      my_st = st;\n    }\n", "")]),
 )
 
 # name -> (B, T, dict(seed, hop, smax, one_segment, offset)): hop lengths
@@ -394,10 +390,12 @@ def main(argv) -> int:
         fns = {"old": lambda: old._launch(*d_args),
                "new": lambda: backtrack._launch(*d_args)}
         costs = {k: [] for k in fns}
-        for k in [*fns, *reversed(fns)]:
-            costs[k].append(host_cost(fns[k]))
-        print(json.dumps({"host_cost D B256 x T500": costs,
-                          "wrapper": wrapper}), flush=True)
+        for _ in range(3):
+            for k in [*fns, *reversed(fns)]:
+                costs[k].append(host_cost(fns[k]))
+        print(json.dumps({"host_cost D B256 x T500": costs, "median_host_us": {
+            k: float(np.median([c["host_us"] for c in v]))
+            for k, v in costs.items()}, "wrapper": wrapper}), flush=True)
     return 0 if ok else 1
 
 
