@@ -1313,7 +1313,9 @@ def phnloop_serving(sr, dev, n: int = 256, n_blocks: int = 12,
         walk = dict(T=hist.max_phn.shape[0], B=n, smax=args[-1], launches=1,
                     **_walk_times(lambda: backtrack.backtrack(*args),
                                   lambda: backtrack.backtrack_plain(*args),
-                                  segs.count))
+                                  segs.count),
+                    **bound(*_walk_work(segs.count, args[-1], 2, 0),
+                            PEAK_FP32))
         phase("backtrack_serving", **walk)
 
     walls, stage_runs, devs, fins = [], [], [], []

@@ -23,10 +23,10 @@
 //
 // What bounds it on the H100: not bytes (~9 a hop read, 7 a slot written)
 // but a chain of dependent loads, one hop per segment, and the stores of
-// every output slot, most of them the zero-fill past the count.  The first
-// kernel (a thread per utterance, each slot stored by its row's thread)
-// spent ~78% of its time on the uncoalesced zero-fill at B 256 x T 500 and
-// walked its chain at device-memory latency (~400 clocks a hop).
+// every output slot, most of them the zero-fill past the count.  Measured
+// with a thread per utterance: slots stored by their row's own thread (a
+// sector a store) take ~78% of the walk at B 256 x T 500, and a chain
+// through device memory ~400 clocks a hop.
 //
 // Design: a block walks G consecutive utterances, a warp each.
 // * The block streams its G columns of entry frames into shared memory
@@ -43,8 +43,8 @@
 //   segments the lanes load their segments' winners and scores from
 //   device memory, a lane each, and store them to consecutive slots at the
 //   next 32 (or at the end), so those loads overlap the walk.  Staging the
-//   winners and scores too cost every warp a chunk's copies and two more
-//   shared loads a hop, and was slower.  The zero-fill past the count goes
+//   winners and scores too would cost every warp a chunk's copies and two
+//   more shared loads a hop (measured slower).  The zero-fill past the count goes
 //   by 16-byte stores where the row's alignment allows, as soon as the
 //   warp's walk ends.
 
@@ -134,7 +134,7 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
 
   // frames [c * CHUNK, +CHUNK) of the block's columns into c's stage (an
   // empty group for c < 0, so every thread commits one group a chunk)
-  auto issue = [&](int c) {
+  auto fetch_chunk = [&](int c) {
     if (c >= 0) {
       int(*s)[G] = ring[c % STAGES];
       const int lo = c * CHUNK;
@@ -206,11 +206,11 @@ backtrack_kernel(const int8_t* __restrict__ max_phn,
   for (int i = 0; i < G; ++i) t_top = max(t_top, top[i]);
   const int c_top = t_top / CHUNK;   // -1 / CHUNK == 0, but then no loop
   if (t_top >= 0)
-    for (int i = 0; i < STAGES - 1; ++i) issue(c_top - i);
+    for (int i = 0; i < STAGES - 1; ++i) fetch_chunk(c_top - i);
   for (int c = c_top; t_top >= 0 && c >= 0; --c) {
     cp_async_wait<STAGES - 2>();      // chunk c has landed, for this thread
     if (!__syncthreads_or(active)) break;   // ... for every thread
-    issue(c - (STAGES - 1));          // into chunk c + 1's stage, now free
+    fetch_chunk(c - (STAGES - 1));    // into chunk c + 1's stage, now free
     const int lo = c * CHUNK, hi = lo + CHUNK;
     const int* col = &ring[c % STAGES][0][w];   // frame lo + i at i * G
     while (active) {

@@ -33,8 +33,8 @@ mlp_variants.cuda_ms (chip_smoke.py's) and ``held_ms`` by
 scan_variants.held_ms.  It reads the SM clock under load to give clocks a
 hop of the longest row, and prints the hops a row (mean, max) of each
 shape.  With ``--wrapper`` it also times the host's work in one call of
-that file's ``_launch`` and of the package's, six times each in turns
-(host_cost), with the medians.  One
+that file's ``_launch`` (an earlier wrapper's) and of the package's
+``launch``, six times each in turns (host_cost), with the medians.  One
 JSON line per build, check and timing.
 """
 
@@ -351,14 +351,13 @@ def main(argv) -> int:
               flush=True)
 
     timed = timed_walks(dev)
+    max_hops = {}
     for k, (which, args) in timed.items():
         fn = backtrack.backtrack_plain if which == "D" else \
             backtrack.backtrack_committed_plain
-        print(json.dumps({"shape": k, "hops": hops(fn(*args)[0])}),
-              flush=True)
-    max_hops = {k: int((backtrack.backtrack_plain(*a) if w == "D" else
-                        backtrack.backtrack_committed_plain(*a))[0].max())
-                for k, (w, a) in timed.items()}
+        h = hops(fn(*args)[0])
+        max_hops[k] = h["max"]
+        print(json.dumps({"shape": k, "hops": h}), flush=True)
     timers = {"ms": cuda_ms, "held_ms": held_ms}
     ms = {name: {f"{k} {w}": [] for k in timed for w in timers}
           for name in libs}
@@ -388,7 +387,7 @@ def main(argv) -> int:
         _, args = timed["D B256 x T500"]
         d_args = (*args[:4], None, None, args[4])
         fns = {"old": lambda: old._launch(*d_args),
-               "new": lambda: backtrack._launch(*d_args)}
+               "new": lambda: backtrack.launch(None, *d_args)}
         costs = {k: [] for k in fns}
         for _ in range(3):
             for k in [*fns, *reversed(fns)]:

@@ -95,14 +95,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-_LIB = None
-
-
 def _lib():
-    global _LIB
-    if _LIB is None:
-        _LIB = bind(_build.load("backtrack"))
-    return _LIB
+    return bind(_build.load("backtrack"))
 
 
 def launch(lib: ctypes.CDLL, max_phn, ent, alpha, n_frames, frame0,
@@ -147,19 +141,13 @@ def launch(lib: ctypes.CDLL, max_phn, ent, alpha, n_frames, frame0,
     return count, phn, start, alpha_end
 
 
-def _launch(max_phn, ent, alpha, n_frames, frame0, row_offset,
-            smax: int) -> Segs:
-    return launch(None, max_phn, ent, alpha, n_frames, frame0, row_offset,
-                  smax)
-
-
 def backtrack(max_phn: torch.Tensor, ent: torch.Tensor, alpha: torch.Tensor,
               n_frames: torch.Tensor, smax: int) -> Segs:
     """Kernel D.  CPU tensors take the plain version; CUDA tensors launch
     the kernel, and anything the kernel does not take raises."""
     if max_phn.device.type == "cpu":
         return backtrack_plain(max_phn, ent, alpha, n_frames, smax)
-    out = _launch(max_phn, ent, alpha, n_frames, None, None, smax)
+    out = launch(None, max_phn, ent, alpha, n_frames, None, None, smax)
     global LAUNCHES
     LAUNCHES += 1
     return out
@@ -174,7 +162,8 @@ def backtrack_committed(max_phn: torch.Tensor, ent: torch.Tensor,
     if max_phn.device.type == "cpu":
         return backtrack_committed_plain(max_phn, ent, alpha, n_frames,
                                          frame0, row_offset, smax)
-    out = _launch(max_phn, ent, alpha, n_frames, frame0, row_offset, smax)
+    out = launch(None, max_phn, ent, alpha, n_frames, frame0, row_offset,
+                 smax)
     global COMMITTED_LAUNCHES
     COMMITTED_LAUNCHES += 1
     return out

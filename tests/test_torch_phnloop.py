@@ -103,7 +103,7 @@ def _synthetic_history(seed, B, T, hop=(3, 22), one_segment=False):
     return max_phn, ent, alpha, n_frames
 
 
-# kernel D's walk over numpy-made Histories: a serving session's length,
+# kernel D's walk over numpy-made Histories: a serving run's length,
 # int32 starts (T >= 2^15), hops of exactly S frames (count = T // S on
 # the whole row) and rows of one segment
 SYNTHETIC = {

@@ -129,7 +129,7 @@ def test_committed_backtrack_equal(seed):
         assert np.array_equal(g.numpy(), w)
 
 
-# kernel D' over numpy-made windows: a serving session's length, int32
+# kernel D' over numpy-made windows: a serving run's length, int32
 # starts (T >= 2^15), hops of exactly S frames and rows of one segment
 SYNTHETIC = {
     "long_T6146_B3": dict(seed=31, B=3, T=6146),
