@@ -1,8 +1,12 @@
-"""HTK/STK Xform feature-transform graphs: the parser.
+"""HTK/STK Xform feature-transform graphs: the parser and the
+whole-utterance application.
 
-Copy of the parser half of phnrec_tpu/io/xform.py (lines 1-202, host
-code without JAX, kept in step with it). Applying a transform is not
-ported yet (ROADMAP.md, Queue 1 item 12).
+The parser is a copy of phnrec_tpu/io/xform.py:1-202 (host code without
+JAX, kept in step with it); ``apply_xform`` / ``apply_instance`` are the
+counterparts of its :206-263 on torch tensors of any leading batch dims,
+float32 with TF32 off.  The carried-state (streaming) forms and
+``StreamingXform`` (:266-371) are not ported yet (ROADMAP.md, Queue 1
+item 12: the stateful forms).
 
 Reference: the Xform machinery of STKLib/Models.h:891-1028 and the MMF
 readers in Models_IO.cc (ReadXform 1306, ReadXformInstance 1188,
@@ -32,6 +36,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from phnrec_tpu_torch.io.mmf import _Tok
 
@@ -195,3 +200,60 @@ def parse_mmf_xforms(path: str) -> Tuple[Dict[str, Xform],
             input_xform = parse_xform_instance(tk, xmacros, jmacros,
                                                "~defaultInputXform")
     return xmacros, jmacros, input_xform
+
+
+# -- batched application ----------------------------------------------------
+
+def _f32(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=like.device)
+
+
+def apply_xform(xf: Xform, x: torch.Tensor) -> torch.Tensor:
+    """[..., T, in_size] -> [..., T, out_size], whole utterances at once
+    (time is the second-to-last axis)."""
+    if xf.kind == "linear":
+        # a plain float32 product; TF32 stays off (SpeechRec sets it)
+        return torch.matmul(x, _f32(xf.matrix.T, x))
+    if xf.kind == "bias":
+        return x + _f32(xf.vector, x)
+    if xf.kind == "copy":
+        return x[..., torch.as_tensor(xf.indices.astype(np.int64),
+                                      device=x.device)]
+    if xf.kind == "func":
+        if xf.func == "sigmoid":
+            return torch.sigmoid(x)
+        if xf.func == "log":
+            return torch.log(torch.clamp(x, min=1e-37))
+        if xf.func == "exp":
+            return torch.exp(x)
+        if xf.func == "sqrt":
+            return torch.sqrt(torch.clamp(x, min=0.0))
+        if xf.func == "softmax":
+            return torch.softmax(x, dim=-1)
+        raise ValueError(f"unknown func xform {xf.func!r}")
+    if xf.kind == "stacking":
+        # output row t = [x_{t-K+1}, ..., x_t] (oldest first); frames
+        # before the start are zeros: STK's stack memory starts zeroed
+        K, T = xf.stack_size, x.shape[-2]
+        pads = [torch.cat([x.new_zeros((*x.shape[:-2], min(K - 1 - k, T),
+                                        x.shape[-1])),
+                           x[..., : max(T - (K - 1 - k), 0), :]], dim=-2)
+                for k in range(K)]
+        return torch.cat(pads, dim=-1)
+    if xf.kind == "composite":
+        for layer in xf.layers:
+            outs, off = [], 0
+            for b in layer:
+                outs.append(apply_xform(b, x[..., off:off + b.in_size]))
+                off += b.in_size
+            x = torch.cat(outs, dim=-1)
+        return x
+    raise ValueError(f"unknown xform kind {xf.kind!r}")
+
+
+def apply_instance(inst: XformInstance, x: torch.Tensor) -> torch.Tensor:
+    """Apply an XformInstance chain (input first) to [..., T, D]
+    features."""
+    if inst.input is not None:
+        x = apply_instance(inst.input, x)
+    return apply_xform(inst.xform, x)
