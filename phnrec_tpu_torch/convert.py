@@ -13,7 +13,9 @@ port never imports JAX or phnrec_tpu:
   matrices -> ``MelFrontend``;
 * ``dense_kws_from_jax``: a ``DenseKWSScan``'s tables (``A_in``, ``A_ex``,
   ``A_cm``, ``R_cm``, ``A_cs``, ``_entry0``,
-  phnrec_tpu/decoder/stknet.py:833-906) -> the port's ``DenseKWSScan``.
+  phnrec_tpu/decoder/stknet.py:833-906) -> the port's ``DenseKWSScan``;
+* ``network_tables_from_jax``: a ``NetworkDecoder``'s edge arrays
+  (phnrec_tpu/decoder/stknet.py:309-357) -> the port's ``EdgeTables``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from phnrec_tpu_torch.decoder.stknet import DenseKWSScan
+from phnrec_tpu_torch.decoder.stknet import DenseKWSScan, EdgeTables
 from phnrec_tpu_torch.frontend.melbanks import MelFrontend, MelSpec
 from phnrec_tpu_torch.posteriors.mlp import MLP
 from phnrec_tpu_torch.posteriors.stc import LCRCAssembler, LCRCSpec
@@ -68,3 +70,23 @@ def dense_kws_from_jax(dense) -> DenseKWSScan:
         *(np.asarray(getattr(dense, k)) for k in (
             "A_in", "A_ex", "A_cm", "R_cm", "A_cs", "_entry0")),
         n_sinks=int(dense.n_sinks))
+
+
+def network_tables_from_jax(nd) -> EdgeTables:
+    """``nd`` is any object with NetworkDecoder's edge arrays (``in_src``,
+    ``in_entry``, ``in_w``, ``ex_*``, ``cm_*``, ``cs_*``, the four dense
+    tables; ``cs_dense`` None when no closure edge ends in a sink) and
+    its ``c.n_states`` / ``c.n_models`` / ``n_sinks``."""
+    i32 = lambda k: np.asarray(getattr(nd, k), np.int32)  # noqa: E731
+    f32 = lambda k: np.asarray(getattr(nd, k), np.float32)  # noqa: E731
+    n_sinks = int(nd.n_sinks)
+    cs_dense = (np.full((n_sinks, 1), -1, np.int32) if nd.cs_dense is None
+                else i32("cs_dense"))
+    return EdgeTables(
+        n_states=int(nd.c.n_states), n_models=int(nd.c.n_models),
+        n_sinks=n_sinks, in_src=i32("in_src"),
+        in_entry=np.asarray(nd.in_entry, bool), in_w=f32("in_w"),
+        in_dense=i32("in_dense"), ex_src=i32("ex_src"), ex_w=f32("ex_w"),
+        ex_dense=i32("ex_dense"), cm_src=i32("cm_src"), cm_w=f32("cm_w"),
+        cm_reset=np.asarray(nd.cm_reset, bool), cm_dense=i32("cm_dense"),
+        cs_src=i32("cs_src"), cs_w=f32("cs_w"), cs_dense=cs_dense)

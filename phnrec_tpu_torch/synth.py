@@ -14,6 +14,11 @@ shapes:
   wpenalty -2.03125;
 * ``"tiny"``: 5 banks, 4 phonemes x 3 states, hidden 32, for tests.
 
+``write_stk_decode_package`` turns such a package into an stkint decode
+package (decoder/type=stkint, mode=decode) over the phoneme loop that
+netgen generates at load time from the phoneme list, with one HMM of 3
+states a phoneme: the configuration of benchmarks/stkint_batch.py.
+
 ``write_kws_package`` turns such a package into an stkint keyword-spotting
 package (decoder/type=stkint, mode=kws): a keyword list and lexicon, and
 the HMM set and KWS network generated at load time by netgen, as the
@@ -99,6 +104,21 @@ default=$T/kwsnet
 [dicts]
 keyword_list=$C/kwlist
 lexicon1=$C/kwlex
+[models]
+gen_from_phn_list=true
+hmm_defs=$T/models
+"""
+
+
+# the stkint decode lines: HMMs and a phoneme-loop network generated from
+# the phoneme list at load time (netgen.cpp), as benchmarks/stkint_batch.py
+# builds them
+STK_DECODE_CONFIG = """\
+[decoder]
+mode=decode
+[networks]
+gen_phn_loop=true
+default=$T/phnloop
 [models]
 gen_from_phn_list=true
 hmm_defs=$T/models
@@ -245,6 +265,18 @@ def write_kws_package(root, shape: str = "tiny", seed: int = 0) -> str:
     (pkg / "tmp").mkdir(exist_ok=True)
     cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
     (pkg / "config").write_text(cfg + KWS_CONFIG)
+    return str(pkg)
+
+
+def write_stk_decode_package(root, shape: str = "tiny",
+                             seed: int = 0) -> str:
+    """Write a synthetic stkint decode package under ``root`` (the LCRC
+    package of ``shape`` decoded by the STK network decoder over the
+    generated phoneme loop); returns its path."""
+    pkg = Path(write_lcrc_package(root, shape, seed))
+    (pkg / "tmp").mkdir(exist_ok=True)
+    cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
+    (pkg / "config").write_text(cfg + STK_DECODE_CONFIG)
     return str(pkg)
 
 
