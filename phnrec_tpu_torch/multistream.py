@@ -715,9 +715,9 @@ class MultiStreamKWS(MultiStreamRecognizer):
         if c.n_models + c.n_states > 1024:
             raise NotImplementedError(
                 f"a KWS network of {c.n_models} models + {c.n_states} "
-                "states exceeds the dense step's 1024; the edge-list scan "
-                "it needs is not ported yet (ROADMAP.md, Queue 1 item 10: "
-                "offline stkint decode and KWS)")
+                "states exceeds the dense step's 1024; serving it over the "
+                "edge-list scan (kernel G) is not wired yet (ROADMAP.md, "
+                "Queue 1 item 10: MultiStreamKWS's big-network branch)")
         self._kws_ws = torch.tensor(np.asarray(c.kws_word_sinks, np.int32),
                                     device=sr.device)
         self._kws_fs = c.kws_filler_sink

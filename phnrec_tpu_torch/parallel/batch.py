@@ -131,7 +131,9 @@ class BatchPipeline:
               max_frames: int,
               n_samples: Optional[torch.Tensor] = None) -> phnloop.Segments:
         """[B, L] waves + [B] frame counts -> compacted Segments (the full
-        wav->mel->LCRC->MLPs->Viterbi->backtrack program on the device)."""
+        wav->mel->LCRC->MLPs->Viterbi->backtrack program on the device).
+        A phoneme-loop package's decoder only."""
+        self.sr._require_phnloop()
         spec = self.sr.loop_spec
         lp = self._post_core(wave, n_frames, max_frames, n_samples)
         hist = phnloop.viterbi_scan_batch(spec, lp, plain=self.plain)

@@ -3,12 +3,13 @@
 Counterpart of phnrec_tpu/pipeline.py:58-133,237-422.  Reference:
 srec.{cpp,h} — the integration class that owns config, frontend, posterior
 estimator and decoder.  The port covers the mel-bank frontend, the LCRC
-estimator and the phoneme-loop decoder (``phndec``), for waveform input
+estimator and both decoders, the phoneme loop (``phndec``) and the STK
+network decoder (``stkint``, decode and KWS modes), for waveform input
 and string output (wf -> str): file lists run batched through
-BatchPipeline, and single files run as a batch of one.  An ``stkint``
-package loads its STK network decoder (``stk_decoder``), which the
-multi-stream KWS server (multistream.py) drives; offline stkint decoding
-of files is not ported yet.
+BatchPipeline, and single files run as a batch of one.  An stkint package
+decodes its batches' posteriors through ``stk_decoder.decode_batch``
+(kernels G and H), as phnrec_tpu/pipeline.py:212-221 and :391-400 do;
+the multi-stream KWS server (multistream.py) serves it live.
 """
 
 from __future__ import annotations
@@ -144,16 +145,15 @@ class SpeechRec:
             self.stk_decoder.set_wpenalty(wpenalty)
 
     def _require_phnloop(self) -> None:
+        """The phoneme-loop decode (BatchPipeline._core) is not an stkint
+        package's decoder: it decodes through ``stk_decoder``."""
         if self.stk_decoder is not None:
-            raise NotImplementedError(
-                "offline decoding of an stkint package is not ported yet "
-                "(ROADMAP.md, Queue 1 item 10: offline stkint decode and "
-                "KWS); its keywords are served by "
-                "phnrec_tpu_torch.multistream.MultiStreamKWS")
+            raise ValueError(
+                "an stkint package decodes through its STK network decoder "
+                "(stk_decoder.decode_batch), not the phoneme loop")
 
     @property
     def batch_pipeline(self):
-        self._require_phnloop()
         if self._bp is None:
             from phnrec_tpu_torch.parallel.batch import BatchPipeline
             self._bp = BatchPipeline(self)
@@ -165,11 +165,16 @@ class SpeechRec:
     def process_offline(self, inpf: str, outpf: str, data) -> DecodeResult:
         """wf -> str on raw waveform bytes, as a batch of one."""
         _require_wf_str(inpf, outpf)
-        self._require_phnloop()
         wave, _ = audio.convert_waveform(
             data, self.wave_format, scale=self.wave_scale,
             dc_shift=self.wave_dc_shift, noise_level=self.wave_noise)
-        return DecodeResult(self.batch_pipeline.run([wave]).labels[0])
+        bp = self.batch_pipeline
+        if self.stk_decoder is None:
+            return DecodeResult(bp.run([wave]).labels[0])
+        w, nf, max_frames, ns = bp.to_device(*bp.pad_batch([wave]))
+        lp = bp._post_core(w, nf, max_frames, ns)
+        return DecodeResult(self.stk_decoder.decode_batch(
+            lp, nf.cpu().numpy())[0])
 
     def process_file(self, inpf: str, outpf: str, source: str,
                      target: Optional[str] = None,
@@ -200,7 +205,6 @@ class SpeechRec:
     def process_file_list(self, inpf: str, outpf: str, list_path: str,
                           mlf_path: Optional[str] = None) -> None:
         _require_wf_str(inpf, outpf)
-        self._require_phnloop()
         entries = []
         with open(list_path) as f:
             for raw in f:
@@ -217,7 +221,8 @@ class SpeechRec:
     def _process_file_list_batched(self, entries,
                                    mlf_path: Optional[str]) -> None:
         """File-list decode through PrefetchLoader buckets + the batch
-        pipeline; results are written in LIST ORDER, as the reference's
+        pipeline (stkint: its posteriors, then the network decoder over
+        the batch); results are written in LIST ORDER, as the reference's
         serial loop writes them (srec.cpp:1246-1291)."""
         from phnrec_tpu_torch.decoder import phnloop
         from phnrec_tpu_torch.parallel.loader import PrefetchLoader
@@ -239,9 +244,15 @@ class SpeechRec:
                 f"{s} -> {t}\n" for s, t in
                 (entries[i] for i in batch.indices)))
             w, nf, max_frames, ns = bp.to_device(batch.wave, batch.n_samples)
-            segs = phnloop.fetch_segments(bp._core(w, nf, max_frames, ns))
-            labels = phnloop.labels_from_segments(
-                segs, bp.frame_counts(batch.n_samples), self.phonemes)
+            n_frames = bp.frame_counts(batch.n_samples)
+            if self.stk_decoder is not None:
+                labels = self.stk_decoder.decode_batch(
+                    bp._post_core(w, nf, max_frames, ns), n_frames)
+            else:
+                segs = phnloop.fetch_segments(
+                    bp._core(w, nf, max_frames, ns))
+                labels = phnloop.labels_from_segments(segs, n_frames,
+                                                      self.phonemes)
             for idx, labs in zip(batch.indices, labels):
                 results[idx] = labs
 

@@ -101,9 +101,10 @@ class StreamingRecognizer:
         if sr.stk_decoder is not None:
             raise NotImplementedError(
                 "streaming an stkint package is not ported yet (ROADMAP.md, "
-                "Queue 1 items 9 and 10: the edge-list scan and "
-                "DeviceKWSTracker); multi-stream keyword spotting is "
-                "phnrec_tpu_torch.multistream.MultiStreamKWS")
+                "Queue 1 item 10: the streaming stkint modes, with item "
+                "12's stateful transforms and traceback_host); its files "
+                "decode offline through SpeechRec, and multi-stream keyword "
+                "spotting is phnrec_tpu_torch.multistream.MultiStreamKWS")
         self.sr = sr
         self.device = sr.device
         self.block = block_frames

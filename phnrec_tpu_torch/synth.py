@@ -310,3 +310,73 @@ def dense_kws_net(M: int, S_M: int, S: int, seed: int = 0):
     entry0 = np.full(M, NEG, np.float32)
     entry0[0] = 0.0
     return DenseKWSScan.from_tables(A_in, A_ex, A_cm, R_cm, A_cs, entry0, S)
+
+
+def random_network(M: int, n_sinks: int = 3, n_obs: int = 12,
+                   seed: int = 0):
+    """A random compiled word network (the port's ``CompiledNetwork``) of M
+    left-to-right models of 1-3 states, for the edge-list scan: weights
+    multiples of -1/8 in (-2, 0] (tie-heavy), an entry skip into state 1
+    and an exit from the second-to-last state on some models, closure
+    edges between random model pairs (each with probability min(0.3,
+    8 / M); a third carry a word and reset the word time), START into
+    models 0-2, sink 0 the terminal.  Isolated
+    destinations: the last state of model 1 has no incoming edge, the
+    last model no closure edge into it, the last sink no sink edge."""
+    from phnrec_tpu_torch.decoder.stknet import ClosureEdge, CompiledNetwork
+    rng = np.random.default_rng(seed)
+
+    def w():
+        return float(-rng.integers(0, 16) / 8)
+
+    obs_index, state_model = [], []
+    in_src, in_entry, in_dst, in_w = [], [], [], []
+    ex_src, ex_dst, ex_w = [], [], []
+    for mi in range(M):
+        n = max(int(rng.integers(1, 4)), 2 if mi == 1 else 1)
+        base = len(obs_index)
+        obs_index += [int(x) for x in rng.integers(0, n_obs, n)]
+        state_model += [mi] * n
+        for j in range(n):
+            if mi == 1 and n > 1 and j == n - 1:
+                continue                      # an isolated state
+            if j == 0 or (j == 1 and rng.random() < 0.3):
+                in_src.append(mi), in_entry.append(True)
+                in_dst.append(base + j), in_w.append(w())
+            for i in (j - 1, j):
+                if i >= 0:
+                    in_src.append(base + i), in_entry.append(False)
+                    in_dst.append(base + j), in_w.append(w())
+        for i in range(n):
+            if i == n - 1 or (i == n - 2 and rng.random() < 0.3):
+                ex_src.append(base + i), ex_dst.append(mi), ex_w.append(w())
+    p = min(0.3, 8 / M)
+    closure = [ClosureEdge(-1, d, None, -d / 8, (), False)
+               for d in range(min(3, M - 1))]
+    for src in range(M):
+        for dst in range(M - 1):
+            if rng.random() < p:
+                words = (f"w{dst}",) if rng.random() < 1 / 3 else ()
+                closure.append(ClosureEdge(src, dst, None, w(), words,
+                                           bool(words)))
+        for s in range(n_sinks - (1 if n_sinks >= 3 else 0)):
+            if rng.random() < p or (s == 0 and src == M - 2):
+                words = (f"s{s}",) if s else ()
+                closure.append(ClosureEdge(src, -1, s, w(), words,
+                                           bool(words)))
+    E = len(obs_index)
+    return CompiledNetwork(
+        n_states=E, n_models=M, obs_index=np.asarray(obs_index, np.int32),
+        gmm_index=np.full(E, -1, np.int32),
+        state_model=np.asarray(state_model, np.int32),
+        model_names=[f"m{i}" for i in range(M)],
+        in_src=np.asarray(in_src, np.int32),
+        in_src_is_entry=np.asarray(in_entry, bool),
+        in_dst=np.asarray(in_dst, np.int32),
+        in_w=np.asarray(in_w, np.float32),
+        ex_src=np.asarray(ex_src, np.int32),
+        ex_dst_model=np.asarray(ex_dst, np.int32),
+        ex_w=np.asarray(ex_w, np.float32), closure=closure,
+        sink_names=[None] + [f"s{s}" for s in range(1, n_sinks)],
+        terminal_sink=0, kws_word_sinks=list(range(1, n_sinks)),
+        kws_filler_sink=None, gmm_states=[])

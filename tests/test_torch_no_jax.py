@@ -15,8 +15,10 @@ import pytest
 import torch
 
 import phnrec_tpu_torch
+from phnrec_tpu_torch import synth
+from phnrec_tpu_torch.decoder.stknet import OFF_BEAM, NetworkDecoder
 from phnrec_tpu_torch.ops import (_build, backtrack, mlp_bf16x3, mlp_fused,
-                                  phnloop_viterbi)
+                                  netscan, nettrace, phnloop_viterbi)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(phnrec_tpu_torch.__file__)
@@ -112,10 +114,33 @@ def _committed_args(device="cpu"):
             smax)
 
 
+def _netscan_args(device="cpu"):
+    dec = NetworkDecoder(synth.random_network(5, seed=2))
+    B, T = 3, 9
+    rng = np.random.default_rng(0)
+    obs = torch.tensor(-rng.integers(0, 8, (B, T, dec.c.n_states)) / 4,
+                       dtype=torch.float32, device=device)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
+                                 device=device)
+    return (dec.init_carry(device, B), obs, i32([0, 4, 0]), i32([9, 6, 0]),
+            torch.tensor([OFF_BEAM, 2.0, OFF_BEAM], device=device),
+            dec.edge_tables(device))
+
+
+def _nettrace_args(device="cpu"):
+    _, recs = netscan.netscan_plain(*_netscan_args())
+    tb = _netscan_args(device)[-1]
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
+                                 device=device)
+    return ({k: v.to(device) for k, v in recs.items()}, i32([9, 6, 0]),
+            i32([-1, 3, -1]), tb, 0)
+
+
 def _counts():
     return (mlp_fused.LAUNCHES, mlp_bf16x3.LAUNCHES, phnloop_viterbi.LAUNCHES,
             phnloop_viterbi.RAGGED_LAUNCHES, backtrack.LAUNCHES,
-            backtrack.COMMITTED_LAUNCHES)
+            backtrack.COMMITTED_LAUNCHES, netscan.LAUNCHES,
+            nettrace.LAUNCHES)
 
 
 def _assert_nested_equal(a, b):
@@ -148,6 +173,14 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     c = _committed_args()
     _assert_nested_equal(backtrack.backtrack_committed(*c),
                          backtrack.backtrack_committed_plain(*c))
+    g = _netscan_args()
+    (carry, recs), (carry_p, recs_p) = (netscan.netscan(*g),
+                                        netscan.netscan_plain(*g))
+    _assert_nested_equal(carry, carry_p)
+    _assert_nested_equal([recs[k] for k in netscan.RECORDS],
+                         [recs_p[k] for k in netscan.RECORDS])
+    h = _nettrace_args()
+    _assert_nested_equal(nettrace.nettrace(*h), nettrace.nettrace_plain(*h))
     assert _counts() == before
 
 
@@ -162,7 +195,9 @@ def test_wrappers_raise_off_cpu_without_cuda():
                       _ragged_args("meta")),
                      (backtrack.backtrack, _hist_args("meta")),
                      (backtrack.backtrack_committed,
-                      _committed_args("meta"))):
+                      _committed_args("meta")),
+                     (netscan.netscan, _netscan_args("meta")),
+                     (nettrace.nettrace, _nettrace_args("meta"))):
         with pytest.raises(ValueError, match="no kernel"):
             fn(*args)
     assert _counts() == before

@@ -164,12 +164,22 @@ def test_unported_paths_raise(tmp_path):
         open(cfg, "w").write(text.replace(old, new))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SpeechRec(pkg, device="cpu")
-    # an stkint package loads (MultiStreamKWS serves it); offline decoding
-    # of its files does not exist yet
+    # an stkint package decodes its files offline (KWS mode: hits), single
+    # files and lists alike; the phoneme-loop batch decode is not its
+    # decoder
     kws = SpeechRec(synth.write_kws_package(tmp_path / "kws", "tiny"),
                     device="cpu")
     assert kws.stk_decoder is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kws.process_offline("wf", "str", b"\0\0" * 400)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kws.process_file_list("wf", "str", cfg)
+    raw = synth.synth_audio(np.random.default_rng(2), 9000).astype(
+        "<i2").tobytes()
+    hits = kws.process_offline("wf", "str", raw).labels
+    assert all(l.name in ("alpha", "beta") for l in hits)
+    (tmp_path / "u.raw").write_bytes(raw)
+    (tmp_path / "list.scp").write_text(
+        f"{tmp_path / 'u.raw'} {tmp_path / 'u.rec'}\n")
+    kws.process_file_list("wf", "str", str(tmp_path / "list.scp"))
+    assert [l.split()[2] for l in open(tmp_path / "u.rec")] == \
+        [l.name for l in hits]
+    with pytest.raises(ValueError, match="STK network decoder"):
+        kws.batch_pipeline.run_padded(np.zeros((1, 800), np.int16),
+                                      np.array([800], np.int32))

@@ -190,5 +190,6 @@ def test_empty_and_short_streams(pkgs):
 def test_stkint_package_raises(tmp_path):
     sr = SpeechRec(synth.write_kws_package(tmp_path / "kws", "tiny"),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="items 9 and 10"):
+    with pytest.raises(NotImplementedError,
+                       match="item 10: the streaming stkint modes"):
         StreamingRecognizer(sr)
