@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the eight CUDA kernels from the six sources in phnrec_tpu_torch/csrc
+Builds the ten CUDA kernels from the eight sources in phnrec_tpu_torch/csrc
 (one nvcc each, all started together) and holds each against its plain
 PyTorch version on the card at its path's shapes: A (fused MLP, float32;
 also at row counts that fill no row tile, and timed beside cuBLAS's two
@@ -11,8 +11,10 @@ products alone) and A' (fused MLP, bf16 tensor-core passes, 3 and 1) at the
 CZ nets, C and
 C' (phoneme-loop scan, uniform and ragged), D and D' (backtrack, whole and
 committed window, also on the case list of devtools/backtrack_variants.py,
-and D timed at the serving History), B (network-Viterbi block) and F (LRTrace scan).  Then it
-drives three paths of the port:
+and D timed at the serving History), B (network-Viterbi block), F (LRTrace
+scan), G (edge-list network scan) and H (its traceback, on a case list of
+networks, ties, beams, carried blocks and committed boundaries).  Then it
+drives four paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
   the CZ SpeechDat LCRC shapes (64 files), and times a batch of 1024 x 5 s
@@ -28,7 +30,12 @@ drives three paths of the port:
   the EN TIMIT LCRC N500 shapes with the keywords greasy/wash: 4 streams x
   10 s fed through process() and held against the CPU port, then 256
   streams x 60 s staged on the card, decoded through decode_device_buffer
-  in blocks of 512 frames and timed.
+  in blocks of 512 frames and timed;
+* offline STK-network decoding: the CLI on 64 files of a CZ stkint decode
+  package (the generated phoneme loop, kernels G and H), held against the
+  CPU port; a timed stkint batch of 256 x 5 s by stages; and 8 EN files
+  through the KWS package's process_file_list, whose hits equal the CPU
+  port's on the card's log-posteriors.
 
 It prints one JSON line of kernel results, each kernel with its launches
 on a path of this run and its time beside its bound (the larger of its
@@ -55,7 +62,8 @@ import torch
 
 from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
-from phnrec_tpu_torch.decoder.stknet import NEG, OFF_BEAM, DenseKWSScan
+from phnrec_tpu_torch.decoder.stknet import (NEG, OFF_BEAM, DenseKWSScan,
+                                             NetworkDecoder)
 from phnrec_tpu_torch.devtools import backtrack_variants, scan_variants
 from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
@@ -63,13 +71,14 @@ from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.io.labels import read_mlf
 from phnrec_tpu_torch.multistream import MultiStreamKWS, MultiStreamRecognizer
 from phnrec_tpu_torch.ops import (_build, backtrack, lrtrace, mlp_bf16x3,
-                                  mlp_fused, netstep, phnloop_viterbi)
+                                  mlp_fused, netscan, netstep, nettrace,
+                                  phnloop_viterbi)
 from phnrec_tpu_torch.pipeline import SpeechRec
 from phnrec_tpu_torch.streaming import StreamingRecognizer
 
 CSRC = "phnrec_tpu_torch/csrc/"
 SOURCES = ("mlp_fused", "mlp_bf16x3", "phnloop_viterbi", "backtrack",
-           "netstep", "lrtrace")
+           "netstep", "lrtrace", "netscan", "nettrace")
 # name -> the wrapper module, its launch counter, the source, the TPU kernel
 KERNELS = {
     "mlp_fused": dict(module=mlp_fused, counter="LAUNCHES",
@@ -98,9 +107,16 @@ KERNELS = {
     "lrtrace": dict(module=lrtrace, counter="LAUNCHES",
                     source=CSRC + "lrtrace.cu",
                     replaces="phnrec_tpu/decoder/stknet.py:1114"),
+    "netscan": dict(module=netscan, counter="LAUNCHES",
+                    source=CSRC + "netscan.cu",
+                    replaces="phnrec_tpu/decoder/stknet.py:451"),
+    "nettrace": dict(module=nettrace, counter="LAUNCHES",
+                     source=CSRC + "nettrace.cu",
+                     replaces="phnrec_tpu/decoder/stknet.py:668"),
 }
 BATCH_KERNELS = ("mlp_fused", "phnloop_viterbi", "backtrack")
 KWS_KERNELS = ("mlp_fused", "netstep", "lrtrace")
+STK_KERNELS = ("mlp_fused", "netscan", "nettrace")
 # kernel A against cuBLAS float32: both sum in another order, and fexp is a
 # step function of its argument (steps of 2^-20 relative), so outputs differ
 # by a few ulp of the sums; probabilities within 2e-5, raw logits within 1e-4.
@@ -1432,6 +1448,358 @@ def phnloop_commit(sr, cpu_sr, dev, full, n: int = 256, n_blocks: int = 12,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# offline STK-network decoding: kernels G (netscan) and H (nettrace)
+# ---------------------------------------------------------------------------
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal with the same dtype, floats by their bits."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _stk_obs(dec, B: int, T: int, seed: int, dev, ties: bool = False):
+    """[B, T, E] per-state observations on the card from seeded
+    log-posteriors (``ties``: multiples of -1/4 and signed zeros)."""
+    rng = np.random.default_rng(seed)
+    D = int(dec.c.obs_index.max()) + 1
+    if ties:
+        lp = -rng.integers(0, 8, (B, T, D)).astype(np.float32) / 4
+        lp[rng.random((B, T, D)) < 0.1] = -0.0
+    else:
+        lp = np.log(rng.dirichlet(np.ones(D), size=(B, T))).astype(
+            np.float32)
+    return dec.state_observations(torch.from_numpy(lp).to(dev))
+
+
+def _i32(a, dev):
+    return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+
+def _netscan_case(dec, dev, B, T, seed, ties=False, beam=None, t0=None,
+                  force_global=False):
+    """Kernel G and its plain version on one input: (equal, kernel
+    records, n_valid)."""
+    rng = np.random.default_rng(seed)
+    obs = _stk_obs(dec, B, T, seed, dev, ties)
+    t0 = np.zeros(B, np.int32) if t0 is None else t0
+    nv = t0 + rng.integers(0, T + 1, B)
+    nv[:: 5] = t0[:: 5] + T
+    beam = np.full(B, OFF_BEAM, np.float32) if beam is None else beam
+    args = (dec.init_carry(dev, B), obs, _i32(t0, dev), _i32(nv, dev),
+            torch.from_numpy(np.asarray(beam, np.float32)).to(dev),
+            dec.edge_tables(dev))
+    if t0.any():
+        # a carry one block in: the first T frames of another input
+        args = (netscan.netscan(*args)[0], *args[1:])
+    ck, rk = (netscan.launch(netscan._lib(), *args, force_global=True)
+              if force_global else netscan.netscan(*args))
+    cp, rp = netscan.netscan_plain(*args)
+    torch.cuda.synchronize()
+    same = all(_bits_equal(a, b) for a, b in zip(ck, cp)) and all(
+        _bits_equal(rk[k], rp[k]) for k in netscan.RECORDS)
+    return same, rk, _i32(nv, dev)
+
+
+def _nettrace_case(dec, recs, nv, dev, seed, committed=False):
+    B, T = recs["in_am"].shape[:2]
+    f0 = np.full(B, -1, np.int32)
+    if committed:
+        rng = np.random.default_rng(seed)
+        f0[1::2] = rng.integers(0, T, B)[1::2]
+    args = (recs, nv, _i32(f0, dev), dec.edge_tables(dev),
+            dec.c.terminal_sink)
+    wk = nettrace.nettrace(*args)
+    wp = nettrace.nettrace_plain(*args)
+    torch.cuda.synchronize()
+    return all(_bits_equal(a, b) for a, b in zip(wk, wp)), wk
+
+
+def check_netscan_cases(nets: dict, dev) -> None:
+    """Kernels G and H against their plain versions, bit for bit (carry,
+    all nine records of every frame, the walk's five outputs): the CZ
+    phoneme loop at B 256 x T 500 with ragged rows; the EN KWS net at B 8
+    x T 6,000; tie-heavy observations with signed zeros; a tight beam
+    differing by row; a carried second block at t0 > 0 differing by row;
+    the CZ loop with its per-row values forced to device memory; a random
+    word network of 1,500 models whose per-row values do not fit shared
+    memory (device memory by itself); H with frame0 >= 0 on every second
+    row, and rows that never reach the terminal sink (n_valid 0)."""
+    cz, en, big = nets["cz_loop"], nets["en_kws"], nets["random_big"]
+    rng = np.random.default_rng(41)
+    cases = [
+        ("cz_256x500", cz, dict(B=256, T=500, seed=1)),
+        ("en_kws_8x6000", en, dict(B=8, T=6000, seed=2)),
+        ("cz_ties", cz, dict(B=13, T=200, seed=3, ties=True)),
+        ("en_ties_tight_beam", en, dict(B=8, T=300, seed=4, ties=True,
+                                        beam=np.full(8, 2.0))),
+        ("cz_tight_beam", cz, dict(B=16, T=300, seed=5,
+                                   beam=rng.uniform(1.0, 8.0, 16))),
+        ("cz_carried_t0", cz, dict(B=32, T=180, seed=6,
+                                   t0=rng.integers(1, 400, 32)
+                                   .astype(np.int32))),
+        ("cz_forced_global", cz, dict(B=16, T=200, seed=7,
+                                      force_global=True)),
+        ("random_big_global", big, dict(B=4, T=64, seed=8, ties=True)),
+    ]
+    out = {}
+    for name, dec, kw in cases:
+        same_g, recs, nv = _netscan_case(dec, dev, **kw)
+        same_h, walk = _nettrace_case(dec, recs, nv, dev, kw["seed"])
+        same_hc, _ = _nettrace_case(dec, recs, nv, dev, kw["seed"],
+                                    committed=True)
+        out[name] = dict(netscan=same_g, nettrace=same_h,
+                         nettrace_frame0=same_hc,
+                         rows_ok=int(walk[0].sum()),
+                         crossings=int((walk[3] >= 0).sum()))
+    words = netscan.scratch_words(big.c.n_states, big.c.n_models)
+    phase("netscan_cases", cases=out, random_big_states=big.c.n_states,
+          random_big_row_bytes=4 * words,
+          smem_bytes=netscan.SMEM_BYTES)
+    bad = [k for k, v in out.items()
+           if not (v["netscan"] and v["nettrace"] and v["nettrace_frame0"])]
+    if bad or 4 * words <= netscan.SMEM_BYTES:
+        raise AssertionError(f"kernels G / H differ on {bad}")
+
+
+def _netscan_work(dec, B: int, T: int) -> tuple:
+    """(bytes, operations) of a scan: observations read, the nine records
+    written, the carry read and written once; an add and a compare per
+    edge slot of every dense row, per frame and row."""
+    tb, E, M, S = dec.tables, dec.c.n_states, dec.c.n_models, dec.n_sinks
+    n_bytes = 4 * B * T * (E + E + 5 * M + 3 * S) + 2 * 4 * B * (2 * E + 3 * M)
+    slots = sum(d.size for d in (tb.in_dense, tb.ex_dense, tb.cm_dense,
+                                 tb.cs_dense))
+    return n_bytes, 2 * B * T * slots
+
+
+def _nettrace_work(walk, nv, B: int, T: int) -> tuple:
+    """(bytes, operations) of a walk, from this run's walks: the outputs
+    written once, an in_am word read a step of a live row (its valid
+    frames) and three more words a crossing, the start's three words and
+    the two [B] inputs; a few operations a step."""
+    ok = walk[0].cpu().numpy()
+    steps = int(nv.cpu().numpy()[ok].sum())
+    crossings = int((walk[3] >= 0).sum())
+    n_bytes = B * T * 8 + B * 9 + 4 * (steps + 3 * crossings + 3 * B + 2 * B)
+    return n_bytes, 4 * steps
+
+
+def time_netscan(dec, dev, B: int = 256, T: int = 500):
+    """Kernels G and H at the CZ stkint batch shape (B 256 x T 500, the
+    phoneme loop of 46 models): both timers, the plain versions, clocks a
+    frame (G) and a step (H), bounds."""
+    obs = _stk_obs(dec, B, T, 9, dev)
+    nv = _i32(np.full(B, T), dev)
+    beam = torch.full((B,), float(OFF_BEAM), device=dev)
+    tb = dec.edge_tables(dev)
+    carry = dec.init_carry(dev, B)
+    t0 = _i32(np.zeros(B), dev)
+    g = lambda: netscan.netscan(carry, obs, t0, nv, beam, tb)  # noqa: E731
+    recs = g()[1]
+    f0 = _i32(np.full(B, -1), dev)
+    h = lambda: nettrace.nettrace(recs, nv, f0, tb,  # noqa: E731
+                                  dec.c.terminal_sink)
+    walk = h()
+    res = {}
+    for name, fn, plain, work, steps in (
+            ("netscan", g, lambda: netscan.netscan_plain(carry, obs, t0, nv,
+                                                         beam, tb),
+             _netscan_work(dec, B, T), T),
+            ("nettrace", h, lambda: nettrace.nettrace_plain(
+                recs, nv, f0, tb, dec.c.terminal_sink),
+             _nettrace_work(walk, nv, B, T), T)):
+        t_k = cuda_ms(fn)
+        held = scan_variants.held_ms(fn)
+        t_p = cuda_ms(plain, iters=2, warmup=1)
+        mhz = sm_clock(fn, max(t_k, 0.2))
+        res[name] = dict(max_abs_err=0.0, ms=t_k, held_ms=held, plain_ms=t_p,
+                         sm_clock_mhz=mhz,
+                         clocks_a_frame=held * 1e-3 * mhz * 1e6 / steps,
+                         **bound(*work, PEAK_FP32))
+    res["nettrace"]["clocks_a_step"] = res["nettrace"].pop("clocks_a_frame")
+    phase("netscan_timing", B=B, T=T, states=dec.c.n_states,
+          models=dec.c.n_models, closure_edges=len(dec.cm),
+          rows_ok=int(walk[0].sum()), crossings=int((walk[3] >= 0).sum()),
+          **res)
+    return res
+
+
+def stk_cli(pkg: str, tmp: str, cpu_sr, dev) -> dict:
+    """64 seeded int16 files of 1-8 s of the CZ stkint decode package
+    through the CLI (-l with a target column: one .rec file each); the
+    first 4 files again through the CPU port's process_file_list: label
+    names and boundaries equal, scores within 1e-3.  Returns the launch
+    counts of the run."""
+    from phnrec_tpu_torch import cli
+    from phnrec_tpu_torch.io.labels import read_rec
+    wav_dir = os.path.join(tmp, "stk_wav")
+    os.makedirs(wav_dir)
+    paths = synth.write_audio_files(wav_dir, 64, (1.0, 8.0), seed=13)
+    recs = [p[:-4] + ".rec" for p in paths]
+    lst = os.path.join(tmp, "stk_list.scp")
+    with open(lst, "w") as f:
+        f.write("".join(f"{p} {r}\n" for p, r in zip(paths, recs)))
+    reset_counts(STK_KERNELS)
+    t = time.perf_counter()
+    rc = cli.main(["-c", pkg, "-l", lst, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts(STK_KERNELS)
+    if rc != 0:
+        raise AssertionError(f"cli returned {rc}")
+    got = [read_rec(r) for r in recs]
+    names = {l.name for labs in got for l in labs}
+    if any(not labs for labs in got) or len(names) < 10:
+        raise AssertionError(f"empty rec files or {len(names)} phonemes")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    cpu_lst = os.path.join(tmp, "stk_list_cpu.scp")
+    with open(cpu_lst, "w") as f:
+        f.write("".join(f"{p} {p[:-4]}.cpu.rec\n" for p in paths[:4]))
+    cpu_sr.process_file_list("wf", "str", cpu_lst)
+    ref = [read_rec(p[:-4] + ".cpu.rec") for p in paths[:4]]
+    same = [label_key(a) == label_key(b) for a, b in zip(got, ref)]
+    err = max((abs(x.score - y.score) for a, b in zip(got, ref)
+               for x, y in zip(a, b)), default=0.0)
+    phase("stk_cli", files=64, audio_s=sum(os.path.getsize(p) / 2 / 8000
+                                           for p in paths),
+          wall_s=wall, labels=sum(map(len, got)),
+          distinct_labels=len(names), launches=launches,
+          cpu_reference_equal=same, max_score_err=err)
+    if not all(same) or not err <= 1e-3:
+        raise AssertionError("CLI rec files differ from the CPU port's")
+    return launches
+
+
+def stk_batch(sr, dev, clk: dict, B: int = 256):
+    """The stkint decode of B x 5 s at the CZ shapes, per-stage CUDA
+    events (posteriors, state_obs, netscan, nettrace, fetch) and the host's
+    labels; the labels equal decode_batch's, and 8 rows again through the
+    plain versions of G and H on the card."""
+    stk = sr.stk_decoder
+    dec = stk.decoder
+    n = 5 * 8000
+    rng = np.random.default_rng(14)
+    wave = np.stack([synth.synth_audio(rng, n) for _ in range(B)])
+    n_samples = np.full(B, n, np.int32)
+    bp = sr.batch_pipeline
+    w, nf, max_frames, ns = bp.to_device(wave, n_samples)
+    n_frames = nf.cpu().numpy()
+    stk.decode_batch(bp._post_core(w, nf, max_frames, ns), n_frames)
+    events = []
+
+    def hook(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    hook("start")
+    lp = stk._xform(bp._post_core(w, nf, max_frames, ns))
+    hook("posteriors")
+    obs = dec.state_observations(lp)
+    hook("state_obs")
+    recs = dec._scan_batch(obs, nf, stk.beam_pruning)
+    hook("netscan")
+    walk = dec._traceback_batch(recs, nf)
+    hook("nettrace")
+    walk = [x.cpu().numpy() for x in walk]
+    hook("fetch")
+    labels = [dec.labels_from_edge_walk(*(x[b] for x in walk),
+                                        int(n_frames[b])) for b in range(B)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    stages = {s: events[i - 1][1].elapsed_time(ev)
+              for i, (s, ev) in enumerate(events) if i}
+    stages["labels_host"] = wall * 1e3 - sum(stages.values())
+    peak = torch.cuda.max_memory_allocated(dev)
+    again = stk.decode_batch(lp, n_frames)
+    T = lp.shape[1]
+    tb = dec.edge_tables(dev)
+    k8 = {k: v[:8].contiguous() for k, v in recs.items()}
+    _, rp = netscan.netscan_plain(dec.init_carry(dev, 8), obs[:8].contiguous(),
+                                  _i32(np.zeros(8), dev), nf[:8].contiguous(),
+                                  torch.full((8,), float(OFF_BEAM),
+                                             device=dev), tb)
+    wp = [x.cpu().numpy() for x in nettrace.nettrace_plain(
+        rp, nf[:8].contiguous(), _i32(np.full(8, -1), dev), tb,
+        dec.c.terminal_sink)]
+    plain = [dec.labels_from_edge_walk(*(x[b] for x in wp), int(n_frames[b]))
+             for b in range(8)]
+    same_plain = [label_key(labels[b]) == label_key(plain[b]) and
+                  all(_bits_equal(k8[k], rp[k]) for k in netscan.RECORDS)
+                  for b in range(8)]
+    same_again = [label_key(a) == label_key(b) for a, b in zip(labels, again)]
+    phase("stk_batch", batch=B, seconds_each=5, frames=T,
+          audio_s_per_s=B * 5 / wall, wall_s=wall, stage_ms=stages,
+          netscan_clocks_a_frame=stages["netscan"] * 1e-3
+          * clk["netscan"]["sm_clock_mhz"] * 1e6 / T,
+          nettrace_clocks_a_step=stages["nettrace"] * 1e-3
+          * clk["nettrace"]["sm_clock_mhz"] * 1e6 / T,
+          max_memory_allocated_bytes=peak,
+          labels_per_utt=float(np.mean([len(l) for l in labels])),
+          plain_equal_rows=same_plain,
+          decode_batch_equal=all(same_again))
+    if not all(same_plain) or not all(same_again):
+        raise AssertionError("stkint batch labels differ from the plain "
+                             "versions or from decode_batch")
+
+
+def stk_kws_files(en_sr, en_cpu, tmp, dev, n: int = 8) -> dict:
+    """n EN files of 4-20 s through SpeechRec.process_file_list on the
+    card (the KWS package), each batch's log-posteriors captured: the CPU
+    port decoding the card's log-posteriors gives the card's hits."""
+    fs = en_sr.cfg.get_int("source", "sample_freq")
+    rng = np.random.default_rng(15)
+    d = os.path.join(tmp, "en_wav")
+    os.makedirs(d)
+    paths = []
+    for i in range(n):
+        p = os.path.join(d, f"e{i}.raw")
+        with open(p, "wb") as f:
+            f.write(synth.synth_audio(rng, int(rng.uniform(4, 20) * fs), fs)
+                    .astype("<i2").tobytes())
+        paths.append(p)
+    lst = os.path.join(tmp, "en_list.scp")
+    with open(lst, "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    seen = []
+    stk = en_sr.stk_decoder
+    orig = stk.decode_batch
+
+    def spy(lp, n_frames):
+        out = orig(lp, n_frames)
+        seen.append((lp.cpu(), np.asarray(n_frames), out))
+        return out
+
+    stk.decode_batch = spy
+    reset_counts(("mlp_fused", "netscan"))
+    try:
+        en_sr.process_file_list("wf", "str", lst,
+                                os.path.join(tmp, "en.mlf"))
+        torch.cuda.synchronize()
+    finally:
+        del stk.decode_batch
+    launches = read_counts(("mlp_fused", "netscan"))
+    same, hits = [], 0
+    for lp, nf, out in seen:
+        want = en_cpu.stk_decoder.decode_batch(lp, nf)
+        same.append([[vars(l) for l in r] for r in out] ==
+                    [[vars(l) for l in r] for r in want])
+        hits += sum(map(len, out))
+    phase("stk_kws_files", files=n, batches=len(seen), hits=hits,
+          hits_equal=same, launches=launches)
+    if not all(same) or not hits or not all(launches.values()):
+        raise AssertionError(f"KWS file hits differ from the CPU port's "
+                             f"({same}, {hits} hits, {launches})")
+    return launches
+
+
 def device_busy_share(fn):
     """Share of one run's wall in which some CUDA kernel or copy ran, from
     torch.profiler; None if the trace holds no device events."""
@@ -1526,6 +1894,24 @@ def main() -> int:
         launches.update(
             {k: v for k, v in kws_serving(en_sr, dev).items()
              if k in ("netstep", "lrtrace")})
+
+        # offline STK-network decoding: the CZ stkint phoneme loop (decode
+        # mode) and the EN KWS package's files (KWS mode)
+        stk_pkg = synth.write_stk_decode_package(
+            os.path.join(tmp, "cz_stk"), "cz", seed=0)
+        stk_sr = SpeechRec(stk_pkg, device=dev)
+        stk_cpu = SpeechRec(stk_pkg, device="cpu")
+        check_netscan_cases({
+            "cz_loop": stk_sr.stk_decoder.decoder,
+            "en_kws": en_sr.stk_decoder.decoder,
+            "random_big": NetworkDecoder(synth.random_network(1500, seed=1))},
+            dev)
+        clk = time_netscan(stk_sr.stk_decoder.decoder, dev)
+        results.update(clk)
+        launches.update({k: v for k, v in stk_cli(
+            stk_pkg, tmp, stk_cpu, dev).items() if k in clk})
+        stk_batch(stk_sr, dev, clk)
+        stk_kws_files(en_sr, en_cpu, tmp, dev)
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")
