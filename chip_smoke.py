@@ -1554,14 +1554,17 @@ def check_netscan_cases(nets: dict, dev) -> None:
                          nettrace_frame0=same_hc,
                          rows_ok=int(walk[0].sum()),
                          crossings=int((walk[3] >= 0).sum()))
-    words = netscan.scratch_words(big.c.n_states, big.c.n_models)
+    tb = big.edge_tables(dev)
+    big_smem = netscan._lib().netscan_smem_bytes(
+        big.c.n_states, big.c.n_models,
+        sum(tb[f"{x}_slot_w"].numel() for x in ("in", "ex", "cm", "cs")))
     phase("netscan_cases", cases=out, random_big_states=big.c.n_states,
-          random_big_row_bytes=4 * words,
-          smem_bytes=netscan.SMEM_BYTES)
+          random_big_fits_smem=bool(big_smem))
     bad = [k for k, v in out.items()
            if not (v["netscan"] and v["nettrace"] and v["nettrace_frame0"])]
-    if bad or 4 * words <= netscan.SMEM_BYTES:
-        raise AssertionError(f"kernels G / H differ on {bad}")
+    if bad or big_smem:
+        raise AssertionError(f"kernels G / H differ on {bad}, or the big "
+                             "net took shared memory")
 
 
 def _netscan_work(dec, B: int, T: int) -> tuple:

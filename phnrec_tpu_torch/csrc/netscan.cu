@@ -28,22 +28,33 @@
 // record, float bits included.
 //
 // What bounds it on the H100: not bytes.  A frame of the CZ phoneme loop
-// reads 138 observations and writes 371 record words a row (~2 KB; B 256 x
-// T 500 moves ~261 MB, 0.078 ms at 3.35 TB/s) but is a chain of three
-// phases separated by block barriers, each a short serial max over a
-// dense row (K_in 2, K_ex 1, K_cm 47, K_cs 46 at the CZ loop) whose
-// loads depend on table loads: the latency of one row's frames, repeated
-// T times, is the time.
+// reads 138 observations and writes 371 record words a row (B 256 x T 500
+// moves ~261 MB, 0.078 ms at 3.35 TB/s), but a frame is a chain of three
+// phases, each a max over dense rows (K_in 2, K_ex 1, K_cm 47, K_cs 46 at
+// the CZ loop) that needs the phase before: the latency of one row's
+// frames, repeated T times, is the time.  The first version of this
+// kernel (a thread per destination, each slot's source found through two
+// dependent table loads, the sink row walked by the thread that had just
+// walked a closure row) took ~25,300 clocks a frame (PERF.md).
 //
-// First design, simple and exact: a block per row, threads striding over
-// the destinations of each phase (states, then models, then entries and
-// sinks), a warp-shuffle and shared-memory block max for the beam, three
-// barriers a frame.  The carry and the frame's new alpha / word times and
-// exit values / word times (4 (4E + 5M) bytes) sit in shared memory where
-// they fit in 48 KB, else in a per-row scratch in device memory (both
-// held to the plain version on the card).  The tables are read through
-// the read-only cache; records are stored as they are made, contiguous in
-// the destination, so a warp's stores are coalesced.
+// Design: a block per row, 256 threads, three barriers a frame.
+// * Each dense row is a list of slots, made once on the host
+//   (ops/netscan.slot_arrays): the slot's source as an index into the
+//   phase's value array ([entry | alpha | NEG] for the in-model pass,
+//   [alpha' | NEG] for the exits, [exit values | NEG] for the closure and
+//   sinks; a pad or a START edge reads the NEG sentinel with weight 0, so
+//   its value is NEG exactly, as JAX's), its edge id and its weight: one
+//   load a slot, no dependent table load.
+// * A group of L lanes takes a destination (L from the row's width: 1 for
+//   2 slots, 8 for 47), each lane a strided share of its slots, then a
+//   shuffle reduction keeping the larger value and, on equal values, the
+//   smaller slot: the first maximum, as JAX's argmax.
+// * The slots, the carry and the frame's values live in shared memory,
+//   and the next frame's observations are copied in by cp.async while a
+//   frame runs, where they fit (up to 227 KB); otherwise the values sit
+//   in a per-row scratch in device memory and the slots and observations
+//   are read from device memory (both held to the plain version).
+// * Records are stored as they are made, contiguous in the destination.
 
 #include <cuda_runtime.h>
 
@@ -53,25 +64,22 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int MAX_THREADS = 512;
+constexpr int THREADS = 256;
+constexpr int SMEM_MAX = 232448;   // 227 KB, the H100's per-block opt-in
+
+struct Tab {
+  const int2* slot;    // [D * K]: (source index, edge id or -1)
+  const float* w;      // [D * K]
+  int D, K, L;         // destinations, slots a row, lanes a destination
+};
 
 struct Net {
-  int E, M, S, n_in, n_ex, n_cm, n_cs, Kin, Kex, Kcm, Kcs;
-  const int* __restrict__ in_dense;
-  const uint8_t* __restrict__ in_entry;
-  const int* __restrict__ in_src_m;
-  const int* __restrict__ in_src_s;
-  const float* __restrict__ in_w;
-  const int* __restrict__ ex_dense;
-  const int* __restrict__ ex_src;
-  const float* __restrict__ ex_w;
-  const int* __restrict__ cm_dense;
-  const int* __restrict__ cm_src;
-  const float* __restrict__ cm_w;
-  const uint8_t* __restrict__ cm_reset;
-  const int* __restrict__ cs_dense;
-  const int* __restrict__ cs_src;
-  const float* __restrict__ cs_w;
+  int E, M, S, n_in, n_ex, n_cm, n_cs;
+  Tab in, ex, cm, cs;
+  const int* __restrict__ in_src;    // [n_in] source index of each edge
+  const int* __restrict__ ex_src;    // [n_ex]
+  const int* __restrict__ cm_wsel;   // [n_cm] -1: word time reset; else xwt index
+  const int* __restrict__ cs_wsel;   // [n_cs] xwt index
 };
 
 struct Carry {
@@ -94,86 +102,177 @@ struct Records {
   float* exit_val;
 };
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
+// 4-byte words of a row's values: vin [M + E + 1], win [M + E], na [E + 1],
+// nwt [E], xv [M + 1], xwt [M], eedge [M]
+__host__ __device__ inline int value_words(int E, int M) {
+  return 4 * E + 5 * M + 3;
+}
+
+// the values, two frames of observations, then each table's slots (8-byte
+// aligned) and weights
+__host__ __device__ inline size_t smem_bytes(int E, int M, int n_slots) {
+  return 4 * ((size_t)value_words(E, M) + 2 * (size_t)E) + 12 * (size_t)n_slots + 40;
+}
+
+__device__ __forceinline__ char* align8(char* p) {
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 7) & ~(uintptr_t)7);
 }
 
 __device__ __forceinline__ float pruned(float v, float thresh) {
   return v >= thresh ? v : NEG;
 }
 
-__global__ void netscan_kernel(Net net, int T, const float* __restrict__ obs,
-                               const int* __restrict__ t0,
-                               const int* __restrict__ n_valid,
-                               const float* __restrict__ beam, Carry in,
-                               Carry out, Records rec, float* scratch,
-                               int use_smem) {
-  extern __shared__ float smem[];
-  __shared__ float warp_max[MAX_THREADS / 32];
-  const int E = net.E, M = net.M, S = net.S;
-  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 
-  float* base = use_smem ? smem
-                         : scratch + (size_t)b * (size_t)(4 * E + 5 * M);
-  float* alpha = base;                          // [E] carry
-  int* wt = reinterpret_cast<int*>(alpha + E);  // [E] carry
-  float* na = reinterpret_cast<float*>(wt + E); // [E] new alpha, uncut
-  int* nwt = reinterpret_cast<int*>(na + E);    // [E] new word times
-  float* entry = reinterpret_cast<float*>(nwt + E);  // [M] carry
-  int* eedge = reinterpret_cast<int*>(entry + M);    // [M] carry
-  int* ewt = eedge + M;                              // [M] carry
-  float* xv = reinterpret_cast<float*>(ewt + M);     // [M] exit values
-  int* xwt = reinterpret_cast<int*>(xv + M);         // [M] exit word times
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int e = tid; e < E; e += nthr) {
-    alpha[e] = in.alpha[(size_t)b * E + e];
-    wt[e] = in.wt[(size_t)b * E + e];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The first maximum of one destination's row, by the L lanes of a group
+// (aligned within its warp); every lane of the group returns it.  A lane
+// starts at its first slot, so a row whose values are all -inf still
+// yields its slot 0, as argmax does.
+template <class Val>
+__device__ __forceinline__ void group_max(const int2* slot, const float* w, int K,
+                                          int L, int gl, unsigned mask, Val val,
+                                          float& best, int& bj) {
+  best = -INFINITY;
+  bj = 0x7fffffff;
+  for (int j = gl; j < K; j += L) {
+    const float v = val(slot[j].x) + w[j];
+    if (bj == 0x7fffffff || v > best) {
+      best = v;
+      bj = j;
+    }
   }
-  for (int m = tid; m < M; m += nthr) {
-    entry[m] = in.entry[(size_t)b * M + m];
+  for (int off = L >> 1; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(mask, best, off);
+    const int oj = __shfl_xor_sync(mask, bj, off);
+    if (ov > best || (ov == best && oj < bj)) {
+      best = ov;
+      bj = oj;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned group_mask(int L, int lane) {
+  return L == 32 ? 0xffffffffu : (((1u << L) - 1u) << (lane & ~(L - 1)));
+}
+
+__device__ void stage(void* dst, const void* src, size_t bytes) {
+  auto* d = static_cast<int*>(dst);
+  auto* s = static_cast<const int*>(src);
+  for (size_t i = threadIdx.x; i < bytes / 4; i += blockDim.x) d[i] = s[i];
+}
+
+__global__ void __launch_bounds__(THREADS)
+netscan_kernel(Net net, int T, const float* __restrict__ obs,
+               const int* __restrict__ t0, const int* __restrict__ n_valid,
+               const float* __restrict__ beam, Carry in, Carry out,
+               Records rec, float* scratch, int use_smem) {
+  extern __shared__ float smem[];
+  __shared__ float warp_max[THREADS / 32];
+  const int E = net.E, M = net.M, S = net.S;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  float* base = use_smem ? smem : scratch + (size_t)b * value_words(E, M);
+  float* vin = base;                                  // [entry | alpha | NEG]
+  int* win = reinterpret_cast<int*>(vin + M + E + 1); // [entry_wt | wt]
+  float* na = reinterpret_cast<float*>(win + M + E);  // [new alpha | NEG]
+  int* nwt = reinterpret_cast<int*>(na + E + 1);
+  float* xv = reinterpret_cast<float*>(nwt + E);      // [exit values | NEG]
+  int* xwt = reinterpret_cast<int*>(xv + M + 1);
+  int* eedge = xwt + M;
+  float* obs_s = reinterpret_cast<float*>(eedge + M); // [2][E], smem only
+
+  // the slot tables: staged into shared memory, or read where they are
+  Tab tin = net.in, tex = net.ex, tcm = net.cm, tcs = net.cs;
+  if (use_smem) {
+    char* p = reinterpret_cast<char*>(obs_s + 2 * E);
+    Tab* tabs[4] = {&tin, &tex, &tcm, &tcs};
+    for (Tab* t : tabs) {
+      const size_t n = (size_t)t->D * t->K;
+      p = align8(p);
+      stage(p, t->slot, 8 * n);
+      t->slot = reinterpret_cast<const int2*>(p);
+      p += 8 * n;
+      stage(p, t->w, 4 * n);
+      t->w = reinterpret_cast<const float*>(p);
+      p += 4 * n;
+    }
+  }
+  for (int e = tid; e < E; e += THREADS) {
+    vin[M + e] = in.alpha[(size_t)b * E + e];
+    win[M + e] = in.wt[(size_t)b * E + e];
+  }
+  for (int m = tid; m < M; m += THREADS) {
+    vin[m] = in.entry[(size_t)b * M + m];
+    win[m] = in.entry_wt[(size_t)b * M + m];
     eedge[m] = in.entry_edge[(size_t)b * M + m];
-    ewt[m] = in.entry_wt[(size_t)b * M + m];
+  }
+  if (tid == 0) {
+    vin[M + E] = NEG;
+    na[E] = NEG;
+    xv[M] = NEG;
+  }
+  const float* orow = obs + (size_t)b * T * E;
+  if (use_smem && T > 0) {
+    for (int e = tid; e < E; e += THREADS) cp_async4(obs_s + e, orow + e);
+    cp_async_commit();
+    cp_async_wait_all();
   }
   __syncthreads();
 
+  const int in_src0 = net.in_src[0], ex_src0 = net.ex_src[0];
   const int tb = t0[b], nv = n_valid[b];
   const float bm = beam[b];
   for (int i = 0; i < T; ++i) {
     const int t = tb + 1 + i;
     const bool valid = t <= nv;
     const size_t fr = (size_t)b * T + i;
-    const float* o = obs + fr * E;
+    const float* o = use_smem ? obs_s + (i & 1) * E : orow + (size_t)i * E;
+    if (use_smem && i + 1 < T) {
+      float* nxt = obs_s + ((i + 1) & 1) * E;
+      for (int e = tid; e < E; e += THREADS)
+        cp_async4(nxt + e, orow + (size_t)(i + 1) * E + e);
+      cp_async_commit();
+    }
 
     // phase 1: in-model and entry edges into every state, + observation
     float lmax = -INFINITY;
-    for (int e = tid; e < E; e += nthr) {
-      const int* row = net.in_dense + (size_t)e * net.Kin;
-      float best = NEG;
-      int arg = -1;
-      for (int j = 0; j < net.Kin; ++j) {
-        const int k = __ldg(row + j);
-        float v = NEG;
-        if (k >= 0)
-          v = (__ldg(net.in_entry + k) ? entry[__ldg(net.in_src_m + k)]
-                                       : alpha[__ldg(net.in_src_s + k)]) +
-              __ldg(net.in_w + k);
-        if (j == 0 || v > best) {
-          best = v;
-          arg = k;
+    {
+      const int L = tin.L, gl = lane & (L - 1), groups = THREADS / L;
+      const unsigned mask = group_mask(L, lane);
+      for (int e0 = 0; e0 < E; e0 += groups) {
+        const int e = e0 + tid / L;
+        if (e0 + (warp * 32) / L >= E) break;   // the warp's groups all past E
+        float best;
+        int bj;
+        const int ee = e < E ? e : E - 1;
+        const int2* sl = tin.slot + (size_t)ee * tin.K;
+        group_max(sl, tin.w + (size_t)ee * tin.K, tin.K, L, gl, mask,
+                  [&](int s) { return vin[s]; }, best, bj);
+        if (e < E && gl == 0) {
+          const int2 sj = sl[bj];
+          nwt[e] = win[sj.y >= 0 ? sj.x : in_src0];
+          const float a = best + o[e];
+          na[e] = a;
+          rec.in_am[fr * E + e] = sj.y;
+          lmax = fmaxf(lmax, a);
         }
       }
-      const int kc = clampi(arg, 0, net.n_in - 1);
-      nwt[e] = __ldg(net.in_entry + kc) ? ewt[__ldg(net.in_src_m + kc)]
-                                        : wt[__ldg(net.in_src_s + kc)];
-      const float a = best + __ldg(o + e);
-      na[e] = a;
-      rec.in_am[fr * E + e] = arg;
-      lmax = fmaxf(lmax, a);
     }
-    for (int m = tid; m < M; m += nthr) {
+    for (int m = tid; m < M; m += THREADS) {
       rec.entry_edge[fr * M + m] = eedge[m];
-      rec.entry_val[fr * M + m] = entry[m];
+      rec.entry_val[fr * M + m] = vin[m];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -181,114 +280,129 @@ __global__ void netscan_kernel(Net net, int T, const float* __restrict__ obs,
     if (lane == 0) warp_max[warp] = lmax;
     __syncthreads();
     float mx = warp_max[0];
-    for (int w = 1; w < nwarps; ++w) mx = fmaxf(mx, warp_max[w]);
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
     const float thresh = mx - bm;
 
     // phase 2: exits from the cut alpha
-    for (int m = tid; m < M; m += nthr) {
-      const int* row = net.ex_dense + (size_t)m * net.Kex;
-      float best = NEG;
-      int arg = -1;
-      for (int j = 0; j < net.Kex; ++j) {
-        const int k = __ldg(row + j);
-        float v = NEG;
-        if (k >= 0) v = pruned(na[__ldg(net.ex_src + k)], thresh) + __ldg(net.ex_w + k);
-        if (j == 0 || v > best) {
-          best = v;
-          arg = k;
+    {
+      const int L = tex.L, gl = lane & (L - 1), groups = THREADS / L;
+      const unsigned mask = group_mask(L, lane);
+      for (int m0 = 0; m0 < M; m0 += groups) {
+        const int m = m0 + tid / L;
+        if (m0 + (warp * 32) / L >= M) break;
+        float best;
+        int bj;
+        const int mm = m < M ? m : M - 1;
+        const int2* sl = tex.slot + (size_t)mm * tex.K;
+        group_max(sl, tex.w + (size_t)mm * tex.K, tex.K, L, gl, mask,
+                  [&](int s) { return pruned(na[s], thresh); }, best, bj);
+        if (m < M && gl == 0) {
+          const int2 sj = sl[bj];
+          xv[m] = best;
+          xwt[m] = nwt[sj.y >= 0 ? sj.x : ex_src0];
+          rec.ex_am[fr * M + m] = sj.y;
+          rec.exit_val[fr * M + m] = best;
         }
       }
-      xv[m] = best;
-      xwt[m] = nwt[__ldg(net.ex_src + clampi(arg, 0, net.n_ex - 1))];
-      rec.ex_am[fr * M + m] = arg;
-      rec.exit_val[fr * M + m] = best;
     }
     __syncthreads();
 
-    // phase 3: closure into the model entries and the sinks; the carry
-    for (int m = tid; m < M; m += nthr) {
-      const int* row = net.cm_dense + (size_t)m * net.Kcm;
-      float best = NEG;
-      int arg = -1;
-      for (int j = 0; j < net.Kcm; ++j) {
-        const int k = __ldg(row + j);
-        float v = NEG;
-        if (k >= 0) {
-          const int src = __ldg(net.cm_src + k);
-          if (src >= 0) v = xv[src] + __ldg(net.cm_w + k);
-        }
-        if (j == 0 || v > best) {
-          best = v;
-          arg = k;
-        }
-      }
-      rec.cm_am[fr * M + m] = arg;
-      if (valid) {
-        const int kc = clampi(arg, 0, net.n_cm - 1);
-        entry[m] = pruned(best, thresh);
-        eedge[m] = kc;
-        ewt[m] = __ldg(net.cm_reset + kc) ? t : xwt[max(__ldg(net.cm_src + kc), 0)];
-      }
-    }
-    for (int s = tid; s < S; s += nthr) {
-      float best = NEG;
-      int arg = 0, w = 0;
-      if (net.n_cs > 0) {
-        const int* row = net.cs_dense + (size_t)s * net.Kcs;
-        arg = -1;
-        for (int j = 0; j < net.Kcs; ++j) {
-          const int k = __ldg(row + j);
-          float v = NEG;
-          if (k >= 0) {
-            const int src = __ldg(net.cs_src + k);
-            if (src >= 0) v = xv[src] + __ldg(net.cs_w + k);
+    // phase 3: closure into the model entries, then the sinks (one list
+    // of destinations, so the sinks take the groups the entries leave)
+    {
+      const int L = tcm.L > tcs.L ? tcm.L : tcs.L;
+      const int gl = lane & (L - 1), groups = THREADS / L;
+      const unsigned mask = group_mask(L, lane);
+      const int n_dst = M + S;
+      for (int d0 = 0; d0 < n_dst; d0 += groups) {
+        const int d = d0 + tid / L;
+        if (d0 + (warp * 32) / L >= n_dst) break;
+        const bool sink = d >= M;
+        const int dd = sink ? (d - M < S ? d - M : S - 1) : d;
+        const int K = sink ? tcs.K : tcm.K;
+        if (sink && net.n_cs == 0) {
+          if (d < n_dst && gl == 0) {
+            rec.sink_val[fr * S + dd] = NEG;
+            rec.cs_am[fr * S + dd] = 0;
+            rec.sink_wt[fr * S + dd] = 0;
           }
-          if (j == 0 || v > best) {
-            best = v;
-            arg = k;
-          }
+          continue;
         }
-        w = xwt[max(__ldg(net.cs_src + clampi(arg, 0, net.n_cs - 1)), 0)];
+        float best;
+        int bj;
+        const int2* sl = (sink ? tcs.slot : tcm.slot) + (size_t)dd * K;
+        group_max(sl, (sink ? tcs.w : tcm.w) + (size_t)dd * K, K, L, gl, mask,
+                  [&](int s) { return xv[s]; }, best, bj);
+        if (d >= n_dst || gl != 0) continue;
+        const int arg = sl[bj].y;
+        if (!sink) {
+          rec.cm_am[fr * M + d] = arg;
+          if (valid) {
+            const int kc = arg < 0 ? 0 : (arg > net.n_cm - 1 ? net.n_cm - 1 : arg);
+            const int ws = net.cm_wsel[kc];
+            vin[d] = pruned(best, thresh);
+            eedge[d] = kc;
+            win[d] = ws < 0 ? t : xwt[ws];
+          }
+        } else {
+          const int kc = arg < 0 ? 0 : (arg > net.n_cs - 1 ? net.n_cs - 1 : arg);
+          rec.sink_val[fr * S + dd] = best;
+          rec.cs_am[fr * S + dd] = arg;
+          rec.sink_wt[fr * S + dd] = xwt[net.cs_wsel[kc]];
+        }
       }
-      rec.sink_val[fr * S + s] = best;
-      rec.cs_am[fr * S + s] = arg;
-      rec.sink_wt[fr * S + s] = w;
     }
     if (valid)
-      for (int e = tid; e < E; e += nthr) {
-        alpha[e] = pruned(na[e], thresh);
-        wt[e] = nwt[e];
+      for (int e = tid; e < E; e += THREADS) {
+        vin[M + e] = pruned(na[e], thresh);
+        win[M + e] = nwt[e];
       }
+    if (use_smem) cp_async_wait_all();
     __syncthreads();
   }
 
-  for (int e = tid; e < E; e += nthr) {
-    out.alpha[(size_t)b * E + e] = alpha[e];
-    out.wt[(size_t)b * E + e] = wt[e];
+  for (int e = tid; e < E; e += THREADS) {
+    out.alpha[(size_t)b * E + e] = vin[M + e];
+    out.wt[(size_t)b * E + e] = win[M + e];
   }
-  for (int m = tid; m < M; m += nthr) {
-    out.entry[(size_t)b * M + m] = entry[m];
+  for (int m = tid; m < M; m += THREADS) {
+    out.entry[(size_t)b * M + m] = vin[m];
     out.entry_edge[(size_t)b * M + m] = eedge[m];
-    out.entry_wt[(size_t)b * M + m] = ewt[m];
+    out.entry_wt[(size_t)b * M + m] = win[m];
   }
+}
+
+// lanes a destination of a row of K slots: up to 6 slots a lane, <= 32
+int lanes_for(int K) {
+  int L = 1;
+  while (L < 32 && (K + L - 1) / L > 6) L <<= 1;
+  return L;
 }
 
 }  // namespace
 
+// shared memory a block needs to hold everything (0: more than it can)
+extern "C" long long netscan_smem_bytes(int E, int M, int n_slots) {
+  const size_t n = smem_bytes(E, M, n_slots);
+  return n <= (size_t)SMEM_MAX ? (long long)n : 0;
+}
+
+// 4-byte words of a row's scratch in device memory when it does not fit
+extern "C" int netscan_scratch_words(int E, int M) { return value_words(E, M); }
+
 extern "C" int netscan(int B, int T, int E, int M, int S, int n_in, int n_ex,
                        int n_cm, int n_cs, int Kin, int Kex, int Kcm, int Kcs,
-                       const void* in_dense, const void* in_entry,
-                       const void* in_src_m, const void* in_src_s,
-                       const void* in_w, const void* ex_dense,
-                       const void* ex_src, const void* ex_w,
-                       const void* cm_dense, const void* cm_src,
-                       const void* cm_w, const void* cm_reset,
-                       const void* cs_dense, const void* cs_src,
-                       const void* cs_w, const void* obs, const void* t0,
-                       const void* n_valid, const void* beam,
-                       void* alpha, void* wt, void* entry, void* entry_edge,
-                       void* entry_wt, void* alpha_out, void* wt_out,
-                       void* entry_out, void* entry_edge_out,
+                       const void* in_slot, const void* in_slot_w,
+                       const void* in_src, const void* ex_slot,
+                       const void* ex_slot_w, const void* ex_src,
+                       const void* cm_slot, const void* cm_slot_w,
+                       const void* cm_wsel, const void* cs_slot,
+                       const void* cs_slot_w, const void* cs_wsel,
+                       const void* obs, const void* t0, const void* n_valid,
+                       const void* beam, void* alpha, void* wt, void* entry,
+                       void* entry_edge, void* entry_wt, void* alpha_out,
+                       void* wt_out, void* entry_out, void* entry_edge_out,
                        void* entry_wt_out, void* in_am, void* ex_am,
                        void* cm_am, void* r_entry_edge, void* entry_val,
                        void* sink_val, void* cs_am, void* sink_wt,
@@ -298,22 +412,15 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_in, int n_ex,
   if (T < 0 || E <= 0 || M <= 0 || S < 0 || n_in <= 0 || n_ex <= 0 ||
       n_cm <= 0 || n_cs < 0 || Kin <= 0 || Kex <= 0 || Kcm <= 0 || Kcs <= 0)
     return cudaErrorInvalidValue;
-  Net net{E, M, S, n_in, n_ex, n_cm, n_cs, Kin, Kex, Kcm, Kcs,
-          static_cast<const int*>(in_dense),
-          static_cast<const uint8_t*>(in_entry),
-          static_cast<const int*>(in_src_m),
-          static_cast<const int*>(in_src_s),
-          static_cast<const float*>(in_w),
-          static_cast<const int*>(ex_dense),
-          static_cast<const int*>(ex_src),
-          static_cast<const float*>(ex_w),
-          static_cast<const int*>(cm_dense),
-          static_cast<const int*>(cm_src),
-          static_cast<const float*>(cm_w),
-          static_cast<const uint8_t*>(cm_reset),
-          static_cast<const int*>(cs_dense),
-          static_cast<const int*>(cs_src),
-          static_cast<const float*>(cs_w)};
+  auto tab = [](const void* s, const void* w, int D, int K) {
+    return Tab{static_cast<const int2*>(s), static_cast<const float*>(w), D, K,
+               lanes_for(K)};
+  };
+  Net net{E, M, S, n_in, n_ex, n_cm, n_cs,
+          tab(in_slot, in_slot_w, E, Kin), tab(ex_slot, ex_slot_w, M, Kex),
+          tab(cm_slot, cm_slot_w, M, Kcm), tab(cs_slot, cs_slot_w, S, Kcs),
+          static_cast<const int*>(in_src), static_cast<const int*>(ex_src),
+          static_cast<const int*>(cm_wsel), static_cast<const int*>(cs_wsel)};
   Carry cin{static_cast<float*>(alpha), static_cast<int*>(wt),
             static_cast<float*>(entry), static_cast<int*>(entry_edge),
             static_cast<int*>(entry_wt)};
@@ -325,13 +432,19 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_in, int n_ex,
               static_cast<float*>(entry_val),  static_cast<float*>(sink_val),
               static_cast<int*>(cs_am),        static_cast<int*>(sink_wt),
               static_cast<float*>(exit_val)};
-  int widest = E > M ? E : M;
-  if (S > widest) widest = S;
-  int threads = (widest + 31) / 32 * 32;
-  threads = threads < 64 ? 64 : (threads > MAX_THREADS ? MAX_THREADS : threads);
-  const size_t smem = use_smem ? (size_t)4 * (4 * E + 5 * M) : 0;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  netscan_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  size_t smem = 0;
+  if (use_smem) {
+    const int n_slots = E * Kin + M * Kex + M * Kcm + S * Kcs;
+    smem = smem_bytes(E, M, n_slots);
+    if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          netscan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  netscan_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       net, T, static_cast<const float*>(obs), static_cast<const int*>(t0),
       static_cast<const int*>(n_valid), static_cast<const float*>(beam), cin,
       cout, rec, static_cast<float*>(scratch), use_smem);

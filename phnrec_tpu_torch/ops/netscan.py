@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from phnrec_tpu_torch.decoder.stknet import NEG
@@ -44,13 +45,52 @@ RECORDS = {"in_am": (torch.int32, "E"), "ex_am": (torch.int32, "M"),
            "entry_val": (torch.float32, "M"),
            "sink_val": (torch.float32, "S"), "cs_am": (torch.int32, "S"),
            "sink_wt": (torch.int32, "S"), "exit_val": (torch.float32, "M")}
-_TABLES = ("in_dense", "in_entry", "in_src_m", "in_src_s", "in_w",
-           "ex_dense", "ex_src", "ex_w", "cm_dense", "cm_src", "cm_w",
-           "cm_reset", "cs_dense", "cs_src", "cs_w")
-# the carry and the frame's new alpha, word times, exit values and exit
-# word times take 4 (4E + 5M) bytes a row; up to this many they live in
-# shared memory, beyond in a per-row scratch in device memory
-SMEM_BYTES = 48 * 1024
+# the kernel's tables, in its argument order (``slot_arrays``)
+_TABLES = ("in_slot", "in_slot_w", "in_src_comb", "ex_slot", "ex_slot_w",
+           "ex_src", "cm_slot", "cm_slot_w", "cm_wsel", "cs_slot",
+           "cs_slot_w", "cs_wsel")
+
+
+def slot_arrays(t) -> Dict[str, np.ndarray]:
+    """Kernel G's tables from a network's ``EdgeTables``: each dense row
+    as slots, (source index into the phase's values, edge id) int32 pairs
+    and float32 weights.  The values are [entry (M) | alpha (E) | NEG] for
+    the in-model pass, [alpha (E) | NEG] for the exits and [exit values
+    (M) | NEG] for the closure and the sinks; a pad (id -1) or a START
+    edge reads the NEG sentinel with weight 0, so its value is NEG
+    exactly.  Also each in-model edge's source (``in_src_comb``, which
+    the word time of a -1 winner reads at edge 0), and the word-time
+    source of each closure edge (-1 where it resets) and sink edge."""
+    M, E = t.n_models, t.n_states
+    in_src = np.where(t.in_entry, np.clip(t.in_src, 0, M - 1),
+                      M + np.clip(t.in_src, 0, E - 1)).astype(np.int32)
+
+    def slots(dense, src_of, w_of, sentinel):
+        pad = dense < 0
+        k = np.maximum(dense, 0)
+        if len(src_of):
+            src = np.where(pad, sentinel, src_of[k])
+            w = np.where(pad, np.float32(0), w_of[k])
+        else:
+            src, w = np.full(dense.shape, sentinel), np.zeros(dense.shape)
+        return (np.stack([src, dense], -1).astype(np.int32),
+                np.asarray(w, np.float32))
+
+    out = {"in_src_comb": in_src}
+    out["in_slot"], out["in_slot_w"] = slots(t.in_dense, in_src, t.in_w,
+                                             M + E)
+    out["ex_slot"], out["ex_slot_w"] = slots(t.ex_dense, t.ex_src, t.ex_w, E)
+    for x in ("cm", "cs"):
+        src, w = getattr(t, f"{x}_src"), getattr(t, f"{x}_w")
+        live = src >= 0
+        out[f"{x}_slot"], out[f"{x}_slot_w"] = slots(
+            getattr(t, f"{x}_dense"), np.where(live, src, M),
+            np.where(live, w, np.float32(0)), M)
+    out["cm_wsel"] = np.where(t.cm_reset, -1,
+                              np.maximum(t.cm_src, 0)).astype(np.int32)
+    out["cs_wsel"] = (np.maximum(t.cs_src, 0).astype(np.int32)
+                      if len(t.cs_src) else np.zeros(1, np.int32))
+    return out
 
 
 def _dense_max_argmax(vals: torch.Tensor, dense: torch.Tensor):
@@ -139,15 +179,19 @@ def _width(name: str, E: int, M: int, S: int) -> int:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument types of a kernel-G library's entry point."""
+    """Set the argument types of a kernel-G library's entry points."""
     fn = lib.netscan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 13 + [ctypes.c_void_p] * 15
+        fn.argtypes = ([ctypes.c_int] * 13 + [ctypes.c_void_p] * 12
                        + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 10
                        + [ctypes.c_void_p] * 9 + [ctypes.c_void_p,
                                                    ctypes.c_int,
                                                    ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.netscan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.netscan_smem_bytes.restype = ctypes.c_longlong
+        lib.netscan_scratch_words.argtypes = [ctypes.c_int] * 2
+        lib.netscan_scratch_words.restype = ctypes.c_int
     return lib
 
 
@@ -155,50 +199,41 @@ def _lib():
     return bind(_build.load("netscan"))
 
 
-def scratch_words(E: int, M: int) -> int:
-    """The 4-byte words of a row's carry and frame values."""
-    return 4 * E + 5 * M
-
-
 def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
            t0: torch.Tensor, n_valid: torch.Tensor, beam: torch.Tensor,
            tb: Dict[str, torch.Tensor], force_global: bool = False
            ) -> Tuple[Carry, Dict[str, torch.Tensor]]:
     """Launch the kernel of ``lib`` (a bound kernel-G library) on CUDA
-    tensors; raises on anything it does not take.  ``force_global`` keeps
-    the per-row values in device memory even where shared memory would
-    hold them (both paths are held to the plain version).  Counts
-    nothing."""
+    tensors; raises on anything it does not take.  Where a row's values,
+    two frames of observations and the slot tables fit a block's shared
+    memory they live there, else in device memory; ``force_global`` takes
+    device memory in any case (both paths are held to the plain
+    version).  Counts nothing."""
     device = _build.cuda_device(obs)
     if obs.dim() != 3:
         raise ValueError("obs must be [B, T, E]")
     B, T, E = obs.shape
-    M = tb["ex_dense"].shape[0]
-    S = tb["cs_dense"].shape[0]
-    dims = dict(
-        Kin=tb["in_dense"].shape[1], Kex=tb["ex_dense"].shape[1],
-        Kcm=tb["cm_dense"].shape[1], Kcs=tb["cs_dense"].shape[1],
-        n_in=tb["in_w"].shape[0], n_ex=tb["ex_w"].shape[0],
-        n_cm=tb["cm_w"].shape[0], n_cs=tb["cs_w"].shape[0])
-    if tb["in_dense"].shape[0] != E or tb["cm_dense"].shape[0] != M:
+    M = tb["ex_slot"].shape[0]
+    S = tb["cs_slot"].shape[0]
+    K = {x: tb[f"{x}_slot"].shape[1] for x in ("in", "ex", "cm", "cs")}
+    n = {"in": tb["in_src_comb"].shape[0], "ex": tb["ex_src"].shape[0],
+         "cm": tb["cm_wsel"].shape[0], "cs": tb["cs_w"].shape[0]}
+    if tb["in_slot"].shape[0] != E or tb["cm_slot"].shape[0] != M:
         raise ValueError("tables do not match obs's state count")
-    if min(E, M, dims["n_in"], dims["n_ex"], dims["n_cm"]) < 1:
+    if min(E, M, n["in"], n["ex"], n["cm"]) < 1:
         raise ValueError("kernel G needs states, models, in-model, exit "
                          "and closure edges")
     if B * T * max(E, M, S, 1) >= 2 ** 31 or B > 2 ** 31 - 1:
         raise ValueError("block too large for 32-bit offsets")
-    shapes = {"in_dense": (E, dims["Kin"]), "in_entry": (dims["n_in"],),
-              "in_src_m": (dims["n_in"],), "in_src_s": (dims["n_in"],),
-              "in_w": (dims["n_in"],), "ex_dense": (M, dims["Kex"]),
-              "ex_src": (dims["n_ex"],), "ex_w": (dims["n_ex"],),
-              "cm_dense": (M, dims["Kcm"]), "cm_src": (dims["n_cm"],),
-              "cm_w": (dims["n_cm"],), "cm_reset": (dims["n_cm"],),
-              "cs_dense": (S, dims["Kcs"]), "cs_src": (dims["n_cs"],),
-              "cs_w": (dims["n_cs"],)}
-    for k in _TABLES:
-        dt = (torch.float32 if k.endswith("_w") else torch.bool
-              if k in ("in_entry", "cm_reset") else torch.int32)
-        _build.require(tb[k], k, dt, shapes[k], device)
+    rows = {"in": E, "ex": M, "cm": M, "cs": S}
+    for x in rows:
+        _build.require(tb[f"{x}_slot"], f"{x}_slot", torch.int32,
+                       (rows[x], K[x], 2), device)
+        _build.require(tb[f"{x}_slot_w"], f"{x}_slot_w", torch.float32,
+                       (rows[x], K[x]), device)
+    for k, m in (("in_src_comb", n["in"]), ("ex_src", n["ex"]),
+                 ("cm_wsel", n["cm"]), ("cs_wsel", max(n["cs"], 1))):
+        _build.require(tb[k], k, torch.int32, (m,), device)
     _build.require(obs, "obs", torch.float32, (B, T, E), device)
     for name, t in (("t0", t0), ("n_valid", n_valid)):
         _build.require(t, name, torch.int32, (B,), device)
@@ -212,18 +247,17 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
     recs = {k: torch.empty((B, T, _width(k, E, M, S)), dtype=dt,
                            device=device)
             for k, (dt, _) in RECORDS.items()}
-    words = scratch_words(E, M)
-    use_smem = not force_global and 4 * words <= SMEM_BYTES
-    scratch = (torch.empty(0, device=device) if use_smem
-               else torch.empty(B * words, device=device))
+    n_slots = sum(rows[x] * K[x] for x in rows)
+    use_smem = not force_global and lib.netscan_smem_bytes(E, M, n_slots) > 0
+    scratch = torch.empty(0 if use_smem else
+                          B * lib.netscan_scratch_words(E, M), device=device)
     if B == 0:
         return out_carry, recs
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.netscan(
-            B, T, E, M, S, dims["n_in"], dims["n_ex"], dims["n_cm"],
-            dims["n_cs"], dims["Kin"], dims["Kex"], dims["Kcm"],
-            dims["Kcs"], *(tb[k].data_ptr() for k in _TABLES),
+            B, T, E, M, S, n["in"], n["ex"], n["cm"], n["cs"], K["in"],
+            K["ex"], K["cm"], K["cs"], *(tb[k].data_ptr() for k in _TABLES),
             obs.data_ptr(), t0.data_ptr(), n_valid.data_ptr(),
             beam.data_ptr(), *(t.data_ptr() for t in carry),
             *(t.data_ptr() for t in out_carry),
