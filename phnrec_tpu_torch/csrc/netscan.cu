@@ -35,20 +35,23 @@
 // frames, repeated T times, is the time.  The first version of this
 // kernel (a thread per destination, each slot's source found through two
 // dependent table loads, the sink row walked by the thread that had just
-// walked a closure row) took ~25,300 clocks a frame (PERF.md).
+// walked a closure row) took ~25,200 clocks a frame; slot tables and lane
+// groups of 8 took it to ~8,000 (PERF.md).
 //
 // Design: a block per row, 256 threads, three barriers a frame.
-// * Each dense row is a list of slots, made once on the host
-//   (ops/netscan.slot_arrays): the slot's source as an index into the
-//   phase's value array ([entry | alpha | NEG] for the in-model pass,
-//   [alpha' | NEG] for the exits, [exit values | NEG] for the closure and
-//   sinks; a pad or a START edge reads the NEG sentinel with weight 0, so
-//   its value is NEG exactly, as JAX's), its edge id and its weight: one
-//   load a slot, no dependent table load.
+// * Each dense row is a list of 16-byte slots, made once on the host
+//   (ops/netscan.slot_arrays): the source as an index into the phase's
+//   value array ([entry | alpha | NEG] for the in-model pass, [alpha' |
+//   NEG] for the exits, [exit values | NEG] for the closure and sinks; a
+//   pad or a START edge reads the NEG sentinel with weight 0, so its value
+//   is NEG exactly, as JAX's), the edge id, the word-time source of the
+//   edge (of edge 0 for a pad, as JAX's clip; -1 where the closure edge
+//   resets the word time) and the weight: one shared load a slot.
 // * A group of L lanes takes a destination (L from the row's width: 1 for
-//   2 slots, 8 for 47), each lane a strided share of its slots, then a
-//   shuffle reduction keeping the larger value and, on equal values, the
-//   smaller slot: the first maximum, as JAX's argmax.
+//   2 slots, 4 for 47, so the CZ loop's 47 entries and its sink take one
+//   round of the block's 64 groups), each lane a strided share of its
+//   slots, then a shuffle reduction keeping the larger value and, on equal
+//   values, the smaller slot: the first maximum, as JAX's argmax.
 // * The slots, the carry and the frame's values live in shared memory,
 //   and the next frame's observations are copied in by cp.async while a
 //   frame runs, where they fit (up to 227 KB); otherwise the values sit
@@ -67,19 +70,16 @@ constexpr float NEG = -1e30f;
 constexpr int THREADS = 256;
 constexpr int SMEM_MAX = 232448;   // 227 KB, the H100's per-block opt-in
 
+// a slot: x source index, y edge id (-1: pad), z word-time source (-1:
+// reset to t), w the weight's bits
 struct Tab {
-  const int2* slot;    // [D * K]: (source index, edge id or -1)
-  const float* w;      // [D * K]
+  const int4* slot;    // [D * K]
   int D, K, L;         // destinations, slots a row, lanes a destination
 };
 
 struct Net {
-  int E, M, S, n_in, n_ex, n_cm, n_cs;
+  int E, M, S, n_cs;
   Tab in, ex, cm, cs;
-  const int* __restrict__ in_src;    // [n_in] source index of each edge
-  const int* __restrict__ ex_src;    // [n_ex]
-  const int* __restrict__ cm_wsel;   // [n_cm] -1: word time reset; else xwt index
-  const int* __restrict__ cs_wsel;   // [n_cs] xwt index
 };
 
 struct Carry {
@@ -108,14 +108,10 @@ __host__ __device__ inline int value_words(int E, int M) {
   return 4 * E + 5 * M + 3;
 }
 
-// the values, two frames of observations, then each table's slots (8-byte
-// aligned) and weights
+// the values, two frames of observations, then the slots (16-byte
+// aligned)
 __host__ __device__ inline size_t smem_bytes(int E, int M, int n_slots) {
-  return 4 * ((size_t)value_words(E, M) + 2 * (size_t)E) + 12 * (size_t)n_slots + 40;
-}
-
-__device__ __forceinline__ char* align8(char* p) {
-  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 7) & ~(uintptr_t)7);
+  return 4 * ((size_t)value_words(E, M) + 2 * (size_t)E) + 16 + 16 * (size_t)n_slots;
 }
 
 __device__ __forceinline__ float pruned(float v, float thresh) {
@@ -136,17 +132,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The first maximum of one destination's row, by the L lanes of a group
-// (aligned within its warp); every lane of the group returns it.  A lane
-// starts at its first slot, so a row whose values are all -inf still
-// yields its slot 0, as argmax does.
+// (aligned within its warp); every lane of the group returns the value
+// and the slot.  A lane starts at its first slot, so a row whose values
+// are all -inf still yields its slot 0, as argmax does.
 template <class Val>
-__device__ __forceinline__ void group_max(const int2* slot, const float* w, int K,
-                                          int L, int gl, unsigned mask, Val val,
+__device__ __forceinline__ void group_max(const int4* slot, int K, int L,
+                                          int gl, unsigned mask, Val val,
                                           float& best, int& bj) {
   best = -INFINITY;
   bj = 0x7fffffff;
+#pragma unroll 4
   for (int j = gl; j < K; j += L) {
-    const float v = val(slot[j].x) + w[j];
+    const int4 sl = slot[j];
+    const float v = val(sl.x) + __int_as_float(sl.w);
     if (bj == 0x7fffffff || v > best) {
       best = v;
       bj = j;
@@ -166,24 +164,29 @@ __device__ __forceinline__ unsigned group_mask(int L, int lane) {
   return L == 32 ? 0xffffffffu : (((1u << L) - 1u) << (lane & ~(L - 1)));
 }
 
-__device__ void stage(void* dst, const void* src, size_t bytes) {
-  auto* d = static_cast<int*>(dst);
-  auto* s = static_cast<const int*>(src);
-  for (size_t i = threadIdx.x; i < bytes / 4; i += blockDim.x) d[i] = s[i];
+// copy a table's slots to shared memory at p; returns p
+__device__ __forceinline__ const int4* stage(int4* p, const Tab& t) {
+  const size_t n = (size_t)t.D * t.K;
+  for (size_t i = threadIdx.x; i < n; i += blockDim.x) p[i] = t.slot[i];
+  return p;
 }
 
+// SMEM: the values, observations and slots in shared memory (a template
+// parameter, so the compiler sees the address space of every access and
+// may reorder them around the record stores); else in device memory.
+template <bool SMEM>
 __global__ void __launch_bounds__(THREADS)
 netscan_kernel(Net net, int T, const float* __restrict__ obs,
                const int* __restrict__ t0, const int* __restrict__ n_valid,
                const float* __restrict__ beam, Carry in, Carry out,
-               Records rec, float* scratch, int use_smem) {
+               Records rec, float* scratch) {
   extern __shared__ float smem[];
   __shared__ float warp_max[THREADS / 32];
   const int E = net.E, M = net.M, S = net.S;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  float* base = use_smem ? smem : scratch + (size_t)b * value_words(E, M);
+  float* base = SMEM ? smem : scratch + (size_t)b * value_words(E, M);
   float* vin = base;                                  // [entry | alpha | NEG]
   int* win = reinterpret_cast<int*>(vin + M + E + 1); // [entry_wt | wt]
   float* na = reinterpret_cast<float*>(win + M + E);  // [new alpha | NEG]
@@ -195,19 +198,16 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
 
   // the slot tables: staged into shared memory, or read where they are
   Tab tin = net.in, tex = net.ex, tcm = net.cm, tcs = net.cs;
-  if (use_smem) {
-    char* p = reinterpret_cast<char*>(obs_s + 2 * E);
-    Tab* tabs[4] = {&tin, &tex, &tcm, &tcs};
-    for (Tab* t : tabs) {
-      const size_t n = (size_t)t->D * t->K;
-      p = align8(p);
-      stage(p, t->slot, 8 * n);
-      t->slot = reinterpret_cast<const int2*>(p);
-      p += 8 * n;
-      stage(p, t->w, 4 * n);
-      t->w = reinterpret_cast<const float*>(p);
-      p += 4 * n;
-    }
+  if (SMEM) {
+    int4* p = reinterpret_cast<int4*>(
+        (reinterpret_cast<uintptr_t>(obs_s + 2 * E) + 15) & ~(uintptr_t)15);
+    tin.slot = stage(p, net.in);
+    p += (size_t)tin.D * tin.K;
+    tex.slot = stage(p, net.ex);
+    p += (size_t)tex.D * tex.K;
+    tcm.slot = stage(p, net.cm);
+    p += (size_t)tcm.D * tcm.K;
+    tcs.slot = stage(p, net.cs);
   }
   for (int e = tid; e < E; e += THREADS) {
     vin[M + e] = in.alpha[(size_t)b * E + e];
@@ -224,22 +224,21 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
     xv[M] = NEG;
   }
   const float* orow = obs + (size_t)b * T * E;
-  if (use_smem && T > 0) {
+  if (SMEM && T > 0) {
     for (int e = tid; e < E; e += THREADS) cp_async4(obs_s + e, orow + e);
     cp_async_commit();
     cp_async_wait_all();
   }
   __syncthreads();
 
-  const int in_src0 = net.in_src[0], ex_src0 = net.ex_src[0];
   const int tb = t0[b], nv = n_valid[b];
   const float bm = beam[b];
   for (int i = 0; i < T; ++i) {
     const int t = tb + 1 + i;
     const bool valid = t <= nv;
     const size_t fr = (size_t)b * T + i;
-    const float* o = use_smem ? obs_s + (i & 1) * E : orow + (size_t)i * E;
-    if (use_smem && i + 1 < T) {
+    const float* o = SMEM ? obs_s + (i & 1) * E : orow + (size_t)i * E;
+    if (SMEM && i + 1 < T) {
       float* nxt = obs_s + ((i + 1) & 1) * E;
       for (int e = tid; e < E; e += THREADS)
         cp_async4(nxt + e, orow + (size_t)(i + 1) * E + e);
@@ -257,12 +256,12 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         float best;
         int bj;
         const int ee = e < E ? e : E - 1;
-        const int2* sl = tin.slot + (size_t)ee * tin.K;
-        group_max(sl, tin.w + (size_t)ee * tin.K, tin.K, L, gl, mask,
-                  [&](int s) { return vin[s]; }, best, bj);
+        const int4* sl = tin.slot + (size_t)ee * tin.K;
+        group_max(sl, tin.K, L, gl, mask, [&](int s) { return vin[s]; },
+                  best, bj);
         if (e < E && gl == 0) {
-          const int2 sj = sl[bj];
-          nwt[e] = win[sj.y >= 0 ? sj.x : in_src0];
+          const int4 sj = sl[bj];
+          nwt[e] = win[sj.z];
           const float a = best + o[e];
           na[e] = a;
           rec.in_am[fr * E + e] = sj.y;
@@ -279,10 +278,11 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
       lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
     if (lane == 0) warp_max[warp] = lmax;
     __syncthreads();
-    float mx = warp_max[0];
+    float mx = lane < THREADS / 32 ? warp_max[lane] : -INFINITY;
 #pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-    const float thresh = mx - bm;
+    for (int off = THREADS / 64; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float thresh = __shfl_sync(0xffffffffu, mx, 0) - bm;
 
     // phase 2: exits from the cut alpha
     {
@@ -294,13 +294,13 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         float best;
         int bj;
         const int mm = m < M ? m : M - 1;
-        const int2* sl = tex.slot + (size_t)mm * tex.K;
-        group_max(sl, tex.w + (size_t)mm * tex.K, tex.K, L, gl, mask,
+        const int4* sl = tex.slot + (size_t)mm * tex.K;
+        group_max(sl, tex.K, L, gl, mask,
                   [&](int s) { return pruned(na[s], thresh); }, best, bj);
         if (m < M && gl == 0) {
-          const int2 sj = sl[bj];
+          const int4 sj = sl[bj];
           xv[m] = best;
-          xwt[m] = nwt[sj.y >= 0 ? sj.x : ex_src0];
+          xwt[m] = nwt[sj.z];
           rec.ex_am[fr * M + m] = sj.y;
           rec.exit_val[fr * M + m] = best;
         }
@@ -331,25 +331,21 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         }
         float best;
         int bj;
-        const int2* sl = (sink ? tcs.slot : tcm.slot) + (size_t)dd * K;
-        group_max(sl, (sink ? tcs.w : tcm.w) + (size_t)dd * K, K, L, gl, mask,
-                  [&](int s) { return xv[s]; }, best, bj);
+        const int4* sl = (sink ? tcs.slot : tcm.slot) + (size_t)dd * K;
+        group_max(sl, K, L, gl, mask, [&](int s) { return xv[s]; }, best, bj);
         if (d >= n_dst || gl != 0) continue;
-        const int arg = sl[bj].y;
+        const int4 sj = sl[bj];
         if (!sink) {
-          rec.cm_am[fr * M + d] = arg;
+          rec.cm_am[fr * M + d] = sj.y;
           if (valid) {
-            const int kc = arg < 0 ? 0 : (arg > net.n_cm - 1 ? net.n_cm - 1 : arg);
-            const int ws = net.cm_wsel[kc];
             vin[d] = pruned(best, thresh);
-            eedge[d] = kc;
-            win[d] = ws < 0 ? t : xwt[ws];
+            eedge[d] = sj.y > 0 ? sj.y : 0;
+            win[d] = sj.z < 0 ? t : xwt[sj.z];
           }
         } else {
-          const int kc = arg < 0 ? 0 : (arg > net.n_cs - 1 ? net.n_cs - 1 : arg);
           rec.sink_val[fr * S + dd] = best;
-          rec.cs_am[fr * S + dd] = arg;
-          rec.sink_wt[fr * S + dd] = xwt[net.cs_wsel[kc]];
+          rec.cs_am[fr * S + dd] = sj.y;
+          rec.sink_wt[fr * S + dd] = xwt[sj.z];
         }
       }
     }
@@ -358,7 +354,7 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         vin[M + e] = pruned(na[e], thresh);
         win[M + e] = nwt[e];
       }
-    if (use_smem) cp_async_wait_all();
+    if (SMEM) cp_async_wait_all();
     __syncthreads();
   }
 
@@ -373,10 +369,10 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
   }
 }
 
-// lanes a destination of a row of K slots: up to 6 slots a lane, <= 32
+// lanes a destination of a row of K slots: up to 12 slots a lane, <= 32
 int lanes_for(int K) {
   int L = 1;
-  while (L < 32 && (K + L - 1) / L > 6) L <<= 1;
+  while (L < 32 && (K + L - 1) / L > 12) L <<= 1;
   return L;
 }
 
@@ -391,14 +387,10 @@ extern "C" long long netscan_smem_bytes(int E, int M, int n_slots) {
 // 4-byte words of a row's scratch in device memory when it does not fit
 extern "C" int netscan_scratch_words(int E, int M) { return value_words(E, M); }
 
-extern "C" int netscan(int B, int T, int E, int M, int S, int n_in, int n_ex,
-                       int n_cm, int n_cs, int Kin, int Kex, int Kcm, int Kcs,
-                       const void* in_slot, const void* in_slot_w,
-                       const void* in_src, const void* ex_slot,
-                       const void* ex_slot_w, const void* ex_src,
-                       const void* cm_slot, const void* cm_slot_w,
-                       const void* cm_wsel, const void* cs_slot,
-                       const void* cs_slot_w, const void* cs_wsel,
+extern "C" int netscan(int B, int T, int E, int M, int S, int n_cs,
+                       int Kin, int Kex, int Kcm, int Kcs,
+                       const void* in_slot, const void* ex_slot,
+                       const void* cm_slot, const void* cs_slot,
                        const void* obs, const void* t0, const void* n_valid,
                        const void* beam, void* alpha, void* wt, void* entry,
                        void* entry_edge, void* entry_wt, void* alpha_out,
@@ -409,18 +401,14 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_in, int n_ex,
                        void* exit_val, void* scratch, int use_smem,
                        void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (T < 0 || E <= 0 || M <= 0 || S < 0 || n_in <= 0 || n_ex <= 0 ||
-      n_cm <= 0 || n_cs < 0 || Kin <= 0 || Kex <= 0 || Kcm <= 0 || Kcs <= 0)
+  if (T < 0 || E <= 0 || M <= 0 || S < 0 || n_cs < 0 || Kin <= 0 ||
+      Kex <= 0 || Kcm <= 0 || Kcs <= 0)
     return cudaErrorInvalidValue;
-  auto tab = [](const void* s, const void* w, int D, int K) {
-    return Tab{static_cast<const int2*>(s), static_cast<const float*>(w), D, K,
-               lanes_for(K)};
+  auto tab = [](const void* s, int D, int K) {
+    return Tab{static_cast<const int4*>(s), D, K, lanes_for(K)};
   };
-  Net net{E, M, S, n_in, n_ex, n_cm, n_cs,
-          tab(in_slot, in_slot_w, E, Kin), tab(ex_slot, ex_slot_w, M, Kex),
-          tab(cm_slot, cm_slot_w, M, Kcm), tab(cs_slot, cs_slot_w, S, Kcs),
-          static_cast<const int*>(in_src), static_cast<const int*>(ex_src),
-          static_cast<const int*>(cm_wsel), static_cast<const int*>(cs_wsel)};
+  Net net{E, M, S, n_cs, tab(in_slot, E, Kin), tab(ex_slot, M, Kex),
+          tab(cm_slot, M, Kcm), tab(cs_slot, S, Kcs)};
   Carry cin{static_cast<float*>(alpha), static_cast<int*>(wt),
             static_cast<float*>(entry), static_cast<int*>(entry_edge),
             static_cast<int*>(entry_wt)};
@@ -432,21 +420,26 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_in, int n_ex,
               static_cast<float*>(entry_val),  static_cast<float*>(sink_val),
               static_cast<int*>(cs_am),        static_cast<int*>(sink_wt),
               static_cast<float*>(exit_val)};
-  size_t smem = 0;
-  if (use_smem) {
-    const int n_slots = E * Kin + M * Kex + M * Kcm + S * Kcs;
-    smem = smem_bytes(E, M, n_slots);
-    if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          netscan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return err;
-    }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<const float*>(obs);
+  auto* tz = static_cast<const int*>(t0);
+  auto* nv = static_cast<const int*>(n_valid);
+  auto* bm = static_cast<const float*>(beam);
+  if (!use_smem) {
+    netscan_kernel<false><<<B, THREADS, 0, s>>>(
+        net, T, o, tz, nv, bm, cin, cout, rec, static_cast<float*>(scratch));
+    return cudaGetLastError();
   }
-  netscan_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      net, T, static_cast<const float*>(obs), static_cast<const int*>(t0),
-      static_cast<const int*>(n_valid), static_cast<const float*>(beam), cin,
-      cout, rec, static_cast<float*>(scratch), use_smem);
+  const size_t smem =
+      smem_bytes(E, M, E * Kin + M * Kex + M * Kcm + S * Kcs);
+  if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        netscan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  netscan_kernel<true><<<B, THREADS, smem, s>>>(net, T, o, tz, nv, bm, cin,
+                                                cout, rec, nullptr);
   return cudaGetLastError();
 }

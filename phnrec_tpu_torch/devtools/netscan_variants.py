@@ -6,7 +6,7 @@ csrc/netscan.cu) on one CUDA card, each with its own wrapper.
 
 A source without a wrapper file is launched by the package's
 ops/netscan.py; an earlier source comes with the ops/netscan.py of its
-commit, e.g. ``git show e0c5b1a:phnrec_tpu_torch/csrc/netscan.cu >
+commit (whose ``slot_arrays``, where it has one, makes its tables), e.g. ``git show e0c5b1a:phnrec_tpu_torch/csrc/netscan.cu >
 build/netscan_v1.cu`` and ``git show e0c5b1a:phnrec_tpu_torch/ops/netscan.py
 > build/netscan_v1_ops.py``.  Every source is built (package nvcc flags,
 into build/phnrec_tpu_torch/variants/, registers and spills printed) and
@@ -49,6 +49,15 @@ def _wrapper(path: str):
     return mod
 
 
+def _tables(mod, dec, dev):
+    """The edge tables as ``mod``'s launch reads them."""
+    tb = dict(dec.edge_tables(dev))
+    if hasattr(mod, "slot_arrays"):
+        tb.update({k: torch.tensor(v, device=dev)
+                   for k, v in mod.slot_arrays(dec.tables).items()})
+    return tb
+
+
 def _inputs(dec, dev, B, T, seed, beam=None):
     rng = np.random.default_rng(seed)
     D = int(dec.c.obs_index.max()) + 1
@@ -59,7 +68,7 @@ def _inputs(dec, dev, B, T, seed, beam=None):
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa
     return (dec.init_carry(dev, B), obs, i32(np.zeros(B)), i32(nv),
             torch.full((B,), float(OFF_BEAM if beam is None else beam),
-                       device=dev), dec.edge_tables(dev))
+                       device=dev))
 
 
 def _equal(got, want) -> bool:
@@ -91,26 +100,27 @@ def main(argv) -> int:
     en = SpeechRec(synth.write_kws_package(
         os.path.join(tmp, "en"), "en", seed=0), device=dev)
     czd, end = cz.stk_decoder.decoder, en.stk_decoder.decoder
-    cases = {"cz_256x500": (_inputs(czd, dev, 256, 500, 1), {}),
-             "cz_global": (_inputs(czd, dev, 64, 200, 2),
+    cases = {"cz_256x500": (czd, _inputs(czd, dev, 256, 500, 1), {}),
+             "cz_global": (czd, _inputs(czd, dev, 64, 200, 2),
                            {"force_global": True}),
-             "en_8x1000_beam": (_inputs(end, dev, 8, 1000, 3, beam=4.0),
+             "en_8x1000_beam": (end, _inputs(end, dev, 8, 1000, 3, beam=4.0),
                                 {})}
     ok = True
-    for name, (args, kw) in cases.items():
-        want = netscan.netscan_plain(*args)
+    for name, (dec, args, kw) in cases.items():
+        want = netscan.netscan_plain(*args, dec.edge_tables(dev))
         for tag, mod, lib in variants:
-            got = mod.launch(lib, *args, **kw)
+            got = mod.launch(lib, *args, _tables(mod, dec, dev), **kw)
             torch.cuda.synchronize()
             same = _equal(got, want)
             ok &= same
             print(json.dumps({"check": name, "variant": tag,
                               "bit_equal": same}), flush=True)
-    args = cases["cz_256x500"][0]
+    dec, args, _ = cases["cz_256x500"]
     T = args[1].shape[1]
     runs = {tag: [] for tag, _, _ in variants}
     for tag, mod, lib in variants + variants[::-1]:
-        fn = lambda: mod.launch(lib, *args)  # noqa: E731
+        tb = _tables(mod, dec, dev)
+        fn = lambda: mod.launch(lib, *args, tb)  # noqa: E731
         ms, held = cuda_ms(fn), held_ms(fn)
         mhz = sm_clock(fn, max(ms, 0.2))
         runs[tag].append(dict(ms=ms, held_ms=held, sm_clock_mhz=mhz,

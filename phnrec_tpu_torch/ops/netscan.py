@@ -45,52 +45,46 @@ RECORDS = {"in_am": (torch.int32, "E"), "ex_am": (torch.int32, "M"),
            "entry_val": (torch.float32, "M"),
            "sink_val": (torch.float32, "S"), "cs_am": (torch.int32, "S"),
            "sink_wt": (torch.int32, "S"), "exit_val": (torch.float32, "M")}
-# the kernel's tables, in its argument order (``slot_arrays``)
-_TABLES = ("in_slot", "in_slot_w", "in_src_comb", "ex_slot", "ex_slot_w",
-           "ex_src", "cm_slot", "cm_slot_w", "cm_wsel", "cs_slot",
-           "cs_slot_w", "cs_wsel")
+_SLOTS = ("in_slot", "ex_slot", "cm_slot", "cs_slot")
 
 
 def slot_arrays(t) -> Dict[str, np.ndarray]:
     """Kernel G's tables from a network's ``EdgeTables``: each dense row
-    as slots, (source index into the phase's values, edge id) int32 pairs
-    and float32 weights.  The values are [entry (M) | alpha (E) | NEG] for
-    the in-model pass, [alpha (E) | NEG] for the exits and [exit values
-    (M) | NEG] for the closure and the sinks; a pad (id -1) or a START
-    edge reads the NEG sentinel with weight 0, so its value is NEG
-    exactly.  Also each in-model edge's source (``in_src_comb``, which
-    the word time of a -1 winner reads at edge 0), and the word-time
-    source of each closure edge (-1 where it resets) and sink edge."""
+    [D, K] as slots [D, K, 4] int32 of (source index into the phase's
+    values, edge id, word-time source, weight's float32 bits).  The values
+    are [entry (M) | alpha (E) | NEG] for the in-model pass (word times
+    [entry_wt | wt]), [alpha (E) | NEG] for the exits and [exit values
+    (M) | NEG] for the closure and the sinks (word times those of the
+    exits); a pad (id -1) or a START edge reads the NEG sentinel with
+    weight 0, so its value is NEG exactly.  A pad's word-time source is
+    edge 0's, as JAX clips a -1 winner to edge 0; a closure edge that
+    crosses words has -1 (the word time resets to t)."""
     M, E = t.n_models, t.n_states
     in_src = np.where(t.in_entry, np.clip(t.in_src, 0, M - 1),
-                      M + np.clip(t.in_src, 0, E - 1)).astype(np.int32)
+                      M + np.clip(t.in_src, 0, E - 1))
 
-    def slots(dense, src_of, w_of, sentinel):
+    def slots(dense, src, wsel, w, sentinel):
         pad = dense < 0
         k = np.maximum(dense, 0)
-        if len(src_of):
-            src = np.where(pad, sentinel, src_of[k])
-            w = np.where(pad, np.float32(0), w_of[k])
-        else:
-            src, w = np.full(dense.shape, sentinel), np.zeros(dense.shape)
-        return (np.stack([src, dense], -1).astype(np.int32),
-                np.asarray(w, np.float32))
+        if not len(src):                 # no edges: every slot a pad
+            src = wsel = np.zeros(1, np.int64)
+            w = np.zeros(1, np.float32)
+        out = np.stack([np.where(pad, sentinel, src[k]), dense,
+                        np.where(pad, wsel[0], wsel[k]),
+                        np.where(pad, np.float32(0), w[k]).astype(
+                            np.float32).view(np.int32)], -1)
+        return out.astype(np.int32)
 
-    out = {"in_src_comb": in_src}
-    out["in_slot"], out["in_slot_w"] = slots(t.in_dense, in_src, t.in_w,
-                                             M + E)
-    out["ex_slot"], out["ex_slot_w"] = slots(t.ex_dense, t.ex_src, t.ex_w, E)
-    for x in ("cm", "cs"):
-        src, w = getattr(t, f"{x}_src"), getattr(t, f"{x}_w")
-        live = src >= 0
-        out[f"{x}_slot"], out[f"{x}_slot_w"] = slots(
-            getattr(t, f"{x}_dense"), np.where(live, src, M),
-            np.where(live, w, np.float32(0)), M)
-    out["cm_wsel"] = np.where(t.cm_reset, -1,
-                              np.maximum(t.cm_src, 0)).astype(np.int32)
-    out["cs_wsel"] = (np.maximum(t.cs_src, 0).astype(np.int32)
-                      if len(t.cs_src) else np.zeros(1, np.int32))
-    return out
+    live_cm, live_cs = t.cm_src >= 0, t.cs_src >= 0
+    return {
+        "in_slot": slots(t.in_dense, in_src, in_src, t.in_w, M + E),
+        "ex_slot": slots(t.ex_dense, t.ex_src, t.ex_src, t.ex_w, E),
+        "cm_slot": slots(t.cm_dense, np.where(live_cm, t.cm_src, M),
+                         np.where(t.cm_reset, -1, np.maximum(t.cm_src, 0)),
+                         np.where(live_cm, t.cm_w, np.float32(0)), M),
+        "cs_slot": slots(t.cs_dense, np.where(live_cs, t.cs_src, M),
+                         np.maximum(t.cs_src, 0),
+                         np.where(live_cs, t.cs_w, np.float32(0)), M)}
 
 
 def _dense_max_argmax(vals: torch.Tensor, dense: torch.Tensor):
@@ -182,7 +176,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a kernel-G library's entry points."""
     fn = lib.netscan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 13 + [ctypes.c_void_p] * 12
+        fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_void_p] * 4
                        + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 10
                        + [ctypes.c_void_p] * 9 + [ctypes.c_void_p,
                                                    ctypes.c_int,
@@ -216,24 +210,14 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
     M = tb["ex_slot"].shape[0]
     S = tb["cs_slot"].shape[0]
     K = {x: tb[f"{x}_slot"].shape[1] for x in ("in", "ex", "cm", "cs")}
-    n = {"in": tb["in_src_comb"].shape[0], "ex": tb["ex_src"].shape[0],
-         "cm": tb["cm_wsel"].shape[0], "cs": tb["cs_w"].shape[0]}
     if tb["in_slot"].shape[0] != E or tb["cm_slot"].shape[0] != M:
         raise ValueError("tables do not match obs's state count")
-    if min(E, M, n["in"], n["ex"], n["cm"]) < 1:
-        raise ValueError("kernel G needs states, models, in-model, exit "
-                         "and closure edges")
     if B * T * max(E, M, S, 1) >= 2 ** 31 or B > 2 ** 31 - 1:
         raise ValueError("block too large for 32-bit offsets")
     rows = {"in": E, "ex": M, "cm": M, "cs": S}
     for x in rows:
         _build.require(tb[f"{x}_slot"], f"{x}_slot", torch.int32,
-                       (rows[x], K[x], 2), device)
-        _build.require(tb[f"{x}_slot_w"], f"{x}_slot_w", torch.float32,
-                       (rows[x], K[x]), device)
-    for k, m in (("in_src_comb", n["in"]), ("ex_src", n["ex"]),
-                 ("cm_wsel", n["cm"]), ("cs_wsel", max(n["cs"], 1))):
-        _build.require(tb[k], k, torch.int32, (m,), device)
+                       (rows[x], K[x], 4), device)
     _build.require(obs, "obs", torch.float32, (B, T, E), device)
     for name, t in (("t0", t0), ("n_valid", n_valid)):
         _build.require(t, name, torch.int32, (B,), device)
@@ -248,6 +232,7 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
                            device=device)
             for k, (dt, _) in RECORDS.items()}
     n_slots = sum(rows[x] * K[x] for x in rows)
+    n_cs = tb["cs_w"].shape[0]
     use_smem = not force_global and lib.netscan_smem_bytes(E, M, n_slots) > 0
     scratch = torch.empty(0 if use_smem else
                           B * lib.netscan_scratch_words(E, M), device=device)
@@ -256,8 +241,8 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.netscan(
-            B, T, E, M, S, n["in"], n["ex"], n["cm"], n["cs"], K["in"],
-            K["ex"], K["cm"], K["cs"], *(tb[k].data_ptr() for k in _TABLES),
+            B, T, E, M, S, n_cs, K["in"], K["ex"], K["cm"], K["cs"],
+            *(tb[k].data_ptr() for k in _SLOTS),
             obs.data_ptr(), t0.data_ptr(), n_valid.data_ptr(),
             beam.data_ptr(), *(t.data_ptr() for t in carry),
             *(t.data_ptr() for t in out_carry),
