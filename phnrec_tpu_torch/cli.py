@@ -1,6 +1,11 @@
 """phnrec-compatible command-line interface on PyTorch (reference:
 phnrec.cpp; counterpart of phnrec_tpu/cli.py).
 
+Decodes with the package's decoder: the phoneme loop (decoder/type=phndec)
+or the STK network decoder (decoder/type=stkint; mode=decode writes word
+or phoneme labels, mode=kws keyword hits), for one file (-i/-o, or -i/-m)
+or a list (-l, with -m for one MLF or a target column for .rec files).
+
 Flags:
     -c dir   configuration (model package) directory
     -l file  list of files     -i file  input file    -o file  output file

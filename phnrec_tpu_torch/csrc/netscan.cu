@@ -32,13 +32,12 @@
 // moves ~261 MB, 0.078 ms at 3.35 TB/s), but a frame is a chain of three
 // phases, each a max over dense rows (K_in 2, K_ex 1, K_cm 47, K_cs 46 at
 // the CZ loop) that needs the phase before: the latency of one row's
-// frames, repeated T times, is the time.  The first version of this
-// kernel (a thread per destination, each slot's source found through two
-// dependent table loads, the sink row walked by the thread that had just
-// walked a closure row) took ~25,200 clocks a frame; slot tables and lane
-// groups of 8 took it to ~8,000 (PERF.md).
+// frames, repeated T times, is the time.
 //
-// Design: a block per row, 256 threads, three barriers a frame.
+// Design: a block per row, 256 threads, three barriers a frame.  Measured
+// on the CZ loop (PERF.md): a thread per destination finding each slot's
+// source through two dependent table loads took ~25,200 clocks a frame;
+// this design takes ~6,500.
 // * Each dense row is a list of 16-byte slots, made once on the host
 //   (ops/netscan.slot_arrays): the source as an index into the phase's
 //   value array ([entry | alpha | NEG] for the in-model pass, [alpha' |
@@ -56,7 +55,9 @@
 //   and the next frame's observations are copied in by cp.async while a
 //   frame runs, where they fit (up to 227 KB); otherwise the values sit
 //   in a per-row scratch in device memory and the slots and observations
-//   are read from device memory (both held to the plain version).
+//   are read from device memory (both held to the plain version).  The
+//   kernel is a template on the two, so the compiler knows each access's
+//   memory space.
 // * Records are stored as they are made, contiguous in the destination.
 
 #include <cuda_runtime.h>
@@ -164,11 +165,10 @@ __device__ __forceinline__ unsigned group_mask(int L, int lane) {
   return L == 32 ? 0xffffffffu : (((1u << L) - 1u) << (lane & ~(L - 1)));
 }
 
-// copy a table's slots to shared memory at p; returns p
-__device__ __forceinline__ const int4* stage(int4* p, const Tab& t) {
+// copy a table's slots to shared memory at p
+__device__ __forceinline__ void stage(int4* p, const Tab& t) {
   const size_t n = (size_t)t.D * t.K;
   for (size_t i = threadIdx.x; i < n; i += blockDim.x) p[i] = t.slot[i];
-  return p;
 }
 
 // SMEM: the values, observations and slots in shared memory (a template
@@ -196,18 +196,25 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
   int* eedge = xwt + M;
   float* obs_s = reinterpret_cast<float*>(eedge + M); // [2][E], smem only
 
-  // the slot tables: staged into shared memory, or read where they are
-  Tab tin = net.in, tex = net.ex, tcm = net.cm, tcs = net.cs;
+  // the slot tables: staged into shared memory, or read where they are.
+  // The pointers are chosen by the template parameter, so on the shared
+  // path the compiler sees shared-memory pointers (a pointer reassigned
+  // in the tables' struct stays generic: 32-bit generic loads of single
+  // fields).
+  const Tab &tin = net.in, &tex = net.ex, &tcm = net.cm, &tcs = net.cs;
+  int4* staged = reinterpret_cast<int4*>(
+      (reinterpret_cast<uintptr_t>(obs_s + 2 * E) + 15) & ~(uintptr_t)15);
+  const size_t n_in = (size_t)tin.D * tin.K, n_ex = (size_t)tex.D * tex.K,
+               n_cm = (size_t)tcm.D * tcm.K;
+  const int4* s_in = SMEM ? staged : tin.slot;
+  const int4* s_ex = SMEM ? staged + n_in : tex.slot;
+  const int4* s_cm = SMEM ? staged + n_in + n_ex : tcm.slot;
+  const int4* s_cs = SMEM ? staged + n_in + n_ex + n_cm : tcs.slot;
   if (SMEM) {
-    int4* p = reinterpret_cast<int4*>(
-        (reinterpret_cast<uintptr_t>(obs_s + 2 * E) + 15) & ~(uintptr_t)15);
-    tin.slot = stage(p, net.in);
-    p += (size_t)tin.D * tin.K;
-    tex.slot = stage(p, net.ex);
-    p += (size_t)tex.D * tex.K;
-    tcm.slot = stage(p, net.cm);
-    p += (size_t)tcm.D * tcm.K;
-    tcs.slot = stage(p, net.cs);
+    stage(staged, tin);
+    stage(staged + n_in, tex);
+    stage(staged + n_in + n_ex, tcm);
+    stage(staged + n_in + n_ex + n_cm, tcs);
   }
   for (int e = tid; e < E; e += THREADS) {
     vin[M + e] = in.alpha[(size_t)b * E + e];
@@ -256,7 +263,7 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         float best;
         int bj;
         const int ee = e < E ? e : E - 1;
-        const int4* sl = tin.slot + (size_t)ee * tin.K;
+        const int4* sl = s_in + (size_t)ee * tin.K;
         group_max(sl, tin.K, L, gl, mask, [&](int s) { return vin[s]; },
                   best, bj);
         if (e < E && gl == 0) {
@@ -294,7 +301,7 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         float best;
         int bj;
         const int mm = m < M ? m : M - 1;
-        const int4* sl = tex.slot + (size_t)mm * tex.K;
+        const int4* sl = s_ex + (size_t)mm * tex.K;
         group_max(sl, tex.K, L, gl, mask,
                   [&](int s) { return pruned(na[s], thresh); }, best, bj);
         if (m < M && gl == 0) {
@@ -331,7 +338,7 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
         }
         float best;
         int bj;
-        const int4* sl = (sink ? tcs.slot : tcm.slot) + (size_t)dd * K;
+        const int4* sl = (sink ? s_cs : s_cm) + (size_t)dd * K;
         group_max(sl, K, L, gl, mask, [&](int s) { return xv[s]; }, best, bj);
         if (d >= n_dst || gl != 0) continue;
         const int4 sj = sl[bj];

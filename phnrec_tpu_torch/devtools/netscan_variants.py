@@ -1,14 +1,15 @@
 """Compare sources of kernel G (the edge-list network scan,
 csrc/netscan.cu) on one CUDA card, each with its own wrapper.
 
-    python3 -m phnrec_tpu_torch.devtools.netscan_variants \\
+    python3 -m phnrec_tpu_torch.devtools.netscan_variants [--ablate] \\
         SOURCE.cu[:WRAPPER.py] [SOURCE.cu[:WRAPPER.py] ...]
 
 A source without a wrapper file is launched by the package's
 ops/netscan.py; an earlier source comes with the ops/netscan.py of its
-commit (whose ``slot_arrays``, where it has one, makes its tables), e.g. ``git show e0c5b1a:phnrec_tpu_torch/csrc/netscan.cu >
-build/netscan_v1.cu`` and ``git show e0c5b1a:phnrec_tpu_torch/ops/netscan.py
-> build/netscan_v1_ops.py``.  Every source is built (package nvcc flags,
+commit (whose ``slot_arrays``, where it has one, makes its tables), e.g.
+``git show e0c5b1a:phnrec_tpu_torch/csrc/netscan.cu > build/netscan_v1.cu``
+and ``git show e0c5b1a:phnrec_tpu_torch/ops/netscan.py >
+build/netscan_v1_ops.py``.  Every source is built (package nvcc flags,
 into build/phnrec_tpu_torch/variants/, registers and spills printed) and
 held bit for bit to the plain version (carry and all nine records) on the
 CZ stkint phoneme loop at B 256 x T 500 with ragged rows, the same with
@@ -17,7 +18,11 @@ with a tight beam.  Then all are timed in turns (first to last, then last
 to first) at B 256 x T 500 on the CZ loop by both timers (``ms``:
 mlp_variants.cuda_ms, chip_smoke.py's; ``held_ms``: scan_variants.held_ms,
 the card held while the host enqueues), with the SM clock under load and
-clocks a frame.  One JSON line per build, check and timing.
+clocks a frame.  The last source is also timed at B 1, 132 (a block on
+each SM) and 264 (two) to show whether a row's chain or the SM's issue
+bounds it.  With ``--ablate`` the last source is built again once for
+each of the ABLATIONS below (wrong results: timed, not checked).  One
+JSON line per build, check and timing.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import sys
 import tempfile
 from pathlib import Path
@@ -39,6 +45,16 @@ from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.devtools.scan_variants import held_ms
 from phnrec_tpu_torch.ops import netscan
 from phnrec_tpu_torch.pipeline import SpeechRec
+
+# regex edits that cut one part out of the kernel: (what, pattern, new)
+ABLATIONS = (
+    ("no_records", r"\n\s*rec\.\w+\[[^;]*;", ""),
+    ("no_in_model", r"e0 < E; e0 \+= groups", "e0 < 0; e0 += groups"),
+    ("no_exits", r"m0 < M; m0 \+= groups", "m0 < 0; m0 += groups"),
+    ("no_closure_sinks", r"d0 < n_dst; d0 \+= groups",
+     "d0 < 0; d0 += groups"),
+    ("no_frame_barriers", r"\n    __syncthreads\(\);\n", "\n"),
+)
 
 
 def _wrapper(path: str):
@@ -88,12 +104,27 @@ def main(argv) -> int:
         print("ERROR: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    ablate = "--ablate" in argv
+    argv = [a for a in argv if a != "--ablate"]
     variants = []
     for i, arg in enumerate(argv):
         src, _, wrap = arg.partition(":")
         mod = _wrapper(wrap) if wrap else netscan
         tag = f"v{i}_{Path(src).stem}"
         variants.append((tag, mod, mod.bind(build(tag, Path(src)))))
+    ablated = []
+    if ablate:
+        src, _, wrap = argv[-1].partition(":")
+        mod, text = variants[-1][1], Path(src).read_text()
+        out = netscan._build.BUILD_DIR / "variants"
+        out.mkdir(parents=True, exist_ok=True)
+        for what, old, new in ABLATIONS:
+            cut = re.sub(old, new, text)
+            if cut == text:
+                continue
+            path = out / f"netscan_{what}.cu"
+            path.write_text(cut)
+            ablated.append((what, mod, mod.bind(build(what, path))))
     tmp = tempfile.mkdtemp()
     cz = SpeechRec(synth.write_stk_decode_package(
         os.path.join(tmp, "cz"), "cz", seed=0), device=dev)
@@ -117,16 +148,29 @@ def main(argv) -> int:
                               "bit_equal": same}), flush=True)
     dec, args, _ = cases["cz_256x500"]
     T = args[1].shape[1]
-    runs = {tag: [] for tag, _, _ in variants}
     for tag, mod, lib in variants + variants[::-1]:
         tb = _tables(mod, dec, dev)
         fn = lambda: mod.launch(lib, *args, tb)  # noqa: E731
         ms, held = cuda_ms(fn), held_ms(fn)
         mhz = sm_clock(fn, max(ms, 0.2))
-        runs[tag].append(dict(ms=ms, held_ms=held, sm_clock_mhz=mhz,
-                              clocks_a_frame=held * 1e-3 * mhz * 1e6 / T))
-        print(json.dumps({"timing": tag, "B": 256, "T": T,
-                          **runs[tag][-1]}), flush=True)
+        print(json.dumps({"timing": tag, "B": 256, "T": T, "ms": ms,
+                          "held_ms": held, "sm_clock_mhz": mhz,
+                          "clocks_a_frame": held * 1e-3 * mhz * 1e6 / T}),
+              flush=True)
+    for what, mod, lib in ablated + ablated[::-1]:
+        tb = _tables(mod, dec, dev)
+        held = held_ms(lambda: mod.launch(lib, *args, tb))
+        print(json.dumps({"ablation": what, "B": 256, "T": T,
+                          "held_ms": held, "clocks_a_frame":
+                          held * 1e-3 * mhz * 1e6 / T}), flush=True)
+    tag, mod, lib = variants[-1]
+    tb = _tables(mod, dec, dev)
+    for B in (1, 132, 264):
+        a = _inputs(dec, dev, B, T, 4)
+        held = held_ms(lambda: mod.launch(lib, *a, tb))
+        print(json.dumps({"rows": tag, "B": B, "T": T, "held_ms": held,
+                          "clocks_a_frame": held * 1e-3 * mhz * 1e6 / T}),
+              flush=True)
     return 0 if ok else 1
 
 

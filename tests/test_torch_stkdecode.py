@@ -118,6 +118,10 @@ def test_kws_hits_on_identical_log_posteriors(decoders):
                      for l in row] for row in want]
     assert sum(map(len, got)) > 3
     assert td.decode(torch.from_numpy(lp[3, :140])) == got[3]
+    # the per-frame KWS values of one utterance
+    for g, w in zip(td.decoder.kws_scan(torch.from_numpy(lp[1, :97])),
+                    jd.decoder.kws_scan(lp[1, :97])):
+        assert g.dtype == np.asarray(w).dtype and np.array_equal(g, w)
 
 
 def test_kws_tracker_matches_jax():
