@@ -1557,7 +1557,7 @@ def check_netscan_cases(nets: dict, dev) -> None:
     tb = big.edge_tables(dev)
     big_smem = netscan._lib().netscan_smem_bytes(
         big.c.n_states, big.c.n_models,
-        sum(tb[f"{x}_slot_w"].numel() for x in ("in", "ex", "cm", "cs")))
+        sum(tb[f"{x}_slot"].numel() // 4 for x in ("in", "ex", "cm", "cs")))
     phase("netscan_cases", cases=out, random_big_states=big.c.n_states,
           random_big_fits_smem=bool(big_smem))
     bad = [k for k, v in out.items()
