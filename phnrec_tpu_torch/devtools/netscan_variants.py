@@ -19,10 +19,10 @@ to first) at B 256 x T 500 on the CZ loop by both timers (``ms``:
 mlp_variants.cuda_ms, chip_smoke.py's; ``held_ms``: scan_variants.held_ms,
 the card held while the host enqueues), with the SM clock under load and
 clocks a frame.  The last source is also timed at B 1, 132 (a block on
-each SM) and 264 (two) to show whether a row's chain or the SM's issue
-bounds it.  With ``--ablate`` the last source is built again once for
-each of the ABLATIONS below (wrong results: timed, not checked).  One
-JSON line per build, check and timing.
+each SM) and 264 (two) to show whether a row's chain or the SM's
+instruction rate bounds it.  With ``--ablate`` the last source is built
+again once for each of the ABLATIONS below (wrong results: timed, not
+checked).  One JSON line per build, check and timing.
 """
 
 from __future__ import annotations
