@@ -148,7 +148,7 @@ def test_kws_tracker_matches_jax():
             == [vars(h) for h in jst.kws_candidates(wv, fl, st, kws, tp, sp)]
 
 
-def _write_waves(root, fmt="lin16"):
+def _write_waves(root):
     rng = np.random.default_rng(1)
     paths = []
     os.makedirs(root, exist_ok=True)
