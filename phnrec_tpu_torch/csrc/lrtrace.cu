@@ -59,6 +59,15 @@
 // lane (each lane running keyword 0's take chain itself instead: +13%).
 // Measured (PERF.md): a warp per block (4 a block: +1%), and a warp per
 // stream (16 streams a warp, a lane per stream and keyword: 3.3x slower).
+//
+// Past MAX_K = 128 keywords (four a lane) the keywords run in groups of
+// 128, one launch a group, each the kernel above on its group's columns,
+// state and records (strided by the full K).  Keyword 0's candidate end
+// is the time-pruning reference of every group: the first group's launch
+// writes it a frame to a [n, F] scratch row (G_FIRST), and the later
+// groups' launches read it from there, a chunk at a time staged beside
+// their records (G_LATER), instead of the shuffle.  K <= 128 runs the
+// single-group instance (G_ONE) as before.
 
 #include <cuda_runtime.h>
 
@@ -76,6 +85,9 @@ constexpr int MAX_K = 128;
 constexpr int SMEM_BYTES = 48 * 1024 - 4 * MAX_K;  // dynamic, beside ws_s
 constexpr int REC = 8;             // words of both event records a keyword and frame
 
+// the launch's place among the keyword groups
+enum Group { G_ONE = 0, G_FIRST = 1, G_LATER = 2 };
+
 struct Rec {
   uint8_t* emit;
   int* start;
@@ -91,6 +103,8 @@ struct Args {
   const int* n_dec;
   const int* n_valid;
   int fs, F, n, S, K, tp_on, tp;
+  int Kt, k0;      // all keywords (the stride of state and records), the group's first
+  int* end0;       // [n, F] keyword 0's candidate end a frame (groups only)
   int row;         // whole rows staged (else the K + 1 columns)
   int chunk;       // frames a stage
   int warp_words;  // shared memory a warp, in 4-byte words
@@ -132,8 +146,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// KPL keywords a lane; TP: time pruning on
-template <int KPL, bool TP>
+// KPL keywords a lane; TP: time pruning on; G: the keyword group's place
+template <int KPL, bool TP, int G>
 __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   extern __shared__ __align__(16) float ring[];
   __shared__ int ws_s[MAX_K];
@@ -153,6 +167,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   int* rec = reinterpret_cast<int*>(ring + (size_t)warp * a.warp_words);
   float* vring = reinterpret_cast<float*>(rec + C * K * REC);
   int* wring = reinterpret_cast<int*>(vring + STAGES * words);
+  int* e0s = wring + STAGES * words;  // keyword 0's ends of a chunk (groups)
 
   float last_lr[KPL], cand_lr[KPL];
   int cand_start[KPL], cand_end[KPL], prev_end[KPL], vi[KPL];
@@ -161,7 +176,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   for (int i = 0; i < KPL; ++i) {
     const int k = lane + 32 * i;
     has[i] = k < K;
-    const size_t s = (size_t)b * K + k;
+    const size_t s = (size_t)b * a.Kt + a.k0 + k;
     last_lr[i] = has[i] ? a.last_lr0[s] : -INFINITY;
     cand_lr[i] = has[i] ? a.cand_lr0[s] : -INFINITY;
     cand_start[i] = has[i] ? a.cand_start0[s] : 0;
@@ -215,6 +230,11 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
     const int f0 = c * C, nf = min(C, F - f0);
     const float* vs = vring + (c % STAGES) * words;
     const int* wsm = wring + (c % STAGES) * words;
+    if (G == G_LATER) {
+      // the first group's keyword-0 ends of this chunk's frames
+      if (lane < nf) e0s[lane] = a.end0[(size_t)b * F + f0 + lane];
+      __syncwarp();
+    }
 
     // this frame's inputs in registers, the next frame's loaded meanwhile
     float fl = vs[fi], wv[KPL];
@@ -271,7 +291,9 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
         act[i] = active;
       }
       // keyword 0's updated candidate end, for every lane of the stream
-      const int end0 = __shfl_sync(0xffffffffu, n_ce[0], 0);
+      const int end0 =
+          G == G_LATER ? e0s[fr] : __shfl_sync(0xffffffffu, n_ce[0], 0);
+      if (G == G_FIRST && lane == 0) e0s[fr] = end0;
 #pragma unroll
       for (int i = 0; i < KPL; ++i) {
         const bool stale = act[i] && end0 != 0 && (t + 1) - end0 >= a.tp;
@@ -300,29 +322,32 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
       }
       fl = fl_next;
     }
-    // the chunk's records, the nf * K of each field contiguous
+    // the chunk's records, the nf * K of each field contiguous (a group:
+    // K contiguous a frame, strided by all keywords)
     __syncwarp();
-    const size_t g = ((size_t)b * F + f0) * K;
+    if (G == G_FIRST && lane < nf) a.end0[(size_t)b * F + f0 + lane] = e0s[lane];
+    const size_t g = ((size_t)b * F + f0) * a.Kt + a.k0;
     for (int u = lane; u < nf * K; u += 32) {
       const int4 x = reinterpret_cast<const int4*>(rec + u * REC)[0];
       const int4 y = reinterpret_cast<const int4*>(rec + u * REC)[1];
-      a.r1.emit[g + u] = (uint8_t)(x.w & 1);
-      a.r1.start[g + u] = x.x;
-      a.r1.end[g + u] = x.y;
-      a.r1.score[g + u] = __int_as_float(x.z);
-      a.r1.new_estim[g + u] = (uint8_t)(x.w >> 8);
-      a.r2.emit[g + u] = (uint8_t)(y.w & 1);
-      a.r2.start[g + u] = y.x;
-      a.r2.end[g + u] = y.y;
-      a.r2.score[g + u] = __int_as_float(y.z);
-      a.r2.new_estim[g + u] = (uint8_t)(y.w >> 8);
+      const size_t o = G == G_ONE ? g + u : g + (size_t)(u / K) * a.Kt + u % K;
+      a.r1.emit[o] = (uint8_t)(x.w & 1);
+      a.r1.start[o] = x.x;
+      a.r1.end[o] = x.y;
+      a.r1.score[o] = __int_as_float(x.z);
+      a.r1.new_estim[o] = (uint8_t)(x.w >> 8);
+      a.r2.emit[o] = (uint8_t)(y.w & 1);
+      a.r2.start[o] = y.x;
+      a.r2.end[o] = y.y;
+      a.r2.score[o] = __int_as_float(y.z);
+      a.r2.new_estim[o] = (uint8_t)(y.w >> 8);
     }
   }
 
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     if (!has[i]) continue;
-    const size_t s = (size_t)b * K + lane + 32 * i;
+    const size_t s = (size_t)b * a.Kt + a.k0 + lane + 32 * i;
     a.last_lr1[s] = last_lr[i];
     a.cand_lr1[s] = cand_lr[i];
     a.cand_start1[s] = cand_start[i];
@@ -332,53 +357,66 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   }
 }
 
-template <int KPL>
+template <int KPL, int G>
 cudaError_t launch(Args a, cudaStream_t st) {
   const int W = a.row ? a.S : a.K + 1;
-  // a warp's words a frame: two rings of STAGES, the records; each warp's
-  // part a multiple of 16 bytes
-  const int per_frame = STAGES * 2 * W + a.K * REC;
+  // a warp's words a frame: two rings of STAGES, the records; a group's
+  // launch also a word a frame of keyword 0's ends; each warp's part a
+  // multiple of 16 bytes
+  const int per_frame = STAGES * 2 * W + a.K * REC + (G != G_ONE);
   a.chunk = std::min(CHUNK, (SMEM_BYTES / (4 * WARPS) - 3) / per_frame);
   if (a.chunk < 1) return cudaErrorInvalidValue;
   a.warp_words = (a.chunk * per_frame + 3) & ~3;
   const unsigned blocks = (unsigned)((a.n + WARPS - 1) / WARPS);
   if (a.tp_on)
-    lrtrace_kernel<KPL, true>
+    lrtrace_kernel<KPL, true, G>
         <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
   else
-    lrtrace_kernel<KPL, false>
+    lrtrace_kernel<KPL, false, G>
         <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
   return cudaGetLastError();
 }
 
+template <int G>
+cudaError_t launch_kpl(const Args& a, cudaStream_t st) {
+  // the first of several groups holds MAX_K keywords
+  if constexpr (G == G_FIRST) return launch<MAX_K / 32, G>(a, st);
+  switch ((a.K + 31) / 32) {
+    case 1: return launch<1, G>(a, st);
+    case 2: return launch<2, G>(a, st);
+    case 3: return launch<3, G>(a, st);
+    case 4: return launch<4, G>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// keywords one launch takes; more run in groups of this many
 extern "C" int lrtrace_max_keywords() { return MAX_K; }
 
-// The LRTrace scan over one block: sink records [F, n, S] (f32 values, i32
-// word times), word-sink columns ws [K] i32, filler column fs, n_dec and
-// n_valid i32 [n]; state in/out six [n, K] arrays (f32 last_lr, cand_lr;
-// i32 cand_start, cand_end, prev_end; u8 dumped); two event records of
-// five [n, F, K] arrays each (u8 emit, i32 start, i32 end, f32 score, u8
-// new_estim).  Launches on `stream`, allocates nothing, does not
-// synchronise.
-extern "C" int lrtrace_scan(
-    const void* sink_val, const void* sink_wt, const void* ws, int fs,
-    const void* n_dec, const void* n_valid, int F, int n, int S, int K,
-    int tp_on, int tp, float sp, float neg_half, const void* last_lr0,
-    const void* cand_lr0, const void* cand_start0, const void* cand_end0, const void* prev_end0, const void* dumped0,
-    void* last_lr1, void* cand_lr1, void* cand_start1, void* cand_end1,
-    void* prev_end1, void* dumped1, void* e1, void* s1, void* en1, void* sc1,
-    void* ne1, void* e2, void* s2, void* en2, void* sc2, void* ne2,
-    void* stream) {
+namespace {
+
+cudaError_t scan(const void* sink_val, const void* sink_wt, const void* ws,
+                 int fs, const void* n_dec, const void* n_valid, int F, int n,
+                 int S, int K, int tp_on, int tp, float sp, float neg_half,
+                 const void* last_lr0, const void* cand_lr0,
+                 const void* cand_start0, const void* cand_end0,
+                 const void* prev_end0, const void* dumped0, void* last_lr1,
+                 void* cand_lr1, void* cand_start1, void* cand_end1,
+                 void* prev_end1, void* dumped1, void* e1, void* s1, void* en1,
+                 void* sc1, void* ne1, void* e2, void* s2, void* en2,
+                 void* sc2, void* ne2, void* end0, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (F < 0 || S <= 0 || K <= 0 || K > MAX_K || fs < 0 || fs >= S)
+  if (F < 0 || S <= 0 || K <= 0 || fs < 0 || fs >= S ||
+      (K > MAX_K && end0 == nullptr))
     return cudaErrorInvalidValue;
   const bool aligned = (reinterpret_cast<uintptr_t>(sink_val) |
                         reinterpret_cast<uintptr_t>(sink_wt)) % 16 == 0;
   Args a{static_cast<const float*>(sink_val), static_cast<const int*>(sink_wt),
          static_cast<const int*>(ws), static_cast<const int*>(n_dec),
          static_cast<const int*>(n_valid), fs, F, n, S, K, tp_on, tp,
+         K, 0, static_cast<int*>(end0),
          (int)(S % 4 == 0 && S <= ROW_MAX && aligned), 0, 0, sp, neg_half,
          static_cast<const float*>(last_lr0),
          static_cast<const float*>(cand_lr0),
@@ -396,11 +434,59 @@ extern "C" int lrtrace_scan(
              static_cast<int*>(en2), static_cast<float*>(sc2),
              static_cast<uint8_t*>(ne2)}};
   auto st = static_cast<cudaStream_t>(stream);
-  switch ((K + 31) / 32) {
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 3: return launch<3>(a, st);
-    case 4: return launch<4>(a, st);
-    default: return cudaErrorInvalidValue;
+  if (K <= MAX_K) return launch_kpl<G_ONE>(a, st);
+  // groups of MAX_K keywords: the first writes keyword 0's ends, the
+  // others read them; each group's word columns start at its first
+  for (int k0 = 0; k0 < K; k0 += MAX_K) {
+    a.k0 = k0;
+    a.K = std::min(MAX_K, K - k0);
+    a.ws = static_cast<const int*>(ws) + k0;
+    const cudaError_t err = k0 == 0 ? launch_kpl<G_FIRST>(a, st)
+                                    : launch_kpl<G_LATER>(a, st);
+    if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The LRTrace scan over one block: sink records [F, n, S] (f32 values, i32
+// word times), word-sink columns ws [K] i32, filler column fs, n_dec and
+// n_valid i32 [n]; state in/out six [n, K] arrays (f32 last_lr, cand_lr;
+// i32 cand_start, cand_end, prev_end; u8 dumped); two event records of
+// five [n, F, K] arrays each (u8 emit, i32 start, i32 end, f32 score, u8
+// new_estim).  Takes K <= MAX_K.  Launches on `stream`, allocates nothing,
+// does not synchronise.
+extern "C" int lrtrace_scan(
+    const void* sink_val, const void* sink_wt, const void* ws, int fs,
+    const void* n_dec, const void* n_valid, int F, int n, int S, int K,
+    int tp_on, int tp, float sp, float neg_half, const void* last_lr0,
+    const void* cand_lr0, const void* cand_start0, const void* cand_end0, const void* prev_end0, const void* dumped0,
+    void* last_lr1, void* cand_lr1, void* cand_start1, void* cand_end1,
+    void* prev_end1, void* dumped1, void* e1, void* s1, void* en1, void* sc1,
+    void* ne1, void* e2, void* s2, void* en2, void* sc2, void* ne2,
+    void* stream) {
+  return scan(sink_val, sink_wt, ws, fs, n_dec, n_valid, F, n, S, K, tp_on,
+              tp, sp, neg_half, last_lr0, cand_lr0, cand_start0, cand_end0,
+              prev_end0, dumped0, last_lr1, cand_lr1, cand_start1, cand_end1,
+              prev_end1, dumped1, e1, s1, en1, sc1, ne1, e2, s2, en2, sc2, ne2,
+              nullptr, stream);
+}
+
+// The same for any K: past MAX_K keywords, `end0` is an [n, F] i32 scratch
+// row (keyword 0's candidate end a frame), one launch a group of MAX_K.
+extern "C" int lrtrace_scan_groups(
+    const void* sink_val, const void* sink_wt, const void* ws, int fs,
+    const void* n_dec, const void* n_valid, int F, int n, int S, int K,
+    int tp_on, int tp, float sp, float neg_half, const void* last_lr0,
+    const void* cand_lr0, const void* cand_start0, const void* cand_end0, const void* prev_end0, const void* dumped0,
+    void* last_lr1, void* cand_lr1, void* cand_start1, void* cand_end1,
+    void* prev_end1, void* dumped1, void* e1, void* s1, void* en1, void* sc1,
+    void* ne1, void* e2, void* s2, void* en2, void* sc2, void* ne2,
+    void* end0, void* stream) {
+  return scan(sink_val, sink_wt, ws, fs, n_dec, n_valid, F, n, S, K, tp_on,
+              tp, sp, neg_half, last_lr0, cand_lr0, cand_start0, cand_end0,
+              prev_end0, dumped0, last_lr1, cand_lr1, cand_start1, cand_end1,
+              prev_end1, dumped1, e1, s1, en1, sc1, ne1, e2, s2, en2, sc2, ne2,
+              end0, stream);
 }

@@ -15,7 +15,10 @@ Counterpart of the JAX package's vmapped ``lax.scan`` of
 
 Frame f of stream b is global frame n_dec[b] + f and live while
 f < n_valid[b].  The plain version is the frame loop of
-``lrtrace_step_fn``; the kernel is equal to it in every field.
+``lrtrace_step_fn``; the kernel is equal to it in every field.  Past the
+128 keywords one launch takes, the kernel runs in groups of 128, with
+keyword 0's candidate end a frame passed on through an [n, F] scratch
+tensor.
 """
 
 from __future__ import annotations
@@ -70,6 +73,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 23)
         fn.restype = ctypes.c_int
         lib.lrtrace_max_keywords.restype = ctypes.c_int
+        if hasattr(lib, "lrtrace_scan_groups"):
+            lib.lrtrace_scan_groups.argtypes = fn.argtypes[:-1] + [
+                ctypes.c_void_p] * 2
+            lib.lrtrace_scan_groups.restype = ctypes.c_int
     return lib
 
 
@@ -88,10 +95,12 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
         raise ValueError("sink_val must be [F, n, S]")
     F, n, S = sink_val.shape
     K = word_sinks.shape[0]
-    if not 0 < K <= lib.lrtrace_max_keywords() or \
-            not 0 <= filler_sink < S:
-        raise ValueError(f"kernel F takes 1..{lib.lrtrace_max_keywords()} "
-                         f"keywords and a filler column below {S}")
+    groups = K > lib.lrtrace_max_keywords()
+    if K < 1 or not 0 <= filler_sink < S or \
+            groups and not hasattr(lib, "lrtrace_scan_groups"):
+        raise ValueError(f"kernel F takes 1.. keywords (this source 1.."
+                         f"{lib.lrtrace_max_keywords()}) and a filler "
+                         f"column below {S}")
     if F * n * max(S, K) >= 2 ** 31:
         raise ValueError("block too large for 32-bit offsets")
     _build.require(sink_val, "sink_val", torch.float32, (F, n, S), device)
@@ -109,9 +118,12 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
         {k: torch.empty((n, F, K), dtype=dt, device=device)
          for k, dt in zip(_FIELDS, _DTYPES)} for _ in range(2))
     tp = float(time_pruning)
+    # keyword 0's candidate end a frame, from the first group to the others
+    end0 = (torch.empty((n, F), dtype=torch.int32, device=device),) \
+        if groups else ()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.lrtrace_scan(
+        err = (lib.lrtrace_scan_groups if groups else lib.lrtrace_scan)(
             sink_val.data_ptr(), sink_wt.data_ptr(), word_sinks.data_ptr(),
             int(filler_sink), n_dec.data_ptr(), n_valid.data_ptr(),
             F, n, S, K, int(tp < 1e9), int(tp) if tp < 1e9 else 0,
@@ -119,7 +131,7 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
             *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in out_state),
             *(ev[k].data_ptr() for ev in events for k in _FIELDS),
-            stream)
+            *(t.data_ptr() for t in end0), stream)
     _build.check(err, "lrtrace")
     return out_state, events
 

@@ -175,3 +175,31 @@ def test_plain_matches_jax_scan_tie_heavy(K, S, tp):
                                           np.asarray(jev[r][k]),
                                           err_msg=f"rec{r + 1} {k}")
     assert got_ev[0]["emit"].sum() > 10
+
+
+@pytest.mark.parametrize("K,ties", [(129, False), (200, False), (200, True)])
+def test_plain_matches_jax_scan_past_128_keywords(K, ties):
+    """Past the 128 keywords one launch of kernel F takes (the card runs
+    groups of 128, keyword 0's candidate end passed from the first group
+    to the others): state and both event records equal in every field to
+    phnrec_tpu's scan, time pruning 40 (the keyword-0 reference), with
+    random-walk records that flush by time pruning and tie-heavy ones."""
+    from phnrec_tpu_torch.devtools.scan_variants import lrtrace_case
+    st, sv, sw, ws, fs, nd, nv = lrtrace_case("cpu", 6, 150, K, K + 2,
+                                              seed=K + ties, ties=ties)
+    sp = -3.0 if ties else -1e30
+    got_st, got_ev = lrtrace.lrtrace_scan_plain(st, sv, sw, ws, fs, nd, nv,
+                                                40, sp)
+    jstate, jev = _jax_scan_cols(sv.numpy(), sw.numpy(), nd.numpy(),
+                                 nv.numpy(), 40, sp, ws.numpy(), fs)
+    for a, b in zip(got_st, jstate):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for r in range(2):
+        for k in got_ev[r]:
+            np.testing.assert_array_equal(got_ev[r][k].numpy(),
+                                          np.asarray(jev[r][k]),
+                                          err_msg=f"rec{r + 1} {k}")
+    assert got_ev[0]["emit"].sum() > 10
+    if not ties:
+        # time-pruning flushes, past the first group's keywords too
+        assert got_ev[1]["emit"][:, :, 128:].sum() > 0
