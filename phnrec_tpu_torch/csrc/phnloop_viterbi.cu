@@ -56,6 +56,18 @@
 //   clocks a frame; the same body not unrolled: ~455).  Every lane writes
 //   the frame's History record to shared memory (the same words), and the
 //   chunk's records go out once per chunk, a lane a frame (-6%).
+//
+// Any other width: the templates above take S <= MAX_S = 5 states and rows
+// of D <= phn_viterbi_max_row() columns (a ring stage).  Past either, one
+// kernel with S a run-time value (viterbi_any_kernel) runs the same
+// arithmetic in the same order, a warp per utterance: the carry lives in
+// shared memory ([P][S + 1] alphas and entry frames, each lane touching
+// only its own phonemes' words), and only the P*S columns the scan reads
+// are staged, a frame ahead, by 4-byte cp.async into a two-frame buffer.
+// Where the carry and the buffer exceed a block's shared memory (S past
+// ~100 at P 128) the carry stays in the output carry's own device memory
+// and the observations are read from device memory.  Bit-equal as above;
+// P <= 128 in every form, as the History's int8 winner holds no more.
 
 #include <cuda_runtime.h>
 
@@ -69,6 +81,9 @@ constexpr int WARPS = 1;            // utterances per block
 constexpr int CHUNK = 16;           // frames a ring stage (at most)
 constexpr int STAGES = 3;
 constexpr int SMEM_BYTES = 48 * 1024;
+constexpr int MAX_S = 5;            // states the templates take
+constexpr int MAX_P = 128;          // phonemes an int8 History names
+constexpr size_t SMEM_MAX = 232448; // a block's dynamic shared memory
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -283,6 +298,148 @@ viterbi_kernel(const float* __restrict__ carry_a,
   }
 }
 
+// Any S and D: a warp per utterance, S a run-time value.  With `in_smem`
+// the carry [P][S + 1] and a two-frame buffer of the P*S read columns sit
+// in shared memory; without, the carry is updated in out_a / out_e
+// ([P, S + 1, B], strided by B) and the observations read from device
+// memory.  The same adds, compares and argmax as viterbi_kernel.
+__global__ void __launch_bounds__(32)
+viterbi_any_kernel(const float* __restrict__ carry_a,
+                   const int* __restrict__ carry_e,
+                   const float* __restrict__ log_post, int B, int T, int P,
+                   int S, int D, int t0, const int* __restrict__ t0_row,
+                   const int* __restrict__ n_valid, float w_pen,
+                   float tr_curr, float tr_next, float* out_a, int* out_e,
+                   int8_t* __restrict__ h_phn, int* __restrict__ h_ent,
+                   float* __restrict__ h_alpha, int in_smem) {
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const int tb = t0_row ? t0_row[b] : t0;
+  const int nv = n_valid ? max(0, min(n_valid[b], T)) : T;
+  const int S1 = S + 1, PS = P * S, ppl = (P + 31) / 32;
+  // the carry, [P][S + 1] words strided by cs
+  float* A;
+  int* E;
+  size_t cs;
+  float* obuf = nullptr;
+  if (in_smem) {
+    A = sm;
+    E = reinterpret_cast<int*>(sm + (size_t)P * S1);
+    obuf = sm + 2 * (size_t)P * S1;
+    cs = 1;
+  } else {
+    A = out_a + b;
+    E = out_e + b;
+    cs = B;
+  }
+  for (int j = lane; j < P * S1; j += 32) {
+    A[j * cs] = carry_a[(size_t)j * B + b];
+    E[j * cs] = carry_e[(size_t)j * B + b];
+  }
+  const float* up = log_post + (size_t)b * T * D;
+  // frame t's P*S read columns into buffer t & 1
+  auto issue = [&](int t) {
+    float* dst = obuf + (t & 1) * PS;
+    const float* src = up + (size_t)t * D;
+    for (int j = lane; j < PS; j += 32) cp_async4(dst + j, src + j);
+  };
+  if (in_smem && nv > 0) issue(0);
+  cp_async_commit();
+  const bool valid = lane < P;
+  for (int t = 0; t < nv; ++t) {
+    const float* ob = up + (size_t)t * D;
+    if (in_smem) {
+      if (t + 1 < nv) issue(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // frame t has landed, for every lane
+      __syncwarp();
+      ob = obuf + (t & 1) * PS;
+    }
+    // states high-to-low, each reading the previous frame's s-1; then the
+    // lane's own best exit (its lowest phoneme among equals)
+    float bv = -INFINITY;
+    int bi = 0, be = 0;
+    for (int i = 0; i < ppl; ++i) {
+      const int p = lane + 32 * i;
+      if (p < P) {
+        float* ap = A + (size_t)p * S1 * cs;
+        int* ep = E + (size_t)p * S1 * cs;
+        const float* op = ob + p * S;
+        for (int s = S; s >= 1; --s) {
+          const float cur = ap[s * cs] + tr_curr;
+          const float prev = ap[(s - 1) * cs] + tr_next;
+          const bool take_cur = cur > prev;
+          ap[s * cs] = (take_cur ? cur : prev) + op[s - 1];
+          if (!take_cur) ep[s * cs] = ep[(s - 1) * cs];
+        }
+        const float v = ap[S * cs];
+        if (i == 0 || v > bv) {
+          bv = v;
+          bi = i;
+          be = ep[S * cs];
+        }
+      }
+    }
+    const int mk = warp_max_key(valid ? order_key(bv) : (int)0x80000000);
+    const float mx = __int_as_float(mk >= 0 ? mk : mk ^ 0x7fffffff);
+    const bool tie = valid && bv == mx;
+    unsigned m = 0;
+    int wi = 0;
+    for (int i = ppl - 1; i >= 0; --i) {
+      const unsigned mi = __ballot_sync(0xffffffffu, tie && bi == i);
+      if (mi) {
+        m = mi;
+        wi = i;
+      }
+    }
+    const int wl = __ffs(m) - 1;
+    const float wv = __shfl_sync(0xffffffffu, bv, wl);
+    const int we = __shfl_sync(0xffffffffu, be, wl);
+    for (int i = 0; i < ppl; ++i) {
+      const int p = lane + 32 * i;
+      if (p < P) {
+        A[(size_t)p * S1 * cs] = wv + w_pen;
+        E[(size_t)p * S1 * cs] = tb + t + 1;
+      }
+    }
+    if (lane == 0) {
+      const size_t h = (size_t)t * B + b;
+      h_phn[h] = (int8_t)(wl + 32 * wi);
+      h_ent[h] = we;
+      h_alpha[h] = wv;
+    }
+    __syncwarp();  // every lane is done with the buffer frame t + 2 takes
+  }
+  if (in_smem) {
+    for (int j = lane; j < P * S1; j += 32) {
+      out_a[(size_t)j * B + b] = A[j];
+      out_e[(size_t)j * B + b] = E[j];
+    }
+  }
+}
+
+cudaError_t launch_any(const float* ca, const int* ce, const float* lp, int B,
+                       int T, int P, int S, int D, int t0, const int* t0r,
+                       const int* nv, float w_pen, float tr_curr,
+                       float tr_next, float* oa, int* oe, int8_t* hp, int* he,
+                       float* ha, cudaStream_t stream) {
+  // the carry's two words and two buffered observations a (phoneme, state)
+  const size_t smem = sizeof(float) * (2 * (size_t)P * (S + 1) +
+                                       2 * (size_t)P * S);
+  const bool in_smem = smem <= SMEM_MAX;
+  if (in_smem && smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  viterbi_any_kernel<<<(unsigned)B, 32, in_smem ? smem : 0, stream>>>(
+      ca, ce, lp, B, T, P, S, D, t0, t0r, nv, w_pen, tr_curr, tr_next, oa,
+      oe, hp, he, ha, (int)in_smem);
+  return cudaGetLastError();
+}
+
 template <int S, int PPL>
 cudaError_t launch(const float* ca, const int* ce, const float* lp, int B,
                    int T, int P, int D, int t0, const int* t0r, const int* nv,
@@ -321,11 +478,16 @@ cudaError_t dispatch_ppl(int ppl, const float* ca, const int* ce,
 
 }  // namespace
 
-extern "C" int phn_viterbi_max_states() { return 5; }
-extern "C" int phn_viterbi_max_phonemes() { return 128; }
-// the widest frame row (D) a stage of the ring holds
+// the most states and the widest frame row (D, a stage of the ring) the
+// templates take; past them the run-time-S kernel runs
+extern "C" int phn_viterbi_max_states() { return MAX_S; }
+extern "C" int phn_viterbi_max_phonemes() { return MAX_P; }
 extern "C" int phn_viterbi_max_row() {
   return (SMEM_BYTES / (4 * WARPS) - 3 * CHUNK) / STAGES - 7;
+}
+// 1 where the call takes the run-time-S kernel
+extern "C" int phn_viterbi_any_path(int S, int D) {
+  return S > MAX_S || D > phn_viterbi_max_row();
 }
 
 // One block of frames of the phoneme-loop scan.  carry [P, S+1, B]
@@ -342,7 +504,7 @@ extern "C" int phn_viterbi(const void* carry_a, const void* carry_e,
                            void* h_phn, void* h_ent, void* h_alpha,
                            void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (P <= 0 || P > 128 || S <= 0 || S > 5 || D < P * S || T < 0)
+  if (P <= 0 || P > MAX_P || S <= 0 || D < P * S || T < 0)
     return cudaErrorInvalidValue;
   const int ppl = (P + 31) / 32;
   auto* ca = static_cast<const float*>(carry_a);
@@ -356,6 +518,9 @@ extern "C" int phn_viterbi(const void* carry_a, const void* carry_e,
   auto* he = static_cast<int*>(h_ent);
   auto* ha = static_cast<float*>(h_alpha);
   auto s = static_cast<cudaStream_t>(stream);
+  if (phn_viterbi_any_path(S, D))
+    return launch_any(ca, ce, lp, B, T, P, S, D, t0, t0r, nv, w_pen, tr_curr,
+                      tr_next, oa, oe, hp, he, ha, s);
   switch (S) {
     case 1: return dispatch_ppl<1>(ppl, ca, ce, lp, B, T, P, D, t0, t0r, nv, w_pen, tr_curr, tr_next, oa, oe, hp, he, ha, s);
     case 2: return dispatch_ppl<2>(ppl, ca, ce, lp, B, T, P, D, t0, t0r, nv, w_pen, tr_curr, tr_next, oa, oe, hp, he, ha, s);

@@ -8,7 +8,11 @@ n_valid[b] leave row b's carry as it was, and its History rows there are
 undefined).  Layouts are JAX's: carry [P, S+1, B] (alphas f32, entry frames
 i32), log_post [B, T, D >= P*S], History [T, B] (i8, i32, f32).  Both
 versions are adds, compares and first-index argmaxes, so their carry and
-valid History are bit-equal to JAX's.
+valid History are bit-equal to JAX's.  The kernel takes any S and any
+D >= P*S (templates up to 5 states and one ring stage's row, a run-time-S
+kernel past them) and P <= 128: the History's winner is int8, as JAX's is,
+which wraps to -128 at phoneme 128 (the plain version wraps the same way);
+the kernel refuses such a loop instead.
 """
 
 from __future__ import annotations
@@ -112,6 +116,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.phn_viterbi_max_states.restype = ctypes.c_int
         lib.phn_viterbi_max_phonemes.restype = ctypes.c_int
         lib.phn_viterbi_max_row.restype = ctypes.c_int
+        if hasattr(lib, "phn_viterbi_any_path"):
+            lib.phn_viterbi_any_path.argtypes = [ctypes.c_int] * 2
+            lib.phn_viterbi_any_path.restype = ctypes.c_int
     return lib
 
 
@@ -143,14 +150,17 @@ def launch(lib: ctypes.CDLL, carry: Carry, log_post: torch.Tensor, t0: int,
     for t, name in ((t0_row, "t0"), (n_valid, "n_valid")):
         if t is not None:
             _build.require(t, name, torch.int32, (B,), device)
-    if S > lib.phn_viterbi_max_states() or \
-            P > lib.phn_viterbi_max_phonemes():
-        raise ValueError(f"kernel takes at most "
-                         f"{lib.phn_viterbi_max_phonemes()} phonemes of "
-                         f"{lib.phn_viterbi_max_states()} states")
-    if D > lib.phn_viterbi_max_row():
-        raise ValueError(f"kernel takes rows of at most "
-                         f"{lib.phn_viterbi_max_row()} columns, not {D}")
+    if P > lib.phn_viterbi_max_phonemes():
+        raise ValueError(
+            f"kernel takes at most {lib.phn_viterbi_max_phonemes()} "
+            f"phonemes, not {P}: the History stores the winner as int8, as "
+            "phnrec_tpu's does (which wraps past 127)")
+    if not hasattr(lib, "phn_viterbi_any_path") and (
+            S > lib.phn_viterbi_max_states() or
+            D > lib.phn_viterbi_max_row()):
+        raise ValueError(f"this kernel-C source takes at most "
+                         f"{lib.phn_viterbi_max_states()} states and rows "
+                         f"of {lib.phn_viterbi_max_row()} columns")
     out_a = torch.empty_like(alphas)
     out_e = torch.empty_like(ent)
     h_phn = torch.empty((T, B), dtype=torch.int8, device=device)

@@ -264,3 +264,60 @@ def test_viterbi_tie_heavy_bit_equal(case):
         _assert_hist_equal(th, jh)
         for a, b in zip(tc, jc):
             assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+# past kernel C's templates: S 6 and 7 (its run-time-S kernel) and rows
+# wider than one ring stage (4,073 columns), tie-heavy "ints" observations
+WIDE_CASES = [dict(P=9, S=6, D=54), dict(P=20, S=7, D=141),
+              dict(P=46, S=3, D=4100), dict(P=5, S=6, D=4200)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=[f"P{c['P']}_S{c['S']}_D{c['D']}"
+                              for c in WIDE_CASES])
+def test_viterbi_wide_bit_equal(case):
+    """Kernels C and C''s plain versions against phnrec_tpu's
+    viterbi_block and viterbi_block_ragged at the widths the card takes
+    through the run-time-S kernel: carry and (valid) History equal, C over
+    two blocks chained with t0, C' with ragged rows."""
+    from phnrec_tpu_torch.devtools.scan_variants import viterbi_case
+    P, S, D = case["P"], case["S"], case["D"]
+    tspec, lp, t0, nv = viterbi_case("cpu", P, S, 4, 24, D, seed=P + S + D,
+                                     ties="ints")
+    jspec = jpl.PhnLoopSpec(*tspec)
+    tc, jc = tpl.init_carry(tspec, 4), jpl.init_carry(jspec, 4)
+    for lo, hi in ((0, 11), (11, 24)):
+        x = lp[:, lo:hi].contiguous()
+        jc, jh = jpl.viterbi_block(jspec, jc, jnp.asarray(x.numpy()),
+                                   jnp.int32(lo + 2))
+        tc, th = tpl.viterbi_block(tspec, tc, x, lo + 2)
+        _assert_hist_equal(th, jh)
+        for a, b in zip(tc, jc):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    tc, jc = tpl.init_carry(tspec, 4), jpl.init_carry(jspec, 4)
+    jc, jh = jpl.viterbi_block_ragged(jspec, jc, jnp.asarray(lp.numpy()),
+                                      jnp.asarray(t0.numpy()),
+                                      jnp.asarray(nv.numpy()))
+    tc, th = tpl.viterbi_block_ragged(tspec, tc, lp, t0, nv)
+    for a, b in zip(tc, jc):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    valid = np.arange(24)[:, None] < nv.numpy()[None, :]
+    assert valid.any() and not valid.all()
+    for g, w in zip(th, jh):
+        assert np.array_equal(g.numpy()[valid], np.asarray(w)[valid])
+
+
+def test_viterbi_p129_wraps_the_int8_winner_as_jax_does():
+    """129 phonemes: phnrec_tpu stores the winner as int8, so phoneme 128
+    wraps to -128; the port's plain version wraps the same way (the card's
+    kernel refuses such a loop, chip_smoke.py)."""
+    P, S, B, T = 129, 1, 2, 6
+    lp = np.full((B, T, P * S), -5.0, np.float32)
+    lp[:, :, 128] = 0.0                    # phoneme 128 wins every frame
+    jspec, tspec = _specs(P, S)
+    jc, jh = jpl.viterbi_block(jspec, jpl.init_carry(jspec, B),
+                               jnp.asarray(lp), jnp.int32(0))
+    tc, th = tpl.viterbi_block(tspec, tpl.init_carry(tspec, B),
+                               torch.from_numpy(lp), 0)
+    assert (np.asarray(jh.max_phn) == -128).all()
+    _assert_hist_equal(th, jh)
