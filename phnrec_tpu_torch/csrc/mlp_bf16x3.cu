@@ -88,6 +88,19 @@
 // at op <= 144 are held to 128 a thread (ptxas: 52 bytes of spills at 3
 // passes, none at 1), the wide tile to 255 (201-204 used, one block an SM).
 //
+// Wider nets (n_inp > MAX_INP or n_out > MAX_OUT) take a split path,
+// three launches on the stream (phn_mlp_bf16x3_wide), as kernel A's: h =
+// sigmoid(xn @ W1 + b1) into a caller's [n_rows, n_hid] float32 scratch
+// tensor, o = h @ W2 + b2 into the output, then the row softmax in place.
+// Both products are one tensor-core kernel (gemm_kernel): a 64 x 64 output
+// tile a block of 4 warps, each warp 16 rows by 64 columns; 32-deep slabs,
+// the float32 operand (xn or h) split into bf16 hi and lo as it is staged,
+// the weights' hi and lo staged as given, the same passes in the same
+// order (hi.hi, hi.lo, lo.hi at each 16-deep step) and each slab's sum
+// folded into a float32 total, as the fused kernel folds h @ W2.  The
+// hidden tensor makes a round trip through device memory: these widths
+// are off the main path.
+//
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit, as in kernel A.
 // Build without --use_fast_math.
 
@@ -518,6 +531,156 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+// The split path's product: c[M, N] = act(split(a') @ w + bias), a' = (a -
+// mean) * dev by column where mean is given, else a; a [M, K] float32, w
+// as hi and lo bf16 [kp, np] row-major, zero past K and N (np a multiple of
+// 16, so every 16-byte piece of a row exists or none does).
+constexpr int GT = 64;         // output tile, rows and columns
+constexpr int GK = 32;         // depth of a slab
+constexpr int GA_LD = GK + 8;  // row stride of the split a slab, bf16
+constexpr int GW_LD = GT + 8;  // row stride of a weight slab, bf16
+
+template <int PASSES>
+__global__ void __launch_bounds__(128)
+gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
+            const float* __restrict__ dev, const bf16* __restrict__ wh,
+            const bf16* __restrict__ wl, int kp, int np,
+            const float* __restrict__ bias, float* __restrict__ c, int M,
+            int K, int N, bool sigm, bool fast) {
+  __shared__ __align__(16) bf16 sa[2][GT * GA_LD];   // [row][k], hi and lo
+  __shared__ __align__(16) bf16 sw[2][GK * GW_LD];   // [k][column]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 8;
+  const long long row0 = (long long)blockIdx.x * GT;
+  const int col0 = blockIdx.y * GT;
+  float acc[4][2][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += GK) {
+    // a: 32 consecutive k of a row, split
+    for (int e = tid; e < GT * GK; e += 128) {
+      const int r = e / GK, kk = e % GK;
+      const long long row = row0 + r;
+      const int k = k0 + kk;
+      float v = 0.0f;
+      if (row < M && k < K) {
+        v = a[row * K + k];
+        if (mean) v = (v - mean[k]) * dev[k];
+      }
+      const bf16 h = __float2bfloat16_rn(v);
+      sa[0][r * GA_LD + kk] = h;
+      if (PASSES == 3)
+        sa[1][r * GA_LD + kk] = __float2bfloat16_rn(v - __bfloat162float(h));
+    }
+    // w: 16-byte pieces, 8 columns each, zero past kp and np
+    for (int e = tid; e < halves(PASSES) * GK * (GT / 8); e += 128) {
+      const int hf = e / (GK * (GT / 8));
+      const int r = (e / (GT / 8)) % GK, q = e % (GT / 8);
+      const int k = k0 + r, col = col0 + 8 * q;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < kp && col < np)
+        v = *reinterpret_cast<const uint4*>((hf ? wl : wh) +
+                                            (size_t)k * np + col);
+      *reinterpret_cast<uint4*>(&sw[hf][r * GW_LD + 8 * q]) = v;
+    }
+    __syncthreads();
+    float sum[4][2][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[p][n][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < GK; ks += 16) {
+      uint32_t ah[4], al[4];
+      ldsm_x4(ah, &sa[0][(16 * warp + lrow) * GA_LD + ks + lcol]);
+      if (PASSES == 3) ldsm_x4(al, &sa[1][(16 * warp + lrow) * GA_LD + ks + lcol]);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t bh[4], bl[4];
+        ldsm_x4_t(bh, &sw[0][(ks + lrow) * GW_LD + 16 * p + lcol]);
+        if (PASSES == 3)
+          ldsm_x4_t(bl, &sw[1][(ks + lrow) * GW_LD + 16 * p + lcol]);
+        mma_passes<PASSES>(sum[p], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][n][e] += sum[p][n][e];
+    __syncthreads();
+  }
+  // (c0, c1) row g, columns 2t and 2t + 1 of an n8 tile; (c2, c3) row g + 8
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long row = row0 + 16 * warp + g + 8 * (e >> 1);
+        const int col = col0 + 16 * p + 8 * n + 2 * t4 + (e & 1);
+        if (row < M && col < N) {
+          const float v = acc[p][n][e] + bias[col];
+          c[row * N + col] = sigm ? sigmoid(v, fast) : v;
+        }
+      }
+}
+
+// softmax over each row's n columns, in place: a warp a row
+__global__ void __launch_bounds__(256)
+softmax_rows_kernel(float* __restrict__ o, int M, int n, bool fast) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  float* v = o + row * n;
+  float mx = -INFINITY;
+  for (int j = lane; j < n; j += 32) mx = fmaxf(mx, v[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float sum = 0.0f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = fast ? fexp(v[j] - mx) : expf(v[j] - mx);
+    v[j] = e;
+    sum += e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  for (int j = lane; j < n; j += 32) v[j] = v[j] / sum;
+}
+
+template <int PASSES>
+cudaError_t wide(const float* x, const float* mean, const float* dev,
+                 const Slabs& w, const float* b1, const float* b2, float* out,
+                 float* hid, int n_rows, int n_inp, int n_hid, int n_out,
+                 bool fast, bool softmax, cudaStream_t s) {
+  const unsigned rt = (unsigned)((n_rows + GT - 1) / GT);
+  gemm_kernel<PASSES><<<dim3(rt, (unsigned)((n_hid + GT - 1) / GT)), 128, 0,
+                        s>>>(x, mean, dev, w.w1h, w.w1l, w.kp, w.hp, b1, hid,
+                             n_rows, n_inp, n_hid, true, fast);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gemm_kernel<PASSES><<<dim3(rt, (unsigned)((n_out + GT - 1) / GT)), 128, 0,
+                        s>>>(hid, nullptr, nullptr, w.w2h, w.w2l, w.hp, w.op,
+                             b2, out, n_rows, n_hid, n_out, false, fast);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !softmax) return err;
+  softmax_rows_kernel<<<(unsigned)((n_rows + 7) / 8), 256, 0, s>>>(
+      out, n_rows, n_out, fast);
+  return cudaGetLastError();
+}
+
 template <int RT, int NP, int PASSES>
 cudaError_t launch(const float* x, const float* mean, const float* dev,
                    const Slabs& w, const float* b1, const float* b2,
@@ -610,4 +773,45 @@ extern "C" int phn_mlp_bf16x3(const void* x, const void* mean, const void* dev,
                        n_out, fast != 0, softmax != 0, s);
   return dispatch<1>(xf, mf, df, w, b1f, b2f, of, n_rows, n_inp, n_hid,
                      n_out, fast != 0, softmax != 0, s);
+}
+
+// The split path for any widths: hid is an [n_rows, n_hid] float32 scratch
+// tensor; otherwise as phn_mlp_bf16x3.  Three launches on `stream`.
+extern "C" int phn_mlp_bf16x3_wide(const void* x, const void* mean,
+                                   const void* dev, const void* w1h,
+                                   const void* w1l, const void* b1,
+                                   const void* w2h, const void* w2l,
+                                   const void* b2, void* out, void* hid,
+                                   int n_rows, int n_inp, int n_hid,
+                                   int n_out, int fast, int softmax,
+                                   int passes, void* stream) {
+  if (n_rows <= 0) return cudaSuccess;
+  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 || (passes != 1 && passes != 3) ||
+      n_hid > 65535 * GT || n_out > 65535 * GT)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(w1h) | reinterpret_cast<uintptr_t>(w1l) |
+       reinterpret_cast<uintptr_t>(w2h) | reinterpret_cast<uintptr_t>(w2l)) %
+          16 != 0)
+    return cudaErrorInvalidValue;
+  Slabs w{};
+  w.w1h = static_cast<const bf16*>(w1h);
+  w.w1l = static_cast<const bf16*>(w1l);
+  w.w2h = static_cast<const bf16*>(w2h);
+  w.w2l = static_cast<const bf16*>(w2l);
+  w.kp = (n_inp + 15) / 16 * 16;
+  w.hp = (n_hid + 127) / 128 * 128;
+  w.op = (n_out + 15) / 16 * 16;
+  auto* xf = static_cast<const float*>(x);
+  auto* mf = static_cast<const float*>(mean);
+  auto* df = static_cast<const float*>(dev);
+  auto* b1f = static_cast<const float*>(b1);
+  auto* b2f = static_cast<const float*>(b2);
+  auto* of = static_cast<float*>(out);
+  auto* hf = static_cast<float*>(hid);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (passes == 3)
+    return wide<3>(xf, mf, df, w, b1f, b2f, of, hf, n_rows, n_inp, n_hid,
+                   n_out, fast != 0, softmax != 0, s);
+  return wide<1>(xf, mf, df, w, b1f, b2f, of, hf, n_rows, n_inp, n_hid,
+                 n_out, fast != 0, softmax != 0, s);
 }

@@ -59,6 +59,18 @@
 // tile an SM (WIDE_MIN_ROWS); otherwise the 64-row tile, which fits every
 // n_inp <= MAX_INP = 480 at every n_out <= 256.
 //
+// Wider nets (n_inp > MAX_INP or n_out > 256) take a split path, three
+// launches on the stream (phn_mlp_fused_wide): the hidden layer h =
+// sigmoid(xn @ W1 + b1) into a caller's [n_rows, n_hid] scratch tensor,
+// o = h @ W2 + b2 into the output, then the row softmax in place.  Both
+// products are one register-tiled SGEMM (gemm_kernel: a 64 x 64 output
+// tile a block of 256 threads, 4 x 4 sums a thread, 16-deep slabs of both
+// operands through shared memory), each output one fmaf chain in
+// ascending k as above, the norm applied as x is loaded and the bias and
+// sigmoid in the epilogue; the softmax a warp a row over any n_out.  The
+// hidden tensor makes a round trip through device memory: these widths
+// are off the main path (the CZ and EN nets take the fused kernel).
+//
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit: one float32
 // multiply by the float32-rounded constant, a saturating truncation
 // (__float2int_rz), a wrapping int32 add, and an exact 2^e that is 0 for
@@ -395,6 +407,109 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+// The split path's product: c[M, ldc] (columns < N) = act(a' @ w + bias),
+// a' = (a - mean) * dev by column where mean is given, else a; a [M, K]
+// and w [K, N] row-major float32.  A 64 x 64 tile a block.
+constexpr int GT = 64;   // output tile, rows and columns
+constexpr int GK = 16;   // depth of a slab
+
+__global__ void __launch_bounds__(256)
+gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
+            const float* __restrict__ dev, const float* __restrict__ w,
+            const float* __restrict__ bias, float* __restrict__ c, int M,
+            int K, int N, bool sigm, bool fast) {
+  __shared__ __align__(16) float as[GK][GT];   // [k][row]
+  __shared__ __align__(16) float ws[GK][GT];   // [k][column]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const long long row0 = (long long)blockIdx.x * GT;
+  const int col0 = blockIdx.y * GT;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += GK) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = tid + 256 * q;
+      // x: 16 consecutive k of a row; w: 64 consecutive columns of a k
+      const int r = e / GK, kx = e % GK;
+      const long long row = row0 + r;
+      const int k = k0 + kx;
+      float v = 0.0f;
+      if (row < M && k < K) {
+        v = a[row * K + k];
+        if (mean) v = (v - mean[k]) * dev[k];
+      }
+      as[kx][r] = v;
+      const int kw = e / GT, cw = e % GT;
+      ws[kw][cw] = k0 + kw < K && col0 + cw < N
+                       ? w[(size_t)(k0 + kw) * N + col0 + cw]
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GK; ++kk) {
+      const float4 x4 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 w4 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = row0 + ty * 4 + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + tx * 4 + j;
+      if (col < N) {
+        const float v = acc[i][j] + bias[col];
+        c[row * N + col] = sigm ? sigmoid(v, fast) : v;
+      }
+    }
+  }
+}
+
+// softmax over each row's n columns, in place: a warp a row
+__global__ void __launch_bounds__(256)
+softmax_rows_kernel(float* __restrict__ o, int M, int n, bool fast) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  float* v = o + row * n;
+  float mx = -INFINITY;
+  for (int j = lane; j < n; j += 32) mx = fmaxf(mx, v[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float sum = 0.0f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = fast ? fexp(v[j] - mx) : expf(v[j] - mx);
+    v[j] = e;
+    sum += e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  for (int j = lane; j < n; j += 32) v[j] = v[j] / sum;
+}
+
+cudaError_t gemm(const float* a, const float* mean, const float* dev,
+                 const float* w, const float* bias, float* c, int M, int K,
+                 int N, bool sigm, bool fast, cudaStream_t s) {
+  const dim3 grid((unsigned)((M + GT - 1) / GT), (unsigned)((N + GT - 1) / GT));
+  gemm_kernel<<<grid, 256, 0, s>>>(a, mean, dev, w, bias, c, M, K, N, sigm,
+                                   fast);
+  return cudaGetLastError();
+}
+
 template <int RT, int NQ>
 cudaError_t launch(const float* x, const float* mean, const float* dev,
                    const float* w1, const float* b1, const float* w2,
@@ -468,4 +583,35 @@ extern "C" int phn_mlp_fused(const void* x, const void* mean, const void* dev,
                   static_cast<const float*>(b2), static_cast<float*>(out),
                   n_rows, n_inp, n_hid, n_out, fast != 0, softmax != 0,
                   static_cast<cudaStream_t>(stream));
+}
+
+// The split path for any widths: hid is an [n_rows, n_hid] float32 scratch
+// tensor; otherwise as phn_mlp_fused.  Three launches on `stream`.
+extern "C" int phn_mlp_fused_wide(const void* x, const void* mean,
+                                  const void* dev, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, void* out, void* hid,
+                                  int n_rows, int n_inp, int n_hid, int n_out,
+                                  int fast, int softmax, void* stream) {
+  if (n_rows <= 0) return cudaSuccess;
+  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 || n_hid > 65535 * GT ||
+      n_out > 65535 * GT)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* h = static_cast<float*>(hid);
+  auto* o = static_cast<float*>(out);
+  cudaError_t err = gemm(static_cast<const float*>(x),
+                         static_cast<const float*>(mean),
+                         static_cast<const float*>(dev),
+                         static_cast<const float*>(w1),
+                         static_cast<const float*>(b1), h, n_rows, n_inp,
+                         n_hid, true, fast != 0, s);
+  if (err != cudaSuccess) return err;
+  err = gemm(h, nullptr, nullptr, static_cast<const float*>(w2),
+             static_cast<const float*>(b2), o, n_rows, n_hid, n_out, false,
+             fast != 0, s);
+  if (err != cudaSuccess || !softmax) return err;
+  softmax_rows_kernel<<<(unsigned)((n_rows + 7) / 8), 256, 0, s>>>(
+      o, n_rows, n_out, fast != 0);
+  return cudaGetLastError();
 }

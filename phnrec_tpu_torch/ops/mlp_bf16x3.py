@@ -15,9 +15,11 @@ outside the grid) and zero-padded to the kernel's tiles: W1 to
 Padded lanes hold zero in both halves, so they add nothing.  x, mean, dev,
 b1 and b2 stay float32 and unpadded.
 
-The kernel takes the widths kernel A takes (n_inp <= 480, n_out <= 256):
-the wrapper raises beyond them through ``mlp_fused.check_widths``, before
-anything is built, and holds the limits the source exports to A's.
+The fused kernel takes the widths kernel A's fused kernel takes (n_inp <=
+480, n_out <= 256, ``mlp_fused.fused_takes``), and the wrapper holds the
+limits the source exports to A's.  Wider nets take the source's split path
+(phn_mlp_bf16x3_wide: the same passes and split, the hidden layer through
+a scratch tensor in device memory), so every width is taken.
 """
 
 from __future__ import annotations
@@ -101,6 +103,9 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.phn_mlp_bf16x3_wide.argtypes = [ctypes.c_void_p] * 11 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.phn_mlp_bf16x3_wide.restype = ctypes.c_int
         lib.phn_mlp_bf16x3_max_out.restype = ctypes.c_int
         lib.phn_mlp_bf16x3_max_inp.restype = ctypes.c_int
         limits = (lib.phn_mlp_bf16x3_max_inp(), lib.phn_mlp_bf16x3_max_out())
@@ -124,7 +129,6 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
             apply_softmax=apply_softmax, passes=passes)
     n, n_inp = x.shape
     n_hid, n_out = b1.shape[0], b2.shape[0]
-    mlp_fused.check_widths(n_inp, n_out)
     device = _build.cuda_device(x)
     kp, hp, op = (_round(n_inp, K_TILE), _round(n_hid, H_TILE),
                   _round(n_out, O_TILE))
@@ -144,13 +148,19 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     lib = _lib()
     out = torch.empty((n, n_out), dtype=f32, device=device)
+    ptrs = [t.data_ptr() for t in (x, mean, dev, w1_hi, w1_lo, b1, w2_hi,
+                                   w2_lo, b2, out)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.phn_mlp_bf16x3(
-            x.data_ptr(), mean.data_ptr(), dev.data_ptr(), w1_hi.data_ptr(),
-            w1_lo.data_ptr(), b1.data_ptr(), w2_hi.data_ptr(),
-            w2_lo.data_ptr(), b2.data_ptr(), out.data_ptr(), n, n_inp, n_hid,
-            n_out, int(fast), int(apply_softmax), passes, stream)
+        if mlp_fused.fused_takes(n_inp, n_out):
+            err = lib.phn_mlp_bf16x3(*ptrs, n, n_inp, n_hid, n_out,
+                                     int(fast), int(apply_softmax), passes,
+                                     stream)
+        else:
+            hid = torch.empty((n, n_hid), dtype=f32, device=device)
+            err = lib.phn_mlp_bf16x3_wide(*ptrs, hid.data_ptr(), n, n_inp,
+                                          n_hid, n_out, int(fast),
+                                          int(apply_softmax), passes, stream)
     _build.check(err, "mlp_bf16x3")
     global LAUNCHES
     LAUNCHES += 1

@@ -5,12 +5,14 @@ Counterpart of phnrec_tpu/ops/pallas_mlp.py::mlp_forward_fused.  Shapes are
 unpadded: x [N, n_inp], w1 [n_inp, n_hid], w2 [n_hid, n_out] (the 128-lane
 padding of the Pallas kernel was for the TPU's tiling only).
 
-The kernel keeps a block's normalised x tile in shared memory and its output
-accumulators in registers, which bounds the widths it takes: n_inp <=
-MAX_INP (480) and n_out <= MAX_OUT (256).  The wrapper raises beyond them,
-before anything is built; the source exports the same two numbers
-(phn_mlp_fused_max_inp, phn_mlp_fused_max_out) and the wrapper holds them
-to its own.
+The fused kernel keeps a block's normalised x tile in shared memory and
+its output accumulators in registers, which bounds the widths it takes:
+n_inp <= MAX_INP (480) and n_out <= MAX_OUT (256); the source exports the
+same two numbers (phn_mlp_fused_max_inp, phn_mlp_fused_max_out) and the
+wrapper holds them to its own.  Wider nets take the source's split path
+(phn_mlp_fused_wide: the hidden layer through a scratch tensor in device
+memory, then the output product and the row softmax), so the kernel takes
+every width the plain version takes.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.phn_mlp_fused_wide.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.phn_mlp_fused_wide.restype = ctypes.c_int
         lib.phn_mlp_fused_max_out.restype = ctypes.c_int
         lib.phn_mlp_fused_max_inp.restype = ctypes.c_int
         limits = (lib.phn_mlp_fused_max_inp(), lib.phn_mlp_fused_max_out())
@@ -52,14 +57,10 @@ def _lib():
     return lib
 
 
-def check_widths(n_inp: int, n_out: int) -> None:
-    """Raise for a net the kernel does not take."""
-    if n_inp > MAX_INP:
-        raise ValueError(f"n_inp {n_inp} exceeds the kernel's {MAX_INP}: "
-                         "its x tile would not fit shared memory")
-    if n_out > MAX_OUT:
-        raise ValueError(f"n_out {n_out} exceeds the kernel's {MAX_OUT} "
-                         "columns")
+def fused_takes(n_inp: int, n_out: int) -> bool:
+    """Whether the fused kernels (A and A') take a net's widths; wider
+    nets take their split paths."""
+    return n_inp <= MAX_INP and n_out <= MAX_OUT
 
 
 def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
@@ -72,7 +73,6 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
                                  apply_softmax=apply_softmax)
     n_inp, n_hid = w1.shape
     n_out = w2.shape[1]
-    check_widths(n_inp, n_out)
     device = _build.cuda_device(x)
     n = x.shape[0]
     f32 = torch.float32
@@ -85,12 +85,17 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
         raise ValueError(f"{n} rows exceed the kernel's int32 row index")
     lib = _lib()
     out = torch.empty((n, n_out), dtype=f32, device=device)
+    ptrs = [t.data_ptr() for t in (x, mean, dev, w1, b1, w2, b2, out)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.phn_mlp_fused(
-            x.data_ptr(), mean.data_ptr(), dev.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            n, n_inp, n_hid, n_out, int(fast), int(apply_softmax), stream)
+        if fused_takes(n_inp, n_out):
+            err = lib.phn_mlp_fused(*ptrs, n, n_inp, n_hid, n_out, int(fast),
+                                    int(apply_softmax), stream)
+        else:
+            hid = torch.empty((n, n_hid), dtype=f32, device=device)
+            err = lib.phn_mlp_fused_wide(*ptrs, hid.data_ptr(), n, n_inp,
+                                         n_hid, n_out, int(fast),
+                                         int(apply_softmax), stream)
     _build.check(err, "mlp_fused")
     global LAUNCHES
     LAUNCHES += 1

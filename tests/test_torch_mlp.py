@@ -148,3 +148,32 @@ def test_forward_leading_dims():
     lead = m(torch.from_numpy(x).reshape(2, 5, 20))
     assert lead.shape == (2, 5, 9)
     assert torch.equal(lead.reshape(10, 9), flat)
+
+
+@pytest.mark.parametrize("n_inp, n_hid, n_out", [(500, 130, 300),
+                                                 (500, 70, 138),
+                                                 (165, 70, 300)])
+@pytest.mark.parametrize("fast, apply_softmax", [(True, True),
+                                                 (False, False)])
+def test_forward_wide_matches_jax(n_inp, n_hid, n_out, fast, apply_softmax):
+    """Past the fused CUDA kernel's widths (n_inp 480, n_out 256), which
+    the card takes through its split path: the plain version against the
+    jnp chain and the Pallas kernel in interpret mode."""
+    p = _params(seed=n_inp + n_out, n_inp=n_inp, n_hid=n_hid, n_out=n_out)
+    x = _x(5, 37, n_inp)
+    chain = np.asarray(jmlp.forward(jmlp.to_device(p), jnp.asarray(x),
+                                    fast=fast, apply_softmax=apply_softmax,
+                                    use_pallas=False))
+    net = jmlp.to_device(p, pad=128)
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, net.w1.shape[0] - n_inp)))
+    pallas = np.asarray(mlp_forward_fused(
+        xp, net.mean, net.dev, net.w1, net.b1, net.w2, net.b2,
+        n_out=net.n_out, fast=fast, apply_softmax=apply_softmax,
+        interpret=True, prec=jax.lax.Precision.HIGHEST))[:, :n_out]
+    got = mlp_from_device(net)(torch.from_numpy(x), fast=fast,
+                               apply_softmax=apply_softmax).numpy()
+    assert got.shape == (37, n_out)
+    # the tolerances of test_forward_matches_jnp_chain
+    for want in (chain, pallas):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-6 if apply_softmax else 2e-5)

@@ -93,13 +93,15 @@ def test_split_weights_pads_with_zero():
 
 
 @pytest.mark.parametrize("widths", [(55, 32, 12), (165, 1500, 138),
-                                    (276, 1500, 138)],
-                         ids=["tiny", "cz_band", "cz_merger"])
+                                    (276, 1500, 138), (500, 130, 300)],
+                         ids=["tiny", "cz_band", "cz_merger", "wide"])
 @pytest.mark.parametrize("fast", [True, False])
 @pytest.mark.parametrize("apply_softmax", [True, False])
 def test_plain_matches_pallas_kernel3(widths, fast, apply_softmax):
     """The plain version with 3 passes against phnrec_tpu's _kernel3 in
-    interpret mode (the JAX net padded to 128)."""
+    interpret mode (the JAX net padded to 128); "wide" is past the fused
+    CUDA kernel's widths (n_inp 480, n_out 256), which the card takes
+    through its split path."""
     p = _params(2, *widths)
     net = jmlp.to_device(p, pad=128)
     x = _x(3, 300, p)
@@ -237,9 +239,10 @@ def test_modes_agree_within_their_precision():
                          ids=["cz", "en", "tiny", "kws_en", "kws_tiny"])
 def test_synthetic_package_widths_pass_the_shared_check(tmp_path, shape,
                                                         kws):
-    """Kernels A and A' take the same widths (mlp_fused.check_widths, which
-    both wrappers call before anything is built): every net of every
-    synthetic package passes it."""
+    """Kernels A and A' take the same widths on their fused kernels
+    (mlp_fused.fused_takes, which both wrappers ask; wider nets take the
+    split paths): every net of every synthetic package takes the fused
+    kernels."""
     from phnrec_tpu_torch import synth
     from phnrec_tpu_torch.pipeline import SpeechRec
     write = synth.write_kws_package if kws else synth.write_lcrc_package
@@ -248,4 +251,4 @@ def test_synthetic_package_widths_pass_the_shared_check(tmp_path, shape,
     nets = (*est.band, est.merger)
     assert len(nets) == 3
     for net in nets:
-        mlp_fused.check_widths(net.n_inp, net.n_out)
+        assert mlp_fused.fused_takes(net.n_inp, net.n_out)

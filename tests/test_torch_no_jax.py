@@ -232,20 +232,23 @@ _FORWARD = {"mlp_fused": mlp_fused.mlp_forward,
 def test_mlp_fused_raises_beyond_its_widths(kernel, n_inp, n_out, what,
                                             monkeypatch):
     """Kernels A and A' keep the x tile in shared memory and the outputs in
-    registers, and take the same widths: a wider net raises, before
+    registers, and their fused kernels take the same widths; a wider net
+    (past n_inp or n_out, ``what``) takes the split path instead of
+    raising.  On a device that is not CUDA the wrapper still raises before
     anything is built or launched, and the CPU path (the plain version)
-    still takes it."""
+    takes the net."""
     def no_build(name):
         raise AssertionError(f"built {name}")
     monkeypatch.setattr(_build, "load", no_build)
+    assert not mlp_fused.fused_takes(n_inp, n_out), what
     before = _counts()
-    with pytest.raises(ValueError, match=f"{what} .* exceeds the kernel's"):
+    with pytest.raises(ValueError, match="no kernel"):
         _FORWARD[kernel](*_wide_args(kernel, n_inp, n_out, "meta"))
     assert _counts() == before
     cpu = _wide_args(kernel, n_inp, n_out, "cpu")
     assert _FORWARD[kernel](*cpu).shape == (5, n_out)
-    # the widest net it does take passes the check
-    mlp_fused.check_widths(mlp_fused.MAX_INP, mlp_fused.MAX_OUT)
+    # the widest net the fused kernels take
+    assert mlp_fused.fused_takes(mlp_fused.MAX_INP, mlp_fused.MAX_OUT)
 
 
 @pytest.mark.parametrize("kernel", ["mlp_fused", "mlp_bf16x3"])
