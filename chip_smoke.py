@@ -302,8 +302,8 @@ ODD_SHAPES = ((7, 6, 4), (20, 16, 9), (55, 33, 12), (165, 70, 138),
 ODD_ROWS = (5, 200, 9000)
 
 
-def _odd_nets(dev):
-    """Seeded nets of ODD_SHAPES, with unit-variance pre-activations and
+def _odd_nets(dev, shapes=ODD_SHAPES):
+    """Seeded nets of ``shapes``, with unit-variance pre-activations and
     logits as check_mlp's: (shape, (mean, dev, w1, b1, w2, b2))."""
     rng = np.random.default_rng(6)
 
@@ -311,7 +311,7 @@ def _odd_nets(dev):
         return torch.from_numpy(
             (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
-    for n_inp, n_hid, n_out in ODD_SHAPES:
+    for n_inp, n_hid, n_out in shapes:
         net = (t(n_inp), t(n_inp).abs() + 0.5,
                t(n_inp, n_hid, scale=n_inp ** -0.5), t(n_hid, scale=0.1),
                t(n_hid, n_out, scale=n_hid ** -0.5), t(n_out, scale=0.1))
@@ -340,6 +340,62 @@ def check_mlp_odd_shapes(dev) -> None:
     phase("mlp_fused_odd", shapes=ODD_SHAPES, rows=ODD_ROWS,
           max_abs_err_softmax=worst[True], tol_softmax=TOL_SOFTMAX,
           max_abs_err_logits=worst[False], tol_logits=TOL_LOGITS)
+
+
+# nets past the fused kernels' widths (n_inp 480, n_out 256): the split
+# paths of kernels A and A'
+WIDE_SHAPES = ((500, 257, 138), (165, 200, 300), (500, 1500, 300))
+
+
+def check_mlp_wide(dev) -> dict:
+    """Kernels A and A' (3 and 1 passes) against their plain versions on
+    seeded nets of WIDE_SHAPES at ODD_ROWS, the tolerances of the fused
+    kernels; the widest timed at 65,536 rows beside its plain version."""
+    worst = {}
+    for shape, (mean, dv, w1, b1, w2, b2), xs in _odd_nets(dev, WIDE_SHAPES):
+        halves = mlp_bf16x3.split_weights(w1, w2)
+        for rows, x in zip(ODD_ROWS, xs):
+            for fast, smx in ((True, True), (False, False)):
+                kw = dict(fast=fast, apply_softmax=smx)
+                got = mlp_fused.mlp_forward(x, mean, dv, w1, b1, w2, b2, **kw)
+                want = mlp_fused.mlp_forward_plain(x, mean, dv, w1, b1, w2,
+                                                   b2, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = TOL_SOFTMAX if smx else TOL_LOGITS
+                if not torch.isfinite(got).all() or not err <= tol:
+                    raise AssertionError(
+                        f"mlp_fused wide {shape} rows={rows} fast={fast} "
+                        f"softmax={smx}: err {err} > {tol}")
+                key = f"A_{'softmax' if smx else 'logits'}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                args = (x, mean, dv, halves[0], halves[1], b1, halves[2],
+                        halves[3], b2)
+                for passes in (3, 1):
+                    err, _, over, _ = _bf16x3_case(
+                        f"wide {shape} rows={rows}", args, w2, fast, smx,
+                        passes)
+                    key = f"A'_passes{passes}_{'softmax' if smx else 'logits'}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    worst[key + "_over_tol"] = max(
+                        worst.get(key + "_over_tol", 0.0), over)
+    # the widest net timed at 65,536 rows
+    shape, (mean, dv, w1, b1, w2, b2), _ = list(
+        _odd_nets(dev, WIDE_SHAPES[-1:]))[0]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (65536, shape[0]), np.float32)).to(dev)
+    halves = mlp_bf16x3.split_weights(w1, w2)
+    a = (x, mean, dv, w1, b1, w2, b2)
+    a3 = (x, mean, dv, halves[0], halves[1], b1, halves[2], halves[3], b2)
+    timed = dict(
+        shape=shape, rows=65536,
+        A_ms=cuda_ms(lambda: mlp_fused.mlp_forward(*a)),
+        A_plain_ms=cuda_ms(lambda: mlp_fused.mlp_forward_plain(*a)),
+        A3_ms=cuda_ms(lambda: mlp_bf16x3.mlp_forward_bf16x3(*a3)),
+        A3_plain_ms=cuda_ms(lambda: mlp_bf16x3.mlp_forward_bf16x3_plain(*a3)))
+    phase("mlp_wide", shapes=WIDE_SHAPES, rows=ODD_ROWS, max_abs_err=worst,
+          tol_softmax=TOL_SOFTMAX, tol_logits=TOL_LOGITS, timed=timed)
+    return timed
 
 
 def bf16x3_limit(want, w2, smx: bool, passes: int):
@@ -677,28 +733,44 @@ def check_viterbi_cases(dev) -> None:
     scan_variants.VITERBI_CASES (S 1-5 at P up to 32, 64, 96 and 128:
     every template instance; B 1 and 13, T 1 and one that fills no chunk,
     n_valid 0, T and ragged, two blocks chained through the carry,
-    tie-heavy observations with -0.0): carry and valid History bit-equal;
-    and a row wider than a ring stage raises."""
-    recs = scan_variants.check_viterbi_cases(
-        phnloop_viterbi.viterbi_block, phnloop_viterbi.viterbi_block_ragged,
-        dev)
+    tie-heavy observations with -0.0) and VITERBI_WIDE_CASES (S 6, 7 and
+    120, rows of 4,100 and 5,000 columns: the run-time-S kernel, its carry
+    in shared and in device memory): carry and valid History bit-equal; a
+    wide case (S 6 at the CZ loop's B 256 x T 500) timed; and 129
+    phonemes refused (the int8 History)."""
+    recs = []
+    for cases in (scan_variants.VITERBI_CASES,
+                  scan_variants.VITERBI_WIDE_CASES):
+        recs += scan_variants.check_viterbi_cases(
+            phnloop_viterbi.viterbi_block,
+            phnloop_viterbi.viterbi_block_ragged, dev, cases)
     bad = [r for r in recs if r["bad"]]
-    # a row wider than a ring stage holds is refused before any launch
-    wide = phnloop_viterbi._lib().phn_viterbi_max_row() + 1
-    spec = phnloop.PhnLoopSpec(n_phonemes=46, n_states=3, w_penalty=-4.6875)
+    # 129 phonemes: phnrec_tpu's int8 History wraps the winner; the kernel
+    # refuses the loop before any launch
+    spec = phnloop.PhnLoopSpec(n_phonemes=129, n_states=1, w_penalty=-1.0)
     try:
         phnloop_viterbi.viterbi_block(
             phnloop.init_carry(spec, 2, dev),
-            torch.zeros((2, 3, wide), device=dev), 0, 46, 3, -4.6875,
+            torch.zeros((2, 3, 129), device=dev), 0, 129, 1, -1.0,
             spec.log_tr_curr, spec.log_tr_next)
         refused = False
-    except ValueError:
-        refused = True
+    except ValueError as e:
+        refused = "int8" in str(e)
+    # the wide path timed: S 6 at B 256 x T 500
+    spec, lp, _, _ = scan_variants.viterbi_case(dev, 46, 6, 256, 500, 276,
+                                                seed=115)
+    args = scan_variants._spec_args(spec)
+    carry = phnloop.init_carry(spec, 256, dev)
+    fn = lambda: phnloop_viterbi.viterbi_block(carry, lp, 0, *args)  # noqa: E731
+    held = scan_variants.held_ms(fn)
+    wide = dict(P=46, S=6, B=256, T=500, D=276, ms=cuda_ms(fn),
+                held_ms=held, **clocks(fn, held, 500))
     phase("phnloop_viterbi_cases", cases=len(recs), bit_equal=not bad,
-          bad=bad, row_of=wide, refused=refused)
+          bad=bad, wide_cases=list(scan_variants.VITERBI_WIDE_CASES),
+          p129_refused=refused, wide_timed=wide)
     if bad or not refused:
         raise AssertionError(f"phnloop_viterbi cases differ: {bad}, "
-                             f"a row of {wide} refused: {refused}")
+                             f"129 phonemes refused: {refused}")
 
 
 def label_key(labels):
@@ -979,8 +1051,19 @@ def check_lrtrace(c, b_out, dev, n: int = 256, F: int = 512):
                            **bound(n_bytes, live_rows * K * 20, PEAK_FP32),
                            **clk)
     recs = scan_variants.check_lrtrace_cases(lrtrace.lrtrace_scan, dev)
+    recs += scan_variants.check_lrtrace_cases(
+        lrtrace.lrtrace_scan, dev, scan_variants.LRTRACE_WIDE_CASES)
     bad = [r for r in recs if r["bad"]]
-    phase("lrtrace_cases", cases=len(recs), equal=not bad, bad=bad)
+    # past 128 keywords (groups of 128) timed: K 200 at n 256 x F 512
+    st, sv, sw, ws, fs, nd, nv = scan_variants.lrtrace_case(
+        dev, 256, 512, 200, 203, seed=116)
+    fn = lambda: lrtrace.lrtrace_scan(st, sv, sw, ws, fs,  # noqa: E731
+                                      nd, nv, 40, -1e30)
+    held = scan_variants.held_ms(fn)
+    phase("lrtrace_cases", cases=len(recs), equal=not bad, bad=bad,
+          wide_cases=list(scan_variants.LRTRACE_WIDE_CASES),
+          wide_timed=dict(n=256, F=512, K=200, ms=cuda_ms(fn), held_ms=held,
+                          **clocks(fn, held, 512)))
     if bad:
         raise AssertionError(f"lrtrace cases differ: {bad}")
     return res
@@ -1503,7 +1586,8 @@ def _netscan_case(dec, dev, B, T, seed, ties=False, beam=None, t0=None,
     return same, rk, _i32(nv, dev)
 
 
-def _nettrace_case(dec, recs, nv, dev, seed, committed=False):
+def _nettrace_case(dec, recs, nv, dev, seed, committed=False,
+                   force_global=False):
     B, T = recs["in_am"].shape[:2]
     f0 = np.full(B, -1, np.int32)
     if committed:
@@ -1511,10 +1595,20 @@ def _nettrace_case(dec, recs, nv, dev, seed, committed=False):
         f0[1::2] = rng.integers(0, T, B)[1::2]
     args = (recs, nv, _i32(f0, dev), dec.edge_tables(dev),
             dec.c.terminal_sink)
-    wk = nettrace.nettrace(*args)
+    wk = (nettrace.launch(nettrace._lib(), *args, force_global=True)
+          if force_global else nettrace.nettrace(*args))
     wp = nettrace.nettrace_plain(*args)
     torch.cuda.synchronize()
     return all(_bits_equal(a, b) for a, b in zip(wk, wp)), wk
+
+
+def nettrace_stage_frames(dec) -> int:
+    """Frames a ring stage of kernel H's shared path for a network (0:
+    its device-memory path)."""
+    tb = dec.edge_tables("cpu")
+    return nettrace._lib().nettrace_stage_frames(
+        dec.c.n_states, dec.c.n_models, tb["in_w"].shape[0],
+        tb["cm_w"].shape[0], tb["ex_w"].shape[0])
 
 
 def check_netscan_cases(nets: dict, dev) -> None:
@@ -1550,8 +1644,13 @@ def check_netscan_cases(nets: dict, dev) -> None:
         same_h, walk = _nettrace_case(dec, recs, nv, dev, kw["seed"])
         same_hc, _ = _nettrace_case(dec, recs, nv, dev, kw["seed"],
                                     committed=True)
+        # H's device-memory path on the same records
+        same_hg = all(_nettrace_case(dec, recs, nv, dev, kw["seed"],
+                                     committed=c, force_global=True)[0]
+                      for c in (False, True))
         out[name] = dict(netscan=same_g, nettrace=same_h,
-                         nettrace_frame0=same_hc,
+                         nettrace_frame0=same_hc, nettrace_global=same_hg,
+                         nettrace_stage_frames=nettrace_stage_frames(dec),
                          rows_ok=int(walk[0].sum()),
                          crossings=int((walk[3] >= 0).sum()))
     tb = big.edge_tables(dev)
@@ -1561,10 +1660,14 @@ def check_netscan_cases(nets: dict, dev) -> None:
     phase("netscan_cases", cases=out, random_big_states=big.c.n_states,
           random_big_fits_smem=bool(big_smem))
     bad = [k for k, v in out.items()
-           if not (v["netscan"] and v["nettrace"] and v["nettrace_frame0"])]
-    if bad or big_smem:
+           if not (v["netscan"] and v["nettrace"] and v["nettrace_frame0"]
+                   and v["nettrace_global"])]
+    shared_h = out["cz_256x500"]["nettrace_stage_frames"] > 0
+    if bad or big_smem or not shared_h or \
+            out["random_big_global"]["nettrace_stage_frames"]:
         raise AssertionError(f"kernels G / H differ on {bad}, or the big "
-                             "net took shared memory")
+                             "net took shared memory, or the CZ loop's "
+                             "walk did not")
 
 
 def _netscan_work(dec, B: int, T: int) -> tuple:
@@ -1852,6 +1955,7 @@ def main() -> int:
         cpu_sr = SpeechRec(pkg, device="cpu")
         results = {"mlp_fused": check_mlp(sr, dev)}
         check_mlp_odd_shapes(dev)
+        check_mlp_wide(dev)
         a_ms = results["mlp_fused"].pop("per_net")
         results["mlp_bf16x3"] = check_mlp_bf16x3(sr, dev, a_ms)
         results["phnloop_viterbi"], results["backtrack"] = \

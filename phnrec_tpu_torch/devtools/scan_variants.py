@@ -113,6 +113,14 @@ LRTRACE_CASES = {
     "F1": (256, 1, 2, 4, dict(seed=71)),
     "all_dead": (256, 64, 2, 4, dict(seed=72, dead=True)),
 }
+# past one launch's 128 keywords (groups of 128): K 129 and 200, each
+# with tie-heavy and random-walk records
+LRTRACE_WIDE_CASES = {
+    "K129": (13, 77, 129, 131, dict(seed=105, ties=True)),
+    "K129_walk": (13, 77, 129, 130, dict(seed=106)),
+    "K200": (13, 77, 200, 203, dict(seed=107, ties=True)),
+    "K200_walk_n1": (1, 100, 200, 201, dict(seed=108)),
+}
 LRTRACE_PRUNING = (40, 1e10)          # time pruning on and off
 LRTRACE_SCORE = {False: -1e30, True: -3.0}   # score pruning by `ties`
 
@@ -147,6 +155,19 @@ VITERBI_CASES = {
     "T1": (46, 3, 13, 1, 138, dict(seed=88)),
     "cz_ties": (46, 3, 256, 512, 138, dict(seed=89, ties="ints")),
     "cz_zeros": (46, 3, 256, 512, 138, dict(seed=90, ties="zeros")),
+}
+
+# past the templates (S <= 5, rows of one ring stage): S 6 and 7 (P of 1
+# and 4 phonemes a lane), rows wider than 4,073 columns at S 3 and 6, and
+# S 120 at P 128, whose carry and buffer exceed shared memory (carry in
+# device memory)
+VITERBI_WIDE_CASES = {
+    "P46_S6": (46, 6, 13, 37, 276, dict(seed=109, ties="ints")),
+    "P20_S7": (20, 7, 13, 37, 140, dict(seed=110, ties="zeros")),
+    "P128_S7": (128, 7, 13, 37, 896, dict(seed=111)),
+    "P46_S3_D4100": (46, 3, 13, 37, 4100, dict(seed=112, ties="ints")),
+    "P100_S6_D5000": (100, 6, 5, 20, 5000, dict(seed=113, ties="zeros")),
+    "P128_S120": (128, 120, 2, 9, 15360, dict(seed=114)),
 }
 
 
@@ -236,14 +257,14 @@ def lrtrace_equal(got, want) -> dict:
     return out
 
 
-def check_lrtrace_cases(scan, dev) -> list:
+def check_lrtrace_cases(scan, dev, cases=LRTRACE_CASES) -> list:
     """``scan`` (lrtrace_scan's arguments) against the plain version on
     every case of LRTRACE_CASES, both time prunings; on records 4 bytes
     off 16-byte alignment (S 4, which the kernel then copies by column);
     and on two blocks chained through the state (n 13, F 77 split at 30)
     against one.  -> one record per check, with its bad fields."""
     recs = []
-    for case, (n, F, K, S, kw) in LRTRACE_CASES.items():
+    for case, (n, F, K, S, kw) in cases.items():
         args = lrtrace_case(dev, n, F, K, S, **kw)
         sp = LRTRACE_SCORE[kw.get("ties", False)]
         for tp in LRTRACE_PRUNING:
@@ -330,7 +351,7 @@ def viterbi_equal(got, want, n_valid=None) -> dict:
     return out
 
 
-def check_viterbi_cases(block, ragged, dev) -> list:
+def check_viterbi_cases(block, ragged, dev, cases=VITERBI_CASES) -> list:
     """``block`` (viterbi_block's arguments) and ``ragged``
     (viterbi_block_ragged's) against their plain versions on every case of
     VITERBI_CASES: C from the initial carry at t0 17; C over two blocks
@@ -338,7 +359,7 @@ def check_viterbi_cases(block, ragged, dev) -> list:
     through the carry and t0 + n_valid, each against the plain version's
     chain.  -> one record per check, with its bad parts."""
     recs = []
-    for case, (P, S, B, T, D, kw) in VITERBI_CASES.items():
+    for case, (P, S, B, T, D, kw) in cases.items():
         spec, lp, t0, nv = viterbi_case(dev, P, S, B, T, D, **kw)
         args = _spec_args(spec)
         carry = phnloop.init_carry(spec, B, dev)
