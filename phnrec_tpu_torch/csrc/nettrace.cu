@@ -18,19 +18,39 @@
 //   crossing at or before frame0.
 //
 // A -1 record index wraps to the last entry as JAX's indexing does (only
-// values the walk discards can read one).  Loads the walk does not use
-// are not made: a row that is not live, or an in-model hop, reads no
-// closure record; the outputs are the plain version's (ops/nettrace.py).
+// values the walk discards can read one).  The outputs are the plain
+// version's (ops/nettrace.py) bit for bit.
 //
-// What bounds it on the H100: not bytes (a row reads one in_am word a
-// frame and three more a crossing, and writes 8 bytes a frame) but the
-// walk's chain: each step's load address depends on the last step's
-// load, T steps a row.  First design: a thread per row, 32 rows a block
-// (one warp: B 256 gives 8 blocks), so every block holds the latency of
-// one chain.  The outputs of 32 frames of the warp's 32 rows are held in
-// shared memory and stored a row at a time, 128 contiguous bytes a warp
-// store (a thread storing its own row's frames touched a sector per
-// store: 78-85% of the old phoneme-loop walk's time, PERF.md).
+// What bounds it on the H100: the walk's chain, each step's load address
+// depending on the last step's load, T steps a row.  The first design (a
+// thread per row, every record loaded from device memory where the walk
+// needs it) paid one to three device-memory latencies a step: ~2,855
+// clocks a step at the CZ stkint loop (PERF.md).  The loads do not have to
+// wait for the walk: a row's records are contiguous over frames, so a
+// frame's whole record row can be fetched before the walk knows its state.
+//
+// Design (nettrace_warp_kernel): a warp per row, two rows a block.
+// * The network's tables sit in shared memory, loaded once a block: one
+//   word an in-edge (an entry edge's source model with the top bit set,
+//   else its source state), cm_src and ex_src.
+// * The row's frames stream backwards, CH (<= 32) frames a stage, through
+//   a cp.async ring of STAGES stages: the in_am rows [CH, E] and
+//   entry_val rows [CH, M] of the chunk, the cm_am and ex_am rows
+//   [CH, M] one frame earlier, each one contiguous span (16-byte copies,
+//   the unaligned head and tail by 4-byte ones, the shared copy offset to
+//   keep them aligned).  Only frames below n_valid are read, and no chunk
+//   is issued after the walk ends.
+// * Every lane runs the same walk on shared memory (broadcast loads), so
+//   a step is a chain of a few shared loads; a chunk's outputs are held in
+//   shared memory and stored coalesced, a lane a frame.  Frames past
+//   n_valid and after the walk's end are filled with -1 / 0.0 without
+//   loads.
+// The bound is then the records streamed, E + 3M words a frame of a live
+// row, at the memory rate.  Where the tables and one stage of a row do not
+// fit a block's shared memory (E + 3M ~ 4,500 words or more), the first
+// design runs (nettrace_global_kernel): a thread per row, 32 rows a block,
+// only the loads the walk uses, outputs staged a row of 32 frames at a
+// time and stored coalesced.
 
 #include <cuda_runtime.h>
 
@@ -39,13 +59,17 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int ROWS = 32;   // rows a block, a lane each
-constexpr int CH = 32;     // frames staged before a store
+constexpr int ROWS = 32;   // device-memory path: rows a block, a lane each
+constexpr int CH = 32;     // device-memory path: frames staged before a store
+constexpr int STAGES = 3;  // shared path: ring stages a warp
+constexpr int CH_MAX = 32; // shared path: frames a stage, at most (a lane each)
+constexpr size_t SMEM_MAX = 232448;
+constexpr unsigned ENTRY = 0x80000000u;   // the table word of an entry edge
 
 __device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : i; }
 
 __global__ void __launch_bounds__(ROWS)
-nettrace_kernel(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
+nettrace_global_kernel(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
                 int n_cs, int ts, const int* __restrict__ in_am,
                 const int* __restrict__ ex_am, const int* __restrict__ cm_am,
                 const int* __restrict__ entry_edge,
@@ -130,26 +154,284 @@ nettrace_kernel(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
   }
 }
 
+
+// Asynchronous global -> shared copies; dst and src aligned to the size.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// words a 16-byte aligned span starts before `p`
+__device__ __forceinline__ int misalign(const void* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// words of a staged span of n words: room for its offset from 16 bytes
+__host__ __device__ constexpr int span_words(int n) { return (n + 3 + 3) & ~3; }
+
+// words of one ring stage: the in_am span, then entry_val, cm_am, ex_am
+__host__ __device__ constexpr int stage_words(int ch, int E, int M) {
+  return span_words(ch * E) + 3 * span_words(ch * M);
+}
+
+__host__ __device__ constexpr int table_words(int n_in, int n_cm, int n_ex) {
+  return (n_in + n_cm + n_ex + 3) & ~3;
+}
+
+// the warp's copy of n words from src into the span at dst (at the
+// source's offset from 16 bytes)
+__device__ __forceinline__ void copy_span(int* dst, const int* src, int n,
+                                          int lane) {
+  const int mis = misalign(src);
+  int* d = dst + mis;
+  const int head = min((4 - mis) & 3, n);
+  const int pieces = (n - head) >> 2;
+  const int tail = n - head - 4 * pieces;
+  for (int u = lane; u < pieces; u += 32)
+    cp_async16(d + head + 4 * u, src + head + 4 * u);
+  if (lane < head) cp_async4(d + lane, src + lane);
+  if (lane < tail)
+    cp_async4(d + head + 4 * pieces + lane, src + head + 4 * pieces + lane);
+}
+
+struct Walk {
+  int B, T, E, M, S, n_in, n_ex, n_cm, n_cs, ts;
+  int ch;   // frames a stage
+  const int *in_am, *ex_am, *cm_am, *entry_edge;
+  const float *entry_val, *sink_val;
+  const int *cs_am, *n_valid, *frame0;
+  const uint8_t* in_entry;
+  const int *in_src_m, *in_src_s, *cm_src, *ex_src, *cs_src;
+  uint8_t* ok_out;
+  int* sink_edge_out;
+  float* sink_val_out;
+  int* edges;
+  float* vals;
+};
+
+__global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk w) {
+  extern __shared__ __align__(16) int smem[];
+  const int E = w.E, M = w.M, T = w.T, C = w.ch;
+  int* tab = smem;                 // [n_in] in-edge words
+  int* cmsrc = tab + w.n_in;       // [n_cm]
+  int* exsrc = cmsrc + w.n_cm;     // [n_ex]
+  for (int i = threadIdx.x; i < w.n_in; i += blockDim.x)
+    tab[i] = w.in_entry[i] ? (int)(ENTRY | (unsigned)w.in_src_m[i])
+                           : w.in_src_s[i];
+  for (int i = threadIdx.x; i < w.n_cm; i += blockDim.x) cmsrc[i] = w.cm_src[i];
+  for (int i = threadIdx.x; i < w.n_ex; i += blockDim.x) exsrc[i] = w.ex_src[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= w.B) return;  // the whole warp leaves together
+  const int sw = stage_words(C, E, M);
+  int* ring = smem + table_words(w.n_in, w.n_cm, w.n_ex) +
+              (size_t)warp * (STAGES * sw + 2 * CH_MAX);
+  int* oe = ring + STAGES * sw;    // a chunk's outputs, a frame each
+  float* ov = reinterpret_cast<float*>(oe + CH_MAX);
+
+  // the start: every lane the same, from device memory
+  const int nv = w.n_valid[b], f0 = w.frame0[b];
+  const size_t rb = (size_t)b * T;
+  int last = nv - 1 > 0 ? nv - 1 : 0;
+  if (last > T - 1) last = T - 1;      // JAX clamps the index
+  const size_t lr = rb + last;
+  const int sink_edge = w.cs_am[lr * w.S + w.ts];
+  const float sval = w.sink_val[lr * w.S + w.ts];
+  const bool ok = nv > 0 && sval > NEG / 2;
+  int model = -1, state = 0;
+  if (ok && w.n_cs > 0) {
+    const int e0 = sink_edge < 0 ? 0 : min(sink_edge, w.n_cs - 1);
+    model = w.cs_src[e0];
+  }
+  if (model >= 0) state = exsrc[wrap(w.ex_am[lr * M + model], w.n_ex)];
+  bool active = ok && model >= 0;
+  if (lane == 0) {
+    w.ok_out[b] = ok;
+    w.sink_edge_out[b] = sink_edge;
+    w.sink_val_out[b] = sval;
+  }
+  // frames the walk can use: below n_valid; the others -1 / 0.0
+  const int top = active ? min(nv, T) : 0;
+  for (int t = top + lane; t < T; t += 32) {
+    w.edges[rb + t] = -1;
+    w.vals[rb + t] = 0.0f;
+  }
+  const int nch = (top + C - 1) / C;
+
+  // chunk c: frames [lo, hi), counted down from top; the cm / ex rows one
+  // frame earlier (from frame 0 for the first chunk: frame 0 reads
+  // entry_edge and ex_am's frame 0 from device memory)
+  auto issue = [&](int c) {
+    const int hi = top - c * C, lo = max(hi - C, 0), clo = max(lo - 1, 0);
+    int* st = ring + (c % STAGES) * sw;
+    copy_span(st, w.in_am + (rb + lo) * E, (hi - lo) * E, lane);
+    st += span_words(C * E);
+    copy_span(st, reinterpret_cast<const int*>(w.entry_val) + (rb + lo) * M,
+              (hi - lo) * M, lane);
+    st += span_words(C * M);
+    copy_span(st, w.cm_am + (rb + clo) * M, (hi - 1 - clo) * M, lane);
+    st += span_words(C * M);
+    copy_span(st, w.ex_am + (rb + clo) * M, (hi - 1 - clo) * M, lane);
+  };
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < nch) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    __syncwarp();  // every lane is done with the stage chunk c+2 takes
+    if (c + STAGES - 1 < nch) issue(c + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();  // chunk c has landed, for every lane
+    __syncwarp();
+    const int hi = top - c * C, lo = max(hi - C, 0), clo = max(lo - 1, 0);
+    // frame t's rows at (t - lo) * width; its cm / ex rows (frame t - 1)
+    // at (t - 1 - clo) * M
+    const int* st = ring + (c % STAGES) * sw;
+    const int* ins = st + misalign(w.in_am + (rb + lo) * E);
+    st += span_words(C * E);
+    const float* evs = reinterpret_cast<const float*>(st) +
+                       misalign(w.entry_val + (rb + lo) * M);
+    st += span_words(C * M);
+    const int* cms = st + misalign(w.cm_am + (rb + clo) * M);
+    st += span_words(C * M);
+    const int* exs = st + misalign(w.ex_am + (rb + clo) * M);
+    for (int t = hi - 1; t >= lo; --t) {
+      int out_edge = -1;
+      float out_val = 0.f;
+      if (active) {
+        const int k = wrap(ins[(t - lo) * E + state], w.n_in);
+        const int x = tab[k];
+        if (x < 0) {
+          const int m = x & 0x7fffffff;
+          const int r = (t - 1 - clo) * M;
+          int ek = t == 0 ? w.entry_edge[rb * M + m] : cms[r + m];
+          ek = ek < 0 ? 0 : (ek > w.n_cm - 1 ? w.n_cm - 1 : ek);
+          const int src_model = cmsrc[ek];
+          const int src_c = src_model > 0 ? src_model : 0;
+          const int ex = t == 0 ? w.ex_am[rb * M + src_c] : exs[r + src_c];
+          state = exsrc[wrap(ex, w.n_ex)];
+          if (t > f0) {
+            out_edge = ek;
+            out_val = evs[(t - lo) * M + m];
+          }
+          model = src_model;
+          if (src_model < 0 || t <= f0) active = false;
+        } else {
+          state = x;
+        }
+      }
+      if (t == 0) active = false;
+      if (lane == 0) {
+        oe[t - lo] = out_edge;
+        ov[t - lo] = out_val;
+      }
+    }
+    __syncwarp();
+    if (lane < hi - lo) {
+      w.edges[rb + lo + lane] = oe[lane];
+      w.vals[rb + lo + lane] = ov[lane];
+    }
+    if (!active) {
+      // the walk has ended: the frames below the chunk without loads
+      for (int t = lane; t < lo; t += 32) {
+        w.edges[rb + t] = -1;
+        w.vals[rb + t] = 0.0f;
+      }
+      break;
+    }
+  }
+  cp_async_wait<0>();   // no copy lands after the warp has left
+}
+
+// frames a stage of the shared path and its warps a block for a network
+// (0 frames: the device-memory path)
+void plan(int E, int M, int n_in, int n_cm, int n_ex, int* ch, int* warps) {
+  const size_t tw = table_words(n_in, n_cm, n_ex);
+  for (int wp = 2; wp >= 1; --wp)
+    for (int c = CH_MAX; c >= 4; c /= 2) {
+      const size_t words =
+          tw + (size_t)wp * (STAGES * (size_t)stage_words(c, E, M) + 2 * CH_MAX);
+      if (4 * words <= SMEM_MAX) {
+        *ch = c;
+        *warps = wp;
+        return;
+      }
+    }
+  *ch = 0;
+  *warps = 0;
+}
+
 }  // namespace
 
-extern "C" int nettrace(int B, int T, int E, int M, int S, int n_in, int n_ex,
-                        int n_cm, int n_cs, int terminal_sink,
-                        const void* in_am, const void* ex_am,
-                        const void* cm_am, const void* entry_edge,
-                        const void* entry_val, const void* sink_val,
-                        const void* cs_am, const void* n_valid,
-                        const void* frame0, const void* in_entry,
-                        const void* in_src_m, const void* in_src_s,
-                        const void* cm_src, const void* ex_src,
-                        const void* cs_src, void* ok, void* sink_edge,
-                        void* sink_val_out, void* edges, void* vals,
-                        void* stream) {
+namespace {
+
+int trace(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
+          int n_cs, int terminal_sink, const void* in_am, const void* ex_am,
+          const void* cm_am, const void* entry_edge, const void* entry_val,
+          const void* sink_val, const void* cs_am, const void* n_valid,
+          const void* frame0, const void* in_entry, const void* in_src_m,
+          const void* in_src_s, const void* cm_src, const void* ex_src,
+          const void* cs_src, void* ok, void* sink_edge, void* sink_val_out,
+          void* edges, void* vals, void* stream, bool force_global) {
   if (B <= 0) return cudaSuccess;
   if (T <= 0 || E <= 0 || M <= 0 || S <= 0 || n_in <= 0 || n_ex <= 0 ||
       n_cm <= 0 || n_cs < 0 || terminal_sink < 0 || terminal_sink >= S)
     return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  int ch = 0, warps = 0;
+  if (!force_global) plan(E, M, n_in, n_cm, n_ex, &ch, &warps);
+  if (ch > 0) {
+    const Walk w{B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, ch,
+                 static_cast<const int*>(in_am), static_cast<const int*>(ex_am),
+                 static_cast<const int*>(cm_am),
+                 static_cast<const int*>(entry_edge),
+                 static_cast<const float*>(entry_val),
+                 static_cast<const float*>(sink_val),
+                 static_cast<const int*>(cs_am),
+                 static_cast<const int*>(n_valid),
+                 static_cast<const int*>(frame0),
+                 static_cast<const uint8_t*>(in_entry),
+                 static_cast<const int*>(in_src_m),
+                 static_cast<const int*>(in_src_s),
+                 static_cast<const int*>(cm_src),
+                 static_cast<const int*>(ex_src),
+                 static_cast<const int*>(cs_src), static_cast<uint8_t*>(ok),
+                 static_cast<int*>(sink_edge), static_cast<float*>(sink_val_out),
+                 static_cast<int*>(edges), static_cast<float*>(vals)};
+    const size_t smem =
+        4 * (table_words(n_in, n_cm, n_ex) +
+             (size_t)warps * (STAGES * (size_t)stage_words(ch, E, M) + 2 * CH_MAX));
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          nettrace_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    nettrace_warp_kernel<<<(unsigned)((B + warps - 1) / warps), 32 * warps,
+                           smem, st>>>(w);
+    return cudaGetLastError();
+  }
   const unsigned blocks = (unsigned)((B + ROWS - 1) / ROWS);
-  nettrace_kernel<<<blocks, ROWS, 0, static_cast<cudaStream_t>(stream)>>>(
+  nettrace_global_kernel<<<blocks, ROWS, 0, st>>>(
       B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink,
       static_cast<const int*>(in_am), static_cast<const int*>(ex_am),
       static_cast<const int*>(cm_am), static_cast<const int*>(entry_edge),
@@ -163,4 +445,57 @@ extern "C" int nettrace(int B, int T, int E, int M, int S, int n_in, int n_ex,
       static_cast<float*>(sink_val_out), static_cast<int*>(edges),
       static_cast<float*>(vals));
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Frames a ring stage of the shared path for a network (E states, M
+// models, its table sizes), 0 where it takes the device-memory path.
+extern "C" int nettrace_stage_frames(int E, int M, int n_in, int n_cm,
+                                     int n_ex) {
+  int ch = 0, warps = 0;
+  plan(E, M, n_in, n_cm, n_ex, &ch, &warps);
+  return ch;
+}
+
+// The walk of B rows over kernel G's records ([B, T, E] in_am; [B, T, M]
+// ex_am, cm_am, entry_edge, entry_val; [B, T, S] sink_val, cs_am), n_valid
+// and frame0 [B], the network's tables; outputs ok, sink_edge, sink_val
+// [B] and edges, vals [B, T].  Launches on `stream`, allocates nothing,
+// does not synchronise.
+extern "C" int nettrace(int B, int T, int E, int M, int S, int n_in, int n_ex,
+                        int n_cm, int n_cs, int terminal_sink,
+                        const void* in_am, const void* ex_am,
+                        const void* cm_am, const void* entry_edge,
+                        const void* entry_val, const void* sink_val,
+                        const void* cs_am, const void* n_valid,
+                        const void* frame0, const void* in_entry,
+                        const void* in_src_m, const void* in_src_s,
+                        const void* cm_src, const void* ex_src,
+                        const void* cs_src, void* ok, void* sink_edge,
+                        void* sink_val_out, void* edges, void* vals,
+                        void* stream) {
+  return trace(B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, in_am,
+               ex_am, cm_am, entry_edge, entry_val, sink_val, cs_am, n_valid,
+               frame0, in_entry, in_src_m, in_src_s, cm_src, ex_src, cs_src,
+               ok, sink_edge, sink_val_out, edges, vals, stream, false);
+}
+
+// The same on the device-memory path whatever the network (for checks).
+extern "C" int nettrace_global(int B, int T, int E, int M, int S, int n_in,
+                               int n_ex, int n_cm, int n_cs, int terminal_sink,
+                               const void* in_am, const void* ex_am,
+                               const void* cm_am, const void* entry_edge,
+                               const void* entry_val, const void* sink_val,
+                               const void* cs_am, const void* n_valid,
+                               const void* frame0, const void* in_entry,
+                               const void* in_src_m, const void* in_src_s,
+                               const void* cm_src, const void* ex_src,
+                               const void* cs_src, void* ok, void* sink_edge,
+                               void* sink_val_out, void* edges, void* vals,
+                               void* stream) {
+  return trace(B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, in_am,
+               ex_am, cm_am, entry_edge, entry_val, sink_val, cs_am, n_valid,
+               frame0, in_entry, in_src_m, in_src_s, cm_src, ex_src, cs_src,
+               ok, sink_edge, sink_val_out, edges, vals, stream, true);
 }

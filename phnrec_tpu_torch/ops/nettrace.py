@@ -99,6 +99,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 21
         fn.restype = ctypes.c_int
+        if hasattr(lib, "nettrace_global"):
+            lib.nettrace_global.argtypes = fn.argtypes
+            lib.nettrace_global.restype = ctypes.c_int
+            lib.nettrace_stage_frames.argtypes = [ctypes.c_int] * 5
+            lib.nettrace_stage_frames.restype = ctypes.c_int
     return lib
 
 
@@ -108,9 +113,11 @@ def _lib():
 
 def launch(lib: ctypes.CDLL, recs: Dict[str, torch.Tensor],
            n_valid: torch.Tensor, frame0: torch.Tensor,
-           tb: Dict[str, torch.Tensor], terminal_sink: int) -> Walk:
+           tb: Dict[str, torch.Tensor], terminal_sink: int,
+           force_global: bool = False) -> Walk:
     """Launch the kernel of ``lib`` (a bound kernel-H library) on CUDA
-    tensors; raises on anything it does not take.  Counts nothing."""
+    tensors; raises on anything it does not take.  ``force_global`` takes
+    the device-memory path whatever the network.  Counts nothing."""
     device = _build.cuda_device(recs["in_am"])
     B, T, E = recs["in_am"].shape
     M, S = recs["ex_am"].shape[2], recs["cs_am"].shape[2]
@@ -145,7 +152,7 @@ def launch(lib: ctypes.CDLL, recs: Dict[str, torch.Tensor],
         return ok, sink_edge, sink_val, edges, vals
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nettrace(
+        err = (lib.nettrace_global if force_global else lib.nettrace)(
             B, T, E, M, S, n_in, n_ex, n_cm, n_cs, int(terminal_sink),
             *(recs[k].data_ptr() for k in NEEDS), n_valid.data_ptr(),
             frame0.data_ptr(),
