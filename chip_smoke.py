@@ -1795,12 +1795,15 @@ def stk_batch(sr, dev, clk: dict, B: int = 256):
     w, nf, max_frames, ns = bp.to_device(wave, n_samples)
     n_frames = nf.cpu().numpy()
     stk.decode_batch(bp._post_core(w, nf, max_frames, ns), n_frames)
-    events = []
+    events, host = [], {}
 
     def hook(stage):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((stage, ev))
+        # the host's wall since the last hook (it returns before the card
+        # has run the stage, unless the stage waits for the card)
+        host[stage] = time.perf_counter()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1823,6 +1826,8 @@ def stk_batch(sr, dev, clk: dict, B: int = 256):
     stages = {s: events[i - 1][1].elapsed_time(ev)
               for i, (s, ev) in enumerate(events) if i}
     stages["labels_host"] = wall * 1e3 - sum(stages.values())
+    names = list(host)
+    host_ms = {b: (host[b] - host[a]) * 1e3 for a, b in zip(names, names[1:])}
     peak = torch.cuda.max_memory_allocated(dev)
     again = stk.decode_batch(lp, n_frames)
     T = lp.shape[1]
@@ -1843,6 +1848,7 @@ def stk_batch(sr, dev, clk: dict, B: int = 256):
     same_again = [label_key(a) == label_key(b) for a, b in zip(labels, again)]
     phase("stk_batch", batch=B, seconds_each=5, frames=T,
           audio_s_per_s=B * 5 / wall, wall_s=wall, stage_ms=stages,
+          host_ms=host_ms,
           netscan_clocks_a_frame=stages["netscan"] * 1e-3
           * clk["netscan"]["sm_clock_mhz"] * 1e6 / T,
           nettrace_clocks_a_step=stages["nettrace"] * 1e-3

@@ -45,8 +45,14 @@
 //   shared memory and stored coalesced, a lane a frame.  Frames past
 //   n_valid and after the walk's end are filled with -1 / 0.0 without
 //   loads.
-// The bound is then the records streamed, E + 3M words a frame of a live
-// row, at the memory rate.  Where the tables and one stage of a row do not
+// Measured (PERF.md, CZ stkint loop, B 256 x T 500): 372 clocks a step,
+// 7.6x the first design; one row alone 307, so a row's own walk still
+// bounds it, not the records streamed (E + 3M words a frame of a live row,
+// 1.5 TB/s).  Tried and slower or no better: resolving each chunk's in_am
+// words to table words by all lanes before the walk (531 clocks), the
+// output stores without the lane-0 branch or the walk unrolled by 2
+// (379), 4 stages of 16 frames (400), one warp a block (700: half the
+// rows an SM).  Where the tables and one stage of a row do not
 // fit a block's shared memory (E + 3M ~ 4,500 words or more), the first
 // design runs (nettrace_global_kernel): a thread per row, 32 rows a block,
 // only the loads the walk uses, outputs staged a row of 32 frames at a

@@ -25,8 +25,9 @@ under load and clocks a step (T steps a row), and at B 1 and 132 (one row,
 one row an SM).  Last, the host's work of one call at that shape
 (backtrack_variants.host_cost), whole and in parts: the decoder's
 ``_traceback_batch``, the wrapper ``nettrace``, its checks, its output
-allocations, the stream and device lookups and the bare ctypes call; with
-``--wrapper`` also that file's ``launch`` (an earlier ops/nettrace.py).
+allocations, the stream and device lookups and the bare ctypes call, in
+turns (medians of six); with ``--wrapper`` also that file's ``launch``
+(an earlier ops/nettrace.py) beside the package's.
 One JSON line per build, check and timing.
 """
 
@@ -141,19 +142,20 @@ def host_parts(dec, recs, nv, f0, old=None) -> dict:
 
     fns = {"traceback_batch": lambda: dec._traceback_batch(recs, nv),
            "wrapper": lambda: nettrace.nettrace(recs, nv, f0, tb, ts),
+           "launch": lambda: nettrace.launch(lib, recs, nv, f0, tb, ts),
            "checks_15": checks, "allocs_5": allocs,
            "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
            "device_ctx": device_ctx,
            "ctypes_call": lambda: lib.nettrace(*sizes, *ptrs, stream)}
     if old is not None:
         old_lib = old.bind(_build.load("nettrace"))
-        fns["old_wrapper_launch"] = lambda: old.launch(old_lib, recs, nv, f0,
-                                                       tb, ts)
-    out = {}
-    for k, fn in fns.items():
-        out[k] = float(np.median([host_cost(fn, 300)["host_us"]
-                                  for _ in range(3)]))
-    return out
+        fns["old_launch"] = lambda: old.launch(old_lib, recs, nv, f0, tb, ts)
+    # in turns, first to last and back, three times: medians
+    costs = {k: [] for k in fns}
+    for _ in range(3):
+        for k in [*fns, *reversed(fns)]:
+            costs[k].append(host_cost(fns[k], 300)["host_us"])
+    return {k: float(np.median(v)) for k, v in costs.items()}
 
 
 def main(argv) -> int:

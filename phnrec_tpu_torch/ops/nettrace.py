@@ -150,16 +150,22 @@ def launch(lib: ctypes.CDLL, recs: Dict[str, torch.Tensor],
     vals = torch.empty((B, T), dtype=torch.float32, device=device)
     if B == 0:
         return ok, sink_edge, sink_val, edges, vals
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = (lib.nettrace_global if force_global else lib.nettrace)(
-            B, T, E, M, S, n_in, n_ex, n_cm, n_cs, int(terminal_sink),
+    args = (B, T, E, M, S, n_in, n_ex, n_cm, n_cs, int(terminal_sink),
             *(recs[k].data_ptr() for k in NEEDS), n_valid.data_ptr(),
             frame0.data_ptr(),
             *(tb[k].data_ptr() for k in ("in_entry", "in_src_m", "in_src_s",
                                          "cm_src", "ex_src", "cs_src")),
             ok.data_ptr(), sink_edge.data_ptr(), sink_val.data_ptr(),
-            edges.data_ptr(), vals.data_ptr(), stream)
+            edges.data_ptr(), vals.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    entry = lib.nettrace_global if force_global else lib.nettrace
+    # the launch goes to the thread's current device: enter ours only if
+    # it is another
+    if device.index == torch.cuda.current_device():
+        err = entry(*args)
+    else:
+        with torch.cuda.device(device):
+            err = entry(*args)
     _build.check(err, "nettrace")
     return ok, sink_edge, sink_val, edges, vals
 
