@@ -96,11 +96,12 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
     F, n, S = sink_val.shape
     K = word_sinks.shape[0]
     groups = K > lib.lrtrace_max_keywords()
-    if K < 1 or not 0 <= filler_sink < S or \
-            groups and not hasattr(lib, "lrtrace_scan_groups"):
-        raise ValueError(f"kernel F takes 1.. keywords (this source 1.."
-                         f"{lib.lrtrace_max_keywords()}) and a filler "
+    if K < 1 or not 0 <= filler_sink < S:
+        raise ValueError(f"kernel F takes one keyword or more and a filler "
                          f"column below {S}")
+    if groups and not hasattr(lib, "lrtrace_scan_groups"):
+        raise ValueError(f"this kernel-F source takes at most "
+                         f"{lib.lrtrace_max_keywords()} keywords")
     if F * n * max(S, K) >= 2 ** 31:
         raise ValueError("block too large for 32-bit offsets")
     _build.require(sink_val, "sink_val", torch.float32, (F, n, S), device)
