@@ -86,7 +86,7 @@ constexpr int SMEM_BYTES = 48 * 1024 - 4 * MAX_K;  // dynamic, beside ws_s
 constexpr int REC = 8;             // words of both event records a keyword and frame
 
 // the launch's place among the keyword groups
-enum Group { G_ONE = 0, G_FIRST = 1, G_LATER = 2 };
+enum Place { G_ONE = 0, G_FIRST = 1, G_LATER = 2 };
 
 struct Rec {
   uint8_t* emit;
@@ -103,8 +103,6 @@ struct Args {
   const int* n_dec;
   const int* n_valid;
   int fs, F, n, S, K, tp_on, tp;
-  int Kt, k0;      // all keywords (the stride of state and records), the group's first
-  int* end0;       // [n, F] keyword 0's candidate end a frame (groups only)
   int row;         // whole rows staged (else the K + 1 columns)
   int chunk;       // frames a stage
   int warp_words;  // shared memory a warp, in 4-byte words
@@ -122,6 +120,13 @@ struct Args {
   int* prev_end1;
   uint8_t* dumped1;
   Rec r1, r2;
+};
+
+// a launch's keyword group, past one group (the single group's kernel does
+// not read it)
+struct Group {
+  int Kt, k0;  // all keywords (the stride of state and records), the first
+  int* end0;   // [n, F] keyword 0's candidate end a frame
 };
 
 // Asynchronous global -> shared copies; dst and src aligned to the size.
@@ -148,13 +153,17 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // KPL keywords a lane; TP: time pruning on; G: the keyword group's place
 template <int KPL, bool TP, int G>
-__global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
+__global__ void __launch_bounds__(WARPS * 32)
+lrtrace_kernel(const Args a, const Group grp) {
   extern __shared__ __align__(16) float ring[];
   __shared__ int ws_s[MAX_K];
   const int K = a.K, F = a.F, n = a.n, S = a.S, C = a.chunk;
   for (int k = threadIdx.x; k < K; k += WARPS * 32) ws_s[k] = a.ws[k];
   __syncthreads();
 
+  // the stride of state and records and the group's first keyword (one
+  // group: K and 0, the single-group instance's code unchanged)
+  const int Kt = G == G_ONE ? K : grp.Kt, k0 = G == G_ONE ? 0 : grp.k0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * WARPS + warp;  // the warp's stream
   if (b >= n) return;  // the whole warp leaves together
@@ -176,7 +185,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
   for (int i = 0; i < KPL; ++i) {
     const int k = lane + 32 * i;
     has[i] = k < K;
-    const size_t s = (size_t)b * a.Kt + a.k0 + k;
+    const size_t s = (size_t)b * Kt + k0 + k;
     last_lr[i] = has[i] ? a.last_lr0[s] : -INFINITY;
     cand_lr[i] = has[i] ? a.cand_lr0[s] : -INFINITY;
     cand_start[i] = has[i] ? a.cand_start0[s] : 0;
@@ -232,7 +241,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
     const int* wsm = wring + (c % STAGES) * words;
     if (G == G_LATER) {
       // the first group's keyword-0 ends of this chunk's frames
-      if (lane < nf) e0s[lane] = a.end0[(size_t)b * F + f0 + lane];
+      if (lane < nf) e0s[lane] = grp.end0[(size_t)b * F + f0 + lane];
       __syncwarp();
     }
 
@@ -325,12 +334,12 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
     // the chunk's records, the nf * K of each field contiguous (a group:
     // K contiguous a frame, strided by all keywords)
     __syncwarp();
-    if (G == G_FIRST && lane < nf) a.end0[(size_t)b * F + f0 + lane] = e0s[lane];
-    const size_t g = ((size_t)b * F + f0) * a.Kt + a.k0;
+    if (G == G_FIRST && lane < nf) grp.end0[(size_t)b * F + f0 + lane] = e0s[lane];
+    const size_t g = ((size_t)b * F + f0) * Kt + k0;
     for (int u = lane; u < nf * K; u += 32) {
       const int4 x = reinterpret_cast<const int4*>(rec + u * REC)[0];
       const int4 y = reinterpret_cast<const int4*>(rec + u * REC)[1];
-      const size_t o = G == G_ONE ? g + u : g + (size_t)(u / K) * a.Kt + u % K;
+      const size_t o = G == G_ONE ? g + u : g + (size_t)(u / K) * Kt + u % K;
       a.r1.emit[o] = (uint8_t)(x.w & 1);
       a.r1.start[o] = x.x;
       a.r1.end[o] = x.y;
@@ -347,7 +356,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     if (!has[i]) continue;
-    const size_t s = (size_t)b * a.Kt + a.k0 + lane + 32 * i;
+    const size_t s = (size_t)b * Kt + k0 + lane + 32 * i;
     a.last_lr1[s] = last_lr[i];
     a.cand_lr1[s] = cand_lr[i];
     a.cand_start1[s] = cand_start[i];
@@ -358,7 +367,7 @@ __global__ void __launch_bounds__(WARPS * 32) lrtrace_kernel(const Args a) {
 }
 
 template <int KPL, int G>
-cudaError_t launch(Args a, cudaStream_t st) {
+cudaError_t launch(Args a, const Group& grp, cudaStream_t st) {
   const int W = a.row ? a.S : a.K + 1;
   // a warp's words a frame: two rings of STAGES, the records; a group's
   // launch also a word a frame of keyword 0's ends; each warp's part a
@@ -370,22 +379,22 @@ cudaError_t launch(Args a, cudaStream_t st) {
   const unsigned blocks = (unsigned)((a.n + WARPS - 1) / WARPS);
   if (a.tp_on)
     lrtrace_kernel<KPL, true, G>
-        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
+        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a, grp);
   else
     lrtrace_kernel<KPL, false, G>
-        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a);
+        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a, grp);
   return cudaGetLastError();
 }
 
 template <int G>
-cudaError_t launch_kpl(const Args& a, cudaStream_t st) {
+cudaError_t launch_kpl(const Args& a, const Group& grp, cudaStream_t st) {
   // the first of several groups holds MAX_K keywords
-  if constexpr (G == G_FIRST) return launch<MAX_K / 32, G>(a, st);
+  if constexpr (G == G_FIRST) return launch<MAX_K / 32, G>(a, grp, st);
   switch ((a.K + 31) / 32) {
-    case 1: return launch<1, G>(a, st);
-    case 2: return launch<2, G>(a, st);
-    case 3: return launch<3, G>(a, st);
-    case 4: return launch<4, G>(a, st);
+    case 1: return launch<1, G>(a, grp, st);
+    case 2: return launch<2, G>(a, grp, st);
+    case 3: return launch<3, G>(a, grp, st);
+    case 4: return launch<4, G>(a, grp, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -416,7 +425,6 @@ cudaError_t scan(const void* sink_val, const void* sink_wt, const void* ws,
   Args a{static_cast<const float*>(sink_val), static_cast<const int*>(sink_wt),
          static_cast<const int*>(ws), static_cast<const int*>(n_dec),
          static_cast<const int*>(n_valid), fs, F, n, S, K, tp_on, tp,
-         K, 0, static_cast<int*>(end0),
          (int)(S % 4 == 0 && S <= ROW_MAX && aligned), 0, 0, sp, neg_half,
          static_cast<const float*>(last_lr0),
          static_cast<const float*>(cand_lr0),
@@ -434,15 +442,16 @@ cudaError_t scan(const void* sink_val, const void* sink_wt, const void* ws,
              static_cast<int*>(en2), static_cast<float*>(sc2),
              static_cast<uint8_t*>(ne2)}};
   auto st = static_cast<cudaStream_t>(stream);
-  if (K <= MAX_K) return launch_kpl<G_ONE>(a, st);
+  Group grp{K, 0, static_cast<int*>(end0)};
+  if (K <= MAX_K) return launch_kpl<G_ONE>(a, grp, st);
   // groups of MAX_K keywords: the first writes keyword 0's ends, the
   // others read them; each group's word columns start at its first
   for (int k0 = 0; k0 < K; k0 += MAX_K) {
-    a.k0 = k0;
+    grp.k0 = k0;
     a.K = std::min(MAX_K, K - k0);
     a.ws = static_cast<const int*>(ws) + k0;
-    const cudaError_t err = k0 == 0 ? launch_kpl<G_FIRST>(a, st)
-                                    : launch_kpl<G_LATER>(a, st);
+    const cudaError_t err = k0 == 0 ? launch_kpl<G_FIRST>(a, grp, st)
+                                    : launch_kpl<G_LATER>(a, grp, st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
