@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     if (inpf, outpf) != ("wf", "str"):
         raise NotImplementedError(
             f"-s {inpf} -t {outpf}: staged par/post I/O is not ported yet "
-            "(ROADMAP.md, design debts: serial par/post staged I/O)")
+            "(ROADMAP.md, Queue 1 item 19: serial par/post staged I/O)")
     verbose = "-v" in opt
 
     from phnrec_tpu_torch.pipeline import SpeechRec

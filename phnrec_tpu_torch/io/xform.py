@@ -5,8 +5,10 @@ The parser is a copy of phnrec_tpu/io/xform.py:1-202 (host code without
 JAX, kept in step with it); ``apply_xform`` / ``apply_instance`` are the
 counterparts of its :206-263 on torch tensors of any leading batch dims,
 float32 with TF32 off.  The carried-state (streaming) forms and
-``StreamingXform`` (:266-371) are not ported yet (ROADMAP.md, Queue 1
-item 12: the stateful forms).
+``StreamingXform`` are the counterparts of its :266-371, batched the same
+way: a stacking node's state is its last K-1 input frames, [..., K-1, in]
+with the leading dims of the input (the multi-stream servers carry
+[N, K-1, in], one FIFO a stream, where JAX vmaps an unbatched one).
 
 Reference: the Xform machinery of STKLib/Models.h:891-1028 and the MMF
 readers in Models_IO.cc (ReadXform 1306, ReadXformInstance 1188,
@@ -257,3 +259,123 @@ def apply_instance(inst: XformInstance, x: torch.Tensor) -> torch.Tensor:
     if inst.input is not None:
         x = apply_instance(inst.input, x)
     return apply_xform(inst.xform, x)
+
+
+# -- carried-state (streaming) application ----------------------------------
+#
+# The reference applies Xforms per frame with live delay-line memory
+# (XformInstance stacks updated by ModelSet::UpdateStacks from every
+# ViterbiStep, Viterbi.cc:2068, Models.h:891-1028).  apply_xform above is
+# its whole-utterance equivalent; these are the CHUNKED equivalent: each
+# stacking node carries its last K-1 input frames across chunks
+# (zero-initialised, the zeroed stack memory of StackingXform::Evaluate),
+# so a chunked stream equals the whole-utterance application bit for bit.
+
+def xform_init_state(xf: Xform, lead: Tuple[int, ...] = (), device="cpu"):
+    """Zero delay-line state mirroring the Xform's structure: [*lead, K-1,
+    in] for a stacking node, nested lists for a composite, None for a
+    stateless node."""
+    if xf.kind == "stacking":
+        return torch.zeros((*lead, xf.stack_size - 1, xf.in_size),
+                           device=device)
+    if xf.kind == "composite":
+        return [[xform_init_state(b, lead, device) for b in layer]
+                for layer in xf.layers]
+    return None
+
+
+def _stack(xf: Xform, st: torch.Tensor, x: torch.Tensor):
+    """The stacking node's context [..., K-1+T, in] and output [..., T,
+    K*in] (oldest frame first)."""
+    T = x.shape[-2]
+    ctx = torch.cat([st, x], dim=-2)
+    return ctx, torch.cat([ctx[..., k: k + T, :]
+                           for k in range(xf.stack_size)], dim=-1)
+
+
+def _composite(xf: Xform, st, x: torch.Tensor, apply_one):
+    new_state = []
+    for layer, lst in zip(xf.layers, st):
+        outs, nls, off = [], [], 0
+        for b, bst in zip(layer, lst):
+            bst, y = apply_one(b, bst, x[..., off:off + b.in_size])
+            outs.append(y)
+            nls.append(bst)
+            off += b.in_size
+        x = torch.cat(outs, dim=-1)
+        new_state.append(nls)
+    return new_state, x
+
+
+def apply_xform_stateful(xf: Xform, st, x: torch.Tensor):
+    """[..., T, in] chunk + carried state -> (state', [..., T, out])."""
+    if xf.kind == "stacking":
+        ctx, out = _stack(xf, st, x)
+        return ctx[..., x.shape[-2]:, :], out
+    if xf.kind == "composite":
+        return _composite(xf, st, x, apply_xform_stateful)
+    return st, apply_xform(xf, x)
+
+
+def instance_init_state(inst: XformInstance, lead: Tuple[int, ...] = (),
+                        device="cpu"):
+    return ((instance_init_state(inst.input, lead, device)
+             if inst.input is not None else None),
+            xform_init_state(inst.xform, lead, device))
+
+
+def apply_instance_stateful(inst: XformInstance, st, x: torch.Tensor):
+    """Chunked XformInstance chain: (state, [..., T, D]) -> (state',
+    [..., T, out])."""
+    in_st, xf_st = st
+    if inst.input is not None:
+        in_st, x = apply_instance_stateful(inst.input, in_st, x)
+    xf_st, y = apply_xform_stateful(inst.xform, xf_st, x)
+    return (in_st, xf_st), y
+
+
+def apply_xform_stateful_ragged(xf: Xform, st, x: torch.Tensor, n_valid):
+    """apply_xform_stateful where only the first ``n_valid`` rows of each
+    [T, in] slab of ``x`` are real frames (the multi-stream ragged block:
+    valid rows lead, the rest are padding); ``n_valid`` has x's leading
+    shape (an int for an unbatched x).  Each delay line advances by
+    exactly its n_valid frames, by one gather over the batched states, so
+    a stream idling through a block keeps its stacks; output rows >=
+    n_valid are garbage (the caller masks them).  With n_valid == T this
+    equals apply_xform_stateful."""
+    if xf.kind == "stacking":
+        ctx, out = _stack(xf, st, x)
+        lead, K1 = x.shape[:-2], xf.stack_size - 1
+        nv = torch.as_tensor(n_valid, device=x.device).to(torch.int64)
+        idx = nv.reshape(*lead, 1) + torch.arange(K1, device=x.device)
+        idx = idx[..., None].expand(*lead, K1, ctx.shape[-1])
+        return torch.gather(ctx, -2, idx), out
+    if xf.kind == "composite":
+        return _composite(
+            xf, st, x, lambda b, bst, y: apply_xform_stateful_ragged(
+                b, bst, y, n_valid))
+    return st, apply_xform(xf, x)
+
+
+def apply_instance_stateful_ragged(inst: XformInstance, st, x: torch.Tensor,
+                                   n_valid):
+    in_st, xf_st = st
+    if inst.input is not None:
+        in_st, x = apply_instance_stateful_ragged(inst.input, in_st, x,
+                                                  n_valid)
+    xf_st, y = apply_xform_stateful_ragged(inst.xform, xf_st, x, n_valid)
+    return (in_st, xf_st), y
+
+
+class StreamingXform:
+    """Stateful wrapper for a streaming path: feed chunks [..., T, D], get
+    transformed chunks equal to the whole-utterance apply_instance."""
+
+    def __init__(self, inst: XformInstance, lead: Tuple[int, ...] = (),
+                 device="cpu"):
+        self.inst = inst
+        self.state = instance_init_state(inst, lead, device)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.state, y = apply_instance_stateful(self.inst, self.state, x)
+        return y

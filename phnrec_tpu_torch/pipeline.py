@@ -46,8 +46,8 @@ def _require_wf_str(inpf: str, outpf: str) -> None:
     if (inpf, outpf) != ("wf", "str"):
         raise NotImplementedError(
             f"{inpf} -> {outpf}: staged par/post input or output is not "
-            "ported yet (ROADMAP.md, design debts: serial par/post staged "
-            "I/O)")
+            "ported yet (ROADMAP.md, Queue 1 item 19: serial par/post "
+            "staged I/O)")
 
 
 @dataclass
@@ -101,8 +101,8 @@ class SpeechRec:
         if not cfg.get_bool("posteriors", "enabled"):
             raise NotImplementedError(
                 "posteriors/enabled=false needs staged post input, which is "
-                "not ported yet (ROADMAP.md, design debts: serial par/post "
-                "staged I/O)")
+                "not ported yet (ROADMAP.md, Queue 1 item 19: serial "
+                "par/post staged I/O)")
         self.estimator = build_estimator(
             cfg.get_str("posteriors", "system"),
             config_dir,
