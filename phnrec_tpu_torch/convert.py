@@ -12,7 +12,8 @@ port never imports JAX or phnrec_tpu:
 * ``frontend_from_matrices``: a ``MelSpec`` and its ``dft``/``mel``
   matrices -> ``MelFrontend``;
 * ``dense_kws_from_jax``: a ``DenseKWSScan``'s tables (``A_in``, ``A_ex``,
-  ``A_cm``, ``R_cm``, ``A_cs``, ``_entry0``,
+  ``A_cm``, ``R_cm``, ``A_cs``, ``_entry0``, the edge ids ``I_in``,
+  ``I_ex``, ``I_cm``, ``I_cs`` and ``_entry_edge0``,
   phnrec_tpu/decoder/stknet.py:833-906) -> the port's ``DenseKWSScan``;
 * ``network_tables_from_jax``: a ``NetworkDecoder``'s edge arrays
   (phnrec_tpu/decoder/stknet.py:309-357) -> the port's ``EdgeTables``.
@@ -69,7 +70,10 @@ def dense_kws_from_jax(dense) -> DenseKWSScan:
     return DenseKWSScan.from_tables(
         *(np.asarray(getattr(dense, k)) for k in (
             "A_in", "A_ex", "A_cm", "R_cm", "A_cs", "_entry0")),
-        n_sinks=int(dense.n_sinks))
+        n_sinks=int(dense.n_sinks),
+        ids=tuple(np.asarray(getattr(dense, k)) for k in (
+            "I_in", "I_ex", "I_cm", "I_cs")),
+        entry_edge0=np.asarray(dense._entry_edge0))
 
 
 def network_tables_from_jax(nd) -> EdgeTables:

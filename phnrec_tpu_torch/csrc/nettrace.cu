@@ -57,6 +57,12 @@
 // design runs (nettrace_global_kernel): a thread per row, 32 rows a block,
 // only the loads the walk uses, outputs staged a row of 32 frames at a
 // time and stored coalesced.
+//
+// Both kernels are templates on the record ids' type: int32 (kernel G's
+// records) or int16 (kernel E's, and the serving window's when every id
+// fits).  An int16 span is staged as 16-byte pieces too; its unaligned
+// head and tail elements (fewer than 8 each) by plain loads, as cp.async
+// copies no fewer than 4 bytes.
 
 #include <cuda_runtime.h>
 
@@ -74,14 +80,15 @@ constexpr unsigned ENTRY = 0x80000000u;   // the table word of an entry edge
 
 __device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : i; }
 
+template <typename IdT>
 __global__ void __launch_bounds__(ROWS)
 nettrace_global_kernel(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
-                int n_cs, int ts, const int* __restrict__ in_am,
-                const int* __restrict__ ex_am, const int* __restrict__ cm_am,
-                const int* __restrict__ entry_edge,
+                int n_cs, int ts, const IdT* __restrict__ in_am,
+                const IdT* __restrict__ ex_am, const IdT* __restrict__ cm_am,
+                const IdT* __restrict__ entry_edge,
                 const float* __restrict__ entry_val,
                 const float* __restrict__ sink_val,
-                const int* __restrict__ cs_am, const int* __restrict__ n_valid,
+                const IdT* __restrict__ cs_am, const int* __restrict__ n_valid,
                 const int* __restrict__ frame0,
                 const uint8_t* __restrict__ in_entry,
                 const int* __restrict__ in_src_m,
@@ -183,45 +190,68 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// words a 16-byte aligned span starts before `p`
-__device__ __forceinline__ int misalign(const void* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+// elements of T a 16-byte aligned span starts before `p`
+template <typename T>
+__device__ __forceinline__ int misalign(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) / sizeof(T)) &
+               (16 / sizeof(T) - 1));
 }
 
-// words of a staged span of n words: room for its offset from 16 bytes
-__host__ __device__ constexpr int span_words(int n) { return (n + 3 + 3) & ~3; }
+// elements of a staged span of n elements of T: room for its offset from
+// 16 bytes, a whole number of 16-byte units
+template <typename T>
+__host__ __device__ constexpr int span_elems(int n) {
+  return (n + 2 * (int)(16 / sizeof(T) - 1)) & ~(int)(16 / sizeof(T) - 1);
+}
 
 // words of one ring stage: the in_am span, then entry_val, cm_am, ex_am
+template <typename IdT>
 __host__ __device__ constexpr int stage_words(int ch, int E, int M) {
-  return span_words(ch * E) + 3 * span_words(ch * M);
+  return (span_elems<IdT>(ch * E) * (int)sizeof(IdT) +
+          4 * span_elems<int>(ch * M) +
+          2 * span_elems<IdT>(ch * M) * (int)sizeof(IdT)) / 4;
 }
 
 __host__ __device__ constexpr int table_words(int n_in, int n_cm, int n_ex) {
   return (n_in + n_cm + n_ex + 3) & ~3;
 }
 
-// the warp's copy of n words from src into the span at dst (at the
-// source's offset from 16 bytes)
-__device__ __forceinline__ void copy_span(int* dst, const int* src, int n,
-                                          int lane) {
-  const int mis = misalign(src);
-  int* d = dst + mis;
-  const int head = min((4 - mis) & 3, n);
-  const int pieces = (n - head) >> 2;
-  const int tail = n - head - 4 * pieces;
-  for (int u = lane; u < pieces; u += 32)
-    cp_async16(d + head + 4 * u, src + head + 4 * u);
-  if (lane < head) cp_async4(d + lane, src + lane);
-  if (lane < tail)
-    cp_async4(d + head + 4 * pieces + lane, src + head + 4 * pieces + lane);
+// one element outside the 16-byte pieces: asynchronous for a word, a
+// plain load and store for a 2-byte id
+__device__ __forceinline__ void copy_one(int* dst, const int* src) {
+  cp_async4(dst, src);
 }
 
+__device__ __forceinline__ void copy_one(int16_t* dst, const int16_t* src) {
+  *dst = *src;
+}
+
+// the warp's copy of n elements from src into the span at dst (at the
+// source's offset from 16 bytes)
+template <typename T>
+__device__ __forceinline__ void copy_span(T* dst, const T* src, int n,
+                                          int lane) {
+  constexpr int per = 16 / sizeof(T);
+  const int mis = misalign(src);
+  T* d = dst + mis;
+  const int head = min((per - mis) & (per - 1), n);
+  const int pieces = (n - head) / per;
+  const int tail = n - head - per * pieces;
+  for (int u = lane; u < pieces; u += 32)
+    cp_async16(d + head + per * u, src + head + per * u);
+  if (lane < head) copy_one(d + lane, src + lane);
+  if (lane < tail)
+    copy_one(d + head + per * pieces + lane, src + head + per * pieces + lane);
+}
+
+template <typename IdT>
 struct Walk {
   int B, T, E, M, S, n_in, n_ex, n_cm, n_cs, ts;
   int ch;   // frames a stage
-  const int *in_am, *ex_am, *cm_am, *entry_edge;
+  const IdT *in_am, *ex_am, *cm_am, *entry_edge;
   const float *entry_val, *sink_val;
-  const int *cs_am, *n_valid, *frame0;
+  const IdT* cs_am;
+  const int *n_valid, *frame0;
   const uint8_t* in_entry;
   const int *in_src_m, *in_src_s, *cm_src, *ex_src, *cs_src;
   uint8_t* ok_out;
@@ -231,7 +261,8 @@ struct Walk {
   float* vals;
 };
 
-__global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk w) {
+template <typename IdT>
+__global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk<IdT> w) {
   extern __shared__ __align__(16) int smem[];
   const int E = w.E, M = w.M, T = w.T, C = w.ch;
   int* tab = smem;                 // [n_in] in-edge words
@@ -247,7 +278,7 @@ __global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk w) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= w.B) return;  // the whole warp leaves together
-  const int sw = stage_words(C, E, M);
+  const int sw = stage_words<IdT>(C, E, M);
   int* ring = smem + table_words(w.n_in, w.n_cm, w.n_ex) +
               (size_t)warp * (STAGES * sw + 2 * CH_MAX);
   int* oe = ring + STAGES * sw;    // a chunk's outputs, a frame each
@@ -285,17 +316,22 @@ __global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk w) {
   // chunk c: frames [lo, hi), counted down from top; the cm / ex rows one
   // frame earlier (from frame 0 for the first chunk: frame 0 reads
   // entry_edge and ex_am's frame 0 from device memory)
+  // a stage: the in_am span (ids), entry_val (words), cm_am, ex_am (ids)
+  const int o_ev = span_elems<IdT>(C * E) * (int)sizeof(IdT) / 4;
+  const int o_cm = o_ev + span_elems<int>(C * M);
+  const int o_ex = o_cm + span_elems<IdT>(C * M) * (int)sizeof(IdT) / 4;
   auto issue = [&](int c) {
     const int hi = top - c * C, lo = max(hi - C, 0), clo = max(lo - 1, 0);
     int* st = ring + (c % STAGES) * sw;
-    copy_span(st, w.in_am + (rb + lo) * E, (hi - lo) * E, lane);
-    st += span_words(C * E);
-    copy_span(st, reinterpret_cast<const int*>(w.entry_val) + (rb + lo) * M,
+    copy_span(reinterpret_cast<IdT*>(st), w.in_am + (rb + lo) * E,
+              (hi - lo) * E, lane);
+    copy_span(st + o_ev,
+              reinterpret_cast<const int*>(w.entry_val) + (rb + lo) * M,
               (hi - lo) * M, lane);
-    st += span_words(C * M);
-    copy_span(st, w.cm_am + (rb + clo) * M, (hi - 1 - clo) * M, lane);
-    st += span_words(C * M);
-    copy_span(st, w.ex_am + (rb + clo) * M, (hi - 1 - clo) * M, lane);
+    copy_span(reinterpret_cast<IdT*>(st + o_cm), w.cm_am + (rb + clo) * M,
+              (hi - 1 - clo) * M, lane);
+    copy_span(reinterpret_cast<IdT*>(st + o_ex), w.ex_am + (rb + clo) * M,
+              (hi - 1 - clo) * M, lane);
   };
 #pragma unroll
   for (int c = 0; c < STAGES - 1; ++c) {
@@ -312,14 +348,14 @@ __global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk w) {
     // frame t's rows at (t - lo) * width; its cm / ex rows (frame t - 1)
     // at (t - 1 - clo) * M
     const int* st = ring + (c % STAGES) * sw;
-    const int* ins = st + misalign(w.in_am + (rb + lo) * E);
-    st += span_words(C * E);
-    const float* evs = reinterpret_cast<const float*>(st) +
+    const IdT* ins = reinterpret_cast<const IdT*>(st) +
+                     misalign(w.in_am + (rb + lo) * E);
+    const float* evs = reinterpret_cast<const float*>(st + o_ev) +
                        misalign(w.entry_val + (rb + lo) * M);
-    st += span_words(C * M);
-    const int* cms = st + misalign(w.cm_am + (rb + clo) * M);
-    st += span_words(C * M);
-    const int* exs = st + misalign(w.ex_am + (rb + clo) * M);
+    const IdT* cms = reinterpret_cast<const IdT*>(st + o_cm) +
+                     misalign(w.cm_am + (rb + clo) * M);
+    const IdT* exs = reinterpret_cast<const IdT*>(st + o_ex) +
+                     misalign(w.ex_am + (rb + clo) * M);
     for (int t = hi - 1; t >= lo; --t) {
       int out_edge = -1;
       float out_val = 0.f;
@@ -370,12 +406,14 @@ __global__ void __launch_bounds__(64) nettrace_warp_kernel(const Walk w) {
 
 // frames a stage of the shared path and its warps a block for a network
 // (0 frames: the device-memory path)
+template <typename IdT>
 void plan(int E, int M, int n_in, int n_cm, int n_ex, int* ch, int* warps) {
   const size_t tw = table_words(n_in, n_cm, n_ex);
   for (int wp = 2; wp >= 1; --wp)
     for (int c = CH_MAX; c >= 4; c /= 2) {
       const size_t words =
-          tw + (size_t)wp * (STAGES * (size_t)stage_words(c, E, M) + 2 * CH_MAX);
+          tw + (size_t)wp * (STAGES * (size_t)stage_words<IdT>(c, E, M) +
+                             2 * CH_MAX);
       if (4 * words <= SMEM_MAX) {
         *ch = c;
         *warps = wp;
@@ -390,29 +428,39 @@ void plan(int E, int M, int n_in, int n_cm, int n_ex, int* ch, int* warps) {
 
 namespace {
 
-int trace(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
-          int n_cs, int terminal_sink, const void* in_am, const void* ex_am,
-          const void* cm_am, const void* entry_edge, const void* entry_val,
-          const void* sink_val, const void* cs_am, const void* n_valid,
-          const void* frame0, const void* in_entry, const void* in_src_m,
-          const void* in_src_s, const void* cm_src, const void* ex_src,
-          const void* cs_src, void* ok, void* sink_edge, void* sink_val_out,
-          void* edges, void* vals, void* stream, bool force_global) {
+// the entry points' parameters: sizes, records, inputs, tables, outputs
+#define NETTRACE_PARAMS                                                      \
+  int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm, int n_cs, \
+      int terminal_sink, const void *in_am, const void *ex_am,               \
+      const void *cm_am, const void *entry_edge, const void *entry_val,      \
+      const void *sink_val, const void *cs_am, const void *n_valid,          \
+      const void *frame0, const void *in_entry, const void *in_src_m,        \
+      const void *in_src_s, const void *cm_src, const void *ex_src,          \
+      const void *cs_src, void *ok, void *sink_edge, void *sink_val_out,     \
+      void *edges, void *vals, void *stream
+#define NETTRACE_ARGS                                                        \
+  B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, in_am, ex_am, cm_am, \
+      entry_edge, entry_val, sink_val, cs_am, n_valid, frame0, in_entry,     \
+      in_src_m, in_src_s, cm_src, ex_src, cs_src, ok, sink_edge,             \
+      sink_val_out, edges, vals, stream
+
+template <typename IdT>
+int trace(NETTRACE_PARAMS, bool force_global) {
   if (B <= 0) return cudaSuccess;
   if (T <= 0 || E <= 0 || M <= 0 || S <= 0 || n_in <= 0 || n_ex <= 0 ||
       n_cm <= 0 || n_cs < 0 || terminal_sink < 0 || terminal_sink >= S)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   int ch = 0, warps = 0;
-  if (!force_global) plan(E, M, n_in, n_cm, n_ex, &ch, &warps);
+  if (!force_global) plan<IdT>(E, M, n_in, n_cm, n_ex, &ch, &warps);
   if (ch > 0) {
-    const Walk w{B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, ch,
-                 static_cast<const int*>(in_am), static_cast<const int*>(ex_am),
-                 static_cast<const int*>(cm_am),
-                 static_cast<const int*>(entry_edge),
+    const Walk<IdT> w{B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, ch,
+                 static_cast<const IdT*>(in_am), static_cast<const IdT*>(ex_am),
+                 static_cast<const IdT*>(cm_am),
+                 static_cast<const IdT*>(entry_edge),
                  static_cast<const float*>(entry_val),
                  static_cast<const float*>(sink_val),
-                 static_cast<const int*>(cs_am),
+                 static_cast<const IdT*>(cs_am),
                  static_cast<const int*>(n_valid),
                  static_cast<const int*>(frame0),
                  static_cast<const uint8_t*>(in_entry),
@@ -425,24 +473,25 @@ int trace(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
                  static_cast<int*>(edges), static_cast<float*>(vals)};
     const size_t smem =
         4 * (table_words(n_in, n_cm, n_ex) +
-             (size_t)warps * (STAGES * (size_t)stage_words(ch, E, M) + 2 * CH_MAX));
+             (size_t)warps * (STAGES * (size_t)stage_words<IdT>(ch, E, M) +
+                              2 * CH_MAX));
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          nettrace_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+          nettrace_warp_kernel<IdT>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
     }
-    nettrace_warp_kernel<<<(unsigned)((B + warps - 1) / warps), 32 * warps,
-                           smem, st>>>(w);
+    nettrace_warp_kernel<IdT><<<(unsigned)((B + warps - 1) / warps),
+                                32 * warps, smem, st>>>(w);
     return cudaGetLastError();
   }
   const unsigned blocks = (unsigned)((B + ROWS - 1) / ROWS);
-  nettrace_global_kernel<<<blocks, ROWS, 0, st>>>(
+  nettrace_global_kernel<IdT><<<blocks, ROWS, 0, st>>>(
       B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink,
-      static_cast<const int*>(in_am), static_cast<const int*>(ex_am),
-      static_cast<const int*>(cm_am), static_cast<const int*>(entry_edge),
+      static_cast<const IdT*>(in_am), static_cast<const IdT*>(ex_am),
+      static_cast<const IdT*>(cm_am), static_cast<const IdT*>(entry_edge),
       static_cast<const float*>(entry_val),
-      static_cast<const float*>(sink_val), static_cast<const int*>(cs_am),
+      static_cast<const float*>(sink_val), static_cast<const IdT*>(cs_am),
       static_cast<const int*>(n_valid), static_cast<const int*>(frame0),
       static_cast<const uint8_t*>(in_entry), static_cast<const int*>(in_src_m),
       static_cast<const int*>(in_src_s), static_cast<const int*>(cm_src),
@@ -456,52 +505,35 @@ int trace(int B, int T, int E, int M, int S, int n_in, int n_ex, int n_cm,
 }  // namespace
 
 // Frames a ring stage of the shared path for a network (E states, M
-// models, its table sizes), 0 where it takes the device-memory path.
+// models, its table sizes) with int32 records, 0 where it takes the
+// device-memory path.
 extern "C" int nettrace_stage_frames(int E, int M, int n_in, int n_cm,
                                      int n_ex) {
   int ch = 0, warps = 0;
-  plan(E, M, n_in, n_cm, n_ex, &ch, &warps);
+  plan<int>(E, M, n_in, n_cm, n_ex, &ch, &warps);
   return ch;
 }
 
 // The walk of B rows over kernel G's records ([B, T, E] in_am; [B, T, M]
-// ex_am, cm_am, entry_edge, entry_val; [B, T, S] sink_val, cs_am), n_valid
-// and frame0 [B], the network's tables; outputs ok, sink_edge, sink_val
-// [B] and edges, vals [B, T].  Launches on `stream`, allocates nothing,
-// does not synchronise.
-extern "C" int nettrace(int B, int T, int E, int M, int S, int n_in, int n_ex,
-                        int n_cm, int n_cs, int terminal_sink,
-                        const void* in_am, const void* ex_am,
-                        const void* cm_am, const void* entry_edge,
-                        const void* entry_val, const void* sink_val,
-                        const void* cs_am, const void* n_valid,
-                        const void* frame0, const void* in_entry,
-                        const void* in_src_m, const void* in_src_s,
-                        const void* cm_src, const void* ex_src,
-                        const void* cs_src, void* ok, void* sink_edge,
-                        void* sink_val_out, void* edges, void* vals,
-                        void* stream) {
-  return trace(B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, in_am,
-               ex_am, cm_am, entry_edge, entry_val, sink_val, cs_am, n_valid,
-               frame0, in_entry, in_src_m, in_src_s, cm_src, ex_src, cs_src,
-               ok, sink_edge, sink_val_out, edges, vals, stream, false);
+// ex_am, cm_am, entry_edge, entry_val; [B, T, S] sink_val, cs_am; ids
+// int32), n_valid and frame0 [B], the network's tables; outputs ok,
+// sink_edge, sink_val [B] and edges, vals [B, T].  Launches on `stream`,
+// allocates nothing, does not synchronise.
+extern "C" int nettrace(NETTRACE_PARAMS) {
+  return trace<int>(NETTRACE_ARGS, false);
 }
 
 // The same on the device-memory path whatever the network (for checks).
-extern "C" int nettrace_global(int B, int T, int E, int M, int S, int n_in,
-                               int n_ex, int n_cm, int n_cs, int terminal_sink,
-                               const void* in_am, const void* ex_am,
-                               const void* cm_am, const void* entry_edge,
-                               const void* entry_val, const void* sink_val,
-                               const void* cs_am, const void* n_valid,
-                               const void* frame0, const void* in_entry,
-                               const void* in_src_m, const void* in_src_s,
-                               const void* cm_src, const void* ex_src,
-                               const void* cs_src, void* ok, void* sink_edge,
-                               void* sink_val_out, void* edges, void* vals,
-                               void* stream) {
-  return trace(B, T, E, M, S, n_in, n_ex, n_cm, n_cs, terminal_sink, in_am,
-               ex_am, cm_am, entry_edge, entry_val, sink_val, cs_am, n_valid,
-               frame0, in_entry, in_src_m, in_src_s, cm_src, ex_src, cs_src,
-               ok, sink_edge, sink_val_out, edges, vals, stream, true);
+extern "C" int nettrace_global(NETTRACE_PARAMS) {
+  return trace<int>(NETTRACE_ARGS, true);
+}
+
+// The same two over records whose ids (in_am, ex_am, cm_am, entry_edge,
+// cs_am) are int16, as kernel E and the serving window keep them.
+extern "C" int nettrace_i16(NETTRACE_PARAMS) {
+  return trace<int16_t>(NETTRACE_ARGS, false);
+}
+
+extern "C" int nettrace_global_i16(NETTRACE_PARAMS) {
+  return trace<int16_t>(NETTRACE_ARGS, true);
 }

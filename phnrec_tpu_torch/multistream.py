@@ -22,7 +22,8 @@ back on the device (kernel D) when every stream advanced alike and replays
 each stream on the host otherwise, and the opt-in fixed-lag commit
 (``commit_horizon``) walks the retained window on the device (kernel D')
 in lockstep steady state.  ``MultiStreamKWS`` serves keyword spotting (the
-stkint KWS chain).  Sharding over a mesh is not ported: it raises
+stkint KWS chain), ``MultiStreamStkDecode`` stkint decoding with fixed-lag
+word emission.  Sharding over a mesh is not ported: it raises
 NotImplementedError naming its ROADMAP item.
 """
 
@@ -36,12 +37,19 @@ import torch
 from phnrec_tpu_torch import normalization
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import (
-    OFF_BEAM, DenseKWSScan, decode_lrtrace_events,
+    NEG, OFF_BEAM, DenseKWSScan, decode_lrtrace_events,
     flush_outstanding_candidates, lrtrace_init_state)
 from phnrec_tpu_torch.io.labels import Label
 from phnrec_tpu_torch.io.normfile import save_norm_file
-from phnrec_tpu_torch.ops import lrtrace, netstep
+from phnrec_tpu_torch.io.xform import (apply_instance_stateful_ragged,
+                                       instance_init_state)
+from phnrec_tpu_torch.ops import lrtrace, netdecode, netstep
 from phnrec_tpu_torch.streaming import _convert_chunk, _make_posterior_block_fn
+
+# the dense network steps (kernels B and E) take networks of at most this
+# many models + states, as JAX's dense scans do (phnrec_tpu/multistream.py:
+# 1042, 1300); bigger ones run the edge-list scan (kernel G)
+DENSE_MAX = 1024
 
 class MultiStreamRecognizer:
     """Decode ``n_streams`` independent audio streams in lockstep-batched
@@ -150,10 +158,32 @@ class MultiStreamRecognizer:
         if sr.stk_decoder is not None:
             raise ValueError(
                 "MultiStreamRecognizer serves the phnloop decoder; for "
-                "stkint packages in kws mode use MultiStreamKWS")
+                "stkint packages use MultiStreamStkDecode (decode mode) or "
+                "MultiStreamKWS (kws mode)")
 
     def _init_decode_carry(self):
         return phnloop.init_carry(self.sr.loop_spec, self.n, self.device)
+
+    # -- the global <InputXform>'s delay lines (stkint subclasses) -------
+    # The reference applies it per frame with live delay-line memory
+    # (ModelSet::UpdateStacks from every ViterbiStep, Viterbi.cc:2068):
+    # each stream carries its stacking FIFOs [N, K-1, D] in the decode
+    # carry and advances them by exactly its valid rows of a block.
+    _xform_inst = None
+
+    def _xform_state0(self):
+        if self._xform_inst is None:
+            return ()
+        return instance_init_state(self._xform_inst, (self.n,), self.device)
+
+    def _apply_xform(self, xst, lp, n_valid):
+        """The stateful InputXform over a ragged block [N, F, D]: rows >=
+        n_valid[b] of stream b are padding and do not advance its delay
+        lines (one gather over the [N] streams, no loop)."""
+        if self._xform_inst is None:
+            return xst, lp
+        return apply_instance_stateful_ragged(self._xform_inst, xst, lp,
+                                              n_valid)
 
     def _decode_block(self, carry, lp, n_dec, n_valid):
         """(decode carry, rolled log-posteriors [N, F, D], per-row global
@@ -678,20 +708,25 @@ class MultiStreamRecognizer:
 
 class MultiStreamKWS(MultiStreamRecognizer):
     """N concurrent LIVE KEYWORD-SPOTTING streams on one device: the
-    stkint KWS chain — posterior stack, the dense network Viterbi block
-    (kernel B, ops/netstep.py) and the LRTrace candidate scan (kernel F,
-    ops/lrtrace.py) — batched over streams inside the fused blocks.
+    stkint KWS chain — posterior stack, the network Viterbi block and the
+    LRTrace candidate scan (kernel F, ops/lrtrace.py) — batched over
+    streams inside the fused blocks.
 
-    The per-stream carry is (network state [N, ...], LRTrace state
-    [N, K], beam [N], ()); flush events go into per-stream hit rings on
-    the device and are decoded on the host at results()/hits_so_far().
+    The per-stream carry is (network state [N, ...], LRTrace state [N, K],
+    beam [N], the global <InputXform>'s delay lines [N, ...] or ()); flush
+    events go into per-stream hit rings on the device and are decoded on
+    the host at results()/hits_so_far().
 
-    Kernel B needs the uniform left-to-right structure every generated
-    KWS network has (``extract_structure``, the JAX package's gate): an
-    irregular network runs the plain dense step instead, and
-    ``net_path`` records which one runs ("kernel_b" or "dense_step").  A
-    network with more than 1024 models + states raises (the edge-list
-    scan is not ported), and so does a global <InputXform>."""
+    The network block is the dense step, kernel B (ops/netstep.py), where
+    the network has at most 1024 models + states and the uniform
+    left-to-right structure every generated KWS network has
+    (``extract_structure``, the JAX package's gate); any other network —
+    bigger, or irregular — runs the edge-list scan, kernel G
+    (ops/netscan.py), one launch a block, whose sink records feed F.
+    ``net_path`` records which ("kernel_b" or "kernel_g"); on CPU tensors
+    each runs its plain version.  (JAX runs an irregular small network
+    through its XLA dense step, whose records equal the edge-list scan's
+    by the tie-parity invariant DenseKWSScan asserts.)"""
 
     def __init__(self, sr, n_streams: int, block_frames: int = 128,
                  auto_pump: bool = True, mesh=None,
@@ -700,10 +735,7 @@ class MultiStreamKWS(MultiStreamRecognizer):
         if dec is None or dec.mode != "kws":
             raise ValueError("MultiStreamKWS needs an stkint package "
                              "with decoder/mode=kws")
-        if dec.model_set.input_xform is not None:
-            raise NotImplementedError(
-                "a global <InputXform> is not applied yet (ROADMAP.md, "
-                "Queue 1 item 12: feature transforms)")
+        self._xform_inst = dec.model_set.input_xform
         self._dec = dec
         self._keywords = dec.keywords()
         c = dec.compiled
@@ -712,12 +744,6 @@ class MultiStreamKWS(MultiStreamRecognizer):
                 "KWS network needs a filler-end sink and at least one "
                 "sticky keyword-end node (stkinterface.cpp:107-155 node "
                 "discovery found none in this network)")
-        if c.n_models + c.n_states > 1024:
-            raise NotImplementedError(
-                f"a KWS network of {c.n_models} models + {c.n_states} "
-                "states exceeds the dense step's 1024; serving it over the "
-                "edge-list scan (kernel G) is not wired yet (ROADMAP.md, "
-                "Queue 1 item 10: MultiStreamKWS's big-network branch)")
         self._kws_ws = torch.tensor(np.asarray(c.kws_word_sinks, np.int32),
                                     device=sr.device)
         self._kws_fs = c.kws_filler_sink
@@ -725,10 +751,12 @@ class MultiStreamKWS(MultiStreamRecognizer):
                             else dec.beam_pruning)
         self._tp = dec.time_pruning
         self._sp = dec.kws_score_pruning
-        self._dense = DenseKWSScan(dec.decoder)
-        self._net_block = netstep.build_net_block_fn(self._dense)
+        self._dense = self._net_block = None
+        if c.n_models + c.n_states <= DENSE_MAX:
+            self._dense = DenseKWSScan(dec.decoder)
+            self._net_block = netstep.build_net_block_fn(self._dense)
         self.net_path = ("kernel_b" if self._net_block is not None
-                         else "dense_step")
+                         else "kernel_g")
         self._hits_emitted = [0] * n_streams
         # per-stream Label lists, built incrementally as event blocks are
         # fetched (decoded device blocks are dropped)
@@ -751,30 +779,38 @@ class MultiStreamKWS(MultiStreamRecognizer):
         pass                                   # validated in __init__
 
     def _init_decode_carry(self):
-        stk = self._dense.init_carry(self.n, self.device)
+        stk = (self._dense.init_carry(self.n, self.device)
+               if self._net_block is not None else
+               self._dec.decoder.init_carry(self.device, self.n))
         trk = lrtrace_init_state(len(self._keywords), self.n, self.device)
         return (stk, trk, torch.full((self.n,), self._beam0,
-                                     device=self.device), ())
+                                     device=self.device),
+                self._xform_state0())
 
     def _decode_block(self, carry, lp, n_dec, n_valid):
-        stk_c, trk, beam = carry[:3]
-        # [N, F, D] -> [F, N, E]: frame-major, as kernel B reads it
-        obs_fm = self._dec.decoder.state_observations(
-            lp.transpose(0, 1)).contiguous()
+        stk_c, trk, beam, xst = carry
+        xst, lp = self._apply_xform(xst, lp, n_valid)
+        dec = self._dec.decoder
         if self._net_block is not None:
+            # [N, F, D] -> [F, N, E]: frame-major, as kernel B reads it
+            obs_fm = dec.state_observations(lp.transpose(0, 1)).contiguous()
             stk_c, (sv, sw) = self._net_block(stk_c, obs_fm, n_valid, n_dec,
                                               beam)
+            self._mark("netstep")
         else:
-            stk_c, (sv, sw) = netstep.net_block_plain(
-                self._dense, stk_c, obs_fm, n_valid, n_dec, beam)
-        self._mark("netstep")
+            # the edge-list scan's valid bound is absolute
+            stk_c, recs = dec.scan_block(stk_c, dec.state_observations(lp),
+                                         n_dec, n_dec + n_valid, beam)
+            sv = recs["sink_val"].transpose(0, 1).contiguous()
+            sw = recs["sink_wt"].transpose(0, 1).contiguous()
+            self._mark("netscan")
         trk, events = lrtrace.lrtrace_scan(
             trk, sv, sw, self._kws_ws, self._kws_fs, n_dec, n_valid,
             self._tp, self._sp)
         self._mark("lrtrace")
         rings = self._compact_events(events)
         self._mark("compact")
-        return (stk_c, trk, beam, carry[3]), rings
+        return (stk_c, trk, beam, xst), rings
 
     def _compact_events(self, events):
         """Scatter the block's flush events into a small per-stream ring
@@ -928,3 +964,277 @@ class MultiStreamKWS(MultiStreamRecognizer):
         new = self._labels[i][self._hits_emitted[i]:]
         self._hits_emitted[i] = len(self._labels[i])
         return list(new)
+
+
+class MultiStreamStkDecode(MultiStreamRecognizer):
+    """N concurrent stkint DECODE-mode streams on one device: the live
+    word-network serving mode (StkInterface::ProcessFrame's decode branch
+    with fixed-lag word emission, stkinterface.cpp:214-238) batched over
+    streams inside the fused blocks.  Counterpart of
+    phnrec_tpu/multistream.py:1244-1596.
+
+    The per-stream carry is (network state [N, ...], beam [N], the global
+    <InputXform>'s delay lines [N, ...] or ()).  Each block's network step
+    emits per-frame traceback records [N, F, .] that stay on the device,
+    ids as int16 where every id table fits: kernel E (ops/netdecode.py)
+    for networks of at most 1024 models + states with the uniform
+    left-to-right structure, kernel G (ops/netscan.py) for any other —
+    ``net_path`` says which, and the class attribute ``use_kernel_e``
+    (the tests set it) sends every network to G.  The fixed-lag commit
+    walks the retained window on the device (kernel H with the
+    committed-boundary stop) when every retained block is stream-uniform,
+    on the host (``traceback_host``) otherwise: labels ending at least
+    time_pruning frames behind a stream's newest frame move to its
+    committed list (the reference's TimePruning ring, Viterbi.cc:65-125),
+    blocks every stream has committed are dropped, and committed likes are
+    rebased out of the retained values and the carry, so memory is
+    O(N * horizon) over unbounded sessions."""
+
+    # record keys the traceback reads (G's exit_val / sink_wt are dropped
+    # at the block: decode mode never reads them)
+    _WALK_KEYS = ("in_am", "ex_am", "cm_am", "entry_edge", "entry_val",
+                  "sink_val", "cs_am")
+    _ID_KEYS = ("in_am", "ex_am", "cm_am", "entry_edge", "cs_am")
+    # route networks kernel E takes through it (False: all through G)
+    use_kernel_e = True
+
+    def __init__(self, sr, n_streams: int, block_frames: int = 128,
+                 auto_pump: bool = True, mesh=None,
+                 record_horizon: Optional[int] = None,
+                 partial_pump: bool = False):
+        """``record_horizon``: the retained record rows (frames) a stream
+        may pass before a commit is tried; default max(4 * time_pruning,
+        4 * block_frames, 512)."""
+        dec = sr.stk_decoder
+        if dec is None or dec.mode != "decode":
+            raise ValueError("MultiStreamStkDecode needs an stkint "
+                             "package with decoder/mode=decode")
+        self._dec = dec
+        self._beam0 = float(OFF_BEAM if dec.beam_pruning is None
+                            else dec.beam_pruning)
+        self._xform_inst = dec.model_set.input_xform
+        c = dec.compiled
+        # edge-id records fit int16 for every phnrec-scale network: half
+        # the retained bytes
+        self._rec_i16 = max(len(c.in_src), len(c.ex_src),
+                            len(dec.decoder.cm) or 1,
+                            len(dec.decoder.cs) or 1) < (1 << 15)
+        self._id_dtype = torch.int16 if self._rec_i16 else torch.int32
+        self._dense = self._net_decode = None
+        if self.use_kernel_e and c.n_models + c.n_states <= DENSE_MAX:
+            self._dense = DenseKWSScan(dec.decoder)
+            self._net_decode = netdecode.build_net_decode_fn(self._dense)
+        self.net_path = ("kernel_e" if self._net_decode is not None
+                         else "kernel_g")
+        # per-stream fixed-lag commit state: committed labels and the
+        # committed path like (0 after each rebase)
+        self._stk_committed: List[List[Label]] = \
+            [[] for _ in range(n_streams)]
+        self._like0 = np.zeros(n_streams, np.float64)
+        self._horizon = (record_horizon if record_horizon is not None
+                         else max(4 * dec.time_pruning, 4 * block_frames,
+                                  512))
+        # commit back-off: when a commit settles nothing (the terminal
+        # sink unreachable over a stretch), the next try waits until the
+        # window has grown by another horizon instead of walking every
+        # block (memory grows until a word settles, as the single-stream
+        # path's, which cannot drop unemitted words either)
+        self._next_commit_at = 0
+        super().__init__(sr, n_streams, block_frames=block_frames,
+                         auto_pump=auto_pump, mesh=mesh,
+                         partial_pump=partial_pump)
+
+    # -- decoder hooks ---------------------------------------------------
+    def _check_decoder(self, sr) -> None:
+        pass                                   # validated in __init__
+
+    def _init_decode_carry(self):
+        stk = (self._dense.init_carry_decode(self.n, self.device)
+               if self._net_decode is not None else
+               self._dec.decoder.init_carry(self.device, self.n))
+        return (stk, torch.full((self.n,), self._beam0, device=self.device),
+                self._xform_state0())
+
+    def set_beam_pruning(self, v: Optional[float]) -> None:
+        """Live beam-pruning knob (SetBeamPruning, stkinterface.h:108)."""
+        beam = torch.full((self.n,), float(OFF_BEAM if v is None else v),
+                          device=self.device)
+        self._carry = (self._carry[0], beam, self._carry[2])
+
+    def _decode_block(self, carry, lp, n_dec, n_valid):
+        dec = self._dec.decoder
+        stk_c, beam, xst = carry
+        xst, lp = self._apply_xform(xst, lp, n_valid)
+        obs = dec.state_observations(lp).contiguous()          # [N, F, E]
+        if self._net_decode is not None:
+            stk_c, recs = self._net_decode(stk_c, obs, n_valid, beam,
+                                           self._id_dtype)
+            self._mark("netdecode")
+        else:
+            # the edge-list scan's valid bound is absolute
+            stk_c, recs = dec.scan_block(stk_c, obs, n_dec, n_dec + n_valid,
+                                         beam)
+            recs = {k: (recs[k].to(self._id_dtype) if k in self._ID_KEYS
+                        else recs[k]) for k in self._WALK_KEYS}
+            self._mark("netscan")
+        return (stk_c, beam, xst), recs
+
+    def _compact_scan(self, hists, skip0, K: int, N: int):
+        """The record blocks of one decode_device_buffer run [N, F, .] ->
+        [N, K*F, .] with block 0's delay-gate gap removed from every leaf
+        (the base class's gather, on the frame axis of each record)."""
+        merged = {k: torch.cat([h[k] for h in hists], dim=1)
+                  for k in hists[0]}
+        if skip0.any():
+            TT = K * self.block
+            j = torch.arange(TT, device=self.device)[None, :]
+            sk = torch.as_tensor(skip0, device=self.device)[:, None]
+            idx = torch.clamp(j + torch.where(j >= self.block - sk, sk, 0),
+                              0, TT - 1)                         # [N, TT]
+            merged = {k: torch.gather(a, 1, idx[:, :, None].expand(
+                -1, -1, a.shape[2])) for k, a in merged.items()}
+        self._mark("compact")
+        return merged
+
+    # -- retained-window traceback ---------------------------------------
+    def _f0_rel(self) -> np.ndarray:
+        """The committed boundary in window-relative frames (-1: the stream
+        start, where the t = 0 entry crossing is the utterance's own)."""
+        return np.where(self._frame0 > 0, self._frame0 - self._row_offset,
+                        -1).astype(np.int32)
+
+    def _on_device(self) -> bool:
+        return bool(self._hist) and isinstance(
+            self._hist[0][0]["entry_val"], torch.Tensor)
+
+    def _device_walk(self) -> Optional[List[List[Label]]]:
+        """The retained window's walk on the device: the blocks' valid rows
+        concatenated there, then kernel H with each stream's committed
+        boundary; only the crossed edges' ids and values come back.  None
+        when the blocks are not on the device, stream-uniform, and at one
+        row offset (the host walk takes those)."""
+        if not self._hist:
+            return [[] for _ in range(self.n)]
+        valids = np.stack([v for _, v in self._hist])
+        if not self._on_device() or \
+                not (valids == valids[:, :1]).all() or \
+                not (self._row_offset == self._row_offset[0]).all():
+            return None
+        key = [int(v[0]) for _, v in self._hist]
+        recs = {k: torch.cat([h[k][:, :n] for (h, _), n in
+                              zip(self._hist, key)], dim=1)
+                for k in self._WALK_KEYS}
+        n_rel = (self._n_dec - self._row_offset).astype(np.int32)
+        f0_rel = self._f0_rel()
+        dec = self._dec.decoder
+        walk = dec._traceback_batch(recs, self._i32(n_rel), self._i32(f0_rel))
+        self._mark("walk")
+        ok, sink_edge, sink_val, edges, vals = (x.cpu().numpy()
+                                                for x in walk)
+        self._mark("fetch")
+        return [dec.labels_from_edge_walk(
+                    ok[b], sink_edge[b], sink_val[b], edges[b], vals[b],
+                    int(n_rel[b]), frame_offset=int(self._row_offset[b]),
+                    frame0_rel=max(int(f0_rel[b]), 0),
+                    like0=float(self._like0[b]))
+                for b in range(self.n)]
+
+    def _host_walk(self) -> List[List[Label]]:
+        """The ragged case: the retained blocks come to the host once
+        (they stay there as numpy arrays), and each stream's stitched
+        records are walked there (traceback_host with the committed
+        boundary)."""
+        if not self._hist:
+            return [[] for _ in range(self.n)]
+        self._hist = [({k: (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                            else a) for k, a in h.items()}, v)
+                      for h, v in self._hist]
+        dec = self._dec.decoder
+        f0_rel = self._f0_rel()
+        out: List[List[Label]] = []
+        for b in range(self.n):
+            rows = [{k: a[b][: int(v[b])] for k, a in h.items()}
+                    for h, v in self._hist if v[b] > 0]
+            if not rows:
+                out.append([])
+                continue
+            cut = max(int(f0_rel[b]), 0)
+            rec = {k: np.concatenate([r[k] for r in rows])[cut:]
+                   for k in rows[0]}
+            out.append(dec.traceback_host(
+                rec, frame_offset=int(self._row_offset[b]) + cut,
+                boundary=bool(self._frame0[b] > 0),
+                like_offset=float(self._like0[b])))
+        return out
+
+    def _window_walk(self) -> List[List[Label]]:
+        w = self._device_walk()
+        return self._host_walk() if w is None else w
+
+    def _maybe_commit(self) -> None:
+        retained = int((self._n_dec - self._row_offset).max(initial=0))
+        if retained <= max(self._horizon, self._next_commit_at):
+            return
+        window = self._window_walk()
+        r = np.zeros(self.n, np.float32)
+        for b in range(self.n):
+            horizon = int(self._n_dec[b]) - self._dec.time_pruning
+            commit = [l for l in window[b] if l.end_frames <= horizon]
+            if not commit:
+                continue           # nothing settled yet; keep retaining
+            self._stk_committed[b].extend(commit)
+            r[b] = sum(l.score for l in commit)
+            self._frame0[b] = commit[-1].end_frames
+        self._drop_committed_blocks()
+        if r.any():
+            self._rebase_likes(r)
+        retained = int((self._n_dec - self._row_offset).max(initial=0))
+        # geometric back-off while nothing settles (see __init__)
+        self._next_commit_at = (retained + self._horizon
+                                if retained > self._horizon else 0)
+
+    def _rebase_likes(self, r: np.ndarray) -> None:
+        """Subtract each stream's newly committed like from its retained
+        entry_val / sink_val and its carried alpha / entry, sparing the
+        NEG sentinels (a shift would move them off NEG): the recurrence
+        is shift-invariant, so cumulative float32 path likes stay bounded
+        by the window's like over long sessions.  After the shift the
+        committed boundary's like is exactly 0, so ``_like0`` stays 0 and
+        the labels' likes are unchanged.  Host blocks shift in numpy."""
+        rt = torch.from_numpy(r).to(self.device)
+
+        def shift(a):
+            if isinstance(a, np.ndarray):
+                rv = r.reshape((self.n,) + (1,) * (a.ndim - 1))
+                np.subtract(a, rv, out=a, where=a > NEG / 2)
+                return a
+            rv = rt.reshape((self.n,) + (1,) * (a.dim() - 1))
+            return torch.where(a > float(NEG) / 2, a - rv, a)
+
+        self._hist = [(dict(h, entry_val=shift(h["entry_val"]),
+                            sink_val=shift(h["sink_val"])), v)
+                      for h, v in self._hist]
+        stk, beam, xst = self._carry
+        if self._net_decode is not None:
+            alpha, entry, entry_edge = stk
+            stk = (shift(alpha), shift(entry), entry_edge)
+        else:
+            alpha, wt, entry, entry_edge, entry_wt = stk
+            stk = (shift(alpha), wt, shift(entry), entry_edge, entry_wt)
+        self._carry = (stk, beam, xst)
+
+    # -- results ---------------------------------------------------------
+    def results(self, settled_only: bool = False) -> List[List[Label]]:
+        """Per-stream word labels: the committed prefix + the walk over the
+        retained window (ViterbiDone per stream); ``settled_only`` keeps
+        only labels ending at least time_pruning frames behind the
+        stream's newest frame (the fixed-lag callback view)."""
+        window = self._window_walk()
+        out: List[List[Label]] = []
+        for b in range(self.n):
+            labels = self._stk_committed[b] + window[b]
+            if settled_only:
+                horizon = int(self._n_dec[b]) - self._dec.time_pruning
+                labels = [l for l in labels if l.end_frames <= horizon]
+            out.append(labels)
+        return out

@@ -19,7 +19,9 @@ at t = 0) into its source model's exit state.  ``edges[b, t]`` is the
 crossed closure-edge id at frame t (-1 if none) and ``vals[b, t]`` the
 entry value there (0.0 if none); crossings at or before ``frame0`` are
 not emitted and stop the walk.  The kernel is equal to the plain version
-in every output.
+in every output.  The ids of the records (in_am, ex_am, cm_am,
+entry_edge, cs_am) are int32 or, all five alike, int16 (kernel E's records
+and the serving window's): each width has its instance of the kernel.
 """
 
 from __future__ import annotations
@@ -99,9 +101,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 21
         fn.restype = ctypes.c_int
-        if hasattr(lib, "nettrace_global"):
-            lib.nettrace_global.argtypes = fn.argtypes
-            lib.nettrace_global.restype = ctypes.c_int
+        for name in ("nettrace_global", "nettrace_i16",
+                     "nettrace_global_i16"):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = fn.argtypes
+                getattr(lib, name).restype = ctypes.c_int
+        if hasattr(lib, "nettrace_stage_frames"):
             lib.nettrace_stage_frames.argtypes = [ctypes.c_int] * 5
             lib.nettrace_stage_frames.restype = ctypes.c_int
     return lib
@@ -130,9 +135,12 @@ def launch(lib: ctypes.CDLL, recs: Dict[str, torch.Tensor],
         raise ValueError(f"terminal sink {terminal_sink} not in 0..{S - 1}")
     if B * T * max(E, M, S) >= 2 ** 31:
         raise ValueError("records too large for 32-bit offsets")
+    ids = recs["in_am"].dtype
+    if ids not in (torch.int32, torch.int16):
+        raise TypeError(f"record ids are int32 or int16, not {ids}")
     for k in NEEDS:
         w = {"in_am": E, "sink_val": S, "cs_am": S}.get(k, M)
-        dt = torch.float32 if k in ("entry_val", "sink_val") else torch.int32
+        dt = torch.float32 if k in ("entry_val", "sink_val") else ids
         _build.require(recs[k], k, dt, (B, T, w), device)
     _build.require(n_valid, "n_valid", torch.int32, (B,), device)
     _build.require(frame0, "frame0", torch.int32, (B,), device)
@@ -158,7 +166,8 @@ def launch(lib: ctypes.CDLL, recs: Dict[str, torch.Tensor],
             ok.data_ptr(), sink_edge.data_ptr(), sink_val.data_ptr(),
             edges.data_ptr(), vals.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
-    entry = lib.nettrace_global if force_global else lib.nettrace
+    entry = getattr(lib, ("nettrace_global" if force_global else "nettrace")
+                    + ("_i16" if ids == torch.int16 else ""))
     # the launch goes to the thread's current device: enter ours only if
     # it is another
     if device.index == torch.cuda.current_device():

@@ -24,7 +24,10 @@ package (decoder/type=stkint, mode=kws): a keyword list and lexicon, and
 the HMM set and KWS network generated at load time by netgen, as the
 reference does.  ``"en"`` spots ``greasy`` (g r iy s iy) and ``wash``
 (w aa sh), the repo's KWS serving configuration
-(benchmarks/long_audio.py:56-88); ``"tiny"`` spots ``alpha`` and ``beta``.
+(benchmarks/long_audio.py:56-88); ``"tiny"`` spots ``alpha`` and ``beta``;
+or a given number of generated keywords.  Both stkint writers can give the
+HMM set a global <InputXform> (a delay line: a stacking node under a
+linear one).
 
 The weights are random.  W1 is scaled so hidden pre-activations stay
 within about +-20 for unit-variance inputs, b2 cancels each output's mean
@@ -253,31 +256,81 @@ def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
     return str(root)
 
 
-def write_kws_package(root, shape: str = "tiny", seed: int = 0) -> str:
+def _keywords(shape: str, n_keywords, seed: int) -> dict:
+    """The shape's keywords, or ``n_keywords`` generated ones: kw000,
+    kw001, ... of 4-6 seeded phonemes of the shape's list each."""
+    if n_keywords is None:
+        return KEYWORDS[shape]
+    dims = SHAPES[shape]
+    names = dims.get("phonemes") or [f"ph{i:02d}"
+                                     for i in range(dims["n_phonemes"])]
+    names = [p for p in names if p != "sil"]
+    rng = np.random.default_rng(seed + 7919)
+    return {f"kw{i:03d}": " ".join(rng.choice(names, rng.integers(4, 7)))
+            for i in range(n_keywords)}
+
+
+def _input_xform_mmf(D: int) -> str:
+    """A global <InputXform> over D-dim observations: a stacking node of 2
+    frames under a linear one, y_t = 0.2 x_{t-1} + 0.8 x_t (delay 1)."""
+    m = np.concatenate([0.2 * np.eye(D), 0.8 * np.eye(D)], axis=1)
+    rows = "\n".join(" ".join(f"{v:g}" for v in r) for r in m)
+    return (f'~j "stack2" <VecSize> {2 * D} <Stacking> 2 {D}\n'
+            f'<InputXform> <Input> ~j "stack2" <VecSize> {D} '
+            f"<Xform> {D} {2 * D}\n{rows}\n")
+
+
+def _stkint_package(root, shape: str, seed: int, extra: str, sent_norm,
+                    input_xform: bool) -> Path:
+    """The LCRC package of ``shape`` as an stkint package with the config
+    lines ``extra``.  With ``input_xform`` the HMM set is written here (the
+    phoneme-list HMMs netgen generates, then ``_input_xform_mmf``) instead
+    of at load time."""
+    from phnrec_tpu_torch.netgen import phn_list_to_hmm_defs
+    pkg = Path(write_lcrc_package(root, shape, seed, sent_norm=sent_norm))
+    (pkg / "tmp").mkdir(exist_ok=True)
+    cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
+    if input_xform:
+        phn_list_to_hmm_defs(str(pkg / "phonemes"), str(pkg / "models"),
+                             N_STATES)
+        with open(pkg / "models", "a") as f:
+            f.write(_input_xform_mmf(SHAPES[shape]["n_phonemes"]
+                                     * N_STATES))
+        extra = extra.replace("gen_from_phn_list=true",
+                              "gen_from_phn_list=false").replace(
+            "hmm_defs=$T/models", "hmm_defs=$C/models")
+    (pkg / "config").write_text(cfg + extra)
+    return pkg
+
+
+def write_kws_package(root, shape: str = "tiny", seed: int = 0,
+                      n_keywords=None, input_xform: bool = False,
+                      sent_norm=None) -> str:
     """Write a synthetic stkint KWS package under ``root`` (the LCRC
     package of ``shape`` plus the KWS config lines, keyword list and
-    lexicon); returns its path."""
-    pkg = Path(write_lcrc_package(root, shape, seed))
-    words = KEYWORDS[shape]
+    lexicon); returns its path.  ``n_keywords`` replaces the shape's
+    keywords by that many generated ones (``_keywords``: 300 at the EN
+    shapes make a network past 1,024 models + states); ``input_xform``
+    gives the HMM set a global <InputXform> (``_input_xform_mmf``);
+    ``sent_norm`` as for write_lcrc_package."""
+    pkg = _stkint_package(root, shape, seed, KWS_CONFIG, sent_norm,
+                          input_xform)
+    words = _keywords(shape, n_keywords, seed)
     (pkg / "kwlist").write_text("".join(f"{w}\n" for w in words))
     (pkg / "kwlex").write_text("".join(f"{w}\t{p}\n"
                                        for w, p in words.items()))
-    (pkg / "tmp").mkdir(exist_ok=True)
-    cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
-    (pkg / "config").write_text(cfg + KWS_CONFIG)
     return str(pkg)
 
 
-def write_stk_decode_package(root, shape: str = "tiny",
-                             seed: int = 0) -> str:
+def write_stk_decode_package(root, shape: str = "tiny", seed: int = 0,
+                             input_xform: bool = False,
+                             sent_norm=None) -> str:
     """Write a synthetic stkint decode package under ``root`` (the LCRC
     package of ``shape`` decoded by the STK network decoder over the
-    generated phoneme loop); returns its path."""
-    pkg = Path(write_lcrc_package(root, shape, seed))
-    (pkg / "tmp").mkdir(exist_ok=True)
-    cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
-    (pkg / "config").write_text(cfg + STK_DECODE_CONFIG)
-    return str(pkg)
+    generated phoneme loop); returns its path.  ``input_xform`` and
+    ``sent_norm`` as for write_kws_package."""
+    return str(_stkint_package(root, shape, seed, STK_DECODE_CONFIG,
+                               sent_norm, input_xform))
 
 
 def dense_kws_net(M: int, S_M: int, S: int, seed: int = 0):

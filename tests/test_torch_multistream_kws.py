@@ -383,7 +383,7 @@ def test_ring_overflow_decodes_dense_records(pkgs):
     assert not got[0] and len(got[1]) > 64 and got[2]
 
 
-def test_rejects(pkgs, monkeypatch):
+def test_rejects(pkgs, tmp_path):
     jsr, sr, phn = pkgs
     with pytest.raises(ValueError, match="MultiStreamKWS"):
         MultiStreamRecognizer(sr, n_streams=2)
@@ -393,21 +393,64 @@ def test_rejects(pkgs, monkeypatch):
     assert MultiStreamRecognizer(phn, n_streams=2).results() == [[], []]
     with pytest.raises(NotImplementedError, match="item 16"):
         MultiStreamKWS(sr, n_streams=2, mesh=object())
-    monkeypatch.setattr(sr.stk_decoder.model_set, "input_xform", object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MultiStreamKWS(sr, n_streams=2)
+    # a global <InputXform> is served now: its delay lines ride in the
+    # carry (test_delayed_input_xform_matches_jax)
+    xf = synth.write_kws_package(tmp_path / "xf", "tiny", input_xform=True)
+    ms = MultiStreamKWS(SpeechRec(xf, device="cpu"), n_streams=2)
+    assert ms._xform_inst is not None and ms._carry[3]
 
 
-def test_irregular_net_runs_plain_dense_step(pkgs, raw, monkeypatch):
-    """When the structure gate rejects the network, the server records
-    that it runs the plain dense step, and gives the same hits."""
+def test_irregular_net_runs_kernel_g(pkgs, raw, monkeypatch):
+    """When the structure gate rejects the network, the server runs the
+    edge-list scan (kernel G, whose sink records feed F) and records it,
+    and gives kernel B's hits (the tie-parity invariant)."""
     _, sr, _ = pkgs
     ms = MultiStreamKWS(sr, n_streams=2, block_frames=32)
     from phnrec_tpu_torch.ops import netstep
     monkeypatch.setattr(netstep, "extract_structure", lambda dense: None)
     irr = MultiStreamKWS(sr, n_streams=2, block_frames=32)
-    assert (ms.net_path, irr.net_path) == ("kernel_b", "dense_step")
+    assert (ms.net_path, irr.net_path) == ("kernel_b", "kernel_g")
     for m in (ms, irr):
         for i in range(2):
             m.process(i, raw)
-    assert [_key(a) for a in ms.finish()] == [_key(a) for a in irr.finish()]
+    want = ms.finish()
+    assert any(want) and [_key(a) for a in irr.finish()] == \
+        [_key(a) for a in want]
+
+
+def test_delayed_input_xform_matches_jax(tmp_path, raw):
+    """A KWS package whose HMM set has a delayed global <InputXform>
+    (stacking under linear): each stream's delay lines advance by its valid
+    rows only, and fed JAX's log-posteriors the hits are JAX's."""
+    pkg = synth.write_kws_package(tmp_path / "xf", "tiny", seed=0,
+                                  input_xform=True)
+    jsr, sr = JSpeechRec(pkg), SpeechRec(pkg, device="cpu")
+    jms = _JCapture(jsr, n_streams=3, block_frames=32)
+    assert jms._xform_inst is not None
+    want = _feed(jms, _streams(raw))
+    ms = _Replay(jms.blocks, sr, n_streams=3, block_frames=32)
+    got = _feed(ms, _streams(raw))
+    assert ms._xform_inst.total_delay == 1 and ms.net_path == "kernel_b"
+    assert not ms.blocks and ms.err <= TOL_LP, ms.err
+    assert any(want) and [_key(g) for g in got] == [_key(w) for w in want]
+
+
+def test_big_network_on_kernel_g_matches_jax(tmp_path, raw):
+    """A KWS network past 1,024 models + states (the tiny shape with 60
+    generated keywords) runs the edge-list scan (kernel G) and F over its
+    sink records; fed JAX's log-posteriors (JAX's edge-list branch), the
+    hits are JAX's."""
+    pkg = synth.write_kws_package(tmp_path / "big", "tiny", seed=0,
+                                  n_keywords=60)
+    jsr, sr = JSpeechRec(pkg), SpeechRec(pkg, device="cpu")
+    c = sr.stk_decoder.compiled
+    assert c.n_models + c.n_states > 1024
+    jms = _JCapture(jsr, n_streams=2, block_frames=32)
+    assert jms._dense is None
+    streams = _streams(raw)[:2]
+    want = _feed(jms, streams)
+    ms = _Replay(jms.blocks, sr, n_streams=2, block_frames=32)
+    got = _feed(ms, streams)
+    assert ms.net_path == "kernel_g" and ms._dense is None
+    assert not ms.blocks and ms.err <= TOL_LP, ms.err
+    assert any(want) and [_key(g) for g in got] == [_key(w) for w in want]

@@ -208,6 +208,32 @@ def test_traceback_plain_wrapper_equal():
     assert nettrace.LAUNCHES == before
 
 
+@pytest.mark.parametrize("frame0", ["none", "committed"])
+@pytest.mark.parametrize("net", NETS)
+def test_traceback_int16_records_match_jax(nets, net, frame0):
+    """The walk over the same records with their ids cast to int16 (kernel
+    H's int16 instance, as the decode server keeps them): JAX's walk over
+    the int32 records."""
+    jd, td = nets[net]
+    B, T = 5, 40
+    obs = _obs(td, B, T, seed=12)
+    nv = np.asarray([T, 17, 1, 0, T - 3], np.int32)
+    recs = td._scan_batch(torch.from_numpy(obs), torch.from_numpy(nv))
+    jrecs = {k: jnp.asarray(v.numpy()) for k, v in recs.items()}
+    f0 = None if frame0 == "none" else np.asarray([4, 0, -1, 2, 30],
+                                                 np.int32)
+    want = jd._traceback_batch(jrecs, jnp.asarray(nv),
+                               None if f0 is None else jnp.asarray(f0))
+    r16 = {k: (v.to(torch.int16) if v.dtype == torch.int32 else v)
+           for k, v in recs.items()}
+    got = td._traceback_batch(r16, torch.from_numpy(nv),
+                              None if f0 is None else torch.from_numpy(f0))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(g.numpy()
+                                                               .dtype))
+    assert np.asarray(want[0]).any()
+
+
 @pytest.mark.parametrize("net", NETS)
 def test_network_tables_from_jax(nets, net):
     jd, td = nets[net]

@@ -18,7 +18,8 @@ import phnrec_tpu_torch
 from phnrec_tpu_torch import synth
 from phnrec_tpu_torch.decoder.stknet import OFF_BEAM, NetworkDecoder
 from phnrec_tpu_torch.ops import (_build, backtrack, mlp_bf16x3, mlp_fused,
-                                  netscan, nettrace, phnloop_viterbi)
+                                  netdecode, netscan, nettrace,
+                                  phnloop_viterbi)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(phnrec_tpu_torch.__file__)
@@ -136,11 +137,22 @@ def _nettrace_args(device="cpu"):
             i32([-1, 3, -1]), tb, 0)
 
 
+def _netdecode_args(device="cpu"):
+    dense = synth.dense_kws_net(4, 2, 2, seed=3)
+    rng = np.random.default_rng(1)
+    obs = torch.tensor(-rng.integers(0, 8, (2, 7, dense.E)) / 4,
+                       dtype=torch.float32, device=device)
+    return (netdecode.build_net_decode_fn(dense),
+            tuple(t.to(device) for t in dense.init_carry_decode(2)), obs,
+            torch.tensor([7, 3], dtype=torch.int32, device=device),
+            torch.full((2,), float(OFF_BEAM), device=device))
+
+
 def _counts():
     return (mlp_fused.LAUNCHES, mlp_bf16x3.LAUNCHES, phnloop_viterbi.LAUNCHES,
             phnloop_viterbi.RAGGED_LAUNCHES, backtrack.LAUNCHES,
             backtrack.COMMITTED_LAUNCHES, netscan.LAUNCHES,
-            nettrace.LAUNCHES)
+            nettrace.LAUNCHES, netdecode.LAUNCHES)
 
 
 def _assert_nested_equal(a, b):
@@ -181,6 +193,12 @@ def test_wrappers_run_plain_on_cpu_without_counting():
                          [recs_p[k] for k in netscan.RECORDS])
     h = _nettrace_args()
     _assert_nested_equal(nettrace.nettrace(*h), nettrace.nettrace_plain(*h))
+    blk, *e = _netdecode_args()
+    (c, r), (cp, rp) = (blk(*e), netdecode.net_decode_block_plain(
+        blk.dense, *e))
+    _assert_nested_equal(c, cp)
+    _assert_nested_equal([r[k] for k in netdecode.RECORDS],
+                         [rp[k] for k in netdecode.RECORDS])
     assert _counts() == before
 
 
@@ -197,7 +215,8 @@ def test_wrappers_raise_off_cpu_without_cuda():
                      (backtrack.backtrack_committed,
                       _committed_args("meta")),
                      (netscan.netscan, _netscan_args("meta")),
-                     (nettrace.nettrace, _nettrace_args("meta"))):
+                     (nettrace.nettrace, _nettrace_args("meta")),
+                     (lambda blk, *a: blk(*a), _netdecode_args("meta"))):
         with pytest.raises(ValueError, match="no kernel"):
             fn(*args)
     assert _counts() == before
