@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the ten CUDA kernels from the eight sources in phnrec_tpu_torch/csrc
-(one nvcc each, all started together) and holds each against its plain
+Builds the eleven CUDA kernels from the nine sources in
+phnrec_tpu_torch/csrc (one nvcc each, all started together) and holds each against its plain
 PyTorch version on the card at its path's shapes: A (fused MLP, float32;
 also at row counts that fill no row tile, and timed beside cuBLAS's two
 products alone) and A' (fused MLP, bf16 tensor-core passes, 3 and 1) at the
@@ -12,9 +12,10 @@ CZ nets, C and
 C' (phoneme-loop scan, uniform and ragged), D and D' (backtrack, whole and
 committed window, also on the case list of devtools/backtrack_variants.py,
 and D timed at the serving History), B (network-Viterbi block), F (LRTrace
-scan), G (edge-list network scan) and H (its traceback, on a case list of
-networks, ties, beams, carried blocks and committed boundaries).  Then it
-drives four paths of the port:
+scan), G (edge-list network scan), H (its traceback, on a case list of
+networks, ties, beams, carried blocks and committed boundaries; its int16
+instance on E's records) and E (the decode-mode network block).  Then it
+drives five paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
   the CZ SpeechDat LCRC shapes (64 files), and times a batch of 1024 x 5 s
@@ -35,7 +36,15 @@ drives four paths of the port:
   package (the generated phoneme loop, kernels G and H), held against the
   CPU port; a timed stkint batch of 256 x 5 s by stages; and 8 EN files
   through the KWS package's process_file_list, whose hits equal the CPU
-  port's on the card's log-posteriors.
+  port's on the card's log-posteriors;
+* stkint decode serving (MultiStreamStkDecode, kernels A, E and H) on the
+  CZ stkint loop: 4 streams x 10 s fed through process() and held against
+  the CPU port, with and without fixed-lag commits, then 256 streams x
+  61.44 s staged on the card, one decode_device_buffer call a block of
+  512 frames with the default record horizon, then finish(), timed; and
+  the KWS server on two more EN packages, one with a global <InputXform>
+  (kernel B), one with 300 keywords (past 1,024 models + states: kernels G
+  and F), each held against the CPU port.
 
 It prints one JSON line of kernel results, each kernel with its launches
 on a path of this run and its time beside its bound (the larger of its
@@ -69,16 +78,18 @@ from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
 from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.io.labels import read_mlf
-from phnrec_tpu_torch.multistream import MultiStreamKWS, MultiStreamRecognizer
+from phnrec_tpu_torch.multistream import (MultiStreamKWS,
+                                          MultiStreamRecognizer,
+                                          MultiStreamStkDecode)
 from phnrec_tpu_torch.ops import (_build, backtrack, lrtrace, mlp_bf16x3,
-                                  mlp_fused, netscan, netstep, nettrace,
-                                  phnloop_viterbi)
+                                  mlp_fused, netdecode, netscan, netstep,
+                                  nettrace, phnloop_viterbi)
 from phnrec_tpu_torch.pipeline import SpeechRec
 from phnrec_tpu_torch.streaming import StreamingRecognizer
 
 CSRC = "phnrec_tpu_torch/csrc/"
 SOURCES = ("mlp_fused", "mlp_bf16x3", "phnloop_viterbi", "backtrack",
-           "netstep", "lrtrace", "netscan", "nettrace")
+           "netstep", "lrtrace", "netscan", "nettrace", "netdecode")
 # name -> the wrapper module, its launch counter, the source, the TPU kernel
 KERNELS = {
     "mlp_fused": dict(module=mlp_fused, counter="LAUNCHES",
@@ -113,10 +124,14 @@ KERNELS = {
     "nettrace": dict(module=nettrace, counter="LAUNCHES",
                      source=CSRC + "nettrace.cu",
                      replaces="phnrec_tpu/decoder/stknet.py:668"),
+    "netdecode": dict(module=netdecode, counter="LAUNCHES",
+                      source=CSRC + "netdecode.cu",
+                      replaces="phnrec_tpu/decoder/stknet.py:961"),
 }
 BATCH_KERNELS = ("mlp_fused", "phnloop_viterbi", "backtrack")
 KWS_KERNELS = ("mlp_fused", "netstep", "lrtrace")
 STK_KERNELS = ("mlp_fused", "netscan", "nettrace")
+STK_SERVE_KERNELS = ("mlp_fused", "netdecode", "nettrace")
 # kernel A against cuBLAS float32: both sum in another order, and fexp is a
 # step function of its argument (steps of 2^-20 relative), so outputs differ
 # by a few ulp of the sums; probabilities within 2e-5, raw logits within 1e-4.
@@ -1912,9 +1927,423 @@ def stk_kws_files(en_sr, en_cpu, tmp, dev, n: int = 8) -> dict:
     return launches
 
 
-def device_busy_share(fn):
+# ---------------------------------------------------------------------------
+# stkint decode serving: kernel E (netdecode), H's int16 instance, the
+# MultiStreamStkDecode server; KWS serving with an InputXform and on G
+# ---------------------------------------------------------------------------
+def _netdecode_inputs(dense, dev, n, F, seed, ties=False, dead=False):
+    """Kernel E's inputs: obs [n, F, E] (normal, or small integers that tie
+    many candidates), ragged n_valid (all 0 with ``dead``), the initial
+    decode carry."""
+    rng = np.random.default_rng(seed)
+    obs = (rng.integers(-3, 1, (n, F, dense.E)) if ties else
+           rng.normal(-3, 2, (n, F, dense.E))).astype(np.float32)
+    nv = rng.integers(1, F + 1, n)
+    nv[::7] = 0
+    nv[1::5] = F
+    if dead:
+        nv[:] = 0
+    return (dense.init_carry_decode(n, dev), torch.from_numpy(obs).to(dev),
+            _i32(nv, dev))
+
+
+def _id_dtype(dense):
+    """int16 where every edge id fits, as MultiStreamStkDecode keeps them."""
+    top = max(int(getattr(dense, k).max()) for k in ("I_in", "I_ex", "I_cm",
+                                                     "I_cs"))
+    return torch.int16 if top < 1 << 15 else torch.int32
+
+
+def _netdecode_work(dense, nv: torch.Tensor, n: int, F: int) -> tuple:
+    """(bytes, operations) of a block: the live frames' observations read,
+    every frame's records written (ids at 2 bytes), the carry read and
+    written; per live frame and stream ~7 operations a state (three
+    candidates, the observation, the beam max), one a model exit, two a
+    live closure or sink edge."""
+    E, M, S = dense.E, dense.M, dense.n_sinks
+    live_rows = int(nv.sum())
+    nnz = int((dense.A_cm > NEG / 2).sum()
+              + (dense.A_cs[:, :S] > NEG / 2).sum())
+    rec_row = 2 * E + 3 * 2 * M + 4 * M + 6 * S
+    n_bytes = live_rows * E * 4 + n * F * rec_row + 2 * n * (E + 2 * M) * 4 \
+        + n * 8
+    return n_bytes, live_rows * (7 * E + M + 2 * nnz)
+
+
+def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
+                    F: int = 512) -> dict:
+    """Kernel E against its plain version (the step_decode loop) on the
+    card: every value live where the plain one is and bit-equal there, every
+    id equal where its value is live (netdecode.compare_live), beam off
+    and 6.0, on: the CZ stkint loop at n 256 x F 512 (timed: both timers,
+    clocks a frame, bound) with normal and tie-heavy observations; the EN
+    KWS net; synth.dense_kws_net nets of 96 x 2 (tables in shared memory
+    past 48 KB) and 340 x 3 (1,020 states, tables in device memory, int32
+    ids); n 1 and 13 (no multiple of the 4 streams a block); every stream
+    dead; a carry passed between two blocks, which must equal one.  Then
+    kernel H's int16 instance on E's records of the CZ case: equal to the
+    plain walk over E's records and over the plain version's (a dead
+    entry's id never reaches a walk), with and without committed
+    boundaries, on both paths, and timed beside the int32 instance on the
+    same records.  Returns E's result and H's int16 timing."""
+    cases = {"cz_main": ("cz", n, F, dict(seed=71)),
+             "cz_ties": ("cz", n, F, dict(seed=72, ties=True)),
+             "en_kws": ("en", 64, F, dict(seed=73)),
+             "n1": ("cz", 1, 200, dict(seed=74)),
+             "n13": ("cz", 13, 200, dict(seed=75, ties=True)),
+             "all_dead": ("cz", 16, 64, dict(seed=76, dead=True)),
+             "two_blocks": ("cz", 32, 300, dict(seed=77)),
+             "wide_smem": ("wide_smem", 6, 48, dict(seed=78)),
+             "wide_global": ("wide_global", 6, 48, dict(seed=79,
+                                                        ties=True))}
+    blks = {k: netdecode.build_net_decode_fn(v) for k, v in nets.items()}
+    if None in blks.values():
+        raise AssertionError(f"the structure gate rejected a net: {blks}")
+    out, bad, h16 = None, [], None
+    for case, (net, cn, cF, kw) in cases.items():
+        dense, blk = nets[net], blks[net]
+        ids = _id_dtype(dense)
+        carry0, obs, nv = _netdecode_inputs(dense, dev, cn, cF, **kw)
+        for bw in (float(OFF_BEAM), 6.0):
+            beam = torch.full((cn,), bw, device=dev)
+            args = (carry0, obs, nv, beam)
+            got = blk(*args, id_dtype=ids)
+            want = netdecode.net_decode_block_plain(dense, *args, ids,
+                                                    values=True)
+            torch.cuda.synchronize()
+            checks = netdecode.compare_live(got, want)
+            if case == "two_blocks":
+                h = cF // 2 - 3
+                c1, r1 = blk(carry0, obs[:, :h].contiguous(),
+                             nv.clamp(max=h), beam, ids)
+                c2, r2 = blk(c1, obs[:, h:].contiguous(),
+                             (nv - h).clamp(min=0), beam, ids)
+                two = (c2, {k: torch.cat([r1[k], r2[k]], 1) for k in r1})
+                checks["two_equal_one"] = all(
+                    torch.equal(a, b) for a, b in zip(two[0], got[0])) and \
+                    all(torch.equal(two[1][k], got[1][k]) for k in two[1])
+            rec = dict(case=case, n=cn, F=cF, M=dense.M, E=dense.E,
+                       S=dense.n_sinks, distinct_columns=blk.U, beam=bw,
+                       ids=str(ids).split(".")[-1],
+                       live_entry_share=float(
+                           (want[1]["entry_val"] > NEG / 2).float().mean()),
+                       bit_equal=all(checks.values()))
+            if case == "cz_main" and bw == float(OFF_BEAM):
+                fn = lambda: blk(*args, id_dtype=ids)  # noqa: E731
+                t_k = cuda_ms(fn)
+                held = scan_variants.held_ms(fn)
+                t_p = cuda_ms(lambda: netdecode.net_decode_block_plain(
+                    dense, *args, ids), iters=2, warmup=1)
+                mhz = sm_clock(fn, max(t_k, 0.2))
+                bnd = bound(*_netdecode_work(dense, nv, cn, cF), PEAK_FP32)
+                out = dict(max_abs_err=0.0, ms=t_k, held_ms=held,
+                           plain_ms=t_p, sm_clock_mhz=mhz,
+                           clocks_a_frame=held * 1e-3 * mhz * 1e6 / cF,
+                           bound_share=bnd["bound_ms"] / held, **bnd)
+                rec.update(out)
+                h16 = check_nettrace_i16(cz_dec, got, want, nv, dev)
+            phase("netdecode", **rec)
+            if not all(checks.values()):
+                bad.append((case, bw, {k: v for k, v in checks.items()
+                                       if not v}))
+    if bad:
+        raise AssertionError(f"netdecode differs from the plain version: "
+                             f"{bad}")
+    return out, h16
+
+
+def _walk_bits_equal(a, b) -> bool:
+    return all(_bits_equal(x, y) for x, y in zip(a, b))
+
+
+def _walk_live_equal(a, b) -> bool:
+    """Two walks equal in everything a label reads: ok, the sink value,
+    the crossed edges and their values, and the sink edge of the rows that
+    reach the terminal sink (a row that does not gives no labels, and its
+    sink edge is the id of a dead entry)."""
+    ok = a[0]
+    return _bits_equal(a[0], b[0]) and _bits_equal(a[2], b[2]) and \
+        _bits_equal(a[3], b[3]) and _bits_equal(a[4], b[4]) and \
+        torch.equal(torch.where(ok, a[1], 0), torch.where(ok, b[1], 0))
+
+
+def check_nettrace_i16(dec, got, want, nv, dev) -> dict:
+    """Kernel H's int16 instance on kernel E's records (CZ loop): equal to
+    the plain walk over the same records and over the plain version's
+    records, frame0 none and committed, shared and device-memory paths;
+    held ms and clocks a step beside the int32 instance on the same
+    records cast to int32."""
+    rk = {k: v for k, v in got[1].items()}
+    rp = {k: want[1][k] for k in netdecode.RECORDS}
+    B, T = rk["in_am"].shape[:2]
+    tb = dec.edge_tables(dev)
+    ts = dec.c.terminal_sink
+    res, ok = {}, True
+    for committed in (False, True):
+        f0 = np.full(B, -1, np.int32)
+        if committed:
+            f0[1::2] = np.random.default_rng(81).integers(0, T, B)[1::2]
+        f0 = _i32(f0, dev)
+        walk_k = nettrace.nettrace(rk, nv, f0, tb, ts)
+        walk_g = nettrace.launch(nettrace._lib(), rk, nv, f0, tb, ts,
+                                 force_global=True)
+        plain_k = nettrace.nettrace_plain(rk, nv, f0, tb, ts)
+        plain_p = nettrace.nettrace_plain(rp, nv, f0, tb, ts)
+        torch.cuda.synchronize()
+        same = {f"{'committed' if committed else 'none'}_{k}": eq(x, y)
+                for k, (x, y, eq) in (
+                    ("kernel_vs_plain", (walk_k, plain_k, _walk_bits_equal)),
+                    ("global_vs_plain", (walk_g, plain_k, _walk_bits_equal)),
+                    ("e_vs_plain_records", (walk_k, plain_p,
+                                            _walk_live_equal)))}
+        res.update(same)
+        ok &= all(same.values())
+        if not committed:
+            res["rows_ok"] = int(walk_k[0].sum())
+            res["crossings"] = int((walk_k[3] >= 0).sum())
+    f0 = _i32(np.full(B, -1), dev)
+    r32 = {k: (v.to(torch.int32) if k in netdecode.ID_KEYS else v)
+           for k, v in rk.items()}
+    for name, recs in (("int16", rk), ("int32", r32)):
+        fn = lambda r=recs: nettrace.nettrace(r, nv, f0, tb,  # noqa: E731
+                                              ts)
+        held = scan_variants.held_ms(fn)
+        mhz = sm_clock(fn, max(held, 0.2))
+        res[f"{name}_held_ms"] = held
+        res[f"{name}_clocks_a_step"] = held * 1e-3 * mhz * 1e6 / T
+    res["B"], res["T"] = B, T
+    phase("nettrace_int16", **res)
+    if not ok or not res["rows_ok"]:
+        raise AssertionError(f"kernel H's int16 instance differs: {res}")
+    return res
+
+
+class _SDCapture(MultiStreamStkDecode):
+    """Records each block's log-posteriors as the decoder receives them."""
+
+    def __init__(self, *a, **kw):
+        self.lps = []
+        super().__init__(*a, **kw)
+
+    def _decode_block(self, carry, lp, n_dec, n_valid):
+        self.lps.append(lp.cpu())
+        return super()._decode_block(carry, lp, n_dec, n_valid)
+
+
+class _SDReplay(MultiStreamStkDecode):
+    """Decodes given log-posteriors instead of its own, after measuring
+    its own against them on the valid rows."""
+
+    def __init__(self, lps, *a, **kw):
+        self.lps, self.err = list(lps), 0.0
+        super().__init__(*a, **kw)
+
+    def _decode_block(self, carry, lp, n_dec, n_valid):
+        given = self.lps.pop(0)
+        rows = torch.arange(lp.shape[1])[None, :] < n_valid.cpu()[:, None]
+        if rows.any():
+            self.err = max(self.err, float((given - lp).abs()[rows].max()))
+        return super()._decode_block(carry, given, n_dec, n_valid)
+
+
+def stk_serving_vs_cpu(sr, cpu_sr, dev, n: int = 4, seconds: float = 10.0,
+                       horizon: int = 256):
+    """stkint decode serving on the card against the CPU port (plain
+    versions): 4 streams of 10, 9, 8, 7 s of the CZ stkint loop fed in 2 s
+    chunks through MultiStreamStkDecode.process(), blocks of 512 frames;
+    the CPU port decodes the card's log-posteriors and must give the
+    card's labels exactly (names, boundaries, scores), its own
+    log-posteriors within TOL_PHN_LP of the card's.  Again with
+    record_horizon 256, so the fixed-lag commit runs every block: the
+    committed prefixes and the labels equal the CPU port's."""
+    rng = np.random.default_rng(91)
+    streams = [synth.synth_audio(rng, int((seconds - i) * 8000))
+               .astype("<i2").tobytes() for i in range(n)]
+
+    def feed(ms):
+        for off in range(0, max(map(len, streams)), 32000):
+            for i, x in enumerate(streams):
+                if off < len(x):
+                    ms.process(i, x[off: off + 32000])
+                elif not ms._ended[i]:
+                    ms.end_stream(i)
+        return ms.finish()
+
+    rec = {}
+    for name, kw in (("full", {}), ("commit", dict(record_horizon=horizon))):
+        reset_counts(STK_SERVE_KERNELS)
+        gpu = _SDCapture(sr, n, block_frames=512, **kw)
+        got = feed(gpu)
+        torch.cuda.synchronize()
+        launches = read_counts(STK_SERVE_KERNELS)
+        cpu = _SDReplay(gpu.lps, cpu_sr, n, block_frames=512, **kw)
+        want = feed(cpu)
+        same = [full_key(a) == full_key(b) for a, b in zip(got, want)]
+        committed = [full_key(a) == full_key(b) for a, b in
+                     zip(gpu._stk_committed, cpu._stk_committed)]
+        rec[name] = dict(launches=launches, net_path=gpu.net_path,
+                         labels=[len(x) for x in got], labels_equal=same,
+                         committed=[len(c) for c in gpu._stk_committed],
+                         committed_equal=committed,
+                         max_lp_err_cpu_vs_card=cpu.err)
+        # the streams end at different frames, so the last blocks are
+        # ragged and the final walk runs on the host; the commit run walks
+        # the first, uniform, blocks on the card (kernel H)
+        need = STK_SERVE_KERNELS if name == "commit" else \
+            ("mlp_fused", "netdecode")
+        if gpu.net_path != "kernel_e" or not all(launches[k] for k in need):
+            raise AssertionError(f"stk serving skipped a kernel: {rec}")
+        if not all(same) or not all(committed) or not all(got) or \
+                not cpu.err <= TOL_PHN_LP:
+            raise AssertionError(f"card stk serving differs from the CPU "
+                                 f"port's: {rec}")
+    if not all(rec["commit"]["committed"]):
+        raise AssertionError(f"a stream committed nothing: {rec}")
+    phase("stk_serving_vs_cpu", streams=n, seconds=seconds, block_frames=512,
+          record_horizon=horizon, tol_lp=TOL_PHN_LP, **rec)
+
+
+def stk_serving(sr, dev, n: int = 256, n_blocks: int = 12,
+                block: int = 512, runs: int = 2) -> dict:
+    """MultiStreamStkDecode over n streams x 12 blocks of 512 frames
+    (61.44 s at 8 kHz) of the CZ stkint loop staged on the card as int16,
+    one decode_device_buffer call a block (as a server drains its buffer)
+    with the default record horizon, so the fixed-lag commit walks (kernel
+    H) and drops blocks as it goes, then finish(): launch counts of one
+    run, then the median of ``runs`` timed runs after a warm-up, with
+    CUDA-event stage times."""
+    fs = sr.cfg.get_int("source", "sample_freq")
+    audio, L = _serving_audio(sr, dev, n, n_blocks, block)
+
+    def one_pass(hook=None):
+        t = time.perf_counter()
+        ms = MultiStreamStkDecode(sr, n, block_frames=block)
+        ms.stage_hook = hook
+        if hook:
+            hook("start")
+        retained = []
+        for k in range(n_blocks):
+            ms.decode_device_buffer(audio, 1, first_block=k)
+            retained.append(len(ms._hist))
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter()
+        labels = ms.finish()
+        torch.cuda.synchronize()
+        return ms, labels, retained, t_dev - t, time.perf_counter() - t_dev
+
+    one_pass()                                   # warm-up
+    reset_counts(STK_SERVE_KERNELS)
+    ms, labels, retained, _, _ = one_pass()
+    launches = read_counts(STK_SERVE_KERNELS)
+    # 3 nets a block and the tail flush; E a block and the flush
+    if launches["mlp_fused"] != 3 * (n_blocks + 1) or \
+            launches["netdecode"] != n_blocks + 1 or \
+            not launches["nettrace"] or ms.net_path != "kernel_e":
+        raise AssertionError(f"stk serving launches: {launches}")
+    if ms._frame0.min() <= 0 or not all(ms._stk_committed) or \
+            max(retained) > -(-ms._horizon // block) + 2:
+        raise AssertionError(f"the commit did not bound the window: "
+                             f"{retained}, frame0 {ms._frame0.min()}")
+    if sum(1 for x in labels if len(x) > 10) < n:
+        raise AssertionError("a stream decoded too few labels")
+
+    walls, stage_runs, host_runs, devs, fins = [], [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(runs):
+        events, host = [], []
+
+        def hook(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+            host.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, _, dev_s, fin_s = one_pass(hook)
+        walls.append(time.perf_counter() - t)
+        devs.append(dev_s)
+        fins.append(fin_s)
+        st, hs = {}, {}
+        for i in range(1, len(events)):
+            name = events[i][0]
+            st[name] = st.get(name, 0.0) + \
+                events[i - 1][1].elapsed_time(events[i][1])
+            hs[name] = hs.get(name, 0.0) + (host[i] - host[i - 1]) * 1e3
+        stage_runs.append(st)
+        host_runs.append(hs)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy = device_busy_share(lambda: one_pass(), kernels=True)
+    wall = float(np.median(walls))
+    names = ("posteriors", "netdecode", "compact", "walk", "fetch", "commit")
+    # CUDA events at the hooks: a stage's device time and any time the
+    # card idled in it waiting for the host (the commits' host work shows
+    # in the next block's posteriors); the host's walls between the hooks
+    # (the commit: labels_from_edge_walk and the bookkeeping)
+    stages = {k: float(np.median([r.get(k, 0.0) for r in stage_runs]))
+              for k in names}
+    host_ms = {k: float(np.median([r.get(k, 0.0) for r in host_runs]))
+               for k in names}
+    stages["blocks_wall"] = float(np.median(devs)) * 1e3
+    stages["finish"] = float(np.median(fins)) * 1e3
+    phase("stk_serving", streams=n, seconds_each=L / fs, blocks=n_blocks,
+          block_frames=block, record_horizon=ms._horizon,
+          launches=launches, net_path=ms.net_path,
+          retained_blocks=retained,
+          committed_labels=sum(map(len, ms._stk_committed)),
+          labels_total=sum(map(len, labels)), wall_s=walls,
+          audio_s_per_s=n * L / fs / wall, stage_ms=stages, host_ms=host_ms,
+          max_memory_allocated_bytes=peak, device_busy_share=busy)
+    return launches
+
+
+def kws_pkg_vs_cpu(name, sr, cpu_sr, dev, path, n=4, seconds=10.0):
+    """kws_vs_cpu on another KWS package: the card's hits equal the CPU
+    port's on the card's log-posteriors, its own log-posteriors within
+    TOL_KWS_LP, through network path ``path`` (kernel_b or kernel_g)."""
+    fs = sr.cfg.get_int("source", "sample_freq")
+    rng = np.random.default_rng(33)
+    streams = [synth.synth_audio(rng, int((seconds - i) * fs), fs)
+               .astype("<i2").tobytes() for i in range(n)]
+
+    def feed(ms):
+        for off in range(0, max(map(len, streams)), 32000):
+            for i, x in enumerate(streams):
+                if off < len(x):
+                    ms.process(i, x[off: off + 32000])
+                elif not ms._ended[i]:
+                    ms.end_stream(i)
+        return ms.finish()
+
+    names = ("mlp_fused", "netstep" if path == "kernel_b" else "netscan",
+             "lrtrace")
+    reset_counts(names)
+    gpu = _Capture(sr, n, block_frames=512)
+    got = feed(gpu)
+    torch.cuda.synchronize()
+    launches = read_counts(names)
+    cpu = _Replay(gpu.lps, cpu_sr, n, block_frames=512)
+    want = feed(cpu)
+    same = [full_key(a) == full_key(b) for a, b in zip(got, want)]
+    c = sr.stk_decoder.compiled
+    phase(name, streams=n, seconds=seconds, block_frames=512,
+          net_path=gpu.net_path, models=c.n_models, states=c.n_states,
+          keywords=len(sr.stk_decoder.keywords()),
+          input_xform=gpu._xform_inst is not None, launches=launches,
+          hits=[len(h) for h in got], hits_equal=same,
+          max_lp_err_cpu_vs_card=cpu.err, tol_lp=TOL_KWS_LP)
+    if gpu.net_path != path or not all(launches.values()):
+        raise AssertionError(f"{name} skipped a kernel: {launches}")
+    if not all(same) or not any(got) or not cpu.err <= TOL_KWS_LP:
+        raise AssertionError(f"{name}: card hits differ from the CPU "
+                             "port's")
+
+
+def device_busy_share(fn, kernels: bool = False):
     """Share of one run's wall in which some CUDA kernel or copy ran, from
-    torch.profiler; None if the trace holds no device events."""
+    torch.profiler; None if the trace holds no device events.  With
+    ``kernels``, also the device ms of the eight kernels that took the
+    most, by name (the first 60 characters)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1924,10 +2353,11 @@ def device_busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == DeviceType.CUDA and e.time_range.end >
-        e.time_range.start)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and e.time_range.end >
+                  e.time_range.start]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
     if not spans:
         return None
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -1938,7 +2368,15 @@ def device_busy_share(fn):
         else:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
-    return dict(busy_us=busy, wall_us=wall_us, share=busy / wall_us)
+    out = dict(busy_us=busy, wall_us=wall_us, share=busy / wall_us)
+    if kernels:
+        by = {}
+        for e in dev_events:
+            k = e.name[:60]
+            by[k] = by.get(k, 0.0) + (e.time_range.end
+                                      - e.time_range.start) / 1e3
+        out["kernel_ms"] = dict(sorted(by.items(), key=lambda kv: -kv[1])[:8])
+    return out
 
 
 def main() -> int:
@@ -2025,6 +2463,29 @@ def main() -> int:
             stk_pkg, tmp, stk_cpu, dev).items() if k in clk})
         stk_batch(stk_sr, dev, clk)
         stk_kws_files(en_sr, en_cpu, tmp, dev)
+
+        # stkint decode serving (kernel E, H's int16 instance) on the CZ
+        # loop without sentence norm; KWS serving with a global
+        # <InputXform> (B) and with 300 keywords (G, then F)
+        results["netdecode"], results["nettrace"]["int16"] = \
+            check_netdecode({
+                "cz": DenseKWSScan(stk_sr.stk_decoder.decoder), "en": dense,
+                "wide_smem": synth.dense_kws_net(96, 2, 2, seed=1),
+                "wide_global": synth.dense_kws_net(340, 3, 5, seed=2)},
+                stk_sr.stk_decoder.decoder, dev)
+        sd_pkg = synth.write_stk_decode_package(
+            os.path.join(tmp, "cz_stk_serving"), "cz", seed=0,
+            sent_norm=False)
+        sd_sr = SpeechRec(sd_pkg, device=dev)
+        stk_serving_vs_cpu(sd_sr, SpeechRec(sd_pkg, device="cpu"), dev)
+        launches["netdecode"] = stk_serving(sd_sr, dev)["netdecode"]
+        for name, path, kw in (
+                ("kws_xform_vs_cpu", "kernel_b", dict(input_xform=True)),
+                ("kws_big_vs_cpu", "kernel_g", dict(n_keywords=300))):
+            kpkg = synth.write_kws_package(os.path.join(tmp, name), "en",
+                                           seed=0, **kw)
+            kws_pkg_vs_cpu(name, SpeechRec(kpkg, device=dev),
+                           SpeechRec(kpkg, device="cpu"), dev, path)
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")

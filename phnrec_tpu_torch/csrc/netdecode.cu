@@ -45,13 +45,26 @@
 // Design: kernel B's (one warp a stream, its states in registers, the
 // beam max by redux, the closure and the sinks over the distinct
 // destination columns with the first maximum kept, the tables staged in
-// shared memory where they fit), with three changes: the in-model pass
-// keeps which candidate won (two bits a state) and stores its id from a
-// per-state table of the three candidates' ids; the closure's second pass
-// looks the winning source's id up in an [M + S][P] id table beside the
-// weights (shared memory with them, or device memory); the warp's slice
-// of shared memory holds the carried entry edges where B's held the entry
-// word times.
+// shared memory where they fit), with these changes: each lane holds its
+// states' three candidate edge ids in registers beside their weights, and
+// the in-model pass selects the winner's id as it selects its value; the
+// exit ids of the first 64 models sit in registers; the closure's second
+// pass looks the winning source's id up in an [M + S][P] id table beside
+// the weights (shared memory with them, or device memory); the warp's
+// slice of shared memory holds the carried entry edges where B's held the
+// entry word times; the id type is a template parameter; the records of
+// the carry entering frame f+1 are stored by the lanes that make it, from
+// registers, in frame f's closure pass.
+//
+// Measured (PERF.md, CZ stkint loop, n 256 x F 512, NVIDIA H100 80GB
+// HBM3, 700 W, devtools/netdecode_variants.py in turns): the first
+// version, which loaded each state's winning id from device memory, chose
+// the id width by a run-time flag at every store and stored each frame's
+// carry records from shared memory at the frame's start, took 0.780 ms
+// held, 3,014 clocks a frame; the ids in registers and the width a
+// template parameter 0.549 (2,122); the carry records from the closure
+// pass 0.435 (1,682), kernel B's clocks.  32-bit record offsets in place
+// of 64-bit ones were slower (0.484, 1,872).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,7 +103,6 @@ struct Args {
   const int* n_valid;    // [n]
   const float* beam;     // [n]
   int F, n, E, M, S, S_M, P, U;
-  int id16;              // ids stored as int16 (else int32)
   float* alpha_out;      // [n, E]
   float* entry_out;      // [n, M]
   int* edge_out;         // [n, M]
@@ -98,20 +110,17 @@ struct Args {
   float *entry_val, *sink_val;
 };
 
-__device__ __forceinline__ void put_id(void* p, size_t i, int v, bool i16) {
-  if (i16)
-    static_cast<int16_t*>(p)[i] = (int16_t)v;
-  else
-    static_cast<int*>(p)[i] = v;
+template <typename IdT>
+__device__ __forceinline__ void put_id(void* p, size_t i, int v) {
+  static_cast<IdT*>(p)[i] = (IdT)v;
 }
 
-template <int EPL, bool SMEM_TAB>
+template <int EPL, bool SMEM_TAB, typename IdT>
 __global__ void __launch_bounds__(32 * MAX_STREAMS_PER_BLOCK)
 net_decode_kernel(const Args g) {
   extern __shared__ __align__(16) float smem[];
   const int M = g.M, E = g.E, S = g.S, P = g.P, U = g.U, F = g.F, n = g.n;
   const int D = M + S;
-  const bool i16 = g.id16 != 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int U_pad = (U + 31) / 32 * 32;
   // [U_pad][P] table, [D] column map and [D][P] ids (if staged), then per
@@ -154,7 +163,7 @@ net_decode_kernel(const Args g) {
   const size_t rb = (size_t)b * F;   // the stream's first record row
 
   float a[EPL], ws[EPL], wa[EPL], we[EPL], wx[EPL], o[EPL];
-  int mo[EPL];
+  int mo[EPL], id_self[EPL], id_adv[EPL], id_ent[EPL];
   unsigned last = 0;  // bit j: slot j is its model's last state
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
@@ -168,7 +177,12 @@ net_decode_kernel(const Args g) {
     wx[j] = in ? g.w_exit[mo[j]] : 0.f;
     if (in && e % g.S_M == g.S_M - 1) last |= 1u << j;
     o[j] = (in && F > 0) ? g.obs[rb * E + e] : 0.f;
+    id_self[j] = in ? g.id_in[4 * e] : -1;
+    id_adv[j] = in ? g.id_in[4 * e + 1] : -1;
+    id_ent[j] = in ? g.id_in[4 * e + 2] : -1;
   }
+  const int xid[2] = {lane < M ? g.id_exit[lane] : -1,
+                      lane + 32 < M ? g.id_exit[lane + 32] : -1};
   for (int m = lane; m < M; m += 32) {
     en[m] = g.entry0[(size_t)b * M + m];
     eg[m] = g.edge0[(size_t)b * M + m];
@@ -178,36 +192,40 @@ net_decode_kernel(const Args g) {
                      lane + 32 < D ? col_of[lane + 32] : 0};
   __syncwarp();
 
+  // frame 0's records of the carry entering it, and the exit edges (the
+  // later frames' are written as their carry is made)
+  if (F > 0)
+    for (int m = lane; m < M; m += 32) {
+      g.entry_val[rb * M + m] = en[m];
+      put_id<IdT>(g.entry_edge, rb * M + m, eg[m]);
+      put_id<IdT>(g.ex_am, rb * M + m,
+                  m < 64 ? xid[m >> 5] : __ldg(g.id_exit + m));
+    }
+
   for (int f = 0; f < F; ++f) {
     const size_t row = rb + f;
-    // -- the carry entering the frame, and the exit edges
-    for (int m = lane; m < M; m += 32) {
-      g.entry_val[row * M + m] = en[m];
-      put_id(g.entry_edge, row * M + m, eg[m], i16);
-      put_id(g.ex_am, row * M + m, __ldg(g.id_exit + m), i16);
-    }
     // -- in-model pass; the state below a lane's first is the last of the
     // lane below
     float pa = __shfl_up_sync(0xffffffffu, a[EPL - 1], 1);
     if (lane == 0) pa = NEG;
     float na[EPL];
-    int sel[EPL];
+    int nid[EPL];
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
       float v = a[j] + ws[j];
-      int s = 0;
+      int id = id_self[j];
       const float adv = (j ? a[j - 1] : pa) + wa[j];
       if (adv >= v) {
         v = adv;
-        s = 1;
+        id = id_adv[j];
       }
       const float ent = en[mo[j]] + we[j];
       if (ent >= v) {
         v = ent;
-        s = 2;
+        id = id_ent[j];
       }
       na[j] = v + o[j];
-      sel[j] = s;
+      nid[j] = id;
     }
     if (f + 1 < F) {
 #pragma unroll
@@ -229,8 +247,7 @@ net_decode_kernel(const Args g) {
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
       const int e = lane * EPL + j;
-      if (e < E)
-        put_id(g.in_am, row * E + e, __ldg(g.id_in + 4 * e + sel[j]), i16);
+      if (e < E) put_id<IdT>(g.in_am, row * E + e, nid[j]);
     }
     __syncwarp();
 
@@ -287,14 +304,28 @@ net_decode_kernel(const Args g) {
         if (d >= D) continue;
         const int id = k >= 0 ? ids[(size_t)d * P + k] : -1;
         if (d < M) {
-          put_id(g.cm_am, row * M + d, id, i16);
+          put_id<IdT>(g.cm_am, row * M + d, id);
+          float ne;
+          int ng;
           if (live) {
-            en[d] = vv[h] >= thresh ? vv[h] : NEG;
-            eg[d] = id;
+            ne = vv[h] >= thresh ? vv[h] : NEG;
+            ng = id;
+            en[d] = ne;
+            eg[d] = ng;
+          } else {
+            ne = en[d];
+            ng = eg[d];
+          }
+          if (f + 1 < F) {  // the next frame's records of its carry
+            const size_t nx = (row + 1) * M + d;
+            g.entry_val[nx] = ne;
+            put_id<IdT>(g.entry_edge, nx, ng);
+            put_id<IdT>(g.ex_am, nx,
+                        d < 64 ? xid[h] : __ldg(g.id_exit + d));
           }
         } else {
           g.sink_val[row * S + (d - M)] = vv[h];
-          put_id(g.cs_am, row * S + (d - M), id, i16);
+          put_id<IdT>(g.cs_am, row * S + (d - M), id);
         }
       }
     }
@@ -320,20 +351,20 @@ using Kernel = void (*)(const Args);
 
 constexpr int EPLS[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
 
-template <bool SMEM_TAB>
+template <bool SMEM_TAB, typename IdT>
 Kernel pick(int epl) {
   switch (epl) {
-    case 1: return net_decode_kernel<1, SMEM_TAB>;
-    case 2: return net_decode_kernel<2, SMEM_TAB>;
-    case 3: return net_decode_kernel<3, SMEM_TAB>;
-    case 4: return net_decode_kernel<4, SMEM_TAB>;
-    case 5: return net_decode_kernel<5, SMEM_TAB>;
-    case 6: return net_decode_kernel<6, SMEM_TAB>;
-    case 8: return net_decode_kernel<8, SMEM_TAB>;
-    case 12: return net_decode_kernel<12, SMEM_TAB>;
-    case 16: return net_decode_kernel<16, SMEM_TAB>;
-    case 24: return net_decode_kernel<24, SMEM_TAB>;
-    default: return net_decode_kernel<32, SMEM_TAB>;
+    case 1: return net_decode_kernel<1, SMEM_TAB, IdT>;
+    case 2: return net_decode_kernel<2, SMEM_TAB, IdT>;
+    case 3: return net_decode_kernel<3, SMEM_TAB, IdT>;
+    case 4: return net_decode_kernel<4, SMEM_TAB, IdT>;
+    case 5: return net_decode_kernel<5, SMEM_TAB, IdT>;
+    case 6: return net_decode_kernel<6, SMEM_TAB, IdT>;
+    case 8: return net_decode_kernel<8, SMEM_TAB, IdT>;
+    case 12: return net_decode_kernel<12, SMEM_TAB, IdT>;
+    case 16: return net_decode_kernel<16, SMEM_TAB, IdT>;
+    case 24: return net_decode_kernel<24, SMEM_TAB, IdT>;
+    default: return net_decode_kernel<32, SMEM_TAB, IdT>;
   }
 }
 
@@ -386,7 +417,9 @@ extern "C" int phn_net_decode(
     if (slice > (size_t)optin) return cudaErrorInvalidValue;
   }
   const size_t smem = (smem_tab ? tables : 0) + w * slice;
-  const Kernel k = smem_tab ? pick<true>(epl) : pick<false>(epl);
+  const Kernel k =
+      id16 ? (smem_tab ? pick<true, int16_t>(epl) : pick<false, int16_t>(epl))
+           : (smem_tab ? pick<true, int>(epl) : pick<false, int>(epl));
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -414,7 +447,6 @@ extern "C" int phn_net_decode(
   g.S_M = S_M;
   g.P = P;
   g.U = U;
-  g.id16 = id16;
   g.alpha_out = static_cast<float*>(alpha_out);
   g.entry_out = static_cast<float*>(entry_out);
   g.edge_out = static_cast<int*>(edge_out);

@@ -60,9 +60,10 @@
 //
 // Both kernels are templates on the record ids' type: int32 (kernel G's
 // records) or int16 (kernel E's, and the serving window's when every id
-// fits).  An int16 span is staged as 16-byte pieces too; its unaligned
-// head and tail elements (fewer than 8 each) by plain loads, as cp.async
-// copies no fewer than 4 bytes.
+// fits).  An int16 span is staged as 16-byte pieces too, its unaligned
+// head and tail (fewer than 8 ids each) by the 4-byte words that hold them
+// (cp.async copies no fewer than 4 bytes; a word's other half lies in the
+// same 16-byte unit, and lands in the span's slack).
 
 #include <cuda_runtime.h>
 
@@ -216,32 +217,51 @@ __host__ __device__ constexpr int table_words(int n_in, int n_cm, int n_ex) {
   return (n_in + n_cm + n_ex + 3) & ~3;
 }
 
-// one element outside the 16-byte pieces: asynchronous for a word, a
-// plain load and store for a 2-byte id
-__device__ __forceinline__ void copy_one(int* dst, const int* src) {
-  cp_async4(dst, src);
-}
-
-__device__ __forceinline__ void copy_one(int16_t* dst, const int16_t* src) {
-  *dst = *src;
-}
-
-// the warp's copy of n elements from src into the span at dst (at the
+// the warp's copy of n words from src into the span at dst (at the
 // source's offset from 16 bytes)
-template <typename T>
-__device__ __forceinline__ void copy_span(T* dst, const T* src, int n,
+__device__ __forceinline__ void copy_span(int* dst, const int* src, int n,
                                           int lane) {
-  constexpr int per = 16 / sizeof(T);
   const int mis = misalign(src);
-  T* d = dst + mis;
-  const int head = min((per - mis) & (per - 1), n);
-  const int pieces = (n - head) / per;
-  const int tail = n - head - per * pieces;
+  int* d = dst + mis;
+  const int head = min((4 - mis) & 3, n);
+  const int pieces = (n - head) >> 2;
+  const int tail = n - head - 4 * pieces;
   for (int u = lane; u < pieces; u += 32)
-    cp_async16(d + head + per * u, src + head + per * u);
-  if (lane < head) copy_one(d + lane, src + lane);
+    cp_async16(d + head + 4 * u, src + head + 4 * u);
+  if (lane < head) cp_async4(d + lane, src + lane);
   if (lane < tail)
-    copy_one(d + head + per * pieces + lane, src + head + per * pieces + lane);
+    cp_async4(d + head + 4 * pieces + lane, src + head + 4 * pieces + lane);
+}
+
+// the warp's copy of the 4-byte words that hold elements [lo, hi) of
+// src (at most 8 elements, within one 16-byte unit) to the same offsets
+// from d: the words' other halves are read inside that unit and written
+// into the span's slack around its elements
+__device__ __forceinline__ void copy_words(int16_t* d, const int16_t* src,
+                                           int lo, int hi, int lane) {
+  if (hi <= lo) return;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src + lo) & ~(uintptr_t)3;
+  const uintptr_t e =
+      (reinterpret_cast<uintptr_t>(src + hi) + 3) & ~(uintptr_t)3;
+  const intptr_t shift = reinterpret_cast<const char*>(d) -
+                         reinterpret_cast<const char*>(src);
+  if (lane < (int)((e - a) >> 2))
+    cp_async4(reinterpret_cast<char*>(a + 4 * lane) + shift,
+              reinterpret_cast<const void*>(a + 4 * lane));
+}
+
+// the same for n 2-byte ids: 16-byte pieces, the unaligned head and tail
+// by the 4-byte words that hold them
+__device__ __forceinline__ void copy_span(int16_t* dst, const int16_t* src,
+                                          int n, int lane) {
+  const int mis = misalign(src);
+  int16_t* d = dst + mis;
+  const int head = min((8 - mis) & 7, n);
+  const int pieces = (n - head) >> 3;
+  for (int u = lane; u < pieces; u += 32)
+    cp_async16(d + head + 8 * u, src + head + 8 * u);
+  copy_words(d, src, 0, head, lane);
+  copy_words(d, src, head + 8 * pieces, n, lane);
 }
 
 template <typename IdT>

@@ -1083,8 +1083,8 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
         """The record blocks of one decode_device_buffer run [N, F, .] ->
         [N, K*F, .] with block 0's delay-gate gap removed from every leaf
         (the base class's gather, on the frame axis of each record)."""
-        merged = {k: torch.cat([h[k] for h in hists], dim=1)
-                  for k in hists[0]}
+        merged = hists[0] if K == 1 else {
+            k: torch.cat([h[k] for h in hists], dim=1) for k in hists[0]}
         if skip0.any():
             TT = K * self.block
             j = torch.arange(TT, device=self.device)[None, :]
@@ -1188,6 +1188,7 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
         self._drop_committed_blocks()
         if r.any():
             self._rebase_likes(r)
+        self._mark("commit")
         retained = int((self._n_dec - self._row_offset).max(initial=0))
         # geometric back-off while nothing settles (see __init__)
         self._next_commit_at = (retained + self._horizon
