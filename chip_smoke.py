@@ -978,10 +978,11 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
                        bit_equal=all(checks.values()), **extra)
             if case == "main":
                 t_k = cuda_ms(lambda: blk(*args))
+                held = scan_variants.held_ms(lambda: blk(*args))
                 t_p = cuda_ms(lambda: netstep.net_block_plain(dense, *args),
                               iters=2, warmup=1)
                 clk = clocks(lambda: blk(*args), t_k, cF)
-                rec.update(ms=t_k, plain_ms=t_p, **clk)
+                rec.update(ms=t_k, held_ms=held, plain_ms=t_p, **clk)
                 # bytes: the live frames' observations read, the sink
                 # records written, the carry read and written; operations
                 # per live frame and stream: ~7 per state (three
@@ -994,7 +995,8 @@ def check_netstep(dense, dev, n: int = 256, F: int = 512):
                 n_bytes = live_rows * E * 4 + cF * cn * S * 8 + \
                     2 * cn * (2 * E + 2 * M) * 4 + cn * 12
                 ops = live_rows * (7 * E + M + 2 * nnz)
-                out[bw] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                out[bw] = dict(max_abs_err=0.0, ms=t_k, held_ms=held,
+                               plain_ms=t_p,
                                **bound(n_bytes, ops, PEAK_FP32),
                                **clk,
                                sinks=got[1], n_valid=n_valid, n_dec=n_dec)
@@ -1111,46 +1113,52 @@ class _Replay(MultiStreamKWS):
         return super()._decode_block(carry, given, n_dec, n_valid)
 
 
-def kws_vs_cpu(en_sr, en_cpu, dev, n: int = 4, seconds: float = 10.0):
-    """4 streams x 10 s fed in chunks through process() on the card, then
-    the CPU port (plain versions) on the same audio, decoding the card's
-    log-posteriors: hits equal.  The CPU port's own log-posteriors are
-    held to the card's within TOL_KWS_LP."""
-    fs = en_sr.cfg.get_int("source", "sample_freq")
-    rng = np.random.default_rng(31)
+def _feed_chunks(ms, streams, chunk: int = 32000):
+    """Feed each stream's bytes in chunks through process(), round robin,
+    ending each stream after its last chunk; then finish()."""
+    for off in range(0, max(map(len, streams)), chunk):
+        for i, x in enumerate(streams):
+            if off < len(x):
+                ms.process(i, x[off: off + chunk])
+            elif not ms._ended[i]:
+                ms.end_stream(i)
+    return ms.finish()
+
+
+def kws_vs_cpu(sr, cpu_sr, dev, path: str = "kernel_b", name="kws_vs_cpu",
+               n: int = 4, seconds: float = 10.0, seed: int = 31):
+    """4 streams of 10, 9, 8, 7 s fed in 2 s chunks through
+    MultiStreamKWS.process() on the card (blocks of 512 frames), then the
+    CPU port (plain versions) on the same audio, decoding the card's
+    log-posteriors: hits equal (names, times, scores), through network
+    path ``path`` (kernel_b or kernel_g).  The CPU port's own
+    log-posteriors are held to the card's within TOL_KWS_LP."""
+    fs = sr.cfg.get_int("source", "sample_freq")
+    rng = np.random.default_rng(seed)
     streams = [synth.synth_audio(rng, int((seconds - i) * fs), fs)
                .astype("<i2").tobytes() for i in range(n)]
-
-    def feed(ms):
-        for off in range(0, max(map(len, streams)), 32000):
-            for i, x in enumerate(streams):
-                if off < len(x):
-                    ms.process(i, x[off: off + 32000])
-                elif not ms._ended[i]:
-                    ms.end_stream(i)
-        return ms.finish()
-
-    reset_counts(KWS_KERNELS)
-    gpu = _Capture(en_sr, n, block_frames=512)
-    got = feed(gpu)
+    names = ("mlp_fused", "netstep" if path == "kernel_b" else "netscan",
+             "lrtrace")
+    reset_counts(names)
+    gpu = _Capture(sr, n, block_frames=512)
+    got = _feed_chunks(gpu, streams)
     torch.cuda.synchronize()
-    launches = read_counts(KWS_KERNELS)
-    cpu = _Replay(gpu.lps, en_cpu, n, block_frames=512)
-    want = feed(cpu)
-    same = [label_key(a) == label_key(b) for a, b in zip(got, want)]
-    score_err = max((abs(x.score - y.score) for a, b in zip(got, want)
-                     for x, y in zip(a, b)), default=0.0)
-    phase("kws_vs_cpu", streams=n, seconds=seconds, block_frames=512,
-          net_path=gpu.net_path, launches=launches,
+    launches = read_counts(names)
+    cpu = _Replay(gpu.lps, cpu_sr, n, block_frames=512)
+    want = _feed_chunks(cpu, streams)
+    same = [full_key(a) == full_key(b) for a, b in zip(got, want)]
+    c = sr.stk_decoder.compiled
+    phase(name, streams=n, seconds=seconds, block_frames=512,
+          net_path=gpu.net_path, models=c.n_models, states=c.n_states,
+          keywords=len(sr.stk_decoder.keywords()),
+          input_xform=gpu._xform_inst is not None, launches=launches,
           hits=[len(h) for h in got], hits_equal=same,
-          max_score_err=score_err, max_lp_err_cpu_vs_card=cpu.err,
-          tol_lp=TOL_KWS_LP)
-    if gpu.net_path != "kernel_b" or not all(launches.values()):
-        raise AssertionError(f"KWS path skipped a kernel: {launches}")
-    if not all(same) or score_err > 0.0:
-        raise AssertionError("card KWS hits differ from the CPU port's")
-    if not cpu.err <= TOL_KWS_LP:
-        raise AssertionError(f"log-posteriors differ by {cpu.err}")
+          max_lp_err_cpu_vs_card=cpu.err, tol_lp=TOL_KWS_LP)
+    if gpu.net_path != path or not all(launches.values()):
+        raise AssertionError(f"{name} skipped a kernel: {launches}")
+    if not all(same) or not any(got) or not cpu.err <= TOL_KWS_LP:
+        raise AssertionError(f"{name}: card hits differ from the CPU "
+                             "port's")
 
 
 def kws_serving(en_sr, dev, n: int = 256, seconds: float = 60.0,
@@ -1309,15 +1317,6 @@ def phnloop_vs_cpu(sr, cpu_sr, dev, n: int = 4, seconds: float = 10.0):
     streams = [synth.synth_audio(rng, int((seconds - i) * 8000))
                .astype("<i2").tobytes() for i in range(n)]
 
-    def feed(ms):
-        for off in range(0, max(map(len, streams)), 32000):
-            for i, x in enumerate(streams):
-                if off < len(x):
-                    ms.process(i, x[off: off + 32000])
-                elif not ms._ended[i]:
-                    ms.end_stream(i)
-        return ms.finish()
-
     def stream(rec):
         for off in range(0, len(streams[0]), 16000):
             rec.process(streams[0][off: off + 16000])
@@ -1327,12 +1326,13 @@ def phnloop_vs_cpu(sr, cpu_sr, dev, n: int = 4, seconds: float = 10.0):
              "backtrack")
     reset_counts(names)
     gpu = _PCapture(sr, n, block_frames=512)
-    got = feed(gpu)
+    got = _feed_chunks(gpu, streams)
     torch.cuda.synchronize()
     launches = read_counts(names)
     cpu = _PReplay(gpu.lps, cpu_sr, n, block_frames=512)
-    want = feed(cpu)
-    own = feed(MultiStreamRecognizer(cpu_sr, n, block_frames=512))
+    want = _feed_chunks(cpu, streams)
+    own = _feed_chunks(MultiStreamRecognizer(cpu_sr, n, block_frames=512),
+                       streams)
     same = [full_key(a) == full_key(b) for a, b in zip(got, want)]
     s_gpu = _SCapture(sr, block_frames=512)
     s_got = stream(s_gpu)
@@ -1979,8 +1979,10 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     clocks a frame, bound) with normal and tie-heavy observations; the EN
     KWS net; synth.dense_kws_net nets of 96 x 2 (tables in shared memory
     past 48 KB) and 340 x 3 (1,020 states, tables in device memory, int32
-    ids); n 1 and 13 (no multiple of the 4 streams a block); every stream
-    dead; a carry passed between two blocks, which must equal one.  Then
+    ids); the CZ loop with int32 ids (its instance rounds the states a
+    lane up to a power of two); n 1 and 13 (no multiple of the 4 streams
+    a block); every stream dead; a carry passed between two blocks, which
+    must equal one.  Then
     kernel H's int16 instance on E's records of the CZ case: equal to the
     plain walk over E's records and over the plain version's (a dead
     entry's id never reaches a walk), with and without committed
@@ -1993,6 +1995,7 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
              "n13": ("cz", 13, 200, dict(seed=75, ties=True)),
              "all_dead": ("cz", 16, 64, dict(seed=76, dead=True)),
              "two_blocks": ("cz", 32, 300, dict(seed=77)),
+             "cz_int32": ("cz", 32, 128, dict(seed=80, ids=torch.int32)),
              "wide_smem": ("wide_smem", 6, 48, dict(seed=78)),
              "wide_global": ("wide_global", 6, 48, dict(seed=79,
                                                         ties=True))}
@@ -2002,7 +2005,8 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     out, bad, h16 = None, [], None
     for case, (net, cn, cF, kw) in cases.items():
         dense, blk = nets[net], blks[net]
-        ids = _id_dtype(dense)
+        kw = dict(kw)
+        ids = kw.pop("ids", None) or _id_dtype(dense)
         carry0, obs, nv = _netdecode_inputs(dense, dev, cn, cF, **kw)
         for bw in (float(OFF_BEAM), 6.0):
             beam = torch.full((cn,), bw, device=dev)
@@ -2160,24 +2164,15 @@ def stk_serving_vs_cpu(sr, cpu_sr, dev, n: int = 4, seconds: float = 10.0,
     streams = [synth.synth_audio(rng, int((seconds - i) * 8000))
                .astype("<i2").tobytes() for i in range(n)]
 
-    def feed(ms):
-        for off in range(0, max(map(len, streams)), 32000):
-            for i, x in enumerate(streams):
-                if off < len(x):
-                    ms.process(i, x[off: off + 32000])
-                elif not ms._ended[i]:
-                    ms.end_stream(i)
-        return ms.finish()
-
     rec = {}
     for name, kw in (("full", {}), ("commit", dict(record_horizon=horizon))):
         reset_counts(STK_SERVE_KERNELS)
         gpu = _SDCapture(sr, n, block_frames=512, **kw)
-        got = feed(gpu)
+        got = _feed_chunks(gpu, streams)
         torch.cuda.synchronize()
         launches = read_counts(STK_SERVE_KERNELS)
         cpu = _SDReplay(gpu.lps, cpu_sr, n, block_frames=512, **kw)
-        want = feed(cpu)
+        want = _feed_chunks(cpu, streams)
         same = [full_key(a) == full_key(b) for a, b in zip(got, want)]
         committed = [full_key(a) == full_key(b) for a, b in
                      zip(gpu._stk_committed, cpu._stk_committed)]
@@ -2295,48 +2290,6 @@ def stk_serving(sr, dev, n: int = 256, n_blocks: int = 12,
           audio_s_per_s=n * L / fs / wall, stage_ms=stages, host_ms=host_ms,
           max_memory_allocated_bytes=peak, device_busy_share=busy)
     return launches
-
-
-def kws_pkg_vs_cpu(name, sr, cpu_sr, dev, path, n=4, seconds=10.0):
-    """kws_vs_cpu on another KWS package: the card's hits equal the CPU
-    port's on the card's log-posteriors, its own log-posteriors within
-    TOL_KWS_LP, through network path ``path`` (kernel_b or kernel_g)."""
-    fs = sr.cfg.get_int("source", "sample_freq")
-    rng = np.random.default_rng(33)
-    streams = [synth.synth_audio(rng, int((seconds - i) * fs), fs)
-               .astype("<i2").tobytes() for i in range(n)]
-
-    def feed(ms):
-        for off in range(0, max(map(len, streams)), 32000):
-            for i, x in enumerate(streams):
-                if off < len(x):
-                    ms.process(i, x[off: off + 32000])
-                elif not ms._ended[i]:
-                    ms.end_stream(i)
-        return ms.finish()
-
-    names = ("mlp_fused", "netstep" if path == "kernel_b" else "netscan",
-             "lrtrace")
-    reset_counts(names)
-    gpu = _Capture(sr, n, block_frames=512)
-    got = feed(gpu)
-    torch.cuda.synchronize()
-    launches = read_counts(names)
-    cpu = _Replay(gpu.lps, cpu_sr, n, block_frames=512)
-    want = feed(cpu)
-    same = [full_key(a) == full_key(b) for a, b in zip(got, want)]
-    c = sr.stk_decoder.compiled
-    phase(name, streams=n, seconds=seconds, block_frames=512,
-          net_path=gpu.net_path, models=c.n_models, states=c.n_states,
-          keywords=len(sr.stk_decoder.keywords()),
-          input_xform=gpu._xform_inst is not None, launches=launches,
-          hits=[len(h) for h in got], hits_equal=same,
-          max_lp_err_cpu_vs_card=cpu.err, tol_lp=TOL_KWS_LP)
-    if gpu.net_path != path or not all(launches.values()):
-        raise AssertionError(f"{name} skipped a kernel: {launches}")
-    if not all(same) or not any(got) or not cpu.err <= TOL_KWS_LP:
-        raise AssertionError(f"{name}: card hits differ from the CPU "
-                             "port's")
 
 
 def device_busy_share(fn, kernels: bool = False):
@@ -2484,8 +2437,9 @@ def main() -> int:
                 ("kws_big_vs_cpu", "kernel_g", dict(n_keywords=300))):
             kpkg = synth.write_kws_package(os.path.join(tmp, name), "en",
                                            seed=0, **kw)
-            kws_pkg_vs_cpu(name, SpeechRec(kpkg, device=dev),
-                           SpeechRec(kpkg, device="cpu"), dev, path)
+            kws_vs_cpu(SpeechRec(kpkg, device=dev),
+                       SpeechRec(kpkg, device="cpu"), dev, path, name,
+                       seed=33)
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")

@@ -349,23 +349,38 @@ net_decode_kernel(const Args g) {
 
 using Kernel = void (*)(const Args);
 
+// the instantiated states-per-lane counts, ascending (int16 ids: every
+// network whose ids fit, the serving case)
 constexpr int EPLS[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
 
-template <bool SMEM_TAB, typename IdT>
-Kernel pick(int epl) {
+template <bool SMEM_TAB>
+Kernel pick16(int epl) {
   switch (epl) {
-    case 1: return net_decode_kernel<1, SMEM_TAB, IdT>;
-    case 2: return net_decode_kernel<2, SMEM_TAB, IdT>;
-    case 3: return net_decode_kernel<3, SMEM_TAB, IdT>;
-    case 4: return net_decode_kernel<4, SMEM_TAB, IdT>;
-    case 5: return net_decode_kernel<5, SMEM_TAB, IdT>;
-    case 6: return net_decode_kernel<6, SMEM_TAB, IdT>;
-    case 8: return net_decode_kernel<8, SMEM_TAB, IdT>;
-    case 12: return net_decode_kernel<12, SMEM_TAB, IdT>;
-    case 16: return net_decode_kernel<16, SMEM_TAB, IdT>;
-    case 24: return net_decode_kernel<24, SMEM_TAB, IdT>;
-    default: return net_decode_kernel<32, SMEM_TAB, IdT>;
+    case 1: return net_decode_kernel<1, SMEM_TAB, int16_t>;
+    case 2: return net_decode_kernel<2, SMEM_TAB, int16_t>;
+    case 3: return net_decode_kernel<3, SMEM_TAB, int16_t>;
+    case 4: return net_decode_kernel<4, SMEM_TAB, int16_t>;
+    case 5: return net_decode_kernel<5, SMEM_TAB, int16_t>;
+    case 6: return net_decode_kernel<6, SMEM_TAB, int16_t>;
+    case 8: return net_decode_kernel<8, SMEM_TAB, int16_t>;
+    case 12: return net_decode_kernel<12, SMEM_TAB, int16_t>;
+    case 16: return net_decode_kernel<16, SMEM_TAB, int16_t>;
+    case 24: return net_decode_kernel<24, SMEM_TAB, int16_t>;
+    default: return net_decode_kernel<32, SMEM_TAB, int16_t>;
   }
+}
+
+// int32 ids (networks of 2^15 edges or more of a kind): powers of two
+// only, the next one up (fewer instances to build; idle lane slots cost
+// time, not results)
+template <bool SMEM_TAB>
+Kernel pick32(int epl) {
+  if (epl <= 1) return net_decode_kernel<1, SMEM_TAB, int>;
+  if (epl <= 2) return net_decode_kernel<2, SMEM_TAB, int>;
+  if (epl <= 4) return net_decode_kernel<4, SMEM_TAB, int>;
+  if (epl <= 8) return net_decode_kernel<8, SMEM_TAB, int>;
+  if (epl <= 16) return net_decode_kernel<16, SMEM_TAB, int>;
+  return net_decode_kernel<32, SMEM_TAB, int>;
 }
 
 }  // namespace
@@ -418,8 +433,8 @@ extern "C" int phn_net_decode(
   }
   const size_t smem = (smem_tab ? tables : 0) + w * slice;
   const Kernel k =
-      id16 ? (smem_tab ? pick<true, int16_t>(epl) : pick<false, int16_t>(epl))
-           : (smem_tab ? pick<true, int>(epl) : pick<false, int>(epl));
+      id16 ? (smem_tab ? pick16<true>(epl) : pick16<false>(epl))
+           : (smem_tab ? pick32<true>(epl) : pick32<false>(epl));
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
