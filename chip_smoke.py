@@ -2077,8 +2077,7 @@ def check_nettrace_i16(dec, got, want, nv, dev) -> dict:
     records, frame0 none and committed, shared and device-memory paths;
     held ms and clocks a step beside the int32 instance on the same
     records cast to int32."""
-    rk = {k: v for k, v in got[1].items()}
-    rp = {k: want[1][k] for k in netdecode.RECORDS}
+    rk, rp = got[1], want[1]
     B, T = rk["in_am"].shape[:2]
     tb = dec.edge_tables(dev)
     ts = dec.c.terminal_sink

@@ -1,5 +1,5 @@
 """HMM-network Viterbi decoding over STK networks: offline decode and
-keyword spotting, and the dense step that KWS serving needs.
+keyword spotting, and the dense steps that KWS and decode serving need.
 
 Counterpart of phnrec_tpu/decoder/stknet.py.  The reference adapts STKLib's
 token-passing engine (stkinterface.{cpp,h} -> STKLib/Viterbi.cc); the
@@ -11,11 +11,15 @@ recursion runs on torch tensors:
     entry closure, ``state_observations`` (PDFObsVec column gather or DiagC
     GMM log-likelihoods), the edge-list frame scan ``scan_block`` (kernel
     G, ops/netscan.py), the traceback over its records (kernel H,
-    ops/nettrace.py), the host's label expansion, ``decode`` /
-    ``decode_batch`` and ``kws_scan``;
-  * ``DenseKWSScan``: the dense max-plus ViterbiStep over [n] streams
-    (``step``); its frame loop is kernel B's plain version
-    (ops/netstep.py);
+    ops/nettrace.py), the host walk over stitched streaming records with
+    a committed boundary (``traceback_host``, ragged serving sessions),
+    the host's label expansion, ``decode`` / ``decode_batch`` and
+    ``kws_scan``;
+  * ``DenseKWSScan``: the dense max-plus ViterbiStep over [n] streams,
+    ``step`` emitting the KWS sink records (its frame loop is kernel B's
+    plain version, ops/netstep.py) and ``step_decode`` the edge-list
+    scan's traceback records through the edge-id lookups (kernel E's,
+    ops/netdecode.py);
   * the LRTrace candidate state machine: on the host (``KWSTracker``,
     ``kws_candidates``, offline KWS), and per frame over streams
     (``lrtrace_init_state``, ``lrtrace_step_fn``), whose frame loop is
@@ -23,13 +27,6 @@ recursion runs on torch tensors:
     flush events;
   * ``StkNetworkDecoder``, the pipeline-facing adapter (decode and KWS
     modes).
-
-  * ``DenseKWSScan.step_decode``: the decode-mode dense step, which emits
-    the traceback records of the edge-list scan through the edge-id
-    lookups; its frame loop is kernel E's plain version (ops/netdecode.py);
-  * ``NetworkDecoder.traceback_host``: the host walk over stitched
-    streaming records with a committed boundary, for ragged serving
-    sessions.
 """
 
 from __future__ import annotations

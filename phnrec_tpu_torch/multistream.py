@@ -990,11 +990,6 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
     rebased out of the retained values and the carry, so memory is
     O(N * horizon) over unbounded sessions."""
 
-    # record keys the traceback reads (G's exit_val / sink_wt are dropped
-    # at the block: decode mode never reads them)
-    _WALK_KEYS = ("in_am", "ex_am", "cm_am", "entry_edge", "entry_val",
-                  "sink_val", "cs_am")
-    _ID_KEYS = ("in_am", "ex_am", "cm_am", "entry_edge", "cs_am")
     # route networks kernel E takes through it (False: all through G)
     use_kernel_e = True
 
@@ -1071,11 +1066,13 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
                                            self._id_dtype)
             self._mark("netdecode")
         else:
-            # the edge-list scan's valid bound is absolute
+            # the edge-list scan's valid bound is absolute; only the
+            # records the walk reads are kept (not exit_val, sink_wt)
             stk_c, recs = dec.scan_block(stk_c, obs, n_dec, n_dec + n_valid,
                                          beam)
-            recs = {k: (recs[k].to(self._id_dtype) if k in self._ID_KEYS
-                        else recs[k]) for k in self._WALK_KEYS}
+            recs = {k: (recs[k].to(self._id_dtype)
+                        if k in netdecode.ID_KEYS else recs[k])
+                    for k in netdecode.RECORDS}
             self._mark("netscan")
         return (stk_c, beam, xst), recs
 
@@ -1103,10 +1100,6 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
         return np.where(self._frame0 > 0, self._frame0 - self._row_offset,
                         -1).astype(np.int32)
 
-    def _on_device(self) -> bool:
-        return bool(self._hist) and isinstance(
-            self._hist[0][0]["entry_val"], torch.Tensor)
-
     def _device_walk(self) -> Optional[List[List[Label]]]:
         """The retained window's walk on the device: the blocks' valid rows
         concatenated there, then kernel H with each stream's committed
@@ -1116,14 +1109,14 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
         if not self._hist:
             return [[] for _ in range(self.n)]
         valids = np.stack([v for _, v in self._hist])
-        if not self._on_device() or \
+        if not isinstance(self._hist[0][0]["entry_val"], torch.Tensor) or \
                 not (valids == valids[:, :1]).all() or \
                 not (self._row_offset == self._row_offset[0]).all():
             return None
         key = [int(v[0]) for _, v in self._hist]
         recs = {k: torch.cat([h[k][:, :n] for (h, _), n in
                               zip(self._hist, key)], dim=1)
-                for k in self._WALK_KEYS}
+                for k in netdecode.RECORDS}
         n_rel = (self._n_dec - self._row_offset).astype(np.int32)
         f0_rel = self._f0_rel()
         dec = self._dec.decoder

@@ -35,15 +35,14 @@ import numpy as np
 import torch
 
 from phnrec_tpu_torch.decoder.stknet import NEG, _device_cache
-from phnrec_tpu_torch.ops import _build, netstep
+from phnrec_tpu_torch.ops import _build, netstep, nettrace
 
 LAUNCHES = 0
 MAX_E = netstep.MAX_E
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 ID_KEYS = ("in_am", "ex_am", "cm_am", "entry_edge", "cs_am")
-RECORDS = ("in_am", "ex_am", "cm_am", "entry_edge", "entry_val", "sink_val",
-           "cs_am")
+RECORDS = nettrace.NEEDS            # the records kernel H walks
 
 
 def net_decode_block_plain(dense, carry: Carry, obs: torch.Tensor,
