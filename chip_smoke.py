@@ -1970,6 +1970,21 @@ def _netdecode_work(dense, nv: torch.Tensor, n: int, F: int) -> tuple:
     return n_bytes, live_rows * (7 * E + M + 2 * nnz)
 
 
+def _netdecode_err(got, want) -> float:
+    """The largest |kernel - plain| over the values live in the plain
+    version's output: the records' entry_val and sink_val, the carry's
+    alpha and entry."""
+    (ck, rk), (cp, rp) = got, want
+    err = 0.0
+    for g, w in ((rk["entry_val"], rp["entry_val"]),
+                 (rk["sink_val"], rp["sink_val"]), (ck[0], cp[0]),
+                 (ck[1], cp[1])):
+        live = w > NEG / 2
+        if live.any():
+            err = max(err, float((g - w).abs()[live].max()))
+    return err
+
+
 def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
                     F: int = 512) -> dict:
     """Kernel E against its plain version (the step_decode loop) on the
@@ -1982,8 +1997,10 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     ids); the CZ loop with int32 ids (its instance rounds the states a
     lane up to a power of two); n 1 and 13 (no multiple of the 4 streams
     a block); every stream dead; a carry passed between two blocks, which
-    must equal one.  Then
-    kernel H's int16 instance on E's records of the CZ case: equal to the
+    must equal one.  max_abs_err: the largest |kernel - plain| over the
+    live values (entry_val, sink_val, the carry's alpha and entry) of
+    every case and beam, 0 where they are bit-equal.  Then kernel H's
+    int16 instance on E's records of the CZ case: equal to the
     plain walk over E's records and over the plain version's (a dead
     entry's id never reaches a walk), with and without committed
     boundaries, on both paths, and timed beside the int32 instance on the
@@ -2002,7 +2019,7 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     blks = {k: netdecode.build_net_decode_fn(v) for k, v in nets.items()}
     if None in blks.values():
         raise AssertionError(f"the structure gate rejected a net: {blks}")
-    out, bad, h16 = None, [], None
+    out, bad, h16, err = None, [], None, 0.0
     for case, (net, cn, cF, kw) in cases.items():
         dense, blk = nets[net], blks[net]
         kw = dict(kw)
@@ -2026,12 +2043,15 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
                 checks["two_equal_one"] = all(
                     torch.equal(a, b) for a, b in zip(two[0], got[0])) and \
                     all(torch.equal(two[1][k], got[1][k]) for k in two[1])
+            case_err = _netdecode_err(got, want)
+            err = max(err, case_err)
             rec = dict(case=case, n=cn, F=cF, M=dense.M, E=dense.E,
                        S=dense.n_sinks, distinct_columns=blk.U, beam=bw,
                        ids=str(ids).split(".")[-1],
                        live_entry_share=float(
                            (want[1]["entry_val"] > NEG / 2).float().mean()),
-                       bit_equal=all(checks.values()))
+                       bit_equal=all(checks.values()),
+                       max_abs_err_live=case_err)
             if case == "cz_main" and bw == float(OFF_BEAM):
                 fn = lambda: blk(*args, id_dtype=ids)  # noqa: E731
                 t_k = cuda_ms(fn)
@@ -2040,7 +2060,7 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
                     dense, *args, ids), iters=2, warmup=1)
                 mhz = sm_clock(fn, max(t_k, 0.2))
                 bnd = bound(*_netdecode_work(dense, nv, cn, cF), PEAK_FP32)
-                out = dict(max_abs_err=0.0, ms=t_k, held_ms=held,
+                out = dict(ms=t_k, held_ms=held,
                            plain_ms=t_p, sm_clock_mhz=mhz,
                            clocks_a_frame=held * 1e-3 * mhz * 1e6 / cF,
                            bound_share=bnd["bound_ms"] / held, **bnd)
@@ -2053,6 +2073,8 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     if bad:
         raise AssertionError(f"netdecode differs from the plain version: "
                              f"{bad}")
+    # over every case and beam: the live values' largest difference
+    out["max_abs_err"] = err
     return out, h16
 
 
@@ -2204,8 +2226,10 @@ def stk_serving(sr, dev, n: int = 256, n_blocks: int = 12,
     one decode_device_buffer call a block (as a server drains its buffer)
     with the default record horizon, so the fixed-lag commit walks (kernel
     H) and drops blocks as it goes, then finish(): launch counts of one
-    run, then the median of ``runs`` timed runs after a warm-up, with
-    CUDA-event stage times."""
+    run, whose walks are then held to the plain walk on the same windows
+    (check_serving_walks), then the median of ``runs`` timed runs after a
+    warm-up, with CUDA-event stage times.  Returns the launch counts and
+    the walks' summary."""
     fs = sr.cfg.get_int("source", "sample_freq")
     audio, L = _serving_audio(sr, dev, n, n_blocks, block)
 
@@ -2225,10 +2249,26 @@ def stk_serving(sr, dev, n: int = 256, n_blocks: int = 12,
         torch.cuda.synchronize()
         return ms, labels, retained, t_dev - t, time.perf_counter() - t_dev
 
+    # the counted run keeps each window kernel H walks (the commits' and
+    # finish()'s) with the walk, to hold them to the plain walk after it
+    walks = []
+    real = nettrace.nettrace
+
+    def spy(recs, nv, f0, *a):
+        w = real(recs, nv, f0, *a)
+        walks.append(((recs, nv, f0, *a), w))
+        return w
+
     one_pass()                                   # warm-up
+    nettrace.nettrace = spy
     reset_counts(STK_SERVE_KERNELS)
-    ms, labels, retained, _, _ = one_pass()
+    try:
+        ms, labels, retained, _, _ = one_pass()
+    finally:
+        nettrace.nettrace = real
     launches = read_counts(STK_SERVE_KERNELS)
+    serving_walks = check_serving_walks(walks)
+    del walks
     # 3 nets a block and the tail flush; E a block and the flush
     if launches["mlp_fused"] != 3 * (n_blocks + 1) or \
             launches["netdecode"] != n_blocks + 1 or \
@@ -2288,7 +2328,36 @@ def stk_serving(sr, dev, n: int = 256, n_blocks: int = 12,
           labels_total=sum(map(len, labels)), wall_s=walls,
           audio_s_per_s=n * L / fs / wall, stage_ms=stages, host_ms=host_ms,
           max_memory_allocated_bytes=peak, device_busy_share=busy)
-    return launches
+    return launches, serving_walks
+
+
+def check_serving_walks(walks) -> dict:
+    """Kernel H's int16 instance on the windows stk_serving's counted run
+    walked, at the shapes the main path gave it (the commits' B 256 x T
+    ~2,560 and finish()'s): each walk bit-equal to the plain walk over the
+    same records, n_valid and frame0.  Among them a walk from the stream
+    starts (every frame0 -1) and walks with committed boundaries."""
+    out = []
+    for args, walk in walks:
+        recs, nv, f0 = args[:3]
+        plain = nettrace.nettrace_plain(*args)
+        torch.cuda.synchronize()
+        out.append(dict(
+            B=int(nv.shape[0]), T=int(recs["in_am"].shape[1]),
+            ids=str(recs["in_am"].dtype).split(".")[-1],
+            committed_rows=int((f0 >= 0).sum()),
+            rows_ok=int(walk[0].sum()), crossings=int((walk[3] >= 0).sum()),
+            equal=_walk_bits_equal(walk, plain)))
+    phase("nettrace_serving_walks", walks=out)
+    if not out or not all(w["equal"] and w["ids"] == "int16" and w["rows_ok"]
+                          for w in out) or \
+            not any(w["committed_rows"] == 0 for w in out) or \
+            not any(w["committed_rows"] for w in out):
+        raise AssertionError(f"kernel H's int16 walks on the serving "
+                             f"windows differ from the plain walk, or a "
+                             f"kind of walk is missing: {out}")
+    return dict(walks=len(out), max_T=max(w["T"] for w in out),
+                equal=True)
 
 
 def device_busy_share(fn, kernels: bool = False):
@@ -2430,7 +2499,9 @@ def main() -> int:
             sent_norm=False)
         sd_sr = SpeechRec(sd_pkg, device=dev)
         stk_serving_vs_cpu(sd_sr, SpeechRec(sd_pkg, device="cpu"), dev)
-        launches["netdecode"] = stk_serving(sd_sr, dev)["netdecode"]
+        serve, results["nettrace"]["int16"]["serving_walks"] = \
+            stk_serving(sd_sr, dev)
+        launches["netdecode"] = serve["netdecode"]
         for name, path, kw in (
                 ("kws_xform_vs_cpu", "kernel_b", dict(input_xform=True)),
                 ("kws_big_vs_cpu", "kernel_g", dict(n_keywords=300))):

@@ -45,7 +45,8 @@
 // Design: kernel B's (one warp a stream, its states in registers, the
 // beam max by redux, the closure and the sinks over the distinct
 // destination columns with the first maximum kept, the tables staged in
-// shared memory where they fit), with these changes: each lane holds its
+// shared memory where they fit; the parts both use are in netdense.cuh),
+// with these changes: each lane holds its
 // states' three candidate edge ids in registers beside their weights, and
 // the in-model pass selects the winner's id as it selects its value; the
 // exit ids of the first 64 models sit in registers; the closure's second
@@ -70,23 +71,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "netdense.cuh"
+
 namespace {
 
-constexpr float NEG = -1e30f;
-constexpr int MAX_E = 1024;         // the wrapper's MAX_E (ops/netdecode.py)
-constexpr int MAX_STREAMS_PER_BLOCK = 4;
-
-__device__ __forceinline__ float warp_max(float v) {
-  int i = __float_as_int(v);
-  i = __reduce_max_sync(0xffffffffu, i >= 0 ? i : i ^ 0x7fffffff);
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-__device__ __forceinline__ void take(float& v, int& k, float c, int r) {
-  const bool gt = c > v;
-  v = fmaxf(v, c);
-  k = gt ? r : k;
-}
+using namespace netdense;
 
 struct Args {
   const float* obs;      // [n, F, E]
@@ -150,11 +139,7 @@ net_decode_kernel(const Args g) {
   const float* tab = SMEM_TAB ? tab_s : g.tab;
   const int* col_of = SMEM_TAB ? col_s : g.col_of;
   const int* ids = SMEM_TAB ? ids_s : g.ids;
-  const int M4 = (M + 3) / 4 * 4;
-  int lg = 0;
-  while ((U << (lg + 1)) <= 32 && (4 << (lg + 1)) <= M4) ++lg;
-  const int G = 1 << lg;
-  const int SG = ((M4 + G - 1) / G + 3) / 4 * 4;
+  const ColumnSplit cs = column_split(U, M);
 
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= n) return;
@@ -251,37 +236,9 @@ net_decode_kernel(const Args g) {
     }
     __syncwarp();
 
-    // -- closure and sinks, 1: the best source of each distinct column,
-    // its sources split over G lanes, merged keeping the first maximum
+    // -- closure and sinks, 1: the best source of each distinct column
     const bool live = f < nv;
-    for (int u0 = 0; u0 < U; u0 += 32 >> lg) {
-      const int u = u0 + (lane >> lg), gi = lane & (G - 1);
-      const float* t = tab + (size_t)u * P;
-      float v = NEG;
-      int k = -1;
-      const int r1 = min(gi * SG + SG, M4);
-#pragma unroll 4
-      for (int r = gi * SG; r < r1; r += 4) {
-        const float4 x = *reinterpret_cast<const float4*>(xv + r);
-        const float4 p = *reinterpret_cast<const float4*>(t + r);
-        take(v, k, x.x + p.x, r);
-        take(v, k, x.y + p.y, r + 1);
-        take(v, k, x.z + p.z, r + 2);
-        take(v, k, x.w + p.w, r + 3);
-      }
-      for (int off = 1; off < G; off <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int ok = __shfl_xor_sync(0xffffffffu, k, off);
-        if (ov > v || (ov == v && ok < k)) {
-          v = ov;
-          k = ok;
-        }
-      }
-      if (gi == 0 && u < U) {
-        uv[u] = v;
-        uk[u] = k;
-      }
-    }
+    best_sources(xv, tab, P, U, cs, lane, uv, uk);
     __syncwarp();
     // 2: each destination takes its distinct column's best and its own
     // edge id, two destinations a lane
@@ -349,10 +306,8 @@ net_decode_kernel(const Args g) {
 
 using Kernel = void (*)(const Args);
 
-// the instantiated states-per-lane counts, ascending (int16 ids: every
-// network whose ids fit, the serving case)
-constexpr int EPLS[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
-
+// int16 ids (every network whose ids fit, the serving case): every
+// states-per-lane instance of EPLS
 template <bool SMEM_TAB>
 Kernel pick16(int epl) {
   switch (epl) {
@@ -408,34 +363,21 @@ extern "C" int phn_net_decode(
       E > MAX_E || P < M || P % 4 || U < 1 || U > M + S)
     return cudaErrorInvalidValue;
   const int U_pad = (U + 31) / 32 * 32, D = M + S;
-  int epl = 32;
-  for (int c : EPLS)
-    if (c * 32 >= E) {
-      epl = c;
-      break;
-    }
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
+  const int epl = states_per_lane(E);
   const size_t slice =
       sizeof(float) * (P + (2 * (size_t)M + 2 * (size_t)U + 3) / 4 * 4);
   const size_t tables =
       sizeof(float) * ((size_t)U_pad * P + ((size_t)D + 3) / 4 * 4 +
                        (size_t)D * P);
-  int w = MAX_STREAMS_PER_BLOCK;
-  const bool smem_tab = tables + slice <= (size_t)optin;
-  if (smem_tab) {
-    while (w > 1 && tables + w * slice > (size_t)optin) --w;
-  } else {
-    while (w > 1 && w * slice > (size_t)optin) --w;
-    if (slice > (size_t)optin) return cudaErrorInvalidValue;
-  }
-  const size_t smem = (smem_tab ? tables : 0) + w * slice;
+  int w;
+  bool smem_tab;
+  size_t smem;
+  cudaError_t err = plan_blocks(tables, slice, &w, &smem_tab, &smem);
+  if (err != cudaSuccess) return err;
   const Kernel k =
       id16 ? (smem_tab ? pick16<true>(epl) : pick16<false>(epl))
            : (smem_tab ? pick32<true>(epl) : pick32<false>(epl));
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   Args g;

@@ -66,36 +66,18 @@
 // column's best, its word time and reset, and writes the entry or the
 // sink record.  The next frame's
 // observations are loaded before the beam and the closure, so their
-// latency overlaps them.
+// latency overlaps them.  The beam max, the closure's first pass and the
+// launch plan are in netdense.cuh, shared with kernel E (netdecode.cu).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "netdense.cuh"
+
 namespace {
 
-constexpr float NEG = -1e30f;
-constexpr int MAX_E = 1024;         // the wrapper's MAX_E (ops/netstep.py)
-constexpr int MAX_STREAMS_PER_BLOCK = 4;
-
-// The largest of a warp's floats, exactly: max over the integers that
-// order the floats as their values do (no NaN here).
-__device__ __forceinline__ float warp_max(float v) {
-  int i = __float_as_int(v);
-  i = __reduce_max_sync(0xffffffffu, i >= 0 ? i : i ^ 0x7fffffff);
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-// strict-greater update: the first source of the best value wins.  The
-// value runs through fmaxf, which equals the update (on c == v both are
-// the same number; only -0.0 against +0.0 could differ, and no sum here
-// is -0.0), so its chain is one instruction a source; the source index
-// follows the compare beside it.
-__device__ __forceinline__ void take(float& v, int& k, float c, int r) {
-  const bool gt = c > v;
-  v = fmaxf(v, c);
-  k = gt ? r : k;
-}
+using namespace netdense;
 
 template <int EPL, bool SMEM_TAB>
 __global__ void __launch_bounds__(32 * MAX_STREAMS_PER_BLOCK)
@@ -149,14 +131,7 @@ net_block_kernel(
   const float* tab = SMEM_TAB ? tab_s : tab_g;
   const int* col_of = SMEM_TAB ? col_s : col_g;
   const int8_t* reset = SMEM_TAB ? reset_s : reset_g;
-  // G lanes split each distinct column's sources (G a power of two, as
-  // many as leave every lane a column and a group >= 4 sources), SG
-  // sources a lane
-  const int M4 = (M + 3) / 4 * 4;
-  int lg = 0;
-  while ((U << (lg + 1)) <= 32 && (4 << (lg + 1)) <= M4) ++lg;
-  const int G = 1 << lg;
-  const int SG = ((M4 + G - 1) / G + 3) / 4 * 4;
+  const ColumnSplit cs = column_split(U, M);
 
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= n) return;
@@ -246,37 +221,9 @@ net_block_kernel(
     __syncwarp();
 
     // -- closure (exits -> entries) and sinks, 1: the best source of
-    // each distinct column, its sources split over G lanes, each walked
-    // ascending, then merged keeping the first maximum
+    // each distinct column
     const bool live = f < nv;
-    for (int u0 = 0; u0 < U; u0 += 32 >> lg) {
-      const int u = u0 + (lane >> lg), g = lane & (G - 1);
-      const float* t = tab + (size_t)u * P;
-      float v = NEG;
-      int k = -1;
-      const int r1 = min(g * SG + SG, M4);
-#pragma unroll 4
-      for (int r = g * SG; r < r1; r += 4) {
-        const float4 x = *reinterpret_cast<const float4*>(xv + r);
-        const float4 p = *reinterpret_cast<const float4*>(t + r);
-        take(v, k, x.x + p.x, r);
-        take(v, k, x.y + p.y, r + 1);
-        take(v, k, x.z + p.z, r + 2);
-        take(v, k, x.w + p.w, r + 3);
-      }
-      for (int off = 1; off < G; off <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int ok = __shfl_xor_sync(0xffffffffu, k, off);
-        if (ov > v || (ov == v && ok < k)) {
-          v = ov;
-          k = ok;
-        }
-      }
-      if (g == 0 && u < U) {
-        uv[u] = v;
-        uk[u] = k;
-      }
-    }
+    best_sources(xv, tab, P, U, cs, lane, uv, uk);
     __syncwarp();
     // 2: each destination column takes its distinct column's best, two
     // destinations a lane side by side
@@ -341,9 +288,6 @@ using Kernel = void (*)(const float*, const float*, const int*, const float*,
                         int, int, int, int, int, int, int, int, float*, int*,
                         float*, int*, float*, int*);
 
-// the instantiated states-per-lane counts, ascending
-constexpr int EPLS[] = {1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32};
-
 template <bool SMEM_TAB>
 Kernel pick(int epl) {
   switch (epl) {
@@ -385,32 +329,19 @@ extern "C" int phn_net_block(
       E > MAX_E || P < M || P % 4 || U < 1 || U > M + S)
     return cudaErrorInvalidValue;
   const int U_pad = (U + 31) / 32 * 32, D = M + S;
-  int epl = 32;
-  for (int c : EPLS)
-    if (c * 32 >= E) {
-      epl = c;
-      break;
-    }
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
+  const int epl = states_per_lane(E);
   const size_t slice =
       sizeof(float) * (P + (3 * (size_t)M + 2 * (size_t)U + 3) / 4 * 4);
   const size_t tables = sizeof(float) * ((size_t)U_pad * P +
                                          ((size_t)D + 3) / 4 * 4) +
                         ((size_t)M * P + 15) / 16 * 16;
-  int w = MAX_STREAMS_PER_BLOCK;
-  bool smem_tab = tables + slice <= (size_t)optin;
-  if (smem_tab) {
-    while (w > 1 && tables + w * slice > (size_t)optin) --w;
-  } else {
-    while (w > 1 && w * slice > (size_t)optin) --w;
-    if (slice > (size_t)optin) return cudaErrorInvalidValue;
-  }
-  const size_t smem = (smem_tab ? tables : 0) + w * slice;
+  int w;
+  bool smem_tab;
+  size_t smem;
+  cudaError_t err = plan_blocks(tables, slice, &w, &smem_tab, &smem);
+  if (err != cudaSuccess) return err;
   const Kernel k = smem_tab ? pick<true>(epl) : pick<false>(epl);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   k<<<(n + w - 1) / w, 32 * w, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -979,8 +979,7 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
     ids as int16 where every id table fits: kernel E (ops/netdecode.py)
     for networks of at most 1024 models + states with the uniform
     left-to-right structure, kernel G (ops/netscan.py) for any other —
-    ``net_path`` says which, and the class attribute ``use_kernel_e``
-    (the tests set it) sends every network to G.  The fixed-lag commit
+    ``net_path`` says which.  The fixed-lag commit
     walks the retained window on the device (kernel H with the
     committed-boundary stop) when every retained block is stream-uniform,
     on the host (``traceback_host``) otherwise: labels ending at least
@@ -989,9 +988,6 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
     blocks every stream has committed are dropped, and committed likes are
     rebased out of the retained values and the carry, so memory is
     O(N * horizon) over unbounded sessions."""
-
-    # route networks kernel E takes through it (False: all through G)
-    use_kernel_e = True
 
     def __init__(self, sr, n_streams: int, block_frames: int = 128,
                  auto_pump: bool = True, mesh=None,
@@ -1016,7 +1012,7 @@ class MultiStreamStkDecode(MultiStreamRecognizer):
                             len(dec.decoder.cs) or 1) < (1 << 15)
         self._id_dtype = torch.int16 if self._rec_i16 else torch.int32
         self._dense = self._net_decode = None
-        if self.use_kernel_e and c.n_models + c.n_states <= DENSE_MAX:
+        if c.n_models + c.n_states <= DENSE_MAX:
             self._dense = DenseKWSScan(dec.decoder)
             self._net_decode = netdecode.build_net_decode_fn(self._dense)
         self.net_path = ("kernel_e" if self._net_decode is not None

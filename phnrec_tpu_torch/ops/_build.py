@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/phnrec_tpu_torch/lib<name>-<hash>.so`` at the repository root, keyed
-by a hash of the source and the flags, at the first CUDA call that needs
-it.  The sources expose plain ``extern "C"`` entry points (no PyTorch
+by a hash of the source, the shared headers ``csrc/*.cuh`` (found on the
+include path) and the flags, at the first CUDA call that needs it.  The sources expose plain ``extern "C"`` entry points (no PyTorch
 headers), so a build takes seconds.  The library is written under a
 temporary name and renamed, so a concurrent process never loads a
 half-written file.  A missing ``nvcc`` or a failed build raises with the
@@ -24,7 +24,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phnrec_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC)]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
@@ -49,7 +50,8 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -25,6 +25,7 @@ from phnrec_tpu.pipeline import SpeechRec as JSpeechRec
 
 from phnrec_tpu_torch import synth
 from phnrec_tpu_torch.multistream import MultiStreamStkDecode
+from phnrec_tpu_torch.ops import netdecode
 from phnrec_tpu_torch.pipeline import SpeechRec
 
 # measured max |port - JAX| over the blocks' valid log-posterior rows of
@@ -67,7 +68,8 @@ def route(request, monkeypatch):
     """The network route of both packages' servers."""
     if request.param == "kernel_g":
         monkeypatch.setenv("PHNREC_TPU_DENSE_STK", "0")
-        monkeypatch.setattr(MultiStreamStkDecode, "use_kernel_e", False)
+        monkeypatch.setattr(netdecode, "build_net_decode_fn",
+                            lambda dense: None)
     return request.param
 
 
@@ -337,7 +339,7 @@ def test_kernel_e_route_equals_kernel_g_route(pkgs, raw, monkeypatch):
     the same labels: the same records by the tie-parity invariant."""
     _, sr = pkgs
     dense = MultiStreamStkDecode(sr, n_streams=3, block_frames=32)
-    monkeypatch.setattr(MultiStreamStkDecode, "use_kernel_e", False)
+    monkeypatch.setattr(netdecode, "build_net_decode_fn", lambda dense: None)
     edge = MultiStreamStkDecode(sr, n_streams=3, block_frames=32)
     assert (dense.net_path, edge.net_path) == ("kernel_e", "kernel_g")
     assert dense._rec_i16 and edge._rec_i16

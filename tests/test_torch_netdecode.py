@@ -282,7 +282,9 @@ def test_wrapper_device_rules(nets):
 
 def test_limits_match_the_source():
     src = open(_build.CSRC / "netdecode.cu").read()
-    assert f"constexpr int MAX_E = {netdecode.MAX_E};" in src
+    header = open(_build.CSRC / "netdense.cuh").read()
+    assert '#include "netdense.cuh"' in src
+    assert f"constexpr int MAX_E = {netdecode.MAX_E};" in header
     with pytest.raises(ValueError, match="kernel E"):
         netdecode.check_limits(netdecode.MAX_E + 1, 1, 4, 4)
 

@@ -232,8 +232,11 @@ def test_wrapper_raises_one_past_its_limits(M, S_M, F, n, what,
 
 
 def test_limits_match_the_source():
-    """The wrapper's state limit is the one the CUDA source exports."""
-    src = open(os.path.join(os.path.dirname(netstep.__file__), "..", "csrc",
-                            "netstep.cu")).read()
-    assert f"constexpr int MAX_E = {netstep.MAX_E};" in src
+    """The wrapper's state limit is the one the CUDA source exports (from
+    the header it shares with kernel E)."""
+    csrc = os.path.join(os.path.dirname(netstep.__file__), "..", "csrc")
+    src = open(os.path.join(csrc, "netstep.cu")).read()
+    header = open(os.path.join(csrc, "netdense.cuh")).read()
+    assert '#include "netdense.cuh"' in src
+    assert f"constexpr int MAX_E = {netstep.MAX_E};" in header
     assert "phn_net_block_max_e() { return MAX_E; }" in src
