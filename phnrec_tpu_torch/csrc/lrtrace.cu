@@ -15,11 +15,15 @@
 //   the candidate takes (w0, t + 1, lr) where take; last_lr follows lr;
 //   flush 2 (time pruning, when enabled) where active, ref_end != 0 and
 //   t + 1 - ref_end >= time_pruning, ref_end being KEYWORD 0's cand_end
-//   (the reference's indexing quirk, kept).
-//   flush: do = cond && cand_end != 0 && !dumped (improveKwdEstim off, the
-//   serving default); the event record takes (emit = do && cand_lr >=
-//   score_pruning && live, cand_start, cand_end, cand_lr, dumped) from
+//   (the reference's indexing quirk, the serving default) or, with the
+//   quirk off, the keyword's own cand_end.
+//   flush: do = cond && cand_end != 0 && (!dumped || improved), improved
+//   = cand_end != prev_end with improveKwdEstim on and false with it off
+//   (the serving default); the event record takes (emit = do && cand_lr
+//   >= score_pruning && live, cand_start, cand_end, cand_lr, dumped) from
 //   before the flush; then prev_end = cand_end and dumped = true where do.
+//   The two settings are template parameters (IMP, Q) beside time
+//   pruning's (TP), so each instance's frame body holds no test of them.
 //
 // A dead frame writes its records (emit 0) and keeps the state.  Compares,
 // selects and one subtraction per keyword: equal to the plain version.
@@ -67,7 +71,9 @@
 // writes it a frame to a [n, F] scratch row (G_FIRST), and the later
 // groups' launches read it from there, a chunk at a time staged beside
 // their records (G_LATER), instead of the shuffle.  K <= 128 runs the
-// single-group instance (G_ONE) as before.
+// single-group instance (G_ONE) as before.  Without the quirk (or without
+// time pruning) no keyword reads another's candidate, so every group runs
+// the G_LATER instance on its own and no scratch row is read or written.
 
 #include <cuda_runtime.h>
 
@@ -151,8 +157,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// KPL keywords a lane; TP: time pruning on; G: the keyword group's place
-template <int KPL, bool TP, int G>
+// KPL keywords a lane; TP: time pruning on; G: the keyword group's place;
+// IMP: improveKwdEstim on; Q: keyword 0's candidate end is every keyword's
+// time-pruning reference (the quirk)
+template <int KPL, bool TP, int G, bool IMP, bool Q>
 __global__ void __launch_bounds__(WARPS * 32)
 lrtrace_kernel(const Args a, const Group grp) {
   extern __shared__ __align__(16) float ring[];
@@ -239,7 +247,7 @@ lrtrace_kernel(const Args a, const Group grp) {
     const int f0 = c * C, nf = min(C, F - f0);
     const float* vs = vring + (c % STAGES) * words;
     const int* wsm = wring + (c % STAGES) * words;
-    if (G == G_LATER) {
+    if (G == G_LATER && Q) {
       // the first group's keyword-0 ends of this chunk's frames
       if (lane < nf) e0s[lane] = grp.end0[(size_t)b * F + f0 + lane];
       __syncwarp();
@@ -283,7 +291,8 @@ lrtrace_kernel(const Args a, const Group grp) {
         const bool take = growing && (lr >= cand_lr[i] || new_hyp);
         const bool ev1 = new_hyp && take;
         // flush 1: the new-hypothesis flush of the old candidate
-        const bool do1 = ev1 && cand_end[i] != 0 && !dumped[i];
+        const bool do1 = ev1 && cand_end[i] != 0 &&
+                         (!dumped[i] || (IMP && cand_end[i] != prev_end[i]));
         int4* r = reinterpret_cast<int4*>(
             rec + (fr * K + lane + 32 * i) * REC);
         if (has[i])
@@ -300,13 +309,18 @@ lrtrace_kernel(const Args a, const Group grp) {
         act[i] = active;
       }
       // keyword 0's updated candidate end, for every lane of the stream
-      const int end0 =
-          G == G_LATER ? e0s[fr] : __shfl_sync(0xffffffffu, n_ce[0], 0);
-      if (G == G_FIRST && lane == 0) e0s[fr] = end0;
+      // (the quirk's reference; unused without it)
+      int end0 = 0;
+      if (Q) {
+        end0 = G == G_LATER ? e0s[fr] : __shfl_sync(0xffffffffu, n_ce[0], 0);
+        if (G == G_FIRST && lane == 0) e0s[fr] = end0;
+      }
 #pragma unroll
       for (int i = 0; i < KPL; ++i) {
-        const bool stale = act[i] && end0 != 0 && (t + 1) - end0 >= a.tp;
-        const bool do2 = TP && stale && n_ce[i] != 0 && !n_d[i];
+        const int ref = Q ? end0 : n_ce[i];
+        const bool stale = act[i] && ref != 0 && (t + 1) - ref >= a.tp;
+        const bool do2 = TP && stale && n_ce[i] != 0 &&
+                         (!n_d[i] || (IMP && n_ce[i] != n_pe[i]));
         int4* r = reinterpret_cast<int4*>(
             rec + (fr * K + lane + 32 * i) * REC);
         if (has[i])
@@ -334,7 +348,8 @@ lrtrace_kernel(const Args a, const Group grp) {
     // the chunk's records, the nf * K of each field contiguous (a group:
     // K contiguous a frame, strided by all keywords)
     __syncwarp();
-    if (G == G_FIRST && lane < nf) grp.end0[(size_t)b * F + f0 + lane] = e0s[lane];
+    if (G == G_FIRST && Q && lane < nf)
+      grp.end0[(size_t)b * F + f0 + lane] = e0s[lane];
     const size_t g = ((size_t)b * F + f0) * Kt + k0;
     for (int u = lane; u < nf * K; u += 32) {
       const int4 x = reinterpret_cast<const int4*>(rec + u * REC)[0];
@@ -366,7 +381,7 @@ lrtrace_kernel(const Args a, const Group grp) {
   }
 }
 
-template <int KPL, int G>
+template <int KPL, int G, bool IMP, bool Q>
 cudaError_t launch(Args a, const Group& grp, cudaStream_t st) {
   const int W = a.row ? a.S : a.K + 1;
   // a warp's words a frame: two rings of STAGES, the records; a group's
@@ -377,26 +392,51 @@ cudaError_t launch(Args a, const Group& grp, cudaStream_t st) {
   if (a.chunk < 1) return cudaErrorInvalidValue;
   a.warp_words = (a.chunk * per_frame + 3) & ~3;
   const unsigned blocks = (unsigned)((a.n + WARPS - 1) / WARPS);
-  if (a.tp_on)
-    lrtrace_kernel<KPL, true, G>
-        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a, grp);
+  const size_t smem = (size_t)WARPS * a.warp_words * 4;
+  // the quirk only with time pruning on (scan() clears it otherwise)
+  if constexpr (Q)
+    lrtrace_kernel<KPL, true, G, IMP, true>
+        <<<blocks, WARPS * 32, smem, st>>>(a, grp);
+  else if (a.tp_on)
+    lrtrace_kernel<KPL, true, G, IMP, false>
+        <<<blocks, WARPS * 32, smem, st>>>(a, grp);
   else
-    lrtrace_kernel<KPL, false, G>
-        <<<blocks, WARPS * 32, (size_t)WARPS * a.warp_words * 4, st>>>(a, grp);
+    lrtrace_kernel<KPL, false, G, IMP, false>
+        <<<blocks, WARPS * 32, smem, st>>>(a, grp);
   return cudaGetLastError();
 }
 
-template <int G>
+template <int G, bool IMP, bool Q>
 cudaError_t launch_kpl(const Args& a, const Group& grp, cudaStream_t st) {
   // the first of several groups holds MAX_K keywords
-  if constexpr (G == G_FIRST) return launch<MAX_K / 32, G>(a, grp, st);
+  if constexpr (G == G_FIRST) return launch<MAX_K / 32, G, IMP, Q>(a, grp, st);
   switch ((a.K + 31) / 32) {
-    case 1: return launch<1, G>(a, grp, st);
-    case 2: return launch<2, G>(a, grp, st);
-    case 3: return launch<3, G>(a, grp, st);
-    case 4: return launch<4, G>(a, grp, st);
+    case 1: return launch<1, G, IMP, Q>(a, grp, st);
+    case 2: return launch<2, G, IMP, Q>(a, grp, st);
+    case 3: return launch<3, G, IMP, Q>(a, grp, st);
+    case 4: return launch<4, G, IMP, Q>(a, grp, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K <= MAX_K keywords in one launch, or groups of MAX_K: with the quirk
+// the first writes keyword 0's ends and the others read them; without it
+// each group runs on its own.  Each group's word columns start at its first
+template <bool IMP, bool Q>
+cudaError_t launch_groups(Args a, Group grp, cudaStream_t st) {
+  const int K = a.K;
+  const int* ws = a.ws;
+  if (K <= MAX_K) return launch_kpl<G_ONE, IMP, Q>(a, grp, st);
+  for (int k0 = 0; k0 < K; k0 += MAX_K) {
+    grp.k0 = k0;
+    a.K = std::min(MAX_K, K - k0);
+    a.ws = ws + k0;
+    const cudaError_t err =
+        k0 == 0 && Q ? launch_kpl<G_FIRST, IMP, Q>(a, grp, st)
+                     : launch_kpl<G_LATER, IMP, Q>(a, grp, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -415,10 +455,12 @@ cudaError_t scan(const void* sink_val, const void* sink_wt, const void* ws,
                  void* cand_lr1, void* cand_start1, void* cand_end1,
                  void* prev_end1, void* dumped1, void* e1, void* s1, void* en1,
                  void* sc1, void* ne1, void* e2, void* s2, void* en2,
-                 void* sc2, void* ne2, void* end0, void* stream) {
+                 void* sc2, void* ne2, void* end0, int improve, int quirk,
+                 void* stream) {
   if (n <= 0) return cudaSuccess;
+  quirk = quirk && tp_on;
   if (F < 0 || S <= 0 || K <= 0 || fs < 0 || fs >= S ||
-      (K > MAX_K && end0 == nullptr))
+      (K > MAX_K && quirk && end0 == nullptr))
     return cudaErrorInvalidValue;
   const bool aligned = (reinterpret_cast<uintptr_t>(sink_val) |
                         reinterpret_cast<uintptr_t>(sink_wt)) % 16 == 0;
@@ -442,19 +484,12 @@ cudaError_t scan(const void* sink_val, const void* sink_wt, const void* ws,
              static_cast<int*>(en2), static_cast<float*>(sc2),
              static_cast<uint8_t*>(ne2)}};
   auto st = static_cast<cudaStream_t>(stream);
-  Group grp{K, 0, static_cast<int*>(end0)};
-  if (K <= MAX_K) return launch_kpl<G_ONE>(a, grp, st);
-  // groups of MAX_K keywords: the first writes keyword 0's ends, the
-  // others read them; each group's word columns start at its first
-  for (int k0 = 0; k0 < K; k0 += MAX_K) {
-    grp.k0 = k0;
-    a.K = std::min(MAX_K, K - k0);
-    a.ws = static_cast<const int*>(ws) + k0;
-    const cudaError_t err = k0 == 0 ? launch_kpl<G_FIRST>(a, grp, st)
-                                    : launch_kpl<G_LATER>(a, grp, st);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  const Group grp{K, 0, static_cast<int*>(end0)};
+  if (improve)
+    return quirk ? launch_groups<true, true>(a, grp, st)
+                 : launch_groups<true, false>(a, grp, st);
+  return quirk ? launch_groups<false, true>(a, grp, st)
+               : launch_groups<false, false>(a, grp, st);
 }
 
 }  // namespace
@@ -479,7 +514,7 @@ extern "C" int lrtrace_scan(
               tp, sp, neg_half, last_lr0, cand_lr0, cand_start0, cand_end0,
               prev_end0, dumped0, last_lr1, cand_lr1, cand_start1, cand_end1,
               prev_end1, dumped1, e1, s1, en1, sc1, ne1, e2, s2, en2, sc2, ne2,
-              nullptr, stream);
+              nullptr, 0, 1, stream);
 }
 
 // The same for any K: past MAX_K keywords, `end0` is an [n, F] i32 scratch
@@ -497,5 +532,26 @@ extern "C" int lrtrace_scan_groups(
               tp, sp, neg_half, last_lr0, cand_lr0, cand_start0, cand_end0,
               prev_end0, dumped0, last_lr1, cand_lr1, cand_start1, cand_end1,
               prev_end1, dumped1, e1, s1, en1, sc1, ne1, e2, s2, en2, sc2, ne2,
-              end0, stream);
+              end0, 0, 1, stream);
+}
+
+// The same with LRTrace's two settings: improve (improveKwdEstim) and
+// quirk (keyword 0's candidate end the time-pruning reference of every
+// keyword); lrtrace_scan_groups is improve 0, quirk 1.  `end0` is read
+// only past MAX_K keywords with the quirk and time pruning on.
+extern "C" int lrtrace_scan_settings(
+    const void* sink_val, const void* sink_wt, const void* ws, int fs,
+    const void* n_dec, const void* n_valid, int F, int n, int S, int K,
+    int tp_on, int tp, float sp, float neg_half, const void* last_lr0,
+    const void* cand_lr0, const void* cand_start0, const void* cand_end0,
+    const void* prev_end0, const void* dumped0, void* last_lr1,
+    void* cand_lr1, void* cand_start1, void* cand_end1, void* prev_end1,
+    void* dumped1, void* e1, void* s1, void* en1, void* sc1, void* ne1,
+    void* e2, void* s2, void* en2, void* sc2, void* ne2, void* end0,
+    int improve, int quirk, void* stream) {
+  return scan(sink_val, sink_wt, ws, fs, n_dec, n_valid, F, n, S, K, tp_on,
+              tp, sp, neg_half, last_lr0, cand_lr0, cand_start0, cand_end0,
+              prev_end0, dumped0, last_lr1, cand_lr1, cand_start1, cand_end1,
+              prev_end1, dumped1, e1, s1, en1, sc1, ne1, e2, s2, en2, sc2, ne2,
+              end0, improve, quirk, stream);
 }

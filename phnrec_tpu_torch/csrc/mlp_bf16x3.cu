@@ -101,6 +101,12 @@
 // hidden tensor makes a round trip through device memory: these widths
 // are off the main path.
 //
+// A band stack (phn_mlp_bf16x3_bands, the 3BT / 1BT band nets) runs as one
+// launch, as in kernel A: a second grid dimension over the nets, each
+// block advancing x, mean, dev, the four weight halves, b1, b2 and out by
+// its net's stride (Band) first.  A single net has one band and zero
+// strides.
+//
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit, as in kernel A.
 // Build without --use_fast_math.
 
@@ -303,6 +309,12 @@ __device__ __forceinline__ void load_slab(unsigned char* stage,
   cp_async_commit();
 }
 
+// the elements between one band net's arrays and the next's (all zero for
+// a single net): x, mean and dev, the padded W1 and W2 halves, b1, b2, out
+struct Band {
+  long long x, vec, w1, w2, b1, b2, out;
+};
+
 // fast and softmax are uniform over the grid: run-time flags, so that the
 // source compiles one kernel per (RT, NP, PASSES)
 template <int RT, int NP, int PASSES>
@@ -312,7 +324,18 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                   const float* __restrict__ dev, Slabs w,
                   const float* __restrict__ b1, const float* __restrict__ b2,
                   float* __restrict__ out, int n_rows, int n_inp, int n_hid,
-                  int n_out, bool fast, bool softmax) {
+                  int n_out, bool fast, bool softmax, const Band bd) {
+  // this block's band net (blockIdx.y; 0 for a single net)
+  x += blockIdx.y * bd.x;
+  mean += blockIdx.y * bd.vec;
+  dev += blockIdx.y * bd.vec;
+  w.w1h += blockIdx.y * bd.w1;
+  w.w1l += blockIdx.y * bd.w1;
+  w.w2h += blockIdx.y * bd.w2;
+  w.w2l += blockIdx.y * bd.w2;
+  b1 += blockIdx.y * bd.b1;
+  b2 += blockIdx.y * bd.b2;
+  out += blockIdx.y * bd.out;
   constexpr int NS = RT / 16;          // stripes of 16 rows
   constexpr int NW = NS * WS;
   constexpr int NT = NW * 32;
@@ -685,7 +708,8 @@ template <int RT, int NP, int PASSES>
 cudaError_t launch(const float* x, const float* mean, const float* dev,
                    const Slabs& w, const float* b1, const float* b2,
                    float* out, int n_rows, int n_inp, int n_hid, int n_out,
-                   bool fast, bool softmax, cudaStream_t stream) {
+                   bool fast, bool softmax, int n_bands, const Band& bd,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(RT, w.kp, w.op, w.ks2, PASSES);
   auto kern = mlp_bf16x3_kernel<RT, NP, PASSES>;
   if (smem > 48 * 1024) {
@@ -693,10 +717,10 @@ cudaError_t launch(const float* x, const float* mean, const float* dev,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const unsigned blocks = (unsigned)((n_rows + RT - 1) / RT);
-  kern<<<blocks, RT / 16 * WS * 32, smem, stream>>>(
+  const dim3 grid((unsigned)((n_rows + RT - 1) / RT), (unsigned)n_bands);
+  kern<<<grid, RT / 16 * WS * 32, smem, stream>>>(
       x, mean, dev, w, b1, b2, out, n_rows, n_inp, n_hid, n_out, fast,
-      softmax);
+      softmax, bd);
   return cudaGetLastError();
 }
 
@@ -707,9 +731,12 @@ template <int PASSES>
 cudaError_t dispatch(const float* x, const float* mean, const float* dev,
                      Slabs w, const float* b1, const float* b2, float* out,
                      int n_rows, int n_inp, int n_hid, int n_out, bool fast,
-                     bool softmax, cudaStream_t s) {
+                     bool softmax, int n_bands, const Band& bd,
+                     cudaStream_t s) {
+  // the tile by the rows of all bands together
   const int npairs = w.op / 16;
-  const bool wide_tile = npairs <= NP_NARROW && n_rows >= WIDE_MIN_ROWS &&
+  const bool wide_tile = npairs <= NP_NARROW &&
+                         (long long)n_rows * n_bands >= WIDE_MIN_ROWS &&
                          smem_bytes(128, w.kp, w.op, 64, PASSES) <= SMEM_MAX;
   w.ks2 = wide_tile ? 64 : 32;
   w.ks1 = 2 * w.ks2;
@@ -719,13 +746,14 @@ cudaError_t dispatch(const float* x, const float* mean, const float* dev,
   if (wide_tile)
     return launch<128, NP_NARROW, PASSES>(x, mean, dev, w, b1, b2, out,
                                           n_rows, n_inp, n_hid, n_out, fast,
-                                          softmax, s);
+                                          softmax, n_bands, bd, s);
   if (npairs <= NP_NARROW)
     return launch<64, NP_NARROW, PASSES>(x, mean, dev, w, b1, b2, out,
                                          n_rows, n_inp, n_hid, n_out, fast,
-                                         softmax, s);
+                                         softmax, n_bands, bd, s);
   return launch<64, NP_WIDE, PASSES>(x, mean, dev, w, b1, b2, out, n_rows,
-                                     n_inp, n_hid, n_out, fast, softmax, s);
+                                     n_inp, n_hid, n_out, fast, softmax,
+                                     n_bands, bd, s);
 }
 
 }  // namespace
@@ -733,21 +761,16 @@ cudaError_t dispatch(const float* x, const float* mean, const float* dev,
 extern "C" int phn_mlp_bf16x3_max_out() { return MAX_OUT; }
 extern "C" int phn_mlp_bf16x3_max_inp() { return MAX_INP; }
 
-// out[n_rows, n_out] = MLP(x[n_rows, n_inp]) with `passes` (1 or 3) bf16
-// tensor-core passes per product.  x, mean, dev, b1, b2 float32 unpadded;
-// w1h/w1l bf16 [kp, hp] and w2h/w2l bf16 [hp, op], zero-padded, with
-// kp = round16(n_inp), hp = round128(n_hid), op = round16(n_out), each
-// 16-byte aligned.  All contiguous on the current device.  Launches on
-// `stream`, allocates nothing, does not synchronise.
-extern "C" int phn_mlp_bf16x3(const void* x, const void* mean, const void* dev,
-                              const void* w1h, const void* w1l, const void* b1,
-                              const void* w2h, const void* w2l, const void* b2,
-                              void* out, int n_rows, int n_inp, int n_hid,
-                              int n_out, int fast, int softmax, int passes,
-                              void* stream) {
-  if (n_rows <= 0) return cudaSuccess;
+namespace {
+
+int fused(const void* x, const void* mean, const void* dev, const void* w1h,
+          const void* w1l, const void* b1, const void* w2h, const void* w2l,
+          const void* b2, void* out, int n_bands, int n_rows, int n_inp,
+          int n_hid, int n_out, int fast, int softmax, int passes,
+          void* stream) {
+  if (n_rows <= 0 || n_bands <= 0) return cudaSuccess;
   if (n_inp <= 0 || n_inp > MAX_INP || n_hid <= 0 || n_out <= 0 ||
-      n_out > MAX_OUT || (passes != 1 && passes != 3))
+      n_out > MAX_OUT || (passes != 1 && passes != 3) || n_bands > 65535)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(w1h) | reinterpret_cast<uintptr_t>(w1l) |
        reinterpret_cast<uintptr_t>(w2h) | reinterpret_cast<uintptr_t>(w2l)) %
@@ -761,6 +784,13 @@ extern "C" int phn_mlp_bf16x3(const void* x, const void* mean, const void* dev,
   w.kp = (n_inp + 15) / 16 * 16;
   w.hp = (n_hid + 127) / 128 * 128;
   w.op = (n_out + 15) / 16 * 16;
+  // each band's weight halves start 16-byte aligned: kp * hp and hp * op
+  // are multiples of 8 bf16
+  const Band bd = n_bands == 1
+                      ? Band{}
+                      : Band{(long long)n_rows * n_inp, n_inp,
+                             (long long)w.kp * w.hp, (long long)w.hp * w.op,
+                             n_hid, n_out, (long long)n_rows * n_out};
   auto* xf = static_cast<const float*>(x);
   auto* mf = static_cast<const float*>(mean);
   auto* df = static_cast<const float*>(dev);
@@ -770,9 +800,43 @@ extern "C" int phn_mlp_bf16x3(const void* x, const void* mean, const void* dev,
   auto s = static_cast<cudaStream_t>(stream);
   if (passes == 3)
     return dispatch<3>(xf, mf, df, w, b1f, b2f, of, n_rows, n_inp, n_hid,
-                       n_out, fast != 0, softmax != 0, s);
+                       n_out, fast != 0, softmax != 0, n_bands, bd, s);
   return dispatch<1>(xf, mf, df, w, b1f, b2f, of, n_rows, n_inp, n_hid,
-                     n_out, fast != 0, softmax != 0, s);
+                     n_out, fast != 0, softmax != 0, n_bands, bd, s);
+}
+
+}  // namespace
+
+// out[n_rows, n_out] = MLP(x[n_rows, n_inp]) with `passes` (1 or 3) bf16
+// tensor-core passes per product.  x, mean, dev, b1, b2 float32 unpadded;
+// w1h/w1l bf16 [kp, hp] and w2h/w2l bf16 [hp, op], zero-padded, with
+// kp = round16(n_inp), hp = round128(n_hid), op = round16(n_out), each
+// 16-byte aligned.  All contiguous on the current device.  Launches on
+// `stream`, allocates nothing, does not synchronise.
+extern "C" int phn_mlp_bf16x3(const void* x, const void* mean, const void* dev,
+                              const void* w1h, const void* w1l, const void* b1,
+                              const void* w2h, const void* w2l, const void* b2,
+                              void* out, int n_rows, int n_inp, int n_hid,
+                              int n_out, int fast, int softmax, int passes,
+                              void* stream) {
+  return fused(x, mean, dev, w1h, w1l, b1, w2h, w2l, b2, out, 1, n_rows,
+               n_inp, n_hid, n_out, fast, softmax, passes, stream);
+}
+
+// A stack of n_bands nets of one topology in one launch: x [n_bands,
+// n_rows, n_inp], mean and dev [n_bands, n_inp], w1h/w1l [n_bands, kp, hp],
+// b1 [n_bands, n_hid], w2h/w2l [n_bands, hp, op], b2 [n_bands, n_out] ->
+// out [n_bands, n_rows, n_out]; otherwise as phn_mlp_bf16x3.
+extern "C" int phn_mlp_bf16x3_bands(const void* x, const void* mean,
+                                    const void* dev, const void* w1h,
+                                    const void* w1l, const void* b1,
+                                    const void* w2h, const void* w2l,
+                                    const void* b2, void* out, int n_bands,
+                                    int n_rows, int n_inp, int n_hid,
+                                    int n_out, int fast, int softmax,
+                                    int passes, void* stream) {
+  return fused(x, mean, dev, w1h, w1l, b1, w2h, w2l, b2, out, n_bands,
+               n_rows, n_inp, n_hid, n_out, fast, softmax, passes, stream);
 }
 
 // The split path for any widths: hid is an [n_rows, n_hid] float32 scratch

@@ -71,6 +71,13 @@
 // hidden tensor makes a round trip through device memory: these widths
 // are off the main path (the CZ and EN nets take the fused kernel).
 //
+// A band stack (phn_mlp_fused_bands: the trap_bands band nets of the 3BT /
+// 1BT systems, one topology, phnrec_tpu/posteriors/estimator.py:107-254)
+// runs as one launch: a second grid dimension over the nets, each block
+// advancing x, mean, dev, W1, b1, W2, b2 and out by its net's stride
+// (Band) before it starts, so every net's rows are the single net's
+// kernel above.  A single net has one band and zero strides.
+//
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit: one float32
 // multiply by the float32-rounded constant, a saturating truncation
 // (__float2int_rz), a wrapping int32 add, and an exact 2^e that is 0 for
@@ -201,6 +208,12 @@ __device__ __forceinline__ void load_w2_slab(float* dst, const float* w2,
     copy4(dst + e, src + e, n_valid - e, vec);
 }
 
+// the elements between one band net's arrays and the next's (all zero for
+// a single net)
+struct Band {
+  long long x, vec, w1, b1, w2, b2, out;
+};
+
 // fast and softmax are uniform over the grid: run-time flags, so that the
 // source compiles one kernel per (RT, NQ)
 template <int RT, int NQ>
@@ -211,7 +224,16 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ b1, const float* __restrict__ w2,
                  const float* __restrict__ b2, float* __restrict__ out,
                  int n_rows, int n_inp, int n_hid, int n_out, bool fast,
-                 bool softmax) {
+                 bool softmax, const Band bd) {
+  // this block's band net (blockIdx.y; 0 for a single net)
+  x += blockIdx.y * bd.x;
+  mean += blockIdx.y * bd.vec;
+  dev += blockIdx.y * bd.vec;
+  w1 += blockIdx.y * bd.w1;
+  b1 += blockIdx.y * bd.b1;
+  w2 += blockIdx.y * bd.w2;
+  b2 += blockIdx.y * bd.b2;
+  out += blockIdx.y * bd.out;
   constexpr int NT = RT * 4;     // threads per block
   constexpr int HS = RT + 4;     // row stride of the h chunk
   constexpr int R2 = 8;          // phase 2: rows per warp (x NQ columns)
@@ -515,7 +537,7 @@ cudaError_t launch(const float* x, const float* mean, const float* dev,
                    const float* w1, const float* b1, const float* w2,
                    const float* b2, float* out, int n_rows, int n_inp,
                    int n_hid, int n_out, bool fast, bool softmax,
-                   cudaStream_t stream) {
+                   int n_bands, const Band& bd, cudaStream_t stream) {
   const size_t smem = smem_bytes(RT, n_inp, n_out);
   auto kern = mlp_fused_kernel<RT, NQ>;
   if (smem > 48 * 1024) {
@@ -523,10 +545,10 @@ cudaError_t launch(const float* x, const float* mean, const float* dev,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const unsigned blocks = (unsigned)((n_rows + RT - 1) / RT);
-  kern<<<blocks, RT * 4, smem, stream>>>(x, mean, dev, w1, b1, w2, b2, out,
-                                         n_rows, n_inp, n_hid, n_out, fast,
-                                         softmax);
+  const dim3 grid((unsigned)((n_rows + RT - 1) / RT), (unsigned)n_bands);
+  kern<<<grid, RT * 4, smem, stream>>>(x, mean, dev, w1, b1, w2, b2, out,
+                                       n_rows, n_inp, n_hid, n_out, fast,
+                                       softmax, bd);
   return cudaGetLastError();
 }
 
@@ -534,17 +556,20 @@ cudaError_t dispatch(const float* x, const float* mean, const float* dev,
                      const float* w1, const float* b1, const float* w2,
                      const float* b2, float* out, int n_rows, int n_inp,
                      int n_hid, int n_out, bool fast, bool softmax,
-                     cudaStream_t s) {
+                     int n_bands, const Band& bd, cudaStream_t s) {
   // columns a lane: n_out / 32 rounded up to one of 4, 5, 6, 8 (a kernel is
-  // compiled for each; the columns past n_out are masked)
+  // compiled for each; the columns past n_out are masked); the tile by
+  // the rows of all bands together
   const int cols = (n_out + 31) / 32;
   const int nq = cols <= 4 ? 4 : cols <= 6 ? cols : 8;
-  const bool wide = nq <= MAX_NQ_WIDE && n_rows >= WIDE_MIN_ROWS &&
+  const bool wide = nq <= MAX_NQ_WIDE &&
+                    (long long)n_rows * n_bands >= WIDE_MIN_ROWS &&
                     smem_bytes(128, n_inp, n_out) <= SMEM_MAX;
 #define PHN_CASE(RT, N)                                                 \
   case N:                                                               \
     return launch<RT, N>(x, mean, dev, w1, b1, w2, b2, out, n_rows,    \
-                         n_inp, n_hid, n_out, fast, softmax, s);
+                         n_inp, n_hid, n_out, fast, softmax, n_bands,  \
+                         bd, s);
   if (wide) {
     switch (nq) {
       PHN_CASE(128, 4) PHN_CASE(128, 5)
@@ -581,8 +606,37 @@ extern "C" int phn_mlp_fused(const void* x, const void* mean, const void* dev,
                   static_cast<const float*>(b1),
                   static_cast<const float*>(w2),
                   static_cast<const float*>(b2), static_cast<float*>(out),
+                  n_rows, n_inp, n_hid, n_out, fast != 0, softmax != 0, 1,
+                  Band{}, static_cast<cudaStream_t>(stream));
+}
+
+// A stack of n_bands nets of one topology in one launch: x [n_bands,
+// n_rows, n_inp], mean and dev [n_bands, n_inp], w1 [n_bands, n_inp,
+// n_hid], b1 [n_bands, n_hid], w2 [n_bands, n_hid, n_out], b2 [n_bands,
+// n_out] -> out [n_bands, n_rows, n_out]; otherwise as phn_mlp_fused.
+extern "C" int phn_mlp_fused_bands(const void* x, const void* mean,
+                                   const void* dev, const void* w1,
+                                   const void* b1, const void* w2,
+                                   const void* b2, void* out, int n_bands,
+                                   int n_rows, int n_inp, int n_hid,
+                                   int n_out, int fast, int softmax,
+                                   void* stream) {
+  if (n_rows <= 0 || n_bands <= 0) return cudaSuccess;
+  if (n_inp <= 0 || n_inp > MAX_INP || n_hid <= 0 || n_out <= 0 ||
+      n_out > 32 * MAX_NQ || n_bands > 65535)
+    return cudaErrorInvalidValue;
+  const Band bd{(long long)n_rows * n_inp, n_inp, (long long)n_inp * n_hid,
+                n_hid, (long long)n_hid * n_out, n_out,
+                (long long)n_rows * n_out};
+  return dispatch(static_cast<const float*>(x),
+                  static_cast<const float*>(mean),
+                  static_cast<const float*>(dev),
+                  static_cast<const float*>(w1),
+                  static_cast<const float*>(b1),
+                  static_cast<const float*>(w2),
+                  static_cast<const float*>(b2), static_cast<float*>(out),
                   n_rows, n_inp, n_hid, n_out, fast != 0, softmax != 0,
-                  static_cast<cudaStream_t>(stream));
+                  n_bands, bd, static_cast<cudaStream_t>(stream));
 }
 
 // The split path for any widths: hid is an [n_rows, n_hid] float32 scratch

@@ -14,11 +14,13 @@ Counterpart of the JAX package's vmapped ``lax.scan`` of
          emit (bool), start, end (i32), score (f32), new_estim (bool)
 
 Frame f of stream b is global frame n_dec[b] + f and live while
-f < n_valid[b].  The plain version is the frame loop of
-``lrtrace_step_fn``; the kernel is equal to it in every field.  Past the
-128 keywords one launch takes, the kernel runs in groups of 128, with
-keyword 0's candidate end a frame passed on through an [n, F] scratch
-tensor.
+f < n_valid[b].  ``improve_kwd_estim`` and ``keyword0_time_quirk`` are
+LRTrace's two settings (``lrtrace_step_fn``; the serving defaults off and
+on), template parameters of the kernel.  The plain version is the frame
+loop of ``lrtrace_step_fn``; the kernel is equal to it in every field.
+Past the 128 keywords one launch takes, the kernel runs in groups of 128,
+with keyword 0's candidate end a frame passed on through an [n, F]
+scratch tensor where the quirk needs it.
 """
 
 from __future__ import annotations
@@ -44,10 +46,13 @@ def lrtrace_scan_plain(state: State, sink_val: torch.Tensor,
                        sink_wt: torch.Tensor, word_sinks: torch.Tensor,
                        filler_sink: int, n_dec: torch.Tensor,
                        n_valid: torch.Tensor, time_pruning: float,
-                       score_pruning: float) -> Tuple[State, Events]:
+                       score_pruning: float, improve_kwd_estim: bool = False,
+                       keyword0_time_quirk: bool = True
+                       ) -> Tuple[State, Events]:
     """The scan as a Python loop of torch ops over frames, on any
     device."""
-    step = lrtrace_step_fn(time_pruning, score_pruning)
+    step = lrtrace_step_fn(time_pruning, score_pruning, improve_kwd_estim,
+                           keyword0_time_quirk)
     F = sink_val.shape[0]
     ws = word_sinks.to(device=sink_val.device, dtype=torch.long)
     n_dec = n_dec.to(torch.int32)
@@ -77,6 +82,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             lib.lrtrace_scan_groups.argtypes = fn.argtypes[:-1] + [
                 ctypes.c_void_p] * 2
             lib.lrtrace_scan_groups.restype = ctypes.c_int
+        if hasattr(lib, "lrtrace_scan_settings"):
+            lib.lrtrace_scan_settings.argtypes = fn.argtypes[:-1] + [
+                ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            lib.lrtrace_scan_settings.restype = ctypes.c_int
     return lib
 
 
@@ -87,9 +96,12 @@ def _lib():
 def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
            sink_wt: torch.Tensor, word_sinks: torch.Tensor, filler_sink: int,
            n_dec: torch.Tensor, n_valid: torch.Tensor, time_pruning: float,
-           score_pruning: float) -> Tuple[State, Events]:
+           score_pruning: float, improve_kwd_estim: bool = False,
+           keyword0_time_quirk: bool = True) -> Tuple[State, Events]:
     """Launch the kernel of ``lib`` (a bound kernel-F library) on CUDA
-    tensors; raises on anything it does not take.  Counts nothing."""
+    tensors; raises on anything it does not take.  Counts nothing.  A
+    source without the settings' entry point (an earlier one, for
+    devtools/scan_variants.py) takes the serving defaults only."""
     device = _build.cuda_device(sink_val)
     if sink_val.dim() != 3:
         raise ValueError("sink_val must be [F, n, S]")
@@ -102,6 +114,10 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
     if groups and not hasattr(lib, "lrtrace_scan_groups"):
         raise ValueError(f"this kernel-F source takes at most "
                          f"{lib.lrtrace_max_keywords()} keywords")
+    settings = hasattr(lib, "lrtrace_scan_settings")
+    if not settings and (improve_kwd_estim or not keyword0_time_quirk):
+        raise ValueError("this kernel-F source takes the serving defaults "
+                         "only (improve_kwd_estim off, the quirk on)")
     if F * n * max(S, K) >= 2 ** 31:
         raise ValueError("block too large for 32-bit offsets")
     _build.require(sink_val, "sink_val", torch.float32, (F, n, S), device)
@@ -120,11 +136,19 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
          for k, dt in zip(_FIELDS, _DTYPES)} for _ in range(2))
     tp = float(time_pruning)
     # keyword 0's candidate end a frame, from the first group to the others
-    end0 = (torch.empty((n, F), dtype=torch.int32, device=device),) \
-        if groups else ()
+    quirk = bool(keyword0_time_quirk) and tp < 1e9
+    end0 = (torch.empty((n, F), dtype=torch.int32, device=device)
+            if groups and (quirk or not settings) else None)
+    if settings:
+        fn = lib.lrtrace_scan_settings
+        tail = (None if end0 is None else end0.data_ptr(),
+                int(bool(improve_kwd_estim)), int(quirk))
+    else:
+        fn = lib.lrtrace_scan_groups if groups else lib.lrtrace_scan
+        tail = (end0.data_ptr(),) if groups else ()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = (lib.lrtrace_scan_groups if groups else lib.lrtrace_scan)(
+        err = fn(
             sink_val.data_ptr(), sink_wt.data_ptr(), word_sinks.data_ptr(),
             int(filler_sink), n_dec.data_ptr(), n_valid.data_ptr(),
             F, n, S, K, int(tp < 1e9), int(tp) if tp < 1e9 else 0,
@@ -132,7 +156,7 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
             *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in out_state),
             *(ev[k].data_ptr() for ev in events for k in _FIELDS),
-            *(t.data_ptr() for t in end0), stream)
+            *tail, stream)
     _build.check(err, "lrtrace")
     return out_state, events
 
@@ -140,13 +164,16 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
 def lrtrace_scan(state: State, sink_val: torch.Tensor, sink_wt: torch.Tensor,
                  word_sinks: torch.Tensor, filler_sink: int,
                  n_dec: torch.Tensor, n_valid: torch.Tensor,
-                 time_pruning: float, score_pruning: float
-                 ) -> Tuple[State, Events]:
+                 time_pruning: float, score_pruning: float,
+                 improve_kwd_estim: bool = False,
+                 keyword0_time_quirk: bool = True) -> Tuple[State, Events]:
     """One block of frames: CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one launch for all F frames), and anything
-    the kernel does not take raises."""
+    tensors launch the kernel (one launch for all F frames, or one a
+    group of 128 keywords), and anything the kernel does not take
+    raises."""
     args = (state, sink_val, sink_wt, word_sinks, filler_sink, n_dec,
-            n_valid, time_pruning, score_pruning)
+            n_valid, time_pruning, score_pruning, improve_kwd_estim,
+            keyword0_time_quirk)
     if sink_val.device.type == "cpu":
         return lrtrace_scan_plain(*args)
     _build.cuda_device(sink_val)       # raises before any build

@@ -3,8 +3,9 @@ loop) against phnrec_tpu's vmapped lax.scan of lrtrace_step_fn
 (phnrec_tpu/multistream.py:1017-1036) on the same sink records: state and
 both event records equal in every field, with time_pruning 40, 25 and
 1e10 (the serving defaults: improveKwdEstim off, the keyword-0 quirk on),
-and ragged live rows.  The host decode of the events and the final flush
-match too."""
+and ragged live rows; and for all four (improveKwdEstim, quirk) pairs at
+K 3 and 129.  The host decode of the events and the final flush match
+too."""
 
 import jax
 import jax.numpy as jnp
@@ -129,9 +130,11 @@ def test_wrapper_device_rules():
     assert lrtrace.LAUNCHES == before
 
 
-def _jax_scan_cols(sv, sw, nd, nv, tp, sp, ws, fs):
-    """_jax_scan with its own word and filler columns and score pruning."""
-    step = jst.lrtrace_step_fn(tp, sp)
+def _jax_scan_cols(sv, sw, nd, nv, tp, sp, ws, fs, improve=False,
+                   quirk=True):
+    """_jax_scan with its own word and filler columns, score pruning and
+    LRTrace settings."""
+    step = jst.lrtrace_step_fn(tp, sp, improve, quirk)
     Fb, n = sv.shape[:2]
 
     def one(st, sv_b, sw_b, t0, nv_b):
@@ -203,3 +206,33 @@ def test_plain_matches_jax_scan_past_128_keywords(K, ties):
     if not ties:
         # time-pruning flushes, past the first group's keywords too
         assert got_ev[1]["emit"][:, :, 128:].sum() > 0
+
+
+@pytest.mark.parametrize("improve", [False, True])
+@pytest.mark.parametrize("quirk", [True, False])
+@pytest.mark.parametrize("K", [3, 129])
+def test_plain_matches_jax_scan_settings(improve, quirk, K):
+    """LRTrace's two settings (improveKwdEstim re-opens a dumped candidate
+    whose end moved; without the quirk each keyword's time pruning reads
+    its own candidate end): state and both event records equal to
+    phnrec_tpu's scan in every field at the same settings, and the
+    settings change the events."""
+    from phnrec_tpu_torch.devtools.scan_variants import lrtrace_case
+    st, sv, sw, ws, fs, nd, nv = lrtrace_case("cpu", 6, 150, K, K + 2,
+                                              seed=K + 2)
+    args = (st, sv, sw, ws, fs, nd, nv, 40, -1e30)
+    got_st, got_ev = lrtrace.lrtrace_scan_plain(*args, improve, quirk)
+    jstate, jev = _jax_scan_cols(sv.numpy(), sw.numpy(), nd.numpy(),
+                                 nv.numpy(), 40, -1e30, ws.numpy(), fs,
+                                 improve, quirk)
+    for a, b in zip(got_st, jstate):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for r in range(2):
+        for k in got_ev[r]:
+            np.testing.assert_array_equal(got_ev[r][k].numpy(),
+                                          np.asarray(jev[r][k]),
+                                          err_msg=f"rec{r + 1} {k}")
+    if improve or not quirk:
+        _, default_ev = lrtrace.lrtrace_scan_plain(*args)
+        assert any(not torch.equal(got_ev[r]["emit"], default_ev[r]["emit"])
+                   for r in range(2))

@@ -188,8 +188,14 @@ def test_empty_and_short_streams(pkgs):
 
 
 def test_stkint_package_raises(tmp_path):
+    """An stkint package streams (tests/test_torch_stk_streaming.py holds
+    it to phnrec_tpu): a KWS package gets the device tracker and no
+    phoneme-loop state; without an estimator nothing streams."""
     sr = SpeechRec(synth.write_kws_package(tmp_path / "kws", "tiny"),
                    device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 10: the streaming stkint modes"):
+    rec = StreamingRecognizer(sr, commit_horizon=64)
+    assert rec._kws_tracker is not None and rec._stk_horizon == 512
+    assert rec.finish() == [] and rec.kws_hits_so_far() == []
+    sr.estimator = None
+    with pytest.raises(ValueError, match="enabled estimator"):
         StreamingRecognizer(sr)
