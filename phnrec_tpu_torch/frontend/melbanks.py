@@ -59,6 +59,10 @@ def mel_scale(f):
     return 1127.0 * np.log(1.0 + f / 700.0)
 
 
+def mel_to_linear(m):
+    return 700.0 * (np.exp(m / 1127.0) - 1.0)
+
+
 def design_mel_filters(spec: MelSpec) -> Tuple[np.ndarray, int, int]:
     """Triangular filterbank exactly as _mbInit (dspc.cpp:80-225).
 
@@ -160,6 +164,10 @@ class MelFrontend(nn.Module):
         self.register_buffer("dft", torch.tensor(C, dtype=torch.float32))
         self.register_buffer("mel", torch.tensor(A, dtype=torch.float32))
         self.nfft_2 = spec.nfft // 2
+
+    @property
+    def n_params(self) -> int:
+        return self.spec.nbanks
 
     def frame_count(self, n_samples: int) -> int:
         """srec.cpp:945: one frame minimum, else 1 + (L - vs) // step."""

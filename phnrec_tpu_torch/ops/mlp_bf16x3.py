@@ -20,6 +20,10 @@ The fused kernel takes the widths kernel A's fused kernel takes (n_inp <=
 limits the source exports to A's.  Wider nets take the source's split path
 (phn_mlp_bf16x3_wide: the same passes and split, the hidden layer through
 a scratch tensor in device memory), so every width is taken.
+
+A band stack runs as one launch with a band index, as kernel A's does
+(``mlp_forward_bf16x3_bands``; the split weights of each net stacked on a
+leading axis, ``split_weights`` net by net).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from phnrec_tpu_torch.ops import _build, mlp_fused
 from phnrec_tpu_torch.posteriors import fexp
 
 LAUNCHES = 0
+BAND_LAUNCHES = 0      # the launches of those that ran a band stack
 
 K_TILE = 16      # the MMA depth
 H_TILE = 128     # hidden-axis padding (a multiple of the kernel's chunk)
@@ -106,6 +111,9 @@ def _lib():
         lib.phn_mlp_bf16x3_wide.argtypes = [ctypes.c_void_p] * 11 + [
             ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.phn_mlp_bf16x3_wide.restype = ctypes.c_int
+        lib.phn_mlp_bf16x3_bands.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.phn_mlp_bf16x3_bands.restype = ctypes.c_int
         lib.phn_mlp_bf16x3_max_out.restype = ctypes.c_int
         lib.phn_mlp_bf16x3_max_inp.restype = ctypes.c_int
         limits = (lib.phn_mlp_bf16x3_max_inp(), lib.phn_mlp_bf16x3_max_out())
@@ -164,4 +172,74 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
     _build.check(err, "mlp_bf16x3")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def mlp_forward_bf16x3_bands_plain(x, mean, dev, w1_hi, w1_lo, b1, w2_hi,
+                                   w2_lo, b2, *, fast: bool = True,
+                                   apply_softmax: bool = True,
+                                   passes: int = 3) -> torch.Tensor:
+    """The band stack's arithmetic: the single net's plain version, band
+    by band -> [NB, N, n_out]."""
+    return torch.stack([
+        mlp_forward_bf16x3_plain(
+            x[b], mean[b], dev[b], w1_hi[b], w1_lo[b], b1[b], w2_hi[b],
+            w2_lo[b], b2[b], fast=fast, apply_softmax=apply_softmax,
+            passes=passes) for b in range(x.shape[0])])
+
+
+def mlp_forward_bf16x3_bands(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo,
+                             b2, *, fast: bool = True,
+                             apply_softmax: bool = True,
+                             passes: int = 3) -> torch.Tensor:
+    """A stack of NB nets of one topology: x [NB, N, n_inp], mean and dev
+    [NB, n_inp], w1_hi/lo [NB, kp, hp], b1 [NB, n_hid], w2_hi/lo [NB, hp,
+    op], b2 [NB, n_out] -> [NB, N, n_out] float32.  CPU tensors take the
+    plain version; CUDA tensors launch the band-indexed kernel once (fused
+    widths only), and anything it does not take raises."""
+    _check_passes(passes)
+    if x.device.type == "cpu":
+        return mlp_forward_bf16x3_bands_plain(
+            x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, fast=fast,
+            apply_softmax=apply_softmax, passes=passes)
+    device = _build.cuda_device(x)
+    nb, n, n_inp = x.shape
+    n_hid, n_out = b1.shape[1], b2.shape[1]
+    if not mlp_fused.fused_takes(n_inp, n_out) or nb > 65535:
+        raise ValueError(
+            f"the band-indexed kernel takes n_inp <= {mlp_fused.MAX_INP}, "
+            f"n_out <= {mlp_fused.MAX_OUT} and at most 65,535 nets, not "
+            f"{nb} x {n_inp}->{n_hid}->{n_out}")
+    kp, hp, op = (_round(n_inp, K_TILE), _round(n_hid, H_TILE),
+                  _round(n_out, O_TILE))
+    f32, bf16 = torch.float32, torch.bfloat16
+    for t, name, dt, shape in (
+            (x, "x", f32, (nb, n, n_inp)), (mean, "mean", f32, (nb, n_inp)),
+            (dev, "dev", f32, (nb, n_inp)),
+            (w1_hi, "w1_hi", bf16, (nb, kp, hp)),
+            (w1_lo, "w1_lo", bf16, (nb, kp, hp)),
+            (b1, "b1", f32, (nb, n_hid)),
+            (w2_hi, "w2_hi", bf16, (nb, hp, op)),
+            (w2_lo, "w2_lo", bf16, (nb, hp, op)),
+            (b2, "b2", f32, (nb, n_out))):
+        _build.require(t, name, dt, shape, device)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows exceed the kernel's int32 row index")
+    for t, name in ((w1_hi, "w1_hi"), (w1_lo, "w1_lo"), (w2_hi, "w2_hi"),
+                    (w2_lo, "w2_lo")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    lib = _lib()
+    out = torch.empty((nb, n, n_out), dtype=f32, device=device)
+    ptrs = [t.data_ptr() for t in (x, mean, dev, w1_hi, w1_lo, b1, w2_hi,
+                                   w2_lo, b2, out)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.phn_mlp_bf16x3_bands(*ptrs, nb, n, n_inp, n_hid, n_out,
+                                       int(fast), int(apply_softmax), passes,
+                                       stream)
+    _build.check(err, "mlp_bf16x3")
+    global LAUNCHES, BAND_LAUNCHES
+    LAUNCHES += 1
+    BAND_LAUNCHES += 1
     return out

@@ -13,6 +13,12 @@ wrapper holds them to its own.  Wider nets take the source's split path
 (phn_mlp_fused_wide: the hidden layer through a scratch tensor in device
 memory, then the output product and the row softmax), so the kernel takes
 every width the plain version takes.
+
+A band stack (the 3BT / 1BT systems' trap_bands band nets of one
+topology) runs as one launch of the fused kernel with a band index
+(``mlp_forward_bands``: a grid dimension over the nets, each block
+advancing its pointers by its net's stride); its plain version is the
+single net's, band by band.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from phnrec_tpu_torch.ops import _build
 from phnrec_tpu_torch.posteriors import fexp
 
 LAUNCHES = 0
+BAND_LAUNCHES = 0      # the launches of those that ran a band stack
 MAX_INP = 480
 MAX_OUT = 256
 
@@ -48,6 +55,9 @@ def _lib():
         lib.phn_mlp_fused_wide.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.phn_mlp_fused_wide.restype = ctypes.c_int
+        lib.phn_mlp_fused_bands.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.phn_mlp_fused_bands.restype = ctypes.c_int
         lib.phn_mlp_fused_max_out.restype = ctypes.c_int
         lib.phn_mlp_fused_max_inp.restype = ctypes.c_int
         limits = (lib.phn_mlp_fused_max_inp(), lib.phn_mlp_fused_max_out())
@@ -99,4 +109,56 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
     _build.check(err, "mlp_fused")
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def mlp_forward_bands_plain(x, mean, dev, w1, b1, w2, b2, *,
+                            fast: bool = True,
+                            apply_softmax: bool = True) -> torch.Tensor:
+    """The band stack's arithmetic: the single net's plain version, band
+    by band (x [NB, N, n_inp], the parameters stacked on a leading axis)
+    -> [NB, N, n_out]."""
+    return torch.stack([
+        mlp_forward_plain(x[b], mean[b], dev[b], w1[b], b1[b], w2[b], b2[b],
+                          fast=fast, apply_softmax=apply_softmax)
+        for b in range(x.shape[0])])
+
+
+def mlp_forward_bands(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
+                      apply_softmax: bool = True) -> torch.Tensor:
+    """A stack of NB nets of one topology: x [NB, N, n_inp], mean and dev
+    [NB, n_inp], w1 [NB, n_inp, n_hid], b1 [NB, n_hid], w2 [NB, n_hid,
+    n_out], b2 [NB, n_out] -> [NB, N, n_out] float32.  CPU tensors take
+    the plain version; CUDA tensors launch the band-indexed kernel once
+    (fused widths only), and anything it does not take raises."""
+    if x.device.type == "cpu":
+        return mlp_forward_bands_plain(x, mean, dev, w1, b1, w2, b2,
+                                       fast=fast, apply_softmax=apply_softmax)
+    device = _build.cuda_device(x)
+    nb, n, n_inp = x.shape
+    n_hid, n_out = w1.shape[2], w2.shape[2]
+    if not fused_takes(n_inp, n_out) or nb > 65535:
+        raise ValueError(f"the band-indexed kernel takes n_inp <= {MAX_INP}, "
+                         f"n_out <= {MAX_OUT} and at most 65,535 nets, not "
+                         f"{nb} x {n_inp}->{n_hid}->{n_out}")
+    f32 = torch.float32
+    for t, name, shape in (
+            (x, "x", (nb, n, n_inp)), (mean, "mean", (nb, n_inp)),
+            (dev, "dev", (nb, n_inp)), (w1, "w1", (nb, n_inp, n_hid)),
+            (b1, "b1", (nb, n_hid)), (w2, "w2", (nb, n_hid, n_out)),
+            (b2, "b2", (nb, n_out))):
+        _build.require(t, name, f32, shape, device)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows exceed the kernel's int32 row index")
+    lib = _lib()
+    out = torch.empty((nb, n, n_out), dtype=f32, device=device)
+    ptrs = [t.data_ptr() for t in (x, mean, dev, w1, b1, w2, b2, out)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.phn_mlp_fused_bands(*ptrs, nb, n, n_inp, n_hid, n_out,
+                                      int(fast), int(apply_softmax), stream)
+    _build.check(err, "mlp_fused")
+    global LAUNCHES, BAND_LAUNCHES
+    LAUNCHES += 1
+    BAND_LAUNCHES += 1
     return out

@@ -2,10 +2,11 @@
 
 Counterpart of phnrec_tpu/pipeline.py:58-133,237-422.  Reference:
 srec.{cpp,h} — the integration class that owns config, frontend, posterior
-estimator and decoder.  The port covers the mel-bank frontend, the LCRC
-estimator and both decoders, the phoneme loop (``phndec``) and the STK
-network decoder (``stkint``, decode and KWS modes), for waveform input
-and string output (wf -> str): file lists run batched through
+estimator and decoder.  The port covers both frontends (mel banks, PLP),
+the four posterior systems (LCRC, 3BT, 1BT, 1BT_DCT) and both decoders,
+the phoneme loop (``phndec``) and the STK network decoder (``stkint``,
+decode and KWS modes), for waveform input and string output (wf -> str):
+file lists run batched through
 BatchPipeline, and single files run as a batch of one.  An stkint package
 decodes its batches' posteriors through ``stk_decoder.decode_batch``
 (kernels G and H), as phnrec_tpu/pipeline.py:212-221 and :391-400 do;
@@ -76,13 +77,14 @@ class SpeechRec:
         # -- frontend (srec.cpp:545-590)
         kind = cfg.get_str("params", "kind")
         if kind == "plp":
-            raise NotImplementedError(
-                "params/kind 'plp' is not ported yet (ROADMAP.md, Queue 1 "
-                "item 11: frontend/plp.py)")
-        if kind != "fbanks":
+            from phnrec_tpu_torch.frontend.plp import PLPFrontend
+            self.frontend = PLPFrontend(melbanks.spec_from_config(cfg),
+                                        cfg).to(self.device)
+        elif kind == "fbanks":
+            self.frontend = melbanks.MelFrontend(
+                melbanks.spec_from_config(cfg)).to(self.device)
+        else:
             raise ValueError(f"unknown params/kind {kind!r}")
-        self.frontend = melbanks.MelFrontend(
-            melbanks.spec_from_config(cfg)).to(self.device)
         self.wave_format = cfg.get_str("source", "format")
         if self.wave_format not in ("lin16", "alaw"):
             raise ValueError(

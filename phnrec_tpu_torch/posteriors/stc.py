@@ -1,6 +1,8 @@
-"""Split-temporal-context (LCRC) feature assembly as two depthwise convs.
+"""Split-temporal-context (LCRC) feature assembly as two depthwise convs,
+and the clamped sliding context of the other posterior systems.
 
-Counterpart of phnrec_tpu/posteriors/stc.py (``LCRCAssembler.batched``).
+Counterpart of phnrec_tpu/posteriors/stc.py (``LCRCAssembler.batched``,
+``clamped_context``).
 Reference semantics (traps.cpp:285-342): a 31-frame sliding band-energy
 window, initialized by replicating the first mel frame (traps.cpp:186-199);
 left context = window columns 0..15, right context = columns 15..30; each
@@ -35,6 +37,34 @@ def dct_c0_matrix(n: int, n_coefs: int, add_c0: bool) -> np.ndarray:
     for k in range(1, n_dct + 1):
         cols.append(norm * np.cos(np.pi / n * k * (j + 0.5)))
     return np.stack(cols, axis=1)
+
+
+def clamped_context(params: torch.Tensor, trap_len: int,
+                    n_valid=None) -> torch.Tensor:
+    """[..., T, B] params (a leading utterance axis or none) -> [..., T,
+    trap_len, B] sliding context, row t covering frames t-shift..t+shift
+    with both edges clamped (the replicate-first-frame window init,
+    traps.cpp:186-199, and the orchestrator's edge handling,
+    srec.cpp:1035-1059).  Rows at or beyond ``n_valid`` ([...] valid
+    counts) first repeat row n_valid-1 (the repeat-last-frame tail,
+    srec.cpp:877-927).  Copies only: equal to phnrec_tpu's bit for bit
+    (phnrec_tpu/posteriors/stc.py:52-75, vmapped there over utterances)."""
+    T, nb = params.shape[-2:]
+    shift = (trap_len - 1) // 2
+    p = params
+    if n_valid is not None:
+        n_valid = torch.as_tensor(n_valid, device=p.device)
+        last_idx = torch.clamp(n_valid.long() - 1, min=0)
+        last = torch.take_along_dim(
+            p, last_idx[..., None, None].expand(*last_idx.shape, 1, nb),
+            dim=-2)                                      # [..., 1, B]
+        mask = torch.arange(T, device=p.device) < n_valid[..., None]
+        p = torch.where(mask[..., None], p, last)
+    lead = p.shape[:-2]
+    p3 = torch.cat([p[..., :1, :].expand(*lead, shift, nb), p,
+                    p[..., -1:, :].expand(*lead, shift, nb)], dim=-2)
+    # [..., T, B, trap_len] windows -> [..., T, trap_len, B]
+    return p3.unfold(-2, trap_len, 1).transpose(-1, -2)
 
 
 class LCRCSpec(NamedTuple):

@@ -14,6 +14,17 @@ shapes:
   wpenalty -2.03125;
 * ``"tiny"``: 5 banks, 4 phonemes x 3 states, hidden 32, for tests.
 
+``write_lcrc_package(..., plp=True)`` gives the package the PLP frontend
+(params/kind=plp, order 12) in place of the log mel banks: 12 mel banks
+(the estimator's input width is melbanks/nbanks, so it must equal the PLP
+order) and band nets sized to 12-wide params (12 x 11 inputs).
+``write_traps_package`` writes the other posterior systems at a shape's
+widths, Hamming-windowed trajectories of 31 frames: ``"3BT"`` (band nets
+31->n_hid->n_out for all but the top two banks, the merger over their
+concatenated outputs: 13 x 138 = 1,794 inputs at the CZ shapes),
+``"1BT"`` (every bank: 2,070) and ``"1BT_DCT"`` (no band nets, 11 DCT
+coefficients a bank into the merger: 165).
+
 ``write_stk_decode_package`` turns such a package into an stkint decode
 package (decoder/type=stkint, mode=decode) over the phoneme loop that
 netgen generates at load time from the phoneme list, with one HMM of 3
@@ -66,8 +77,9 @@ KEYWORDS = {
     "tiny": {"alpha": "ph00 ph01 ph02", "beta": "ph03 ph01"},
 }
 N_STATES = 3
-N_COEFS = 11            # C0 + 10 DCT coefficients per bank (add_c0=true)
+N_COEFS = 11    # DCT coefficients a bank: LCRC C0 + 10, 1BT_DCT 11
 TRAP_LEN = 31
+PLP_ORDER = 12
 
 CONFIG = """\
 [source]
@@ -83,9 +95,10 @@ vector_step={vector_step}
 sent_mean_norm={sent_norm}
 [posteriors]
 enabled=true
-system=LCRC
+system={system}
 length={trap_len}
-add_c0=true
+hamming=true
+add_c0={add_c0}
 softening_func=none 0 0 0
 [decoder]
 type=phndec
@@ -194,54 +207,90 @@ def _norm_of(feats: torch.Tensor) -> tuple:
 
 
 def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
-                       fmt: str = "lin16", sent_norm=None) -> str:
+                       fmt: str = "lin16", sent_norm=None,
+                       plp: bool = False) -> str:
     """Write a synthetic LCRC package under ``root``; returns its path.
     ``sent_norm`` (a bool) overrides the shape's sentence mean norm: the
     streaming paths apply none, so a package measured without it suits
-    them."""
+    them.  ``plp`` selects the PLP frontend (order 12, 12 mel banks)."""
+    return _write_package(root, shape, seed, fmt, sent_norm, "LCRC", plp)
+
+
+def write_traps_package(root, system: str, shape: str = "cz",
+                        seed: int = 0, fmt: str = "lin16",
+                        sent_norm=None) -> str:
+    """Write a synthetic 3BT, 1BT or 1BT_DCT package under ``root``;
+    returns its path.  ``sent_norm`` as for write_lcrc_package."""
+    if system not in ("3BT", "1BT", "1BT_DCT"):
+        raise ValueError(f"no traps system {system!r}")
+    return _write_package(root, shape, seed, fmt, sent_norm, system, False)
+
+
+def _write_package(root, shape, seed, fmt, sent_norm, system, plp) -> str:
     dims = dict(SHAPES[shape])
     if sent_norm is not None:
         dims["sent_norm"] = "true" if sent_norm else "false"
+    if plp:
+        dims["nbanks"] = PLP_ORDER
     nb, P, H = dims["nbanks"], dims["n_phonemes"], dims["n_hid"]
     fs = dims["fs"]
     n_out = P * N_STATES
     root = Path(root)
     (root / "weights").mkdir(parents=True, exist_ok=True)
-    (root / "windows").mkdir(exist_ok=True)
-    (root / "config").write_text(CONFIG.format(
+    config = CONFIG.format(
         fmt=fmt, nbanks=nb, trap_len=TRAP_LEN, n_states=N_STATES,
-        fs=fs, hi=fs // 2, **{k: dims[k] for k in (
-            "vector_size", "vector_step", "sent_norm", "wpenalty")}))
+        fs=fs, hi=fs // 2, system=system,
+        add_c0="true" if system == "LCRC" else "false",
+        **{k: dims[k] for k in ("vector_size", "vector_step", "sent_norm",
+                                "wpenalty")})
+    if plp:
+        config += f"[params]\nkind=plp\n[plp]\norder={PLP_ORDER}\n"
+    (root / "config").write_text(config)
     names = dims.get("phonemes") or [f"ph{i:02d}" for i in range(P)]
     (root / "phonemes").write_text("".join(f"{p}\n" for p in names))
-    ham = 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(TRAP_LEN)
-                               / (TRAP_LEN - 1))
-    half = (TRAP_LEN - 1) // 2
-    for i, win in enumerate((ham[: half + 1], ham[half:])):
-        (root / "windows" / f"band{i}.window").write_text(
-            " ".join(f"{v:.8f}" for v in win) + "\n")
 
     rng = np.random.default_rng(seed)
-    bands = [_net(rng, nb * N_COEFS, H, n_out) for _ in range(2)]
-    merger = _net(rng, 2 * n_out, H, n_out)
+    if system == "LCRC":
+        (root / "windows").mkdir(exist_ok=True)
+        ham = 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(TRAP_LEN)
+                                   / (TRAP_LEN - 1))
+        half = (TRAP_LEN - 1) // 2
+        for i, win in enumerate((ham[: half + 1], ham[half:])):
+            (root / "windows" / f"band{i}.window").write_text(
+                " ".join(f"{v:.8f}" for v in win) + "\n")
+        bands = [_net(rng, nb * N_COEFS, H, n_out) for _ in range(2)]
+        merger = _net(rng, 2 * n_out, H, n_out)
+    elif system == "1BT_DCT":
+        bands = []
+        merger = _net(rng, nb * N_COEFS, H, n_out)
+    else:
+        n_bands = nb - 2 if system == "3BT" else nb
+        bands = [_net(rng, TRAP_LEN, H, n_out) for _ in range(n_bands)]
+        merger = _net(rng, n_bands * n_out, H, n_out)
     for i, p in enumerate(bands):
         save_nbin(str(root / "weights" / f"band{i}.nbin"), p)
     save_nbin(str(root / "weights" / "merger.nbin"), merger)
 
     # measure input norms on seeded audio through the port on the CPU
+    from phnrec_tpu_torch import normalization
     from phnrec_tpu_torch.pipeline import SpeechRec
+    from phnrec_tpu_torch.posteriors.stc import clamped_context
     sr = SpeechRec(str(root), device="cpu")
     bp = sr.batch_pipeline
     waves = [synth_audio(rng, fs * 3, fs) for _ in range(4)]
     wave, n_samples = bp.pad_batch(waves)
     w, nf, max_frames, _ = bp.to_device(wave.astype(np.int16), n_samples)
+    est = sr.estimator
     with torch.inference_mode():
         par = sr.frontend(bp.convert_wave(w), max_frames)
-        from phnrec_tpu_torch import normalization
         par = normalization.sentence_norm(par, sr.sent_norm, n_valid=nf)
-        left, right = sr.estimator.assembler.batched(par, nf)
+        if system == "LCRC":
+            band_in = sr.estimator.assembler.batched(par, nf)
+        else:
+            ctx = clamped_context(par, TRAP_LEN, nf)
+            band_in = (ctx[..., i] * est.window for i in range(len(bands)))
         outs = []
-        for i, feats in enumerate((left, right)):
+        for i, feats in enumerate(band_in):
             bands[i].mean, bands[i].dev = _norm_of(feats)
             save_nbin(str(root / "weights" / f"band{i}.nbin"), bands[i])
             x = (feats - torch.from_numpy(bands[i].mean)) * \
@@ -251,7 +300,12 @@ def write_lcrc_package(root, shape: str = "tiny", seed: int = 0,
             o = h @ torch.from_numpy(bands[i].w2.T) + \
                 torch.from_numpy(bands[i].b2)
             outs.append(torch.log_softmax(o, dim=-1))
-        merger.mean, merger.dev = _norm_of(torch.cat(outs, dim=-1))
+        if system == "1BT_DCT":
+            m = est.merger_input(clamped_context(par, TRAP_LEN, nf))
+        else:
+            m = torch.cat(outs, dim=-1)
+            m = m if system == "LCRC" else -m
+        merger.mean, merger.dev = _norm_of(m)
     save_nbin(str(root / "weights" / "merger.nbin"), merger)
     return str(root)
 

@@ -333,3 +333,87 @@ def test_find_nvcc_raises_when_missing(monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def _bands_args(device="cpu", passes=0):
+    """A stack of three nets of the _mlp_args topology: kernel A's or A′'s
+    band-stack arguments."""
+    rng = np.random.default_rng(5)
+
+    def t(*s):
+        return torch.tensor(rng.standard_normal(s).astype(np.float32))
+
+    x, mean, dev, b1, b2 = t(3, 5, 7), t(3, 7), t(3, 7), t(3, 6), t(3, 4)
+    w1, w2 = t(3, 7, 6), t(3, 6, 4)
+    if passes:
+        parts = [mlp_bf16x3.split_weights(w1[b], w2[b]) for b in range(3)]
+        w1h, w1l, w2h, w2l = (torch.stack(p) for p in zip(*parts))
+        args = (x, mean, dev, w1h, w1l, b1, w2h, w2l, b2)
+    else:
+        args = (x, mean, dev, w1, b1, w2, b2)
+    return tuple(a.to(device) for a in args)
+
+
+def _lrtrace_args(device="cpu"):
+    from phnrec_tpu_torch.devtools.scan_variants import lrtrace_case
+    return (*lrtrace_case(device, 2, 20, 3, 5, seed=1), 40, -1e30)
+
+
+def test_new_modules_import_without_jax():
+    """The PLP frontend, the estimators with the band stack, the
+    streaming recognizer's stkint modes and the device tracker import
+    with JAX and phnrec_tpu blocked."""
+    mods = ["phnrec_tpu_torch.frontend.plp",
+            "phnrec_tpu_torch.posteriors.estimator",
+            "phnrec_tpu_torch.streaming", "phnrec_tpu_torch.convert"]
+    assert set(mods) <= set(_modules())
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['phnrec_tpu'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from phnrec_tpu_torch.decoder.stknet import DeviceKWSTracker\n"
+            "from phnrec_tpu_torch.posteriors.estimator import (\n"
+            "    BandStack, DCTEstimator, TrapsEstimator)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_band_and_settings_wrappers_plain_on_cpu_raise_elsewhere():
+    """The band-stack wrappers of kernels A and A′ and kernel F with
+    LRTrace's other settings run their plain versions on CPU tensors
+    (counting nothing) and raise for any other non-CUDA tensor, as does
+    DeviceKWSTracker on such tensors."""
+    from phnrec_tpu_torch.decoder.stknet import DeviceKWSTracker
+    from phnrec_tpu_torch.ops import lrtrace
+    def counts():
+        return (_counts(), lrtrace.LAUNCHES, mlp_fused.BAND_LAUNCHES,
+                mlp_bf16x3.BAND_LAUNCHES)
+
+    before = counts()
+    a = _bands_args()
+    assert torch.equal(mlp_fused.mlp_forward_bands(*a),
+                       mlp_fused.mlp_forward_bands_plain(*a))
+    a = _bands_args(passes=3)
+    for passes in (1, 3):
+        assert torch.equal(
+            mlp_bf16x3.mlp_forward_bf16x3_bands(*a, passes=passes),
+            mlp_bf16x3.mlp_forward_bf16x3_bands_plain(*a, passes=passes))
+    for improve, quirk in ((True, True), (False, False)):
+        _assert_nested_equal(
+            lrtrace.lrtrace_scan(*_lrtrace_args(), improve, quirk)[0],
+            lrtrace.lrtrace_scan_plain(*_lrtrace_args(), improve, quirk)[0])
+    for fn, args in (
+            (mlp_fused.mlp_forward_bands, _bands_args("meta")),
+            (mlp_bf16x3.mlp_forward_bf16x3_bands, _bands_args("meta", 3)),
+            (lambda *x: lrtrace.lrtrace_scan(*x, True, False),
+             _lrtrace_args("meta"))):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(*args)
+    tr = DeviceKWSTracker(["a", "b"], 40, word_sinks=[0, 1], filler_sink=2,
+                          device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tr.feed_sinks(torch.zeros(4, 3, device="meta"),
+                      torch.zeros(4, 3, dtype=torch.int32, device="meta"))
+    assert counts() == before

@@ -84,8 +84,16 @@ def test_estimator_posteriors_batched(pkg, fast_exp):
 
 
 def test_build_estimator_other_systems_raise(pkg):
-    for system in ("3BT", "1BT", "1BT_DCT"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            test_.build_estimator(system, pkg, nbanks=5)
+    """An unknown system raises; the traps systems are ported and raise
+    on an LCRC package's files only where phnrec_tpu raises too
+    (tests/test_torch_traps.py holds them to phnrec_tpu)."""
     with pytest.raises(ValueError):
         test_.build_estimator("nope", pkg, nbanks=5)
+    for build in (test_.build_estimator, jest.build_estimator):
+        # the LCRC package has two band nets, not one a bank
+        for system in ("3BT", "1BT"):
+            with pytest.raises(FileNotFoundError, match="band2"):
+                build(system, pkg, nbanks=5)
+        # its merger (24 inputs) is not a multiple of 5 banks
+        with pytest.raises(ValueError, match="not divisible"):
+            build("1BT_DCT", pkg, nbanks=5)
