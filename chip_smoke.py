@@ -72,7 +72,7 @@ import torch
 from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import (NEG, OFF_BEAM, DenseKWSScan,
-                                             NetworkDecoder)
+                                             DeviceKWSTracker, NetworkDecoder)
 from phnrec_tpu_torch.devtools import backtrack_variants, scan_variants
 from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
@@ -159,8 +159,15 @@ TOL_KWS_LP = 1e-3
 TOL_PHN_LP = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One JSON line of a phase's results, with the script's seconds so
+    far (``t_s``)."""
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def reset_counts(names) -> None:
@@ -464,6 +471,103 @@ def bf16_products_ms(x, net, passes: int) -> float:
                 torch.matmul(a, bl)
                 torch.matmul(a, bh)
     return cuda_ms(run)
+
+
+def _band_single(st, x, b: int, passes: int):
+    """Band b of a BandStack through the single net's kernel (A or A′)."""
+    if passes:
+        return mlp_bf16x3.mlp_forward_bf16x3(
+            x[b], st.mean[b], st.dev[b], st.w1_hi[b], st.w1_lo[b], st.b1[b],
+            st.w2_hi[b], st.w2_lo[b], st.b2[b], passes=passes)
+    return mlp_fused.mlp_forward(x[b], st.mean[b], st.dev[b], st.w1[b],
+                                 st.b1[b], st.w2[b], st.b2[b])
+
+
+def _band_library(st, x, passes: int):
+    """The stack's two products as torch.bmm (no norm, bias or
+    activation; the hidden tensor through device memory): float32 for A,
+    bf16 hi x hi (and the two cross passes at 3) for A′.  Timed beside
+    the kernel, never called by the port."""
+    if not passes:
+        return lambda: torch.bmm(torch.bmm(x, st.w1), st.w2)
+    kp, hp = st.w1_hi.shape[1:]
+    a1 = torch.zeros((st.n_bands, x.shape[1], kp), dtype=torch.bfloat16,
+                     device=x.device)
+    a2 = torch.zeros((st.n_bands, x.shape[1], hp), dtype=torch.bfloat16,
+                     device=x.device)
+
+    def run():
+        for a, bh, bl in ((a1, st.w1_hi, st.w1_lo), (a2, st.w2_hi,
+                                                     st.w2_lo)):
+            torch.bmm(a, bh)
+            if passes == 3:
+                torch.bmm(a, bl)
+                torch.bmm(a, bh)
+    return run
+
+
+# the band stack's row counts: a streaming block of 128 rows for 1 and 64
+# streams, and the batch of 256 x 500 frames
+BAND_ROWS = (128, 128 * 64, 256 * 500)
+
+
+def check_bands(tsr, dev) -> dict:
+    """Kernels A and A′ (3 passes) with the band index on a 3BT package's
+    band stack (13 nets of 31->1500->138): held to their plain versions
+    (the single net's, band by band) at each of BAND_ROWS, and the stack
+    timed three ways with the card held while the host enqueues
+    (scan_variants.held_ms: at a streaming block a launch is shorter than
+    its wrapper's host work): one band-indexed launch, one launch a band,
+    and the two torch.bmm products (the library).  Returns per kernel the
+    batch shape's numbers for the kernels line."""
+    st = tsr.estimator.bands
+    nb, out = st.n_bands, {}
+    rng = np.random.default_rng(31)
+    mode = precision.get_mode()
+    for name, passes, tol in (("mlp_fused", 0, TOL_SOFTMAX),
+                              ("mlp_bf16x3", 3, TOL_SOFTMAX)):
+        precision.set_mode("high" if passes else "highest")
+        mod = mlp_bf16x3 if passes else mlp_fused
+        for rows in BAND_ROWS:
+            z = rng.standard_normal((nb, rows, st.n_inp), np.float32)
+            x = (torch.from_numpy(z).to(dev) / st.dev[:, None]
+                 + st.mean[:, None]).contiguous()
+            before = mod.BAND_LAUNCHES
+            got = st(x)
+            want = st(x, plain=True)
+            per = torch.stack([_band_single(st, x, b, passes)
+                               for b in range(nb)])
+            torch.cuda.synchronize()
+            if mod.BAND_LAUNCHES != before + 1:
+                raise AssertionError(f"{name}: the band stack took "
+                                     f"{mod.BAND_LAUNCHES - before} launches")
+            err = float((got - want).abs().max())
+            rec = dict(kernel=name, passes=passes, bands=nb, rows=rows,
+                       max_abs_err=err, tol=tol,
+                       per_band_max_abs_diff=float((got - per).abs().max()),
+                       ms=scan_variants.held_ms(lambda: st(x)),
+                       per_band_ms=scan_variants.held_ms(lambda: [
+                           _band_single(st, x, b, passes)
+                           for b in range(nb)]),
+                       library_ms=scan_variants.held_ms(
+                           _band_library(st, x, passes)),
+                       plain_ms=cuda_ms(lambda: st(x, plain=True), iters=2,
+                                        warmup=1))
+            phase("traps_band_cases", **rec)
+            if not torch.isfinite(got).all() or not err <= tol:
+                raise AssertionError(f"{name} bands rows={rows}: err {err}")
+            if rows == BAND_ROWS[-1]:
+                b_, o_ = mlp_work(st, rows * nb, passes)
+                out[name] = dict(
+                    max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                    per_band_ms=rec["per_band_ms"], shape=f"{nb} x {rows} "
+                    f"rows x {st.n_inp}->{st.n_hid}->{st.n_out}",
+                    **bound(b_ + 4 * (nb - 1) * (
+                        st.n_inp * st.n_hid + st.n_hid * st.n_out),
+                        o_, PEAK_BF16 if passes else PEAK_FP32),
+                    library_ms_bmm=rec["library_ms"])
+    precision.set_mode(mode)
+    return out
 
 
 def check_mlp_bf16x3(sr, dev, a_ms: dict) -> dict:
@@ -834,11 +938,12 @@ def run_cli(pkg: str, tmp: str, cpu_sr, dev) -> dict:
     return launches
 
 
-def timed_batch(sr, dev, B: int = 1024, reference=None):
+def timed_batch(sr, dev, B: int = 1024, reference=None, name="batch"):
     """BatchPipeline._core at batch B x 5 s in the current precision mode,
     per-stage CUDA events; 8 rows again through the plain versions on the
     card.  Returns the labels; given ``reference`` labels (another mode's),
-    counts the utterances whose label strings and boundaries agree."""
+    counts the utterances whose label strings and boundaries agree.
+    ``name`` names the phase (another package's batch)."""
     from phnrec_tpu_torch.parallel.batch import BatchPipeline
     n = 5 * 8000
     rng = np.random.default_rng(12)
@@ -879,7 +984,7 @@ def timed_batch(sr, dev, B: int = 1024, reference=None):
                                 for a, b in zip(labels, reference)),
         labels=sum(map(len, labels)),
         reference_labels=sum(map(len, reference)))
-    phase("batch", precision=precision.get_mode(), batch=B, seconds_each=5,
+    phase(name, precision=precision.get_mode(), batch=B, seconds_each=5,
           frames=max_frames, audio_s_per_s=B * 5 / wall, wall_s=wall,
           stage_ms=stages, max_memory_allocated_bytes=peak,
           labels_per_utt=float(np.mean([len(l) for l in labels])),
@@ -1084,6 +1189,52 @@ def check_lrtrace(c, b_out, dev, n: int = 256, F: int = 512):
     if bad:
         raise AssertionError(f"lrtrace cases differ: {bad}")
     return res
+
+
+# LRTrace's settings (improveKwdEstim, keyword 0's quirk), the serving
+# defaults first
+LRTRACE_SETTINGS = ((False, True), (True, True), (False, False),
+                    (True, False))
+
+
+def _setting(s) -> str:
+    return f"improve={int(s[0])},quirk={int(s[1])}"
+
+
+def check_lrtrace_settings(dev) -> dict:
+    """Kernel F at each pair of LRTrace's settings against its plain
+    version at the same pair, every field bit-equal: n 1 and 256 streams,
+    K 2 and 200 keywords (groups of 128 past 128), F 256, time pruning 40,
+    on records built to flush often; then each pair's held time at n 256
+    x F 512 x K 2 (scan_variants.serving_lrtrace), in turns, the default
+    first and last."""
+    cases, bad = [], []
+    for n in (1, 256):
+        for K in (2, 200):
+            args = scan_variants.lrtrace_case(dev, n, 256, K, K + 2,
+                                              seed=n + K)
+            for s in LRTRACE_SETTINGS:
+                got = lrtrace.lrtrace_scan(*args, 40, -1e30, *s)
+                want = lrtrace.lrtrace_scan_plain(*args, 40, -1e30, *s)
+                torch.cuda.synchronize()
+                eq = scan_variants.lrtrace_equal(got, want)
+                ok = all(eq.values())
+                cases.append(dict(n=n, K=K, setting=_setting(s), equal=ok,
+                                  emits=[int(got[1][r]["emit"].sum())
+                                         for r in range(2)]))
+                if not ok:
+                    bad.append(dict(cases[-1], fields=[
+                        k for k, v in eq.items() if not v]))
+    args = scan_variants.serving_lrtrace(dev)
+    held = {_setting(s): [] for s in LRTRACE_SETTINGS}
+    for s in LRTRACE_SETTINGS + LRTRACE_SETTINGS[::-1]:
+        held[_setting(s)].append(scan_variants.held_ms(
+            lambda: lrtrace.lrtrace_scan(*args, *s)))
+    phase("lrtrace_settings_cases", cases=cases, equal=not bad, bad=bad,
+          timed=dict(n=256, F=512, K=2), held_ms_in_turns=held)
+    if bad:
+        raise AssertionError(f"lrtrace settings differ: {bad}")
+    return {k: float(np.mean(v)) for k, v in held.items()}
 
 
 class _Capture(MultiStreamKWS):
@@ -1630,7 +1781,7 @@ def check_netscan_cases(nets: dict, dev) -> None:
     """Kernels G and H against their plain versions, bit for bit (carry,
     all nine records of every frame, the walk's five outputs): the CZ
     phoneme loop at B 256 x T 500 with ragged rows; the EN KWS net at B 8
-    x T 6,000; tie-heavy observations with signed zeros; a tight beam
+    x T 3,000; tie-heavy observations with signed zeros; a tight beam
     differing by row; a carried second block at t0 > 0 differing by row;
     the CZ loop with its per-row values forced to device memory; a random
     word network of 1,500 models whose per-row values do not fit shared
@@ -1640,7 +1791,7 @@ def check_netscan_cases(nets: dict, dev) -> None:
     rng = np.random.default_rng(41)
     cases = [
         ("cz_256x500", cz, dict(B=256, T=500, seed=1)),
-        ("en_kws_8x6000", en, dict(B=8, T=6000, seed=2)),
+        ("en_kws_8x3000", en, dict(B=8, T=3000, seed=2)),
         ("cz_ties", cz, dict(B=13, T=200, seed=3, ties=True)),
         ("en_ties_tight_beam", en, dict(B=8, T=300, seed=4, ties=True,
                                         beam=np.full(8, 2.0))),
@@ -1875,6 +2026,186 @@ def stk_batch(sr, dev, clk: dict, B: int = 256):
     if not all(same_plain) or not all(same_again):
         raise AssertionError("stkint batch labels differ from the plain "
                              "versions or from decode_batch")
+
+
+def traps_cli(pkg: str, name: str, tmp: str, dev, n: int = 16) -> dict:
+    """n seeded int16 files of 1-8 s through the CLI with a 3BT, 1BT,
+    1BT_DCT or PLP package (``--device cuda``): every file's labels equal
+    the CPU port's (plain versions) on the same list, and kernel A is
+    launched (with the band index for 3BT / 1BT).  Returns the launches."""
+    from phnrec_tpu_torch import cli
+    wav_dir = os.path.join(tmp, f"wav_{name}")
+    os.makedirs(wav_dir)
+    paths = synth.write_audio_files(wav_dir, n, (1.0, 8.0), seed=13)
+    lst = os.path.join(tmp, f"list_{name}.scp")
+    with open(lst, "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    mlf, ref = (os.path.join(tmp, f"{name}_{d}.mlf") for d in ("gpu", "cpu"))
+    reset_counts(BATCH_KERNELS)
+    before = mlp_fused.BAND_LAUNCHES
+    t = time.perf_counter()
+    rc = cli.main(["-c", pkg, "-l", lst, "-m", mlf, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(read_counts(BATCH_KERNELS),
+                    mlp_fused_bands=mlp_fused.BAND_LAUNCHES - before)
+    if rc != 0:
+        raise AssertionError(f"cli returned {rc}")
+    SpeechRec(pkg, device="cpu").process_file_list("wf", "str", lst, ref)
+    got, want = read_mlf(mlf), read_mlf(ref)
+    same = list(got) == list(want) and all(
+        label_key(got[k]) == label_key(want[k]) for k in want)
+    bands = name in ("3BT", "1BT")
+    phase("traps_cli", system=name, files=n,
+          audio_s=sum(os.path.getsize(p) / 2 / 8000 for p in paths),
+          wall_s=wall, labels=sum(len(v) for v in got.values()),
+          launches=launches, cpu_labels_equal=same)
+    if not same:
+        raise AssertionError(f"{name}: CLI labels differ from the CPU port")
+    if any(launches[k] == 0 for k in BATCH_KERNELS) or \
+            (launches["mlp_fused_bands"] > 0) != bands:
+        raise AssertionError(f"{name}: launches {launches}")
+    return launches
+
+
+def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
+                         chunk_s: float = 0.25, block: int = 128) -> dict:
+    """StreamingRecognizer on the CZ stkint loop (decode mode): one
+    stream of ``seconds`` fed in ``chunk_s`` chunks, blocks of ``block``
+    frames, settled results polled every second; once with no commit (a
+    horizon past the stream) and once with the default horizon, which
+    commits.  The labels equal the CPU port's stream replayed block by
+    block on the card's log-posteriors (kernels G bit-equal to its plain
+    version, the same host walks and commits).  Returns the launches of
+    the committing run."""
+    rng = np.random.default_rng(41)
+    raw = synth.synth_audio(rng, int(seconds * 8000)).astype("<i2").tobytes()
+    chunk = int(chunk_s * 8000) * 2
+    names = ("mlp_fused", "netscan")
+    out = {}
+    for commits in (False, True):
+        rec = StreamingRecognizer(sr, block_frames=block)
+        if not commits:
+            rec._stk_horizon = 10 ** 9
+        lps, run = [], rec._run_stk_block
+        rec._run_stk_block = lambda lp: (lps.append(lp.clone()), run(lp))
+        peak, polls = 0, 0
+        reset_counts(names)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(0, len(raw), chunk):
+            rec.process(raw[i: i + chunk])
+            if (i // chunk) % round(1 / chunk_s) == 0:
+                polls = len(rec.results(settled_only=True))
+            peak = max(peak, rec._stk_retained())
+        labels = rec.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_counts(names)
+        cpu = StreamingRecognizer(cpu_sr, block_frames=block)
+        cpu._stk_horizon = rec._stk_horizon
+        for lp in lps:
+            cpu._decode(lp.cpu(), lp.shape[0])
+        want = cpu.results()
+        same = full_key(labels) == full_key(want)
+        phase("stk_streaming_vs_cpu", seconds=seconds, chunk_s=chunk_s,
+              block_frames=block, commits=commits,
+              horizon=min(rec._stk_horizon, rec._n_decoded),
+              frames=rec._n_decoded, blocks=len(lps), wall_s=wall,
+              audio_s_per_s=seconds / wall, labels=len(labels),
+              last_settled=polls, committed=rec.committed_count,
+              peak_retained_rows=peak, launches=launches, cpu_equal=same)
+        if not same or not labels:
+            raise AssertionError("stkint streaming labels differ from the "
+                                 "CPU port on the card's log-posteriors")
+        if commits and (rec.committed_count == 0 or peak > rec._stk_horizon
+                        + 2 * block):
+            raise AssertionError(f"committed {rec.committed_count}, peak "
+                                 f"{peak} rows")
+        if launches["netscan"] != len(lps) or launches["mlp_fused"] == 0:
+            raise AssertionError(f"launches {launches}")
+        out = launches
+    return out
+
+
+def stk_live_kws_vs_cpu(sr, cpu_sr, dev, seconds: float = 30.0,
+                        chunk_s: float = 0.25, block: int = 128) -> dict:
+    """Live KWS through StreamingRecognizer (the EN KWS package): each
+    block's sink records feed the recognizer's DeviceKWSTracker (kernel F
+    at n = 1, the serving settings) and three more trackers with LRTrace's
+    other settings; hits polled every chunk (kws_hits_so_far).  The
+    recognizer's hits equal the CPU port's stream replayed on the card's
+    log-posteriors, and every tracker's hits equal a CPU tracker's (F's
+    plain version, same settings) on the card's sink records.  Returns
+    the launches."""
+    fs = sr.frontend.spec.sample_freq
+    rng = np.random.default_rng(43)
+    raw = synth.synth_audio(rng, int(seconds * fs), fs).astype(
+        "<i2").tobytes()
+    chunk = int(chunk_s * fs) * 2
+    rec = StreamingRecognizer(sr, block_frames=block)
+    stk = sr.stk_decoder
+    c = stk.compiled
+    kw = dict(word_sinks=c.kws_word_sinks, filler_sink=c.kws_filler_sink)
+    trackers = {_setting(LRTRACE_SETTINGS[0]): rec._kws_tracker}
+    for s in LRTRACE_SETTINGS[1:]:
+        trackers[_setting(s)] = DeviceKWSTracker(
+            stk.keywords(), stk.time_pruning, stk.kws_score_pruning, *s,
+            device=dev, **kw)
+    sinks, lps = [], []
+    feed, run = rec._kws_tracker.feed_sinks, rec._run_stk_block
+
+    def fan(sv, sw):
+        sinks.append((sv.clone(), sw.clone()))
+        feed(sv, sw)
+        for k, tr in trackers.items():
+            if tr is not rec._kws_tracker:
+                tr.feed_sinks(sv, sw)
+
+    rec._kws_tracker.feed_sinks = fan
+    rec._run_stk_block = lambda lp: (lps.append(lp.clone()), run(lp))
+    names = ("mlp_fused", "netscan", "lrtrace")
+    reset_counts(names)
+    live = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(0, len(raw), chunk):
+        rec.process(raw[i: i + chunk])
+        live += rec.kws_hits_so_far()
+    hits = rec.finish()
+    live += rec.kws_hits_so_far()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for tr in trackers.values():
+        tr.finish()
+    launches = read_counts(names)
+    cpu = StreamingRecognizer(cpu_sr, block_frames=block)
+    for lp in lps:
+        cpu._decode(lp.cpu(), lp.shape[0])
+    same = full_key(hits) == full_key(cpu.results()) and \
+        label_key(live) == label_key(hits)
+    per_setting = {}
+    for name, tr in trackers.items():
+        imp, q = LRTRACE_SETTINGS[[_setting(s) for s in
+                                   LRTRACE_SETTINGS].index(name)]
+        ref = DeviceKWSTracker(stk.keywords(), stk.time_pruning,
+                               stk.kws_score_pruning, imp, q, **kw)
+        for sv, sw in sinks:
+            ref.feed_sinks(sv.cpu(), sw.cpu())
+        ref.finish()
+        per_setting[name] = dict(hits=len(tr.hits), cpu_equal=[
+            vars(h) for h in tr.hits] == [vars(h) for h in ref.hits])
+    phase("stk_live_kws_vs_cpu", seconds=seconds, chunk_s=chunk_s,
+          block_frames=block, keywords=stk.keywords(), blocks=len(lps),
+          wall_s=wall, audio_s_per_s=seconds / wall, hits=len(hits),
+          live_hits=len(live), launches=launches, cpu_equal=same,
+          settings=per_setting)
+    if not same or not all(v["cpu_equal"] for v in per_setting.values()):
+        raise AssertionError("live KWS hits differ from the CPU port")
+    if launches["lrtrace"] != len(LRTRACE_SETTINGS) * len(lps) or \
+            launches["netscan"] != len(lps):
+        raise AssertionError(f"launches {launches}, {len(lps)} blocks")
+    return launches
 
 
 def stk_kws_files(en_sr, en_cpu, tmp, dev, n: int = 8) -> dict:
@@ -2498,7 +2829,8 @@ def main() -> int:
             os.path.join(tmp, "cz_stk_serving"), "cz", seed=0,
             sent_norm=False)
         sd_sr = SpeechRec(sd_pkg, device=dev)
-        stk_serving_vs_cpu(sd_sr, SpeechRec(sd_pkg, device="cpu"), dev)
+        sd_cpu = SpeechRec(sd_pkg, device="cpu")
+        stk_serving_vs_cpu(sd_sr, sd_cpu, dev)
         serve, results["nettrace"]["int16"]["serving_walks"] = \
             stk_serving(sd_sr, dev)
         launches["netdecode"] = serve["netdecode"]
@@ -2510,6 +2842,28 @@ def main() -> int:
             kws_vs_cpu(SpeechRec(kpkg, device=dev),
                        SpeechRec(kpkg, device="cpu"), dev, path, name,
                        seed=33)
+
+        # single-stream stkint streaming: decode on the CZ loop (G, the
+        # host's commits), live KWS on the EN package (G, then F at each
+        # pair of LRTrace's settings)
+        stk_streaming_vs_cpu(sd_sr, sd_cpu, dev)
+        stk_live_kws_vs_cpu(en_sr, en_cpu, dev)
+        results["lrtrace"]["settings_held_ms"] = check_lrtrace_settings(dev)
+
+        # the other posterior systems at the CZ widths, and PLP (order 12
+        # into the LCRC estimator): the band stack on the band-indexed A /
+        # A′, the CLI against the CPU port, a timed batch each
+        tpkgs = {name: synth.write_traps_package(
+            os.path.join(tmp, name), name, "cz", seed=0)
+            for name in ("3BT", "1BT", "1BT_DCT")}
+        tpkgs["PLP"] = synth.write_lcrc_package(os.path.join(tmp, "plp"),
+                                                "cz", seed=0, plp=True)
+        tsrs = {k: SpeechRec(v, device=dev) for k, v in tpkgs.items()}
+        for k, v in check_bands(tsrs["3BT"], dev).items():
+            results[k]["bands"] = v
+        for name, pkg in tpkgs.items():
+            traps_cli(pkg, name, tmp, dev)
+            timed_batch(tsrs[name], dev, B=256, name=f"batch_{name}")
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")

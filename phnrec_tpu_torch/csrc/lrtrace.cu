@@ -409,13 +409,16 @@ cudaError_t launch(Args a, const Group& grp, cudaStream_t st) {
 template <int G, bool IMP, bool Q>
 cudaError_t launch_kpl(const Args& a, const Group& grp, cudaStream_t st) {
   // the first of several groups holds MAX_K keywords
-  if constexpr (G == G_FIRST) return launch<MAX_K / 32, G, IMP, Q>(a, grp, st);
-  switch ((a.K + 31) / 32) {
-    case 1: return launch<1, G, IMP, Q>(a, grp, st);
-    case 2: return launch<2, G, IMP, Q>(a, grp, st);
-    case 3: return launch<3, G, IMP, Q>(a, grp, st);
-    case 4: return launch<4, G, IMP, Q>(a, grp, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (G == G_FIRST) {
+    return launch<MAX_K / 32, G, IMP, Q>(a, grp, st);
+  } else {
+    switch ((a.K + 31) / 32) {
+      case 1: return launch<1, G, IMP, Q>(a, grp, st);
+      case 2: return launch<2, G, IMP, Q>(a, grp, st);
+      case 3: return launch<3, G, IMP, Q>(a, grp, st);
+      case 4: return launch<4, G, IMP, Q>(a, grp, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -431,9 +434,12 @@ cudaError_t launch_groups(Args a, Group grp, cudaStream_t st) {
     grp.k0 = k0;
     a.K = std::min(MAX_K, K - k0);
     a.ws = ws + k0;
-    const cudaError_t err =
-        k0 == 0 && Q ? launch_kpl<G_FIRST, IMP, Q>(a, grp, st)
-                     : launch_kpl<G_LATER, IMP, Q>(a, grp, st);
+    cudaError_t err;
+    if constexpr (Q)
+      err = k0 == 0 ? launch_kpl<G_FIRST, IMP, Q>(a, grp, st)
+                    : launch_kpl<G_LATER, IMP, Q>(a, grp, st);
+    else
+      err = launch_kpl<G_LATER, IMP, Q>(a, grp, st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -104,8 +104,9 @@
 // A band stack (phn_mlp_bf16x3_bands, the 3BT / 1BT band nets) runs as one
 // launch, as in kernel A: a second grid dimension over the nets, each
 // block advancing x, mean, dev, the four weight halves, b1, b2 and out by
-// its net's stride (Band) first.  A single net has one band and zero
-// strides.
+// its net's stride (Band) first; the band index a template parameter
+// (BANDS), as in kernel A, so the single net's instances keep their
+// registers.
 //
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit, as in kernel A.
 // Build without --use_fast_math.
@@ -316,8 +317,8 @@ struct Band {
 };
 
 // fast and softmax are uniform over the grid: run-time flags, so that the
-// source compiles one kernel per (RT, NP, PASSES)
-template <int RT, int NP, int PASSES>
+// source compiles one kernel per (RT, NP, PASSES) and band index or none
+template <int RT, int NP, int PASSES, bool BANDS>
 __global__ void __launch_bounds__(RT / 16 * WS * 32,
                                   (RT == 64 && NP == NP_NARROW) ? 2 : 1)
 mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
@@ -325,17 +326,19 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                   const float* __restrict__ b1, const float* __restrict__ b2,
                   float* __restrict__ out, int n_rows, int n_inp, int n_hid,
                   int n_out, bool fast, bool softmax, const Band bd) {
-  // this block's band net (blockIdx.y; 0 for a single net)
-  x += blockIdx.y * bd.x;
-  mean += blockIdx.y * bd.vec;
-  dev += blockIdx.y * bd.vec;
-  w.w1h += blockIdx.y * bd.w1;
-  w.w1l += blockIdx.y * bd.w1;
-  w.w2h += blockIdx.y * bd.w2;
-  w.w2l += blockIdx.y * bd.w2;
-  b1 += blockIdx.y * bd.b1;
-  b2 += blockIdx.y * bd.b2;
-  out += blockIdx.y * bd.out;
+  if (BANDS) {
+    // this block's band net
+    x += blockIdx.y * bd.x;
+    mean += blockIdx.y * bd.vec;
+    dev += blockIdx.y * bd.vec;
+    w.w1h += blockIdx.y * bd.w1;
+    w.w1l += blockIdx.y * bd.w1;
+    w.w2h += blockIdx.y * bd.w2;
+    w.w2l += blockIdx.y * bd.w2;
+    b1 += blockIdx.y * bd.b1;
+    b2 += blockIdx.y * bd.b2;
+    out += blockIdx.y * bd.out;
+  }
   constexpr int NS = RT / 16;          // stripes of 16 rows
   constexpr int NW = NS * WS;
   constexpr int NT = NW * 32;
@@ -704,14 +707,14 @@ cudaError_t wide(const float* x, const float* mean, const float* dev,
   return cudaGetLastError();
 }
 
-template <int RT, int NP, int PASSES>
-cudaError_t launch(const float* x, const float* mean, const float* dev,
-                   const Slabs& w, const float* b1, const float* b2,
-                   float* out, int n_rows, int n_inp, int n_hid, int n_out,
-                   bool fast, bool softmax, int n_bands, const Band& bd,
-                   cudaStream_t stream) {
+template <int RT, int NP, int PASSES, bool BANDS>
+cudaError_t launch_one(const float* x, const float* mean, const float* dev,
+                       const Slabs& w, const float* b1, const float* b2,
+                       float* out, int n_rows, int n_inp, int n_hid,
+                       int n_out, bool fast, bool softmax, int n_bands,
+                       const Band& bd, cudaStream_t stream) {
   const size_t smem = smem_bytes(RT, w.kp, w.op, w.ks2, PASSES);
-  auto kern = mlp_bf16x3_kernel<RT, NP, PASSES>;
+  auto kern = mlp_bf16x3_kernel<RT, NP, PASSES, BANDS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -722,6 +725,22 @@ cudaError_t launch(const float* x, const float* mean, const float* dev,
       x, mean, dev, w, b1, b2, out, n_rows, n_inp, n_hid, n_out, fast,
       softmax, bd);
   return cudaGetLastError();
+}
+
+template <int RT, int NP, int PASSES>
+cudaError_t launch(const float* x, const float* mean, const float* dev,
+                   const Slabs& w, const float* b1, const float* b2,
+                   float* out, int n_rows, int n_inp, int n_hid, int n_out,
+                   bool fast, bool softmax, int n_bands, const Band& bd,
+                   cudaStream_t stream) {
+  if (n_bands > 1)
+    return launch_one<RT, NP, PASSES, true>(x, mean, dev, w, b1, b2, out,
+                                            n_rows, n_inp, n_hid, n_out,
+                                            fast, softmax, n_bands, bd,
+                                            stream);
+  return launch_one<RT, NP, PASSES, false>(x, mean, dev, w, b1, b2, out,
+                                           n_rows, n_inp, n_hid, n_out, fast,
+                                           softmax, 1, bd, stream);
 }
 
 // the 128-row tile with 64-unit W2 slabs where it fits and the call has

@@ -76,7 +76,10 @@
 // runs as one launch: a second grid dimension over the nets, each block
 // advancing x, mean, dev, W1, b1, W2, b2 and out by its net's stride
 // (Band) before it starts, so every net's rows are the single net's
-// kernel above.  A single net has one band and zero strides.
+// kernel above.  The band index is a template parameter (BANDS): the
+// advanced pointers take registers (kernel params cost none), which
+// spilled at the 128-row tile and cost the single net ~5% when every
+// instance carried them.
 //
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit: one float32
 // multiply by the float32-rounded constant, a saturating truncation
@@ -215,8 +218,8 @@ struct Band {
 };
 
 // fast and softmax are uniform over the grid: run-time flags, so that the
-// source compiles one kernel per (RT, NQ)
-template <int RT, int NQ>
+// source compiles one kernel per (RT, NQ) and band index or none
+template <int RT, int NQ, bool BANDS>
 __global__ void
 __launch_bounds__(RT * 4, (RT == 64 && NQ <= MAX_NQ_WIDE) ? 2 : 1)
 mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
@@ -225,15 +228,17 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ b2, float* __restrict__ out,
                  int n_rows, int n_inp, int n_hid, int n_out, bool fast,
                  bool softmax, const Band bd) {
-  // this block's band net (blockIdx.y; 0 for a single net)
-  x += blockIdx.y * bd.x;
-  mean += blockIdx.y * bd.vec;
-  dev += blockIdx.y * bd.vec;
-  w1 += blockIdx.y * bd.w1;
-  b1 += blockIdx.y * bd.b1;
-  w2 += blockIdx.y * bd.w2;
-  b2 += blockIdx.y * bd.b2;
-  out += blockIdx.y * bd.out;
+  if (BANDS) {
+    // this block's band net
+    x += blockIdx.y * bd.x;
+    mean += blockIdx.y * bd.vec;
+    dev += blockIdx.y * bd.vec;
+    w1 += blockIdx.y * bd.w1;
+    b1 += blockIdx.y * bd.b1;
+    w2 += blockIdx.y * bd.w2;
+    b2 += blockIdx.y * bd.b2;
+    out += blockIdx.y * bd.out;
+  }
   constexpr int NT = RT * 4;     // threads per block
   constexpr int HS = RT + 4;     // row stride of the h chunk
   constexpr int R2 = 8;          // phase 2: rows per warp (x NQ columns)
@@ -532,14 +537,14 @@ cudaError_t gemm(const float* a, const float* mean, const float* dev,
   return cudaGetLastError();
 }
 
-template <int RT, int NQ>
+template <int RT, int NQ, bool BANDS>
 cudaError_t launch(const float* x, const float* mean, const float* dev,
                    const float* w1, const float* b1, const float* w2,
                    const float* b2, float* out, int n_rows, int n_inp,
                    int n_hid, int n_out, bool fast, bool softmax,
                    int n_bands, const Band& bd, cudaStream_t stream) {
   const size_t smem = smem_bytes(RT, n_inp, n_out);
-  auto kern = mlp_fused_kernel<RT, NQ>;
+  auto kern = mlp_fused_kernel<RT, NQ, BANDS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -565,11 +570,15 @@ cudaError_t dispatch(const float* x, const float* mean, const float* dev,
   const bool wide = nq <= MAX_NQ_WIDE &&
                     (long long)n_rows * n_bands >= WIDE_MIN_ROWS &&
                     smem_bytes(128, n_inp, n_out) <= SMEM_MAX;
-#define PHN_CASE(RT, N)                                                 \
-  case N:                                                               \
-    return launch<RT, N>(x, mean, dev, w1, b1, w2, b2, out, n_rows,    \
-                         n_inp, n_hid, n_out, fast, softmax, n_bands,  \
-                         bd, s);
+#define PHN_CASE(RT, N)                                                   \
+  case N:                                                                 \
+    return n_bands > 1                                                    \
+               ? launch<RT, N, true>(x, mean, dev, w1, b1, w2, b2, out,   \
+                                     n_rows, n_inp, n_hid, n_out, fast,   \
+                                     softmax, n_bands, bd, s)             \
+               : launch<RT, N, false>(x, mean, dev, w1, b1, w2, b2, out,  \
+                                      n_rows, n_inp, n_hid, n_out, fast,  \
+                                      softmax, 1, bd, s);
   if (wide) {
     switch (nq) {
       PHN_CASE(128, 4) PHN_CASE(128, 5)

@@ -335,13 +335,15 @@ def _input_xform_mmf(D: int) -> str:
 
 
 def _stkint_package(root, shape: str, seed: int, extra: str, sent_norm,
-                    input_xform: bool) -> Path:
-    """The LCRC package of ``shape`` as an stkint package with the config
-    lines ``extra``.  With ``input_xform`` the HMM set is written here (the
-    phoneme-list HMMs netgen generates, then ``_input_xform_mmf``) instead
-    of at load time."""
+                    input_xform: bool, system: str = "LCRC") -> Path:
+    """The ``system`` package of ``shape`` (LCRC, 3BT, 1BT or 1BT_DCT) as
+    an stkint package with the config lines ``extra``.  With
+    ``input_xform`` the HMM set is written here (the phoneme-list HMMs
+    netgen generates, then ``_input_xform_mmf``) instead of at load
+    time."""
     from phnrec_tpu_torch.netgen import phn_list_to_hmm_defs
-    pkg = Path(write_lcrc_package(root, shape, seed, sent_norm=sent_norm))
+    pkg = Path(_write_package(root, shape, seed, "lin16", sent_norm, system,
+                              False))
     (pkg / "tmp").mkdir(exist_ok=True)
     cfg = (pkg / "config").read_text().replace("type=phndec", "type=stkint")
     if input_xform:
@@ -377,14 +379,14 @@ def write_kws_package(root, shape: str = "tiny", seed: int = 0,
 
 
 def write_stk_decode_package(root, shape: str = "tiny", seed: int = 0,
-                             input_xform: bool = False,
-                             sent_norm=None) -> str:
-    """Write a synthetic stkint decode package under ``root`` (the LCRC
-    package of ``shape`` decoded by the STK network decoder over the
-    generated phoneme loop); returns its path.  ``input_xform`` and
-    ``sent_norm`` as for write_kws_package."""
+                             input_xform: bool = False, sent_norm=None,
+                             system: str = "LCRC") -> str:
+    """Write a synthetic stkint decode package under ``root`` (the
+    ``system`` package of ``shape`` decoded by the STK network decoder
+    over the generated phoneme loop); returns its path.  ``input_xform``
+    and ``sent_norm`` as for write_kws_package."""
     return str(_stkint_package(root, shape, seed, STK_DECODE_CONFIG,
-                               sent_norm, input_xform))
+                               sent_norm, input_xform, system))
 
 
 def dense_kws_net(M: int, S_M: int, S: int, seed: int = 0):

@@ -17,6 +17,10 @@ phnrec_tpu on the same inputs.
   serving on a 3BT and a 1BT_DCT package: labels equal in names and
   boundaries, scores within TOL_SCORE (log-posteriors differ by a few
   1e-5, as for the LCRC package).
+* The serving posterior block of each traps system (what the streaming
+  recognizer and the multi-stream servers call) within TOL_LP of
+  phnrec_tpu's; MultiStreamStkDecode on a 1BT stkint package gives its
+  labels.
 * The band stack's plain version equals per-band calls of the single
   net's plain version, for kernel A and A′ at both pass counts, and the
   converters carry phnrec_tpu's objects into equal port objects."""
@@ -53,6 +57,9 @@ TRAP_LEN = 31
 NB, HID, OUT = 5, 16, 7
 TOL_POST = 5e-6
 TOL_PLP = 2e-4
+# log-posteriors after both softenings (ln amplifies small posteriors'
+# relative error): measured up to 1.5e-5 at magnitudes up to 19
+TOL_LP = 1e-4
 TOL_SCORE = 2e-3
 
 
@@ -287,6 +294,47 @@ def test_streaming_and_multistream_match_jax(pkgs, name):
 
     got = serve(MultiStreamRecognizer(sr, 2, block_frames=32))
     want = serve(JMS(jsr, 2, block_frames=32))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+
+
+@pytest.mark.parametrize("name", ["3BT", "1BT", "1BT_DCT"])
+def test_posterior_block_fn_matches_jax(pkgs, name):
+    """The serving posterior block (what StreamingRecognizer and the three
+    multi-stream servers call) of a traps package, batched over streams,
+    within TOL_LP of phnrec_tpu's vmapped block on the same contexts."""
+    from phnrec_tpu.streaming import _make_posterior_block_fn as jblock
+    from phnrec_tpu_torch.streaming import _make_posterior_block_fn
+    sr, jsr = SpeechRec(pkgs[name], device="cpu"), JSpeechRec(pkgs[name])
+    rng = np.random.default_rng(9)
+    ctx = rng.standard_normal((3, 30 + 24, 5)).astype(np.float32)
+    want = np.asarray(jax.vmap(jblock(jsr))(jnp.asarray(ctx)))
+    got = _make_posterior_block_fn(sr)(torch.from_numpy(ctx)).numpy()
+    assert got.shape == want.shape == (3, 24, 12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL_LP)
+
+
+def test_multistream_stk_decode_on_1bt(tmp_path):
+    """MultiStreamStkDecode takes a 1BT stkint decode package (the traps
+    branch of its posterior block) and gives phnrec_tpu's labels."""
+    from phnrec_tpu.multistream import MultiStreamStkDecode as JMSD
+    from phnrec_tpu_torch.multistream import MultiStreamStkDecode
+    pkg = synth.write_stk_decode_package(tmp_path / "p", "tiny",
+                                         sent_norm=False, system="1BT")
+    sr, jsr = SpeechRec(pkg, device="cpu"), JSpeechRec(pkg)
+    rng = np.random.default_rng(8)
+    raws = [synth.synth_audio(rng, n).astype("<i2").tobytes()
+            for n in (20000, 11001)]
+
+    def serve(ms):
+        for i, r in enumerate(raws):
+            ms.process(i, r)
+            ms.end_stream(i)
+        return ms.finish()
+
+    got = serve(MultiStreamStkDecode(sr, 2, block_frames=32))
+    want = serve(JMSD(jsr, 2, block_frames=32))
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         _assert_same(g, w)
