@@ -15,7 +15,7 @@ and D timed at the serving History), B (network-Viterbi block), F (LRTrace
 scan), G (edge-list network scan), H (its traceback, on a case list of
 networks, ties, beams, carried blocks and committed boundaries; its int16
 instance on E's records) and E (the decode-mode network block).  Then it
-drives five paths of the port:
+drives seven paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
   the CZ SpeechDat LCRC shapes (64 files), and times a batch of 1024 x 5 s
@@ -44,7 +44,18 @@ drives five paths of the port:
   512 frames with the default record horizon, then finish(), timed; and
   the KWS server on two more EN packages, one with a global <InputXform>
   (kernel B), one with 300 keywords (past 1,024 models + states: kernels G
-  and F), each held against the CPU port.
+  and F), each held against the CPU port;
+* single-stream stkint streaming (StreamingRecognizer, kernels A and G;
+  in KWS mode F through DeviceKWSTracker): one CZ stkint stream of 60 s
+  in 0.25 s chunks without and with commits, and 30 s of live KWS on the
+  EN package with a tracker at each pair of LRTrace's settings, held
+  against the CPU port's replay of the card's log-posteriors and sink
+  records; kernel F at each setting pair against its plain version;
+* the other posterior systems at the CZ widths (3BT, 1BT, 1BT_DCT) and
+  the PLP frontend: the 3BT band stack on kernels A and A′ with the band
+  index against their plain versions, timed three ways; 16 files a
+  system through the CLI held against the CPU port, a timed batch of 256
+  x 5 s each, and the 3BT batch again at "high" (A′'s band stack).
 
 It prints one JSON line of kernel results, each kernel with its launches
 on a path of this run and its time beside its bound (the larger of its
@@ -2864,6 +2875,15 @@ def main() -> int:
         for name, pkg in tpkgs.items():
             traps_cli(pkg, name, tmp, dev)
             timed_batch(tsrs[name], dev, B=256, name=f"batch_{name}")
+        # the 3BT batch at "high": the band stack on kernel A′
+        precision.set_mode("high")
+        before = mlp_bf16x3.BAND_LAUNCHES
+        timed_batch(tsrs["3BT"], dev, B=256, name="batch_3BT")
+        n_high = mlp_bf16x3.BAND_LAUNCHES - before
+        phase("band_launches_high", mlp_bf16x3=n_high)
+        if not n_high:
+            raise AssertionError("kernel A′'s band stack was not launched")
+        precision.set_mode("highest")
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")

@@ -523,28 +523,11 @@ extern "C" int lrtrace_scan(
               nullptr, 0, 1, stream);
 }
 
-// The same for any K: past MAX_K keywords, `end0` is an [n, F] i32 scratch
-// row (keyword 0's candidate end a frame), one launch a group of MAX_K.
-extern "C" int lrtrace_scan_groups(
-    const void* sink_val, const void* sink_wt, const void* ws, int fs,
-    const void* n_dec, const void* n_valid, int F, int n, int S, int K,
-    int tp_on, int tp, float sp, float neg_half, const void* last_lr0,
-    const void* cand_lr0, const void* cand_start0, const void* cand_end0, const void* prev_end0, const void* dumped0,
-    void* last_lr1, void* cand_lr1, void* cand_start1, void* cand_end1,
-    void* prev_end1, void* dumped1, void* e1, void* s1, void* en1, void* sc1,
-    void* ne1, void* e2, void* s2, void* en2, void* sc2, void* ne2,
-    void* end0, void* stream) {
-  return scan(sink_val, sink_wt, ws, fs, n_dec, n_valid, F, n, S, K, tp_on,
-              tp, sp, neg_half, last_lr0, cand_lr0, cand_start0, cand_end0,
-              prev_end0, dumped0, last_lr1, cand_lr1, cand_start1, cand_end1,
-              prev_end1, dumped1, e1, s1, en1, sc1, ne1, e2, s2, en2, sc2, ne2,
-              end0, 0, 1, stream);
-}
-
-// The same with LRTrace's two settings: improve (improveKwdEstim) and
-// quirk (keyword 0's candidate end the time-pruning reference of every
-// keyword); lrtrace_scan_groups is improve 0, quirk 1.  `end0` is read
-// only past MAX_K keywords with the quirk and time pruning on.
+// The same for any K and LRTrace's two settings: improve (improveKwdEstim)
+// and quirk (keyword 0's candidate end the time-pruning reference of every
+// keyword; lrtrace_scan is improve 0, quirk 1).  Past MAX_K keywords, one
+// launch a group of MAX_K; with the quirk and time pruning on, `end0` is an
+// [n, F] i32 scratch row (keyword 0's candidate end a frame), else unread.
 extern "C" int lrtrace_scan_settings(
     const void* sink_val, const void* sink_wt, const void* ws, int fs,
     const void* n_dec, const void* n_valid, int F, int n, int S, int K,

@@ -53,7 +53,7 @@ def lifter_window(order: int, q: float) -> np.ndarray:
 
 
 class PLPFrontend(nn.Module):
-    """MelFrontend's interface; ``n_params`` = order (+1 with C0)."""
+    """MelFrontend's interface, and ``n_params`` = order (+1 with C0)."""
 
     def __init__(self, spec: MelSpec, cfg=None, order: int = 12,
                  compress_fact: float = 0.3333333, cep_lifter: float = 22.0,

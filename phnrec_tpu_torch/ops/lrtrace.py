@@ -99,9 +99,10 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
            score_pruning: float, improve_kwd_estim: bool = False,
            keyword0_time_quirk: bool = True) -> Tuple[State, Events]:
     """Launch the kernel of ``lib`` (a bound kernel-F library) on CUDA
-    tensors; raises on anything it does not take.  Counts nothing.  A
-    source without the settings' entry point (an earlier one, for
-    devtools/scan_variants.py) takes the serving defaults only."""
+    tensors; raises on anything it does not take.  Counts nothing.  An
+    earlier source (devtools/scan_variants.py compares them), without the
+    settings' entry point, takes the serving defaults through its
+    ``lrtrace_scan`` / ``lrtrace_scan_groups``."""
     device = _build.cuda_device(sink_val)
     if sink_val.dim() != 3:
         raise ValueError("sink_val must be [F, n, S]")
@@ -111,10 +112,10 @@ def launch(lib: ctypes.CDLL, state: State, sink_val: torch.Tensor,
     if K < 1 or not 0 <= filler_sink < S:
         raise ValueError(f"kernel F takes one keyword or more and a filler "
                          f"column below {S}")
-    if groups and not hasattr(lib, "lrtrace_scan_groups"):
+    settings = hasattr(lib, "lrtrace_scan_settings")
+    if groups and not settings and not hasattr(lib, "lrtrace_scan_groups"):
         raise ValueError(f"this kernel-F source takes at most "
                          f"{lib.lrtrace_max_keywords()} keywords")
-    settings = hasattr(lib, "lrtrace_scan_settings")
     if not settings and (improve_kwd_estim or not keyword0_time_quirk):
         raise ValueError("this kernel-F source takes the serving defaults "
                          "only (improve_kwd_estim off, the quirk on)")
