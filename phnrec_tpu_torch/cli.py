@@ -1,17 +1,19 @@
 """phnrec-compatible command-line interface on PyTorch (reference:
 phnrec.cpp; counterpart of phnrec_tpu/cli.py).
 
-Decodes with the package's decoder: the phoneme loop (decoder/type=phndec)
-or the STK network decoder (decoder/type=stkint; mode=decode writes word
-or phoneme labels, mode=kws keyword hits), for one file (-i/-o, or -i/-m)
-or a list (-l, with -m for one MLF or a target column for .rec files).
+Runs any stage pair of wf (raw audio) -> par (HTK features) -> post (HTK
+posteriors) -> str (labels), and decodes with the package's decoder: the
+phoneme loop (decoder/type=phndec) or the STK network decoder
+(decoder/type=stkint; mode=decode writes word or phoneme labels, mode=kws
+keyword hits), for one file (-i/-o, or -i/-m) or a list (-l, with -m for
+one MLF or a target column for the output files).
 
 Flags:
     -c dir   configuration (model package) directory
     -l file  list of files     -i file  input file    -o file  output file
     -m file  output MLF
-    -s fmt   source format (wf only)     [wf]
-    -t fmt   target format (str only)    [str]
+    -s fmt   source format (wf|par|post)   [wf]
+    -t fmt   target format (par|post|str)  [str]
     -w fmt   waveform format (lin16|alaw) override
     -p num   phoneme insertion penalty override
     -v       verbose
@@ -20,7 +22,7 @@ Flags:
     --device DEV     torch device to run on  [cuda]
 
 Not ported yet (each raises NotImplementedError): -a (live audio),
---alize, -s par|post and -t par|post (staged I/O), --profile, --trace.
+--alize, --profile, --trace.
 """
 
 from __future__ import annotations
@@ -76,10 +78,6 @@ def main(argv=None) -> int:
     if outpf not in ("par", "post", "str"):
         print(f"ERROR: Unknown target format - '{outpf}'", file=sys.stderr)
         return 1
-    if (inpf, outpf) != ("wf", "str"):
-        raise NotImplementedError(
-            f"-s {inpf} -t {outpf}: staged par/post I/O is not ported yet "
-            "(ROADMAP.md, Queue 1 item 19: serial par/post staged I/O)")
     verbose = "-v" in opt
 
     from phnrec_tpu_torch.pipeline import SpeechRec

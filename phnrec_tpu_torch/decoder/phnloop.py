@@ -21,7 +21,7 @@ Tie-breaking parity:
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -187,11 +187,14 @@ def max_segments(spec: PhnLoopSpec, max_frames: int) -> int:
 
 
 def backtrack_device(spec: PhnLoopSpec, hist: History,
-                     n_frames: torch.Tensor, plain: bool = False) -> Segments:
+                     n_frames: torch.Tensor, plain: bool = False,
+                     smax: Optional[int] = None) -> Segments:
     """PhnDec::Done (phndec.cpp:236-302) on the device: at most T//S + 1
     hops per utterance, emitted as compact Segments so only ~7 bytes per
     segment leave the device.  ``plain`` runs the plain version on any
-    device (the reference run)."""
+    device (the reference run).  ``smax`` overrides the slots a row,
+    ``max_segments`` of the History's T: a row of T < S frames fills those
+    T//S + 1 slots, which ``fetch_segments`` takes for a truncated walk."""
     T = hist.max_phn.shape[0]
     if T >= 1 << 20:
         raise ValueError("backtrack_device packs entry frames in 20 bits")
@@ -199,7 +202,7 @@ def backtrack_device(spec: PhnLoopSpec, hist: History,
     n_frames = n_frames.to(device=hist.max_phn.device, dtype=torch.int32)
     return Segments(*fn(hist.max_phn.contiguous(), hist.ent.contiguous(),
                         hist.alpha.contiguous(), n_frames.contiguous(),
-                        max_segments(spec, T)))
+                        smax or max_segments(spec, T)))
 
 
 def backtrack_device_committed(spec: PhnLoopSpec, hist: History,

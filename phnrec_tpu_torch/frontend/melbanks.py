@@ -165,6 +165,10 @@ class MelFrontend(nn.Module):
         self.register_buffer("mel", torch.tensor(A, dtype=torch.float32))
         self.nfft_2 = spec.nfft // 2
 
+    @property
+    def n_params(self) -> int:
+        return self.spec.nbanks
+
     def frame_count(self, n_samples: int) -> int:
         """srec.cpp:945: one frame minimum, else 1 + (L - vs) // step."""
         vs, st = self.spec.vector_size, self.spec.step

@@ -149,12 +149,13 @@ def test_unported_paths_raise(tmp_path):
     from phnrec_tpu_torch import cli
     pkg = synth.write_lcrc_package(tmp_path / "pkg", "tiny", seed=4)
     sr = SpeechRec(pkg, device="cpu")
-    for inpf, outpf in (("wf", "par"), ("wf", "post"), ("par", "str")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sr.process_offline(inpf, outpf, b"\0\0" * 400)
+    # the staged pairs are ported (tests/test_torch_staged.py)
+    par = sr.process_offline("wf", "par", b"\0\0" * 400)
+    assert par.shape == (3, sr.frontend.n_params)
+    assert sr.process_offline("wf", "post", b"\0\0" * 400).shape[0] == 3
+    assert isinstance(sr.process_offline("par", "str", par).labels, list)
     for argv in (["-c", pkg, "-a"], ["-c", pkg, "-i", "x", "--profile"],
-                 ["-c", pkg, "-i", "x", "--trace=d"], ["--alize"],
-                 ["-c", pkg, "-s", "par", "-i", "x"]):
+                 ["-c", pkg, "-i", "x", "--trace=d"], ["--alize"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(argv)
     # the other posterior systems and PLP are ported
