@@ -23,7 +23,9 @@ port never imports JAX or phnrec_tpu:
   or ``DCTEstimator`` (1BT_DCT) -> the port's, its window or DCT matrix
   copied;
 * ``plp_from_jax``: a ``PLPFrontend`` -> the port's, its equal-loudness,
-  IDFT, lifter and mel matrices copied.
+  IDFT, lifter and mel matrices copied;
+* ``accumulators_from_numpy``: training accumulators (any tuple with the
+  fields of ``train.accum.Accumulators``) -> the port's, on ``device``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from phnrec_tpu_torch.posteriors.estimator import (BandStack, DCTEstimator,
                                                    TrapsEstimator)
 from phnrec_tpu_torch.posteriors.mlp import MLP
 from phnrec_tpu_torch.posteriors.stc import LCRCAssembler, LCRCSpec
+from phnrec_tpu_torch.train.accum import Accumulators
 
 
 def mlp_from_device(net) -> MLP:
@@ -173,3 +176,12 @@ def network_tables_from_jax(nd) -> EdgeTables:
         ex_dense=i32("ex_dense"), cm_src=i32("cm_src"), cm_w=f32("cm_w"),
         cm_reset=np.asarray(nd.cm_reset, bool), cm_dense=i32("cm_dense"),
         cs_src=i32("cs_src"), cs_w=f32("cs_w"), cs_dense=cs_dense)
+
+
+def accumulators_from_numpy(acc, device="cpu") -> Accumulators:
+    """phnrec_tpu's ``Accumulators`` (or any tuple with its fields, as
+    array-likes) -> the port's, float32 tensors on ``device``."""
+    return Accumulators(*(
+        None if getattr(acc, name) is None else torch.as_tensor(
+            np.array(getattr(acc, name), np.float32), device=device)
+        for name in Accumulators._fields))

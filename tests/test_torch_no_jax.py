@@ -417,3 +417,72 @@ def test_band_and_settings_wrappers_plain_on_cpu_raise_elsewhere():
         tr.feed_sinks(torch.zeros(4, 3, device="meta"),
                       torch.zeros(4, 3, dtype=torch.int32, device="meta"))
     assert counts() == before
+
+
+def _trainfb_args(device="cpu"):
+    """A bucket of two 4-state graphs, 6 frames, ragged frame counts."""
+    rng = np.random.default_rng(8)
+    log_A = np.full((2, 4, 4), -1e10, np.float32)
+    for i in range(4):
+        log_A[:, i, i:i + 2] = np.log(0.5)
+    t = lambda a, dt=torch.float32: torch.tensor(  # noqa: E731
+        np.asarray(a), dtype=dt, device=device)
+    return (t(log_A), t(np.log(np.eye(4, dtype=np.float32)[[0, 0]]
+                               + 1e-30)),
+            t(np.full((2, 4), np.log(0.5), np.float32)),
+            t(rng.normal(size=(2, 6, 4)).astype(np.float32) - 2),
+            t([6, 3], torch.int32))
+
+
+def test_training_modules_and_scans_without_jax():
+    """The staged pipeline, io/features, train/ and the phoneme-loop
+    forward-backward import with JAX and phnrec_tpu blocked; kernels J, K
+    and K' run their plain versions on CPU tensors (counting nothing) and
+    raise for any other non-CUDA tensor before anything is built."""
+    from phnrec_tpu_torch.ops import phnloop_fb, trainfb
+    mods = ["phnrec_tpu_torch.io.features", "phnrec_tpu_torch.train",
+            "phnrec_tpu_torch.train.loop", "phnrec_tpu_torch.train.mbr",
+            "phnrec_tpu_torch.train.stk_accum",
+            "phnrec_tpu_torch.train.update",
+            "phnrec_tpu_torch.decoder.forward_backward",
+            "phnrec_tpu_torch.ops.phnloop_fb", "phnrec_tpu_torch.ops.trainfb"]
+    assert set(mods) <= set(_modules())
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['phnrec_tpu'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from phnrec_tpu_torch.train.loop import Reestimator\n"
+            "from phnrec_tpu_torch.pipeline import STAGES\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+    def counts():
+        return (_counts(), phnloop_fb.LAUNCHES, trainfb.LAUNCHES,
+                trainfb.ALIGN_LAUNCHES)
+
+    before = counts()
+    lp = torch.log_softmax(torch.randn(2, 7, 14), -1)
+    j = (3, 4, -1.0, -0.7, -0.7)
+    _assert_nested_equal(phnloop_fb.phnloop_fb(lp, *j),
+                         phnloop_fb.phnloop_fb_plain(lp, *j))
+    a = _trainfb_args()
+    _assert_nested_equal(trainfb.graph_fb(*a), trainfb.graph_fb_plain(*a))
+    _assert_nested_equal(trainfb.graph_align(*a),
+                         trainfb.graph_align_plain(*a))
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    real = _build.load
+    _build.load = no_build
+    try:
+        for fn, args in ((phnloop_fb.phnloop_fb, (lp.to("meta"), *j)),
+                         (trainfb.graph_fb, _trainfb_args("meta")),
+                         (trainfb.graph_align, _trainfb_args("meta"))):
+            with pytest.raises(ValueError, match="no kernel"):
+                fn(*args)
+    finally:
+        _build.load = real
+    assert counts() == before
