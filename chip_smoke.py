@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels from the nine sources in
+Builds the fourteen CUDA kernels from the ten sources in
 phnrec_tpu_torch/csrc (one nvcc each, all started together) and holds each against its plain
 PyTorch version on the card at its path's shapes: A (fused MLP, float32;
 also at row counts that fill no row tile, and timed beside cuBLAS's two
@@ -14,8 +14,9 @@ committed window, also on the case list of devtools/backtrack_variants.py,
 and D timed at the serving History), B (network-Viterbi block), F (LRTrace
 scan), G (edge-list network scan), H (its traceback, on a case list of
 networks, ties, beams, carried blocks and committed boundaries; its int16
-instance on E's records) and E (the decode-mode network block).  Then it
-drives seven paths of the port:
+instance on E's records), E (the decode-mode network block), J (the
+phoneme-loop forward-backward), K (the training graph's forward-backward)
+and K' (its Viterbi alignment).  Then it drives eight paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
   the CZ SpeechDat LCRC shapes (64 files), and times a batch of 1024 x 5 s
@@ -56,6 +57,17 @@ drives seven paths of the port:
   index against their plain versions, timed three ways; 16 files a
   system through the CLI held against the CPU port, a timed batch of 256
   x 5 s each, and the 3BT batch again at "high" (A′'s band stack).
+* HMM re-estimation (train/, the Reestimator): J, K and K' against their
+  plain versions on a case list (ragged n_frames, padded graphs, S 32 to
+  6,304, ties); 16 CZ files through the staged CLI (-t par, -s par -t
+  post, -s post -t str), labels equal to wf->str's; the posterior route
+  (256 x 5 s of the CZ package's log-posteriors, netgen's PDFObsVec HMM
+  set, each utterance transcribed by its own labels: two Baum-Welch and
+  one Viterbi iteration with update_ml, write_mmf; 8 utterances held to
+  the CPU port; the phoneme-loop occupancies of 16 through J) and the GMM
+  route (64 CLI par files read back with deltas, a seeded DiagC set of 46
+  x 3 x 8 mixtures: Baum-Welch with update_ml, sMBR with update_mmi on 16
+  utterances).
 
 It prints one JSON line of kernel results, each kernel with its launches
 on a path of this run and its time beside its bound (the larger of its
@@ -84,23 +96,34 @@ from phnrec_tpu_torch import precision, synth
 from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import (NEG, OFF_BEAM, DenseKWSScan,
                                              DeviceKWSTracker, NetworkDecoder)
-from phnrec_tpu_torch.devtools import backtrack_variants, scan_variants
+from phnrec_tpu_torch.devtools import (backtrack_variants, scan_variants,
+                                       trainfb_variants)
 from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
 from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.io.labels import read_mlf
+from phnrec_tpu_torch.io.mmf import parse_mmf, write_mmf
 from phnrec_tpu_torch.multistream import (MultiStreamKWS,
                                           MultiStreamRecognizer,
                                           MultiStreamStkDecode)
 from phnrec_tpu_torch.ops import (_build, backtrack, lrtrace, mlp_bf16x3,
                                   mlp_fused, netdecode, netscan, netstep,
-                                  nettrace, phnloop_viterbi)
+                                  nettrace, phnloop_fb, phnloop_viterbi,
+                                  trainfb)
 from phnrec_tpu_torch.pipeline import SpeechRec
 from phnrec_tpu_torch.streaming import StreamingRecognizer
+from phnrec_tpu_torch.train import (accumulate_utterance_mbr, apply_update,
+                                    compile_transcription, make_accumulators,
+                                    reference_hmm_ids, update_ml, update_mmi,
+                                    viterbi_align)
+from phnrec_tpu_torch.train.fb import log_obs, make_obs_tables
+from phnrec_tpu_torch.train.graph import build_model_index
+from phnrec_tpu_torch.train.loop import Reestimator
 
 CSRC = "phnrec_tpu_torch/csrc/"
 SOURCES = ("mlp_fused", "mlp_bf16x3", "phnloop_viterbi", "backtrack",
-           "netstep", "lrtrace", "netscan", "nettrace", "netdecode")
+           "netstep", "lrtrace", "netscan", "nettrace", "netdecode",
+           "trainfb")
 # name -> the wrapper module, its launch counter, the source, the TPU kernel
 KERNELS = {
     "mlp_fused": dict(module=mlp_fused, counter="LAUNCHES",
@@ -138,6 +161,15 @@ KERNELS = {
     "netdecode": dict(module=netdecode, counter="LAUNCHES",
                       source=CSRC + "netdecode.cu",
                       replaces="phnrec_tpu/decoder/stknet.py:961"),
+    "phnloop_fb": dict(module=phnloop_fb, counter="LAUNCHES",
+                       source=CSRC + "trainfb.cu",
+                       replaces="phnrec_tpu/decoder/forward_backward.py:44"),
+    "graph_fb": dict(module=trainfb, counter="LAUNCHES",
+                     source=CSRC + "trainfb.cu",
+                     replaces="phnrec_tpu/train/fb.py:92"),
+    "graph_align": dict(module=trainfb, counter="ALIGN_LAUNCHES",
+                        source=CSRC + "trainfb.cu",
+                        replaces="phnrec_tpu/train/fb.py:135"),
 }
 BATCH_KERNELS = ("mlp_fused", "phnloop_viterbi", "backtrack")
 KWS_KERNELS = ("mlp_fused", "netstep", "lrtrace")
@@ -2702,6 +2734,335 @@ def check_serving_walks(walks) -> dict:
                 equal=True)
 
 
+def _phnloop_fb_work(B: int, T: int, P: int, S: int, D: int) -> tuple:
+    """(bytes, operations) of kernel J: log_post read, alpha and beta
+    written once; about 20 operations a state a frame each way (two
+    logaddexps of ~6, the adds, the per-frame lse's share)."""
+    return 4 * (B * T * D + 2 * B * T * P * S + B), 40 * B * T * P * S
+
+
+def _graph_fb_work(S: int, T: int, ns, align: bool = False) -> tuple:
+    """(bytes, operations) of kernel K (or K') over this run's frames:
+    log_A, log_b, entry and exit read once, alpha and beta (the states)
+    written once; per live frame and utterance S^2 lse terms of ~6
+    operations each way (K'), or one add and one compare (K')."""
+    B, n = len(ns), int(np.sum(ns))
+    reads = 4 * (B * S * S + B * T * S + 2 * B * S)
+    if align:
+        return reads + 4 * (B * T + B), 2 * S * S * n
+    return reads + 4 * (2 * B * T * S + B), 12 * S * S * n
+
+
+def check_trainfb_cases(dev, models) -> dict:
+    """Kernels J, K and K' against their plain versions on the card, on
+    devtools/trainfb_variants.py's case list (J: loops of 4 x 3 to 2,100 x
+    3 states, past 1,024 threads and with its carries in device memory, B
+    1 and 16; K and K': padded training graphs of ``models`` at S 32, 256,
+    608 and 6,304, B 1 and 16, ragged n_frames, ties), J and K within its
+    TOL relative (of max(|x|, 1)), K' bit for bit.  Then each is timed at
+    the training path's shapes (J: one CZ utterance of 500 frames; K, K':
+    a bucket of 16 x 512 frames x 256 states)."""
+    res = trainfb_variants.check_cases(
+        phnloop_fb.phnloop_fb, trainfb.graph_fb, trainfb.graph_align, dev,
+        models)
+    phase("trainfb_cases", tol=trainfb_variants.TOL, **res)
+    if not res["ok"]:
+        raise AssertionError(f"kernel J, K or K' differs: {res}")
+    inp = trainfb_variants.timing_inputs(dev, models)
+    ns, k = inp["ns"], inp["k"]
+    out = {}
+    for name, fn, plain, work, err in (
+            ("phnloop_fb", lambda: phnloop_fb.phnloop_fb(*inp["j"]),
+             lambda: phnloop_fb.phnloop_fb_plain(*inp["j"]),
+             _phnloop_fb_work(1, 500, 46, 3, 138),
+             res["max_abs_err"]["phnloop_fb"]),
+            ("graph_fb", lambda: trainfb.graph_fb(*k),
+             lambda: trainfb.graph_fb_plain(*k),
+             _graph_fb_work(256, 512, ns), res["max_abs_err"]["graph_fb"]),
+            ("graph_align", lambda: trainfb.graph_align(*k),
+             lambda: trainfb.graph_align_plain(*k),
+             _graph_fb_work(256, 512, ns, align=True), 0.0)):
+        t_k = cuda_ms(fn, iters=5, warmup=1)
+        held = scan_variants.held_ms(fn, iters=5, warmup=1)
+        t_p = cuda_ms(plain, iters=1, warmup=1)
+        out[name] = dict(max_abs_err=err, ms=t_k, held_ms=held,
+                         plain_ms=t_p, **bound(*work, PEAK_FP32))
+        out[name]["bound_share"] = out[name]["bound_ms"] / held
+    out["phnloop_fb"]["shape"] = "B 1 x T 500 x P 46 x S 3"
+    for name in ("graph_fb", "graph_align"):
+        out[name]["shape"] = "bucket B 16 x T 512 x S 256, n 385-512"
+    phase("trainfb_timing", **out)
+    return out
+
+
+def staged_cli(pkg: str, tmp: str, cpu_sr, dev, n: int = 16) -> dict:
+    """n CZ files through the CLI as -t par, -s par -t post and -s post -t
+    str (``--device cuda``): the labels equal wf -> str's (the CLI's
+    batched list), and the par and post files equal the CPU port's within
+    TOL_PHN_LP.  Returns the launches of the staged runs."""
+    from phnrec_tpu_torch import cli
+    from phnrec_tpu_torch.io import htk
+    d = os.path.join(tmp, "staged")
+    os.makedirs(d)
+    paths = synth.write_audio_files(d, n, (1.0, 8.0), seed=17)
+    stems = [os.path.splitext(p)[0] for p in paths]
+
+    def run(inpf, outpf, sources, mlf=None):
+        lst = os.path.join(d, f"{inpf}_{outpf}.scp")
+        with open(lst, "w") as f:
+            for s, st in zip(sources, stems):
+                f.write(f"{s}\n" if outpf == "str" else f"{s} {st}.{outpf}\n")
+        argv = ["-c", pkg, "-s", inpf, "-t", outpf, "-l", lst,
+                "--device", str(dev)]
+        rc = cli.main(argv + (["-m", mlf] if mlf else []))
+        if rc != 0:
+            raise AssertionError(f"cli -s {inpf} -t {outpf} returned {rc}")
+
+    reset_counts(BATCH_KERNELS)
+    t = time.perf_counter()
+    run("wf", "par", paths)
+    run("par", "post", [s + ".par" for s in stems])
+    staged_mlf, batch_mlf = (os.path.join(d, f"{k}.mlf")
+                             for k in ("staged", "batch"))
+    run("post", "str", [s + ".post" for s in stems], staged_mlf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts(BATCH_KERNELS)
+    run("wf", "str", paths, batch_mlf)
+    got, want = read_mlf(staged_mlf), read_mlf(batch_mlf)
+    same = list(got) == list(want) and all(
+        label_key(got[k]) == label_key(want[k]) for k in want)
+    errs = {"par": 0.0, "post": 0.0}
+    for p, st in zip(paths, stems):
+        par = cpu_sr.params_from_waveform(open(p, "rb").read())
+        post = cpu_sr.posteriors_from_params(htk.read_htk(st + ".par")[0])
+        for k, ref in (("par", par), ("post", post)):
+            card = htk.read_htk(f"{st}.{k}")[0]
+            if card.shape != ref.shape:
+                raise AssertionError(f"{k} shape {card.shape} != {ref.shape}")
+            errs[k] = max(errs[k], float(np.abs(card - ref).max()))
+    phase("staged_cli", files=n, wall_s=wall, launches=launches,
+          labels=sum(len(v) for v in got.values()),
+          labels_equal_wf_str=same, max_abs_err_vs_cpu=errs,
+          tol=TOL_PHN_LP)
+    if not same:
+        raise AssertionError("staged labels differ from wf -> str")
+    if max(errs.values()) > TOL_PHN_LP:
+        raise AssertionError(f"staged files differ from the CPU port: {errs}")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"staged launches {launches}")
+    return launches
+
+
+def _reestimate(models, utts, mode, dev, stages=None) -> tuple:
+    """One accumulation pass of a Reestimator over ``utts`` ((x, names)
+    pairs) on ``dev``: (accumulators, total log-likelihood, wall s).
+    ``stages`` (a dict) collects the card's ms by stage from CUDA events
+    at the Reestimator's hooks."""
+    re_ = Reestimator(models, mode=mode, batch_size=16, device=dev)
+    if stages is not None:
+        last = [torch.cuda.Event(enable_timing=True)]
+        last[0].record()
+        marks = []
+
+        def hook(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, last[0], ev))
+            last[0] = ev
+        re_.stage_hook = hook
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for x, names in utts:
+        re_.add_utterance(x, names)
+    acc = re_.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if stages is not None:
+        for stage, a, b in marks:
+            stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
+    return acc, re_.total_log_like, wall
+
+
+# the card's accumulators against the CPU port's on the same inputs: K's
+# lses and the stats' GEMMs and index_add_ sum in other orders
+REL_TRAIN_ACC = 1e-4
+# the phoneme loop's occupancies: float32 logaddexp chains drift ~1e-5 a
+# frame (phnrec_tpu's own test allows 1e-3 at 20 frames); measured 2.6e-3
+# at 200 frames (CPU) and 9.8e-3 at 500 frames (the card) of the CZ
+# package's log-posteriors
+TOL_OCC_ROWS = 2e-2
+
+
+def _acc_err(got, want) -> float:
+    return max(trainfb_variants.rel_err(g.cpu(), w.cpu())
+               for g, w in zip(got, want) if g is not None)
+
+
+def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
+                     seconds: float = 5.0) -> dict:
+    """The posterior route: B seeded utterances of ``seconds`` through the
+    CZ LCRC package's batch pipeline on the card (kernel A's
+    log-posteriors, C and D's labels), netgen's PDFObsVec HMM set over the
+    46 phonemes, each utterance transcribed by its own labels; two
+    Baum-Welch iterations (update_ml -> apply_update), one Viterbi
+    iteration, write_mmf.  The log-likelihood must not fall from
+    iteration 1 to 2; on 8 utterances the card's accumulators equal the
+    CPU port's within REL_TRAIN_ACC; the phoneme-loop occupancies of 16
+    utterances (kernel J) sum to 1 a frame within TOL_OCC_ROWS.  Returns
+    the launches."""
+    from phnrec_tpu_torch.decoder.forward_backward import occupancies
+    rng = np.random.default_rng(31)
+    fs = 8000
+    L = int(seconds * fs)
+    bp = sr.batch_pipeline
+    waves = [synth.synth_audio(rng, L).astype(np.float32) for _ in range(B)]
+    w, nf, mf, ns = bp.to_device(*bp.pad_batch(waves))
+    lp = bp._post_core(w, nf, mf, ns)
+    n_frames = nf.cpu().numpy()
+    labels = phnloop.labels_from_segments(
+        phnloop.fetch_segments(bp._core(w, nf, mf, ns)), n_frames,
+        sr.phonemes)
+    lp_host = lp.cpu().numpy()
+    utts = [(lp_host[b, : n_frames[b]], [l.name for l in labels[b]])
+            for b in range(B)]
+    models = trainfb_variants.hmm_set(tmp, sr.phonemes)
+    tr_counts = ("graph_fb", "graph_align", "phnloop_fb")
+    reset_counts(tr_counts)
+    out, lls = {}, []
+    stages: dict = {}
+    t_all = time.perf_counter()
+    for it, mode in enumerate(("baum_welch", "baum_welch", "viterbi")):
+        idx = build_model_index(models)
+        acc, ll, wall = _reestimate(models, utts, mode, dev,
+                                    stages if it == 0 else None)
+        t = time.perf_counter()
+        upd = update_ml(idx, acc, [models.hmms[k].log_transp
+                                   for k in idx.names])
+        models = apply_update(models, idx, upd)
+        out[f"iter{it + 1}_{mode}"] = dict(wall_s=wall, log_like=ll,
+                                           update_s=time.perf_counter() - t)
+        lls.append(ll)
+    mmf = os.path.join(tmp, "trained.mmf")
+    write_mmf(models, mmf)
+    launches = read_counts(tr_counts)
+    # the card against the CPU port on 8 utterances
+    base = trainfb_variants.hmm_set(tmp, sr.phonemes)
+    a_card = _reestimate(base, utts[:8], "baum_welch", dev)[0]
+    a_cpu = _reestimate(base, utts[:8], "baum_welch", "cpu")[0]
+    err = _acc_err(a_card, a_cpu)
+    # the phoneme-loop occupancies of 16 utterances (kernel J)
+    t = time.perf_counter()
+    rows = [occupancies(sr.loop_spec, lp[b, : n_frames[b]]).sum(1)
+            for b in range(min(16, B))]
+    occ_s = time.perf_counter() - t
+    launches["phnloop_fb"] = read_counts(("phnloop_fb",))["phnloop_fb"]
+    row_err = float(max(np.abs(r - 1.0).max() for r in rows))
+    audio_s = B * seconds
+    first = out["iter1_baum_welch"]["wall_s"]
+    phase("train_posteriors", utterances=B, seconds_each=seconds,
+          labels_per_utt=float(np.mean([len(u[1]) for u in utts])),
+          states_per_graph=float(np.mean([3 * len(u[1]) for u in utts])),
+          iterations=out, log_like_rises=lls[1] >= lls[0],
+          utterances_per_s=B / first, audio_s_per_s=audio_s / first,
+          stage_ms_iter1=stages, card_vs_cpu_rel_err=err,
+          tol=REL_TRAIN_ACC, occupancy_row_err=row_err,
+          occupancies_s=occ_s, launches=launches,
+          total_s=time.perf_counter() - t_all, mmf_bytes=os.path.getsize(mmf))
+    if not lls[1] >= lls[0]:
+        raise AssertionError(f"Baum-Welch log-likelihood fell: {lls}")
+    if err > REL_TRAIN_ACC:
+        raise AssertionError(f"card accumulators differ from the CPU: {err}")
+    if row_err > TOL_OCC_ROWS:
+        raise AssertionError(f"occupancy rows off 1 by {row_err}")
+    if launches["graph_fb"] == 0 or launches["graph_align"] == 0:
+        raise AssertionError(f"kernel K / K' not launched: {launches}")
+    return dict(launches=launches, utts=utts, labels=labels)
+
+
+def train_gmm(pkg: str, sr, tmp: str, dev, n: int = 64,
+              n_mbr: int = 16) -> dict:
+    """The GMM route: the CLI writes -t par files for n seeded CZ files,
+    io/features.read_features(..., deriv_order=2) reads them back (15 log
+    mel banks with deltas and accelerations, 45 dims), a seeded DiagC set
+    of 46 x 3 states x 8 mixtures around the data's mean and spread; one
+    Baum-Welch iteration with update_ml, then sMBR statistics with
+    update_mmi on n_mbr utterances (the transcription graph as its own
+    stand-in lattice, as tests/test_train_aux.py does).  The transcriptions
+    are the files' own phoneme-loop labels.  Returns the launches."""
+    from phnrec_tpu_torch import cli
+    from phnrec_tpu_torch.io.features import read_features
+    d = os.path.join(tmp, "gmm")
+    os.makedirs(d)
+    paths = synth.write_audio_files(d, n, (3.0, 6.0), seed=41)
+    lst = os.path.join(d, "par.scp")
+    with open(lst, "w") as f:
+        f.write("".join(f"{p} {os.path.splitext(p)[0]}.par\n"
+                        for p in paths))
+    t = time.perf_counter()
+    if cli.main(["-c", pkg, "-t", "par", "-l", lst, "--device",
+                 str(dev)]) != 0:
+        raise AssertionError("cli -t par failed")
+    par_s = time.perf_counter() - t
+    feats = [read_features(os.path.splitext(p)[0] + ".par",
+                           deriv_order=2)[0] for p in paths]
+    if feats[0].shape[1] != 45:
+        raise AssertionError(f"features of {feats[0].shape[1]} dims")
+    names = [[l.name for l in sr.process_offline(
+        "wf", "str", open(p, "rb").read()).labels] for p in paths]
+    allx = np.concatenate(feats)
+    models = parse_mmf(synth.write_gmm_models(
+        os.path.join(d, "gmm.mmf"), sr.phonemes, dim=45, seed=5,
+        mean=allx.mean(0), std=allx.std(0)))
+    utts = list(zip(feats, names))
+    reset_counts(("graph_fb", "graph_align"))
+    idx = build_model_index(models)
+    stages: dict = {}
+    acc, ll, wall = _reestimate(models, utts, "baum_welch", dev, stages)
+    t = time.perf_counter()
+    old = [models.hmms[k].log_transp for k in idx.names]
+    upd = update_ml(idx, acc, old)
+    new = apply_update(models, idx, upd)
+    update_s = time.perf_counter() - t
+    # sMBR on n_mbr utterances
+    t = time.perf_counter()
+    num = make_accumulators(idx, dev)
+    den = make_accumulators(idx, dev)
+    for x, nm in utts[:n_mbr]:
+        g = compile_transcription(models, nm, idx)
+        xt = torch.from_numpy(x).to(dev)
+        lb, _ = log_obs(make_obs_tables(g, dev), xt)
+        al = viterbi_align(g.log_A, g.log_entry, g.log_exit, lb, x.shape[0])
+        ref = reference_hmm_ids(g, al.states)
+        num, den = accumulate_utterance_mbr(g, num, den, xt, ref, x.shape[0])
+    mmi = update_mmi(idx, num, den, old)
+    torch.cuda.synchronize()
+    mbr_s = time.perf_counter() - t
+    launches = read_counts(("graph_fb", "graph_align"))
+    kappa = (float(num.occ.sum()), float(den.occ.sum()))
+    phase("train_gmm", files=n, par_cli_s=par_s, dims=45, mixtures=8,
+          frames=int(sum(x.shape[0] for x in feats)), bw_wall_s=wall,
+          bw_log_like=ll, stage_ms=stages, update_s=update_s,
+          utterances_per_s=n / wall,
+          audio_s_per_s=sum(x.shape[0] for x in feats) / 100.0 / wall,
+          mbr_utterances=n_mbr, mbr_s=mbr_s, kappa_num_den=kappa,
+          mmi_variances_positive=bool(np.all(mmi.variances > 0)),
+          means_moved=not np.allclose(
+              new.hmms[idx.names[0]].gmm_states[0].means,
+              models.hmms[idx.names[0]].gmm_states[0].means),
+          launches=launches)
+    # (the sMBR masses balance only as far as each frame's occupancies sum
+    # to 1: float32 alphas of ~3e4 drift them by a few percent over 600
+    # frames, in phnrec_tpu's formulation as in the port's)
+    if not np.isfinite(ll) or not np.all(mmi.variances > 0) or \
+            not kappa[0] > 0:
+        raise AssertionError("GMM route: non-finite likelihood, a variance "
+                             f"<= 0 or no sMBR mass {kappa}")
+    if launches["graph_fb"] == 0 or launches["graph_align"] == 0:
+        raise AssertionError(f"kernel K / K' not launched: {launches}")
+    return launches
+
+
 def device_busy_share(fn, kernels: bool = False):
     """Share of one run's wall in which some CUDA kernel or copy ran, from
     torch.profiler; None if the trace holds no device events.  With
@@ -2884,6 +3245,13 @@ def main() -> int:
         if not n_high:
             raise AssertionError("kernel A′'s band stack was not launched")
         precision.set_mode("highest")
+
+        # HMM re-estimation: kernels J, K and K' against their plain
+        # versions, the staged CLI, and the trainer's two routes
+        results.update(check_trainfb_cases(dev, trainfb_variants.hmm_set(tmp, sr.phonemes)))
+        staged_cli(pkg, tmp, cpu_sr, dev)
+        launches.update(train_posteriors(sr, cpu_sr, tmp, dev)["launches"])
+        train_gmm(pkg, sr, tmp, dev)
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")

@@ -35,8 +35,11 @@
 //   loop), alpha / beta of the current frame in shared memory for the
 //   neighbour state, the two per-frame lses as block reductions (warp
 //   shuffles, then one word a warp in shared memory).
-// * K / K': a thread per destination state j, strided past the block's
-//   threads.  The carry (alpha, or beta and b + beta) lives in shared
+// * K / K': four lanes of a warp per destination state j (each lane a
+//   quarter of the sources, combined by shuffles), 1,024 threads for S >=
+//   256, columns strided past the block's threads.  (The first design, a
+//   thread per column with 256 threads at S 256, waited on its log_A loads
+//   from L2: 43.6 ms held a bucket, PERF.md PR 14.)  The carry (alpha, or beta and b + beta) lives in shared
 //   memory while 2 S floats fit in 48 KB (S <= 6,000), else in a device
 //   scratch the wrapper allocates (the looped path: same code, slower
 //   loads).  log_A is read through L1/L2 (S 256: 256 KB an utterance,
@@ -55,7 +58,8 @@
 namespace {
 
 constexpr float NEG_INF_TRAIN = -1e30f;   // train/fb.py's NEG_INF
-constexpr int MAX_THREADS = 512;          // K / K' threads a block
+constexpr int MAX_THREADS = 1024;         // K / K' threads a block
+constexpr int Q = 4;                      // K / K' lanes a column
 constexpr size_t SMEM_LIMIT = 48 * 1024;  // carries in shared memory up to
 
 __device__ __forceinline__ float lae(float a, float b) {
@@ -174,6 +178,32 @@ __global__ void phnloop_fb_kernel(const float* __restrict__ lp, int T, int D,
 }
 
 // ---------------------------------------------------------------- kernel K
+// Q lanes of a warp share a destination column: lane q takes the sources
+// i = q, q + Q, ... (neighbouring lanes on neighbouring words of the
+// carry, no bank conflicts), and the lanes' maxima and sums combine by
+// shuffles.  Every lane of the block walks the same column loop (columns
+// past S compute nothing), so the shuffles always find all 32 lanes.
+
+// lse over i of x(i) for one column (the lanes' share of the sources, then
+// the butterfly over the Q lanes); ``live`` false gives 0.
+template <class X>
+__device__ __forceinline__ float column_lse(int S, int q, bool live, X x) {
+  float m = -INFINITY;
+  if (live) {
+#pragma unroll 4
+    for (int i = q; i < S; i += Q) m = fmaxf(m, x(i));
+  }
+  for (int o = 1; o < Q; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float mm = isfinite(m) ? m : 0.0f;
+  float s = 0.0f;
+  if (live) {
+#pragma unroll 4
+    for (int i = q; i < S; i += Q) s += expf(x(i) - mm);
+  }
+  for (int o = 1; o < Q; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return logf(s) + mm;
+}
+
 // log_A / log_AT [B, S, S] (log_AT[b, j, i] = log_A[b, i, j]), entry / exit
 // [B, S], log_b [B, T, S], n [B]; alpha / beta [B, T, S], like [B].
 // buf: 2 * S floats (shared or scratch).
@@ -199,6 +229,8 @@ __global__ void graph_fb_kernel(const float* __restrict__ log_A,
   float* al = alpha + (size_t)b * T * S;
   float* be = beta + (size_t)b * T * S;
   const int n = n_frames[b];
+  const int q = threadIdx.x % Q, c0 = threadIdx.x / Q;
+  const int ncol = blockDim.x / Q;
 
   // forwards: ping-pong between buf[0:S] and buf[S:2S]
   for (int j = threadIdx.x; j < S; j += blockDim.x) buf[j] = NEG_INF_TRAIN;
@@ -207,24 +239,19 @@ __global__ void graph_fb_kernel(const float* __restrict__ log_A,
   for (int t = 0; t < T; ++t) {
     const float* cur = buf + c * S;
     float* nxt = buf + (1 - c) * S;
-    for (int j = threadIdx.x; j < S; j += blockDim.x) {
-      float out = NEG_INF_TRAIN, keep = cur[j];
-      if (t < n) {
-        float v;
-        if (t == 0) {
-          v = en[j];
-        } else {
-          float m = -INFINITY;
-          for (int i = 0; i < S; ++i) m = fmaxf(m, cur[i] + A[(size_t)i * S + j]);
-          const float mm = isfinite(m) ? m : 0.0f;
-          float s = 0.0f;
-          for (int i = 0; i < S; ++i) s += expf(cur[i] + A[(size_t)i * S + j] - mm);
-          v = logf(s) + mm;
-        }
-        keep = out = v + lb[(size_t)t * S + j];
+    const bool prop = t > 0 && t < n;
+    for (int j0 = 0; j0 < S; j0 += ncol) {
+      const int j = j0 + c0;
+      const bool ok = j < S;
+      const float p = column_lse(S, q, prop && ok, [&](int i) {
+        return cur[i] + A[(size_t)i * S + j];
+      });
+      if (ok && q == 0) {
+        float out = NEG_INF_TRAIN, keep = cur[j];
+        if (t < n) keep = out = (t == 0 ? en[j] : p) + lb[(size_t)t * S + j];
+        nxt[j] = keep;
+        al[(size_t)t * S + j] = out;
       }
-      nxt[j] = keep;
-      al[(size_t)t * S + j] = out;
     }
     __syncthreads();
     c = 1 - c;
@@ -256,30 +283,27 @@ __global__ void graph_fb_kernel(const float* __restrict__ log_A,
         v[j] = lb[(size_t)tn * S + j] + bt[j];
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-      float nw;
-      if (t == n - 1) {
-        nw = ex[i];
-      } else if (prop) {
-        float m = -INFINITY;
-        for (int j = 0; j < S; ++j) m = fmaxf(m, AT[(size_t)j * S + i] + v[j]);
-        const float mm = isfinite(m) ? m : 0.0f;
-        float s = 0.0f;
-        for (int j = 0; j < S; ++j) s += expf(AT[(size_t)j * S + i] + v[j] - mm);
-        nw = logf(s) + mm;
-      } else {
-        nw = bt[i];
+    for (int i0 = 0; i0 < S; i0 += ncol) {
+      const int i = i0 + c0;
+      const bool ok = i < S;
+      const float p = column_lse(S, q, prop && ok, [&](int j) {
+        return AT[(size_t)j * S + i] + v[j];
+      });
+      if (ok && q == 0) {
+        const float nw = t == n - 1 ? ex[i] : (prop ? p : bt[i]);
+        bt[i] = nw;
+        be[(size_t)t * S + i] = t < n ? nw : NEG_INF_TRAIN;
       }
-      bt[i] = nw;
-      be[(size_t)t * S + i] = t < n ? nw : NEG_INF_TRAIN;
     }
-    if (prop) __syncthreads();   // v is rewritten next frame
+    __syncthreads();   // bt and v are read again next frame
   }
 }
 
 // --------------------------------------------------------------- kernel K'
 // As K's inputs (no log_AT); bps [B, T, S] int32 (device scratch the
-// wrapper allocates), states [B, T] int32, like [B].
+// wrapper allocates), states [B, T] int32, like [B].  Lanes as K's; each
+// lane keeps the first max of its sources, and the butterfly keeps the
+// larger value, on ties the smaller source: the first max overall.
 __global__ void graph_align_kernel(const float* __restrict__ log_A,
                                    const float* __restrict__ log_entry,
                                    const float* __restrict__ log_exit,
@@ -300,6 +324,8 @@ __global__ void graph_align_kernel(const float* __restrict__ log_A,
   const float* lb = log_b + (size_t)b * T * S;
   int* bp = bps + (size_t)b * T * S;
   const int n = n_frames[b];
+  const int q = threadIdx.x % Q, c0 = threadIdx.x / Q;
+  const int ncol = blockDim.x / Q;
 
   for (int j = threadIdx.x; j < S; j += blockDim.x) buf[j] = NEG_INF_TRAIN;
   int c = 0;
@@ -307,16 +333,31 @@ __global__ void graph_align_kernel(const float* __restrict__ log_A,
   for (int t = 0; t < T; ++t) {
     const float* cur = buf + c * S;
     float* nxt = buf + (1 - c) * S;
-    for (int j = threadIdx.x; j < S; j += blockDim.x) {
-      float best = cur[0] + A[j];
-      int arg = 0;
-      for (int i = 1; i < S; ++i) {
-        const float x = cur[i] + A[(size_t)i * S + j];
-        if (x > best) best = x, arg = i;   // the first max wins ties
+    const bool live = t < n;
+    for (int j0 = 0; j0 < S; j0 += ncol) {
+      const int j = j0 + c0;
+      const bool ok = j < S;
+      float best = -INFINITY;
+      int arg = 0x7fffffff;
+      if (live && ok && q < S) {
+        best = cur[q] + A[(size_t)q * S + j];
+        arg = q;
+#pragma unroll 4
+        for (int i = q + Q; i < S; i += Q) {
+          const float x = cur[i] + A[(size_t)i * S + j];
+          if (x > best) best = x, arg = i;   // the first max of the lane
+        }
       }
-      const float v = (t == 0 ? en[j] : best) + lb[(size_t)t * S + j];
-      nxt[j] = t < n ? v : cur[j];
-      bp[(size_t)t * S + j] = t < n ? arg : 0;
+      for (int o = 1; o < Q; o <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, arg, o);
+        if (ov > best || (ov == best && oi < arg)) best = ov, arg = oi;
+      }
+      if (ok && q == 0) {
+        nxt[j] = live ? (t == 0 ? en[j] : best) + lb[(size_t)t * S + j]
+                      : cur[j];
+        bp[(size_t)t * S + j] = live ? arg : 0;
+      }
     }
     __syncthreads();
     c = 1 - c;
@@ -399,7 +440,7 @@ extern "C" int graph_fb(const void* log_A, const void* log_AT,
                         void* scratch, void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (S <= 0) return cudaErrorInvalidValue;
-  const int threads = threads_for(S, MAX_THREADS);
+  const int threads = threads_for(Q * S, MAX_THREADS);
   const size_t smem = scratch ? 32 * sizeof(float)
                               : (32 + 2 * (size_t)S) * sizeof(float);
   graph_fb_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -418,7 +459,7 @@ extern "C" int graph_align(const void* log_A, const void* log_entry,
                            void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   if (S <= 0) return cudaErrorInvalidValue;
-  const int threads = threads_for(S, MAX_THREADS);
+  const int threads = threads_for(Q * S, MAX_THREADS);
   const size_t smem = scratch ? 32 * sizeof(float)
                               : (32 + 2 * (size_t)S) * sizeof(float);
   graph_align_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -40,6 +40,10 @@ or a given number of generated keywords.  Both stkint writers can give the
 HMM set a global <InputXform> (a delay line: a stacking node under a
 linear one).
 
+``write_gmm_models`` writes a seeded DiagC HMM set (one left-to-right
+HMM a phoneme, mixtures of diagonal Gaussians around a given mean and
+spread) for training on feature files.
+
 The weights are random.  W1 is scaled so hidden pre-activations stay
 within about +-20 for unit-variance inputs, b2 cancels each output's mean
 drive from the hidden layer, and each net's input ``mean``/``dev`` are
@@ -139,6 +143,45 @@ default=$T/phnloop
 gen_from_phn_list=true
 hmm_defs=$T/models
 """
+
+
+def write_gmm_models(path, phonemes: Sequence[str], n_states: int = 3,
+                     n_mix: int = 8, dim: int = 45, seed: int = 0,
+                     mean=None, std=None) -> str:
+    """Write a seeded DiagC MMF at ``path``: one HMM a phoneme with
+    ``n_states`` emitting states of ``n_mix`` mixtures over ``dim`` dims
+    and netgen's 0.5/0.5 left-to-right transitions; mixture means
+    ``mean`` + N(0, 1) ``std``, variances ``std``^2 U(0.5, 1.5), weights
+    from a flat Dirichlet.  Returns the path."""
+    rng = np.random.default_rng(seed)
+    mean = np.zeros(dim) if mean is None else np.asarray(mean, np.float64)
+    std = np.ones(dim) if std is None else np.asarray(std, np.float64)
+    fmt = lambda v: " ".join(f"{x:.6e}" for x in v)  # noqa: E731
+    N = n_states + 2
+    lines = [f"~o <VecSize> {dim} <DIAGC>"]
+    for name in phonemes:
+        lines += [f'~h "{name}"', "<BeginHMM>", f"<NumStates> {N}"]
+        for i in range(n_states):
+            w = rng.dirichlet(np.ones(n_mix))
+            lines.append(f"<State> {i + 2} <NumMixes> {n_mix}")
+            for k in range(n_mix):
+                mu = mean + rng.standard_normal(dim) * std
+                var = std * std * rng.uniform(0.5, 1.5, dim)
+                lines += [f"<Mixture> {k + 1} {w[k]:.6e}",
+                          f"<Mean> {dim}", fmt(mu), f"<Variance> {dim}",
+                          fmt(var)]
+        lines.append(f"<TransP> {N}")
+        for i in range(N):
+            row = np.zeros(N)
+            if i == 0:
+                row[1] = 1.0
+            elif i < N - 1:
+                row[i] = row[i + 1] = 0.5
+            lines.append(fmt(row))
+        lines.append("<EndHMM>")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return str(path)
 
 
 def synth_audio(rng: np.random.Generator, n_samples: int,
