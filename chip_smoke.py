@@ -3233,8 +3233,8 @@ def main() -> int:
         tsrs = {k: SpeechRec(v, device=dev) for k, v in tpkgs.items()}
         for k, v in check_bands(tsrs["3BT"], dev).items():
             results[k]["bands"] = v
-        for name, pkg in tpkgs.items():
-            traps_cli(pkg, name, tmp, dev)
+        for name, tpkg in tpkgs.items():
+            traps_cli(tpkg, name, tmp, dev)
             timed_batch(tsrs[name], dev, B=256, name=f"batch_{name}")
         # the 3BT batch at "high": the band stack on kernel A′
         precision.set_mode("high")

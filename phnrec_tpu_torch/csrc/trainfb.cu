@@ -35,17 +35,17 @@
 //   loop), alpha / beta of the current frame in shared memory for the
 //   neighbour state, the two per-frame lses as block reductions (warp
 //   shuffles, then one word a warp in shared memory).
-// * K / K': four lanes of a warp per destination state j (each lane a
-//   quarter of the sources, combined by shuffles), 1,024 threads for S >=
-//   256, columns strided past the block's threads.  (The first design, a
-//   thread per column with 256 threads at S 256, waited on its log_A loads
-//   from L2: 43.6 ms held a bucket, PERF.md PR 14.)  The carry (alpha, or beta and b + beta) lives in shared
-//   memory while 2 S floats fit in 48 KB (S <= 6,000), else in a device
-//   scratch the wrapper allocates (the looped path: same code, slower
-//   loads).  log_A is read through L1/L2 (S 256: 256 KB an utterance,
-//   more than shared memory holds), coalesced: forwards thread j reads
-//   row i's column j; backwards the wrapper passes log_A transposed, so
-//   thread i reads row j's column i.
+// * K / K': four lanes of a warp per destination state j (lane q takes the
+//   sources i = q mod 4, combined by shuffles), 1,024 threads for S >=
+//   256, columns strided past the block's threads.  (A thread per column,
+//   256 threads at S 256, waited on its chains of log_A loads from L2:
+//   3.3x slower, PERF.md.)  The carry (alpha, or beta and b + beta) lives
+//   in shared memory while 2 S floats fit in 48 KB (S <= 6,000), else in
+//   a device scratch the wrapper allocates (the looped path: same code,
+//   slower loads).  log_A is read through L1/L2 (S 256: 256 KB an
+//   utterance, more than shared memory holds): forwards the lanes of
+//   column j read its rows; backwards the wrapper passes log_A
+//   transposed, so the lanes of state i read row i of the transpose.
 // * K' writes its back-pointers [T, S] (int32) to device memory; after the
 //   forward loop the block takes the final argmax by a (value, index)
 //   reduction and thread 0 walks the back-pointers from t = n - 1 down.
@@ -53,7 +53,6 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
@@ -413,8 +412,6 @@ extern "C" long long trainfb_scratch_floats(int B, int W) {
   const size_t smem = (size_t)(32 + 2 * (size_t)W) * sizeof(float);
   return smem <= SMEM_LIMIT ? 0 : (long long)B * 2 * W;
 }
-
-extern "C" int trainfb_max_threads() { return MAX_THREADS; }
 
 extern "C" int phn_loop_fb(const void* lp, int B, int T, int D, int P, int S,
                            float w_pen, float tr_c, float tr_n, void* alpha,

@@ -107,12 +107,12 @@ class AlignResult(NamedTuple):
     log_like: torch.Tensor    # [..] Viterbi path score
 
 
-def _batch(log_A, log_entry, log_exit, log_b, n_frames, device):
+def _batch(log_A, log_entry, log_exit, log_b, n_frames):
     """The scan arguments as float32 / int32 tensors with a batch
-    dimension, on log_b's device (a tensor's own, else ``device``, else
-    the card); and whether the batch dimension was added."""
+    dimension, on log_b's device (a tensor's own, else the card); and
+    whether the batch dimension was added."""
     dev = (log_b.device if isinstance(log_b, torch.Tensor)
-           else torch.device(device or "cuda"))
+           else torch.device("cuda"))
     single = np.ndim(log_b) == 2
 
     def f32(a):
@@ -126,20 +126,18 @@ def _batch(log_A, log_entry, log_exit, log_b, n_frames, device):
             n.contiguous(), single)
 
 
-def forward_backward(log_A, log_entry, log_exit, log_b, n_frames,
-                     device=None) -> FBResult:
+def forward_backward(log_A, log_entry, log_exit, log_b,
+                     n_frames) -> FBResult:
     """Dense-graph forward-backward: one launch of kernel K on the card."""
-    *args, single = _batch(log_A, log_entry, log_exit, log_b, n_frames,
-                           device)
+    *args, single = _batch(log_A, log_entry, log_exit, log_b, n_frames)
     out = trainfb.graph_fb(*args)
     return FBResult(*(o[0] for o in out) if single else out)
 
 
-def viterbi_align(log_A, log_entry, log_exit, log_b, n_frames,
-                  device=None) -> AlignResult:
+def viterbi_align(log_A, log_entry, log_exit, log_b,
+                  n_frames) -> AlignResult:
     """Max-plus alignment (PassTokenMax, Viterbi.cc:543-567) and its
     traceback: one launch of kernel K' on the card."""
-    *args, single = _batch(log_A, log_entry, log_exit, log_b, n_frames,
-                           device)
+    *args, single = _batch(log_A, log_entry, log_exit, log_b, n_frames)
     out = trainfb.graph_align(*args)
     return AlignResult(*(o[0] for o in out) if single else out)
