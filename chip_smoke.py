@@ -88,6 +88,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -132,6 +133,12 @@ KERNELS = {
     "mlp_bf16x3": dict(module=mlp_bf16x3, counter="LAUNCHES",
                        source=CSRC + "mlp_bf16x3.cu",
                        replaces="phnrec_tpu/ops/pallas_mlp.py:156"),
+    "mlp_fused_wide": dict(module=mlp_fused, counter="WIDE_LAUNCHES",
+                           source=CSRC + "mlp_fused.cu",
+                           replaces="phnrec_tpu/ops/pallas_mlp.py:175"),
+    "mlp_bf16x3_wide": dict(module=mlp_bf16x3, counter="WIDE_LAUNCHES",
+                            source=CSRC + "mlp_bf16x3.cu",
+                            replaces="phnrec_tpu/ops/pallas_mlp.py:156"),
     "netstep": dict(module=netstep, counter="LAUNCHES",
                     source=CSRC + "netstep.cu",
                     replaces="phnrec_tpu/ops/pallas_netstep.py:231"),
@@ -175,6 +182,8 @@ BATCH_KERNELS = ("mlp_fused", "phnloop_viterbi", "backtrack")
 KWS_KERNELS = ("mlp_fused", "netstep", "lrtrace")
 STK_KERNELS = ("mlp_fused", "netscan", "nettrace")
 STK_SERVE_KERNELS = ("mlp_fused", "netdecode", "nettrace")
+# the split paths of A and A' (the 3BT / 1BT mergers)
+WIDE_KERNELS = ("mlp_fused_wide", "mlp_bf16x3_wide")
 # kernel A against cuBLAS float32: both sum in another order, and fexp is a
 # step function of its argument (steps of 2^-20 relative), so outputs differ
 # by a few ulp of the sums; probabilities within 2e-5, raw logits within 1e-4.
@@ -409,58 +418,135 @@ def check_mlp_odd_shapes(dev) -> None:
 
 # nets past the fused kernels' widths (n_inp 480, n_out 256): the split
 # paths of kernels A and A'
-WIDE_SHAPES = ((500, 257, 138), (165, 200, 300), (500, 1500, 300))
+WIDE_SHAPES = ((500, 257, 138), (165, 200, 300), (500, 1500, 300),
+               (600, 100, 200))
+# the 3BT and 1BT mergers (cell 8: 13 or 15 band nets of 138 outputs in),
+# checked and timed at the rows of a batch of 256 x 5 s
+MERGER_SHAPES = ((1794, 1500, 138), (2070, 1500, 138))
+MERGER_ROWS = 128000
+
+
+def _wide_net(dev, shape, seed: int):
+    """A seeded net of ``shape`` as _odd_nets makes them, with its bf16
+    halves: a namespace of mlp_work's and bf16_products_ms's fields."""
+    n_inp, n_hid, n_out = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*sh, scale=1.0):
+        return torch.randn(sh, generator=g, device=dev) * scale
+
+    net = SimpleNamespace(
+        n_inp=n_inp, n_hid=n_hid, n_out=n_out, mean=t(n_inp),
+        dev=t(n_inp).abs() + 0.5, w1=t(n_inp, n_hid, scale=n_inp ** -0.5),
+        b1=t(n_hid, scale=0.1), w2=t(n_hid, n_out, scale=n_hid ** -0.5),
+        b2=t(n_out, scale=0.1))
+    net.w1_hi, net.w1_lo, net.w2_hi, net.w2_lo = mlp_bf16x3.split_weights(
+        net.w1, net.w2)
+    return net, g
+
+
+def _wide_args(net, x, passes: int):
+    if not passes:
+        return (x, net.mean, net.dev, net.w1, net.b1, net.w2, net.b2)
+    return (x, net.mean, net.dev, net.w1_hi, net.w1_lo, net.b1, net.w2_hi,
+            net.w2_lo, net.b2)
+
+
+def _wide_case(what: str, net, x, fast: bool, smx: bool, worst: dict):
+    """Kernel A and A' (3 and 1 passes) against their plain versions on one
+    input; the worst errors by kernel and output kind into ``worst``."""
+    kw = dict(fast=fast, apply_softmax=smx)
+    got = mlp_fused.mlp_forward(*_wide_args(net, x, 0), **kw)
+    want = mlp_fused.mlp_forward_plain(*_wide_args(net, x, 0), **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = TOL_SOFTMAX if smx else TOL_LOGITS
+    if got.shape != want.shape or not torch.isfinite(got).all() or \
+            not err <= tol:
+        raise AssertionError(f"mlp_fused wide {what} fast={fast} "
+                             f"softmax={smx}: err {err} > {tol}")
+    key = f"A_{'softmax' if smx else 'logits'}"
+    worst[key] = max(worst.get(key, 0.0), err)
+    del got, want
+    for passes in (3, 1):
+        err, _, over, _ = _bf16x3_case(f"wide {what}",
+                                       _wide_args(net, x, passes), net.w2,
+                                       fast, smx, passes)
+        key = f"A'_passes{passes}_{'softmax' if smx else 'logits'}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        worst[key + "_over_tol"] = max(worst.get(key + "_over_tol", 0.0),
+                                       over)
+
+
+def wide_work(net, n: int, passes: int = 0):
+    """mlp_work plus the split path's hidden tensor written and read once
+    as float32 (for A', its bf16 hi and lo halves: the same bytes)."""
+    n_bytes, ops = mlp_work(net, n, passes)
+    return n_bytes + 2 * 4 * n * net.n_hid, ops
 
 
 def check_mlp_wide(dev) -> dict:
     """Kernels A and A' (3 and 1 passes) against their plain versions on
-    seeded nets of WIDE_SHAPES at ODD_ROWS, the tolerances of the fused
-    kernels; the widest timed at 65,536 rows beside its plain version."""
+    seeded nets of WIDE_SHAPES and MERGER_SHAPES at ODD_ROWS (the mergers
+    also at MERGER_ROWS + 37), the tolerances of the fused kernels; then
+    each merger shape timed at MERGER_ROWS (and the widest WIDE_SHAPES net
+    at 65,536 rows) beside its plain version and the library's bare
+    products (sgemm_pair_ms for A, bf16_products_ms for A').  Returns the
+    kernels line's fields of both split paths at the 3BT merger."""
     worst = {}
-    for shape, (mean, dv, w1, b1, w2, b2), xs in _odd_nets(dev, WIDE_SHAPES):
-        halves = mlp_bf16x3.split_weights(w1, w2)
-        for rows, x in zip(ODD_ROWS, xs):
+    for i, shape in enumerate(WIDE_SHAPES + MERGER_SHAPES):
+        net, g = _wide_net(dev, shape, 60 + i)
+        rows = ODD_ROWS + ((MERGER_ROWS + 37,) if shape in MERGER_SHAPES
+                           else ())
+        for n in rows:
+            x = torch.randn((n, shape[0]), generator=g, device=dev)
             for fast, smx in ((True, True), (False, False)):
-                kw = dict(fast=fast, apply_softmax=smx)
-                got = mlp_fused.mlp_forward(x, mean, dv, w1, b1, w2, b2, **kw)
-                want = mlp_fused.mlp_forward_plain(x, mean, dv, w1, b1, w2,
-                                                   b2, **kw)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                tol = TOL_SOFTMAX if smx else TOL_LOGITS
-                if not torch.isfinite(got).all() or not err <= tol:
-                    raise AssertionError(
-                        f"mlp_fused wide {shape} rows={rows} fast={fast} "
-                        f"softmax={smx}: err {err} > {tol}")
-                key = f"A_{'softmax' if smx else 'logits'}"
-                worst[key] = max(worst.get(key, 0.0), err)
-                args = (x, mean, dv, halves[0], halves[1], b1, halves[2],
-                        halves[3], b2)
-                for passes in (3, 1):
-                    err, _, over, _ = _bf16x3_case(
-                        f"wide {shape} rows={rows}", args, w2, fast, smx,
-                        passes)
-                    key = f"A'_passes{passes}_{'softmax' if smx else 'logits'}"
-                    worst[key] = max(worst.get(key, 0.0), err)
-                    worst[key + "_over_tol"] = max(
-                        worst.get(key + "_over_tol", 0.0), over)
-    # the widest net timed at 65,536 rows
-    shape, (mean, dv, w1, b1, w2, b2), _ = list(
-        _odd_nets(dev, WIDE_SHAPES[-1:]))[0]
-    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (65536, shape[0]), np.float32)).to(dev)
-    halves = mlp_bf16x3.split_weights(w1, w2)
-    a = (x, mean, dv, w1, b1, w2, b2)
-    a3 = (x, mean, dv, halves[0], halves[1], b1, halves[2], halves[3], b2)
-    timed = dict(
-        shape=shape, rows=65536,
-        A_ms=cuda_ms(lambda: mlp_fused.mlp_forward(*a)),
-        A_plain_ms=cuda_ms(lambda: mlp_fused.mlp_forward_plain(*a)),
-        A3_ms=cuda_ms(lambda: mlp_bf16x3.mlp_forward_bf16x3(*a3)),
-        A3_plain_ms=cuda_ms(lambda: mlp_bf16x3.mlp_forward_bf16x3_plain(*a3)))
-    phase("mlp_wide", shapes=WIDE_SHAPES, rows=ODD_ROWS, max_abs_err=worst,
-          tol_softmax=TOL_SOFTMAX, tol_logits=TOL_LOGITS, timed=timed)
-    return timed
+                _wide_case(f"{shape} rows={n}", net, x, fast, smx, worst)
+            del x
+    phase("mlp_wide", shapes=WIDE_SHAPES + MERGER_SHAPES, rows=ODD_ROWS,
+          merger_rows=MERGER_ROWS + 37, max_abs_err=worst,
+          tol_softmax=TOL_SOFTMAX, tol_logits=TOL_LOGITS)
+
+    out = {}
+    for shape, n in ((WIDE_SHAPES[2], 65536),
+                     *((s, MERGER_ROWS) for s in MERGER_SHAPES)):
+        net, g = _wide_net(dev, shape, 70)
+        x = torch.randn((n, shape[0]), generator=g, device=dev)
+        rec = dict(shape=list(shape), rows=n)
+        for name, passes in (("A", 0), ("A3", 3), ("A1", 1)):
+            args = _wide_args(net, x, passes)
+            if passes:
+                kw = dict(passes=passes)
+                fn = lambda: mlp_bf16x3.mlp_forward_bf16x3(*args, **kw)
+                plain = lambda: mlp_bf16x3.mlp_forward_bf16x3_plain(*args,
+                                                                    **kw)
+                lib = bf16_products_ms(x, net, passes)
+            else:
+                fn = lambda: mlp_fused.mlp_forward(*args)
+                plain = lambda: mlp_fused.mlp_forward_plain(*args)
+                lib = sgemm_pair_ms(x, net)
+            b, o = wide_work(net, n, passes)
+            t_k = cuda_ms(fn)
+            rec[name] = dict(ms=t_k, held_ms=scan_variants.held_ms(fn, 5),
+                             plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                             products_ms=lib,
+                             bound=bound(b, o,
+                                         PEAK_BF16 if passes else PEAK_FP32))
+            rec[name]["share_of_bound"] = rec[name]["bound"]["bound_ms"] / t_k
+        phase("mlp_wide_timed", **rec)
+        if shape == MERGER_SHAPES[0]:
+            for name, key, err, lib in (
+                    ("mlp_fused_wide", "A", "A_softmax", "sgemm_pair_ms"),
+                    ("mlp_bf16x3_wide", "A3", "A'_passes3_softmax",
+                     "bf16_products_ms")):
+                r = rec[key]
+                out[name] = dict(
+                    max_abs_err=worst[err], ms=r["ms"], held_ms=r["held_ms"],
+                    plain_ms=r["plain_ms"], **r["bound"],
+                    shape=f"{n} rows x {shape[0]}->{shape[1]}->{shape[2]}")
+                out[name][lib] = r["products_ms"]
+        del x
+    return out
 
 
 def bf16x3_limit(want, w2, smx: bool, passes: int):
@@ -2111,6 +2197,25 @@ def traps_cli(pkg: str, name: str, tmp: str, dev, n: int = 16) -> dict:
     return launches
 
 
+def merger_batch(tsr, name: str, dev) -> int:
+    """A timed batch of 256 x 5 s of a posterior system in the current
+    precision mode (timed_batch), the split paths' counts set to 0 just
+    before and read just after: the 3BT and 1BT mergers (past n_inp 480)
+    must take the split path of the mode's kernel, the other systems'
+    nets none.  Returns the mode's split-path launches."""
+    reset_counts(WIDE_KERNELS)
+    timed_batch(tsr, dev, B=256, name=f"batch_{name}")
+    counts = read_counts(WIDE_KERNELS)
+    phase("merger_launches", system=name, precision=precision.get_mode(),
+          **counts)
+    mine = "mlp_bf16x3_wide" if precision.get_mode() == "high" \
+        else "mlp_fused_wide"
+    if (counts[mine] > 0) != (name in ("3BT", "1BT")) or any(
+            counts[k] for k in WIDE_KERNELS if k != mine):
+        raise AssertionError(f"{name}: split-path launches {counts}")
+    return counts[mine]
+
+
 def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
                          chunk_s: float = 0.25, block: int = 128) -> dict:
     """StreamingRecognizer on the CZ stkint loop (decode mode): one
@@ -3123,7 +3228,7 @@ def main() -> int:
         cpu_sr = SpeechRec(pkg, device="cpu")
         results = {"mlp_fused": check_mlp(sr, dev)}
         check_mlp_odd_shapes(dev)
-        check_mlp_wide(dev)
+        results.update(check_mlp_wide(dev))
         a_ms = results["mlp_fused"].pop("per_net")
         results["mlp_bf16x3"] = check_mlp_bf16x3(sr, dev, a_ms)
         results["phnloop_viterbi"], results["backtrack"] = \
@@ -3233,13 +3338,18 @@ def main() -> int:
         tsrs = {k: SpeechRec(v, device=dev) for k, v in tpkgs.items()}
         for k, v in check_bands(tsrs["3BT"], dev).items():
             results[k]["bands"] = v
+        launches.update(dict.fromkeys(WIDE_KERNELS, 0))
         for name, tpkg in tpkgs.items():
             traps_cli(tpkg, name, tmp, dev)
-            timed_batch(tsrs[name], dev, B=256, name=f"batch_{name}")
-        # the 3BT batch at "high": the band stack on kernel A′
+            launches["mlp_fused_wide"] += merger_batch(tsrs[name], name,
+                                                       dev)
+        # the 3BT and 1BT batches at "high": the band stacks and the
+        # mergers on kernel A′
         precision.set_mode("high")
         before = mlp_bf16x3.BAND_LAUNCHES
-        timed_batch(tsrs["3BT"], dev, B=256, name="batch_3BT")
+        for name in ("3BT", "1BT"):
+            launches["mlp_bf16x3_wide"] += merger_batch(tsrs[name], name,
+                                                        dev)
         n_high = mlp_bf16x3.BAND_LAUNCHES - before
         phase("band_launches_high", mlp_bf16x3=n_high)
         if not n_high:

@@ -38,6 +38,7 @@ from phnrec_tpu_torch.posteriors import fexp
 
 LAUNCHES = 0
 BAND_LAUNCHES = 0      # the launches of those that ran a band stack
+WIDE_LAUNCHES = 0      # the launches of those that took the split path
 
 K_TILE = 16      # the MMA depth
 H_TILE = 128     # hidden-axis padding (a multiple of the kernel's chunk)
@@ -170,8 +171,9 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
                                           n_hid, n_out, int(fast),
                                           int(apply_softmax), passes, stream)
     _build.check(err, "mlp_bf16x3")
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     LAUNCHES += 1
+    WIDE_LAUNCHES += not mlp_fused.fused_takes(n_inp, n_out)
     return out
 
 

@@ -32,6 +32,7 @@ from phnrec_tpu_torch.posteriors import fexp
 
 LAUNCHES = 0
 BAND_LAUNCHES = 0      # the launches of those that ran a band stack
+WIDE_LAUNCHES = 0      # the launches of those that took the split path
 MAX_INP = 480
 MAX_OUT = 256
 
@@ -107,8 +108,9 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
                                          n_hid, n_out, int(fast),
                                          int(apply_softmax), stream)
     _build.check(err, "mlp_fused")
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     LAUNCHES += 1
+    WIDE_LAUNCHES += not fused_takes(n_inp, n_out)
     return out
 
 

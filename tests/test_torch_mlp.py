@@ -152,7 +152,9 @@ def test_forward_leading_dims():
 
 @pytest.mark.parametrize("n_inp, n_hid, n_out", [(500, 130, 300),
                                                  (500, 70, 138),
-                                                 (165, 70, 300)])
+                                                 (165, 70, 300),
+                                                 (1794, 1500, 138),
+                                                 (2070, 1500, 138)])
 @pytest.mark.parametrize("fast, apply_softmax", [(True, True),
                                                  (False, False)])
 def test_forward_wide_matches_jax(n_inp, n_hid, n_out, fast, apply_softmax):
@@ -173,7 +175,13 @@ def test_forward_wide_matches_jax(n_inp, n_hid, n_out, fast, apply_softmax):
     got = mlp_from_device(net)(torch.from_numpy(x), fast=fast,
                                apply_softmax=apply_softmax).numpy()
     assert got.shape == (37, n_out)
-    # the tolerances of test_forward_matches_jnp_chain
+    # the tolerances of test_forward_matches_jnp_chain; at the mergers'
+    # widths (n_inp 1,794 and 2,070) the logits reach 29 and the two JAX
+    # references differ from each other by up to 5.9e-6 on probabilities
+    # and 2.7e-5 on logits (the port from them by up to 6.0e-6 / 3.0e-5),
+    # so those cases alone take x2.5 that
+    merger = n_inp > 1000
+    atol = ((1.5e-5 if merger else 2e-6) if apply_softmax
+            else (7.5e-5 if merger else 2e-5))
     for want in (chain, pallas):
-        np.testing.assert_allclose(got, want, rtol=0,
-                                   atol=2e-6 if apply_softmax else 2e-5)
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)

@@ -93,8 +93,10 @@ def test_split_weights_pads_with_zero():
 
 
 @pytest.mark.parametrize("widths", [(55, 32, 12), (165, 1500, 138),
-                                    (276, 1500, 138), (500, 130, 300)],
-                         ids=["tiny", "cz_band", "cz_merger", "wide"])
+                                    (276, 1500, 138), (500, 130, 300),
+                                    (1794, 1500, 138), (2070, 1500, 138)],
+                         ids=["tiny", "cz_band", "cz_merger", "wide",
+                              "merger_3bt", "merger_1bt"])
 @pytest.mark.parametrize("fast", [True, False])
 @pytest.mark.parametrize("apply_softmax", [True, False])
 def test_plain_matches_pallas_kernel3(widths, fast, apply_softmax):
