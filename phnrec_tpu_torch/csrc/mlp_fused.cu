@@ -59,17 +59,31 @@
 // tile an SM (WIDE_MIN_ROWS); otherwise the 64-row tile, which fits every
 // n_inp <= MAX_INP = 480 at every n_out <= 256.
 //
-// Wider nets (n_inp > MAX_INP or n_out > 256) take a split path, three
-// launches on the stream (phn_mlp_fused_wide): the hidden layer h =
-// sigmoid(xn @ W1 + b1) into a caller's [n_rows, n_hid] scratch tensor,
-// o = h @ W2 + b2 into the output, then the row softmax in place.  Both
-// products are one register-tiled SGEMM (gemm_kernel: a 64 x 64 output
-// tile a block of 256 threads, 4 x 4 sums a thread, 16-deep slabs of both
-// operands through shared memory), each output one fmaf chain in
-// ascending k as above, the norm applied as x is loaded and the bias and
-// sigmoid in the epilogue; the softmax a warp a row over any n_out.  The
-// hidden tensor makes a round trip through device memory: these widths
-// are off the main path (the CZ and EN nets take the fused kernel).
+// Wider nets (n_inp > MAX_INP or n_out > 256: the 3BT / 1BT mergers,
+// 1794 / 2070 -> 1500 -> 138) take a split path (phn_mlp_fused_wide): h =
+// sigmoid(xn @ W1 + b1) into a caller's [n_rows, n_hid] scratch tensor, then
+// o = h @ W2 + b2 with the row softmax.  Both products are float32 FMAs, so
+// the FP32 rate bounds them (2 n (n_inp n_hid + n_hid n_out) operations:
+// 11.07 ms at the 3BT merger's 128,000 rows; the hidden tensor's round
+// trip, 1.5 GB, is 0.46 ms of bytes).  One register-tiled SGEMM
+// (split_gemm_kernel) takes both: 256 threads a block, 8 x 8 sums a thread
+// on a 128 x 128 tile (one shared-memory byte per FMA: two float4 of each
+// operand feed 64 FMAs), two blocks an SM.  16-deep slabs of both operands
+// come through a 4-stage ring filled with cp.async (16-, 8- or 4-byte
+// pieces, as the rows' alignment allows; the a pieces of a quarter warp
+// land in rows r and r + 4, which share no bank at a row stride of 20
+// floats), one barrier a slab.  The slab after the one being multiplied is
+// transposed (and normalised, (x - mean) * dev, once) into a [k][row]
+// buffer, so the products read both operands as float4.  The second
+// product runs one tile across all n_out columns where n_out <= 256 (128 x
+// 144 or 64 x 256, a thread's columns tx + 16 j), and that tile's epilogue
+// takes the row softmax as softmax_rows_kernel does (the logits through
+// shared memory, a warp a row); wider outputs take 128 x 128 tiles and the
+// softmax apart.  Every output is one fmaf chain in ascending k from 0,
+// padded k exact zeros in both operands, then the bias and activation: the
+// order of the PR 11 split path (64 x 64 tiles, 4 x 4 sums a thread,
+// synchronous loads), which this one equals bit for bit
+// (devtools/mlp_variants.py --wide).
 //
 // A band stack (phn_mlp_fused_bands: the trap_bands band nets of the 3BT /
 // 1BT systems, one topology, phnrec_tpu/posteriors/estimator.py:107-254)
@@ -434,73 +448,272 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-// The split path's product: c[M, ldc] (columns < N) = act(a' @ w + bias),
-// a' = (a - mean) * dev by column where mean is given, else a; a [M, K]
-// and w [K, N] row-major float32.  A 64 x 64 tile a block.
-constexpr int GT = 64;   // output tile, rows and columns
-constexpr int GK = 16;   // depth of a slab
+// The split path's products: a register-tiled SGEMM with a ring of K
+// slabs.  c = act(a' @ w + bias), a' = (a - mean) * dev by column where
+// mean is given, else a; a [M, K] and w [K, N] row-major float32.  A block
+// of 256 threads owns a tile of BM = 16 TR rows by BN = 16 NC columns, a
+// thread TR rows (ty * 4 + 64 g + 0..3) by NC columns (VB: tx * 4 + 64 h +
+// 0..3, two float4 of a slab row; else tx + 16 j, one float each).
+constexpr int SK = 16;         // depth of a slab (the old split path's too)
+constexpr int SS = 4;          // stages of the ring
+constexpr int SLD = SK + 4;    // row stride of a raw a slab, floats
 
-__global__ void __launch_bounds__(256)
-gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
-            const float* __restrict__ dev, const float* __restrict__ w,
-            const float* __restrict__ bias, float* __restrict__ c, int M,
-            int K, int N, bool sigm, bool fast) {
-  __shared__ __align__(16) float as[GK][GT];   // [k][row]
-  __shared__ __align__(16) float ws[GK][GT];   // [k][column]
+enum Epilogue { SIGMOID, LOGITS, SOFTMAX };
+
+template <int TR, int NC>
+struct SplitTile {
+  static constexpr int BM = 16 * TR;
+  static constexpr int BN = 16 * NC;
+  static constexpr int STAGE = BM * SLD + SK * BN;   // floats: a, then w
+  static constexpr int AT = SK * BM;                 // a transposed slab
+  static constexpr size_t SMEM = sizeof(float) * (SS * STAGE + 2 * AT);
+  // the softmax epilogue's logits [BM][BN + 1] reuse the ring
+  static_assert(BM * (BN + 1) <= SS * STAGE, "logits do not fit the ring");
+};
+
+// one piece of vec floats (4, 2 or 1) copied asynchronously, or zero-filled
+// where n_bytes is 0 (src then only has to be a valid address)
+__device__ __forceinline__ void cp_async_piece(float* dst, const float* src,
+                                               int vec, bool live) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = live ? 4 * vec : 0;
+  if (vec == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n) : "memory");
+  else if (vec == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n) : "memory");
+}
+
+// the widest piece every row of a [rows, n] float32 array can be copied in
+__device__ __forceinline__ int piece_floats(const float* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return n % 4 == 0 && a % 16 == 0 ? 4 : n % 2 == 0 && a % 8 == 0 ? 2 : 1;
+}
+
+// Slab t of both operands into a stage: a rows row0.. x k 16t.. as [BM][SLD]
+// (zero past M and K), w rows 16t.. x columns col0.. as [SK][BN] (zero past
+// K and N).  The pieces of a quarter (half, whole) warp of 16-byte (8-,
+// 4-byte) copies land in rows r and r + 4, whose 16-float windows of the
+// 32 banks do not meet at SLD = 20.
+template <int TR, int NC>
+__device__ __forceinline__ void load_split_slab(
+    float* st, const float* __restrict__ a, const float* __restrict__ w,
+    long long row0, int col0, int t, int M, int K, int N, int va, int vw,
+    int tid) {
+  using T = SplitTile<TR, NC>;
+  const int k0 = t * SK;
+  const int ppr = SK / va;   // pieces a row of the a slab
+  for (int idx = tid; idx < T::BM * ppr; idx += 256) {
+    const int u = idx / (2 * ppr), v = idx % (2 * ppr);
+    const int p = v % ppr;
+    const int r = (u >> 2) * 8 + (u & 3) + 4 * (v / ppr);
+    const long long row = row0 + r;
+    const int k = k0 + p * va;
+    const bool live = row < M && k < K;
+    cp_async_piece(st + r * SLD + p * va, live ? a + row * K + k : a, va,
+                   live);
+  }
+  float* ws = st + T::BM * SLD;
+  const int ppw = T::BN / vw;
+  for (int idx = tid; idx < SK * ppw; idx += 256) {
+    const int kk = idx / ppw, p = idx % ppw;
+    const int k = k0 + kk, col = col0 + p * vw;
+    const bool live = k < K && col < N;
+    cp_async_piece(ws + kk * T::BN + p * vw,
+                   live ? w + (size_t)k * N + col : w, vw, live);
+  }
+}
+
+// the raw a slab of a stage, normalised where mean is given, into the
+// transposed slab at [SK][BM]: a warp reads one float4 of k from each of
+// 32 rows (SLD = 20 spreads them over the banks) and stores 32 neighbours
+template <int TR, int NC>
+__device__ __forceinline__ void transpose_slab(
+    float* at, const float* st, const float* __restrict__ mean,
+    const float* __restrict__ dev, int t, int K, int tid) {
+  using T = SplitTile<TR, NC>;
+#pragma unroll
+  for (int i = 0; i < T::BM * 4 / 256; ++i) {
+    const int idx = tid + 256 * i;
+    const int r = idx % T::BM, q = idx / T::BM;
+    const float4 v4 = *reinterpret_cast<const float4*>(st + r * SLD + 4 * q);
+    float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = t * SK + 4 * q + e;
+      if (k >= K)
+        v[e] = 0.0f;
+      else if (mean)
+        v[e] = (v[e] - __ldg(mean + k)) * __ldg(dev + k);
+      at[(4 * q + e) * T::BM + r] = v[e];
+    }
+  }
+}
+
+template <int TR, int NC, bool VB>
+__global__ void __launch_bounds__(256, 2)
+split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
+                  const float* __restrict__ dev, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ c,
+                  int M, int K, int N, int n_ct, Epilogue epi, bool fast) {
+  using T = SplitTile<TR, NC>;
+  static_assert(!VB || NC == 8, "float4 columns take NC = 8");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);   // [SS][STAGE]
+  float* ats = ring + SS * T::STAGE;                // [2][AT]
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const long long row0 = (long long)blockIdx.x * GT;
-  const int col0 = blockIdx.y * GT;
-  float acc[4][4];
+  // column tiles vary fastest: the blocks of one row tile share its a slabs
+  // in L2
+  const int col0 = (int)(blockIdx.x % n_ct) * T::BN;
+  const long long row0 = (long long)(blockIdx.x / n_ct) * T::BM;
+  const int va = piece_floats(a, K), vw = piece_floats(w, N);
+  const int n_slabs = (K + SK - 1) / SK;
+
+  float acc[TR][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += GK) {
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
+
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + 256 * q;
-      // x: 16 consecutive k of a row; w: 64 consecutive columns of a k
-      const int r = e / GK, kx = e % GK;
-      const long long row = row0 + r;
-      const int k = k0 + kx;
-      float v = 0.0f;
-      if (row < M && k < K) {
-        v = a[row * K + k];
-        if (mean) v = (v - mean[k]) * dev[k];
-      }
-      as[kx][r] = v;
-      const int kw = e / GT, cw = e % GT;
-      ws[kw][cw] = k0 + kw < K && col0 + cw < N
-                       ? w[(size_t)(k0 + kw) * N + col0 + cw]
-                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 x4 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 w4 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < SS - 1; ++s) {
+    if (s < n_slabs)
+      load_split_slab<TR, NC>(ring + s * T::STAGE, a, w, row0, col0, s, M, K,
+                              N, va, vw, tid);
+    cp_async_commit();
   }
+  cp_async_wait<SS - 2>();
+  __syncthreads();
+  transpose_slab<TR, NC>(ats, ring, mean, dev, 0, K, tid);
+
+  for (int t = 0; t < n_slabs; ++t) {
+    // slab t + 1 has landed, slab t's transpose is visible, and every
+    // thread is past slab t - 1: its stage and transposed slab are free
+    cp_async_wait<SS - 3>();
+    __syncthreads();
+    if (t + SS - 1 < n_slabs)
+      load_split_slab<TR, NC>(ring + ((t + SS - 1) % SS) * T::STAGE, a, w,
+                              row0, col0, t + SS - 1, M, K, N, va, vw, tid);
+    cp_async_commit();
+    if (t + 1 < n_slabs)
+      transpose_slab<TR, NC>(ats + ((t + 1) & 1) * T::AT,
+                             ring + ((t + 1) % SS) * T::STAGE, mean, dev,
+                             t + 1, K, tid);
+    const float* at = ats + (t & 1) * T::AT + ty * 4;
+    const float* ws = ring + (t % SS) * T::STAGE + T::BM * SLD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = row0 + ty * 4 + i;
-    if (row >= M) continue;
+    for (int kk = 0; kk < SK; ++kk) {
+      float av[TR], wv[NC];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col < N) {
-        const float v = acc[i][j] + bias[col];
-        c[row * N + col] = sigm ? sigmoid(v, fast) : v;
+      for (int g = 0; g < TR / 4; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(at + kk * T::BM + 64 * g);
+        av[4 * g] = v.x;
+        av[4 * g + 1] = v.y;
+        av[4 * g + 2] = v.z;
+        av[4 * g + 3] = v.w;
+      }
+      if (VB) {
+#pragma unroll
+        for (int h = 0; h < NC / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              ws + kk * T::BN + tx * 4 + 64 * h);
+          wv[4 * h] = v.x;
+          wv[4 * h + 1] = v.y;
+          wv[4 * h + 2] = v.z;
+          wv[4 * h + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) wv[j] = ws[kk * T::BN + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+  }
+
+  // the thread's rows and columns
+  auto row_of = [&](int i) { return ty * 4 + 64 * (i / 4) + (i % 4); };
+  auto col_of = [&](int j) {
+    return VB ? tx * 4 + 64 * (j / 4) + (j % 4) : tx + 16 * j;
+  };
+  float bj[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int col = col0 + col_of(j);
+    bj[j] = col < N ? __ldg(bias + col) : 0.0f;
+  }
+  if (epi != SOFTMAX) {
+    const bool v4 = VB && N % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(c) % 16 == 0;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const long long row = row0 + row_of(i);
+      if (row >= M) continue;
+      float v[NC];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        v[j] = acc[i][j] + bj[j];
+        if (epi == SIGMOID) v[j] = sigmoid(v[j], fast);
+      }
+      if (v4) {
+#pragma unroll
+        for (int h = 0; h < NC / 4; ++h) {
+          const int col = col0 + tx * 4 + 64 * h;
+          if (col < N)
+            *reinterpret_cast<float4*>(c + row * N + col) = make_float4(
+                v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const int col = col0 + col_of(j);
+          if (col < N) c[row * N + col] = v[j];
+        }
       }
     }
+    return;
+  }
+
+  // one tile holds every column of its rows (N <= BN): the logits into
+  // shared memory, then a warp a row takes the softmax exactly as
+  // softmax_rows_kernel does
+  constexpr int LD = T::BN + 1;
+  __syncthreads();   // every thread is past the ring's last slab
+  float* lg = ring;
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      lg[row_of(i) * LD + col_of(j)] = acc[i][j] + bj[j];
+  __syncthreads();
+  const int lane = tid & 31;
+  for (int r = tid >> 5; r < T::BM; r += 8) {
+    const long long row = row0 + r;
+    if (row >= M) break;
+    float* v = lg + r * LD;
+    float mx = -INFINITY;
+    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, v[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.0f;
+    for (int j = lane; j < N; j += 32) {
+      const float e = fast ? fexp(v[j] - mx) : expf(v[j] - mx);
+      v[j] = e;
+      sum += e;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    for (int j = lane; j < N; j += 32) c[row * N + j] = v[j] / sum;
   }
 }
 
@@ -528,12 +741,21 @@ softmax_rows_kernel(float* __restrict__ o, int M, int n, bool fast) {
   for (int j = lane; j < n; j += 32) v[j] = v[j] / sum;
 }
 
-cudaError_t gemm(const float* a, const float* mean, const float* dev,
-                 const float* w, const float* bias, float* c, int M, int K,
-                 int N, bool sigm, bool fast, cudaStream_t s) {
-  const dim3 grid((unsigned)((M + GT - 1) / GT), (unsigned)((N + GT - 1) / GT));
-  gemm_kernel<<<grid, 256, 0, s>>>(a, mean, dev, w, bias, c, M, K, N, sigm,
-                                   fast);
+template <int TR, int NC, bool VB>
+cudaError_t split_gemm(const float* a, const float* mean, const float* dev,
+                       const float* w, const float* bias, float* c, int M,
+                       int K, int N, Epilogue epi, bool fast,
+                       cudaStream_t s) {
+  using T = SplitTile<TR, NC>;
+  auto kern = split_gemm_kernel<TR, NC, VB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long n_ct = (N + T::BN - 1) / T::BN;
+  const long long blocks = n_ct * ((M + T::BM - 1) / T::BM);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, 256, T::SMEM, s>>>(a, mean, dev, w, bias, c, M, K,
+                                              N, (int)n_ct, epi, fast);
   return cudaGetLastError();
 }
 
@@ -649,7 +871,8 @@ extern "C" int phn_mlp_fused_bands(const void* x, const void* mean,
 }
 
 // The split path for any widths: hid is an [n_rows, n_hid] float32 scratch
-// tensor; otherwise as phn_mlp_fused.  Three launches on `stream`.
+// tensor; otherwise as phn_mlp_fused.  Two launches on `stream` (three
+// where n_out > 256: the softmax apart).
 extern "C" int phn_mlp_fused_wide(const void* x, const void* mean,
                                   const void* dev, const void* w1,
                                   const void* b1, const void* w2,
@@ -657,24 +880,32 @@ extern "C" int phn_mlp_fused_wide(const void* x, const void* mean,
                                   int n_rows, int n_inp, int n_hid, int n_out,
                                   int fast, int softmax, void* stream) {
   if (n_rows <= 0) return cudaSuccess;
-  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 || n_hid > 65535 * GT ||
-      n_out > 65535 * GT)
-    return cudaErrorInvalidValue;
+  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto* h = static_cast<float*>(hid);
   auto* o = static_cast<float*>(out);
-  cudaError_t err = gemm(static_cast<const float*>(x),
-                         static_cast<const float*>(mean),
-                         static_cast<const float*>(dev),
-                         static_cast<const float*>(w1),
-                         static_cast<const float*>(b1), h, n_rows, n_inp,
-                         n_hid, true, fast != 0, s);
+  auto* w2f = static_cast<const float*>(w2);
+  auto* b2f = static_cast<const float*>(b2);
+  const bool f = fast != 0;
+  const Epilogue epi = softmax ? SOFTMAX : LOGITS;
+  cudaError_t err = split_gemm<8, 8, true>(
+      static_cast<const float*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(dev), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), h, n_rows, n_inp, n_hid, SIGMOID, f, s);
   if (err != cudaSuccess) return err;
-  err = gemm(h, nullptr, nullptr, static_cast<const float*>(w2),
-             static_cast<const float*>(b2), o, n_rows, n_hid, n_out, false,
-             fast != 0, s);
+  // the output product: one tile across all n_out columns where they fit
+  // (the softmax then in its epilogue), else 128-column tiles and the
+  // softmax apart
+  if (n_out <= SplitTile<8, 9>::BN)
+    return split_gemm<8, 9, false>(h, nullptr, nullptr, w2f, b2f, o, n_rows,
+                                   n_hid, n_out, epi, f, s);
+  if (n_out <= SplitTile<4, 16>::BN)
+    return split_gemm<4, 16, false>(h, nullptr, nullptr, w2f, b2f, o, n_rows,
+                                    n_hid, n_out, epi, f, s);
+  err = split_gemm<8, 8, true>(h, nullptr, nullptr, w2f, b2f, o, n_rows,
+                               n_hid, n_out, LOGITS, f, s);
   if (err != cudaSuccess || !softmax) return err;
   softmax_rows_kernel<<<(unsigned)((n_rows + 7) / 8), 256, 0, s>>>(
-      o, n_rows, n_out, fast != 0);
+      o, n_rows, n_out, f);
   return cudaGetLastError();
 }
