@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the fourteen CUDA kernels from the ten sources in
+Builds the sixteen CUDA kernels from the ten sources in
 phnrec_tpu_torch/csrc (one nvcc each, all started together) and holds each against its plain
 PyTorch version on the card at its path's shapes: A (fused MLP, float32;
 also at row counts that fill no row tile, and timed beside cuBLAS's two
 products alone) and A' (fused MLP, bf16 tensor-core passes, 3 and 1) at the
-CZ nets, C and
+CZ nets, their split paths (A's register-tiled SGEMM, A''s wgmma
+products) past the fused widths and at the 3BT / 1BT mergers' shapes,
+timed at 128,000 rows, C and
 C' (phoneme-loop scan, uniform and ragged), D and D' (backtrack, whole and
 committed window, also on the case list of devtools/backtrack_variants.py,
 and D timed at the serving History), B (network-Viterbi block), F (LRTrace
@@ -56,7 +58,8 @@ and K' (its Viterbi alignment).  Then it drives eight paths of the port:
   the PLP frontend: the 3BT band stack on kernels A and A′ with the band
   index against their plain versions, timed three ways; 16 files a
   system through the CLI held against the CPU port, a timed batch of 256
-  x 5 s each, and the 3BT batch again at "high" (A′'s band stack).
+  x 5 s each, and the 3BT and 1BT batches again at "high" (A′'s band
+  stack); the mergers take the split paths in both modes.
 * HMM re-estimation (train/, the Reestimator): J, K and K' against their
   plain versions on a case list (ragged n_frames, padded graphs, S 32 to
   6,304, ties); 16 CZ files through the staged CLI (-t par, -s par -t

@@ -116,6 +116,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -557,109 +559,415 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-// The split path's product: c[M, N] = act(split(a') @ w + bias), a' = (a -
-// mean) * dev by column where mean is given, else a; a [M, K] float32, w
-// as hi and lo bf16 [kp, np] row-major, zero past K and N (np a multiple of
-// 16, so every 16-byte piece of a row exists or none does).
-constexpr int GT = 64;         // output tile, rows and columns
-constexpr int GK = 32;         // depth of a slab
-constexpr int GA_LD = GK + 8;  // row stride of the split a slab, bf16
-constexpr int GW_LD = GT + 8;  // row stride of a weight slab, bf16
+// ---- The split path: bf16 products on wgmma ----
+//
+// The float32 operands are split once into bf16 hi and lo planes in device
+// memory: xn by split_rows_kernel, h by the first product's epilogue.  So
+// both products are bf16 GEMMs of planes, C = sum over the passes of
+// A_p @ B_p, A [M, kp] row-major (K-major), B [kp, np] row-major
+// (MN-major), every operand tile copied by cp.async straight into the
+// swizzled layout wgmma reads.  A block is two consumer warpgroups on 64
+// rows each (BM = 128) by BN columns.
+constexpr int WM = 128;                // rows of a block
+constexpr int WK = 32;                 // depth of a slab
+constexpr int WS_STAGES = 4;           // stages of the ring
+constexpr int A_PLANE = WM * WK * 2;   // bytes of one a plane of a slab
 
-template <int PASSES>
-__global__ void __launch_bounds__(128)
-gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
-            const float* __restrict__ dev, const bf16* __restrict__ wh,
-            const bf16* __restrict__ wl, int kp, int np,
-            const float* __restrict__ bias, float* __restrict__ c, int M,
-            int K, int N, bool sigm, bool fast) {
-  __shared__ __align__(16) bf16 sa[2][GT * GA_LD];   // [row][k], hi and lo
-  __shared__ __align__(16) bf16 sw[2][GK * GW_LD];   // [k][column]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lcol = (lane >> 4) * 8;
-  const long long row0 = (long long)blockIdx.x * GT;
-  const int col0 = blockIdx.y * GT;
-  float acc[4][2][4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += GK) {
-    // a: 32 consecutive k of a row, split
-    for (int e = tid; e < GT * GK; e += 128) {
-      const int r = e / GK, kk = e % GK;
-      const long long row = row0 + r;
-      const int k = k0 + kk;
-      float v = 0.0f;
-      if (row < M && k < K) {
-        v = a[row * K + k];
-        if (mean) v = (v - mean[k]) * dev[k];
-      }
-      const bf16 h = __float2bfloat16_rn(v);
-      sa[0][r * GA_LD + kk] = h;
-      if (PASSES == 3)
-        sa[1][r * GA_LD + kk] = __float2bfloat16_rn(v - __bfloat162float(h));
-    }
-    // w: 16-byte pieces, 8 columns each, zero past kp and np
-    for (int e = tid; e < halves(PASSES) * GK * (GT / 8); e += 128) {
-      const int hf = e / (GK * (GT / 8));
-      const int r = (e / (GT / 8)) % GK, q = e % (GT / 8);
-      const int k = k0 + r, col = col0 + 8 * q;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k < kp && col < np)
-        v = *reinterpret_cast<const uint4*>((hf ? wl : wh) +
-                                            (size_t)k * np + col);
-      *reinterpret_cast<uint4*>(&sw[hf][r * GW_LD + 8 * q]) = v;
-    }
-    __syncthreads();
-    float sum[4][2][4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum[p][n][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < GK; ks += 16) {
-      uint32_t ah[4], al[4];
-      ldsm_x4(ah, &sa[0][(16 * warp + lrow) * GA_LD + ks + lcol]);
-      if (PASSES == 3) ldsm_x4(al, &sa[1][(16 * warp + lrow) * GA_LD + ks + lcol]);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t bh[4], bl[4];
-        ldsm_x4_t(bh, &sw[0][(ks + lrow) * GW_LD + 16 * p + lcol]);
-        if (PASSES == 3)
-          ldsm_x4_t(bl, &sw[1][(ks + lrow) * GW_LD + 16 * p + lcol]);
-        mma_passes<PASSES>(sum[p], ah, al, bh, bl);
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[p][n][e] += sum[p][n][e];
-    __syncthreads();
+// bytes of one w plane of a slab
+__host__ __device__ constexpr int b_plane(int bn) { return WK * bn * 2; }
+
+// bytes of one stage: a hi, a lo, w hi, w lo (each 1,024-byte aligned)
+__host__ __device__ constexpr int wg_stage(int bn) {
+  return 2 * A_PLANE + 2 * b_plane(bn);
+}
+
+__host__ __device__ constexpr size_t wg_smem(int bn) {
+  return (size_t)WS_STAGES * wg_stage(bn) + 1024;   // + the base's alignment
+}
+static_assert(wg_smem(256) <= SMEM_MAX, "the ring does not fit");
+static_assert(WM * (144 + 1) * 4 <= WS_STAGES * wg_stage(144),
+              "the logits do not fit the ring");
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, swizzle (1: 128 B, 2: 64 B, 3: 32 B)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, int lbo, int sbo,
+                                            int swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)swizzle << 62);
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N] (scale_d 0 overwrites d): A K-major,
+// B MN-major (imm-trans-b 1), both in shared memory by descriptor
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n144(float (&d)[72], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a,
+                                      uint64_t b, int scale_d) {
+  if constexpr (BN == 128) wgmma_n128(d, a, b, scale_d);
+  if constexpr (BN == 144) wgmma_n144(d, a, b, scale_d);
+  if constexpr (BN == 256) wgmma_n256(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src,
+                                            bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+// where the split path's products read and write
+struct WgArgs {
+  const bf16 *ah, *al;   // A planes [M, lda]
+  const bf16 *bh, *bl;   // B planes [kp, ldb]
+  int lda, ldb, kp;      // kp: the depth, a multiple of 16
+  const float* bias;     // [n_valid]
+  int n_valid;           // columns of the function (n_hid or n_out)
+  bf16 *ch, *cl;         // SPLIT: h planes [M, ldb]
+  float* c;              // LOGITS / SOFTMAX: [M, n_valid]
+  int M, n_ct, passes;
+  bool fast;
+};
+
+enum WgEpilogue { SPLIT, LOGITS, SOFTMAX };
+
+// Slab t into a stage.  A, K-major with 64-byte swizzle: row r at r * 64
+// bytes, its 16-byte chunk c at c ^ ((r >> 1) & 3).  B, MN-major: at BN a
+// multiple of 64 with 128-byte swizzle (atoms of 64 columns x WK rows, row
+// k at k * 128 bytes, chunk c at c ^ (k & 7)), else with 32-byte swizzle
+// (atoms of 16 columns, row k at k * 32, chunk c at c ^ ((k >> 2) & 1)).
+// Zero past M, kp and ldb.
+template <int BN>
+__device__ __forceinline__ void wg_load_slab(uint32_t st, const WgArgs& p,
+                                             long long row0, int col0, int t,
+                                             int tid) {
+  const int k0 = t * WK;
+  const int halves = p.passes == 3 ? 2 : 1;
+  for (int idx = tid; idx < halves * WM * 4; idx += 256) {
+    const int h = idx / (WM * 4), e = idx % (WM * 4);
+    const int r = e / 4, c = e % 4;
+    const long long row = row0 + r;
+    const int k = k0 + 8 * c;
+    const bool live = row < p.M && k < p.kp;
+    const bf16* src = (h ? p.al : p.ah) + (live ? row * p.lda + k : 0);
+    cp_async16z(st + h * A_PLANE + r * 64 + ((c ^ ((r >> 1) & 3)) << 4), src,
+                live);
   }
-  // (c0, c1) row g, columns 2t and 2t + 1 of an n8 tile; (c2, c3) row g + 8
+  constexpr int CPR = BN / 8;   // 16-byte chunks a row
+  const uint32_t wb = st + 2 * A_PLANE;
+  for (int idx = tid; idx < halves * WK * CPR; idx += 256) {
+    const int h = idx / (WK * CPR), e = idx % (WK * CPR);
+    const int k = e / CPR, q = e % CPR;
+    const int col = col0 + 8 * q;
+    const bool live = k0 + k < p.kp && col < p.ldb;
+    const bf16* src =
+        (h ? p.bl : p.bh) + (live ? (size_t)(k0 + k) * p.ldb + col : 0);
+    uint32_t off;
+    if constexpr (BN % 64 == 0)
+      off = (q / 8) * (WK * 128) + k * 128 + (((q % 8) ^ (k & 7)) << 4);
+    else
+      off = (q / 2) * (WK * 32) + k * 32 + (((q % 2) ^ ((k >> 2) & 1)) << 4);
+    cp_async16z(wb + h * b_plane(BN) + off, src, live);
+  }
+}
+
+// Two warpgroups, each rows 64 wg.. of the block's 128 by BN columns.  The
+// ring: slab t + 2 is copied while slab t is multiplied and slab t - 1's
+// products may still run (wgmma.wait_group 1), one block barrier a slab.
+// Without FOLD the sums run in the tensor cores across all slabs; with
+// FOLD each slab's sum (scale_d 0 at its first product) is added into a
+// float32 total with a rounded add, as the old split path and the fused
+// kernel's second product do.
+template <int BN, bool FOLD>
+__global__ void __launch_bounds__(256, 1)
+wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_addr(smem);
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;                  // warpgroup
+  const int col0 = (int)(blockIdx.x % p.n_ct) * BN;
+  const long long row0 = (long long)(blockIdx.x / p.n_ct) * WM;
+  const int n_slabs = (p.kp + WK - 1) / WK;
+
+  constexpr int NR = BN / 2;   // sums a thread
+  float d[NR];
+  float tot[FOLD ? NR : 1];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int i = 0; i < NR; ++i) d[i] = 0.0f;
+  if constexpr (FOLD) {
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int i = 0; i < NR; ++i) tot[i] = 0.0f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < WS_STAGES - 2; ++s) {
+    if (s < n_slabs) wg_load_slab<BN>(ring + s * wg_stage(BN), p, row0, col0,
+                                      s, tid);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_slabs; ++t) {
+    // slab t has landed; every warpgroup's products of slab t - 2 are done,
+    // so its stage takes slab t + 2
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(WS_STAGES - 3)
+                 : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (t + WS_STAGES - 2 < n_slabs)
+      wg_load_slab<BN>(ring + ((t + WS_STAGES - 2) % WS_STAGES) *
+                                  wg_stage(BN),
+                       p, row0, col0, t + WS_STAGES - 2, tid);
+    cp_async_commit();
+
+    const uint32_t st = ring + (t % WS_STAGES) * wg_stage(BN);
+    const uint32_t a0 = st + wgi * (64 * 64);   // the warpgroup's 64 rows
+    const uint32_t b0 = st + 2 * A_PLANE;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < WK / 16; ++ks) {
+      const uint64_t ah = wg_desc(a0 + 32 * ks, 16, 512, 2);
+      const uint64_t al = wg_desc(a0 + A_PLANE + 32 * ks, 16, 512, 2);
+      uint64_t bh, bl;
+      if constexpr (BN % 64 == 0) {
+        bh = wg_desc(b0 + 2048 * ks, WK * 128, 1024, 1);
+        bl = wg_desc(b0 + b_plane(BN) + 2048 * ks, WK * 128, 1024, 1);
+      } else {
+        bh = wg_desc(b0 + 512 * ks, WK * 32, 256, 3);
+        bl = wg_desc(b0 + b_plane(BN) + 512 * ks, WK * 32, 256, 3);
+      }
+      // the passes of a 16-deep step in the plain version's order
+      wgmma<BN>(d, ah, bh, FOLD && ks == 0 ? 0 : 1);
+      if (p.passes == 3) {
+        wgmma<BN>(d, ah, bl, 1);
+        wgmma<BN>(d, al, bh, 1);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if constexpr (FOLD) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < NR; ++i) tot[i] += d[i];
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  auto sum = [&](int i) -> float {
+    if constexpr (FOLD) return tot[i];
+    return d[i];
+  };
+
+  // sum[4 j + e]: row g (e < 2) or g + 8 of the warp's 16, column 8 j + 2 t
+  // + (e & 1)
+  const int lane = tid & 31;
+  const int rl = wgi * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);   // + 8
+  const int cl = 2 * (lane & 3);
+  if (epi == SPLIT) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j + cl;
+      if (col >= p.ldb) continue;
+      const float b0v = col < p.n_valid ? __ldg(p.bias + col) : 0.0f;
+      const float b1v = col + 1 < p.n_valid ? __ldg(p.bias + col + 1) : 0.0f;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const long long row = row0 + rl + 8 * hr;
+        if (row >= p.M) continue;
+        // h past n_hid is 0 in both halves: the second product's padded K
+        bf16 h0 = __float2bfloat16_rn(0.0f), l0 = h0, h1 = h0, l1 = h0;
+        if (col < p.n_valid)
+          split(sigmoid(sum(4 * j + 2 * hr) + b0v, p.fast), &h0, &l0);
+        if (col + 1 < p.n_valid)
+          split(sigmoid(sum(4 * j + 2 * hr + 1) + b1v, p.fast), &h1, &l1);
+        const size_t o = (size_t)row * p.ldb + col;
+        *reinterpret_cast<uint32_t*>(p.ch + o) = pack(h0, h1);
+        if (p.passes == 3)
+          *reinterpret_cast<uint32_t*>(p.cl + o) = pack(l0, l1);
+      }
+    }
+    return;
+  }
+  if (epi == LOGITS) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const long long row = row0 + 16 * warp + g + 8 * (e >> 1);
-        const int col = col0 + 16 * p + 8 * n + 2 * t4 + (e & 1);
-        if (row < M && col < N) {
-          const float v = acc[p][n][e] + bias[col];
-          c[row * N + col] = sigm ? sigmoid(v, fast) : v;
-        }
+        const int col = col0 + 8 * j + cl + (e & 1);
+        const long long row = row0 + rl + 8 * (e >> 1);
+        if (col < p.n_valid && row < p.M)
+          p.c[row * p.n_valid + col] = sum(4 * j + e) + __ldg(p.bias + col);
       }
+    }
+    return;
+  }
+  // SOFTMAX: the tile holds every column of its rows; the logits into
+  // shared memory, then a warp a row as softmax_rows_kernel
+  constexpr int LD = BN + 1;
+  __syncthreads();   // every warpgroup is past the ring's last slab
+  float* lg = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + cl + (e & 1);
+      lg[(rl + 8 * (e >> 1)) * LD + col] =
+          sum(4 * j + e) + (col < p.n_valid ? __ldg(p.bias + col) : 0.0f);
+    }
+  }
+  __syncthreads();
+  const int n = p.n_valid;
+  for (int r = tid >> 5; r < WM; r += 8) {
+    const long long row = row0 + r;
+    if (row >= p.M) break;
+    float* v = lg + r * LD;
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, v[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float s = 0.0f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = p.fast ? fexp(v[j] - mx) : expf(v[j] - mx);
+      v[j] = e;
+      s += e;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    for (int j = lane; j < n; j += 32) p.c[row * n + j] = v[j] / s;
+  }
+}
+
+// xn = (x - mean) * dev split into hi and lo planes [M, kp], zero past
+// n_inp: two columns a thread, packed
+__global__ void __launch_bounds__(256)
+split_rows_kernel(const float* __restrict__ x, const float* __restrict__ mean,
+                  const float* __restrict__ dev, bf16* __restrict__ xh,
+                  bf16* __restrict__ xl, long long M, int n_inp, int kp,
+                  bool lo) {
+  const long long n_pairs = M * (kp / 2);
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n_pairs;
+       i += (long long)gridDim.x * 256) {
+    const long long row = i / (kp / 2);
+    const int k = 2 * (int)(i % (kp / 2));
+    bf16 h[2], l[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = k + e < n_inp ? (x[row * n_inp + k + e] -
+                                       __ldg(mean + k + e)) *
+                                          __ldg(dev + k + e)
+                                    : 0.0f;
+      split(v, h + e, l + e);
+    }
+    reinterpret_cast<uint32_t*>(xh)[i] = pack(h[0], h[1]);
+    if (lo) reinterpret_cast<uint32_t*>(xl)[i] = pack(l[0], l[1]);
+  }
 }
 
 // softmax over each row's n columns, in place: a warp a row
@@ -686,21 +994,60 @@ softmax_rows_kernel(float* __restrict__ o, int M, int n, bool fast) {
   for (int j = lane; j < n; j += 32) v[j] = v[j] / sum;
 }
 
-template <int PASSES>
+template <int BN, bool FOLD>
+cudaError_t wg_gemm(WgArgs p, WgEpilogue epi, int n_cols, cudaStream_t s) {
+  auto kern = wg_gemm_kernel<BN, FOLD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg_smem(BN));
+  if (err != cudaSuccess) return err;
+  p.n_ct = (n_cols + BN - 1) / BN;
+  const long long blocks = (long long)p.n_ct * ((p.M + WM - 1) / WM);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, 256, wg_smem(BN), s>>>(p, epi);
+  return cudaGetLastError();
+}
+
+// bytes of the split path's scratch: xn's and h's planes (lo only at 3
+// passes)
+long long wide_scratch(long long n_rows, int kp, int hp, int passes) {
+  return (long long)halves(passes) * 2 * n_rows * (kp + hp);
+}
+
 cudaError_t wide(const float* x, const float* mean, const float* dev,
                  const Slabs& w, const float* b1, const float* b2, float* out,
-                 float* hid, int n_rows, int n_inp, int n_hid, int n_out,
-                 bool fast, bool softmax, cudaStream_t s) {
-  const unsigned rt = (unsigned)((n_rows + GT - 1) / GT);
-  gemm_kernel<PASSES><<<dim3(rt, (unsigned)((n_hid + GT - 1) / GT)), 128, 0,
-                        s>>>(x, mean, dev, w.w1h, w.w1l, w.kp, w.hp, b1, hid,
-                             n_rows, n_inp, n_hid, true, fast);
+                 unsigned char* scratch, int n_rows, int n_inp, int n_hid,
+                 int n_out, int passes, bool fast, bool softmax,
+                 cudaStream_t s) {
+  const int kp = w.kp, hp = w.hp, op = w.op;
+  bf16* xh = reinterpret_cast<bf16*>(scratch);
+  bf16* xl = xh + (size_t)n_rows * kp;
+  bf16* hh = xh + (size_t)halves(passes) * n_rows * kp;
+  bf16* hl = hh + (size_t)n_rows * hp;
+  const long long pairs = (long long)n_rows * (kp / 2);
+  split_rows_kernel<<<(unsigned)std::min<long long>((pairs + 255) / 256,
+                                                    132 * 16),
+                      256, 0, s>>>(x, mean, dev, xh, xl, n_rows, n_inp, kp,
+                                   passes == 3);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gemm_kernel<PASSES><<<dim3(rt, (unsigned)((n_out + GT - 1) / GT)), 128, 0,
-                        s>>>(hid, nullptr, nullptr, w.w2h, w.w2l, w.hp, w.op,
-                             b2, out, n_rows, n_hid, n_out, false, fast);
-  err = cudaGetLastError();
+  WgArgs p{};
+  p.M = n_rows;
+  p.passes = passes;
+  p.fast = fast;
+  // h = sigmoid(xn @ W1 + b1), split, into planes [n_rows, hp]
+  p.ah = xh, p.al = xl, p.lda = kp, p.kp = kp;
+  p.bh = w.w1h, p.bl = w.w1l, p.ldb = hp;
+  p.bias = b1, p.n_valid = n_hid, p.ch = hh, p.cl = hl;
+  err = wg_gemm<256, false>(p, SPLIT, hp, s);
+  if (err != cudaSuccess) return err;
+  // o = h @ W2 + b2, one tile across all columns where they fit (the
+  // softmax then in its epilogue), else tiles of 128 and the softmax apart
+  p.ah = hh, p.al = hl, p.lda = hp, p.kp = hp;
+  p.bh = w.w2h, p.bl = w.w2l, p.ldb = op;
+  p.bias = b2, p.n_valid = n_out, p.c = out;
+  if (op <= 144)
+    return wg_gemm<144, true>(p, softmax ? SOFTMAX : LOGITS, op, s);
+  err = wg_gemm<128, true>(p, LOGITS, op, s);
   if (err != cudaSuccess || !softmax) return err;
   softmax_rows_kernel<<<(unsigned)((n_rows + 7) / 8), 256, 0, s>>>(
       out, n_rows, n_out, fast);
@@ -858,22 +1205,30 @@ extern "C" int phn_mlp_bf16x3_bands(const void* x, const void* mean,
                n_rows, n_inp, n_hid, n_out, fast, softmax, passes, stream);
 }
 
-// The split path for any widths: hid is an [n_rows, n_hid] float32 scratch
-// tensor; otherwise as phn_mlp_bf16x3.  Three launches on `stream`.
+// Bytes of the split path's scratch for n_rows rows of a net.
+extern "C" long long phn_mlp_bf16x3_wide_scratch(long long n_rows, int n_inp,
+                                                 int n_hid, int passes) {
+  return wide_scratch(n_rows, (n_inp + 15) / 16 * 16,
+                      (n_hid + 127) / 128 * 128, passes);
+}
+
+// The split path for any widths: scratch holds phn_mlp_bf16x3_wide_scratch
+// bytes, 16-byte aligned; otherwise as phn_mlp_bf16x3.  Three launches on
+// `stream` (four where n_out > 144 with the softmax: it runs apart).
 extern "C" int phn_mlp_bf16x3_wide(const void* x, const void* mean,
                                    const void* dev, const void* w1h,
                                    const void* w1l, const void* b1,
                                    const void* w2h, const void* w2l,
-                                   const void* b2, void* out, void* hid,
+                                   const void* b2, void* out, void* scratch,
                                    int n_rows, int n_inp, int n_hid,
                                    int n_out, int fast, int softmax,
                                    int passes, void* stream) {
   if (n_rows <= 0) return cudaSuccess;
-  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 || (passes != 1 && passes != 3) ||
-      n_hid > 65535 * GT || n_out > 65535 * GT)
+  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 || (passes != 1 && passes != 3))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(w1h) | reinterpret_cast<uintptr_t>(w1l) |
-       reinterpret_cast<uintptr_t>(w2h) | reinterpret_cast<uintptr_t>(w2l)) %
+       reinterpret_cast<uintptr_t>(w2h) | reinterpret_cast<uintptr_t>(w2l) |
+       reinterpret_cast<uintptr_t>(scratch)) %
           16 != 0)
     return cudaErrorInvalidValue;
   Slabs w{};
@@ -884,17 +1239,10 @@ extern "C" int phn_mlp_bf16x3_wide(const void* x, const void* mean,
   w.kp = (n_inp + 15) / 16 * 16;
   w.hp = (n_hid + 127) / 128 * 128;
   w.op = (n_out + 15) / 16 * 16;
-  auto* xf = static_cast<const float*>(x);
-  auto* mf = static_cast<const float*>(mean);
-  auto* df = static_cast<const float*>(dev);
-  auto* b1f = static_cast<const float*>(b1);
-  auto* b2f = static_cast<const float*>(b2);
-  auto* of = static_cast<float*>(out);
-  auto* hf = static_cast<float*>(hid);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (passes == 3)
-    return wide<3>(xf, mf, df, w, b1f, b2f, of, hf, n_rows, n_inp, n_hid,
-                   n_out, fast != 0, softmax != 0, s);
-  return wide<1>(xf, mf, df, w, b1f, b2f, of, hf, n_rows, n_inp, n_hid,
-                 n_out, fast != 0, softmax != 0, s);
+  return wide(static_cast<const float*>(x), static_cast<const float*>(mean),
+              static_cast<const float*>(dev), w,
+              static_cast<const float*>(b1), static_cast<const float*>(b2),
+              static_cast<float*>(out), static_cast<unsigned char*>(scratch),
+              n_rows, n_inp, n_hid, n_out, passes, fast != 0, softmax != 0,
+              static_cast<cudaStream_t>(stream));
 }

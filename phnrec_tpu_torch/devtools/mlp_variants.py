@@ -1,6 +1,6 @@
 """Compare variants of a fused-MLP kernel source on one CUDA card.
 
-    python3 -m phnrec_tpu_torch.devtools.mlp_variants REF.cu [VARIANT.cu ...]
+    python3 -m phnrec_tpu_torch.devtools.mlp_variants [--wide] REF.cu [VARIANT.cu ...]
 
 Builds every source given (all at once, with the package's nvcc flags, into
 build/phnrec_tpu_torch/variants/) and prints each build's registers and
@@ -21,6 +21,13 @@ shapes it
   band0 (kernel A' at 3 and 1 passes), and prints cuBLAS's bare products
   beside them: the two float32 products for A, the bf16 products at the
   padded shapes for A' (3 a layer at 3 passes, 1 at 1).
+
+With ``--wide`` it takes the split paths instead (``phn_mlp_fused_wide``,
+``phn_mlp_bf16x3_wide``: nets past n_inp 480 or n_out 256): seeded nets of
+WIDE_SHAPES and MERGER_SHAPES (the 3BT and 1BT mergers) checked at ROWS up
+to 9,005 and the mergers also at 128,037 rows, the same rules (kernel A's
+split path bit-equal to the first source's), then each merger and the
+widest WIDE_SHAPES net timed in turns at 128,000 (65,536) rows.
 
 One JSON line per build, check and timing.  With no variant it checks and
 times the reference alone.  The times of the designs tried for kernels A
@@ -211,6 +218,75 @@ class KernelA3:
         return cuda_ms(run)
 
 
+class KernelAWide(KernelA):
+    """Entry point phn_mlp_fused_wide: kernel A's split path."""
+    symbol = "phn_mlp_fused_wide"
+
+    @staticmethod
+    def bind(lib):
+        fn = lib.phn_mlp_fused_wide
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    @staticmethod
+    def call(lib, x, net, fast=True, smx=True, passes=0):
+        out = torch.empty((x.shape[0], net.n_out), dtype=torch.float32,
+                          device=x.device)
+        hid = torch.empty((x.shape[0], net.n_hid), dtype=torch.float32,
+                          device=x.device)
+        err = lib.phn_mlp_fused_wide(
+            x.data_ptr(), net.mean.data_ptr(), net.dev.data_ptr(),
+            net.w1.data_ptr(), net.b1.data_ptr(), net.w2.data_ptr(),
+            net.b2.data_ptr(), out.data_ptr(), hid.data_ptr(), x.shape[0],
+            net.n_inp, net.n_hid, net.n_out, int(fast), int(smx),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "phn_mlp_fused_wide")
+        return out
+
+
+class KernelA3Wide(KernelA3):
+    """Entry point phn_mlp_bf16x3_wide: kernel A''s split path.  Its
+    scratch is the source's phn_mlp_bf16x3_wide_scratch bytes where it
+    exports that, else (the PR 11 design) a float32 [N, n_hid] tensor."""
+    symbol = "phn_mlp_bf16x3_wide"
+
+    @staticmethod
+    def bind(lib):
+        fn = lib.phn_mlp_bf16x3_wide
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        if hasattr(lib, "phn_mlp_bf16x3_wide_scratch"):
+            lib.phn_mlp_bf16x3_wide_scratch.argtypes = [ctypes.c_longlong] + \
+                [ctypes.c_int] * 3
+            lib.phn_mlp_bf16x3_wide_scratch.restype = ctypes.c_longlong
+
+    @staticmethod
+    def takes(lib, net):
+        return True
+
+    @staticmethod
+    def call(lib, x, net, fast=True, smx=True, passes=3):
+        n = x.shape[0]
+        out = torch.empty((n, net.n_out), dtype=torch.float32,
+                          device=x.device)
+        size = (lib.phn_mlp_bf16x3_wide_scratch(n, net.n_inp, net.n_hid,
+                                                passes)
+                if hasattr(lib, "phn_mlp_bf16x3_wide_scratch")
+                else 4 * n * net.n_hid)
+        scratch = torch.empty(size, dtype=torch.uint8, device=x.device)
+        err = lib.phn_mlp_bf16x3_wide(
+            x.data_ptr(), net.mean.data_ptr(), net.dev.data_ptr(),
+            net.w1_hi.data_ptr(), net.w1_lo.data_ptr(), net.b1.data_ptr(),
+            net.w2_hi.data_ptr(), net.w2_lo.data_ptr(), net.b2.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), n, net.n_inp, net.n_hid,
+            net.n_out, int(fast), int(smx), passes,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "phn_mlp_bf16x3_wide")
+        return out
+
+
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -255,7 +331,42 @@ def cases(dev):
     return nets, xs
 
 
+# the split paths' nets: past n_inp 480 or n_out 256, and the 3BT / 1BT
+# mergers (chip_smoke.py's WIDE_SHAPES and MERGER_SHAPES)
+WIDE_SHAPES = ((500, 257, 138), (165, 200, 300), (500, 1500, 300),
+               (600, 100, 200))
+MERGER_SHAPES = ((1794, 1500, 138), (2070, 1500, 138))
+WIDE_ROWS = (1, 37, 130, 512, 8192 + 5)
+MERGER_ROWS = 128000
+
+
+def wide_cases(dev):
+    """(label -> net, label -> x) for the split paths: seeded nets of
+    WIDE_SHAPES and MERGER_SHAPES, x of MERGER_ROWS + 37 rows (unit
+    normal)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def t(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    nets, xs = {}, {}
+    for n_inp, n_hid, n_out in WIDE_SHAPES + MERGER_SHAPES:
+        net = SimpleNamespace(
+            n_inp=n_inp, n_hid=n_hid, n_out=n_out, mean=t(n_inp),
+            dev=t(n_inp).abs() + 0.5, w1=t(n_inp, n_hid, scale=n_inp ** -0.5),
+            b1=t(n_hid, scale=0.1), w2=t(n_hid, n_out, scale=n_hid ** -0.5),
+            b2=t(n_out, scale=0.1))
+        net.w1_hi, net.w1_lo, net.w2_hi, net.w2_lo = \
+            mlp_bf16x3.split_weights(net.w1, net.w2)
+        label = f"{n_inp}-{n_hid}-{n_out}"
+        nets[label] = net
+        xs[label] = t(MERGER_ROWS + 37, n_inp)
+    return nets, xs
+
+
 def main(argv) -> int:
+    wide = bool(argv) and argv[0] == "--wide"
+    argv = argv[1:] if wide else argv
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -273,9 +384,14 @@ def main(argv) -> int:
         libs = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
     (ref_name, ref), *variants = libs.items()
     kind = KernelA3 if hasattr(ref, KernelA3.symbol) else KernelA
+    if wide:
+        kind = KernelA3Wide if kind is KernelA3 else KernelAWide
     for lib in libs.values():
         kind.bind(lib)
-    nets, xs = cases(dev)
+    nets, xs = wide_cases(dev) if wide else cases(dev)
+    rows_of = (lambda label: WIDE_ROWS + ((MERGER_ROWS + 37,) if label in (
+        "1794-1500-138", "2070-1500-138") else ())) if wide else \
+        (lambda label: ROWS)
 
     for name, lib in [(ref_name, ref), *variants]:
         bad, worst, unequal, taken = [], {}, 0, 0
@@ -284,8 +400,9 @@ def main(argv) -> int:
                 continue
             taken += 1
             modes = [(f, s) for f in (True, False) for s in (True, False)] \
-                if label == "cz.band0" else [(True, True), (False, False)]
-            for rows in ROWS:
+                if label in ("cz.band0", "1794-1500-138") else \
+                [(True, True), (False, False)]
+            for rows in rows_of(label):
                 x = xs[label][:rows]
                 for passes in kind.pass_counts:
                     for fast, smx in modes:
@@ -312,6 +429,10 @@ def main(argv) -> int:
     timed = [(k, 65536) for k in ("cz.band0", "cz.merger", "en.band0",
                                   "en.merger")] + \
         [("cz.band0", 512), ("en.band0", 512)]
+    if wide:
+        timed = [("1794-1500-138", MERGER_ROWS), ("2070-1500-138",
+                                                  MERGER_ROWS),
+                 ("500-1500-300", 65536)]
     ms = {name: {} for name in libs}
     for name in [*libs, *reversed(libs)]:
         for passes in kind.pass_counts:
@@ -321,13 +442,13 @@ def main(argv) -> int:
                     round(cuda_ms(lambda: kind.call(
                         libs[name], x, nets[label], passes=passes)), 4))
     for name, t in ms.items():
-        three = {f"cz_three_nets.p{p}": [
+        three = {} if wide else {f"cz_three_nets.p{p}": [
             round(2 * a + b, 4) for a, b in zip(t[f"cz.band0.65536.p{p}"],
                                                 t[f"cz.merger.65536.p{p}"])]
             for p in kind.pass_counts}
         print(json.dumps({"time_ms": name, **three, **t}), flush=True)
     for passes in kind.pass_counts:
-        for label, rows in timed[:4]:
+        for label, rows in timed[:len(timed) if wide else 4]:
             print(json.dumps({"library_products_ms": label, "passes": passes,
                               "ms": kind.library_ms(xs[label][:rows],
                                                     nets[label], passes)}),

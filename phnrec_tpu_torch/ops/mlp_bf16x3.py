@@ -18,8 +18,9 @@ b1 and b2 stay float32 and unpadded.
 The fused kernel takes the widths kernel A's fused kernel takes (n_inp <=
 480, n_out <= 256, ``mlp_fused.fused_takes``), and the wrapper holds the
 limits the source exports to A's.  Wider nets take the source's split path
-(phn_mlp_bf16x3_wide: the same passes and split, the hidden layer through
-a scratch tensor in device memory), so every width is taken.
+(phn_mlp_bf16x3_wide: xn and the hidden layer split once into bf16 halves
+in a scratch tensor in device memory, then two products on wgmma with the
+same passes), so every width is taken.
 
 A band stack runs as one launch with a band index, as kernel A's does
 (``mlp_forward_bf16x3_bands``; the split weights of each net stacked on a
@@ -112,6 +113,9 @@ def _lib():
         lib.phn_mlp_bf16x3_wide.argtypes = [ctypes.c_void_p] * 11 + [
             ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.phn_mlp_bf16x3_wide.restype = ctypes.c_int
+        lib.phn_mlp_bf16x3_wide_scratch.argtypes = [ctypes.c_longlong] + [
+            ctypes.c_int] * 3
+        lib.phn_mlp_bf16x3_wide_scratch.restype = ctypes.c_longlong
         lib.phn_mlp_bf16x3_bands.argtypes = [ctypes.c_void_p] * 10 + [
             ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.phn_mlp_bf16x3_bands.restype = ctypes.c_int
@@ -166,9 +170,12 @@ def mlp_forward_bf16x3(x, mean, dev, w1_hi, w1_lo, b1, w2_hi, w2_lo, b2, *,
                                      int(fast), int(apply_softmax), passes,
                                      stream)
         else:
-            hid = torch.empty((n, n_hid), dtype=f32, device=device)
-            err = lib.phn_mlp_bf16x3_wide(*ptrs, hid.data_ptr(), n, n_inp,
-                                          n_hid, n_out, int(fast),
+            # the bf16 halves of xn and of the hidden layer
+            scratch = torch.empty(
+                lib.phn_mlp_bf16x3_wide_scratch(n, n_inp, n_hid, passes),
+                dtype=torch.uint8, device=device)
+            err = lib.phn_mlp_bf16x3_wide(*ptrs, scratch.data_ptr(), n,
+                                          n_inp, n_hid, n_out, int(fast),
                                           int(apply_softmax), passes, stream)
     _build.check(err, "mlp_bf16x3")
     global LAUNCHES, WIDE_LAUNCHES
