@@ -88,18 +88,32 @@
 // at op <= 144 are held to 128 a thread (ptxas: 52 bytes of spills at 3
 // passes, none at 1), the wide tile to 255 (201-204 used, one block an SM).
 //
-// Wider nets (n_inp > MAX_INP or n_out > MAX_OUT) take a split path,
-// three launches on the stream (phn_mlp_bf16x3_wide), as kernel A's: h =
-// sigmoid(xn @ W1 + b1) into a caller's [n_rows, n_hid] float32 scratch
-// tensor, o = h @ W2 + b2 into the output, then the row softmax in place.
-// Both products are one tensor-core kernel (gemm_kernel): a 64 x 64 output
-// tile a block of 4 warps, each warp 16 rows by 64 columns; 32-deep slabs,
-// the float32 operand (xn or h) split into bf16 hi and lo as it is staged,
-// the weights' hi and lo staged as given, the same passes in the same
-// order (hi.hi, hi.lo, lo.hi at each 16-deep step) and each slab's sum
-// folded into a float32 total, as the fused kernel folds h @ W2.  The
-// hidden tensor makes a round trip through device memory: these widths
-// are off the main path.
+// Wider nets (n_inp > MAX_INP or n_out > MAX_OUT: the 3BT / 1BT mergers,
+// 1794 / 2070 -> 1500 -> 138) take a split path (phn_mlp_bf16x3_wide),
+// three launches on the stream.  The float32 operands are split once:
+// split_rows_kernel writes xn's bf16 hi and lo planes [n_rows, kp] (the
+// bytes of xn in float32), and the first product's epilogue writes h =
+// sigmoid(xn @ W1 + b1) split, as planes [n_rows, hp], into the caller's
+// scratch.  So both products are bf16 GEMMs of planes on wgmma
+// (wg_gemm_kernel): two consumer warpgroups on 64-row tiles (a block 128
+// rows by 256 columns for the first product, by 144 or 128 for the
+// second), m64nNk16 with A and B from shared memory (A K-major, 64-byte
+// swizzle; B, the weights as split_weights lays them, MN-major, 128- or
+// 32-byte swizzle), the passes in the plain version's order at each
+// 16-deep step (hi.hi, hi.lo, lo.hi; hi.hi at 1 pass).  A producer warp
+// fills a 4-stage ring of 32-deep slabs with TMA (mbarriers: `full` by
+// the copies' bytes, `empty` by the consumer warps), so three slabs are in
+// flight while one is multiplied.  The first product sums in the tensor
+// cores across all slabs; the second folds each slab's sum into a float32
+// total (as the fused kernel's second product) and, where one tile holds
+// all n_out columns (op <= 144), takes the row softmax in its epilogue.
+//
+// What bounds it (PERF.md, devtools/mlp_variants.py --wide on the H100):
+// the operations are 2.25 ms of the bf16 peak at the 3BT merger's 128,000
+// rows at 3 passes (0.75 at 1).  Fed by cp.async from 256 threads, the
+// first product was held by its loads: 16.4 GB of slabs from L2 at ~2.6
+// TB/s (7.8 ms; 6.2 without its products, 3.6 without its loads).  TMA
+// keeps more bytes in flight with one thread.
 //
 // A band stack (phn_mlp_bf16x3_bands, the 3BT / 1BT band nets) runs as one
 // launch, as in kernel A: a second grid dimension over the nets, each
@@ -111,6 +125,8 @@
 // fexp follows phnrec_tpu/posteriors/fexp.py bit for bit, as in kernel A.
 // Build without --use_fast_math.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -581,8 +597,9 @@ __host__ __device__ constexpr int wg_stage(int bn) {
   return 2 * A_PLANE + 2 * b_plane(bn);
 }
 
+// the ring, its 2 x WS_STAGES mbarriers, and room to align the base
 __host__ __device__ constexpr size_t wg_smem(int bn) {
-  return (size_t)WS_STAGES * wg_stage(bn) + 1024;   // + the base's alignment
+  return (size_t)WS_STAGES * wg_stage(bn) + 16 * WS_STAGES + 1024;
 }
 static_assert(wg_smem(256) <= SMEM_MAX, "the ring does not fit");
 static_assert(WM * (144 + 1) * 4 <= WS_STAGES * wg_stage(144),
@@ -714,13 +731,6 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a,
   if constexpr (BN == 256) wgmma_n256(d, a, b, scale_d);
 }
 
-__device__ __forceinline__ void cp_async16z(uint32_t dst, const void* src,
-                                            bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
 // where the split path's products read and write
 struct WgArgs {
   const bf16 *ah, *al;   // A planes [M, lda]
@@ -730,71 +740,136 @@ struct WgArgs {
   int n_valid;           // columns of the function (n_hid or n_out)
   bf16 *ch, *cl;         // SPLIT: h planes [M, ldb]
   float* c;              // LOGITS / SOFTMAX: [M, n_valid]
-  int M, n_ct, passes;
+  int M, n_ct;
   bool fast;
 };
 
 enum WgEpilogue { SPLIT, LOGITS, SOFTMAX };
 
-// Slab t into a stage.  A, K-major with 64-byte swizzle: row r at r * 64
-// bytes, its 16-byte chunk c at c ^ ((r >> 1) & 3).  B, MN-major: at BN a
-// multiple of 64 with 128-byte swizzle (atoms of 64 columns x WK rows, row
-// k at k * 128 bytes, chunk c at c ^ (k & 7)), else with 32-byte swizzle
-// (atoms of 16 columns, row k at k * 32, chunk c at c ^ ((k >> 2) & 1)).
-// Zero past M, kp and ldb.
+// The tensor maps of the four bf16 planes a product reads (kernel
+// parameters, __grid_constant__)
+struct WgMaps {
+  CUtensorMap ah, al, bh, bl;
+};
+
+// A stage holds slab t: A, K-major with 64-byte swizzle (row r at r * 64
+// bytes, its 16-byte chunk c at c ^ ((r >> 1) & 3)), one TMA box of WK x
+// 128 a plane; B, MN-major, in atoms of WA columns x WK rows, one TMA box
+// each: at BN a multiple of 64 with 128-byte swizzle (64 columns, row k at
+// k * 128 bytes, chunk c at c ^ (k & 7)), else with 32-byte swizzle (16
+// columns, row k at k * 32, chunk c at c ^ ((k >> 2) & 1)).  TMA writes
+// exactly these layouts and zero-fills past M, kp and the planes' width.
 template <int BN>
-__device__ __forceinline__ void wg_load_slab(uint32_t st, const WgArgs& p,
-                                             long long row0, int col0, int t,
-                                             int tid) {
-  const int k0 = t * WK;
-  const int halves = p.passes == 3 ? 2 : 1;
-  for (int idx = tid; idx < halves * WM * 4; idx += 256) {
-    const int h = idx / (WM * 4), e = idx % (WM * 4);
-    const int r = e / 4, c = e % 4;
-    const long long row = row0 + r;
-    const int k = k0 + 8 * c;
-    const bool live = row < p.M && k < p.kp;
-    const bf16* src = (h ? p.al : p.ah) + (live ? row * p.lda + k : 0);
-    cp_async16z(st + h * A_PLANE + r * 64 + ((c ^ ((r >> 1) & 3)) << 4), src,
-                live);
-  }
-  constexpr int CPR = BN / 8;   // 16-byte chunks a row
-  const uint32_t wb = st + 2 * A_PLANE;
-  for (int idx = tid; idx < halves * WK * CPR; idx += 256) {
-    const int h = idx / (WK * CPR), e = idx % (WK * CPR);
-    const int k = e / CPR, q = e % CPR;
-    const int col = col0 + 8 * q;
-    const bool live = k0 + k < p.kp && col < p.ldb;
-    const bf16* src =
-        (h ? p.bl : p.bh) + (live ? (size_t)(k0 + k) * p.ldb + col : 0);
-    uint32_t off;
-    if constexpr (BN % 64 == 0)
-      off = (q / 8) * (WK * 128) + k * 128 + (((q % 8) ^ (k & 7)) << 4);
-    else
-      off = (q / 2) * (WK * 32) + k * 32 + (((q % 2) ^ ((k >> 2) & 1)) << 4);
-    cp_async16z(wb + h * b_plane(BN) + off, src, live);
-  }
+struct WgAtom {
+  static constexpr int COLS = BN % 64 == 0 ? 64 : 16;
+  static constexpr int BYTES = COLS * 2 * WK;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// Two warpgroups, each rows 64 wg.. of the block's 128 by BN columns.  The
-// ring: slab t + 2 is copied while slab t is multiplied and slab t - 1's
-// products may still run (wgmma.wait_group 1), one block barrier a slab.
-// Without FOLD the sums run in the tensor cores across all slabs; with
-// FOLD each slab's sum (scale_d 0 at its first product) is added into a
-// float32 total with a rounded add, as the old split path and the fused
-// kernel's second product do.
-template <int BN, bool FOLD>
-__global__ void __launch_bounds__(256, 1)
-wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// arrives and expects `bytes` of TMA copies in the current phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// the box of `map` at (column c0, row c1) into shared memory, counted on
+// the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Two consumer warpgroups, each rows 64 c.. of the block's 128 by BN
+// columns, and a producer warp.  The producer's first lane fills the ring
+// of WS_STAGES slabs with TMA, each stage's boxes counted on its `full`
+// mbarrier; the consumers wait for a stage, issue its products and release
+// it on its `empty` mbarrier (a warp's arrival each) once they are done
+// (wgmma.wait_group).  So up to WS_STAGES - 1 slabs are in flight while
+// one is multiplied, with no block barrier in the loop.  Without FOLD the
+// sums run in the tensor cores across all slabs; with FOLD each slab's sum
+// (scale_d 0 at its first product) is added into a float32 total with a
+// rounded add, as the fused kernel's second product does.
+template <int BN, bool FOLD, int PASSES>
+__global__ void __launch_bounds__(288, 1)
+wg_gemm_kernel(const __grid_constant__ WgMaps maps, const WgArgs p,
+               WgEpilogue epi) {
+  using Atom = WgAtom<BN>;
   extern __shared__ __align__(1024) unsigned char wg_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t ring = smem_addr(smem);
-  const int tid = threadIdx.x;
-  const int wgi = tid / 128;                  // warpgroup
+  const uint32_t full = ring + WS_STAGES * wg_stage(BN);   // mbarriers
+  const uint32_t empty = full + 8 * WS_STAGES;
   const int col0 = (int)(blockIdx.x % p.n_ct) * BN;
-  const long long row0 = (long long)(blockIdx.x / p.n_ct) * WM;
+  const int row0 = (int)(blockIdx.x / p.n_ct) * WM;
   const int n_slabs = (p.kp + WK - 1) / WK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {   // the producer warp
+    if (threadIdx.x == 256) {
+      constexpr uint32_t bytes = halves(PASSES) * (A_PLANE + b_plane(BN));
+      for (int t = 0; t < n_slabs; ++t) {
+        const int s = t % WS_STAGES;
+        if (t >= WS_STAGES)
+          mbar_wait(empty + 8 * s, (t / WS_STAGES - 1) & 1);
+        const uint32_t st = ring + s * wg_stage(BN), bar = full + 8 * s;
+        mbar_expect(bar, bytes);
+        tma_load(st, &maps.ah, t * WK, row0, bar);
+        if constexpr (PASSES == 3)
+          tma_load(st + A_PLANE, &maps.al, t * WK, row0, bar);
+#pragma unroll
+        for (int a = 0; a < BN / Atom::COLS; ++a) {
+          const uint32_t wb = st + 2 * A_PLANE + a * Atom::BYTES;
+          tma_load(wb, &maps.bh, col0 + a * Atom::COLS, t * WK, bar);
+          if constexpr (PASSES == 3)
+            tma_load(wb + b_plane(BN), &maps.bl, col0 + a * Atom::COLS,
+                     t * WK, bar);
+        }
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x;   // 0..255 over the consumers
+  const int wgi = tid / 128;     // the consumer warpgroup
+  const int lane = tid & 31;
 
   constexpr int NR = BN / 2;   // sums a thread
   float d[NR];
@@ -806,26 +881,10 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
     for (int i = 0; i < NR; ++i) tot[i] = 0.0f;
   }
 
-#pragma unroll
-  for (int s = 0; s < WS_STAGES - 2; ++s) {
-    if (s < n_slabs) wg_load_slab<BN>(ring + s * wg_stage(BN), p, row0, col0,
-                                      s, tid);
-    cp_async_commit();
-  }
   for (int t = 0; t < n_slabs; ++t) {
-    // slab t has landed; every warpgroup's products of slab t - 2 are done,
-    // so its stage takes slab t + 2
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(WS_STAGES - 3)
-                 : "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (t + WS_STAGES - 2 < n_slabs)
-      wg_load_slab<BN>(ring + ((t + WS_STAGES - 2) % WS_STAGES) *
-                                  wg_stage(BN),
-                       p, row0, col0, t + WS_STAGES - 2, tid);
-    cp_async_commit();
-
-    const uint32_t st = ring + (t % WS_STAGES) * wg_stage(BN);
+    const int s = t % WS_STAGES;
+    mbar_wait(full + 8 * s, (t / WS_STAGES) & 1);
+    const uint32_t st = ring + s * wg_stage(BN);
     const uint32_t a0 = st + wgi * (64 * 64);   // the warpgroup's 64 rows
     const uint32_t b0 = st + 2 * A_PLANE;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -835,15 +894,15 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
       const uint64_t al = wg_desc(a0 + A_PLANE + 32 * ks, 16, 512, 2);
       uint64_t bh, bl;
       if constexpr (BN % 64 == 0) {
-        bh = wg_desc(b0 + 2048 * ks, WK * 128, 1024, 1);
-        bl = wg_desc(b0 + b_plane(BN) + 2048 * ks, WK * 128, 1024, 1);
+        bh = wg_desc(b0 + 2048 * ks, Atom::BYTES, 1024, 1);
+        bl = wg_desc(b0 + b_plane(BN) + 2048 * ks, Atom::BYTES, 1024, 1);
       } else {
-        bh = wg_desc(b0 + 512 * ks, WK * 32, 256, 3);
-        bl = wg_desc(b0 + b_plane(BN) + 512 * ks, WK * 32, 256, 3);
+        bh = wg_desc(b0 + 512 * ks, Atom::BYTES, 256, 3);
+        bl = wg_desc(b0 + b_plane(BN) + 512 * ks, Atom::BYTES, 256, 3);
       }
       // the passes of a 16-deep step in the plain version's order
       wgmma<BN>(d, ah, bh, FOLD && ks == 0 ? 0 : 1);
-      if (p.passes == 3) {
+      if constexpr (PASSES == 3) {
         wgmma<BN>(d, ah, bl, 1);
         wgmma<BN>(d, al, bh, 1);
       }
@@ -851,10 +910,14 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if constexpr (FOLD) {
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(empty + 8 * s);
 #pragma unroll
       for (int i = 0; i < NR; ++i) tot[i] += d[i];
     } else {
+      // slab t - 1's products are done: its stage is free
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (t > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((t - 1) % WS_STAGES));
     }
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -865,7 +928,6 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
 
   // sum[4 j + e]: row g (e < 2) or g + 8 of the warp's 16, column 8 j + 2 t
   // + (e & 1)
-  const int lane = tid & 31;
   const int rl = wgi * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);   // + 8
   const int cl = 2 * (lane & 3);
   if (epi == SPLIT) {
@@ -887,7 +949,7 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
           split(sigmoid(sum(4 * j + 2 * hr + 1) + b1v, p.fast), &h1, &l1);
         const size_t o = (size_t)row * p.ldb + col;
         *reinterpret_cast<uint32_t*>(p.ch + o) = pack(h0, h1);
-        if (p.passes == 3)
+        if constexpr (PASSES == 3)
           *reinterpret_cast<uint32_t*>(p.cl + o) = pack(l0, l1);
       }
     }
@@ -909,7 +971,8 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
   // SOFTMAX: the tile holds every column of its rows; the logits into
   // shared memory, then a warp a row as softmax_rows_kernel
   constexpr int LD = BN + 1;
-  __syncthreads();   // every warpgroup is past the ring's last slab
+  // every consumer is past the ring's last slab (the producer has left)
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
   float* lg = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -920,7 +983,7 @@ wg_gemm_kernel(const WgArgs p, WgEpilogue epi) {
           sum(4 * j + e) + (col < p.n_valid ? __ldg(p.bias + col) : 0.0f);
     }
   }
-  __syncthreads();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
   const int n = p.n_valid;
   for (int r = tid >> 5; r < WM; r += 8) {
     const long long row = row0 + r;
@@ -994,16 +1057,63 @@ softmax_rows_kernel(float* __restrict__ o, int M, int n, bool fast) {
   for (int j = lane; j < n; j += 32) v[j] = v[j] / sum;
 }
 
-template <int BN, bool FOLD>
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link to libcuda)
+PFN_cuTensorMapEncodeTiled encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// a bf16 plane [rows, cols] row-major, boxes of box_cols x box_rows
+cudaError_t plane_map(CUtensorMap* m, const bf16* base, long long rows,
+                      int cols, int box_cols, int box_rows,
+                      CUtensorMapSwizzle swizzle) {
+  const PFN_cuTensorMapEncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <int BN, bool FOLD, int PASSES>
 cudaError_t wg_gemm(WgArgs p, WgEpilogue epi, int n_cols, cudaStream_t s) {
-  auto kern = wg_gemm_kernel<BN, FOLD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg_smem(BN));
+  using Atom = WgAtom<BN>;
+  const CUtensorMapSwizzle bsw = BN % 64 == 0 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  WgMaps maps;
+  cudaError_t err;
+  if ((err = plane_map(&maps.ah, p.ah, p.M, p.lda, WK, WM,
+                       CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess ||
+      (err = plane_map(&maps.al, p.al, p.M, p.lda, WK, WM,
+                       CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess ||
+      (err = plane_map(&maps.bh, p.bh, p.kp, p.ldb, Atom::COLS, WK, bsw)) !=
+          cudaSuccess ||
+      (err = plane_map(&maps.bl, p.bl, p.kp, p.ldb, Atom::COLS, WK, bsw)) !=
+          cudaSuccess)
+    return err;
+  auto kern = wg_gemm_kernel<BN, FOLD, PASSES>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wg_smem(BN));
   if (err != cudaSuccess) return err;
   p.n_ct = (n_cols + BN - 1) / BN;
   const long long blocks = (long long)p.n_ct * ((p.M + WM - 1) / WM);
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, 256, wg_smem(BN), s>>>(p, epi);
+  kern<<<(unsigned)blocks, 288, wg_smem(BN), s>>>(maps, p, epi);
   return cudaGetLastError();
 }
 
@@ -1013,32 +1123,31 @@ long long wide_scratch(long long n_rows, int kp, int hp, int passes) {
   return (long long)halves(passes) * 2 * n_rows * (kp + hp);
 }
 
+template <int PASSES>
 cudaError_t wide(const float* x, const float* mean, const float* dev,
                  const Slabs& w, const float* b1, const float* b2, float* out,
                  unsigned char* scratch, int n_rows, int n_inp, int n_hid,
-                 int n_out, int passes, bool fast, bool softmax,
-                 cudaStream_t s) {
+                 int n_out, bool fast, bool softmax, cudaStream_t s) {
   const int kp = w.kp, hp = w.hp, op = w.op;
   bf16* xh = reinterpret_cast<bf16*>(scratch);
   bf16* xl = xh + (size_t)n_rows * kp;
-  bf16* hh = xh + (size_t)halves(passes) * n_rows * kp;
+  bf16* hh = xh + (size_t)halves(PASSES) * n_rows * kp;
   bf16* hl = hh + (size_t)n_rows * hp;
   const long long pairs = (long long)n_rows * (kp / 2);
   split_rows_kernel<<<(unsigned)std::min<long long>((pairs + 255) / 256,
                                                     132 * 16),
                       256, 0, s>>>(x, mean, dev, xh, xl, n_rows, n_inp, kp,
-                                   passes == 3);
+                                   PASSES == 3);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   WgArgs p{};
   p.M = n_rows;
-  p.passes = passes;
   p.fast = fast;
   // h = sigmoid(xn @ W1 + b1), split, into planes [n_rows, hp]
   p.ah = xh, p.al = xl, p.lda = kp, p.kp = kp;
   p.bh = w.w1h, p.bl = w.w1l, p.ldb = hp;
   p.bias = b1, p.n_valid = n_hid, p.ch = hh, p.cl = hl;
-  err = wg_gemm<256, false>(p, SPLIT, hp, s);
+  err = wg_gemm<256, false, PASSES>(p, SPLIT, hp, s);
   if (err != cudaSuccess) return err;
   // o = h @ W2 + b2, one tile across all columns where they fit (the
   // softmax then in its epilogue), else tiles of 128 and the softmax apart
@@ -1046,8 +1155,8 @@ cudaError_t wide(const float* x, const float* mean, const float* dev,
   p.bh = w.w2h, p.bl = w.w2l, p.ldb = op;
   p.bias = b2, p.n_valid = n_out, p.c = out;
   if (op <= 144)
-    return wg_gemm<144, true>(p, softmax ? SOFTMAX : LOGITS, op, s);
-  err = wg_gemm<128, true>(p, LOGITS, op, s);
+    return wg_gemm<144, true, PASSES>(p, softmax ? SOFTMAX : LOGITS, op, s);
+  err = wg_gemm<128, true, PASSES>(p, LOGITS, op, s);
   if (err != cudaSuccess || !softmax) return err;
   softmax_rows_kernel<<<(unsigned)((n_rows + 7) / 8), 256, 0, s>>>(
       out, n_rows, n_out, fast);
@@ -1239,10 +1348,17 @@ extern "C" int phn_mlp_bf16x3_wide(const void* x, const void* mean,
   w.kp = (n_inp + 15) / 16 * 16;
   w.hp = (n_hid + 127) / 128 * 128;
   w.op = (n_out + 15) / 16 * 16;
-  return wide(static_cast<const float*>(x), static_cast<const float*>(mean),
-              static_cast<const float*>(dev), w,
-              static_cast<const float*>(b1), static_cast<const float*>(b2),
-              static_cast<float*>(out), static_cast<unsigned char*>(scratch),
-              n_rows, n_inp, n_hid, n_out, passes, fast != 0, softmax != 0,
-              static_cast<cudaStream_t>(stream));
+  auto* xf = static_cast<const float*>(x);
+  auto* mf = static_cast<const float*>(mean);
+  auto* df = static_cast<const float*>(dev);
+  auto* b1f = static_cast<const float*>(b1);
+  auto* b2f = static_cast<const float*>(b2);
+  auto* of = static_cast<float*>(out);
+  auto* sc = static_cast<unsigned char*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (passes == 3)
+    return wide<3>(xf, mf, df, w, b1f, b2f, of, sc, n_rows, n_inp, n_hid,
+                   n_out, fast != 0, softmax != 0, s);
+  return wide<1>(xf, mf, df, w, b1f, b2f, of, sc, n_rows, n_inp, n_hid,
+                 n_out, fast != 0, softmax != 0, s);
 }

@@ -90,7 +90,10 @@ def build(tag: str, src: Path):
         raise _build.KernelBuildError(f"{src}:\n{log}")
     print(json.dumps({"build": tag, "source": str(src),
                       "seconds": time.perf_counter() - t,
-                      "ptxas": ptxas_report(log)}), flush=True)
+                      "ptxas": ptxas_report(log),
+                      "warnings": [l for l in log.splitlines()
+                                   if "arning" in l or "wgmma" in l]}),
+          flush=True)
     return ctypes.CDLL(str(so))
 
 
@@ -287,6 +290,26 @@ class KernelA3Wide(KernelA3):
         return out
 
 
+def kernel_ms(fn) -> dict:
+    """Device ms by kernel of one call of ``fn`` (after a warm-up), from
+    torch.profiler: the launches of a split path one by one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                          e.name).split("(")[0]
+            by[name] = by.get(name, 0.0) + (e.time_range.end -
+                                            e.time_range.start) / 1e3
+    return by
+
+
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -447,6 +470,15 @@ def main(argv) -> int:
                                                 t[f"cz.merger.65536.p{p}"])]
             for p in kind.pass_counts}
         print(json.dumps({"time_ms": name, **three, **t}), flush=True)
+    if wide:
+        x = xs[timed[0][0]][:timed[0][1]]
+        for name, lib in libs.items():
+            for passes in kind.pass_counts:
+                print(json.dumps({"kernel_ms": name, "net": timed[0][0],
+                                  "passes": passes, "ms": kernel_ms(
+                                      lambda: kind.call(
+                                          lib, x, nets[timed[0][0]],
+                                          passes=passes))}), flush=True)
     for passes in kind.pass_counts:
         for label, rows in timed[:len(timed) if wide else 4]:
             print(json.dumps({"library_products_ms": label, "passes": passes,
