@@ -100,6 +100,8 @@
 // (__float2int_rz), a wrapping int32 add, and an exact 2^e that is 0 for
 // e <= -126 (XLA on the CPU flushes there).  Build without --use_fast_math.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -448,15 +450,14 @@ mlp_fused_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-// The split path's products: a register-tiled SGEMM with a ring of K
-// slabs.  c = act(a' @ w + bias), a' = (a - mean) * dev by column where
-// mean is given, else a; a [M, K] and w [K, N] row-major float32.  A block
-// of 256 threads owns a tile of BM = 16 TR rows by BN = 16 NC columns, a
-// thread TR rows (ty * 4 + 64 g + 0..3) by NC columns (VB: tx * 4 + 64 h +
-// 0..3, two float4 of a slab row; else tx + 16 j, one float each).
-constexpr int SK = 16;         // depth of a slab (the old split path's too)
-constexpr int SS = 4;          // stages of the ring
-constexpr int SLD = SK + 4;    // row stride of a raw a slab, floats
+// The split path's products: a register-tiled SGEMM fed by TMA.  c =
+// act(a @ w + bias) with a given transposed, aT [K, lda] (lda >= M, a
+// multiple of 4), and w [K, ldw] row-major, both float32.  A block of 256
+// threads owns a tile of BM = 16 TR rows by BN = 16 NC columns, a thread TR
+// rows (ty * 4 + 64 g + 0..3) by NC columns (VB: tx * 4 + 64 h + 0..3, two
+// float4 of a slab row; else tx + 16 j, one float each).
+constexpr int SK = 16;   // depth of a slab (the old split path's too)
+constexpr int SS = 5;    // stages of the ring
 
 enum Epilogue { SIGMOID, LOGITS, SOFTMAX };
 
@@ -464,115 +465,103 @@ template <int TR, int NC>
 struct SplitTile {
   static constexpr int BM = 16 * TR;
   static constexpr int BN = 16 * NC;
-  static constexpr int STAGE = BM * SLD + SK * BN;   // floats: a, then w
-  static constexpr int AT = SK * BM;                 // a transposed slab
-  static constexpr size_t SMEM = sizeof(float) * (SS * STAGE + 2 * AT);
-  // the softmax epilogue's logits [BM][BN + 1] reuse the ring
-  static_assert(BM * (BN + 1) <= SS * STAGE, "logits do not fit the ring");
+  static constexpr int STAGE = SK * (BM + BN);   // floats: aT, then w
+  // the ring, its mbarriers and room to align the base to 128 bytes
+  static constexpr size_t SMEM = sizeof(float) * SS * STAGE + 8 * SS + 128;
 };
 
-// one piece of vec floats (4, 2 or 1) copied asynchronously, or zero-filled
-// where n_bytes is 0 (src then only has to be a valid address)
-__device__ __forceinline__ void cp_async_piece(float* dst, const float* src,
-                                               int vec, bool live) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = live ? 4 * vec : 0;
-  if (vec == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(n) : "memory");
-  else if (vec == 2)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(src), "r"(n) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(n) : "memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// the widest piece every row of a [rows, n] float32 array can be copied in
-__device__ __forceinline__ int piece_floats(const float* p, int n) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  return n % 4 == 0 && a % 16 == 0 ? 4 : n % 2 == 0 && a % 8 == 0 ? 2 : 1;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// Slab t of both operands into a stage: a rows row0.. x k 16t.. as [BM][SLD]
-// (zero past M and K), w rows 16t.. x columns col0.. as [SK][BN] (zero past
-// K and N).  The pieces of a quarter (half, whole) warp of 16-byte (8-,
-// 4-byte) copies land in rows r and r + 4, whose 16-float windows of the
-// 32 banks do not meet at SLD = 20.
+// arrives and expects `bytes` of TMA copies in the current phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// the box of `map` at (column c0, row c1) into shared memory, counted on
+// the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Slab t (rows 16 t.. of aT and w) into stage s: the boxes [SK][BM] of aT
+// from column row0 and [SK][BN] of w from column col0; TMA zero-fills past
+// K and the arrays' widths
 template <int TR, int NC>
-__device__ __forceinline__ void load_split_slab(
-    float* st, const float* __restrict__ a, const float* __restrict__ w,
-    long long row0, int col0, int t, int M, int K, int N, int va, int vw,
-    int tid) {
+__device__ __forceinline__ void issue_slab(uint32_t ring, uint32_t bars,
+                                           const CUtensorMap* ma,
+                                           const CUtensorMap* mw, int row0,
+                                           int col0, int t) {
   using T = SplitTile<TR, NC>;
-  const int k0 = t * SK;
-  const int ppr = SK / va;   // pieces a row of the a slab
-  for (int idx = tid; idx < T::BM * ppr; idx += 256) {
-    const int u = idx / (2 * ppr), v = idx % (2 * ppr);
-    const int p = v % ppr;
-    const int r = (u >> 2) * 8 + (u & 3) + 4 * (v / ppr);
-    const long long row = row0 + r;
-    const int k = k0 + p * va;
-    const bool live = row < M && k < K;
-    cp_async_piece(st + r * SLD + p * va, live ? a + row * K + k : a, va,
-                   live);
-  }
-  float* ws = st + T::BM * SLD;
-  const int ppw = T::BN / vw;
-  for (int idx = tid; idx < SK * ppw; idx += 256) {
-    const int kk = idx / ppw, p = idx % ppw;
-    const int k = k0 + kk, col = col0 + p * vw;
-    const bool live = k < K && col < N;
-    cp_async_piece(ws + kk * T::BN + p * vw,
-                   live ? w + (size_t)k * N + col : w, vw, live);
-  }
+  const int s = t % SS;
+  const uint32_t st = ring + sizeof(float) * s * T::STAGE;
+  mbar_expect(bars + 8 * s, sizeof(float) * T::STAGE);
+  tma_load(st, ma, row0, t * SK, bars + 8 * s);
+  tma_load(st + sizeof(float) * SK * T::BM, mw, col0, t * SK, bars + 8 * s);
 }
 
-// the raw a slab of a stage, normalised where mean is given, into the
-// transposed slab at [SK][BM]: a warp reads one float4 of k from each of
-// 32 rows (SLD = 20 spreads them over the banks) and stores 32 neighbours
-template <int TR, int NC>
-__device__ __forceinline__ void transpose_slab(
-    float* at, const float* st, const float* __restrict__ mean,
-    const float* __restrict__ dev, int t, int K, int tid) {
-  using T = SplitTile<TR, NC>;
-#pragma unroll
-  for (int i = 0; i < T::BM * 4 / 256; ++i) {
-    const int idx = tid + 256 * i;
-    const int r = idx % T::BM, q = idx / T::BM;
-    const float4 v4 = *reinterpret_cast<const float4*>(st + r * SLD + 4 * q);
-    float v[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = t * SK + 4 * q + e;
-      if (k >= K)
-        v[e] = 0.0f;
-      else if (mean)
-        v[e] = (v[e] - __ldg(mean + k)) * __ldg(dev + k);
-      at[(4 * q + e) * T::BM + r] = v[e];
-    }
-  }
-}
-
+// The ring: thread 0 keeps SS - 1 slabs in flight ahead of the one being
+// multiplied (slab t + SS goes into slab t's stage once every thread is
+// past it: one block barrier a slab); every thread waits on a slab's
+// mbarrier.  The products read both operands as float4 from the [k][row]
+// and [k][column] slabs, conflict-free.
 template <int TR, int NC, bool VB>
 __global__ void __launch_bounds__(256, 2)
-split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
-                  const float* __restrict__ dev, const float* __restrict__ w,
+split_gemm_kernel(const __grid_constant__ CUtensorMap ma,
+                  const __grid_constant__ CUtensorMap mw,
                   const float* __restrict__ bias, float* __restrict__ c,
-                  int M, int K, int N, int n_ct, Epilogue epi, bool fast) {
+                  int M, int K, int N, int ldc, int n_ct, Epilogue epi,
+                  bool fast) {
   using T = SplitTile<TR, NC>;
   static_assert(!VB || NC == 8, "float4 columns take NC = 8");
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);   // [SS][STAGE]
-  float* ats = ring + SS * T::STAGE;                // [2][AT]
+  float* ring = reinterpret_cast<float*>(       // [SS][STAGE]
+      (reinterpret_cast<uintptr_t>(smem4) + 127) & ~uintptr_t(127));
+  const uint32_t ring_a = smem_u32(ring);
+  const uint32_t bars = ring_a + sizeof(float) * SS * T::STAGE;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   // column tiles vary fastest: the blocks of one row tile share its a slabs
   // in L2
   const int col0 = (int)(blockIdx.x % n_ct) * T::BN;
-  const long long row0 = (long long)(blockIdx.x / n_ct) * T::BM;
-  const int va = piece_floats(a, K), vw = piece_floats(w, N);
+  const int row0 = (int)(blockIdx.x / n_ct) * T::BM;
   const int n_slabs = (K + SK - 1) / SK;
+
+  if (tid == 0) {
+    for (int s = 0; s < SS; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < SS && t < n_slabs; ++t)
+      issue_slab<TR, NC>(ring_a, bars, &ma, &mw, row0, col0, t);
+  }
+  __syncthreads();
 
   float acc[TR][NC];
 #pragma unroll
@@ -580,32 +569,10 @@ split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
 
-#pragma unroll
-  for (int s = 0; s < SS - 1; ++s) {
-    if (s < n_slabs)
-      load_split_slab<TR, NC>(ring + s * T::STAGE, a, w, row0, col0, s, M, K,
-                              N, va, vw, tid);
-    cp_async_commit();
-  }
-  cp_async_wait<SS - 2>();
-  __syncthreads();
-  transpose_slab<TR, NC>(ats, ring, mean, dev, 0, K, tid);
-
   for (int t = 0; t < n_slabs; ++t) {
-    // slab t + 1 has landed, slab t's transpose is visible, and every
-    // thread is past slab t - 1: its stage and transposed slab are free
-    cp_async_wait<SS - 3>();
-    __syncthreads();
-    if (t + SS - 1 < n_slabs)
-      load_split_slab<TR, NC>(ring + ((t + SS - 1) % SS) * T::STAGE, a, w,
-                              row0, col0, t + SS - 1, M, K, N, va, vw, tid);
-    cp_async_commit();
-    if (t + 1 < n_slabs)
-      transpose_slab<TR, NC>(ats + ((t + 1) & 1) * T::AT,
-                             ring + ((t + 1) % SS) * T::STAGE, mean, dev,
-                             t + 1, K, tid);
-    const float* at = ats + (t & 1) * T::AT + ty * 4;
-    const float* ws = ring + (t % SS) * T::STAGE + T::BM * SLD;
+    mbar_wait(bars + 8 * (t % SS), (t / SS) & 1);
+    const float* at = ring + (t % SS) * T::STAGE + ty * 4;
+    const float* ws = ring + (t % SS) * T::STAGE + SK * T::BM;
 #pragma unroll
     for (int kk = 0; kk < SK; ++kk) {
       float av[TR], wv[NC];
@@ -637,6 +604,10 @@ split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
 #pragma unroll
         for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
     }
+    // every thread is past slab t: its stage takes slab t + SS
+    __syncthreads();
+    if (tid == 0 && t + SS < n_slabs)
+      issue_slab<TR, NC>(ring_a, bars, &ma, &mw, row0, col0, t + SS);
   }
 
   // the thread's rows and columns
@@ -650,33 +621,36 @@ split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
     const int col = col0 + col_of(j);
     bj[j] = col < N ? __ldg(bias + col) : 0.0f;
   }
-  if (epi != SOFTMAX) {
-    const bool v4 = VB && N % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  if (epi == SIGMOID) {
+    // h, transposed: c [N, ldc], four rows a float4 (rows up to ldc, a
+    // multiple of 4, all finite)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = col0 + col_of(j);
+      if (col >= N) continue;
+#pragma unroll
+      for (int g = 0; g < TR / 4; ++g) {
+        const int row = row0 + ty * 4 + 64 * g;
+        if (row >= ldc) continue;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = sigmoid(acc[4 * g + e][j] + bj[j], fast);
+        *reinterpret_cast<float4*>(c + (size_t)col * ldc + row) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    return;
+  }
+  if (epi == LOGITS) {
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
       const long long row = row0 + row_of(i);
       if (row >= M) continue;
-      float v[NC];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        v[j] = acc[i][j] + bj[j];
-        if (epi == SIGMOID) v[j] = sigmoid(v[j], fast);
-      }
-      if (v4) {
-#pragma unroll
-        for (int h = 0; h < NC / 4; ++h) {
-          const int col = col0 + tx * 4 + 64 * h;
-          if (col < N)
-            *reinterpret_cast<float4*>(c + row * N + col) = make_float4(
-                v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int col = col0 + col_of(j);
-          if (col < N) c[row * N + col] = v[j];
-        }
+        const int col = col0 + col_of(j);
+        if (col < N) c[row * N + col] = acc[i][j] + bj[j];
       }
     }
     return;
@@ -684,36 +658,81 @@ split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ mean,
 
   // one tile holds every column of its rows (N <= BN): the logits into
   // shared memory, then a warp a row takes the softmax exactly as
-  // softmax_rows_kernel does
-  constexpr int LD = T::BN + 1;
-  __syncthreads();   // every thread is past the ring's last slab
-  float* lg = ring;
+  // softmax_rows_kernel does.  The float4-column tiles never take it.
+  if constexpr (!VB) {
+    constexpr int LD = T::BN + 1;
+    static_assert(T::BM * LD <= SS * T::STAGE, "logits do not fit the ring");
+    float* lg = ring;   // every thread is past the last slab's barrier
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      lg[row_of(i) * LD + col_of(j)] = acc[i][j] + bj[j];
-  __syncthreads();
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < T::BM; r += 8) {
-    const long long row = row0 + r;
-    if (row >= M) break;
-    float* v = lg + r * LD;
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, v[j]);
+      for (int j = 0; j < NC; ++j)
+        lg[row_of(i) * LD + col_of(j)] = acc[i][j] + bj[j];
+    __syncthreads();
+    const int lane = tid & 31;
+    for (int r = tid >> 5; r < T::BM; r += 8) {
+      const long long row = row0 + r;
+      if (row >= M) break;
+      float* v = lg + r * LD;
+      float mx = -INFINITY;
+      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, v[j]);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.0f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = fast ? fexp(v[j] - mx) : expf(v[j] - mx);
-      v[j] = e;
-      sum += e;
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.0f;
+      for (int j = lane; j < N; j += 32) {
+        const float e = fast ? fexp(v[j] - mx) : expf(v[j] - mx);
+        v[j] = e;
+        sum += e;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int j = lane; j < N; j += 32) c[row * N + j] = v[j] / sum;
     }
+  }
+}
+
+// xnT [K, ldt] = ((x - mean) * dev)^T for x [M, K] (x^T where mean is
+// null), zero in the columns M..ldt: 32 x 32 tiles through shared memory
+__global__ void __launch_bounds__(256)
+transpose_norm_kernel(const float* __restrict__ x,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ dev, float* __restrict__ xt,
+                      int M, int K, int ldt) {
+  __shared__ float tile[32][33];
+  const long long r0 = (long long)blockIdx.x * 32;
+  const int k0 = blockIdx.y * 32;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < N; j += 32) c[row * N + j] = v[j] / sum;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const long long row = r0 + i;
+    const int k = k0 + threadIdx.x;
+    float v = 0.0f;
+    if (row < M && k < K) {
+      v = x[row * K + k];
+      if (mean) v = (v - mean[k]) * dev[k];
+    }
+    tile[i][threadIdx.x] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int k = k0 + i;
+    const long long row = r0 + threadIdx.x;
+    if (k < K && row < ldt) xt[(size_t)k * ldt + row] = tile[threadIdx.x][i];
+  }
+}
+
+// dst [rows, ldd] = src [rows, cols] zero-padded to ldd columns
+__global__ void __launch_bounds__(256)
+pad_cols_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                int rows, int cols, int ldd) {
+  const long long n = (long long)rows * ldd;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    const long long r = i / ldd;
+    const int col = (int)(i % ldd);
+    dst[i] = col < cols ? src[r * cols + col] : 0.0f;
   }
 }
 
@@ -741,22 +760,66 @@ softmax_rows_kernel(float* __restrict__ o, int M, int n, bool fast) {
   for (int j = lane; j < n; j += 32) v[j] = v[j] / sum;
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link to libcuda)
+PFN_cuTensorMapEncodeTiled encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// a float32 array [rows, cols] row-major, boxes of box_cols x SK rows
+cudaError_t f32_map(CUtensorMap* m, const float* base, int rows, int cols,
+                    int box_cols) {
+  const PFN_cuTensorMapEncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)SK};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// c = act(a @ w + bias) with aT [K, lda] and w [K, ldw] (zero past N)
 template <int TR, int NC, bool VB>
-cudaError_t split_gemm(const float* a, const float* mean, const float* dev,
-                       const float* w, const float* bias, float* c, int M,
-                       int K, int N, Epilogue epi, bool fast,
-                       cudaStream_t s) {
+cudaError_t split_gemm(const float* at, int lda, const float* w, int ldw,
+                       const float* bias, float* c, int ldc, int M, int K,
+                       int N, Epilogue epi, bool fast, cudaStream_t s) {
   using T = SplitTile<TR, NC>;
+  CUtensorMap ma, mw;
+  cudaError_t err = f32_map(&ma, at, K, lda, T::BM);
+  if (err == cudaSuccess) err = f32_map(&mw, w, K, ldw, T::BN);
+  if (err != cudaSuccess) return err;
   auto kern = split_gemm_kernel<TR, NC, VB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)T::SMEM);
   if (err != cudaSuccess) return err;
   const long long n_ct = (N + T::BN - 1) / T::BN;
   const long long blocks = n_ct * ((M + T::BM - 1) / T::BM);
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  kern<<<(unsigned)blocks, 256, T::SMEM, s>>>(a, mean, dev, w, bias, c, M, K,
-                                              N, (int)n_ct, epi, fast);
+  kern<<<(unsigned)blocks, 256, T::SMEM, s>>>(ma, mw, bias, c, M, K, N, ldc,
+                                              (int)n_ct, epi, fast);
   return cudaGetLastError();
+}
+
+// the split path's scratch, floats: xn^T [n_inp, round4(n_rows)], h^T
+// [n_hid, round4(n_rows)], W1 [n_inp, round4(n_hid)], W2 [n_hid,
+// round4(n_out)]
+long long wide_scratch(long long n_rows, int n_inp, int n_hid, int n_out) {
+  return (n_rows + 3) / 4 * 4 * (n_inp + n_hid) +
+         (long long)n_inp * round4(n_hid) + (long long)n_hid * round4(n_out);
 }
 
 template <int RT, int NQ, bool BANDS>
@@ -870,40 +933,64 @@ extern "C" int phn_mlp_fused_bands(const void* x, const void* mean,
                   n_bands, bd, static_cast<cudaStream_t>(stream));
 }
 
-// The split path for any widths: hid is an [n_rows, n_hid] float32 scratch
-// tensor; otherwise as phn_mlp_fused.  Two launches on `stream` (three
-// where n_out > 256: the softmax apart).
+// Bytes of the split path's scratch for n_rows rows of a net.
+extern "C" long long phn_mlp_fused_wide_scratch(long long n_rows, int n_inp,
+                                                int n_hid, int n_out) {
+  return (long long)sizeof(float) * wide_scratch(n_rows, n_inp, n_hid, n_out);
+}
+
+// The split path for any widths: scratch holds phn_mlp_fused_wide_scratch
+// bytes, 16-byte aligned; otherwise as phn_mlp_fused.  Five launches on
+// `stream` (six where n_out > 256: the softmax apart): xn^T, the weights
+// padded to rows of a multiple of 16 bytes (what TMA takes), h^T, o.
 extern "C" int phn_mlp_fused_wide(const void* x, const void* mean,
                                   const void* dev, const void* w1,
                                   const void* b1, const void* w2,
-                                  const void* b2, void* out, void* hid,
+                                  const void* b2, void* out, void* scratch,
                                   int n_rows, int n_inp, int n_hid, int n_out,
                                   int fast, int softmax, void* stream) {
   if (n_rows <= 0) return cudaSuccess;
-  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0) return cudaErrorInvalidValue;
+  if (n_inp <= 0 || n_hid <= 0 || n_out <= 0 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+      n_rows > (1 << 30))
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  auto* h = static_cast<float*>(hid);
+  const int ldt = round4(n_rows);
+  const int lh = round4(n_hid), lo = round4(n_out);
+  float* xt = static_cast<float*>(scratch);
+  float* ht = xt + (size_t)ldt * n_inp;
+  float* w1p = ht + (size_t)ldt * n_hid;
+  float* w2p = w1p + (size_t)n_inp * lh;
   auto* o = static_cast<float*>(out);
-  auto* w2f = static_cast<const float*>(w2);
-  auto* b2f = static_cast<const float*>(b2);
   const bool f = fast != 0;
-  const Epilogue epi = softmax ? SOFTMAX : LOGITS;
-  cudaError_t err = split_gemm<8, 8, true>(
+  transpose_norm_kernel<<<dim3((unsigned)(ldt + 31) / 32,
+                               (unsigned)(n_inp + 31) / 32),
+                          dim3(32, 8), 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(mean),
-      static_cast<const float*>(dev), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), h, n_rows, n_inp, n_hid, SIGMOID, f, s);
+      static_cast<const float*>(dev), xt, n_rows, n_inp, ldt);
+  pad_cols_kernel<<<132 * 8, 256, 0, s>>>(static_cast<const float*>(w1), w1p,
+                                          n_inp, n_hid, lh);
+  pad_cols_kernel<<<132 * 8, 256, 0, s>>>(static_cast<const float*>(w2), w2p,
+                                          n_hid, n_out, lo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = split_gemm<8, 8, true>(xt, ldt, w1p, lh,
+                               static_cast<const float*>(b1), ht, ldt, n_rows,
+                               n_inp, n_hid, SIGMOID, f, s);
   if (err != cudaSuccess) return err;
   // the output product: one tile across all n_out columns where they fit
   // (the softmax then in its epilogue), else 128-column tiles and the
   // softmax apart
+  auto* b2f = static_cast<const float*>(b2);
+  const Epilogue epi = softmax ? SOFTMAX : LOGITS;
   if (n_out <= SplitTile<8, 9>::BN)
-    return split_gemm<8, 9, false>(h, nullptr, nullptr, w2f, b2f, o, n_rows,
+    return split_gemm<8, 9, false>(ht, ldt, w2p, lo, b2f, o, n_out, n_rows,
                                    n_hid, n_out, epi, f, s);
   if (n_out <= SplitTile<4, 16>::BN)
-    return split_gemm<4, 16, false>(h, nullptr, nullptr, w2f, b2f, o, n_rows,
+    return split_gemm<4, 16, false>(ht, ldt, w2p, lo, b2f, o, n_out, n_rows,
                                     n_hid, n_out, epi, f, s);
-  err = split_gemm<8, 8, true>(h, nullptr, nullptr, w2f, b2f, o, n_rows,
-                               n_hid, n_out, LOGITS, f, s);
+  err = split_gemm<8, 8, true>(ht, ldt, w2p, lo, b2f, o, n_out, n_rows, n_hid,
+                               n_out, LOGITS, f, s);
   if (err != cudaSuccess || !softmax) return err;
   softmax_rows_kernel<<<(unsigned)((n_rows + 7) / 8), 256, 0, s>>>(
       o, n_rows, n_out, f);

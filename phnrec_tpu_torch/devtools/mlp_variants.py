@@ -231,17 +231,28 @@ class KernelAWide(KernelA):
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if hasattr(lib, "phn_mlp_fused_wide_scratch"):
+            lib.phn_mlp_fused_wide_scratch.argtypes = [ctypes.c_longlong] + \
+                [ctypes.c_int] * 3
+            lib.phn_mlp_fused_wide_scratch.restype = ctypes.c_longlong
 
     @staticmethod
     def call(lib, x, net, fast=True, smx=True, passes=0):
-        out = torch.empty((x.shape[0], net.n_out), dtype=torch.float32,
+        """The scratch is the source's phn_mlp_fused_wide_scratch bytes
+        where it exports that, else (the earlier designs) a float32 [N,
+        n_hid] tensor."""
+        n = x.shape[0]
+        out = torch.empty((n, net.n_out), dtype=torch.float32,
                           device=x.device)
-        hid = torch.empty((x.shape[0], net.n_hid), dtype=torch.float32,
-                          device=x.device)
+        size = (lib.phn_mlp_fused_wide_scratch(n, net.n_inp, net.n_hid,
+                                               net.n_out)
+                if hasattr(lib, "phn_mlp_fused_wide_scratch")
+                else 4 * n * net.n_hid)
+        scratch = torch.empty(size, dtype=torch.uint8, device=x.device)
         err = lib.phn_mlp_fused_wide(
             x.data_ptr(), net.mean.data_ptr(), net.dev.data_ptr(),
             net.w1.data_ptr(), net.b1.data_ptr(), net.w2.data_ptr(),
-            net.b2.data_ptr(), out.data_ptr(), hid.data_ptr(), x.shape[0],
+            net.b2.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
             net.n_inp, net.n_hid, net.n_out, int(fast), int(smx),
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "phn_mlp_fused_wide")

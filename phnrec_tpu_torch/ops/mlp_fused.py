@@ -11,8 +11,8 @@ n_inp <= MAX_INP (480) and n_out <= MAX_OUT (256); the source exports the
 same two numbers (phn_mlp_fused_max_inp, phn_mlp_fused_max_out) and the
 wrapper holds them to its own.  Wider nets take the source's split path
 (phn_mlp_fused_wide: the hidden layer through a scratch tensor in device
-memory, then the output product and the row softmax), so the kernel takes
-every width the plain version takes.
+memory, transposed, then the output product and the row softmax), so the
+kernel takes every width the plain version takes.
 
 A band stack (the 3BT / 1BT systems' trap_bands band nets of one
 topology) runs as one launch of the fused kernel with a band index
@@ -56,6 +56,9 @@ def _lib():
         lib.phn_mlp_fused_wide.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.phn_mlp_fused_wide.restype = ctypes.c_int
+        lib.phn_mlp_fused_wide_scratch.argtypes = [ctypes.c_longlong] + [
+            ctypes.c_int] * 3
+        lib.phn_mlp_fused_wide_scratch.restype = ctypes.c_longlong
         lib.phn_mlp_fused_bands.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.phn_mlp_fused_bands.restype = ctypes.c_int
@@ -92,7 +95,7 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
                            (b1, "b1", (n_hid,)), (w2, "w2", (n_hid, n_out)),
                            (b2, "b2", (n_out,))):
         _build.require(t, name, f32, shape, device)
-    if n >= 2 ** 31:
+    if n >= 2 ** 31 or (n > 2 ** 30 and not fused_takes(n_inp, n_out)):
         raise ValueError(f"{n} rows exceed the kernel's int32 row index")
     lib = _lib()
     out = torch.empty((n, n_out), dtype=f32, device=device)
@@ -103,8 +106,11 @@ def mlp_forward(x, mean, dev, w1, b1, w2, b2, *, fast: bool = True,
             err = lib.phn_mlp_fused(*ptrs, n, n_inp, n_hid, n_out, int(fast),
                                     int(apply_softmax), stream)
         else:
-            hid = torch.empty((n, n_hid), dtype=f32, device=device)
-            err = lib.phn_mlp_fused_wide(*ptrs, hid.data_ptr(), n, n_inp,
+            # xn and h transposed, the weights padded
+            scratch = torch.empty(
+                lib.phn_mlp_fused_wide_scratch(n, n_inp, n_hid, n_out),
+                dtype=torch.uint8, device=device)
+            err = lib.phn_mlp_fused_wide(*ptrs, scratch.data_ptr(), n, n_inp,
                                          n_hid, n_out, int(fast),
                                          int(apply_softmax), stream)
     _build.check(err, "mlp_fused")
