@@ -60,30 +60,31 @@
 // n_inp <= MAX_INP = 480 at every n_out <= 256.
 //
 // Wider nets (n_inp > MAX_INP or n_out > 256: the 3BT / 1BT mergers,
-// 1794 / 2070 -> 1500 -> 138) take a split path (phn_mlp_fused_wide): h =
-// sigmoid(xn @ W1 + b1) into a caller's [n_rows, n_hid] scratch tensor, then
-// o = h @ W2 + b2 with the row softmax.  Both products are float32 FMAs, so
-// the FP32 rate bounds them (2 n (n_inp n_hid + n_hid n_out) operations:
-// 11.07 ms at the 3BT merger's 128,000 rows; the hidden tensor's round
-// trip, 1.5 GB, is 0.46 ms of bytes).  One register-tiled SGEMM
-// (split_gemm_kernel) takes both: 256 threads a block, 8 x 8 sums a thread
-// on a 128 x 128 tile (one shared-memory byte per FMA: two float4 of each
-// operand feed 64 FMAs), two blocks an SM.  16-deep slabs of both operands
-// come through a 4-stage ring filled with cp.async (16-, 8- or 4-byte
-// pieces, as the rows' alignment allows; the a pieces of a quarter warp
-// land in rows r and r + 4, which share no bank at a row stride of 20
-// floats), one barrier a slab.  The slab after the one being multiplied is
-// transposed (and normalised, (x - mean) * dev, once) into a [k][row]
-// buffer, so the products read both operands as float4.  The second
-// product runs one tile across all n_out columns where n_out <= 256 (128 x
-// 144 or 64 x 256, a thread's columns tx + 16 j), and that tile's epilogue
-// takes the row softmax as softmax_rows_kernel does (the logits through
-// shared memory, a warp a row); wider outputs take 128 x 128 tiles and the
-// softmax apart.  Every output is one fmaf chain in ascending k from 0,
-// padded k exact zeros in both operands, then the bias and activation: the
-// order of the PR 11 split path (64 x 64 tiles, 4 x 4 sums a thread,
-// synchronous loads), which this one equals bit for bit
-// (devtools/mlp_variants.py --wide).
+// 1794 / 2070 -> 1500 -> 138) take a split path (phn_mlp_fused_wide), in a
+// caller's scratch: xn^T = ((x - mean) * dev)^T [n_inp, n_rows]
+// (transpose_norm_kernel, the norm applied once), the weights copied to
+// rows of a multiple of 16 bytes, h^T = sigmoid(xn @ W1 + b1)^T, then o =
+// h @ W2 + b2 with the row softmax.  Both products are float32 FMAs, so the
+// FP32 rate bounds them (2 n (n_inp n_hid + n_hid n_out) operations: 11.07
+// ms at the 3BT merger's 128,000 rows; the hidden tensor's round trip, 1.5
+// GB, is 0.46 ms of bytes).  One register-tiled SGEMM (split_gemm_kernel)
+// takes both: 256 threads a block, 8 x 8 sums a thread on a 128 x 128 tile
+// (one shared-memory byte per FMA: two float4 of each operand feed 64
+// FMAs), two blocks an SM.  Its operands arrive as [k][row] and [k][column]
+// slabs, 16 deep, by TMA into a 5-stage ring (one mbarrier a stage, one
+// block barrier a slab), which is why xn and h are kept transposed: the
+// products read both as float4, conflict-free, with no pass over the slab
+// in the loop.  (Fed by cp.async, 8-byte pieces of x's 7,176-byte rows and
+// a transpose a slab, the first product took 24.5 ms, 11.8 of it without
+// its FMAs; PERF.md.)  The second product runs one tile across all n_out
+// columns where n_out <= 256 (128 x 144 or 64 x 256, a thread's columns tx
+// + 16 j), and that tile's epilogue takes the row softmax as
+// softmax_rows_kernel does (the logits through shared memory, a warp a
+// row); wider outputs take 128 x 128 tiles and the softmax apart.  Every
+// output is one fmaf chain in ascending k from 0 (TMA's zero fill past K
+// in both operands), then the bias and activation: the order of the PR 11
+// split path (64 x 64 tiles, 4 x 4 sums a thread, synchronous loads),
+// which this one equals bit for bit (devtools/mlp_variants.py --wide).
 //
 // A band stack (phn_mlp_fused_bands: the trap_bands band nets of the 3BT /
 // 1BT systems, one topology, phnrec_tpu/posteriors/estimator.py:107-254)
