@@ -109,11 +109,12 @@
 // all n_out columns (op <= 144), takes the row softmax in its epilogue.
 //
 // What bounds it (PERF.md, devtools/mlp_variants.py --wide on the H100):
-// the operations are 2.25 ms of the bf16 peak at the 3BT merger's 128,000
-// rows at 3 passes (0.75 at 1).  Fed by cp.async from 256 threads, the
-// first product was held by its loads: 16.4 GB of slabs from L2 at ~2.6
-// TB/s (7.8 ms; 6.2 without its products, 3.6 without its loads).  TMA
-// keeps more bytes in flight with one thread.
+// the operations, 2.25 ms of the bf16 peak at the 3BT merger's 128,000
+// rows at 3 passes (0.76 ms of bytes at 1), and the slabs from L2: every
+// block reads 48 KB of planes a 32-deep slab, 16.4 GB in all at 3 passes.
+// Fed by cp.async from 256 threads the first product took 7.8 ms (6.2
+// without its products, 3.6 without its loads); TMA keeps three slabs in
+// flight from one thread: 5.1 ms, the whole split path 6.4.
 //
 // A band stack (phn_mlp_bf16x3_bands, the 3BT / 1BT band nets) runs as one
 // launch, as in kernel A: a second grid dimension over the nets, each
