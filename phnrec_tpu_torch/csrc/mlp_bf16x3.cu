@@ -582,9 +582,9 @@ mlp_bf16x3_kernel(const float* __restrict__ x, const float* __restrict__ mean,
 // memory: xn by split_rows_kernel, h by the first product's epilogue.  So
 // both products are bf16 GEMMs of planes, C = sum over the passes of
 // A_p @ B_p, A [M, kp] row-major (K-major), B [kp, np] row-major
-// (MN-major), every operand tile copied by cp.async straight into the
-// swizzled layout wgmma reads.  A block is two consumer warpgroups on 64
-// rows each (BM = 128) by BN columns.
+// (MN-major), every operand tile copied by TMA straight into the swizzled
+// layout wgmma reads.  A block is two consumer warpgroups on 64 rows each
+// (BM = 128) by BN columns, and a producer warp.
 constexpr int WM = 128;                // rows of a block
 constexpr int WK = 32;                 // depth of a slab
 constexpr int WS_STAGES = 4;           // stages of the ring
