@@ -82,9 +82,10 @@
 // softmax_rows_kernel does (the logits through shared memory, a warp a
 // row); wider outputs take 128 x 128 tiles and the softmax apart.  Every
 // output is one fmaf chain in ascending k from 0 (TMA's zero fill past K
-// in both operands), then the bias and activation: the order of the PR 11
-// split path (64 x 64 tiles, 4 x 4 sums a thread, synchronous loads),
-// which this one equals bit for bit (devtools/mlp_variants.py --wide).
+// in both operands), then the bias and activation: the order of the
+// first split path (64 x 64 tiles, 4 x 4 sums a thread, synchronous
+// loads), which this one equals bit for bit (devtools/mlp_variants.py
+// --wide).
 //
 // A band stack (phn_mlp_fused_bands: the trap_bands band nets of the 3BT /
 // 1BT systems, one topology, phnrec_tpu/posteriors/estimator.py:107-254)

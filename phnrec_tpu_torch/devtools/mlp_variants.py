@@ -262,7 +262,8 @@ class KernelAWide(KernelA):
 class KernelA3Wide(KernelA3):
     """Entry point phn_mlp_bf16x3_wide: kernel A''s split path.  Its
     scratch is the source's phn_mlp_bf16x3_wide_scratch bytes where it
-    exports that, else (the PR 11 design) a float32 [N, n_hid] tensor."""
+    exports that, else (the first split path) a float32 [N, n_hid]
+    tensor."""
     symbol = "phn_mlp_bf16x3_wide"
 
     @staticmethod
