@@ -180,6 +180,13 @@ KERNELS = {
     "graph_align": dict(module=trainfb, counter="ALIGN_LAUNCHES",
                         source=CSRC + "trainfb.cu",
                         replaces="phnrec_tpu/train/fb.py:135"),
+    "graph_fb_cluster": dict(module=trainfb, counter="CLUSTER_LAUNCHES",
+                             source=CSRC + "trainfb.cu",
+                             replaces="phnrec_tpu/train/fb.py:92"),
+    "graph_align_cluster": dict(module=trainfb,
+                                counter="ALIGN_CLUSTER_LAUNCHES",
+                                source=CSRC + "trainfb.cu",
+                                replaces="phnrec_tpu/train/fb.py:135"),
 }
 BATCH_KERNELS = ("mlp_fused", "phnloop_viterbi", "backtrack")
 KWS_KERNELS = ("mlp_fused", "netstep", "lrtrace")
@@ -187,6 +194,9 @@ STK_KERNELS = ("mlp_fused", "netscan", "nettrace")
 STK_SERVE_KERNELS = ("mlp_fused", "netdecode", "nettrace")
 # the split paths of A and A' (the 3BT / 1BT mergers)
 WIDE_KERNELS = ("mlp_fused_wide", "mlp_bf16x3_wide")
+# kernels K and K', on a cluster and one block an utterance
+GRAPH_KERNELS = ("graph_fb", "graph_align", "graph_fb_cluster",
+                 "graph_align_cluster")
 # kernel A against cuBLAS float32: both sum in another order, and fexp is a
 # step function of its argument (steps of 2^-20 relative), so outputs differ
 # by a few ulp of the sums; probabilities within 2e-5, raw logits within 1e-4.
@@ -2853,7 +2863,7 @@ def _graph_fb_work(S: int, T: int, ns, align: bool = False) -> tuple:
     """(bytes, operations) of kernel K (or K') over this run's frames:
     log_A, log_b, entry and exit read once, alpha and beta (the states)
     written once; per live frame and utterance S^2 lse terms of ~6
-    operations each way (K'), or one add and one compare (K')."""
+    operations each way (K), or one add and one compare (K')."""
     B, n = len(ns), int(np.sum(ns))
     reads = 4 * (B * S * S + B * T * S + 2 * B * S)
     if align:
@@ -2865,40 +2875,82 @@ def check_trainfb_cases(dev, models) -> dict:
     """Kernels J, K and K' against their plain versions on the card, on
     devtools/trainfb_variants.py's case list (J: loops of 4 x 3 to 2,100 x
     3 states, past 1,024 threads and with its carries in device memory, B
-    1 and 16; K and K': padded training graphs of ``models`` at S 32, 256,
-    608 and 6,304, B 1 and 16, ragged n_frames, ties), J and K within its
-    TOL relative (of max(|x|, 1)), K' bit for bit.  Then each is timed at
-    the training path's shapes (J: one CZ utterance of 500 frames; K, K':
-    a bucket of 16 x 512 frames x 256 states)."""
+    1 and 16; K and K': padded training graphs of ``models`` at S 32 to
+    6,304, B 1 to 160, ragged n_frames, ties; each case on the design the
+    plan gives it, clusters up to S 928 and one block an utterance past
+    it), J and K within its TOL relative (of max(|x|, 1)), K' bit for
+    bit; K on a cluster also against its one-block design bit for bit
+    (reported), and the plan's shared-memory sizes against the source's.
+    Then each is timed at the training path's shapes (J: one CZ utterance
+    of 500 frames; K, K': a bucket of 16 x 512 frames x 256 states, on
+    its cluster and one block an utterance), with the clusters the card
+    holds at once by size."""
+    lib = trainfb._lib()
     res = trainfb_variants.check_cases(
         phnloop_fb.phnloop_fb, trainfb.graph_fb, trainfb.graph_align, dev,
-        models)
-    phase("trainfb_cases", tol=trainfb_variants.TOL, **res)
-    if not res["ok"]:
+        models, fb_one=lambda *a: trainfb.launch_fb(lib, *a, cluster=0))
+    err = {"graph_fb": 0.0, "graph_fb_cluster": 0.0}
+    for r in res["cases"]:
+        if r["kernel"] == "graph_fb+graph_align":
+            r["cluster"] = trainfb.plan(lib, False, r["B"], r["S"], dev)
+            r["align_cluster"] = trainfb.plan(lib, True, r["B"], r["S"], dev)
+            k = "graph_fb_cluster" if r["cluster"] else "graph_fb"
+            err[k] = max(err[k], r["abs_err"])
+    paths = {w: sorted({r[w] for r in res["cases"] if w in r})
+             for w in ("cluster", "align_cluster")}
+    smem = {(S, c): (trainfb.cluster_smem(S, c),
+                     int(lib.trainfb_cluster_smem(S, c)))
+            for S in (1, 138, 250, 256, 640, 928, 960)
+            for c in trainfb.CLUSTER_SIZES}
+    smem_equal = all(a == b for a, b in smem.values())
+    phase("trainfb_cases", tol=trainfb_variants.TOL, paths=paths,
+          smem_plan_equals_source=smem_equal, **res)
+    if not res["ok"] or not smem_equal:
         raise AssertionError(f"kernel J, K or K' differs: {res}")
+    if not all(0 in p and len(p) > 1 for p in paths.values()):
+        raise AssertionError(f"the case list missed a design: {paths}")
     inp = trainfb_variants.timing_inputs(dev, models)
     ns, k = inp["ns"], inp["k"]
+    B, T, S = k[3].shape
+    active = {w: trainfb.max_active(lib, w == "graph_align", S, dev)
+              for w in ("graph_fb", "graph_align")}
+    plain = {"graph_fb": lambda: trainfb.graph_fb_plain(*k),
+             "graph_align": lambda: trainfb.graph_align_plain(*k)}
+    plain_ms = {w: cuda_ms(f, iters=1, warmup=1) for w, f in plain.items()}
     out = {}
-    for name, fn, plain, work, err in (
+    for name, fn, t_p, work, err_k in (
             ("phnloop_fb", lambda: phnloop_fb.phnloop_fb(*inp["j"]),
-             lambda: phnloop_fb.phnloop_fb_plain(*inp["j"]),
+             cuda_ms(lambda: phnloop_fb.phnloop_fb_plain(*inp["j"]),
+                     iters=1, warmup=1),
              _phnloop_fb_work(1, 500, 46, 3, 138),
              res["max_abs_err"]["phnloop_fb"]),
-            ("graph_fb", lambda: trainfb.graph_fb(*k),
-             lambda: trainfb.graph_fb_plain(*k),
-             _graph_fb_work(256, 512, ns), res["max_abs_err"]["graph_fb"]),
-            ("graph_align", lambda: trainfb.graph_align(*k),
-             lambda: trainfb.graph_align_plain(*k),
-             _graph_fb_work(256, 512, ns, align=True), 0.0)):
+            ("graph_fb", lambda: trainfb.launch_fb(lib, *k, cluster=0),
+             plain_ms["graph_fb"], _graph_fb_work(S, T, ns),
+             err["graph_fb"]),
+            ("graph_align", lambda: trainfb.launch_align(lib, *k, cluster=0),
+             plain_ms["graph_align"], _graph_fb_work(S, T, ns, align=True),
+             0.0),
+            ("graph_fb_cluster", lambda: trainfb.graph_fb(*k),
+             plain_ms["graph_fb"], _graph_fb_work(S, T, ns),
+             err["graph_fb_cluster"]),
+            ("graph_align_cluster", lambda: trainfb.graph_align(*k),
+             plain_ms["graph_align"], _graph_fb_work(S, T, ns, align=True),
+             0.0)):
         t_k = cuda_ms(fn, iters=5, warmup=1)
         held = scan_variants.held_ms(fn, iters=5, warmup=1)
-        t_p = cuda_ms(plain, iters=1, warmup=1)
-        out[name] = dict(max_abs_err=err, ms=t_k, held_ms=held,
+        out[name] = dict(max_abs_err=err_k, ms=t_k, held_ms=held,
                          plain_ms=t_p, **bound(*work, PEAK_FP32))
         out[name]["bound_share"] = out[name]["bound_ms"] / held
     out["phnloop_fb"]["shape"] = "B 1 x T 500 x P 46 x S 3"
-    for name in ("graph_fb", "graph_align"):
-        out[name]["shape"] = "bucket B 16 x T 512 x S 256, n 385-512"
+    for name in GRAPH_KERNELS:
+        align = name.startswith("graph_align")
+        w = "graph_align" if align else "graph_fb"
+        out[name].update(
+            shape=f"bucket B {B} x T {T} x S {S}, n 385-512",
+            step_us=out[name]["held_ms"] * 1e3 / (T if align else 2 * T),
+            cluster=(trainfb.plan(lib, align, B, S, dev)
+                     if name.endswith("cluster") else 0),
+            max_active=active[w])
     phase("trainfb_timing", **out)
     return out
 
@@ -2962,11 +3014,60 @@ def staged_cli(pkg: str, tmp: str, cpu_sr, dev, n: int = 16) -> dict:
     return launches
 
 
-def _reestimate(models, utts, mode, dev, stages=None) -> tuple:
+SETUP_STEPS = ("compile_transcription", "pad_graph", "stack_graphs")
+
+
+def _time_setup(re_, host: dict):
+    """Host timers on the graph work of Reestimator ``re_``, summed in ms
+    into ``host``: train/loop.py's compile_transcription, pad_graph and
+    stack_graphs, and the rest of each bucket flush up to its
+    bucket_setup mark (``numpy_padding``: the observations' numpy pad and
+    the small tensors).  Returns the function that undoes the patches."""
+    from phnrec_tpu_torch.train import loop
+    saved = {k: getattr(loop, k) for k in SETUP_STEPS}
+    for k in (*SETUP_STEPS, "flush_to_mark"):
+        host.setdefault(k, 0.0)
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[name] += (time.perf_counter() - t) * 1e3
+        return call
+    for k, fn in saved.items():
+        setattr(loop, k, timed(k, fn))
+    flush = re_._flush_bucket
+    start = [0.0]
+
+    def timed_flush(key):
+        start[0] = time.perf_counter()
+        flush(key)
+    re_._flush_bucket = timed_flush
+    hook = re_.stage_hook
+
+    def mark(stage):
+        if stage == "bucket_setup":
+            host["flush_to_mark"] += (time.perf_counter() - start[0]) * 1e3
+        if hook is not None:
+            hook(stage)
+    re_.stage_hook = mark
+
+    def undo():
+        for k, fn in saved.items():
+            setattr(loop, k, fn)
+        host["numpy_padding"] = host.pop("flush_to_mark") - \
+            host["pad_graph"] - host["stack_graphs"]
+    return undo
+
+
+def _reestimate(models, utts, mode, dev, stages=None, host=None) -> tuple:
     """One accumulation pass of a Reestimator over ``utts`` ((x, names)
     pairs) on ``dev``: (accumulators, total log-likelihood, wall s).
     ``stages`` (a dict) collects the card's ms by stage from CUDA events
-    at the Reestimator's hooks."""
+    at the Reestimator's hooks; ``host`` the host's ms of the graph work
+    by step (``_time_setup``)."""
     re_ = Reestimator(models, mode=mode, batch_size=16, device=dev)
     if stages is not None:
         last = [torch.cuda.Event(enable_timing=True)]
@@ -2979,12 +3080,17 @@ def _reestimate(models, utts, mode, dev, stages=None) -> tuple:
             marks.append((stage, last[0], ev))
             last[0] = ev
         re_.stage_hook = hook
+    undo = _time_setup(re_, host) if host is not None else None
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for x, names in utts:
-        re_.add_utterance(x, names)
-    acc = re_.finish()
-    torch.cuda.synchronize()
+    try:
+        for x, names in utts:
+            re_.add_utterance(x, names)
+        acc = re_.finish()
+        torch.cuda.synchronize()
+    finally:
+        if undo is not None:
+            undo()
     wall = time.perf_counter() - t
     if stages is not None:
         for stage, a, b in marks:
@@ -3035,15 +3141,17 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
     utts = [(lp_host[b, : n_frames[b]], [l.name for l in labels[b]])
             for b in range(B)]
     models = trainfb_variants.hmm_set(tmp, sr.phonemes)
-    tr_counts = ("graph_fb", "graph_align", "phnloop_fb")
+    tr_counts = (*GRAPH_KERNELS, "phnloop_fb")
     reset_counts(tr_counts)
     out, lls = {}, []
     stages: dict = {}
+    setup_host: dict = {}
     t_all = time.perf_counter()
     for it, mode in enumerate(("baum_welch", "baum_welch", "viterbi")):
         idx = build_model_index(models)
         acc, ll, wall = _reestimate(models, utts, mode, dev,
-                                    stages if it == 0 else None)
+                                    *((stages, setup_host) if it == 0
+                                      else ()))
         t = time.perf_counter()
         upd = update_ml(idx, acc, [models.hmms[k].log_transp
                                    for k in idx.names])
@@ -3051,6 +3159,17 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
         out[f"iter{it + 1}_{mode}"] = dict(wall_s=wall, log_like=ll,
                                            update_s=time.perf_counter() - t)
         lls.append(ll)
+    # two long utterances (five files' log-posteriors and labels each, ~25
+    # s): their graphs pass the clusters' reach, the one-block kernels
+    longs = [(np.concatenate([u[0] for u in utts[i: i + 5]]),
+              [n for u in utts[i: i + 5] for n in u[1]]) for i in (0, 5)]
+    long_out = {"states": [3 * len(u[1]) for u in longs],
+                "frames": [len(u[0]) for u in longs]}
+    for mode in ("baum_welch", "viterbi"):
+        _, ll, wall = _reestimate(models, longs, mode, dev)
+        long_out[mode] = dict(wall_s=wall, log_like=ll)
+        if not np.isfinite(ll):
+            raise AssertionError(f"long utterances: log-likelihood {ll}")
     mmf = os.path.join(tmp, "trained.mmf")
     write_mmf(models, mmf)
     launches = read_counts(tr_counts)
@@ -3073,7 +3192,9 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
           states_per_graph=float(np.mean([3 * len(u[1]) for u in utts])),
           iterations=out, log_like_rises=lls[1] >= lls[0],
           utterances_per_s=B / first, audio_s_per_s=audio_s / first,
-          stage_ms_iter1=stages, card_vs_cpu_rel_err=err,
+          stage_ms_iter1=stages, bucket_setup_host_ms_iter1=setup_host,
+          long_utterances=long_out,
+          card_vs_cpu_rel_err=err,
           tol=REL_TRAIN_ACC, occupancy_row_err=row_err,
           occupancies_s=occ_s, launches=launches,
           total_s=time.perf_counter() - t_all, mmf_bytes=os.path.getsize(mmf))
@@ -3083,7 +3204,7 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
         raise AssertionError(f"card accumulators differ from the CPU: {err}")
     if row_err > TOL_OCC_ROWS:
         raise AssertionError(f"occupancy rows off 1 by {row_err}")
-    if launches["graph_fb"] == 0 or launches["graph_align"] == 0:
+    if not all(launches[k] for k in GRAPH_KERNELS):
         raise AssertionError(f"kernel K / K' not launched: {launches}")
     return dict(launches=launches, utts=utts, labels=labels)
 
@@ -3123,7 +3244,7 @@ def train_gmm(pkg: str, sr, tmp: str, dev, n: int = 64,
         os.path.join(d, "gmm.mmf"), sr.phonemes, dim=45, seed=5,
         mean=allx.mean(0), std=allx.std(0)))
     utts = list(zip(feats, names))
-    reset_counts(("graph_fb", "graph_align"))
+    reset_counts(GRAPH_KERNELS)
     idx = build_model_index(models)
     stages: dict = {}
     acc, ll, wall = _reestimate(models, utts, "baum_welch", dev, stages)
@@ -3146,7 +3267,7 @@ def train_gmm(pkg: str, sr, tmp: str, dev, n: int = 64,
     mmi = update_mmi(idx, num, den, old)
     torch.cuda.synchronize()
     mbr_s = time.perf_counter() - t
-    launches = read_counts(("graph_fb", "graph_align"))
+    launches = read_counts(GRAPH_KERNELS)
     kappa = (float(num.occ.sum()), float(den.occ.sum()))
     phase("train_gmm", files=n, par_cli_s=par_s, dims=45, mixtures=8,
           frames=int(sum(x.shape[0] for x in feats)), bw_wall_s=wall,
@@ -3166,7 +3287,8 @@ def train_gmm(pkg: str, sr, tmp: str, dev, n: int = 64,
             not kappa[0] > 0:
         raise AssertionError("GMM route: non-finite likelihood, a variance "
                              f"<= 0 or no sMBR mass {kappa}")
-    if launches["graph_fb"] == 0 or launches["graph_align"] == 0:
+    if launches["graph_fb_cluster"] == 0 or \
+            launches["graph_align_cluster"] == 0:
         raise AssertionError(f"kernel K / K' not launched: {launches}")
     return launches
 

@@ -399,9 +399,360 @@ __global__ void graph_align_kernel(const float* __restrict__ log_A,
   }
 }
 
-int threads_for(int width, int cap) {
+// ------------------------------------------------ K and K' on a cluster
+// One thread-block cluster of c blocks (c in 2, 4, 8, 16) an utterance,
+// one block an SM.  Block r owns the states [r W, (r + 1) W), W = ceil(S /
+// c): forwards (and in K') the columns j of log_A, backwards the rows i.
+// Its slice of log_A lives in shared memory for the whole scan, a column
+// (row) at a time with pitch P = S rounded up to 4 mod 32, so the four
+// lanes of a column (sources q mod 4) and the eight columns of a warp
+// read 32 different banks.  Each block keeps the whole carry (alpha, or
+// log_b[t + 1] + beta backwards), ping-ponged between two buffers; after
+// a frame it stores its slice of the next carry into every block's other
+// buffer (st.shared::cluster), then the cluster barrier (arrive.release,
+// wait.acquire) makes the stores visible: one barrier a frame.  Each
+// column's arithmetic is graph_fb_kernel's / graph_align_kernel's
+// (column_lse, the same lanes, the same order), so both are bit-equal to
+// the one-block kernels; frames t >= n keep the carry and need neither
+// lse nor barrier.
+
+__host__ __device__ inline int threads_for(int width, int cap) {
   int t = (width + 31) / 32 * 32;
   return t < 32 ? 32 : (t > cap ? cap : t);
+}
+
+// the slice's width and pitch; the dynamic shared memory of a cluster
+// block: the slice, two carries and 64 words for reductions
+__host__ __device__ inline int slice_cols(int S, int c) { return (S + c - 1) / c; }
+__host__ __device__ inline int slice_pitch(int S) {
+  return S + ((4 - S) % 32 + 32) % 32;
+}
+inline size_t cluster_smem(int S, int c) {
+  return 4 * ((size_t)slice_cols(S, c) * slice_pitch(S) + 2 * (size_t)S + 64);
+}
+constexpr size_t CLUSTER_SMEM_MAX = 232448;    // a block's shared memory
+constexpr size_t ONE_BLOCK_AN_SM = 116 * 1024;  // over half an SM's 228 KB
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+// every thread of the cluster; this block's and its peers' stores before
+// it are visible to every thread after it
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// v into block ``rank``'s copy of the shared word at p (a pointer into
+// this block's shared memory)
+__device__ __forceinline__ void store_peer(const float* p, unsigned rank, float v) {
+  const unsigned local = (unsigned)__cvta_generic_to_shared(p);
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(remote), "f"(v)
+               : "memory");
+}
+// v into every block's copy of p: the Q lanes of a column share the peers
+__device__ __forceinline__ void store_all(const float* p, unsigned nc, int q, float v) {
+  for (unsigned r = q; r < nc; r += Q) store_peer(p, r, v);
+}
+
+// lse over j of cur[j] + ex[j] exactly as graph_fb_kernel's block of
+// threads_for(Q * S, MAX_THREADS) threads sums it (its strided sums, its
+// warps' butterflies, then the butterfly over the warps' sums), whatever
+// this block's size: bit-equal.  red holds 64 floats.
+__device__ float like_lse(const float* cur, const float* ex, int S, float* red) {
+  const int bd = threads_for(Q * S, MAX_THREADS), nw = bd >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float m = -INFINITY;
+  for (int j = threadIdx.x; j < S; j += blockDim.x) m = fmaxf(m, cur[j] + ex[j]);
+  m = block_reduce(m, red, MaxOp(), -INFINITY);
+  if (!isfinite(m)) m = 0.0f;
+  for (int w = warp; w < nw; w += blockDim.x >> 5) {
+    float s = 0.0f;
+    for (int j = w * 32 + lane; j < S; j += bd) s += expf(cur[j] + ex[j] - m);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) red[32 + w] = s;
+  }
+  __syncthreads();
+  float v = lane < nw ? red[32 + lane] : 0.0f;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return logf(v) + m;
+}
+
+// This block's place in the cluster and its slice.
+struct Slice {
+  unsigned nc;     // blocks of the cluster
+  int b;           // the utterance
+  int j0, nown;    // the first state this block owns, and how many
+  int P;           // the slice's pitch
+  int q, jl, j;    // this lane: its lane of the column, column, state
+  bool ok;         // the lane has a state
+};
+
+__device__ __forceinline__ Slice slice_of(int S) {
+  Slice s;
+  s.nc = cluster_blocks();
+  s.b = (int)cluster_index();
+  const int W = slice_cols(S, (int)s.nc);
+  s.j0 = (int)cluster_rank() * W;
+  s.nown = max(0, min(W, S - s.j0));
+  s.P = slice_pitch(S);
+  s.q = threadIdx.x % Q;
+  s.jl = threadIdx.x / Q;
+  s.j = s.j0 + s.jl;
+  s.ok = s.jl < s.nown;
+  return s;
+}
+
+// As[l][i] = A[i][j0 + l] (columns) or A[j0 + l][i] (rows)
+__device__ void load_slice(float* As, const float* A, int S, const Slice& s,
+                           bool rows) {
+  for (int k = threadIdx.x; k < S * s.nown; k += blockDim.x) {
+    if (rows) {
+      const int l = k / S, i = k - l * S;
+      As[l * s.P + i] = A[(size_t)(s.j0 + l) * S + i];
+    } else {
+      const int i = k / s.nown, l = k - i * s.nown;
+      As[l * s.P + i] = A[(size_t)i * S + s.j0 + l];
+    }
+  }
+}
+
+// rows t in [t0, T) of out [T, S]: this block's states to v
+__device__ void fill_rows(float* out, int t0, int T, int S, const Slice& s,
+                          float v) {
+  for (int k = threadIdx.x; k < (T - t0) * s.nown; k += blockDim.x) {
+    const int t = t0 + k / s.nown;
+    out[(size_t)t * S + s.j0 + k % s.nown] = v;
+  }
+}
+
+// K: as graph_fb_kernel (no log_AT: backwards the blocks load rows).
+__global__ void graph_fb_cluster_kernel(const float* __restrict__ log_A,
+                                        const float* __restrict__ log_entry,
+                                        const float* __restrict__ log_exit,
+                                        const float* __restrict__ log_b,
+                                        const int* __restrict__ n_frames,
+                                        int T, int S, float* __restrict__ alpha,
+                                        float* __restrict__ beta,
+                                        float* __restrict__ like) {
+  extern __shared__ float smem[];
+  const Slice s = slice_of(S);
+  float* As = smem;
+  float* buf = smem + (size_t)slice_cols(S, (int)s.nc) * s.P;
+  float* red = buf + 2 * S;
+  const float* A = log_A + (size_t)s.b * S * S;
+  const float* en = log_entry + (size_t)s.b * S;
+  const float* ex = log_exit + (size_t)s.b * S;
+  const float* lb = log_b + (size_t)s.b * T * S;
+  float* al = alpha + (size_t)s.b * T * S;
+  float* be = beta + (size_t)s.b * T * S;
+  const int n = n_frames[s.b];
+  const int nl = min(max(n, 0), T);   // the frames that propagate
+  const float* Aj = As + s.jl * s.P;
+
+  // forwards: the column slice; every block started before any store
+  load_slice(As, A, S, s, false);
+  for (int k = threadIdx.x; k < S; k += blockDim.x) buf[k] = NEG_INF_TRAIN;
+  fill_rows(al, nl, T, S, s, NEG_INF_TRAIN);
+  cluster_barrier();
+  int c = 0;
+  for (int t = 0; t < nl; ++t) {
+    const float* cur = buf + c * S;
+    const float lbv = s.ok ? lb[(size_t)t * S + s.j] : 0.0f;
+    float out;
+    if (t == 0) {
+      out = s.ok ? en[s.j] + lbv : 0.0f;
+    } else {
+      out = column_lse(S, s.q, s.ok, [&](int i) { return cur[i] + Aj[i]; }) + lbv;
+    }
+    if (s.ok) {
+      store_all(buf + (1 - c) * S + s.j, s.nc, s.q, out);
+      if (s.q == 0) al[(size_t)t * S + s.j] = out;
+    }
+    cluster_barrier();
+    c = 1 - c;
+  }
+  if (cluster_rank() == 0) {
+    const float ll = like_lse(buf + c * S, ex, S, red);
+    if (threadIdx.x == 0) like[s.b] = ll;
+  }
+  __syncthreads();
+
+  // backwards: the row slice; buf[c] holds v = log_b[t + 1] + beta_{t+1}
+  // of the frame to come (the peers' stores wait for block 0's lse)
+  load_slice(As, A, S, s, true);
+  if (n > T) {   // the first frame propagates from beta = NEG_INF
+    for (int k = threadIdx.x; k < S; k += blockDim.x)
+      buf[k] = lb[(size_t)(T - 1) * S + k] + NEG_INF_TRAIN;
+  }
+  fill_rows(be, nl, T, S, s, NEG_INF_TRAIN);
+  const float exv = s.ok ? ex[s.j] : 0.0f;
+  cluster_barrier();
+  c = 0;
+  for (int t = nl - 1; t >= 0; --t) {
+    const float lbv = s.ok && t > 0 ? lb[(size_t)t * S + s.j] : 0.0f;
+    float nw = exv;
+    if (t != n - 1) {
+      const float* v = buf + c * S;
+      nw = column_lse(S, s.q, s.ok, [&](int i) { return Aj[i] + v[i]; });
+    }
+    if (s.ok && s.q == 0) be[(size_t)t * S + s.j] = nw;
+    if (t > 0) {
+      if (s.ok) store_all(buf + (1 - c) * S + s.j, s.nc, s.q, lbv + nw);
+      cluster_barrier();
+      c = 1 - c;
+    }
+  }
+  cluster_barrier();   // no block leaves while a peer may store into it
+}
+
+// K': as graph_align_kernel, the back-pointers in device memory, the final
+// argmax and the walk back in block 0.
+__global__ void graph_align_cluster_kernel(const float* __restrict__ log_A,
+                                           const float* __restrict__ log_entry,
+                                           const float* __restrict__ log_exit,
+                                           const float* __restrict__ log_b,
+                                           const int* __restrict__ n_frames,
+                                           int T, int S, int* __restrict__ bps,
+                                           int* __restrict__ states,
+                                           float* __restrict__ like) {
+  extern __shared__ float smem[];
+  const Slice s = slice_of(S);
+  float* As = smem;
+  float* buf = smem + (size_t)slice_cols(S, (int)s.nc) * s.P;
+  float* red = buf + 2 * S;
+  int* red_i = reinterpret_cast<int*>(red + 32);
+  const float* A = log_A + (size_t)s.b * S * S;
+  const float* en = log_entry + (size_t)s.b * S;
+  const float* ex = log_exit + (size_t)s.b * S;
+  const float* lb = log_b + (size_t)s.b * T * S;
+  int* bp = bps + (size_t)s.b * T * S;
+  const int n = n_frames[s.b];
+  const int nl = min(max(n, 0), T);
+  const float* Aj = As + s.jl * s.P;
+
+  load_slice(As, A, S, s, false);
+  for (int k = threadIdx.x; k < S; k += blockDim.x) buf[k] = NEG_INF_TRAIN;
+  cluster_barrier();
+  int c = 0;
+  for (int t = 0; t < nl; ++t) {
+    const float* cur = buf + c * S;
+    const float lbv = s.ok ? lb[(size_t)t * S + s.j] : 0.0f;
+    float best = -INFINITY;
+    int arg = 0x7fffffff;
+    if (s.ok && s.q < S) {
+      best = cur[s.q] + Aj[s.q];
+      arg = s.q;
+#pragma unroll 4
+      for (int i = s.q + Q; i < S; i += Q) {
+        const float x = cur[i] + Aj[i];
+        if (x > best) best = x, arg = i;   // the first max of the lane
+      }
+    }
+    for (int o = 1; o < Q; o <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, arg, o);
+      if (ov > best || (ov == best && oi < arg)) best = ov, arg = oi;
+    }
+    if (s.ok) {
+      store_all(buf + (1 - c) * S + s.j, s.nc, s.q,
+                (t == 0 ? en[s.j] : best) + lbv);
+      if (s.q == 0) bp[(size_t)t * S + s.j] = arg;
+    }
+    cluster_barrier();
+    c = 1 - c;
+  }
+  cluster_barrier();   // no block leaves while a peer may store into it
+
+  if (cluster_rank() == 0) {
+    // final argmax of alpha_last + exit: the larger value, on ties the
+    // smaller index (any order of the reduction gives the same pair)
+    const float* cur = buf + c * S;
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int j = threadIdx.x; j < S; j += blockDim.x) {
+      const float x = cur[j] + ex[j];
+      if (x > bv || (x == bv && j < bi)) bv = x, bi = j;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ov > bv || (ov == bv && oi < bi)) bv = ov, bi = oi;
+    }
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    if (l == 0) red[w] = bv, red_i[w] = bi;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v0 = red[0];
+      int i0 = red_i[0];
+      for (int k = 1; k < (int)(blockDim.x >> 5); ++k) {
+        const float ov = red[k];
+        const int oi = red_i[k];
+        if (ov > v0 || (ov == v0 && oi < i0)) v0 = ov, i0 = oi;
+      }
+      like[s.b] = v0;
+      // the walk back (train/fb.py:160-168); the peers' back-pointers
+      // through L2 (ordered by the barriers' release and acquire)
+      int carry = i0;
+      int* st = states + (size_t)s.b * T;
+      for (int t = T - 1; t >= 0; --t) {
+        const int cu = t == n - 1 ? i0 : carry;
+        st[t] = t < n ? cu : -1;
+        carry = t <= n - 1 ? __ldcg(bp + (size_t)t * S + cu) : cu;
+      }
+    }
+  }
+}
+
+// Set a cluster kernel's attributes and its launch configuration for B
+// utterances of S states on clusters of c blocks; the dynamic shared
+// memory is raised to ONE_BLOCK_AN_SM so each block has an SM of its own.
+template <class Kernel>
+cudaError_t cluster_config(Kernel kernel, int B, int S, int c,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  if (S <= 0 || !(c == 2 || c == 4 || c == 8 || c == 16))
+    return cudaErrorInvalidValue;
+  const size_t need = cluster_smem(S, c);
+  if (need > CLUSTER_SMEM_MAX) return cudaErrorInvalidValue;
+  const size_t smem = need > ONE_BLOCK_AN_SM ? need : ONE_BLOCK_AN_SM;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && c > 8)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)B * c);
+  cfg->blockDim = dim3(threads_for(Q * slice_cols(S, c), MAX_THREADS));
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+cudaError_t launched(cudaError_t e) {
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return e != cudaSuccess ? e : last;
 }
 
 }  // namespace
@@ -411,6 +762,34 @@ int threads_for(int width, int cap) {
 extern "C" long long trainfb_scratch_floats(int B, int W) {
   const size_t smem = (size_t)(32 + 2 * (size_t)W) * sizeof(float);
   return smem <= SMEM_LIMIT ? 0 : (long long)B * 2 * W;
+}
+
+// Bytes of dynamic shared memory a cluster block needs (before the raise
+// to a block an SM); the wrapper's plan computes the same.
+extern "C" long long trainfb_cluster_smem(int S, int c) {
+  return (long long)cluster_smem(S, c);
+}
+
+// How many clusters of c blocks of K (which 0) or K' (which 1) at S states
+// the card holds at once (cudaOccupancyMaxActiveClusters): 0 where the
+// slice does not fit, minus the CUDA error where the query fails.
+extern "C" int trainfb_cluster_max_active(int which, int S, int c) {
+  if (S <= 0 || !(c == 2 || c == 4 || c == 8 || c == 16)) return 0;
+  if (cluster_smem(S, c) > CLUSTER_SMEM_MAX) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = 0;
+  cudaError_t e = which ? cluster_config(graph_align_cluster_kernel, 1, S, c,
+                                         nullptr, &cfg, &attr)
+                        : cluster_config(graph_fb_cluster_kernel, 1, S, c,
+                                         nullptr, &cfg, &attr);
+  if (e == cudaSuccess)
+    e = which ? cudaOccupancyMaxActiveClusters(
+                    &n, (const void*)graph_align_cluster_kernel, &cfg)
+              : cudaOccupancyMaxActiveClusters(
+                    &n, (const void*)graph_fb_cluster_kernel, &cfg);
+  cudaGetLastError();
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 extern "C" int phn_loop_fb(const void* lp, int B, int T, int D, int P, int S,
@@ -466,4 +845,42 @@ extern "C" int graph_align(const void* log_A, const void* log_entry,
       static_cast<int*>(states), static_cast<float*>(like),
       static_cast<float*>(scratch));
   return (int)cudaGetLastError();
+}
+
+extern "C" int graph_fb_cluster(const void* log_A, const void* log_entry,
+                                const void* log_exit, const void* log_b,
+                                const void* n_frames, int B, int T, int S,
+                                int c, void* alpha, void* beta, void* like,
+                                void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(graph_fb_cluster_kernel, B, S, c,
+                                 static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  return launched(cudaLaunchKernelEx(
+      &cfg, graph_fb_cluster_kernel, static_cast<const float*>(log_A),
+      static_cast<const float*>(log_entry), static_cast<const float*>(log_exit),
+      static_cast<const float*>(log_b), static_cast<const int*>(n_frames), T, S,
+      static_cast<float*>(alpha), static_cast<float*>(beta),
+      static_cast<float*>(like)));
+}
+
+extern "C" int graph_align_cluster(const void* log_A, const void* log_entry,
+                                   const void* log_exit, const void* log_b,
+                                   const void* n_frames, int B, int T, int S,
+                                   int c, void* bps, void* states, void* like,
+                                   void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(graph_align_cluster_kernel, B, S, c,
+                                 static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (e != cudaSuccess) return e;
+  return launched(cudaLaunchKernelEx(
+      &cfg, graph_align_cluster_kernel, static_cast<const float*>(log_A),
+      static_cast<const float*>(log_entry), static_cast<const float*>(log_exit),
+      static_cast<const float*>(log_b), static_cast<const int*>(n_frames), T, S,
+      static_cast<int*>(bps), static_cast<int*>(states),
+      static_cast<float*>(like)));
 }

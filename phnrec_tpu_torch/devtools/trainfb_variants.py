@@ -1,8 +1,8 @@
 """Compare variants of the training scans' source (csrc/trainfb.cu: kernels
 J, K and K') on one CUDA card.
 
-    python3 -m phnrec_tpu_torch.devtools.trainfb_variants \\
-        REF.cu [VARIANT.cu ...]
+    python3 -m phnrec_tpu_torch.devtools.trainfb_variants [--sweep] \\
+        [--clusters] [--repeat N] REF.cu [VARIANT.cu ...]
 
 Builds every source given (all at once, with the package's nvcc flags, into
 build/phnrec_tpu_torch/variants/), prints each build's registers and
@@ -11,15 +11,23 @@ ops/trainfb.py) on the case list that chip_smoke.py holds the package's
 kernels to (``check_cases``): J on loops of 4 x 3 to 2,100 x 3 states
 (past 1,024 threads, and with its carries in device memory), K and K' on
 padded training graphs of netgen's PDFObsVec HMM set over 46 phonemes at S
-32, 256, 608 and 6,304 (carries in device memory), B 1 and 16, ragged
-n_frames, tie-heavy observations; J and K within TOL relative (of
+32 to 6,304 (``K_CASES``: the one-block kernels' carries in device memory
+at 6,304; the cluster kernels' largest S and the next bucket past it), B 1
+to 160, ragged n_frames, tie-heavy observations; J and K within TOL relative (of
 max(|x|, 1)), K' bit for bit.  Then it times every build in turns (first
 to last, then last to first) at the training path's shapes (J: one CZ
 utterance, B 1 x T 500 x 46 x 3; K and K': a bucket, B 16 x T 512 x S 256
 with n 385-512) by chip_smoke.py's two timers.  The parent's source is
 extracted by the caller, e.g.
 ``git show HEAD~1:phnrec_tpu_torch/csrc/trainfb.cu > build/trainfb_ref.cu``.
-One JSON line per build, check and timing.
+``--repeat N`` runs the case list N times a build (a race between the
+threads shows only sometimes); ``--sweep`` times K and K' again at B 1, 16
+and 128 (the bucket cut to one utterance, and repeated: the chain's
+latency against the traffic of all the chains); ``--clusters`` times the
+cluster kernels of the builds that have them at B 1 and 16 on each
+cluster size, beside their one-block kernels.  K is checked bit for bit
+against the same build's one-block kernel too.  One JSON line per build,
+check and timing.
 """
 
 from __future__ import annotations
@@ -55,10 +63,18 @@ J_ARGS = (-1.5, float(np.log(0.5)), float(np.log(0.5)))
 J_CASES = ((4, 3, 1, 40), (46, 3, 1, 500), (46, 3, 16, 500),
            (400, 3, 2, 60), (2100, 3, 1, 12))
 # (phonemes a transcription, S, B, T, ties): S 32, the CZ bucket (256) at
-# B 1 and 16, ties, past 512 columns, past 48 KB of carries
+# B 1 and 16, ties, past 512 columns, past 48 KB of carries; then the
+# phoneme-loop denominator of sMBR (S 138, B 1), S 250 (no multiple of a
+# cluster size), the clusters' largest S at c 8 (640, B 16) and at c 16
+# (928, B 1), the next bucket past it (960: the one-block kernels), and
+# more clusters than the card holds at once (B 32 and 160)
 K_CASES = ((10, 32, 16, 64, False), (78, 256, 1, 200, False),
            (78, 256, 16, 512, False), (78, 256, 16, 128, True),
-           (200, 608, 2, 40, False), (2100, 6304, 1, 10, True))
+           (200, 608, 2, 40, False), (2100, 6304, 1, 10, True),
+           (45, 138, 1, 300, False), (83, 250, 4, 96, True),
+           (213, 640, 16, 40, False), (309, 928, 1, 32, True),
+           (319, 960, 1, 32, False), (78, 256, 32, 96, False),
+           (78, 256, 160, 24, True))
 
 
 def hmm_set(tmp: str, phonemes):
@@ -124,11 +140,14 @@ def logpost(rng, B, T, D, dev, ties=False) -> torch.Tensor:
         x - np.log(np.exp(x).sum(-1, keepdims=True))).to(dev)
 
 
-def check_cases(j, fb, align, dev, models, seed: int = 21) -> dict:
+def check_cases(j, fb, align, dev, models, seed: int = 21,
+                fb_one=None) -> dict:
     """Kernels ``j`` (J's signature), ``fb`` (K's) and ``align`` (K''s)
     against the plain versions on J_CASES and K_CASES: the case records,
     the worst relative and absolute errors of J and K, and whether K' was
-    bit-equal everywhere."""
+    bit-equal everywhere.  ``fb_one`` (K's signature), when given, is the
+    one-block design: whether ``fb`` equals it bit for bit on every case
+    (``fb_bit_equal_one_block``)."""
     rng = np.random.default_rng(seed)
     names = list(models.hmms)
     recs = []
@@ -145,7 +164,7 @@ def check_cases(j, fb, align, dev, models, seed: int = 21) -> dict:
             abs_err(g, w) for g, w in zip(got, want)))
         recs.append(dict(kernel="phnloop_fb", P=P, S=S, B=B, T=T,
                          rel_err=err))
-    aligned_all = True
+    aligned_all, same_all = True, True
     for n_phn, S, B, T, ties in K_CASES:
         trans = [list(rng.choice(names, n_phn - int(rng.integers(0, 3))))
                  for _ in range(B)]
@@ -165,14 +184,25 @@ def check_cases(j, fb, align, dev, models, seed: int = 21) -> dict:
             abs_err(g, w) for g, w in zip(got, want)))
         aligned = torch.equal(st, st_p) and bits_equal(ll, ll_p)
         aligned_all = aligned_all and aligned
-        recs.append(dict(kernel="graph_fb+graph_align", S=S, B=B, T=T,
-                         ties=ties, rel_err=err, align_bit_equal=aligned,
-                         finite=bool(all(torch.isfinite(g).all()
-                                         for g in got))))
+        rec = dict(kernel="graph_fb+graph_align", S=S, B=B, T=T, ties=ties,
+                   rel_err=err, abs_err=max(abs_err(g, w)
+                                            for g, w in zip(got, want)),
+                   align_bit_equal=aligned,
+                   finite=bool(all(torch.isfinite(g).all() for g in got)))
+        if fb_one is not None:
+            one = fb_one(*args, n)
+            torch.cuda.synchronize()
+            rec["fb_bit_equal_one_block"] = all(
+                bits_equal(g, o) for g, o in zip(got, one))
+            same_all = same_all and rec["fb_bit_equal_one_block"]
+        recs.append(rec)
     ok = (aligned_all and max(rel.values()) <= TOL
           and all(r.get("finite", True) for r in recs))
-    return dict(cases=recs, rel_err=rel, max_abs_err=ab,
-                align_bit_equal=aligned_all, ok=ok)
+    out = dict(cases=recs, rel_err=rel, max_abs_err=ab,
+               align_bit_equal=aligned_all, ok=ok)
+    if fb_one is not None:
+        out["fb_bit_equal_one_block"] = same_all
+    return out
 
 
 def timing_inputs(dev, models, seed: int = 22) -> dict:
@@ -191,7 +221,85 @@ def timing_inputs(dev, models, seed: int = 22) -> dict:
         ns=ns)
 
 
+# the B sweep: the timing bucket cut to its first utterance, as it is,
+# and repeated 8 times
+SWEEP_B = (1, 16, 128)
+
+
+def replicate(k, B: int) -> tuple:
+    """K's bucket arguments ``k`` cut to, or repeated up to, B
+    utterances."""
+    reps = -(-B // k[0].shape[0])
+    return tuple(torch.cat([a] * reps)[:B].contiguous() for a in k)
+
+
+def step_us(ms: float, T: int, align: bool) -> float:
+    """Microseconds a frame step: K takes 2T steps (forwards and
+    backwards), K' T."""
+    return ms * 1e3 / (T if align else 2 * T)
+
+
+def cluster_sweep(libs: dict, k, order) -> None:
+    """K and K' of every build with cluster kernels at B 1 and 16 on each
+    cluster size the card holds, and on the one-block kernels (c 0): held
+    ms in turns (``order``), and the card's clusters at once by size."""
+    S, T = k[0].shape[-1], k[3].shape[1]
+    dev = k[0].device
+    rows = {}
+    for B in (1, 16):
+        kb = replicate(k, B)
+        for name in order:
+            lib = libs[name]
+            if not hasattr(lib, "graph_fb_cluster"):
+                continue
+            act = {w: trainfb.max_active(lib, w, S, dev) for w in (False,
+                                                                  True)}
+            for c in (0, *trainfb.CLUSTER_SIZES):
+                if c and not act[False][c]:
+                    continue
+                r = rows.setdefault((name, B, c), {
+                    "K": [], "K'": [], "max_active": act[False].get(c),
+                    "plan": trainfb.plan(lib, False, B, S, dev)})
+                r["K"].append(held_ms(lambda: trainfb.launch_fb(
+                    lib, *kb, cluster=c), iters=3))
+                r["K'"].append(held_ms(lambda: trainfb.launch_align(
+                    lib, *kb, cluster=c), iters=3))
+    for (name, B, c), r in rows.items():
+        print(json.dumps({"cluster_sweep": name, "B": B, "c": c, "S": S,
+                          "T": T, **r, "step_us": {
+                              w: [step_us(v, T, w == "K'") for v in r[w]]
+                              for w in ("K", "K'")}}), flush=True)
+
+
+def sweep(libs: dict, calls, k, order) -> None:
+    """K and K' of every build at B 1, 16 and 128 (``replicate``), held
+    ms and us a frame step, in turns (``order``)."""
+    T = k[3].shape[1]
+    rows = {(n, B): {"K": [], "K'": []} for n in libs for B in SWEEP_B}
+    for B in SWEEP_B:
+        kb = replicate(k, B)
+        for name in order:
+            c = calls(libs[name])
+            rows[name, B]["K"].append(held_ms(lambda: c["fb"](*kb), iters=3))
+            rows[name, B]["K'"].append(
+                held_ms(lambda: c["align"](*kb), iters=3))
+    for (name, B), t in rows.items():
+        print(json.dumps({"sweep": name, "B": B, "T": T, "held_ms": t,
+                          "step_us": {w: [step_us(v, T, w == "K'")
+                                          for v in ts]
+                                      for w, ts in t.items()}}), flush=True)
+
+
 def main(argv) -> int:
+    argv = list(argv)
+    do_sweep = "--sweep" in argv
+    do_clusters = "--clusters" in argv
+    repeat = 1
+    if "--repeat" in argv:
+        i = argv.index("--repeat")
+        repeat = int(argv[i + 1])
+        del argv[i: i + 2]
+    argv = [a for a in argv if a not in ("--sweep", "--clusters")]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -218,9 +326,18 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         models = hmm_set(tmp, [f"ph{i:02d}" for i in range(46)])
         for name, lib in libs.items():
-            res = check_cases(**calls(lib), dev=dev, models=models)
-            ok = ok and res["ok"]
-            print(json.dumps({"check": name, **res}), flush=True)
+            one = None
+            if hasattr(lib, "graph_fb_cluster"):
+                one = lambda *a, lib=lib: trainfb.launch_fb(lib, *a,
+                                                            cluster=0)
+                print(json.dumps({"max_active": name, "S": 256, **{
+                    w: trainfb.max_active(lib, w == "K'", 256, dev)
+                    for w in ("K", "K'")}}), flush=True)
+            for _ in range(repeat):
+                res = check_cases(**calls(lib), dev=dev, models=models,
+                                  fb_one=one)
+                ok = ok and res["ok"]
+                print(json.dumps({"check": name, **res}), flush=True)
         inp = timing_inputs(dev, models)
     timers = {"ms": cuda_ms, "held_ms": held_ms}
     ms = {name: {f"{k} {w}": [] for k in ("J", "K", "K'") for w in timers}
@@ -235,6 +352,10 @@ def main(argv) -> int:
                 ms[name][f"{k} {w}"].append(timer(fn, iters=5))
     for name, t in ms.items():
         print(json.dumps({"time_ms": name, **t}), flush=True)
+    if do_sweep:
+        sweep(libs, calls, inp["k"], [*libs, *reversed(libs)])
+    if do_clusters:
+        cluster_sweep(libs, inp["k"], [*libs, *reversed(libs)])
     return 0 if ok else 1
 
 

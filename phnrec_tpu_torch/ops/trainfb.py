@@ -15,6 +15,11 @@ log_A [B, S, S], log_entry / log_exit [B, S], log_b [B, T, S], n_frames [B]
   NaN.  The kernel sums its exps in its own order: a tolerance.
 * K': -> (states [B, T] int32, log_like [B]); adds and compares only, the
   first (smallest) source index on ties, as jnp.argmax: bit-equal.
+
+On the card each takes one of two designs (``plan``): a thread-block
+cluster of c blocks an utterance with log_A's slices in shared memory
+(``cluster_plan``), or, for graphs whose slice does not fit, one block an
+utterance reading log_A through L2.  Each design has its own launch count.
 """
 
 from __future__ import annotations
@@ -27,10 +32,15 @@ import torch
 
 from phnrec_tpu_torch.ops import _build
 
-LAUNCHES = 0          # kernel K
-ALIGN_LAUNCHES = 0    # kernel K'
+LAUNCHES = 0                 # kernel K, one block an utterance
+ALIGN_LAUNCHES = 0           # kernel K', one block an utterance
+CLUSTER_LAUNCHES = 0         # kernel K on a cluster
+ALIGN_CLUSTER_LAUNCHES = 0   # kernel K' on a cluster
 
 NEG_INF = -1e30       # train/fb.py's NEG_INF
+
+CLUSTER_SIZES = (2, 4, 8, 16)
+SMEM_MAX = 232448     # the shared memory of one block on the H100
 
 Graphs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -110,16 +120,49 @@ def graph_align_plain(log_A: torch.Tensor, log_entry: torch.Tensor,
     return states.to(torch.int32), like
 
 
+def cluster_smem(S: int, c: int) -> int:
+    """Bytes of shared memory a block of a c-block cluster needs at S
+    states (csrc/trainfb.cu's cluster_smem): its slice of ceil(S / c)
+    columns of log_A at a pitch of S rounded up to 4 mod 32, two carries
+    of S floats and 64 words."""
+    W = -(-S // c)
+    return 4 * (W * (S + (4 - S) % 32) + 2 * S + 64)
+
+
+def cluster_plan(B: int, S: int, max_active: dict) -> int:
+    """The cluster size for a bucket of B utterances of S states: of the
+    sizes whose slice fits a block's shared memory and of which the card
+    holds a cluster (``max_active``: c -> the clusters it holds at once,
+    cudaOccupancyMaxActiveClusters), the one that takes the fewest waves
+    of B clusters, then the largest; 0 where none fits (the one-block
+    kernels)."""
+    fits = [c for c in CLUSTER_SIZES
+            if cluster_smem(S, c) <= SMEM_MAX and max_active.get(c, 0) > 0]
+    if not fits:
+        return 0
+    return min(fits, key=lambda c: (-(-B // max_active[c]), -c))
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of the training-scan library's entry points
-    (kernels J, K and K')."""
+    (kernels J, K and K'; the cluster designs where the library has
+    them)."""
     if lib.phn_loop_fb.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.phn_loop_fb.argtypes = [vp, i, i, i, i, i, f, f, f, vp, vp, vp,
                                     vp, vp]
         lib.graph_fb.argtypes = [vp] * 6 + [i] * 3 + [vp] * 5
         lib.graph_align.argtypes = [vp] * 5 + [i] * 3 + [vp] * 5
-        for fn in (lib.phn_loop_fb, lib.graph_fb, lib.graph_align):
+        fns = [lib.phn_loop_fb, lib.graph_fb, lib.graph_align]
+        if hasattr(lib, "graph_fb_cluster"):
+            for fn in (lib.graph_fb_cluster, lib.graph_align_cluster):
+                fn.argtypes = [vp] * 5 + [i] * 4 + [vp] * 4
+                fns.append(fn)
+            lib.trainfb_cluster_max_active.argtypes = [i, i, i]
+            lib.trainfb_cluster_max_active.restype = ctypes.c_int
+            lib.trainfb_cluster_smem.argtypes = [i, i]
+            lib.trainfb_cluster_smem.restype = ctypes.c_longlong
+        for fn in fns:
             fn.restype = ctypes.c_int
         lib.trainfb_scratch_floats.argtypes = [i, i]
         lib.trainfb_scratch_floats.restype = ctypes.c_longlong
@@ -128,6 +171,33 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _lib():
     return bind(_build.load("trainfb"))
+
+
+_ACTIVE: dict = {}
+
+
+def max_active(lib: ctypes.CDLL, align: bool, S: int, device) -> dict:
+    """c -> how many clusters of c blocks of K (or K', ``align``) at S
+    states the card of ``device`` holds at once, from the library's
+    cudaOccupancyMaxActiveClusters (0 where the slice does not fit);
+    cached.  Raises where the query fails."""
+    key = (lib._name, device.index, align, S)
+    if key not in _ACTIVE:
+        with torch.cuda.device(device):
+            got = {c: int(lib.trainfb_cluster_max_active(int(align), S, c))
+                   for c in CLUSTER_SIZES}
+        if min(got.values()) < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters: {got}")
+        _ACTIVE[key] = got
+    return _ACTIVE[key]
+
+
+def plan(lib: ctypes.CDLL, align: bool, B: int, S: int, device) -> int:
+    """The cluster size ``lib``'s K (K') takes for B utterances of S
+    states on ``device``; 0: the one-block kernel."""
+    if not hasattr(lib, "graph_fb_cluster"):
+        return 0
+    return cluster_plan(B, S, max_active(lib, align, S, device))
 
 
 def scratch(lib: ctypes.CDLL, B: int, width: int, device):
@@ -154,43 +224,54 @@ def _check(log_A, log_entry, log_exit, log_b, n_frames):
 
 
 def launch_fb(lib: ctypes.CDLL, log_A, log_entry, log_exit, log_b,
-              n_frames) -> Graphs:
-    """Launch kernel K of ``lib`` on CUDA tensors; raises on anything it
-    does not take; counts nothing."""
+              n_frames, cluster=None) -> Graphs:
+    """Launch kernel K of ``lib`` on CUDA tensors on clusters of
+    ``cluster`` blocks (None: as ``plan`` says; 0: the one-block kernel);
+    raises on anything it does not take; counts nothing."""
     device, B, T, S = _check(log_A, log_entry, log_exit, log_b, n_frames)
-    log_AT = log_A.transpose(1, 2).contiguous()
+    c = plan(lib, False, B, S, device) if cluster is None else cluster
     alpha = torch.empty((B, T, S), dtype=torch.float32, device=device)
     beta = torch.empty_like(alpha)
     like = torch.empty(B, dtype=torch.float32, device=device)
-    scr = scratch(lib, B, S, device)
+    ins = [t.data_ptr() for t in (log_A, log_entry, log_exit, log_b,
+                                  n_frames)]
+    outs = [t.data_ptr() for t in (alpha, beta, like)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.graph_fb(
-            log_A.data_ptr(), log_AT.data_ptr(), log_entry.data_ptr(),
-            log_exit.data_ptr(), log_b.data_ptr(), n_frames.data_ptr(), B, T,
-            S, alpha.data_ptr(), beta.data_ptr(), like.data_ptr(),
-            None if scr is None else scr.data_ptr(), stream)
-    _build.check(err, "graph_fb")
+        if c:
+            err = lib.graph_fb_cluster(*ins, B, T, S, c, *outs, stream)
+        else:
+            log_AT = log_A.transpose(1, 2).contiguous()
+            scr = scratch(lib, B, S, device)
+            err = lib.graph_fb(ins[0], log_AT.data_ptr(), *ins[1:], B, T, S,
+                               *outs, None if scr is None else scr.data_ptr(),
+                               stream)
+    _build.check(err, f"graph_fb (cluster {c})")
     return alpha, beta, like
 
 
 def launch_align(lib: ctypes.CDLL, log_A, log_entry, log_exit, log_b,
-                 n_frames) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel K' of ``lib`` on CUDA tensors; raises on anything it
-    does not take; counts nothing."""
+                 n_frames, cluster=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel K' of ``lib`` on CUDA tensors, as ``launch_fb``;
+    raises on anything it does not take; counts nothing."""
     device, B, T, S = _check(log_A, log_entry, log_exit, log_b, n_frames)
+    c = plan(lib, True, B, S, device) if cluster is None else cluster
     bps = torch.empty((B, T, S), dtype=torch.int32, device=device)
     states = torch.empty((B, T), dtype=torch.int32, device=device)
     like = torch.empty(B, dtype=torch.float32, device=device)
-    scr = scratch(lib, B, S, device)
+    ins = [t.data_ptr() for t in (log_A, log_entry, log_exit, log_b,
+                                  n_frames)]
+    outs = [t.data_ptr() for t in (bps, states, like)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.graph_align(
-            log_A.data_ptr(), log_entry.data_ptr(), log_exit.data_ptr(),
-            log_b.data_ptr(), n_frames.data_ptr(), B, T, S, bps.data_ptr(),
-            states.data_ptr(), like.data_ptr(),
-            None if scr is None else scr.data_ptr(), stream)
-    _build.check(err, "graph_align")
+        if c:
+            err = lib.graph_align_cluster(*ins, B, T, S, c, *outs, stream)
+        else:
+            scr = scratch(lib, B, S, device)
+            err = lib.graph_align(*ins, B, T, S, *outs,
+                                  None if scr is None else scr.data_ptr(),
+                                  stream)
+    _build.check(err, f"graph_align (cluster {c})")
     return states, like
 
 
@@ -198,15 +279,21 @@ def graph_fb(log_A: torch.Tensor, log_entry: torch.Tensor,
              log_exit: torch.Tensor, log_b: torch.Tensor,
              n_frames: torch.Tensor) -> Graphs:
     """Kernel K over a bucket batch: CPU tensors take the plain version;
-    CUDA tensors launch the kernel (one launch, both scans), and anything
-    the kernel does not take raises."""
+    CUDA tensors launch the kernel (one launch, both scans, on clusters
+    where the plan finds a size), and anything the kernel does not take
+    raises."""
     args = (log_A, log_entry, log_exit, log_b, n_frames)
     if log_b.device.type == "cpu":
         return graph_fb_plain(*args)
-    _build.cuda_device(log_b)          # raises before any build
-    out = launch_fb(_lib(), *args)
-    global LAUNCHES
-    LAUNCHES += 1
+    device = _build.cuda_device(log_b)          # raises before any build
+    lib = _lib()
+    c = plan(lib, False, log_b.shape[0], log_b.shape[-1], device)
+    out = launch_fb(lib, *args, cluster=c)
+    global LAUNCHES, CLUSTER_LAUNCHES
+    if c:
+        CLUSTER_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -215,12 +302,18 @@ def graph_align(log_A: torch.Tensor, log_entry: torch.Tensor,
                 n_frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K' over a bucket batch: CPU tensors take the plain version;
     CUDA tensors launch the kernel (one launch: scan, argmax and walk
-    back), and anything the kernel does not take raises."""
+    back; on clusters as K), and anything the kernel does not take
+    raises."""
     args = (log_A, log_entry, log_exit, log_b, n_frames)
     if log_b.device.type == "cpu":
         return graph_align_plain(*args)
-    _build.cuda_device(log_b)
-    out = launch_align(_lib(), *args)
-    global ALIGN_LAUNCHES
-    ALIGN_LAUNCHES += 1
+    device = _build.cuda_device(log_b)
+    lib = _lib()
+    c = plan(lib, True, log_b.shape[0], log_b.shape[-1], device)
+    out = launch_align(lib, *args, cluster=c)
+    global ALIGN_LAUNCHES, ALIGN_CLUSTER_LAUNCHES
+    if c:
+        ALIGN_CLUSTER_LAUNCHES += 1
+    else:
+        ALIGN_LAUNCHES += 1
     return out
