@@ -2898,10 +2898,11 @@ def check_trainfb_cases(dev, models) -> dict:
             err[k] = max(err[k], r["abs_err"])
     paths = {w: sorted({r[w] for r in res["cases"] if w in r})
              for w in ("cluster", "align_cluster")}
-    smem = {(S, c): (trainfb.cluster_smem(S, c),
+    smem = {(S, c): (trainfb.cluster_smem(S, c)
+                     if trainfb.cluster_fits(S, c) else 0,
                      int(lib.trainfb_cluster_smem(S, c)))
-            for S in (1, 138, 250, 256, 640, 928, 960)
-            for c in trainfb.CLUSTER_SIZES}
+            for S in (1, 138, 250, 256, 640, 672, 928, 960)
+            for c in (1, *trainfb.CLUSTER_SIZES, 9)}
     smem_equal = all(a == b for a, b in smem.values())
     phase("trainfb_cases", tol=trainfb_variants.TOL, paths=paths,
           smem_plan_equals_source=smem_equal, **res)

@@ -400,38 +400,61 @@ __global__ void graph_align_kernel(const float* __restrict__ log_A,
 }
 
 // ------------------------------------------------ K and K' on a cluster
-// One thread-block cluster of c blocks (c in 2, 4, 8, 16) an utterance,
+// One thread-block cluster of c blocks (c from 2 to 8, or 16) an utterance,
 // one block an SM.  Block r owns the states [r W, (r + 1) W), W = ceil(S /
 // c): forwards (and in K') the columns j of log_A, backwards the rows i.
-// Its slice of log_A lives in shared memory for the whole scan, a column
-// (row) at a time with pitch P = S rounded up to 4 mod 32, so the four
-// lanes of a column (sources q mod 4) and the eight columns of a warp
-// read 32 different banks.  Each block keeps the whole carry (alpha, or
-// log_b[t + 1] + beta backwards), ping-ponged between two buffers; after
-// a frame it stores its slice of the next carry into every block's other
-// buffer (st.shared::cluster), then the cluster barrier (arrive.release,
-// wait.acquire) makes the stores visible: one barrier a frame.  Each
-// column's arithmetic is graph_fb_kernel's / graph_align_kernel's
-// (column_lse, the same lanes, the same order), so both are bit-equal to
-// the one-block kernels; frames t >= n keep the carry and need neither
-// lse nor barrier.
+// Its slice of log_A lives in shared memory for the whole scan; the QC
+// lanes of a column each keep their sources (i = q mod QC) side by side
+// and read them as float4s.  Each block keeps the whole carry (alpha, or
+// log_b[t + 1] + beta backwards) in two buffers: after a frame's lse (and
+// a block barrier: every warp has read the buffer the peers refill next)
+// its lanes store their states' next values into every block's other
+// buffer with st.async, each store counted on that block's mbarrier of
+// the buffer; a frame begins by waiting on its own mbarrier for all S
+// values.  No cluster-wide barrier in the frame loop: its release fence
+// (MEMBAR.GPU, then an L1 invalidation) cost ~0.66 us a frame.  Each
+// column's arithmetic is graph_fb_kernel's / graph_align_kernel's (the
+// same terms, expf and logf, the same maximum) but for QC; frames t >= n
+// keep the carry and need neither lse nor exchange.
 
 __host__ __device__ inline int threads_for(int width, int cap) {
   int t = (width + 31) / 32 * 32;
   return t < 32 ? 32 : (t > cap ? cap : t);
 }
 
-// the slice's width and pitch; the dynamic shared memory of a cluster
-// block: the slice, two carries and 64 words for reductions
+// Lanes a column in the cluster kernels: eight, twice graph_fb_kernel's
+// four, halve each lane's chain of terms (K's sums are then associated
+// otherwise: held to the tolerance; K' keeps the first maximum in any
+// split).  A block's columns times QC threads stay within 1,024.
+constexpr int QC = 8;
+
+// The slice's width, and the pitch L of a lane's sources: lane q of a
+// column keeps its sources i = q, q + QC, ... at [q L, q L + S/QC); a
+// column takes QC L floats.  L = ceil(S / QC) rounded up to 4 mod 8 puts
+// the eight lanes of a quarter warp on eight different 16-byte bank
+// groups.  The carries keep the same order (state i at perm(i)).  The
+// dynamic shared memory of a cluster block: the slice, two carries, 64
+// words for reductions and two mbarriers.
 __host__ __device__ inline int slice_cols(int S, int c) { return (S + c - 1) / c; }
-__host__ __device__ inline int slice_pitch(int S) {
-  return S + ((4 - S) % 32 + 32) % 32;
+__host__ __device__ inline int lane_pitch(int S) {
+  const int sq = (S + QC - 1) / QC;
+  return sq + ((4 - sq) % 8 + 8) % 8;
 }
+__host__ __device__ inline int perm(int i, int L) { return (i % QC) * L + i / QC; }
 inline size_t cluster_smem(int S, int c) {
-  return 4 * ((size_t)slice_cols(S, c) * slice_pitch(S) + 2 * (size_t)S + 64);
+  const size_t C = (size_t)QC * lane_pitch(S);
+  return 4 * ((size_t)slice_cols(S, c) * C + 2 * C + 72);
 }
 constexpr size_t CLUSTER_SMEM_MAX = 232448;    // a block's shared memory
 constexpr size_t ONE_BLOCK_AN_SM = 116 * 1024;  // over half an SM's 228 KB
+// a cluster size the kernels take at S states: 2 to 8 blocks (portable)
+// or 16 (non-portable), the slice within a block's shared memory and its
+// columns' lanes within 1,024 threads
+inline bool cluster_fits(int S, int c) {
+  return S > 0 && ((c >= 2 && c <= 8) || c == 16) &&
+         cluster_smem(S, c) <= CLUSTER_SMEM_MAX &&
+         QC * slice_cols(S, c) <= MAX_THREADS;
+}
 
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
@@ -454,35 +477,106 @@ __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
                "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
-// v into block ``rank``'s copy of the shared word at p (a pointer into
-// this block's shared memory)
-__device__ __forceinline__ void store_peer(const float* p, unsigned rank, float v) {
-  const unsigned local = (unsigned)__cvta_generic_to_shared(p);
+
+typedef unsigned long long mbar_t;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// the shared::cluster address of block ``rank``'s copy of a shared word
+__device__ __forceinline__ unsigned peer_u32(unsigned local, unsigned rank) {
   unsigned remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
                : "=r"(remote) : "r"(local), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(remote), "f"(v)
+  return remote;
+}
+__device__ __forceinline__ void mbar_init(mbar_t* b) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(b))
                : "memory");
 }
-// v into every block's copy of p: the Q lanes of a column share the peers
-__device__ __forceinline__ void store_all(const float* p, unsigned nc, int q, float v) {
-  for (unsigned r = q; r < nc; r += Q) store_peer(p, r, v);
+// the phase's one arrival, and the bytes the peers' stores bring
+__device__ __forceinline__ void mbar_arm(mbar_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+// wait for the phase of mbarrier k (of two) whose parity ``ph`` keeps
+__device__ __forceinline__ void mbar_wait(mbar_t* b, unsigned& ph, int k) {
+  unsigned done;
+  const unsigned parity = (ph >> k) & 1u;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
+  } while (!done);
+  ph ^= 1u << k;
+}
+// v into every block's copy of p, counted on that block's copy of b; the
+// QC lanes of a column share the peers
+__device__ __forceinline__ void push_all(const float* p, mbar_t* b,
+                                         unsigned nc, int q, float v) {
+  const unsigned lp = smem_u32(p), lbar = smem_u32(b);
+  for (unsigned r = q; r < nc; r += QC)
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];"
+        :: "r"(peer_u32(lp, r)), "r"(__float_as_uint(v)), "r"(peer_u32(lbar, r))
+        : "memory");
 }
 
-// lse over j of cur[j] + ex[j] exactly as graph_fb_kernel's block of
-// threads_for(Q * S, MAX_THREADS) threads sums it (its strided sums, its
-// warps' butterflies, then the butterfly over the warps' sums), whatever
-// this block's size: bit-equal.  red holds 64 floats.
-__device__ float like_lse(const float* cur, const float* ex, int S, float* red) {
+// column_lse over a lane's sources held as perm() orders them: a (the
+// lane's row of the slice) + v (the lane's row of the carry), K4 chunks
+// of four; the pad entries (a -inf, v 0) add nothing.  The same terms,
+// the same maximum (exact in any order), each lane's sum in ascending
+// order, then the butterfly over the QC lanes.
+__device__ __forceinline__ float column_lse4(int K4, bool live, const float* a,
+                                             const float* v) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
+  if (live) {
+#pragma unroll 4
+    for (int k = 0; k < K4; ++k) {
+      const float4 x = a4[k], y = v4[k];
+      m0 = fmaxf(m0, x.x + y.x);
+      m1 = fmaxf(m1, x.y + y.y);
+      m2 = fmaxf(m2, x.z + y.z);
+      m3 = fmaxf(m3, x.w + y.w);
+    }
+  }
+  float m = fmaxf(fmaxf(m0, m1), fmaxf(m2, m3));
+  for (int o = 1; o < QC; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float mm = isfinite(m) ? m : 0.0f;
+  float s = 0.0f;
+  if (live) {
+#pragma unroll 4
+    for (int k = 0; k < K4; ++k) {
+      const float4 x = a4[k], y = v4[k];
+      s += expf(x.x + y.x - mm);
+      s += expf(x.y + y.y - mm);
+      s += expf(x.z + y.z - mm);
+      s += expf(x.w + y.w - mm);
+    }
+  }
+  for (int o = 1; o < QC; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return logf(s) + mm;
+}
+
+// lse over j of cur[perm(j)] + ex[j] exactly as graph_fb_kernel's block
+// of threads_for(Q * S, MAX_THREADS) threads sums it (its strided sums,
+// its warps' butterflies, then the butterfly over the warps' sums),
+// whatever this block's size: bit-equal.  red holds 64 floats.
+__device__ float like_lse(const float* cur, const float* ex, int S, int L,
+                         float* red) {
   const int bd = threads_for(Q * S, MAX_THREADS), nw = bd >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float m = -INFINITY;
-  for (int j = threadIdx.x; j < S; j += blockDim.x) m = fmaxf(m, cur[j] + ex[j]);
+  for (int j = threadIdx.x; j < S; j += blockDim.x)
+    m = fmaxf(m, cur[perm(j, L)] + ex[j]);
   m = block_reduce(m, red, MaxOp(), -INFINITY);
   if (!isfinite(m)) m = 0.0f;
   for (int w = warp; w < nw; w += blockDim.x >> 5) {
     float s = 0.0f;
-    for (int j = w * 32 + lane; j < S; j += bd) s += expf(cur[j] + ex[j] - m);
+    for (int j = w * 32 + lane; j < S; j += bd)
+      s += expf(cur[perm(j, L)] + ex[j] - m);
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) red[32 + w] = s;
   }
@@ -492,43 +586,68 @@ __device__ float like_lse(const float* cur, const float* ex, int S, float* red) 
   return logf(v) + m;
 }
 
-// This block's place in the cluster and its slice.
+// This block's place in the cluster, its slice and its shared memory.
 struct Slice {
   unsigned nc;     // blocks of the cluster
   int b;           // the utterance
   int j0, nown;    // the first state this block owns, and how many
-  int P;           // the slice's pitch
+  int L, C, K4;    // a lane's pitch, a column's floats, a lane's chunks
   int q, jl, j;    // this lane: its lane of the column, column, state
   bool ok;         // the lane has a state
+  float* As;       // the slice
+  float* buf;      // the two carries
+  float* red;      // 64 words
+  mbar_t* mb;      // the carries' mbarriers
 };
 
-__device__ __forceinline__ Slice slice_of(int S) {
+__device__ __forceinline__ Slice slice_of(int S, float* smem) {
   Slice s;
   s.nc = cluster_blocks();
   s.b = (int)cluster_index();
   const int W = slice_cols(S, (int)s.nc);
   s.j0 = (int)cluster_rank() * W;
   s.nown = max(0, min(W, S - s.j0));
-  s.P = slice_pitch(S);
-  s.q = threadIdx.x % Q;
-  s.jl = threadIdx.x / Q;
+  s.L = lane_pitch(S);
+  s.C = QC * s.L;
+  s.K4 = ((S + QC - 1) / QC + 3) / 4;
+  s.q = threadIdx.x % QC;
+  s.jl = threadIdx.x / QC;
   s.j = s.j0 + s.jl;
   s.ok = s.jl < s.nown;
+  s.As = smem;
+  s.buf = smem + (size_t)W * s.C;
+  s.red = s.buf + 2 * s.C;
+  s.mb = reinterpret_cast<mbar_t*>(s.red + 64);
   return s;
 }
 
-// As[l][i] = A[i][j0 + l] (columns) or A[j0 + l][i] (rows)
-__device__ void load_slice(float* As, const float* A, int S, const Slice& s,
-                           bool rows) {
+// The mbarriers, the carries (the states NEG_INF, the pad entries 0) and
+// the column slice: As[l][perm(i)] = A[i][j0 + l] (rows: A[j0 + l][i]),
+// the pad entries -inf.  Ends with the block's barrier.
+__device__ void init_block(const Slice& s, int S) {
+  if (threadIdx.x == 0) {
+    mbar_init(s.mb);
+    mbar_init(s.mb + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int k = threadIdx.x; k < 2 * s.C; k += blockDim.x) {
+    const int r = k % s.C, i = r / s.L + QC * (r % s.L);
+    s.buf[k] = i < S ? NEG_INF_TRAIN : 0.0f;
+  }
+}
+__device__ void load_slice(const Slice& s, const float* A, int S, bool rows) {
+  for (int k = threadIdx.x; k < s.C * s.nown; k += blockDim.x) s.As[k] = -INFINITY;
+  __syncthreads();
   for (int k = threadIdx.x; k < S * s.nown; k += blockDim.x) {
     if (rows) {
       const int l = k / S, i = k - l * S;
-      As[l * s.P + i] = A[(size_t)(s.j0 + l) * S + i];
+      s.As[l * s.C + perm(i, s.L)] = A[(size_t)(s.j0 + l) * S + i];
     } else {
       const int i = k / s.nown, l = k - i * s.nown;
-      As[l * s.P + i] = A[(size_t)i * S + s.j0 + l];
+      s.As[l * s.C + perm(i, s.L)] = A[(size_t)i * S + s.j0 + l];
     }
   }
+  __syncthreads();
 }
 
 // rows t in [t0, T) of out [T, S]: this block's states to v
@@ -550,10 +669,8 @@ __global__ void graph_fb_cluster_kernel(const float* __restrict__ log_A,
                                         float* __restrict__ beta,
                                         float* __restrict__ like) {
   extern __shared__ float smem[];
-  const Slice s = slice_of(S);
-  float* As = smem;
-  float* buf = smem + (size_t)slice_cols(S, (int)s.nc) * s.P;
-  float* red = buf + 2 * S;
+  const Slice s = slice_of(S, smem);
+  const int C = s.C;
   const float* A = log_A + (size_t)s.b * S * S;
   const float* en = log_entry + (size_t)s.b * S;
   const float* ex = log_exit + (size_t)s.b * S;
@@ -562,60 +679,58 @@ __global__ void graph_fb_cluster_kernel(const float* __restrict__ log_A,
   float* be = beta + (size_t)s.b * T * S;
   const int n = n_frames[s.b];
   const int nl = min(max(n, 0), T);   // the frames that propagate
-  const float* Aj = As + s.jl * s.P;
+  const float* a = s.As + s.jl * C + s.q * s.L;   // this lane's sources
+  float* mine = s.buf + perm(s.j, s.L);           // its state's place
+  const unsigned bytes = 4u * S;
+  unsigned ph = 0;
 
   // forwards: the column slice; every block started before any store
-  load_slice(As, A, S, s, false);
-  for (int k = threadIdx.x; k < S; k += blockDim.x) buf[k] = NEG_INF_TRAIN;
+  init_block(s, S);
+  load_slice(s, A, S, false);
   fill_rows(al, nl, T, S, s, NEG_INF_TRAIN);
   cluster_barrier();
-  int c = 0;
+  float lbv = s.ok && nl > 0 ? lb[s.j] : 0.0f;
   for (int t = 0; t < nl; ++t) {
-    const float* cur = buf + c * S;
-    const float lbv = s.ok ? lb[(size_t)t * S + s.j] : 0.0f;
-    float out;
-    if (t == 0) {
-      out = s.ok ? en[s.j] + lbv : 0.0f;
-    } else {
-      out = column_lse(S, s.q, s.ok, [&](int i) { return cur[i] + Aj[i]; }) + lbv;
-    }
-    if (s.ok) {
-      store_all(buf + (1 - c) * S + s.j, s.nc, s.q, out);
-      if (s.q == 0) al[(size_t)t * S + s.j] = out;
-    }
-    cluster_barrier();
-    c = 1 - c;
+    const int c = t & 1;
+    if (threadIdx.x == 0) mbar_arm(s.mb + (c ^ 1), bytes);
+    if (t > 0) mbar_wait(s.mb + c, ph, c);
+    const float out =
+        t == 0 ? (s.ok ? en[s.j] + lbv : 0.0f)
+               : column_lse4(s.K4, s.ok, a, s.buf + c * C + s.q * s.L) + lbv;
+    __syncthreads();   // buf[c] read: the peers may refill it
+    if (s.ok) push_all(mine + (c ^ 1) * C, s.mb + (c ^ 1), s.nc, s.q, out);
+    if (s.ok && s.q == 0) al[(size_t)t * S + s.j] = out;
+    lbv = s.ok && t + 1 < nl ? lb[(size_t)(t + 1) * S + s.j] : 0.0f;
   }
+  if (nl > 0) mbar_wait(s.mb + (nl & 1), ph, nl & 1);
   if (cluster_rank() == 0) {
-    const float ll = like_lse(buf + c * S, ex, S, red);
+    const float ll = like_lse(s.buf + (nl & 1) * C, ex, S, s.L, s.red);
     if (threadIdx.x == 0) like[s.b] = ll;
   }
   __syncthreads();
 
-  // backwards: the row slice; buf[c] holds v = log_b[t + 1] + beta_{t+1}
-  // of the frame to come (the peers' stores wait for block 0's lse)
-  load_slice(As, A, S, s, true);
+  // backwards, frame f = nl - 1 - t: the row slice; buf[f & 1] holds v =
+  // log_b[t + 1] + beta_{t+1} (the peers' stores wait for block 0's lse)
+  load_slice(s, A, S, true);
   if (n > T) {   // the first frame propagates from beta = NEG_INF
     for (int k = threadIdx.x; k < S; k += blockDim.x)
-      buf[k] = lb[(size_t)(T - 1) * S + k] + NEG_INF_TRAIN;
+      s.buf[perm(k, s.L)] = lb[(size_t)(T - 1) * S + k] + NEG_INF_TRAIN;
   }
   fill_rows(be, nl, T, S, s, NEG_INF_TRAIN);
   const float exv = s.ok ? ex[s.j] : 0.0f;
   cluster_barrier();
-  c = 0;
-  for (int t = nl - 1; t >= 0; --t) {
-    const float lbv = s.ok && t > 0 ? lb[(size_t)t * S + s.j] : 0.0f;
-    float nw = exv;
-    if (t != n - 1) {
-      const float* v = buf + c * S;
-      nw = column_lse(S, s.q, s.ok, [&](int i) { return Aj[i] + v[i]; });
-    }
+  lbv = s.ok && nl > 1 ? lb[(size_t)(nl - 1) * S + s.j] : 0.0f;
+  for (int f = 0; f < nl; ++f) {
+    const int t = nl - 1 - f, c = f & 1;
+    if (threadIdx.x == 0 && t > 0) mbar_arm(s.mb + (c ^ 1), bytes);
+    if (f > 0) mbar_wait(s.mb + c, ph, c);
+    const float nw = t == n - 1 ? exv
+        : column_lse4(s.K4, s.ok, a, s.buf + c * C + s.q * s.L);
+    __syncthreads();
+    if (t > 0 && s.ok)
+      push_all(mine + (c ^ 1) * C, s.mb + (c ^ 1), s.nc, s.q, lbv + nw);
     if (s.ok && s.q == 0) be[(size_t)t * S + s.j] = nw;
-    if (t > 0) {
-      if (s.ok) store_all(buf + (1 - c) * S + s.j, s.nc, s.q, lbv + nw);
-      cluster_barrier();
-      c = 1 - c;
-    }
+    lbv = s.ok && t > 1 ? lb[(size_t)(t - 1) * S + s.j] : 0.0f;
   }
   cluster_barrier();   // no block leaves while a peer may store into it
 }
@@ -631,11 +746,8 @@ __global__ void graph_align_cluster_kernel(const float* __restrict__ log_A,
                                            int* __restrict__ states,
                                            float* __restrict__ like) {
   extern __shared__ float smem[];
-  const Slice s = slice_of(S);
-  float* As = smem;
-  float* buf = smem + (size_t)slice_cols(S, (int)s.nc) * s.P;
-  float* red = buf + 2 * S;
-  int* red_i = reinterpret_cast<int*>(red + 32);
+  const Slice s = slice_of(S, smem);
+  const int C = s.C;
   const float* A = log_A + (size_t)s.b * S * S;
   const float* en = log_entry + (size_t)s.b * S;
   const float* ex = log_exit + (size_t)s.b * S;
@@ -643,49 +755,60 @@ __global__ void graph_align_cluster_kernel(const float* __restrict__ log_A,
   int* bp = bps + (size_t)s.b * T * S;
   const int n = n_frames[s.b];
   const int nl = min(max(n, 0), T);
-  const float* Aj = As + s.jl * s.P;
+  const float4* a4 = reinterpret_cast<const float4*>(s.As + s.jl * C + s.q * s.L);
+  float* mine = s.buf + perm(s.j, s.L);
+  const unsigned bytes = 4u * S;
+  unsigned ph = 0;
 
-  load_slice(As, A, S, s, false);
-  for (int k = threadIdx.x; k < S; k += blockDim.x) buf[k] = NEG_INF_TRAIN;
+  init_block(s, S);
+  load_slice(s, A, S, false);
   cluster_barrier();
-  int c = 0;
+  float lbv = s.ok && nl > 0 ? lb[s.j] : 0.0f;
   for (int t = 0; t < nl; ++t) {
-    const float* cur = buf + c * S;
-    const float lbv = s.ok ? lb[(size_t)t * S + s.j] : 0.0f;
+    const int c = t & 1;
+    if (threadIdx.x == 0) mbar_arm(s.mb + (c ^ 1), bytes);
+    if (t > 0) mbar_wait(s.mb + c, ph, c);
+    const float4* v4 = reinterpret_cast<const float4*>(s.buf + c * C + s.q * s.L);
     float best = -INFINITY;
     int arg = 0x7fffffff;
     if (s.ok && s.q < S) {
-      best = cur[s.q] + Aj[s.q];
-      arg = s.q;
-#pragma unroll 4
-      for (int i = s.q + Q; i < S; i += Q) {
-        const float x = cur[i] + Aj[i];
-        if (x > best) best = x, arg = i;   // the first max of the lane
+      // the lane's sources four at a time, its first source first (the
+      // pad entries, -inf, never win): source q + QC e of chunk k is e
+      for (int k = 0; k < s.K4; ++k) {
+        const float4 x = a4[k], y = v4[k];
+        const float z[4] = {x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = s.q + QC * (4 * k + e);
+          if (k == 0 && e == 0) best = z[0], arg = i;
+          else if (z[e] > best) best = z[e], arg = i;   // the lane's first max
+        }
       }
     }
-    for (int o = 1; o < Q; o <<= 1) {
+    for (int o = 1; o < QC; o <<= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, best, o);
       const int oi = __shfl_xor_sync(0xffffffffu, arg, o);
       if (ov > best || (ov == best && oi < arg)) best = ov, arg = oi;
     }
-    if (s.ok) {
-      store_all(buf + (1 - c) * S + s.j, s.nc, s.q,
-                (t == 0 ? en[s.j] : best) + lbv);
-      if (s.q == 0) bp[(size_t)t * S + s.j] = arg;
-    }
-    cluster_barrier();
-    c = 1 - c;
+    __syncthreads();
+    if (s.ok)
+      push_all(mine + (c ^ 1) * C, s.mb + (c ^ 1), s.nc, s.q,
+               (t == 0 ? en[s.j] : best) + lbv);
+    if (s.ok && s.q == 0) bp[(size_t)t * S + s.j] = arg;
+    lbv = s.ok && t + 1 < nl ? lb[(size_t)(t + 1) * S + s.j] : 0.0f;
   }
+  if (nl > 0) mbar_wait(s.mb + (nl & 1), ph, nl & 1);
   cluster_barrier();   // no block leaves while a peer may store into it
 
   if (cluster_rank() == 0) {
     // final argmax of alpha_last + exit: the larger value, on ties the
     // smaller index (any order of the reduction gives the same pair)
-    const float* cur = buf + c * S;
+    const float* cur = s.buf + (nl & 1) * C;
+    int* red_i = reinterpret_cast<int*>(s.red + 32);
     float bv = -INFINITY;
     int bi = 0x7fffffff;
     for (int j = threadIdx.x; j < S; j += blockDim.x) {
-      const float x = cur[j] + ex[j];
+      const float x = cur[perm(j, s.L)] + ex[j];
       if (x > bv || (x == bv && j < bi)) bv = x, bi = j;
     }
     for (int o = 16; o > 0; o >>= 1) {
@@ -694,19 +817,19 @@ __global__ void graph_align_cluster_kernel(const float* __restrict__ log_A,
       if (ov > bv || (ov == bv && oi < bi)) bv = ov, bi = oi;
     }
     const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-    if (l == 0) red[w] = bv, red_i[w] = bi;
+    if (l == 0) s.red[w] = bv, red_i[w] = bi;
     __syncthreads();
     if (threadIdx.x == 0) {
-      float v0 = red[0];
+      float v0 = s.red[0];
       int i0 = red_i[0];
       for (int k = 1; k < (int)(blockDim.x >> 5); ++k) {
-        const float ov = red[k];
+        const float ov = s.red[k];
         const int oi = red_i[k];
         if (ov > v0 || (ov == v0 && oi < i0)) v0 = ov, i0 = oi;
       }
       like[s.b] = v0;
       // the walk back (train/fb.py:160-168); the peers' back-pointers
-      // through L2 (ordered by the barriers' release and acquire)
+      // through L2 (ordered by the cluster barrier's release and acquire)
       int carry = i0;
       int* st = states + (size_t)s.b * T;
       for (int t = T - 1; t >= 0; --t) {
@@ -725,10 +848,8 @@ template <class Kernel>
 cudaError_t cluster_config(Kernel kernel, int B, int S, int c,
                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr) {
-  if (S <= 0 || !(c == 2 || c == 4 || c == 8 || c == 16))
-    return cudaErrorInvalidValue;
+  if (!cluster_fits(S, c)) return cudaErrorInvalidValue;
   const size_t need = cluster_smem(S, c);
-  if (need > CLUSTER_SMEM_MAX) return cudaErrorInvalidValue;
   const size_t smem = need > ONE_BLOCK_AN_SM ? need : ONE_BLOCK_AN_SM;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -738,7 +859,7 @@ cudaError_t cluster_config(Kernel kernel, int B, int S, int c,
   if (e != cudaSuccess) return e;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3((unsigned)B * c);
-  cfg->blockDim = dim3(threads_for(Q * slice_cols(S, c), MAX_THREADS));
+  cfg->blockDim = dim3(threads_for(QC * slice_cols(S, c), MAX_THREADS));
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -765,17 +886,17 @@ extern "C" long long trainfb_scratch_floats(int B, int W) {
 }
 
 // Bytes of dynamic shared memory a cluster block needs (before the raise
-// to a block an SM); the wrapper's plan computes the same.
+// to a block an SM), 0 where the kernels do not take c blocks at S
+// states; the wrapper's plan computes the same.
 extern "C" long long trainfb_cluster_smem(int S, int c) {
-  return (long long)cluster_smem(S, c);
+  return cluster_fits(S, c) ? (long long)cluster_smem(S, c) : 0;
 }
 
 // How many clusters of c blocks of K (which 0) or K' (which 1) at S states
 // the card holds at once (cudaOccupancyMaxActiveClusters): 0 where the
 // slice does not fit, minus the CUDA error where the query fails.
 extern "C" int trainfb_cluster_max_active(int which, int S, int c) {
-  if (S <= 0 || !(c == 2 || c == 4 || c == 8 || c == 16)) return 0;
-  if (cluster_smem(S, c) > CLUSTER_SMEM_MAX) return 0;
+  if (!cluster_fits(S, c)) return 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int n = 0;

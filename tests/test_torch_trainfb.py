@@ -20,26 +20,27 @@ from phnrec_tpu.train import fb as jfb
 from phnrec_tpu_torch.devtools import trainfb_variants as tv
 from phnrec_tpu_torch.ops import trainfb
 
-# clusters of 2, 4, 8 and 16 blocks a card of 132 SMs holds at one block
-# an SM (GPCs of 16-18 SMs: two clusters of 8 or one of 16 a GPC)
-H100 = {2: 66, 4: 33, 8: 16, 16: 8}
+# clusters of each size an H100 (132 SMs in GPCs of 16-18) holds at once
+# at one block an SM, as cudaOccupancyMaxActiveClusters gave them (NVIDIA
+# H100 80GB HBM3, 700 W): 16 clusters of 8 do not fit, 17 of 6 do
+H100 = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 16: 7}
 
 
 @pytest.mark.parametrize("B, S, table, want", [
-    (16, 256, H100, 8),      # a training bucket: 128 blocks, one wave
+    (16, 256, H100, 6),      # a training bucket: 96 blocks, one wave
     (1, 256, H100, 16),      # sMBR's one utterance
     (1, 138, H100, 16),      # the phoneme-loop denominator
-    (32, 256, H100, 4),      # one wave of clusters of 4
-    (128, 256, H100, 2),     # two waves at any size: the largest wave
-    (16, 224, H100, 8),      # cell 10's bucket widths
-    (16, 288, H100, 8),
-    (16, 640, H100, 8),      # c 8's largest bucket
-    (16, 672, H100, 16),     # past c 8's slice: c 16, two waves
+    (32, 256, H100, 3),      # one wave of clusters of 3
+    (128, 256, H100, 2),     # no size in one wave: the fewest waves
+    (16, 224, H100, 6),      # cell 10's bucket widths
+    (16, 288, H100, 6),
+    (16, 640, H100, 8),      # past c 7's slice: c 8 in two waves
+    (16, 672, H100, 8),      # c 8's largest bucket
     (1, 928, H100, 16),      # c 16's largest bucket
     (1, 960, H100, 0),       # past every slice: the one-block kernels
     (16, 6304, H100, 0),
     (1, 256, {**H100, 16: 0}, 8),     # no cluster of 16 placeable
-    (16, 256, {**H100, 8: 15}, 4),    # a GPC short: c 8 would take 2 waves
+    (16, 256, {**H100, 6: 15}, 5),    # one GPC short
     (4, 256, {}, 0),                  # no cluster at all
 ])
 def test_cluster_plan(B, S, table, want):
@@ -48,15 +49,22 @@ def test_cluster_plan(B, S, table, want):
 
 @pytest.mark.parametrize("S", [1, 4, 32, 138, 250, 256, 640, 928, 960])
 def test_cluster_smem(S):
-    """The slice holds ceil(S / c) columns of S sources at a pitch of 4
-    mod 32 (the four lanes of a column and a warp's eight columns on 32
-    banks), two carries of S floats and 64 words; c 8 at S 256 is 35 KB."""
+    """A block's slice holds ceil(S / c) columns, each the LANES lanes'
+    rows of L floats (a lane's ceil(S / LANES) sources, L rounded up to 4
+    mod 8: the eight lanes of a quarter warp on eight 16-byte bank
+    groups), two carries of LANES L floats, 64 words and two mbarriers;
+    the kernels take it up to 227 KB and 1,024 threads."""
+    n = trainfb.LANES
     for c in trainfb.CLUSTER_SIZES:
         W = -(-S // c)
-        pitch = (trainfb.cluster_smem(S, c) // 4 - 2 * S - 64) // W
-        assert pitch >= S and pitch % 32 == 4 and pitch - S < 32
+        L = (trainfb.cluster_smem(S, c) // 4 - 72) // (n * (W + 2))
+        assert trainfb.cluster_smem(S, c) == 4 * (n * L * (W + 2) + 72)
+        assert n * L >= S and L % 8 == 4 and L - -(-S // n) < 8
         assert W * c >= S > (W - 1) * c
-    assert trainfb.cluster_smem(256, 8) == 4 * (32 * 260 + 512 + 64)
+        assert trainfb.cluster_fits(S, c) == (
+            trainfb.cluster_smem(S, c) <= 232448 and n * W <= 1024)
+    assert not trainfb.cluster_fits(S, 9) and not trainfb.cluster_fits(S, 1)
+    assert trainfb.cluster_smem(256, 8) == 4 * (8 * 36 * 34 + 72)
 
 
 @pytest.fixture(scope="module")
