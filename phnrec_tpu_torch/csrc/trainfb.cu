@@ -24,13 +24,21 @@
 // K' is adds and compares only, bit-equal to its plain version.
 //
 // What bounds them on the H100: the frame loop is a chain of T dependent
-// steps with a block barrier each, and K's [S, S] lse costs S^2 exps a
-// frame (S 256: 65,536 a frame, two passes over log_A each).  Neither
-// is near the card's bytes or operations: the bound is the chain of
-// dependent steps on one SM per utterance.
+// steps with a barrier each, and K's [S, S] lse costs S^2 exps a frame (S
+// 256: 65,536 a frame, two passes over log_A each).  Neither is near the
+// card's bytes or operations: the bound is the chain of dependent steps
+// and what one step costs.
 //
-// Design: one block per utterance (a bucket's B utterances in parallel),
-// the frame loop inside the kernel.
+// Two designs of K and K'; the wrapper's plan (ops/trainfb.py) takes the
+// cluster kernels where log_A's slices fit a cluster's shared memory (S
+// up to 928 at 16 blocks), the one-block kernels past it.  On one block
+// an utterance a step waited on chains of log_A loads from L2 (12.96 us
+// a step at S 256, one SM an utterance); on a cluster of c blocks log_A
+// stays in shared memory and the carries move block to block (1.3-1.7 us
+// a step, PERF.md).
+//
+// Design of J and the one-block kernels: one block per utterance (a
+// bucket's B utterances in parallel), the frame loop inside the kernel.
 // * J: a thread per (p, s) (P*S <= 1,024 threads; more take a strided
 //   loop), alpha / beta of the current frame in shared memory for the
 //   neighbour state, the two per-frame lses as block reductions (warp
