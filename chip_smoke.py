@@ -2879,16 +2879,17 @@ def check_trainfb_cases(dev, models) -> dict:
     6,304, B 1 to 160, ragged n_frames, ties; each case on the design the
     plan gives it, clusters up to S 928 and one block an utterance past
     it), J and K within its TOL relative (of max(|x|, 1)), K' bit for
-    bit; K on a cluster also against its one-block design bit for bit
-    (reported), and the plan's shared-memory sizes against the source's.
-    Then each is timed at the training path's shapes (J: one CZ utterance
-    of 500 frames; K, K': a bucket of 16 x 512 frames x 256 states, on
-    its cluster and one block an utterance), with the clusters the card
-    holds at once by size."""
+    bit; the one-block K and K' held the same way on every case (at the
+    training bucket B 16 x T 512 x S 256 too), and K on a cluster compared
+    bit for bit with the one-block K (reported).  Then each is timed at
+    the training path's shapes (J: one CZ utterance of 500 frames; K, K':
+    a bucket of 16 x 512 frames x 256 states, on its cluster and one block
+    an utterance), with the clusters the card holds at once by size."""
     lib = trainfb._lib()
     res = trainfb_variants.check_cases(
         phnloop_fb.phnloop_fb, trainfb.graph_fb, trainfb.graph_align, dev,
-        models, fb_one=lambda *a: trainfb.launch_fb(lib, *a, cluster=0))
+        models, fb_one=lambda *a: trainfb.launch_fb(lib, *a, cluster=0),
+        align_one=lambda *a: trainfb.launch_align(lib, *a, cluster=0))
     err = {"graph_fb": 0.0, "graph_fb_cluster": 0.0}
     for r in res["cases"]:
         if r["kernel"] == "graph_fb+graph_align":
@@ -2896,17 +2897,11 @@ def check_trainfb_cases(dev, models) -> dict:
             r["align_cluster"] = trainfb.plan(lib, True, r["B"], r["S"], dev)
             k = "graph_fb_cluster" if r["cluster"] else "graph_fb"
             err[k] = max(err[k], r["abs_err"])
+            err["graph_fb"] = max(err["graph_fb"], r["one_block_abs_err"])
     paths = {w: sorted({r[w] for r in res["cases"] if w in r})
              for w in ("cluster", "align_cluster")}
-    smem = {(S, c): (trainfb.cluster_smem(S, c)
-                     if trainfb.cluster_fits(S, c) else 0,
-                     int(lib.trainfb_cluster_smem(S, c)))
-            for S in (1, 138, 250, 256, 640, 672, 928, 960)
-            for c in (1, *trainfb.CLUSTER_SIZES, 9)}
-    smem_equal = all(a == b for a, b in smem.values())
-    phase("trainfb_cases", tol=trainfb_variants.TOL, paths=paths,
-          smem_plan_equals_source=smem_equal, **res)
-    if not res["ok"] or not smem_equal:
+    phase("trainfb_cases", tol=trainfb_variants.TOL, paths=paths, **res)
+    if not res["ok"]:
         raise AssertionError(f"kernel J, K or K' differs: {res}")
     if not all(0 in p and len(p) > 1 for p in paths.values()):
         raise AssertionError(f"the case list missed a design: {paths}")
@@ -3063,13 +3058,17 @@ def _time_setup(re_, host: dict):
     return undo
 
 
-def _reestimate(models, utts, mode, dev, stages=None, host=None) -> tuple:
+def _reestimate(models, utts, mode, dev, stages=None, host=None,
+                stage_host=None, buckets=None) -> tuple:
     """One accumulation pass of a Reestimator over ``utts`` ((x, names)
     pairs) on ``dev``: (accumulators, total log-likelihood, wall s).
     ``stages`` (a dict) collects the card's ms by stage from CUDA events
-    at the Reestimator's hooks; ``host`` the host's ms of the graph work
-    by step (``_time_setup``)."""
+    at the Reestimator's hooks, ``stage_host`` the host's ms between the
+    same hooks; ``host`` the host's ms of the graph work by step
+    (``_time_setup``); ``buckets`` (a list) the bucket shapes (S, E, En,
+    Ex, T) in the order they flush."""
     re_ = Reestimator(models, mode=mode, batch_size=16, device=dev)
+    last_t = [0.0]
     if stages is not None:
         last = [torch.cuda.Event(enable_timing=True)]
         last[0].record()
@@ -3080,10 +3079,22 @@ def _reestimate(models, utts, mode, dev, stages=None, host=None) -> tuple:
             ev.record()
             marks.append((stage, last[0], ev))
             last[0] = ev
+            now = time.perf_counter()
+            if stage_host is not None:
+                stage_host[stage] = stage_host.get(stage, 0.0) + \
+                    (now - last_t[0]) * 1e3
+            last_t[0] = now
         re_.stage_hook = hook
+    if buckets is not None:
+        flush = re_._flush_bucket
+
+        def record(key):
+            buckets.append(key)
+            flush(key)
+        re_._flush_bucket = record
     undo = _time_setup(re_, host) if host is not None else None
     torch.cuda.synchronize()
-    t = time.perf_counter()
+    t = last_t[0] = time.perf_counter()
     try:
         for x, names in utts:
             re_.add_utterance(x, names)
@@ -3114,6 +3125,31 @@ def _acc_err(got, want) -> float:
                for g, w in zip(got, want) if g is not None)
 
 
+def _check_long_graphs(models, longs, shapes, dev, seed: int = 32) -> list:
+    """Kernels K and K' on the design the plan gives each of ``longs``
+    ((x, names) pairs) at the bucket shape its pass flushed (``shapes``:
+    (S, E, En, Ex, T), one an utterance), against the plain versions on
+    the card: each utterance's own graph and frame count, seeded random
+    observations.  The launches count nothing.  The records of
+    trainfb_variants.check_graphs, with S, T and the cluster size."""
+    lib = trainfb._lib()
+    rng = np.random.default_rng(seed)
+    if len(shapes) != len(longs):
+        raise AssertionError(f"long utterances in {len(shapes)} buckets")
+    out = []
+    for (x, names), key in zip(longs, shapes):
+        S, T = key[0], key[-1]
+        args = (*trainfb_variants.graph_batch(models, [names], S, dev),
+                trainfb_variants.logpost(rng, 1, T, S, dev))
+        n = torch.tensor([len(x)], dtype=torch.int32, device=dev)
+        rec = trainfb_variants.check_graphs(
+            lambda *a: trainfb.launch_fb(lib, *a),
+            lambda *a: trainfb.launch_align(lib, *a), args, n)
+        out.append(dict(S=S, T=T, n=len(x),
+                        cluster=trainfb.plan(lib, False, 1, S, dev), **rec))
+    return out
+
+
 def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
                      seconds: float = 5.0) -> dict:
     """The posterior route: B seeded utterances of ``seconds`` through the
@@ -3124,8 +3160,11 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
     iteration, write_mmf.  The log-likelihood must not fall from
     iteration 1 to 2; on 8 utterances the card's accumulators equal the
     CPU port's within REL_TRAIN_ACC; the phoneme-loop occupancies of 16
-    utterances (kernel J) sum to 1 a frame within TOL_OCC_ROWS.  Returns
-    the launches."""
+    utterances (kernel J) sum to 1 a frame within TOL_OCC_ROWS.  Two ~25 s
+    utterances (five files each) take Baum-Welch and Viterbi past the
+    clusters' reach, on the one-block K and K', which are then held to
+    their plain versions on those graphs at their buckets' shapes
+    (``_check_long_graphs``).  Returns the launches."""
     from phnrec_tpu_torch.decoder.forward_backward import occupancies
     rng = np.random.default_rng(31)
     fs = 8000
@@ -3146,13 +3185,14 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
     reset_counts(tr_counts)
     out, lls = {}, []
     stages: dict = {}
+    stage_host: dict = {}
     setup_host: dict = {}
     t_all = time.perf_counter()
     for it, mode in enumerate(("baum_welch", "baum_welch", "viterbi")):
         idx = build_model_index(models)
         acc, ll, wall = _reestimate(models, utts, mode, dev,
-                                    *((stages, setup_host) if it == 0
-                                      else ()))
+                                    *((stages, setup_host, stage_host)
+                                      if it == 0 else ()))
         t = time.perf_counter()
         upd = update_ml(idx, acc, [models.hmms[k].log_transp
                                    for k in idx.names])
@@ -3166,11 +3206,15 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
               [n for u in utts[i: i + 5] for n in u[1]]) for i in (0, 5)]
     long_out = {"states": [3 * len(u[1]) for u in longs],
                 "frames": [len(u[0]) for u in longs]}
+    shapes: list = []
     for mode in ("baum_welch", "viterbi"):
-        _, ll, wall = _reestimate(models, longs, mode, dev)
+        _, ll, wall = _reestimate(models, longs, mode, dev,
+                                  buckets=shapes if mode == "viterbi"
+                                  else None)
         long_out[mode] = dict(wall_s=wall, log_like=ll)
         if not np.isfinite(ll):
             raise AssertionError(f"long utterances: log-likelihood {ll}")
+    long_out["checks"] = _check_long_graphs(models, longs, shapes, dev)
     mmf = os.path.join(tmp, "trained.mmf")
     write_mmf(models, mmf)
     launches = read_counts(tr_counts)
@@ -3193,7 +3237,8 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
           states_per_graph=float(np.mean([3 * len(u[1]) for u in utts])),
           iterations=out, log_like_rises=lls[1] >= lls[0],
           utterances_per_s=B / first, audio_s_per_s=audio_s / first,
-          stage_ms_iter1=stages, bucket_setup_host_ms_iter1=setup_host,
+          stage_ms_iter1=stages, stage_host_ms_iter1=stage_host,
+          bucket_setup_host_ms_iter1=setup_host,
           long_utterances=long_out,
           card_vs_cpu_rel_err=err,
           tol=REL_TRAIN_ACC, occupancy_row_err=row_err,
@@ -3207,6 +3252,9 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
         raise AssertionError(f"occupancy rows off 1 by {row_err}")
     if not all(launches[k] for k in GRAPH_KERNELS):
         raise AssertionError(f"kernel K / K' not launched: {launches}")
+    if not all(trainfb_variants.graphs_ok(r) for r in long_out["checks"]):
+        raise AssertionError(f"K / K' differ on the long utterances' graphs: "
+                             f"{long_out['checks']}")
     return dict(launches=launches, utts=utts, labels=labels)
 
 

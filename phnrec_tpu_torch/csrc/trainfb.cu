@@ -893,13 +893,6 @@ extern "C" long long trainfb_scratch_floats(int B, int W) {
   return smem <= SMEM_LIMIT ? 0 : (long long)B * 2 * W;
 }
 
-// Bytes of dynamic shared memory a cluster block needs (before the raise
-// to a block an SM), 0 where the kernels do not take c blocks at S
-// states; the wrapper's plan computes the same.
-extern "C" long long trainfb_cluster_smem(int S, int c) {
-  return cluster_fits(S, c) ? (long long)cluster_smem(S, c) : 0;
-}
-
 // How many clusters of c blocks of K (which 0) or K' (which 1) at S states
 // the card holds at once (cudaOccupancyMaxActiveClusters): 0 where the
 // slice does not fit, minus the CUDA error where the query fails.

@@ -25,9 +25,10 @@ threads shows only sometimes); ``--sweep`` times K and K' again at B 1, 16
 and 128 (the bucket cut to one utterance, and repeated: the chain's
 latency against the traffic of all the chains); ``--clusters`` times the
 cluster kernels of the builds that have them at B 1 and 16 on each
-cluster size, beside their one-block kernels.  K is checked bit for bit
-against the same build's one-block kernel too.  One JSON line per build,
-check and timing.
+cluster size, beside their one-block kernels.  A build's one-block K and
+K' are held to the plain versions on every case as well, and its K on a
+cluster is compared bit for bit with its one-block K (reported).  One
+JSON line per build, check and timing.
 """
 
 from __future__ import annotations
@@ -140,14 +141,55 @@ def logpost(rng, B, T, D, dev, ties=False) -> torch.Tensor:
         x - np.log(np.exp(x).sum(-1, keepdims=True))).to(dev)
 
 
+def check_graphs(fb, align, args, n, fb_one=None, align_one=None) -> dict:
+    """Kernels ``fb`` (K's signature) and ``align`` (K''s) on one batch of
+    graphs (``args``: log_A, log_entry, log_exit, log_b; ``n`` the frames)
+    against the plain versions: K's worst relative and absolute errors,
+    whether its outputs are finite and whether K' is bit-equal.  With
+    ``fb_one`` and ``align_one``, the one-block design's K and K' too,
+    held the same way (``one_block_rel_err``, ``one_block_abs_err``,
+    ``one_block_align_bit_equal``), and whether ``fb`` equals ``fb_one`` bit for bit
+    (``fb_bit_equal_one_block``)."""
+    got = fb(*args, n)
+    want = trainfb.graph_fb_plain(*args, n)
+    st, ll = align(*args, n)
+    st_p, ll_p = trainfb.graph_align_plain(*args, n)
+    torch.cuda.synchronize()
+    rec = dict(rel_err=max(rel_err(g, w) for g, w in zip(got, want)),
+               abs_err=max(abs_err(g, w) for g, w in zip(got, want)),
+               align_bit_equal=torch.equal(st, st_p) and bits_equal(ll, ll_p),
+               finite=bool(all(torch.isfinite(g).all() for g in got)))
+    if fb_one is not None:
+        one = fb_one(*args, n)
+        st_o, ll_o = align_one(*args, n)
+        torch.cuda.synchronize()
+        rec.update(
+            one_block_rel_err=max(rel_err(o, w) for o, w in zip(one, want)),
+            one_block_abs_err=max(abs_err(o, w) for o, w in zip(one, want)),
+            one_block_align_bit_equal=(torch.equal(st_o, st_p)
+                                       and bits_equal(ll_o, ll_p)),
+            fb_bit_equal_one_block=all(bits_equal(g, o)
+                                       for g, o in zip(got, one)))
+    return rec
+
+
+def graphs_ok(rec: dict) -> bool:
+    """Whether a ``check_graphs`` record holds: K (and its one-block
+    design) within TOL, finite, K' (both designs) bit-equal."""
+    return (rec["finite"] and rec["align_bit_equal"] and rec["rel_err"] <= TOL
+            and rec.get("one_block_rel_err", 0.0) <= TOL
+            and rec.get("one_block_align_bit_equal", True))
+
+
 def check_cases(j, fb, align, dev, models, seed: int = 21,
-                fb_one=None) -> dict:
+                fb_one=None, align_one=None) -> dict:
     """Kernels ``j`` (J's signature), ``fb`` (K's) and ``align`` (K''s)
     against the plain versions on J_CASES and K_CASES: the case records,
     the worst relative and absolute errors of J and K, and whether K' was
-    bit-equal everywhere.  ``fb_one`` (K's signature), when given, is the
-    one-block design: whether ``fb`` equals it bit for bit on every case
-    (``fb_bit_equal_one_block``)."""
+    bit-equal everywhere.  ``fb_one`` and ``align_one``, when given, are
+    the one-block design's K and K': held to the plain versions on every
+    case as well (``ok`` needs both designs), and whether ``fb`` equals
+    ``fb_one`` bit for bit (``fb_bit_equal_one_block``, reported)."""
     rng = np.random.default_rng(seed)
     names = list(models.hmms)
     recs = []
@@ -164,7 +206,7 @@ def check_cases(j, fb, align, dev, models, seed: int = 21,
             abs_err(g, w) for g, w in zip(got, want)))
         recs.append(dict(kernel="phnloop_fb", P=P, S=S, B=B, T=T,
                          rel_err=err))
-    aligned_all, same_all = True, True
+    ok = rel["phnloop_fb"] <= TOL
     for n_phn, S, B, T, ties in K_CASES:
         trans = [list(rng.choice(names, n_phn - int(rng.integers(0, 3))))
                  for _ in range(B)]
@@ -173,35 +215,23 @@ def check_cases(j, fb, align, dev, models, seed: int = 21,
         ns = rng.integers(1, T + 1, B)
         ns[0] = T
         n = torch.from_numpy(ns.astype(np.int32)).to(dev)
-        got = fb(*args, n)
-        want = trainfb.graph_fb_plain(*args, n)
-        st, ll = align(*args, n)
-        st_p, ll_p = trainfb.graph_align_plain(*args, n)
-        torch.cuda.synchronize()
-        err = max(rel_err(g, w) for g, w in zip(got, want))
-        rel["graph_fb"] = max(rel["graph_fb"], err)
-        ab["graph_fb"] = max(ab["graph_fb"], max(
-            abs_err(g, w) for g, w in zip(got, want)))
-        aligned = torch.equal(st, st_p) and bits_equal(ll, ll_p)
-        aligned_all = aligned_all and aligned
         rec = dict(kernel="graph_fb+graph_align", S=S, B=B, T=T, ties=ties,
-                   rel_err=err, abs_err=max(abs_err(g, w)
-                                            for g, w in zip(got, want)),
-                   align_bit_equal=aligned,
-                   finite=bool(all(torch.isfinite(g).all() for g in got)))
-        if fb_one is not None:
-            one = fb_one(*args, n)
-            torch.cuda.synchronize()
-            rec["fb_bit_equal_one_block"] = all(
-                bits_equal(g, o) for g, o in zip(got, one))
-            same_all = same_all and rec["fb_bit_equal_one_block"]
+                   **check_graphs(fb, align, args, n, fb_one, align_one))
+        rel["graph_fb"] = max(rel["graph_fb"], rec["rel_err"],
+                              rec.get("one_block_rel_err", 0.0))
+        ab["graph_fb"] = max(ab["graph_fb"], rec["abs_err"])
+        ok = ok and graphs_ok(rec)
         recs.append(rec)
-    ok = (aligned_all and max(rel.values()) <= TOL
-          and all(r.get("finite", True) for r in recs))
+    k_recs = recs[len(J_CASES):]
     out = dict(cases=recs, rel_err=rel, max_abs_err=ab,
-               align_bit_equal=aligned_all, ok=ok)
+               align_bit_equal=all(r["align_bit_equal"] for r in k_recs),
+               ok=ok)
     if fb_one is not None:
-        out["fb_bit_equal_one_block"] = same_all
+        out["one_block_ok"] = all(
+            r["one_block_rel_err"] <= TOL and r["one_block_align_bit_equal"]
+            for r in k_recs)
+        out["fb_bit_equal_one_block"] = all(
+            r["fb_bit_equal_one_block"] for r in k_recs)
     return out
 
 
@@ -326,16 +356,19 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         models = hmm_set(tmp, [f"ph{i:02d}" for i in range(46)])
         for name, lib in libs.items():
-            one = None
+            one = {}
             if hasattr(lib, "graph_fb_cluster"):
-                one = lambda *a, lib=lib: trainfb.launch_fb(lib, *a,
-                                                            cluster=0)
+                one = dict(
+                    fb_one=lambda *a, lib=lib: trainfb.launch_fb(
+                        lib, *a, cluster=0),
+                    align_one=lambda *a, lib=lib: trainfb.launch_align(
+                        lib, *a, cluster=0))
                 print(json.dumps({"max_active": name, "S": 256, **{
                     w: trainfb.max_active(lib, w == "K'", 256, dev)
                     for w in ("K", "K'")}}), flush=True)
             for _ in range(repeat):
                 res = check_cases(**calls(lib), dev=dev, models=models,
-                                  fb_one=one)
+                                  **one)
                 ok = ok and res["ok"]
                 print(json.dumps({"check": name, **res}), flush=True)
         inp = timing_inputs(dev, models)

@@ -40,8 +40,6 @@ ALIGN_CLUSTER_LAUNCHES = 0   # kernel K' on a cluster
 NEG_INF = -1e30       # train/fb.py's NEG_INF
 
 CLUSTER_SIZES = (2, 3, 4, 5, 6, 7, 8, 16)
-SMEM_MAX = 232448     # the shared memory of one block on the H100
-LANES = 8             # the cluster kernels' lanes a column (QC)
 
 Graphs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -121,34 +119,14 @@ def graph_align_plain(log_A: torch.Tensor, log_entry: torch.Tensor,
     return states.to(torch.int32), like
 
 
-def cluster_smem(S: int, c: int) -> int:
-    """Bytes of shared memory a block of a c-block cluster needs at S
-    states (csrc/trainfb.cu's cluster_smem): its slice of ceil(S / c)
-    columns of log_A, each LANES lanes' rows of L floats (L = ceil(S /
-    LANES) rounded up to 4 mod 8), two carries of LANES L floats, 64 words
-    and two mbarriers."""
-    W, sq = -(-S // c), -(-S // LANES)
-    C = LANES * (sq + (4 - sq) % 8)
-    return 4 * (W * C + 2 * C + 72)
-
-
-def cluster_fits(S: int, c: int) -> bool:
-    """Whether the cluster kernels take c blocks at S states: a size they
-    launch, the slice within a block's shared memory, its columns' lanes
-    within 1,024 threads."""
-    return (c in CLUSTER_SIZES and cluster_smem(S, c) <= SMEM_MAX
-            and LANES * -(-S // c) <= 1024)
-
-
-def cluster_plan(B: int, S: int, max_active: dict) -> int:
-    """The cluster size for a bucket of B utterances of S states: of the
-    sizes that fit (``cluster_fits``) and of which the card holds a
-    cluster (``max_active``: c -> the clusters it holds at once,
-    cudaOccupancyMaxActiveClusters, at one block an SM), the one that
-    takes the fewest waves of B clusters, then the largest; 0 where none
-    fits (the one-block kernels)."""
-    fits = [c for c in CLUSTER_SIZES
-            if cluster_fits(S, c) and max_active.get(c, 0) > 0]
+def cluster_plan(B: int, max_active: dict) -> int:
+    """The cluster size for a bucket of B utterances: of the sizes of
+    which the card holds a cluster (``max_active``: c -> the clusters of c
+    blocks it holds at once, cudaOccupancyMaxActiveClusters at one block
+    an SM, 0 where the graphs' slice does not fit), the one that takes the
+    fewest waves of B clusters, then the largest; 0 where there is none
+    (the one-block kernels)."""
+    fits = [c for c in CLUSTER_SIZES if max_active.get(c, 0) > 0]
     if not fits:
         return 0
     return min(fits, key=lambda c: (-(-B // max_active[c]), -c))
@@ -171,8 +149,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                 fns.append(fn)
             lib.trainfb_cluster_max_active.argtypes = [i, i, i]
             lib.trainfb_cluster_max_active.restype = ctypes.c_int
-            lib.trainfb_cluster_smem.argtypes = [i, i]
-            lib.trainfb_cluster_smem.restype = ctypes.c_longlong
         for fn in fns:
             fn.restype = ctypes.c_int
         lib.trainfb_scratch_floats.argtypes = [i, i]
@@ -208,7 +184,7 @@ def plan(lib: ctypes.CDLL, align: bool, B: int, S: int, device) -> int:
     states on ``device``; 0: the one-block kernel."""
     if not hasattr(lib, "graph_fb_cluster"):
         return 0
-    return cluster_plan(B, S, max_active(lib, align, S, device))
+    return cluster_plan(B, max_active(lib, align, S, device))
 
 
 def scratch(lib: ctypes.CDLL, B: int, width: int, device):

@@ -1,7 +1,7 @@
 """ops/trainfb.py: the cluster plan of kernels K and K' (a pure function of
 the bucket and of the card's clusters at once, passed in here as a
-table), the shared-memory size it plans with, and the plain versions of K
-and K' held to phnrec_tpu/train/fb.py at a bucket's width.
+table) and the plain versions of K and K' held to phnrec_tpu/train/fb.py
+at a bucket's width.
 
 The graphs are netgen's PDFObsVec set over 46 phonemes compiled by the
 port (tests/test_torch_train.py holds its graphs equal to phnrec_tpu's)
@@ -26,45 +26,41 @@ from phnrec_tpu_torch.ops import trainfb
 H100 = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 16: 7}
 
 
-@pytest.mark.parametrize("B, S, table, want", [
-    (16, 256, H100, 6),      # a training bucket: 96 blocks, one wave
-    (1, 256, H100, 16),      # sMBR's one utterance
-    (1, 138, H100, 16),      # the phoneme-loop denominator
-    (32, 256, H100, 3),      # one wave of clusters of 3
-    (128, 256, H100, 2),     # no size in one wave: the fewest waves
-    (16, 224, H100, 6),      # cell 10's bucket widths
-    (16, 288, H100, 6),
-    (16, 640, H100, 8),      # past c 7's slice: c 8 in two waves
-    (16, 672, H100, 8),      # c 8's largest bucket
-    (1, 928, H100, 16),      # c 16's largest bucket
-    (1, 960, H100, 0),       # past every slice: the one-block kernels
-    (16, 6304, H100, 0),
-    (1, 256, {**H100, 16: 0}, 8),     # no cluster of 16 placeable
-    (16, 256, {**H100, 6: 15}, 5),    # one GPC short
-    (4, 256, {}, 0),                  # no cluster at all
+def only(*sizes):
+    """H100 with 0 for the sizes whose slice does not fit in a block, as
+    trainfb_cluster_max_active gives it at wider graphs."""
+    return {c: n if c in sizes else 0 for c, n in H100.items()}
+
+
+@pytest.mark.parametrize("B, table, want", [
+    (16, H100, 6),           # a training bucket (S 224-256): 96 blocks
+    (1, H100, 16),           # sMBR's one utterance (S 256, or 138)
+    (7, H100, 16),           # the most clusters of 16 at once
+    (8, H100, 8),            # one wave of 8, not two of 16
+    (15, H100, 8),
+    (17, H100, 6),           # the most of 6 in one wave
+    (18, H100, 5),
+    (22, H100, 5),
+    (23, H100, 4),
+    (30, H100, 4),
+    (31, H100, 3),
+    (32, H100, 3),           # one wave of clusters of 3
+    (40, H100, 2),
+    (66, H100, 2),
+    (67, H100, 3),           # two waves of 3 or of 2: the larger
+    (128, H100, 2),          # no size in one wave: the fewest waves
+    (16, only(3, 4, 5, 6, 7, 8, 16), 6),     # S 288: no c 2
+    (16, only(8, 16), 8),    # S 640 and 672: c 8 in two waves
+    (1, only(16), 16),       # S 704 to 928: c 16 only
+    (16, only(16), 16),
+    (1, only(), 0),          # S 960 and past: the one-block kernels
+    (16, only(), 0),
+    (1, {**H100, 16: 0}, 8),          # no cluster of 16 placeable
+    (16, {**H100, 6: 15}, 5),         # one GPC short
+    (4, {}, 0),                       # no cluster at all
 ])
-def test_cluster_plan(B, S, table, want):
-    assert trainfb.cluster_plan(B, S, table) == want
-
-
-@pytest.mark.parametrize("S", [1, 4, 32, 138, 250, 256, 640, 928, 960])
-def test_cluster_smem(S):
-    """A block's slice holds ceil(S / c) columns, each the LANES lanes'
-    rows of L floats (a lane's ceil(S / LANES) sources, L rounded up to 4
-    mod 8: the eight lanes of a quarter warp on eight 16-byte bank
-    groups), two carries of LANES L floats, 64 words and two mbarriers;
-    the kernels take it up to 227 KB and 1,024 threads."""
-    n = trainfb.LANES
-    for c in trainfb.CLUSTER_SIZES:
-        W = -(-S // c)
-        L = (trainfb.cluster_smem(S, c) // 4 - 72) // (n * (W + 2))
-        assert trainfb.cluster_smem(S, c) == 4 * (n * L * (W + 2) + 72)
-        assert n * L >= S and L % 8 == 4 and L - -(-S // n) < 8
-        assert W * c >= S > (W - 1) * c
-        assert trainfb.cluster_fits(S, c) == (
-            trainfb.cluster_smem(S, c) <= 232448 and n * W <= 1024)
-    assert not trainfb.cluster_fits(S, 9) and not trainfb.cluster_fits(S, 1)
-    assert trainfb.cluster_smem(256, 8) == 4 * (8 * 36 * 34 + 72)
+def test_cluster_plan(B, table, want):
+    assert trainfb.cluster_plan(B, table) == want
 
 
 @pytest.fixture(scope="module")
