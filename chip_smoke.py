@@ -101,7 +101,7 @@ from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.decoder.stknet import (NEG, OFF_BEAM, DenseKWSScan,
                                              DeviceKWSTracker, NetworkDecoder)
 from phnrec_tpu_torch.devtools import (backtrack_variants, scan_variants,
-                                       trainfb_variants)
+                                       train_turns, trainfb_variants)
 from phnrec_tpu_torch.devtools.mlp_variants import cuda_ms
 from phnrec_tpu_torch.devtools.netstep_variants import inputs as b_inputs
 from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
@@ -3166,20 +3166,8 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
     their plain versions on those graphs at their buckets' shapes
     (``_check_long_graphs``).  Returns the launches."""
     from phnrec_tpu_torch.decoder.forward_backward import occupancies
-    rng = np.random.default_rng(31)
-    fs = 8000
-    L = int(seconds * fs)
-    bp = sr.batch_pipeline
-    waves = [synth.synth_audio(rng, L).astype(np.float32) for _ in range(B)]
-    w, nf, mf, ns = bp.to_device(*bp.pad_batch(waves))
-    lp = bp._post_core(w, nf, mf, ns)
-    n_frames = nf.cpu().numpy()
-    labels = phnloop.labels_from_segments(
-        phnloop.fetch_segments(bp._core(w, nf, mf, ns)), n_frames,
-        sr.phonemes)
-    lp_host = lp.cpu().numpy()
-    utts = [(lp_host[b, : n_frames[b]], [l.name for l in labels[b]])
-            for b in range(B)]
+    utts, lp, n_frames, labels = train_turns.posterior_inputs(
+        sr, B, seconds)
     models = trainfb_variants.hmm_set(tmp, sr.phonemes)
     tr_counts = (*GRAPH_KERNELS, "phnloop_fb")
     reset_counts(tr_counts)

@@ -38,10 +38,12 @@ from pathlib import Path
 _WORKER = "import runpy; runpy.run_path({path!r}, run_name='__worker__')"
 
 
-def posterior_utts(sr, B: int = 256, seconds: float = 5.0, seed: int = 31):
-    """chip_smoke.py's train_posteriors inputs: B seeded utterances of
-    ``seconds`` through ``sr``'s batch pipeline, as (log-posteriors,
-    labels) pairs on the host."""
+def posterior_inputs(sr, B: int = 256, seconds: float = 5.0,
+                     seed: int = 31):
+    """The posterior route's inputs (chip_smoke.py's train_posteriors): B
+    seeded utterances of ``seconds`` through ``sr``'s batch pipeline on
+    the card.  (utterances as (log-posteriors, label names) pairs on the
+    host, the log-posteriors on the card, the frame counts, the labels.)"""
     import numpy as np
     from phnrec_tpu_torch import synth
     from phnrec_tpu_torch.decoder import phnloop
@@ -56,8 +58,9 @@ def posterior_utts(sr, B: int = 256, seconds: float = 5.0, seed: int = 31):
         phnloop.fetch_segments(bp._core(w, nf, mf, ns)), n_frames,
         sr.phonemes)
     lp_host = lp.cpu().numpy()
-    return [(lp_host[b, : n_frames[b]], [l.name for l in labels[b]])
+    utts = [(lp_host[b, : n_frames[b]], [l.name for l in labels[b]])
             for b in range(B)]
+    return utts, lp, n_frames, labels
 
 
 def timed_pass(models, utts, dev, time_setup=None) -> dict:
@@ -115,7 +118,7 @@ def worker(tree: str, timers: bool, passes: int) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         sr = SpeechRec(synth.write_lcrc_package(tmp + "/cz", "cz", seed=0),
                        device=dev)
-        utts = posterior_utts(sr)
+        utts = posterior_inputs(sr)[0]
         models = trainfb_variants.hmm_set(tmp, sr.phonemes)
         for p in range(passes):
             r = timed_pass(models, utts, dev,
@@ -165,11 +168,11 @@ def main(argv) -> int:
                                   "stderr": p.stderr[-3000:]}), flush=True)
                 continue
             for line in p.stdout.splitlines():
-                if not line.startswith("{"):
+                r = json.loads(line) if line.startswith("{") else {}
+                if "pass" not in r:         # the build's lines
                     continue
                 print(line, flush=True)
                 log.write(line + "\n")
-                r = json.loads(line)
                 rows.setdefault((tree, timers), []).append(r)
         for (tree, timers), rs in rows.items():
             first = [r for r in rs if r["pass"] == 0]
