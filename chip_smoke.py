@@ -1961,10 +1961,9 @@ def check_netscan_cases(nets: dict, dev) -> None:
                          nettrace_stage_frames=nettrace_stage_frames(dec),
                          rows_ok=int(walk[0].sum()),
                          crossings=int((walk[3] >= 0).sum()))
-    tb = big.edge_tables(dev)
+    z = netscan._sizes(big.edge_tables(dev))
     big_smem = netscan._lib().netscan_smem_bytes(
-        big.c.n_states, big.c.n_models,
-        sum(tb[f"{x}_slot"].numel() // 4 for x in ("in", "ex", "cm", "cs")))
+        z["E"], z["M"], z["D"] - z["M"], z["Kin"], z["Kex"], z["Kx"], z["U"])
     phase("netscan_cases", cases=out, random_big_states=big.c.n_states,
           random_big_fits_smem=bool(big_smem))
     bad = [k for k, v in out.items()
@@ -2121,7 +2120,12 @@ def stk_batch(sr, dev, clk: dict, B: int = 256):
     hook("posteriors")
     obs = dec.state_observations(lp)
     hook("state_obs")
-    recs = dec._scan_batch(obs, nf, stk.beam_pruning)
+    # the carry apart from the scan, so the host's walls show which of
+    # the two waits for the card
+    carry = dec.init_carry(dev, B)
+    hook("init_carry")
+    beam = OFF_BEAM if stk.beam_pruning is None else stk.beam_pruning
+    recs = dec.scan_block(carry, obs, 0, nf, beam)[1]
     hook("netscan")
     walk = dec._traceback_batch(recs, nf)
     hook("nettrace")
@@ -2229,6 +2233,35 @@ def merger_batch(tsr, name: str, dev) -> int:
     return counts[mine]
 
 
+class ScanTimer:
+    """CUDA events around every ``scan_block`` call of a NetworkDecoder
+    while entered: kernel G's device ms over a run (the wrapper's small
+    fills included), read after a synchronize."""
+
+    def __init__(self, dec: NetworkDecoder):
+        self.dec, self.pairs = dec, []
+
+    def __enter__(self):
+        orig = self.dec.scan_block
+
+        def timed(*args, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = orig(*args, **kw)
+            e.record()
+            self.pairs.append((s, e))
+            return out
+
+        self.dec.scan_block = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        del self.dec.scan_block
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
 def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
                          chunk_s: float = 0.25, block: int = 128) -> dict:
     """StreamingRecognizer on the CZ stkint loop (decode mode): one
@@ -2254,12 +2287,13 @@ def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
         reset_counts(names)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for i in range(0, len(raw), chunk):
-            rec.process(raw[i: i + chunk])
-            if (i // chunk) % round(1 / chunk_s) == 0:
-                polls = len(rec.results(settled_only=True))
-            peak = max(peak, rec._stk_retained())
-        labels = rec.finish()
+        with ScanTimer(sr.stk_decoder.decoder) as g_ms:
+            for i in range(0, len(raw), chunk):
+                rec.process(raw[i: i + chunk])
+                if (i // chunk) % round(1 / chunk_s) == 0:
+                    polls = len(rec.results(settled_only=True))
+                peak = max(peak, rec._stk_retained())
+            labels = rec.finish()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = read_counts(names)
@@ -2273,6 +2307,7 @@ def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
               block_frames=block, commits=commits,
               horizon=min(rec._stk_horizon, rec._n_decoded),
               frames=rec._n_decoded, blocks=len(lps), wall_s=wall,
+              netscan_device_ms=g_ms.ms(),
               audio_s_per_s=seconds / wall, labels=len(labels),
               last_settled=polls, committed=rec.committed_count,
               peak_retained_rows=peak, launches=launches, cpu_equal=same)
@@ -2330,10 +2365,11 @@ def stk_live_kws_vs_cpu(sr, cpu_sr, dev, seconds: float = 30.0,
     live = []
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for i in range(0, len(raw), chunk):
-        rec.process(raw[i: i + chunk])
-        live += rec.kws_hits_so_far()
-    hits = rec.finish()
+    with ScanTimer(stk.decoder) as g_ms:
+        for i in range(0, len(raw), chunk):
+            rec.process(raw[i: i + chunk])
+            live += rec.kws_hits_so_far()
+        hits = rec.finish()
     live += rec.kws_hits_so_far()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -2358,7 +2394,8 @@ def stk_live_kws_vs_cpu(sr, cpu_sr, dev, seconds: float = 30.0,
             vars(h) for h in tr.hits] == [vars(h) for h in ref.hits])
     phase("stk_live_kws_vs_cpu", seconds=seconds, chunk_s=chunk_s,
           block_frames=block, keywords=stk.keywords(), blocks=len(lps),
-          wall_s=wall, audio_s_per_s=seconds / wall, hits=len(hits),
+          wall_s=wall, netscan_device_ms=g_ms.ms(),
+          audio_s_per_s=seconds / wall, hits=len(hits),
           live_hits=len(live), launches=launches, cpu_equal=same,
           settings=per_setting)
     if not same or not all(v["cpu_equal"] for v in per_setting.values()):

@@ -78,9 +78,21 @@ struct Tab {
   int D, K, L;         // destinations, slots a row, lanes a destination
 };
 
+// the closure's and the sinks' distinct rows: a slot (source index, the
+// weight's bits) by row, each row's length, each destination's row, and
+// each destination's (edge id, word-time source) by slot
+struct Rows {
+  const int2* row;     // [U * Kx]
+  const int* len;      // [U]
+  const int* of;       // [D]
+  const int2* dst;     // [D * Kx]
+  int U, Kx, G;        // distinct rows, slots a row, lanes a row
+};
+
 struct Net {
   int E, M, S, n_cs;
-  Tab in, ex, cm, cs;
+  Tab in, ex;
+  Rows cx;
 };
 
 struct Carry {
@@ -104,15 +116,32 @@ struct Records {
 };
 
 // 4-byte words of a row's values: vin [M + E + 1], win [M + E], na [E + 1],
-// nwt [E], xv [M + 1], xwt [M], eedge [M]
-__host__ __device__ inline int value_words(int E, int M) {
-  return 4 * E + 5 * M + 3;
+// nwt [E], xv [M + 1], xwt [M], eedge [M], then each distinct row's best
+// value and slot, uv [U], uk [U]
+__host__ __device__ inline int value_words(int E, int M, int U) {
+  return 4 * E + 5 * M + 3 + 2 * U;
 }
 
-// the values, two frames of observations, then the slots (16-byte
-// aligned)
-__host__ __device__ inline size_t smem_bytes(int E, int M, int n_slots) {
-  return 4 * ((size_t)value_words(E, M) + 2 * (size_t)E) + 16 + 16 * (size_t)n_slots;
+// bytes of the tables in shared memory: the in-model and exit slots (16
+// bytes), the distinct rows' and the destinations' slots (8), the rows'
+// lengths and the destinations' rows (4)
+__host__ __device__ inline size_t table_bytes(int E, int M, int D, int Kin,
+                                              int Kex, int Kx, int U) {
+  return 16 * ((size_t)E * Kin + (size_t)M * Kex) +
+         8 * ((size_t)U + D) * Kx + 4 * ((size_t)U + D);
+}
+
+// 4-byte words before the staged tables: the values, two frames of
+// observations, rounded up to 16 bytes
+__host__ __device__ inline int table_offset(int E, int M, int U) {
+  return (value_words(E, M, U) + 2 * E + 3) / 4 * 4;
+}
+
+// the values, two frames of observations, then the tables
+__host__ __device__ inline size_t smem_bytes(int E, int M, int D, int Kin,
+                                             int Kex, int Kx, int U) {
+  return 4 * (size_t)table_offset(E, M, U) +
+         table_bytes(E, M, D, Kin, Kex, Kx, U);
 }
 
 __device__ __forceinline__ float pruned(float v, float thresh) {
@@ -161,17 +190,44 @@ __device__ __forceinline__ void group_max(const int4* slot, int K, int L,
   }
 }
 
+// The first maximum of a distinct row (len slots of (source, weight bits)
+// over the exit values xv), by the G lanes of a group, as group_max.
+__device__ __forceinline__ void row_max(const int2* slot, int len, int G,
+                                        int gl, unsigned mask,
+                                        const float* xv, float& best,
+                                        int& bj) {
+  best = -INFINITY;
+  bj = 0x7fffffff;
+#pragma unroll 4
+  for (int j = gl; j < len; j += G) {
+    const int2 sl = slot[j];
+    const float v = xv[sl.x] + __int_as_float(sl.y);
+    if (bj == 0x7fffffff || v > best) {
+      best = v;
+      bj = j;
+    }
+  }
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(mask, best, off);
+    const int oj = __shfl_xor_sync(mask, bj, off);
+    if (ov > best || (ov == best && oj < bj)) {
+      best = ov;
+      bj = oj;
+    }
+  }
+}
+
 __device__ __forceinline__ unsigned group_mask(int L, int lane) {
   return L == 32 ? 0xffffffffu : (((1u << L) - 1u) << (lane & ~(L - 1)));
 }
 
-// copy a table's slots to shared memory at p
-__device__ __forceinline__ void stage(int4* p, const Tab& t) {
-  const size_t n = (size_t)t.D * t.K;
-  for (size_t i = threadIdx.x; i < n; i += blockDim.x) p[i] = t.slot[i];
+// copy n elements to shared memory at p, the block's threads together
+template <class X>
+__device__ __forceinline__ void stage(X* p, const X* src, size_t n) {
+  for (size_t i = threadIdx.x; i < n; i += blockDim.x) p[i] = src[i];
 }
 
-// SMEM: the values, observations and slots in shared memory (a template
+// SMEM: the values, observations and tables in shared memory (a template
 // parameter, so the compiler sees the address space of every access and
 // may reorder them around the record stores); else in device memory.
 template <bool SMEM>
@@ -180,13 +236,15 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
                const int* __restrict__ t0, const int* __restrict__ n_valid,
                const float* __restrict__ beam, Carry in, Carry out,
                Records rec, float* scratch) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ float warp_max[THREADS / 32];
   const int E = net.E, M = net.M, S = net.S;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const Rows& cx = net.cx;
+  const int U = cx.U, Kx = cx.Kx, D = M + S;
 
-  float* base = SMEM ? smem : scratch + (size_t)b * value_words(E, M);
+  float* base = SMEM ? smem : scratch + (size_t)b * value_words(E, M, U);
   float* vin = base;                                  // [entry | alpha | NEG]
   int* win = reinterpret_cast<int*>(vin + M + E + 1); // [entry_wt | wt]
   float* na = reinterpret_cast<float*>(win + M + E);  // [new alpha | NEG]
@@ -194,27 +252,34 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
   float* xv = reinterpret_cast<float*>(nwt + E);      // [exit values | NEG]
   int* xwt = reinterpret_cast<int*>(xv + M + 1);
   int* eedge = xwt + M;
-  float* obs_s = reinterpret_cast<float*>(eedge + M); // [2][E], smem only
+  float* uv = reinterpret_cast<float*>(eedge + M);    // [U] distinct rows
+  int* uk = reinterpret_cast<int*>(uv + U);
+  float* obs_s = reinterpret_cast<float*>(uk + U);    // [2][E], smem only
 
-  // the slot tables: staged into shared memory, or read where they are.
-  // The pointers are chosen by the template parameter, so on the shared
-  // path the compiler sees shared-memory pointers (a pointer reassigned
-  // in the tables' struct stays generic: 32-bit generic loads of single
-  // fields).
-  const Tab &tin = net.in, &tex = net.ex, &tcm = net.cm, &tcs = net.cs;
-  int4* staged = reinterpret_cast<int4*>(
-      (reinterpret_cast<uintptr_t>(obs_s + 2 * E) + 15) & ~(uintptr_t)15);
-  const size_t n_in = (size_t)tin.D * tin.K, n_ex = (size_t)tex.D * tex.K,
-               n_cm = (size_t)tcm.D * tcm.K;
+  // the tables: staged into shared memory, or read where they are.  The
+  // pointers are chosen by the template parameter and offset from the
+  // shared array itself, so on the shared path the compiler sees
+  // shared-memory pointers (a pointer reassigned in the tables' struct,
+  // or aligned through an integer, stays generic: 32-bit generic loads
+  // of single fields).
+  const Tab &tin = net.in, &tex = net.ex;
+  int4* staged = reinterpret_cast<int4*>(smem + table_offset(E, M, U));
+  const size_t n_in = (size_t)tin.D * tin.K, n_ex = (size_t)tex.D * tex.K;
+  int2* staged_rows = reinterpret_cast<int2*>(staged + n_in + n_ex);
   const int4* s_in = SMEM ? staged : tin.slot;
   const int4* s_ex = SMEM ? staged + n_in : tex.slot;
-  const int4* s_cm = SMEM ? staged + n_in + n_ex : tcm.slot;
-  const int4* s_cs = SMEM ? staged + n_in + n_ex + n_cm : tcs.slot;
+  const int2* s_row = SMEM ? staged_rows : cx.row;
+  const int2* s_dst = SMEM ? staged_rows + (size_t)U * Kx : cx.dst;
+  int* staged_len = reinterpret_cast<int*>(staged_rows + (size_t)(U + D) * Kx);
+  const int* s_len = SMEM ? staged_len : cx.len;
+  const int* s_of = SMEM ? staged_len + U : cx.of;
   if (SMEM) {
-    stage(staged, tin);
-    stage(staged + n_in, tex);
-    stage(staged + n_in + n_ex, tcm);
-    stage(staged + n_in + n_ex + n_cm, tcs);
+    stage(staged, tin.slot, n_in);
+    stage(staged + n_in, tex.slot, n_ex);
+    stage(staged_rows, cx.row, (size_t)U * Kx);
+    stage(staged_rows + (size_t)U * Kx, cx.dst, (size_t)D * Kx);
+    stage(staged_len, cx.len, (size_t)U);
+    stage(staged_len + U, cx.of, (size_t)D);
   }
   for (int e = tid; e < E; e += THREADS) {
     vin[M + e] = in.alpha[(size_t)b * E + e];
@@ -315,45 +380,49 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
     }
     __syncthreads();
 
-    // phase 3: closure into the model entries, then the sinks (one list
-    // of destinations, so the sinks take the groups the entries leave)
+    // phase 3: the closure into the model entries and the sinks, first
+    // the first maximum of each distinct row, G lanes a row
     {
-      const int L = tcm.L > tcs.L ? tcm.L : tcs.L;
-      const int gl = lane & (L - 1), groups = THREADS / L;
-      const unsigned mask = group_mask(L, lane);
-      const int n_dst = M + S;
-      for (int d0 = 0; d0 < n_dst; d0 += groups) {
-        const int d = d0 + tid / L;
-        if (d0 + (warp * 32) / L >= n_dst) break;
-        const bool sink = d >= M;
-        const int dd = sink ? (d - M < S ? d - M : S - 1) : d;
-        const int K = sink ? tcs.K : tcm.K;
-        if (sink && net.n_cs == 0) {
-          if (d < n_dst && gl == 0) {
-            rec.sink_val[fr * S + dd] = NEG;
-            rec.cs_am[fr * S + dd] = 0;
-            rec.sink_wt[fr * S + dd] = 0;
-          }
-          continue;
-        }
+      const int G = cx.G, gl = lane & (G - 1), groups = THREADS / G;
+      const unsigned mask = group_mask(G, lane);
+      for (int u0 = 0; u0 < U; u0 += groups) {
+        const int u = u0 + tid / G;
+        if (u0 + (warp * 32) / G >= U) break;
+        const int uu = u < U ? u : U - 1;
         float best;
         int bj;
-        const int4* sl = (sink ? s_cs : s_cm) + (size_t)dd * K;
-        group_max(sl, K, L, gl, mask, [&](int s) { return xv[s]; }, best, bj);
-        if (d >= n_dst || gl != 0) continue;
-        const int4 sj = sl[bj];
-        if (!sink) {
-          rec.cm_am[fr * M + d] = sj.y;
-          if (valid) {
-            vin[d] = pruned(best, thresh);
-            eedge[d] = sj.y > 0 ? sj.y : 0;
-            win[d] = sj.z < 0 ? t : xwt[sj.z];
-          }
-        } else {
-          rec.sink_val[fr * S + dd] = best;
-          rec.cs_am[fr * S + dd] = sj.y;
-          rec.sink_wt[fr * S + dd] = xwt[sj.z];
+        row_max(s_row + (size_t)uu * Kx, s_len[uu], G, gl, mask, xv, best,
+                bj);
+        if (u < U && gl == 0) {
+          uv[u] = best;
+          uk[u] = bj;
         }
+      }
+    }
+    __syncthreads();
+    // then each destination reads its row's best and, at the winning
+    // slot, its own edge id and word-time source
+    for (int d = tid; d < D; d += THREADS) {
+      if (d >= M && net.n_cs == 0) {  // no sink edges
+        rec.sink_val[fr * S + d - M] = NEG;
+        rec.cs_am[fr * S + d - M] = 0;
+        rec.sink_wt[fr * S + d - M] = 0;
+        continue;
+      }
+      const int u = s_of[d];
+      const float best = uv[u];
+      const int2 iz = s_dst[(size_t)d * Kx + uk[u]];
+      if (d < M) {
+        rec.cm_am[fr * M + d] = iz.x;
+        if (valid) {
+          vin[d] = pruned(best, thresh);
+          eedge[d] = iz.x > 0 ? iz.x : 0;
+          win[d] = iz.y < 0 ? t : xwt[iz.y];
+        }
+      } else {
+        rec.sink_val[fr * S + d - M] = best;
+        rec.cs_am[fr * S + d - M] = iz.x;
+        rec.sink_wt[fr * S + d - M] = xwt[iz.y];
       }
     }
     if (valid)
@@ -383,21 +452,35 @@ int lanes_for(int K) {
   return L;
 }
 
+// lanes a distinct row of Kx slots when U rows share `threads` lanes: as
+// many as leave every row a group (a power of two, <= 32, no more than
+// the slots need)
+int lanes_for_rows(int U, int Kx, int threads) {
+  int G = 1;
+  while (G < 32 && U * 2 * G <= threads && G < Kx) G <<= 1;
+  return G;
+}
+
 }  // namespace
 
-// shared memory a block needs to hold everything (0: more than it can)
-extern "C" long long netscan_smem_bytes(int E, int M, int n_slots) {
-  const size_t n = smem_bytes(E, M, n_slots);
+// shared memory a block of the block instance needs to hold everything (0:
+// more than it can)
+extern "C" long long netscan_smem_bytes(int E, int M, int S, int Kin,
+                                        int Kex, int Kx, int U) {
+  const size_t n = smem_bytes(E, M, M + S, Kin, Kex, Kx, U);
   return n <= (size_t)SMEM_MAX ? (long long)n : 0;
 }
 
 // 4-byte words of a row's scratch in device memory when it does not fit
-extern "C" int netscan_scratch_words(int E, int M) { return value_words(E, M); }
+extern "C" int netscan_scratch_words(int E, int M, int U) {
+  return value_words(E, M, U);
+}
 
 extern "C" int netscan(int B, int T, int E, int M, int S, int n_cs,
-                       int Kin, int Kex, int Kcm, int Kcs,
+                       int Kin, int Kex, int Kx, int U,
                        const void* in_slot, const void* ex_slot,
-                       const void* cm_slot, const void* cs_slot,
+                       const void* cx_row, const void* cx_len,
+                       const void* cx_of, const void* cx_dst,
                        const void* obs, const void* t0, const void* n_valid,
                        const void* beam, void* alpha, void* wt, void* entry,
                        void* entry_edge, void* entry_wt, void* alpha_out,
@@ -406,16 +489,18 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_cs,
                        void* cm_am, void* r_entry_edge, void* entry_val,
                        void* sink_val, void* cs_am, void* sink_wt,
                        void* exit_val, void* scratch, int use_smem,
-                       void* stream) {
+                       int warp, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (T < 0 || E <= 0 || M <= 0 || S < 0 || n_cs < 0 || Kin <= 0 ||
-      Kex <= 0 || Kcm <= 0 || Kcs <= 0)
+      Kex <= 0 || Kx <= 0 || U <= 0 || warp)
     return cudaErrorInvalidValue;
   auto tab = [](const void* s, int D, int K) {
     return Tab{static_cast<const int4*>(s), D, K, lanes_for(K)};
   };
-  Net net{E, M, S, n_cs, tab(in_slot, E, Kin), tab(ex_slot, M, Kex),
-          tab(cm_slot, M, Kcm), tab(cs_slot, S, Kcs)};
+  Rows cx{static_cast<const int2*>(cx_row), static_cast<const int*>(cx_len),
+          static_cast<const int*>(cx_of), static_cast<const int2*>(cx_dst),
+          U, Kx, lanes_for_rows(U, Kx, THREADS)};
+  Net net{E, M, S, n_cs, tab(in_slot, E, Kin), tab(ex_slot, M, Kex), cx};
   Carry cin{static_cast<float*>(alpha), static_cast<int*>(wt),
             static_cast<float*>(entry), static_cast<int*>(entry_edge),
             static_cast<int*>(entry_wt)};
@@ -437,8 +522,7 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_cs,
         net, T, o, tz, nv, bm, cin, cout, rec, static_cast<float*>(scratch));
     return cudaGetLastError();
   }
-  const size_t smem =
-      smem_bytes(E, M, E * Kin + M * Kex + M * Kcm + S * Kcs);
+  const size_t smem = smem_bytes(E, M, M + S, Kin, Kex, Kx, U);
   if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -2,27 +2,35 @@
 csrc/netscan.cu) on one CUDA card, each with its own wrapper.
 
     python3 -m phnrec_tpu_torch.devtools.netscan_variants [--ablate] \\
+        [--sass] [--instance warp|block] \\
         SOURCE.cu[:WRAPPER.py] [SOURCE.cu[:WRAPPER.py] ...]
 
 A source without a wrapper file is launched by the package's
 ops/netscan.py; an earlier source comes with the ops/netscan.py of its
 commit (whose ``slot_arrays``, where it has one, makes its tables), e.g.
-``git show e0c5b1a:phnrec_tpu_torch/csrc/netscan.cu > build/netscan_v1.cu``
-and ``git show e0c5b1a:phnrec_tpu_torch/ops/netscan.py >
-build/netscan_v1_ops.py``.  Every source is built (package nvcc flags,
-into build/phnrec_tpu_torch/variants/, registers and spills printed) and
-held bit for bit to the plain version (carry and all nine records) on the
-CZ stkint phoneme loop at B 256 x T 500 with ragged rows, the same with
-the per-row values in device memory, and the EN KWS net at B 8 x T 1,000
-with a tight beam.  Then all are timed in turns (first to last, then last
-to first) at B 256 x T 500 on the CZ loop by both timers (``ms``:
-mlp_variants.cuda_ms, chip_smoke.py's; ``held_ms``: scan_variants.held_ms,
-the card held while the host enqueues), with the SM clock under load and
-clocks a frame.  The last source is also timed at B 1, 132 (a block on
-each SM) and 264 (two) to show whether a row's chain or the SM's
-instruction rate bounds it.  With ``--ablate`` the last source is built
-again once for each of the ABLATIONS below (wrong results: timed, not
-checked).  One JSON line per build, check and timing.
+``git show e04e5b5:phnrec_tpu_torch/csrc/netscan.cu > build/netscan_pr10.cu``
+and ``git show e04e5b5:phnrec_tpu_torch/ops/netscan.py >
+build/netscan_pr10_ops.py``.  A wrapper with ``INSTANCES`` (the warp and
+the block instance) is run once for each instance, forced, on every case
+the network's sizes let that instance take (``--instance`` keeps one);
+an older wrapper runs its one design.
+
+Every source is built (package nvcc flags, into
+build/phnrec_tpu_torch/variants/, registers and spills printed; with
+``--sass`` its SASS is written to chiprun_out/netscan_sass_<tag>.txt) and
+each run is held bit for bit to the plain version (carry and all nine
+records) on the CZ stkint phoneme loop at B 256 x T 500 with ragged rows
+and at B 1 x T 500, the same with the per-row values in device memory
+(the block instance), and the EN KWS net at B 8 x T 1,000 with a tight
+beam.  Then all runs are timed in turns (first to last, then last to
+first) on the CZ loop at B 256 x T 500 and at B 1 x T 500 by both timers
+(``ms``: mlp_variants.cuda_ms, chip_smoke.py's; ``held_ms``:
+scan_variants.held_ms, the card held while the host enqueues), with the
+SM clock under load and clocks a frame, and at B 132 (a row on each SM)
+and 264 (two) held.  With ``--ablate`` the last source is built again
+once for each of the ABLATIONS below (wrong results: timed, not checked)
+and timed on the instance the cut belongs to.  One JSON line per build,
+check and timing; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import importlib.util
 import json
 import os
 import re
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -46,14 +55,16 @@ from phnrec_tpu_torch.devtools.scan_variants import held_ms
 from phnrec_tpu_torch.ops import netscan
 from phnrec_tpu_torch.pipeline import SpeechRec
 
-# regex edits that cut one part out of the kernel: (what, pattern, new)
+# regex edits that cut one part out of a kernel: (what, instance, pattern,
+# new); the instance is the one whose code the pattern cuts (None: a
+# source with one design)
 ABLATIONS = (
-    ("no_records", r"\n\s*rec\.\w+\[[^;]*;", ""),
-    ("no_in_model", r"e0 < E; e0 \+= groups", "e0 < 0; e0 += groups"),
-    ("no_exits", r"m0 < M; m0 \+= groups", "m0 < 0; m0 += groups"),
-    ("no_closure_sinks", r"d0 < n_dst; d0 \+= groups",
+    ("no_records", None, r"\n\s*rec\.\w+\[[^;]*;", ""),
+    ("no_in_model", None, r"e0 < E; e0 \+= groups", "e0 < 0; e0 += groups"),
+    ("no_exits", None, r"m0 < M; m0 \+= groups", "m0 < 0; m0 += groups"),
+    ("no_closure_sinks", None, r"d0 < n_dst; d0 \+= groups",
      "d0 < 0; d0 += groups"),
-    ("no_frame_barriers", r"\n    __syncthreads\(\);\n", "\n"),
+    ("no_frame_barriers", None, r"\n    __syncthreads\(\);\n", "\n"),
 )
 
 
@@ -96,6 +107,47 @@ def _equal(got, want) -> bool:
         same(got[1][k], want[1][k]) for k in netscan.RECORDS)
 
 
+def _runs(variants, only):
+    """(tag, module, library, instance) for each instance a variant's
+    wrapper offers (None: the wrapper has one design)."""
+    out = []
+    for tag, mod, lib in variants:
+        for inst in getattr(mod, "INSTANCES", (None,)):
+            if inst is None or only in (None, inst):
+                out.append((tag if inst is None else f"{tag}@{inst}", mod,
+                            lib, inst))
+    return out
+
+
+def _takes(mod, inst, tb, kw) -> bool:
+    """Whether instance ``inst`` of ``mod`` takes the network (and the
+    case's options)."""
+    if inst is None:
+        return True
+    if inst == "warp" and kw.get("force_global"):
+        return False
+    return inst == "block" or mod.instance(tb) == "warp"
+
+
+def _launch(mod, lib, inst, args, tb, **kw):
+    if inst is not None:
+        kw["instance"] = inst
+    return mod.launch(lib, *args, tb, **kw)
+
+
+def _sass(tag: str, lib) -> None:
+    cuobjdump = Path(netscan._build.find_nvcc()).with_name("cuobjdump")
+    so = netscan._build.BUILD_DIR / "variants" / f"{tag}.so"
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True).stdout
+    path = out / f"netscan_sass_{tag}.txt"
+    path.write_text(text)
+    print(json.dumps({"sass": tag, "file": str(path),
+                      "lines": text.count("\n")}), flush=True)
+
+
 def main(argv) -> int:
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -104,27 +156,41 @@ def main(argv) -> int:
         print("ERROR: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    ablate = "--ablate" in argv
-    argv = [a for a in argv if a != "--ablate"]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    ablate, sass = "--ablate" in argv, "--sass" in argv
+    only = None
+    if "--instance" in argv:
+        i = argv.index("--instance")
+        only = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    argv = [a for a in argv if a not in ("--ablate", "--sass")]
     variants = []
     for i, arg in enumerate(argv):
         src, _, wrap = arg.partition(":")
         mod = _wrapper(wrap) if wrap else netscan
         tag = f"v{i}_{Path(src).stem}"
         variants.append((tag, mod, mod.bind(build(tag, Path(src)))))
+        if sass:
+            _sass(tag, variants[-1][2])
     ablated = []
     if ablate:
         src, _, wrap = argv[-1].partition(":")
         mod, text = variants[-1][1], Path(src).read_text()
         out = netscan._build.BUILD_DIR / "variants"
         out.mkdir(parents=True, exist_ok=True)
-        for what, old, new in ABLATIONS:
+        for what, inst, old, new in ABLATIONS:
             cut = re.sub(old, new, text)
             if cut == text:
+                print(json.dumps({"ablation_misses": what}), flush=True)
                 continue
             path = out / f"netscan_{what}.cu"
             path.write_text(cut)
-            ablated.append((what, mod, mod.bind(build(what, path))))
+            if inst is None or inst in getattr(mod, "INSTANCES", ()):
+                ablated.append((what, mod, mod.bind(build(what, path)),
+                                inst))
+    runs = _runs(variants, only)
     tmp = tempfile.mkdtemp()
     cz = SpeechRec(synth.write_stk_decode_package(
         os.path.join(tmp, "cz"), "cz", seed=0), device=dev)
@@ -132,6 +198,7 @@ def main(argv) -> int:
         os.path.join(tmp, "en"), "en", seed=0), device=dev)
     czd, end = cz.stk_decoder.decoder, en.stk_decoder.decoder
     cases = {"cz_256x500": (czd, _inputs(czd, dev, 256, 500, 1), {}),
+             "cz_1x500": (czd, _inputs(czd, dev, 1, 500, 5), {}),
              "cz_global": (czd, _inputs(czd, dev, 64, 200, 2),
                            {"force_global": True}),
              "en_8x1000_beam": (end, _inputs(end, dev, 8, 1000, 3, beam=4.0),
@@ -139,38 +206,45 @@ def main(argv) -> int:
     ok = True
     for name, (dec, args, kw) in cases.items():
         want = netscan.netscan_plain(*args, dec.edge_tables(dev))
-        for tag, mod, lib in variants:
-            got = mod.launch(lib, *args, _tables(mod, dec, dev), **kw)
+        for tag, mod, lib, inst in runs:
+            tb = _tables(mod, dec, dev)
+            if not _takes(mod, inst, tb, kw):
+                continue
+            got = _launch(mod, lib, inst, args, tb, **kw)
             torch.cuda.synchronize()
             same = _equal(got, want)
             ok &= same
             print(json.dumps({"check": name, "variant": tag,
                               "bit_equal": same}), flush=True)
-    dec, args, _ = cases["cz_256x500"]
-    T = args[1].shape[1]
-    for tag, mod, lib in variants + variants[::-1]:
+    dec = czd
+    T = 500
+    timed = {256: cases["cz_256x500"][1], 1: cases["cz_1x500"][1]}
+    mhz = None
+    for B, args in timed.items():
+        for tag, mod, lib, inst in runs + runs[::-1]:
+            tb = _tables(mod, dec, dev)
+            fn = lambda: _launch(mod, lib, inst, args, tb)  # noqa: E731
+            ms, held = cuda_ms(fn), held_ms(fn)
+            mhz = sm_clock(fn, max(ms, 0.2))
+            print(json.dumps({"timing": tag, "B": B, "T": T, "ms": ms,
+                              "held_ms": held, "sm_clock_mhz": mhz,
+                              "clocks_a_frame": held * 1e-3 * mhz * 1e6 / T}),
+                  flush=True)
+    args = timed[256]
+    for what, mod, lib, inst in ablated + ablated[::-1]:
         tb = _tables(mod, dec, dev)
-        fn = lambda: mod.launch(lib, *args, tb)  # noqa: E731
-        ms, held = cuda_ms(fn), held_ms(fn)
-        mhz = sm_clock(fn, max(ms, 0.2))
-        print(json.dumps({"timing": tag, "B": 256, "T": T, "ms": ms,
-                          "held_ms": held, "sm_clock_mhz": mhz,
-                          "clocks_a_frame": held * 1e-3 * mhz * 1e6 / T}),
-              flush=True)
-    for what, mod, lib in ablated + ablated[::-1]:
-        tb = _tables(mod, dec, dev)
-        held = held_ms(lambda: mod.launch(lib, *args, tb))
-        print(json.dumps({"ablation": what, "B": 256, "T": T,
-                          "held_ms": held, "clocks_a_frame":
+        held = held_ms(lambda: _launch(mod, lib, inst, args, tb))
+        print(json.dumps({"ablation": what, "instance": inst, "B": 256,
+                          "T": T, "held_ms": held, "clocks_a_frame":
                           held * 1e-3 * mhz * 1e6 / T}), flush=True)
-    tag, mod, lib = variants[-1]
-    tb = _tables(mod, dec, dev)
-    for B in (1, 132, 264):
+    for B in (132, 264):
         a = _inputs(dec, dev, B, T, 4)
-        held = held_ms(lambda: mod.launch(lib, *a, tb))
-        print(json.dumps({"rows": tag, "B": B, "T": T, "held_ms": held,
-                          "clocks_a_frame": held * 1e-3 * mhz * 1e6 / T}),
-              flush=True)
+        for tag, mod, lib, inst in runs:
+            tb = _tables(mod, dec, dev)
+            held = held_ms(lambda: _launch(mod, lib, inst, a, tb))
+            print(json.dumps({"rows": tag, "B": B, "T": T, "held_ms": held,
+                              "clocks_a_frame":
+                              held * 1e-3 * mhz * 1e6 / T}), flush=True)
     return 0 if ok else 1
 
 

@@ -45,20 +45,21 @@ RECORDS = {"in_am": (torch.int32, "E"), "ex_am": (torch.int32, "M"),
            "entry_val": (torch.float32, "M"),
            "sink_val": (torch.float32, "S"), "cs_am": (torch.int32, "S"),
            "sink_wt": (torch.int32, "S"), "exit_val": (torch.float32, "M")}
-_SLOTS = ("in_slot", "ex_slot", "cm_slot", "cs_slot")
+_TABLES = ("in_slot", "ex_slot", "cx_row", "cx_len", "cx_of", "cx_dst")
 
 
 def slot_arrays(t) -> Dict[str, np.ndarray]:
-    """Kernel G's tables from a network's ``EdgeTables``: each dense row
-    [D, K] as slots [D, K, 4] int32 of (source index into the phase's
-    values, edge id, word-time source, weight's float32 bits).  The values
-    are [entry (M) | alpha (E) | NEG] for the in-model pass (word times
-    [entry_wt | wt]), [alpha (E) | NEG] for the exits and [exit values
-    (M) | NEG] for the closure and the sinks (word times those of the
-    exits); a pad (id -1) or a START edge reads the NEG sentinel with
-    weight 0, so its value is NEG exactly.  A pad's word-time source is
-    edge 0's, as JAX clips a -1 winner to edge 0; a closure edge that
-    crosses words has -1 (the word time resets to t)."""
+    """Kernel G's tables from a network's ``EdgeTables``.  The in-model
+    and exit rows [D, K] as slots [D, K, 4] int32 of (source index into
+    the phase's values, edge id, word-time source, weight's float32 bits):
+    the values are [entry (M) | alpha (E) | NEG] for the in-model pass
+    (word times [entry_wt | wt]) and [alpha (E) | NEG] for the exits; a
+    pad (id -1) reads the NEG sentinel with weight 0, so its value is NEG
+    exactly, and has edge 0's word-time source, as JAX clips a -1 winner
+    to edge 0.  The closure's and the sinks' rows (values [exit values (M)
+    | NEG], word times those of the exits; a START edge reads the
+    sentinel, a closure edge that crosses words has word-time source -1)
+    as ``distinct_rows`` groups them."""
     M, E = t.n_models, t.n_states
     in_src = np.where(t.in_entry, np.clip(t.in_src, 0, M - 1),
                       M + np.clip(t.in_src, 0, E - 1))
@@ -76,15 +77,48 @@ def slot_arrays(t) -> Dict[str, np.ndarray]:
         return out.astype(np.int32)
 
     live_cm, live_cs = t.cm_src >= 0, t.cs_src >= 0
-    return {
-        "in_slot": slots(t.in_dense, in_src, in_src, t.in_w, M + E),
-        "ex_slot": slots(t.ex_dense, t.ex_src, t.ex_src, t.ex_w, E),
-        "cm_slot": slots(t.cm_dense, np.where(live_cm, t.cm_src, M),
-                         np.where(t.cm_reset, -1, np.maximum(t.cm_src, 0)),
-                         np.where(live_cm, t.cm_w, np.float32(0)), M),
-        "cs_slot": slots(t.cs_dense, np.where(live_cs, t.cs_src, M),
-                         np.maximum(t.cs_src, 0),
-                         np.where(live_cs, t.cs_w, np.float32(0)), M)}
+    cm = slots(t.cm_dense, np.where(live_cm, t.cm_src, M),
+               np.where(t.cm_reset, -1, np.maximum(t.cm_src, 0)),
+               np.where(live_cm, t.cm_w, np.float32(0)), M)
+    cs = slots(t.cs_dense, np.where(live_cs, t.cs_src, M),
+               np.maximum(t.cs_src, 0),
+               np.where(live_cs, t.cs_w, np.float32(0)), M)
+    return {"in_slot": slots(t.in_dense, in_src, in_src, t.in_w, M + E),
+            "ex_slot": slots(t.ex_dense, t.ex_src, t.ex_src, t.ex_w, E),
+            **distinct_rows(list(cm) + list(cs), M)}
+
+
+def distinct_rows(rows, sentinel: int) -> Dict[str, np.ndarray]:
+    """The closure's and the sinks' rows ([K, 4] slots each, the M model
+    entries then the S sinks) grouped by their sequence of (source,
+    weight bits), length included: rows equal in it take the same first
+    maximum at the same slot, whatever their edge ids and word-time
+    sources, so the kernel reduces each distinct row once.
+      cx_row [U, Kx, 2]: (source, weight bits) of each distinct row, in
+        slot order (past its length: the sentinel, weight 0; never read)
+      cx_len [U]: its length;  cx_of [D]: each destination's row
+      cx_dst [D, Kx, 2]: (edge id, word-time source) of each
+        destination's own slots, read at the winning slot."""
+    Kx = max(len(r) for r in rows)
+    index: Dict[bytes, int] = {}
+    of = np.empty(len(rows), np.int32)
+    for d, r in enumerate(rows):
+        of[d] = index.setdefault(np.ascontiguousarray(r[:, [0, 3]])
+                                 .tobytes(), len(index))
+    first = {}
+    for d, u in enumerate(of):
+        first.setdefault(int(u), rows[d])
+    cx_row = np.zeros((len(index), Kx, 2), np.int32)
+    cx_row[..., 0] = sentinel
+    cx_dst = np.zeros((len(rows), Kx, 2), np.int32)
+    for u, r in first.items():
+        cx_row[u, :len(r)] = r[:, [0, 3]]
+    for d, r in enumerate(rows):
+        cx_dst[d, :len(r)] = r[:, [1, 2]]
+    return {"cx_row": cx_row,
+            "cx_len": np.asarray([len(first[u]) for u in range(len(index))],
+                                 np.int32),
+            "cx_of": of, "cx_dst": cx_dst}
 
 
 def _dense_max_argmax(vals: torch.Tensor, dense: torch.Tensor):
@@ -176,15 +210,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a kernel-G library's entry points."""
     fn = lib.netscan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_void_p] * 6
                        + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_void_p] * 9 + [ctypes.c_void_p,
-                                                   ctypes.c_int,
-                                                   ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 9
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.netscan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.netscan_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.netscan_smem_bytes.restype = ctypes.c_longlong
-        lib.netscan_scratch_words.argtypes = [ctypes.c_int] * 2
+        lib.netscan_scratch_words.argtypes = [ctypes.c_int] * 3
         lib.netscan_scratch_words.restype = ctypes.c_int
     return lib
 
@@ -193,13 +227,22 @@ def _lib():
     return bind(_build.load("netscan"))
 
 
+def _sizes(tb: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The network's sizes as the kernel reads them, from the tables'
+    shapes (no device work)."""
+    return dict(E=tb["in_slot"].shape[0], M=tb["ex_slot"].shape[0],
+                D=tb["cx_of"].shape[0], Kin=tb["in_slot"].shape[1],
+                Kex=tb["ex_slot"].shape[1], Kx=tb["cx_row"].shape[1],
+                U=tb["cx_row"].shape[0], n_cs=tb["cs_w"].shape[0])
+
+
 def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
            t0: torch.Tensor, n_valid: torch.Tensor, beam: torch.Tensor,
            tb: Dict[str, torch.Tensor], force_global: bool = False
            ) -> Tuple[Carry, Dict[str, torch.Tensor]]:
     """Launch the kernel of ``lib`` (a bound kernel-G library) on CUDA
     tensors; raises on anything it does not take.  Where a row's values,
-    two frames of observations and the slot tables fit a block's shared
+    two frames of observations and the tables fit a block's shared
     memory they live there, else in device memory; ``force_global`` takes
     device memory in any case (both paths are held to the plain
     version).  Counts nothing."""
@@ -207,17 +250,20 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
     if obs.dim() != 3:
         raise ValueError("obs must be [B, T, E]")
     B, T, E = obs.shape
-    M = tb["ex_slot"].shape[0]
-    S = tb["cs_slot"].shape[0]
-    K = {x: tb[f"{x}_slot"].shape[1] for x in ("in", "ex", "cm", "cs")}
-    if tb["in_slot"].shape[0] != E or tb["cm_slot"].shape[0] != M:
+    z = _sizes(tb)
+    M, D, U, Kx = z["M"], z["D"], z["U"], z["Kx"]
+    S = D - M
+    if z["E"] != E or S < 0:
         raise ValueError("tables do not match obs's state count")
     if B * T * max(E, M, S, 1) >= 2 ** 31 or B > 2 ** 31 - 1:
         raise ValueError("block too large for 32-bit offsets")
-    rows = {"in": E, "ex": M, "cm": M, "cs": S}
-    for x in rows:
-        _build.require(tb[f"{x}_slot"], f"{x}_slot", torch.int32,
-                       (rows[x], K[x], 4), device)
+    for name, dt, shape in (
+            ("in_slot", torch.int32, (E, z["Kin"], 4)),
+            ("ex_slot", torch.int32, (M, z["Kex"], 4)),
+            ("cx_row", torch.int32, (U, Kx, 2)),
+            ("cx_len", torch.int32, (U,)), ("cx_of", torch.int32, (D,)),
+            ("cx_dst", torch.int32, (D, Kx, 2))):
+        _build.require(tb[name], name, dt, shape, device)
     _build.require(obs, "obs", torch.float32, (B, T, E), device)
     for name, t in (("t0", t0), ("n_valid", n_valid)):
         _build.require(t, name, torch.int32, (B,), device)
@@ -231,23 +277,23 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
     recs = {k: torch.empty((B, T, _width(k, E, M, S)), dtype=dt,
                            device=device)
             for k, (dt, _) in RECORDS.items()}
-    n_slots = sum(rows[x] * K[x] for x in rows)
-    n_cs = tb["cs_w"].shape[0]
-    use_smem = not force_global and lib.netscan_smem_bytes(E, M, n_slots) > 0
+    use_smem = not force_global and lib.netscan_smem_bytes(
+        E, M, S, z["Kin"], z["Kex"], Kx, U) > 0
     scratch = torch.empty(0 if use_smem else
-                          B * lib.netscan_scratch_words(E, M), device=device)
+                          B * lib.netscan_scratch_words(E, M, U),
+                          device=device)
     if B == 0:
         return out_carry, recs
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.netscan(
-            B, T, E, M, S, n_cs, K["in"], K["ex"], K["cm"], K["cs"],
-            *(tb[k].data_ptr() for k in _SLOTS),
+            B, T, E, M, S, z["n_cs"], z["Kin"], z["Kex"], Kx, U,
+            *(tb[k].data_ptr() for k in _TABLES),
             obs.data_ptr(), t0.data_ptr(), n_valid.data_ptr(),
             beam.data_ptr(), *(t.data_ptr() for t in carry),
             *(t.data_ptr() for t in out_carry),
             *(recs[k].data_ptr() for k in RECORDS), scratch.data_ptr(),
-            int(use_smem), stream)
+            int(use_smem), 0, stream)
     _build.check(err, "netscan")
     return out_carry, recs
 

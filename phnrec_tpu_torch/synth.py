@@ -532,3 +532,45 @@ def random_network(M: int, n_sinks: int = 3, n_obs: int = 12,
         sink_names=[None] + [f"s{s}" for s in range(1, n_sinks)],
         terminal_sink=0, kws_word_sinks=list(range(1, n_sinks)),
         kws_filler_sink=None, gmm_states=[])
+
+
+def repeated_rows_network(M: int = 16, n_sinks: int = 3, seed: int = 0):
+    """``random_network``'s models and sinks with closure edges from four
+    row templates of (source model, weight): destinations that share a
+    template share the closure row's sequence of sources and weights,
+    with edge ids interleaved between them (their rows differ only in
+    the ids and in which edges reset the word time); two templates hold
+    the same edges with the START edge at another slot; one holds two
+    edges from one source at equal and at different weights.  The sinks
+    take the templates without START edges; the last model has no
+    closure edge into it.  M >= 14."""
+    import dataclasses
+
+    from phnrec_tpu_torch.decoder.stknet import ClosureEdge
+    rng = np.random.default_rng(seed)
+    templates = [[(-1, 0.0), (0, -0.5), (1, -0.25), (2, -0.5)],
+                 [(0, -0.5), (-1, 0.0), (1, -0.25), (2, -0.5)],
+                 [(3, -0.125), (3, -0.125), (4, -0.75), (4, -0.25),
+                  (5, -1.0)],
+                 [(m, -0.375) for m in range(6, 14)]]
+    dsts = [(d, None, templates[d % 4]) for d in range(M - 1)] + \
+        [(-1, s, templates[2 + s % 2]) for s in range(n_sinks)]
+    closure = []
+    for j in range(max(len(t) for t in templates)):
+        for k in rng.permutation(len(dsts)):
+            dst, sink, row = dsts[k]
+            if j >= len(row):
+                continue
+            src, w = row[j]
+            if src < 0:
+                closure.append(ClosureEdge(-1, dst, None, -(dst % 3) / 8,
+                                           (), False))
+                continue
+            if sink is None:
+                words = (f"w{dst}",) if rng.random() < 1 / 3 else ()
+            else:
+                words = (f"s{sink}",) if sink else ()
+            closure.append(ClosureEdge(src, dst, sink, w, words,
+                                       bool(words)))
+    return dataclasses.replace(random_network(M, n_sinks, seed=seed),
+                               closure=closure)

@@ -6,8 +6,11 @@ between them), the traceback's outputs against ``_traceback_batch``
 (frame0 = -1 and frame0 >= 0 rows, rows that never reach the terminal
 sink), and ``convert.network_tables_from_jax`` against the port's own
 compilation.  Networks: the tiny and CZ-width phoneme loops, the tiny KWS
-net in decode mode and a random word network with isolated
-destinations."""
+net in decode mode, a random word network with isolated destinations and
+one whose closure rows repeat with other edge ids (and the EN KWS net
+for kernel G's tables).  Kernel G's distinct-row tables
+(``netscan.slot_arrays``) are read by a plain reduction of their own and
+held to ``netscan_plain`` and to JAX."""
 
 import dataclasses
 import os
@@ -30,7 +33,7 @@ from phnrec_tpu_torch.io import stknet as tnet
 from phnrec_tpu_torch.ops import netscan, nettrace
 from phnrec_tpu_torch.pipeline import SpeechRec
 
-NETS = ("tiny_loop", "cz_loop", "kws_decode", "random")
+NETS = ("tiny_loop", "cz_loop", "kws_decode", "random", "repeated_rows")
 FIELDS = ("in_src", "in_entry", "in_w", "in_dense", "ex_src", "ex_w",
           "ex_dense", "cm_src", "cm_w", "cm_reset", "cm_dense", "cs_src",
           "cs_w", "cs_dense")
@@ -81,7 +84,19 @@ def nets(tmp_path_factory):
     c = synth.random_network(12, seed=3)
     out["random"] = (jst.NetworkDecoder(_to_jax_compiled(c)),
                      tst.NetworkDecoder(c))
+    c = synth.repeated_rows_network(16, seed=4)
+    out["repeated_rows"] = (jst.NetworkDecoder(_to_jax_compiled(c)),
+                            tst.NetworkDecoder(c))
     return out
+
+
+@pytest.fixture(scope="module")
+def en_kws(tmp_path_factory):
+    """The EN KWS package's network (KWS mode) in both packages."""
+    pkg = synth.write_kws_package(tmp_path_factory.mktemp("en") / "en",
+                                  "en", seed=0)
+    return (JSpeechRec(pkg).stk_decoder.decoder,
+            SpeechRec(pkg, device="cpu").stk_decoder.decoder)
 
 
 def _obs(dec, B, T, seed, ties=False):
@@ -243,3 +258,142 @@ def test_network_tables_from_jax(nets, net):
         assert a.dtype == b.dtype and np.array_equal(a, b), f
     assert (got.n_states, got.n_models, got.n_sinks) == \
         (td.tables.n_states, td.tables.n_models, td.tables.n_sinks)
+
+
+def _first_max(vals, src, w, length=None):
+    """[B, N] values, [D, K] sources and weights -> per row and
+    destination the first maximum of vals[src] + w over the first
+    ``length[d]`` slots, and its slot."""
+    v = vals[:, src.long()] + w
+    if length is not None:
+        past = torch.arange(src.shape[1])[None] >= length[:, None]
+        v = torch.where(past, torch.tensor(-float("inf")), v)
+    k = torch.argmax(v, dim=2)
+    return v.gather(2, k[..., None])[..., 0], k
+
+
+def _read_tables(carry, obs, t0, n_valid, beam, tb):
+    """The scan as the kernel reads ``slot_arrays``' tables: the in-model
+    and exit slots, then each distinct closure / sink row reduced once
+    and each destination's edge id and word-time source read at its
+    row's winning slot."""
+    alpha, wt, entry, entry_edge, entry_wt = carry
+    B, T, E = obs.shape
+    M, D = tb["ex_slot"].shape[0], tb["cx_of"].shape[0]
+    neg = torch.full((B, 1), float(tst.NEG))
+    ins, exs = tb["in_slot"], tb["ex_slot"]
+    f32 = lambda a: a.contiguous().view(torch.float32)  # noqa: E731
+    rows, dst, of = tb["cx_row"], tb["cx_dst"], tb["cx_of"].long()
+    no_cs = tb["cs_w"].shape[0] == 0
+    recs = {k: [] for k in netscan.RECORDS}
+    for i in range(T):
+        t = (t0 + 1 + i).to(torch.int32)
+        best, k = _first_max(torch.cat([entry, alpha, neg], 1),
+                             ins[..., 0], f32(ins[..., 3]))
+        e_ar = torch.arange(E)[None]
+        in_am, z = ins[e_ar, k, 1], ins[e_ar, k, 2].long()
+        nwt = torch.cat([entry_wt, wt], 1).gather(1, z)
+        na = best + obs[:, i]
+        thresh = na.amax(1, keepdim=True) - beam[:, None]
+        na = torch.where(na >= thresh, na, float(tst.NEG))
+        xv, k = _first_max(torch.cat([na, neg], 1), exs[..., 0],
+                           f32(exs[..., 3]))
+        m_ar = torch.arange(M)[None]
+        ex_am = exs[m_ar, k, 1]
+        xwt = nwt.gather(1, exs[m_ar, k, 2].long())
+        uv, uk = _first_max(torch.cat([xv, neg], 1), rows[..., 0],
+                            f32(rows[..., 1]), tb["cx_len"])
+        v, k = uv[:, of], uk[:, of]
+        d_ar = torch.arange(D)[None]
+        ids, z = dst[d_ar, k, 0], dst[d_ar, k, 1].long()
+        zwt = xwt.gather(1, z.clamp(min=0))
+        ne = torch.where(v[:, :M] >= thresh, v[:, :M], float(tst.NEG))
+        new_wt = torch.where(z[:, :M] < 0, t[:, None], zwt[:, :M])
+        sv, cs_am, sw = v[:, M:], ids[:, M:], zwt[:, M:]
+        if no_cs:
+            sv = torch.full_like(sv, float(tst.NEG))
+            cs_am, sw = torch.zeros_like(cs_am), torch.zeros_like(sw)
+        for name, x in (("in_am", in_am), ("ex_am", ex_am),
+                        ("cm_am", ids[:, :M]), ("entry_edge", entry_edge),
+                        ("entry_val", entry), ("sink_val", sv),
+                        ("cs_am", cs_am), ("sink_wt", sw),
+                        ("exit_val", xv)):
+            recs[name].append(x)
+        valid = (t <= n_valid)[:, None]
+        new = (na, nwt, ne, ids[:, :M].clamp(min=0), new_wt)
+        alpha, wt, entry, entry_edge, entry_wt = (
+            torch.where(valid, n_, o_) for n_, o_ in zip(
+                new, (alpha, wt, entry, entry_edge, entry_wt)))
+    return (alpha, wt, entry, entry_edge, entry_wt), {
+        k: torch.stack(v, 1).to(netscan.RECORDS[k][0])
+        for k, v in recs.items()}
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+READING_CASES = {
+    # name: (B, T, beam per row or None, ties)
+    "ragged_off_beam": (5, 40, None, False),
+    "ties_signed_zeros": (4, 30, None, True),
+    "tight_beam_by_row": (4, 30, (1.5, 3.0, 0.5, 6.0), True),
+}
+
+
+@pytest.mark.parametrize("case", list(READING_CASES))
+@pytest.mark.parametrize("net", NETS + ("en_kws",))
+def test_distinct_rows_match_plain_and_jax(nets, en_kws, net, case):
+    """Kernel G's tables read as the kernel reads them (each distinct
+    closure / sink row once, each destination's id and word-time source
+    at the winning slot) equal netscan_plain in the carry and all nine
+    records bit for bit, and JAX's scan_block row by row on valid
+    frames."""
+    jd, td = en_kws if net == "en_kws" else nets[net]
+    B, T, beam, ties = READING_CASES[case]
+    obs = _obs(td, B, T, seed=len(net) + len(case), ties=ties)
+    nv = np.asarray([T, T - 7, 1, 0, T // 2][:B], np.int32)
+    bm = np.full(B, jst.OFF_BEAM, np.float32) if beam is None else \
+        np.asarray(beam, np.float32)
+    args = (td.init_carry("cpu", B), torch.from_numpy(obs),
+            torch.zeros(B, dtype=torch.int32), torch.from_numpy(nv),
+            torch.from_numpy(bm), td.edge_tables("cpu"))
+    got = _read_tables(*args)
+    want = netscan.netscan_plain(*args)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(_bits(g), _bits(w))
+    for k in netscan.RECORDS:
+        assert torch.equal(_bits(got[1][k]), _bits(want[1][k])), k
+    for b in range(B):
+        jc, jr = jd.scan_block(jd.init_carry(), jnp.asarray(obs[b]), 0,
+                               jnp.int32(nv[b]), jnp.float32(bm[b]))
+        for g, w in zip(got[0], jc):
+            assert np.array_equal(g[b].numpy(), np.asarray(w))
+        n = int(nv[b])
+        for k, w in jr.items():
+            assert np.array_equal(got[1][k][b, :n].numpy(),
+                                  np.asarray(w)[:n]), (k, b)
+
+
+@pytest.mark.parametrize("net", NETS + ("en_kws",))
+def test_distinct_rows_group_equal_sequences(nets, en_kws, net):
+    """Each destination's row in ``cx_row`` is its own closure / sink row
+    (sources and weight bits, length included), distinct rows differ,
+    and its ids and word-time sources are its own slots'."""
+    td = (en_kws if net == "en_kws" else nets[net])[1]
+    t = td.tables
+    tb = netscan.slot_arrays(t)
+    U = tb["cx_row"].shape[0]
+    keys = {(int(tb["cx_len"][u]),
+             tb["cx_row"][u, :tb["cx_len"][u]].tobytes()) for u in range(U)}
+    assert len(keys) == U
+    for d in range(t.n_models + t.n_sinks):
+        dense = t.cm_dense[d] if d < t.n_models else \
+            t.cs_dense[d - t.n_models]
+        u = tb["cx_of"][d]
+        assert tb["cx_len"][u] == len(dense)
+        assert np.array_equal(tb["cx_dst"][d, :len(dense), 0], dense)
+    if net == "cz_loop":
+        assert U == 2          # the 46 entries' row and the sink's
+    if net == "repeated_rows":
+        assert U < t.n_models + t.n_sinks
