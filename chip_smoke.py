@@ -165,6 +165,9 @@ KERNELS = {
     "netscan": dict(module=netscan, counter="LAUNCHES",
                     source=CSRC + "netscan.cu",
                     replaces="phnrec_tpu/decoder/stknet.py:451"),
+    "netscan_warp": dict(module=netscan, counter="WARP_LAUNCHES",
+                         source=CSRC + "netscan.cu",
+                         replaces="phnrec_tpu/decoder/stknet.py:451"),
     "nettrace": dict(module=nettrace, counter="LAUNCHES",
                      source=CSRC + "nettrace.cu",
                      replaces="phnrec_tpu/decoder/stknet.py:668"),
@@ -190,7 +193,9 @@ KERNELS = {
 }
 BATCH_KERNELS = ("mlp_fused", "phnloop_viterbi", "backtrack")
 KWS_KERNELS = ("mlp_fused", "netstep", "lrtrace")
-STK_KERNELS = ("mlp_fused", "netscan", "nettrace")
+STK_KERNELS = ("mlp_fused", "netscan_warp", "nettrace")
+# kernel G's two instances: a block a row (big networks), a warp a row
+G_KERNELS = ("netscan", "netscan_warp")
 STK_SERVE_KERNELS = ("mlp_fused", "netdecode", "nettrace")
 # the split paths of A and A' (the 3BT / 1BT mergers)
 WIDE_KERNELS = ("mlp_fused_wide", "mlp_bf16x3_wide")
@@ -233,6 +238,12 @@ def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields,
                       "t_s": round(time.perf_counter() - _T0, 1)}),
           flush=True)
+
+
+def g_counter(dec) -> str:
+    """The counter of the kernel-G instance a network's sizes pick."""
+    return ("netscan_warp" if netscan.plan_instance(dec.edge_tables("cpu"))
+            == "warp" else "netscan")
 
 
 def reset_counts(names) -> None:
@@ -1430,8 +1441,8 @@ def kws_vs_cpu(sr, cpu_sr, dev, path: str = "kernel_b", name="kws_vs_cpu",
     rng = np.random.default_rng(seed)
     streams = [synth.synth_audio(rng, int((seconds - i) * fs), fs)
                .astype("<i2").tobytes() for i in range(n)]
-    names = ("mlp_fused", "netstep" if path == "kernel_b" else "netscan",
-             "lrtrace")
+    names = ("mlp_fused", "netstep" if path == "kernel_b" else
+             g_counter(sr.stk_decoder.decoder), "lrtrace")
     reset_counts(names)
     gpu = _Capture(sr, n, block_frames=512)
     got = _feed_chunks(gpu, streams)
@@ -1452,6 +1463,7 @@ def kws_vs_cpu(sr, cpu_sr, dev, path: str = "kernel_b", name="kws_vs_cpu",
     if not all(same) or not any(got) or not cpu.err <= TOL_KWS_LP:
         raise AssertionError(f"{name}: card hits differ from the CPU "
                              "port's")
+    return launches
 
 
 def kws_serving(en_sr, dev, n: int = 256, seconds: float = 60.0,
@@ -1871,8 +1883,10 @@ def _i32(a, dev):
 
 def _netscan_case(dec, dev, B, T, seed, ties=False, beam=None, t0=None,
                   force_global=False):
-    """Kernel G and its plain version on one input: (equal, kernel
-    records, n_valid)."""
+    """Kernel G's instances against the plain version on one input, each
+    forced where the network fits it (the block instance with its values
+    in device memory under ``force_global``): ({instance: equal}, the
+    planned instance's records, n_valid)."""
     rng = np.random.default_rng(seed)
     obs = _stk_obs(dec, B, T, seed, dev, ties)
     t0 = np.zeros(B, np.int32) if t0 is None else t0
@@ -1885,13 +1899,20 @@ def _netscan_case(dec, dev, B, T, seed, ties=False, beam=None, t0=None,
     if t0.any():
         # a carry one block in: the first T frames of another input
         args = (netscan.netscan(*args)[0], *args[1:])
-    ck, rk = (netscan.launch(netscan._lib(), *args, force_global=True)
-              if force_global else netscan.netscan(*args))
     cp, rp = netscan.netscan_plain(*args)
-    torch.cuda.synchronize()
-    same = all(_bits_equal(a, b) for a, b in zip(ck, cp)) and all(
-        _bits_equal(rk[k], rp[k]) for k in netscan.RECORDS)
-    return same, rk, _i32(nv, dev)
+    plan = netscan.plan_instance(args[-1])
+    same, recs = {}, None
+    for inst in netscan.INSTANCES:
+        if inst == "warp" and (force_global or plan != "warp"):
+            continue
+        ck, rk = netscan.launch(netscan._lib(), *args, instance=inst,
+                                force_global=force_global)
+        torch.cuda.synchronize()
+        same[inst] = all(_bits_equal(a, b) for a, b in zip(ck, cp)) and all(
+            _bits_equal(rk[k], rp[k]) for k in netscan.RECORDS)
+        if inst == plan or recs is None:
+            recs = rk
+    return same, recs, _i32(nv, dev)
 
 
 def _nettrace_case(dec, recs, nv, dev, seed, committed=False,
@@ -1921,18 +1942,24 @@ def nettrace_stage_frames(dec) -> int:
 
 def check_netscan_cases(nets: dict, dev) -> None:
     """Kernels G and H against their plain versions, bit for bit (carry,
-    all nine records of every frame, the walk's five outputs): the CZ
-    phoneme loop at B 256 x T 500 with ragged rows; the EN KWS net at B 8
-    x T 3,000; tie-heavy observations with signed zeros; a tight beam
-    differing by row; a carried second block at t0 > 0 differing by row;
-    the CZ loop with its per-row values forced to device memory; a random
-    word network of 1,500 models whose per-row values do not fit shared
-    memory (device memory by itself); H with frame0 >= 0 on every second
-    row, and rows that never reach the terminal sink (n_valid 0)."""
+    all nine records of every frame, the walk's five outputs), G's warp
+    and block instances each forced on every case whose network the warp
+    instance takes: the CZ phoneme loop at B 256 x T 500 with ragged rows
+    and at B 1 x T 500; the EN KWS net at B 8 x T 3,000; tie-heavy
+    observations with signed zeros; a tight beam differing by row; a
+    carried second block at t0 > 0 differing by row; the CZ loop with its
+    per-row values forced to device memory (block instance); a network
+    whose closure rows repeat with other edge ids, START edges at other
+    slots and two edges from one source; a random word network of 1,500
+    models (the block instance by the plan, its per-row values in device
+    memory by themselves); H with frame0 >= 0 on every second row, and
+    rows that never reach the terminal sink (n_valid 0)."""
     cz, en, big = nets["cz_loop"], nets["en_kws"], nets["random_big"]
+    rr = nets["repeated_rows"]
     rng = np.random.default_rng(41)
     cases = [
         ("cz_256x500", cz, dict(B=256, T=500, seed=1)),
+        ("cz_1x500", cz, dict(B=1, T=500, seed=10)),
         ("en_kws_8x3000", en, dict(B=8, T=3000, seed=2)),
         ("cz_ties", cz, dict(B=13, T=200, seed=3, ties=True)),
         ("en_ties_tight_beam", en, dict(B=8, T=300, seed=4, ties=True,
@@ -1944,6 +1971,8 @@ def check_netscan_cases(nets: dict, dev) -> None:
                                    .astype(np.int32))),
         ("cz_forced_global", cz, dict(B=16, T=200, seed=7,
                                       force_global=True)),
+        ("repeated_rows", rr, dict(B=16, T=300, seed=11, ties=True,
+                                   beam=rng.uniform(0.5, 4.0, 16))),
         ("random_big_global", big, dict(B=4, T=64, seed=8, ties=True)),
     ]
     out = {}
@@ -1956,7 +1985,8 @@ def check_netscan_cases(nets: dict, dev) -> None:
         same_hg = all(_nettrace_case(dec, recs, nv, dev, kw["seed"],
                                      committed=c, force_global=True)[0]
                       for c in (False, True))
-        out[name] = dict(netscan=same_g, nettrace=same_h,
+        out[name] = dict(netscan=same_g, plan=netscan.plan_instance(
+                             dec.edge_tables(dev)), nettrace=same_h,
                          nettrace_frame0=same_hc, nettrace_global=same_hg,
                          nettrace_stage_frames=nettrace_stage_frames(dec),
                          rows_ok=int(walk[0].sum()),
@@ -1967,14 +1997,19 @@ def check_netscan_cases(nets: dict, dev) -> None:
     phase("netscan_cases", cases=out, random_big_states=big.c.n_states,
           random_big_fits_smem=bool(big_smem))
     bad = [k for k, v in out.items()
-           if not (v["netscan"] and v["nettrace"] and v["nettrace_frame0"]
-                   and v["nettrace_global"])]
+           if not (all(v["netscan"].values()) and v["nettrace"]
+                   and v["nettrace_frame0"] and v["nettrace_global"])]
     shared_h = out["cz_256x500"]["nettrace_stage_frames"] > 0
+    warp = [k for k, v in out.items() if "warp" in v["netscan"]]
     if bad or big_smem or not shared_h or \
             out["random_big_global"]["nettrace_stage_frames"]:
         raise AssertionError(f"kernels G / H differ on {bad}, or the big "
                              "net took shared memory, or the CZ loop's "
                              "walk did not")
+    if out["random_big_global"]["plan"] != "block" or len(warp) != len(
+            out) - 2:
+        raise AssertionError(f"kernel G's instances: the warp one ran on "
+                             f"{warp}")
 
 
 def _netscan_work(dec, B: int, T: int) -> tuple:
@@ -2003,38 +2038,55 @@ def _nettrace_work(walk, nv, B: int, T: int) -> tuple:
 def time_netscan(dec, dev, B: int = 256, T: int = 500):
     """Kernels G and H at the CZ stkint batch shape (B 256 x T 500, the
     phoneme loop of 46 models): both timers, the plain versions, clocks a
-    frame (G) and a step (H), bounds."""
+    frame (G) and a step (H), bounds; G's warp and block instances each
+    forced (the warp one is the plan's for this network), also at B 1 x
+    T 500 (held)."""
     obs = _stk_obs(dec, B, T, 9, dev)
     nv = _i32(np.full(B, T), dev)
     beam = torch.full((B,), float(OFF_BEAM), device=dev)
     tb = dec.edge_tables(dev)
     carry = dec.init_carry(dev, B)
     t0 = _i32(np.zeros(B), dev)
-    g = lambda: netscan.netscan(carry, obs, t0, nv, beam, tb)  # noqa: E731
-    recs = g()[1]
+    recs = netscan.netscan(carry, obs, t0, nv, beam, tb)[1]
     f0 = _i32(np.full(B, -1), dev)
     h = lambda: nettrace.nettrace(recs, nv, f0, tb,  # noqa: E731
                                   dec.c.terminal_sink)
     walk = h()
+    lib = netscan._lib()
+
+    def g(inst, rows=B):
+        args = (carry, obs, t0, nv, beam) if rows == B else (
+            tuple(c[:rows].contiguous() for c in carry),
+            obs[:rows].contiguous(), t0[:rows].contiguous(),
+            nv[:rows].contiguous(), beam[:rows].contiguous())
+        return lambda: netscan.launch(lib, *args, tb, instance=inst)
+
+    g_plain = cuda_ms(lambda: netscan.netscan_plain(carry, obs, t0, nv,
+                                                    beam, tb),
+                      iters=2, warmup=1)
     res = {}
-    for name, fn, plain, work, steps in (
-            ("netscan", g, lambda: netscan.netscan_plain(carry, obs, t0, nv,
-                                                         beam, tb),
-             _netscan_work(dec, B, T), T),
-            ("nettrace", h, lambda: nettrace.nettrace_plain(
-                recs, nv, f0, tb, dec.c.terminal_sink),
+    for name, fn, t_p, work, steps in (
+            ("netscan_warp", g("warp"), g_plain, _netscan_work(dec, B, T), T),
+            ("netscan", g("block"), g_plain, _netscan_work(dec, B, T), T),
+            ("nettrace", h, cuda_ms(lambda: nettrace.nettrace_plain(
+                recs, nv, f0, tb, dec.c.terminal_sink), iters=2, warmup=1),
              _nettrace_work(walk, nv, B, T), T)):
         t_k = cuda_ms(fn)
         held = scan_variants.held_ms(fn)
-        t_p = cuda_ms(plain, iters=2, warmup=1)
         mhz = sm_clock(fn, max(t_k, 0.2))
         res[name] = dict(max_abs_err=0.0, ms=t_k, held_ms=held, plain_ms=t_p,
                          sm_clock_mhz=mhz,
                          clocks_a_frame=held * 1e-3 * mhz * 1e6 / steps,
                          **bound(*work, PEAK_FP32))
+    for name, inst in (("netscan_warp", "warp"), ("netscan", "block")):
+        held = scan_variants.held_ms(g(inst, 1))
+        res[name]["b1_held_ms"] = held
+        res[name]["b1_clocks_a_frame"] = \
+            held * 1e-3 * res[name]["sm_clock_mhz"] * 1e6 / T
     res["nettrace"]["clocks_a_step"] = res["nettrace"].pop("clocks_a_frame")
     phase("netscan_timing", B=B, T=T, states=dec.c.n_states,
           models=dec.c.n_models, closure_edges=len(dec.cm),
+          distinct_rows=int(tb["cx_len"].shape[0]),
           rows_ok=int(walk[0].sum()), crossings=int((walk[3] >= 0).sum()),
           **res)
     return res
@@ -2275,7 +2327,8 @@ def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
     rng = np.random.default_rng(41)
     raw = synth.synth_audio(rng, int(seconds * 8000)).astype("<i2").tobytes()
     chunk = int(chunk_s * 8000) * 2
-    names = ("mlp_fused", "netscan")
+    g_name = g_counter(sr.stk_decoder.decoder)
+    names = ("mlp_fused", *G_KERNELS)
     out = {}
     for commits in (False, True):
         rec = StreamingRecognizer(sr, block_frames=block)
@@ -2318,7 +2371,8 @@ def stk_streaming_vs_cpu(sr, cpu_sr, dev, seconds: float = 60.0,
                         + 2 * block):
             raise AssertionError(f"committed {rec.committed_count}, peak "
                                  f"{peak} rows")
-        if launches["netscan"] != len(lps) or launches["mlp_fused"] == 0:
+        if launches[g_name] != len(lps) or launches["mlp_fused"] == 0 or \
+                sum(launches[k] for k in G_KERNELS) != len(lps):
             raise AssertionError(f"launches {launches}")
         out = launches
     return out
@@ -2360,7 +2414,8 @@ def stk_live_kws_vs_cpu(sr, cpu_sr, dev, seconds: float = 30.0,
 
     rec._kws_tracker.feed_sinks = fan
     rec._run_stk_block = lambda lp: (lps.append(lp.clone()), run(lp))
-    names = ("mlp_fused", "netscan", "lrtrace")
+    g_name = g_counter(stk.decoder)
+    names = ("mlp_fused", *G_KERNELS, "lrtrace")
     reset_counts(names)
     live = []
     torch.cuda.synchronize()
@@ -2401,7 +2456,8 @@ def stk_live_kws_vs_cpu(sr, cpu_sr, dev, seconds: float = 30.0,
     if not same or not all(v["cpu_equal"] for v in per_setting.values()):
         raise AssertionError("live KWS hits differ from the CPU port")
     if launches["lrtrace"] != len(LRTRACE_SETTINGS) * len(lps) or \
-            launches["netscan"] != len(lps):
+            launches[g_name] != len(lps) or \
+            sum(launches[k] for k in G_KERNELS) != len(lps):
         raise AssertionError(f"launches {launches}, {len(lps)} blocks")
     return launches
 
@@ -2434,14 +2490,15 @@ def stk_kws_files(en_sr, en_cpu, tmp, dev, n: int = 8) -> dict:
         return out
 
     stk.decode_batch = spy
-    reset_counts(("mlp_fused", "netscan"))
+    names = ("mlp_fused", g_counter(stk.decoder))
+    reset_counts(names)
     try:
         en_sr.process_file_list("wf", "str", lst,
                                 os.path.join(tmp, "en.mlf"))
         torch.cuda.synchronize()
     finally:
         del stk.decode_batch
-    launches = read_counts(("mlp_fused", "netscan"))
+    launches = read_counts(names)
     same, hits = [], 0
     for lp, nf, out in seen:
         want = en_cpu.stk_decoder.decode_batch(lp, nf)
@@ -3483,6 +3540,7 @@ def main() -> int:
         check_netscan_cases({
             "cz_loop": stk_sr.stk_decoder.decoder,
             "en_kws": en_sr.stk_decoder.decoder,
+            "repeated_rows": NetworkDecoder(synth.repeated_rows_network()),
             "random_big": NetworkDecoder(synth.random_network(1500, seed=1))},
             dev)
         clk = time_netscan(stk_sr.stk_decoder.decoder, dev)
@@ -3515,9 +3573,11 @@ def main() -> int:
                 ("kws_big_vs_cpu", "kernel_g", dict(n_keywords=300))):
             kpkg = synth.write_kws_package(os.path.join(tmp, name), "en",
                                            seed=0, **kw)
-            kws_vs_cpu(SpeechRec(kpkg, device=dev),
-                       SpeechRec(kpkg, device="cpu"), dev, path, name,
-                       seed=33)
+            got = kws_vs_cpu(SpeechRec(kpkg, device=dev),
+                             SpeechRec(kpkg, device="cpu"), dev, path, name,
+                             seed=33)
+        # the 1,525-model net: kernel G's block instance, by the plan
+        launches["netscan"] = got.get("netscan", 0)
 
         # single-stream stkint streaming: decode on the CZ loop (G, the
         # host's commits), live KWS on the EN package (G, then F at each

@@ -65,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "netdense.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
@@ -445,6 +447,321 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
   }
 }
 
+// -- the warp instance: a warp a row --------------------------------------
+//
+// Limits (ops/netscan.py holds the same numbers; a network past any of
+// them takes the block instance): E <= 32 x 8 states (EPL states a lane,
+// state e = j * 32 + lane), K_in and K_ex <= W_K slots, M <= 32 x W_MPL
+// models, M + S <= 32 x W_DPL destinations, U <= 32 distinct closure /
+// sink rows and a lane's share of its row (ceil(Kx / G) strided slots,
+// G lanes a row) <= W_CR, and the staged tables beside one row's slice
+// within a block's shared memory.
+constexpr int W_K = 4;
+constexpr int W_MPL = 2;
+constexpr int W_DPL = 3;
+constexpr int W_CR = 24;
+constexpr int W_ROWS = 4;   // rows (warps) a block, at most
+
+struct WarpArgs {
+  const int4 *in_slot, *ex_slot;   // [E * Kin], [M * Kex]
+  const int2* cx_row;              // [U * Kx]
+  const int *cx_len, *cx_of;       // [U], [D]
+  const int2* cx_dst;              // [D * Kx]
+  const float* obs;                // [B, T, E]
+  const int *t0, *n_valid;
+  const float* beam;
+  Carry in, out;
+  Records rec;
+  int B, T, E, M, S, n_cs, Kin, Kex, Kx, U, G, SG, rows;
+};
+
+// 4-byte words of a row's slice: vin [M + E + 1], win [M + E], na [E + 1],
+// nwt [E], xv [M + 1], xwt [M], rounded up to 16 bytes
+__host__ __device__ inline int warp_slice_words(int E, int M) {
+  return (4 * E + 4 * M + 3 + 3) / 4 * 4;
+}
+
+// bytes of the tables a block stages: the in-model and exit slots (their
+// edge ids and word-time sources are read at the winners) and the
+// destinations' (edge id, word-time source) by slot
+__host__ __device__ inline size_t warp_table_bytes(int E, int M, int D,
+                                                   int Kin, int Kex,
+                                                   int Kx) {
+  return 16 * ((size_t)E * Kin + (size_t)M * Kex) + 8 * (size_t)D * Kx;
+}
+
+template <int EPL>
+__global__ void __launch_bounds__(32 * W_ROWS)
+netscan_warp_kernel(const WarpArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  const int E = g.E, M = g.M, S = g.S, D = M + S, T = g.T;
+  const int Kin = g.Kin, Kex = g.Kex, Kx = g.Kx, G = g.G, SG = g.SG;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // the block's tables, then a slice a row
+  int4* s_in = reinterpret_cast<int4*>(smem);
+  int4* s_ex = s_in + (size_t)E * Kin;
+  int2* s_dst = reinterpret_cast<int2*>(s_ex + (size_t)M * Kex);
+  stage(s_in, g.in_slot, (size_t)E * Kin);
+  stage(s_ex, g.ex_slot, (size_t)M * Kex);
+  stage(s_dst, g.cx_dst, (size_t)D * Kx);
+  const size_t tab_words = warp_table_bytes(E, M, D, Kin, Kex, Kx) / 4;
+  float* vin = smem + tab_words + (size_t)warp * warp_slice_words(E, M);
+  int* win = reinterpret_cast<int*>(vin + M + E + 1);  // [entry_wt | wt]
+  float* na = reinterpret_cast<float*>(win + M + E);   // [cut alpha | NEG]
+  int* nwt = reinterpret_cast<int*>(na + E + 1);
+  float* xv = reinterpret_cast<float*>(nwt + E);       // [exit values | NEG]
+  int* xwt = reinterpret_cast<int*>(xv + M + 1);
+  __syncthreads();  // the tables are read by every warp of the block
+  const int b = blockIdx.x * g.rows + warp;
+  if (b >= g.B) return;
+
+  // the carry into the slice; each lane's own destinations' entry values
+  // and edges also in registers (the records of the carry entering a
+  // frame are stored from them)
+  for (int e = lane; e < E; e += 32) {
+    vin[M + e] = g.in.alpha[(size_t)b * E + e];
+    win[M + e] = g.in.wt[(size_t)b * E + e];
+  }
+  for (int m = lane; m < M; m += 32) {
+    vin[m] = g.in.entry[(size_t)b * M + m];
+    win[m] = g.in.entry_wt[(size_t)b * M + m];
+  }
+  if (lane == 0) {
+    vin[M + E] = NEG;
+    na[E] = NEG;
+    xv[M] = NEG;
+  }
+  float en[W_DPL];
+  int eg[W_DPL], dof[W_DPL];
+#pragma unroll
+  for (int j = 0; j < W_DPL; ++j) {
+    const int d = j * 32 + lane;
+    en[j] = d < M ? g.in.entry[(size_t)b * M + d] : 0.f;
+    eg[j] = d < M ? g.in.entry_edge[(size_t)b * M + d] : 0;
+    dof[j] = d < D ? g.cx_of[d] : 0;
+  }
+
+  // each lane's slots, held in registers across the frames: its states'
+  // in-model slots, its models' exit slots and its share of one distinct
+  // row (u = lane / G, strided slots j = lane % G + G * s)
+  int isrc[EPL][W_K], xsrc[W_MPL][W_K], csrc[W_CR];
+  float iw[EPL][W_K], xw[W_MPL][W_K], cw[W_CR], o[EPL];
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const int e = j * 32 + lane;
+#pragma unroll
+    for (int k = 0; k < W_K; ++k) {
+      const int4 sl = e < E && k < Kin ? g.in_slot[(size_t)e * Kin + k]
+                                       : make_int4(M + E, -1, 0, 0);
+      isrc[j][k] = sl.x;
+      iw[j][k] = __int_as_float(sl.w);
+    }
+    o[j] = e < E && T > 0 ? g.obs[(size_t)b * T * E + e] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < W_MPL; ++j) {
+    const int m = j * 32 + lane;
+#pragma unroll
+    for (int k = 0; k < W_K; ++k) {
+      const int4 sl = m < M && k < Kex ? g.ex_slot[(size_t)m * Kex + k]
+                                       : make_int4(E, -1, 0, 0);
+      xsrc[j][k] = sl.x;
+      xw[j][k] = __int_as_float(sl.w);
+    }
+  }
+  const int u = lane / G, gl = lane % G;
+  const int clen = u < g.U ? g.cx_len[u] : 0;
+#pragma unroll
+  for (int s = 0; s < W_CR; ++s) {
+    const int j = gl + G * s;
+    const int2 sl = s < SG && j < clen ? g.cx_row[(size_t)u * Kx + j]
+                                       : make_int2(M, 0);
+    csrc[s] = sl.x;
+    cw[s] = __int_as_float(sl.y);
+  }
+  __syncwarp();
+
+  const int tb = g.t0[b], nv = g.n_valid[b];
+  const float bm = g.beam[b];
+  const Records& rec = g.rec;
+  for (int i = 0; i < T; ++i) {
+    const int t = tb + 1 + i;
+    const bool valid = t <= nv;
+    const size_t fr = (size_t)b * T + i;
+#pragma unroll
+    for (int j = 0; j < W_DPL; ++j) {
+      const int d = j * 32 + lane;
+      if (d < M) {
+        rec.entry_edge[fr * M + d] = eg[j];
+        rec.entry_val[fr * M + d] = en[j];
+      }
+    }
+
+    // in-model and entry edges into the lane's states, + observation
+    float a[EPL];
+    int awt[EPL];
+    float lmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      const int e = j * 32 + lane;
+      float best = vin[isrc[j][0]] + iw[j][0];
+      int kb = 0;
+#pragma unroll
+      for (int k = 1; k < W_K; ++k) {
+        if (k >= Kin) break;
+        const float v = vin[isrc[j][k]] + iw[j][k];
+        if (v > best) {
+          best = v;
+          kb = k;
+        }
+      }
+      a[j] = best + o[j];
+      awt[j] = 0;
+      if (e < E) {
+        const int4 sl = s_in[e * Kin + kb];
+        awt[j] = win[sl.z];
+        rec.in_am[fr * E + e] = sl.y;
+        lmax = fmaxf(lmax, a[j]);
+      }
+    }
+    if (i + 1 < T) {
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        const int e = j * 32 + lane;
+        if (e < E) o[j] = g.obs[(fr + 1) * E + e];
+      }
+    }
+    // the beam against the row's best state
+    const float thresh = netdense::warp_max(lmax) - bm;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      const int e = j * 32 + lane;
+      a[j] = pruned(a[j], thresh);
+      if (e < E) {
+        na[e] = a[j];
+        nwt[e] = awt[j];
+      }
+    }
+    __syncwarp();
+
+    // exits from the cut alpha
+#pragma unroll
+    for (int j = 0; j < W_MPL; ++j) {
+      const int m = j * 32 + lane;
+      float best = na[xsrc[j][0]] + xw[j][0];
+      int kb = 0;
+#pragma unroll
+      for (int k = 1; k < W_K; ++k) {
+        if (k >= Kex) break;
+        const float v = na[xsrc[j][k]] + xw[j][k];
+        if (v > best) {
+          best = v;
+          kb = k;
+        }
+      }
+      if (m < M) {
+        const int4 sl = s_ex[m * Kex + kb];
+        xv[m] = best;
+        xwt[m] = nwt[sl.z];
+        rec.ex_am[fr * M + m] = sl.y;
+        rec.exit_val[fr * M + m] = best;
+      }
+    }
+    __syncwarp();
+
+    // the closure and the sinks: the first maximum of each distinct row
+    // by its G lanes (every lane of the group ends with it) ...
+    float rv = -INFINITY;
+    int rk = 0x7fffffff;
+#pragma unroll
+    for (int s = 0; s < W_CR; ++s) {
+      if (s >= SG) break;
+      const float v = xv[csrc[s]] + cw[s];
+      if (gl + G * s < clen && (rk == 0x7fffffff || v > rv)) {
+        rv = v;
+        rk = gl + G * s;
+      }
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, rv, off);
+      const int ok = __shfl_xor_sync(0xffffffffu, rk, off);
+      if (ov > rv || (ov == rv && ok < rk)) {
+        rv = ov;
+        rk = ok;
+      }
+    }
+    // ... then each destination takes its row's from the row's first
+    // lane, and its own edge id and word-time source at the winning slot
+#pragma unroll
+    for (int j = 0; j < W_DPL; ++j) {
+      const int d = j * 32 + lane;
+      const float v = __shfl_sync(0xffffffffu, rv, dof[j] * G);
+      const int k = __shfl_sync(0xffffffffu, rk, dof[j] * G);
+      if (d >= D) continue;
+      if (d >= M && g.n_cs == 0) {  // no sink edges
+        rec.sink_val[fr * S + d - M] = NEG;
+        rec.cs_am[fr * S + d - M] = 0;
+        rec.sink_wt[fr * S + d - M] = 0;
+        continue;
+      }
+      const int2 iz = s_dst[d * Kx + k];
+      if (d < M) {
+        rec.cm_am[fr * M + d] = iz.x;
+        if (valid) {
+          en[j] = pruned(v, thresh);
+          eg[j] = iz.x > 0 ? iz.x : 0;
+          vin[d] = en[j];
+          win[d] = iz.y < 0 ? t : xwt[iz.y];
+        }
+      } else {
+        rec.sink_val[fr * S + d - M] = v;
+        rec.cs_am[fr * S + d - M] = iz.x;
+        rec.sink_wt[fr * S + d - M] = xwt[iz.y];
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        const int e = j * 32 + lane;
+        if (e < E) {
+          vin[M + e] = a[j];
+          win[M + e] = awt[j];
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  for (int e = lane; e < E; e += 32) {
+    g.out.alpha[(size_t)b * E + e] = vin[M + e];
+    g.out.wt[(size_t)b * E + e] = win[M + e];
+  }
+#pragma unroll
+  for (int j = 0; j < W_DPL; ++j) {
+    const int d = j * 32 + lane;
+    if (d < M) {
+      g.out.entry[(size_t)b * M + d] = en[j];
+      g.out.entry_edge[(size_t)b * M + d] = eg[j];
+      g.out.entry_wt[(size_t)b * M + d] = win[d];
+    }
+  }
+}
+
+using WarpKernel = void (*)(const WarpArgs);
+
+// the states-a-lane instances, E <= 32 x EPL
+WarpKernel warp_kernel_for(int E) {
+  if (E <= 32) return netscan_warp_kernel<1>;
+  if (E <= 64) return netscan_warp_kernel<2>;
+  if (E <= 96) return netscan_warp_kernel<3>;
+  if (E <= 128) return netscan_warp_kernel<4>;
+  if (E <= 160) return netscan_warp_kernel<5>;
+  if (E <= 192) return netscan_warp_kernel<6>;
+  if (E <= 256) return netscan_warp_kernel<8>;
+  return nullptr;
+}
+
 // lanes a destination of a row of K slots: up to 12 slots a lane, <= 32
 int lanes_for(int K) {
   int L = 1;
@@ -459,6 +776,95 @@ int lanes_for_rows(int U, int Kx, int threads) {
   int G = 1;
   while (G < 32 && U * 2 * G <= threads && G < Kx) G <<= 1;
   return G;
+}
+
+// lanes a distinct row in the warp instance (U <= 32 rows in one warp)
+int warp_lanes_for_rows(int U, int Kx) { return lanes_for_rows(U, Kx, 32); }
+
+// The warp instance's plan: rows a block (as many blocks as the SMs take
+// at B, up to W_ROWS rows a block, as shared memory holds) and its
+// dynamic shared memory; false when the network is past the instance's
+// limits.
+bool warp_plan(int B, int E, int M, int S, int Kin, int Kex, int Kx, int U,
+               int* rows, size_t* smem) {
+  const int G = warp_lanes_for_rows(U, Kx);
+  if (E > 256 || Kin > W_K || Kex > W_K || M > 32 * W_MPL ||
+      M + S > 32 * W_DPL || U > 32 || (Kx + G - 1) / G > W_CR)
+    return false;
+  int dev = 0, optin = 0, n_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const size_t tab = warp_table_bytes(E, M, M + S, Kin, Kex, Kx);
+  const size_t slice = 4 * (size_t)warp_slice_words(E, M);
+  int w = (B + n_sm - 1) / n_sm;
+  w = w < 1 ? 1 : (w > W_ROWS ? W_ROWS : w);
+  while (w > 1 && tab + w * slice > (size_t)optin) --w;
+  if (tab + slice > (size_t)optin) return false;
+  *rows = w;
+  *smem = tab + w * slice;
+  return true;
+}
+
+int launch_warp(int B, int T, int E, int M, int S, int n_cs, int Kin,
+                int Kex, int Kx, int U, const void* in_slot,
+                const void* ex_slot, const void* cx_row, const void* cx_len,
+                const void* cx_of, const void* cx_dst, const void* obs,
+                const void* t0, const void* n_valid, const void* beam,
+                void* alpha, void* wt, void* entry, void* entry_edge,
+                void* entry_wt, void* alpha_out, void* wt_out,
+                void* entry_out, void* entry_edge_out, void* entry_wt_out,
+                void* in_am, void* ex_am, void* cm_am, void* r_entry_edge,
+                void* entry_val, void* sink_val, void* cs_am, void* sink_wt,
+                void* exit_val, void* stream) {
+  int rows;
+  size_t smem;
+  const WarpKernel k = warp_kernel_for(E);
+  if (!k || !warp_plan(B, E, M, S, Kin, Kex, Kx, U, &rows, &smem))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  WarpArgs g;
+  g.in_slot = static_cast<const int4*>(in_slot);
+  g.ex_slot = static_cast<const int4*>(ex_slot);
+  g.cx_row = static_cast<const int2*>(cx_row);
+  g.cx_len = static_cast<const int*>(cx_len);
+  g.cx_of = static_cast<const int*>(cx_of);
+  g.cx_dst = static_cast<const int2*>(cx_dst);
+  g.obs = static_cast<const float*>(obs);
+  g.t0 = static_cast<const int*>(t0);
+  g.n_valid = static_cast<const int*>(n_valid);
+  g.beam = static_cast<const float*>(beam);
+  g.in = Carry{static_cast<float*>(alpha), static_cast<int*>(wt),
+               static_cast<float*>(entry), static_cast<int*>(entry_edge),
+               static_cast<int*>(entry_wt)};
+  g.out = Carry{static_cast<float*>(alpha_out), static_cast<int*>(wt_out),
+                static_cast<float*>(entry_out),
+                static_cast<int*>(entry_edge_out),
+                static_cast<int*>(entry_wt_out)};
+  g.rec = Records{static_cast<int*>(in_am),       static_cast<int*>(ex_am),
+                  static_cast<int*>(cm_am),       static_cast<int*>(r_entry_edge),
+                  static_cast<float*>(entry_val), static_cast<float*>(sink_val),
+                  static_cast<int*>(cs_am),       static_cast<int*>(sink_wt),
+                  static_cast<float*>(exit_val)};
+  g.B = B;
+  g.T = T;
+  g.E = E;
+  g.M = M;
+  g.S = S;
+  g.n_cs = n_cs;
+  g.Kin = Kin;
+  g.Kex = Kex;
+  g.Kx = Kx;
+  g.U = U;
+  g.G = warp_lanes_for_rows(U, Kx);
+  g.SG = (Kx + g.G - 1) / g.G;
+  g.rows = rows;
+  k<<<(B + rows - 1) / rows, 32 * rows, smem,
+      static_cast<cudaStream_t>(stream)>>>(g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -492,8 +898,16 @@ extern "C" int netscan(int B, int T, int E, int M, int S, int n_cs,
                        int warp, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (T < 0 || E <= 0 || M <= 0 || S < 0 || n_cs < 0 || Kin <= 0 ||
-      Kex <= 0 || Kx <= 0 || U <= 0 || warp)
+      Kex <= 0 || Kx <= 0 || U <= 0)
     return cudaErrorInvalidValue;
+  if (warp)
+    return launch_warp(B, T, E, M, S, n_cs, Kin, Kex, Kx, U, in_slot,
+                       ex_slot, cx_row, cx_len, cx_of, cx_dst, obs, t0,
+                       n_valid, beam, alpha, wt, entry, entry_edge, entry_wt,
+                       alpha_out, wt_out, entry_out, entry_edge_out,
+                       entry_wt_out, in_am, ex_am, cm_am, r_entry_edge,
+                       entry_val, sink_val, cs_am, sink_wt, exit_val,
+                       stream);
   auto tab = [](const void* s, int D, int K) {
     return Tab{static_cast<const int4*>(s), D, K, lanes_for(K)};
   };

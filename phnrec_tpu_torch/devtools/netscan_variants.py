@@ -28,8 +28,8 @@ first) on the CZ loop at B 256 x T 500 and at B 1 x T 500 by both timers
 scan_variants.held_ms, the card held while the host enqueues), with the
 SM clock under load and clocks a frame, and at B 132 (a row on each SM)
 and 264 (two) held.  With ``--ablate`` the last source is built again
-once for each of the ABLATIONS below (wrong results: timed, not checked)
-and timed on the instance the cut belongs to.  One JSON line per build,
+once for each of the ABLATIONS below (wrong results: timed, not checked;
+a miss is reported) and timed on the instances the cut belongs to.  One JSON line per build,
 check and timing; the card's name and power limit first.
 """
 
@@ -55,16 +55,29 @@ from phnrec_tpu_torch.devtools.scan_variants import held_ms
 from phnrec_tpu_torch.ops import netscan
 from phnrec_tpu_torch.pipeline import SpeechRec
 
-# regex edits that cut one part out of a kernel: (what, instance, pattern,
-# new); the instance is the one whose code the pattern cuts (None: a
-# source with one design)
+# regex edits that cut one part out of a kernel: (what, the instances it
+# is timed on, ((pattern, new), ...)); every pattern must hit
 ABLATIONS = (
-    ("no_records", None, r"\n\s*rec\.\w+\[[^;]*;", ""),
-    ("no_in_model", None, r"e0 < E; e0 \+= groups", "e0 < 0; e0 += groups"),
-    ("no_exits", None, r"m0 < M; m0 \+= groups", "m0 < 0; m0 += groups"),
-    ("no_closure_sinks", None, r"d0 < n_dst; d0 \+= groups",
-     "d0 < 0; d0 += groups"),
-    ("no_frame_barriers", None, r"\n    __syncthreads\(\);\n", "\n"),
+    ("no_records", ("block", "warp"), ((r"\n\s*rec\.\w+\[[^;]*;", ""),)),
+    ("no_in_model", ("block",),
+     ((r"e0 < E; e0 \+= groups", "e0 < 0; e0 += groups"),)),
+    ("no_exits", ("block",),
+     ((r"m0 < M; m0 \+= groups", "m0 < 0; m0 += groups"),)),
+    ("no_closure_sinks", ("block",),
+     ((r"u0 < U; u0 \+= groups", "u0 < 0; u0 += groups"),
+      (r"d = tid; d < D; d \+= THREADS", "d = tid; d < 0; d += THREADS"))),
+    ("no_frame_barriers", ("block",),
+     ((r"\n    __syncthreads\(\);\n", "\n"),)),
+    ("warp_no_in_model_loads", ("warp",),
+     ((r"vin\[isrc\[j\]\[(0|k)\]\] \+ ", ""),)),
+    ("warp_no_exit_loads", ("warp",),
+     ((r"na\[xsrc\[j\]\[(0|k)\]\] \+ ", ""),)),
+    ("warp_no_closure_sinks", ("warp",),
+     ((r"if \(s >= SG\) break;", "if (s >= 0) break;"),
+      (r"j < W_DPL; \+\+j\) \{\n      const int d = j \* 32 \+ lane;\n"
+       r"      const float v", "j < 0; ++j) {\n      const int d = j * 32 + "
+       "lane;\n      const float v"))),
+    ("warp_no_syncwarp", ("warp",), ((r"\n    __syncwarp\(\);\n", "\n"),)),
 )
 
 
@@ -126,7 +139,7 @@ def _takes(mod, inst, tb, kw) -> bool:
         return True
     if inst == "warp" and kw.get("force_global"):
         return False
-    return inst == "block" or mod.instance(tb) == "warp"
+    return inst == "block" or mod.plan_instance(tb) == "warp"
 
 
 def _launch(mod, lib, inst, args, tb, **kw):
@@ -180,16 +193,20 @@ def main(argv) -> int:
         mod, text = variants[-1][1], Path(src).read_text()
         out = netscan._build.BUILD_DIR / "variants"
         out.mkdir(parents=True, exist_ok=True)
-        for what, inst, old, new in ABLATIONS:
-            cut = re.sub(old, new, text)
-            if cut == text:
+        for what, insts, edits in ABLATIONS:
+            cut, hit = text, True
+            for old, new in edits:
+                cut, n = re.subn(old, new, cut)
+                hit &= n > 0
+            if not hit:
                 print(json.dumps({"ablation_misses": what}), flush=True)
                 continue
             path = out / f"netscan_{what}.cu"
             path.write_text(cut)
-            if inst is None or inst in getattr(mod, "INSTANCES", ()):
-                ablated.append((what, mod, mod.bind(build(what, path)),
-                                inst))
+            lib = mod.bind(build(what, path))
+            for inst in insts:
+                if inst in getattr(mod, "INSTANCES", ()):
+                    ablated.append((f"{what}@{inst}", mod, lib, inst))
     runs = _runs(variants, only)
     tmp = tempfile.mkdtemp()
     cz = SpeechRec(synth.write_stk_decode_package(

@@ -37,7 +37,20 @@ import torch
 from phnrec_tpu_torch.decoder.stknet import NEG
 from phnrec_tpu_torch.ops import _build
 
-LAUNCHES = 0
+LAUNCHES = 0        # the block instance
+WARP_LAUNCHES = 0   # the warp instance
+
+# kernel G's two instances (csrc/netscan.cu): a warp a row where the
+# network is within the limits below (the source holds the same numbers),
+# else a block of 256 threads a row
+INSTANCES = ("warp", "block")
+WARP_MAX_E = 256     # 8 states a lane
+WARP_MAX_K = 4       # in-model slots a state, exit slots a model
+WARP_MAX_M = 64      # models (2 a lane)
+WARP_MAX_D = 96      # closure and sink destinations, M + S (3 a lane)
+WARP_MAX_U = 32      # distinct closure / sink rows
+WARP_ROW_SLOTS = 24  # a lane's strided share of its distinct row
+SMEM_MAX = 232448    # a block's shared memory on the H100 (227 KB)
 
 Carry = Tuple[torch.Tensor, ...]
 RECORDS = {"in_am": (torch.int32, "E"), "ex_am": (torch.int32, "M"),
@@ -236,16 +249,48 @@ def _sizes(tb: Dict[str, torch.Tensor]) -> Dict[str, int]:
                 U=tb["cx_row"].shape[0], n_cs=tb["cs_w"].shape[0])
 
 
+def _row_lanes(U: int, Kx: int) -> int:
+    """Lanes a distinct row in the warp instance: as many as leave every
+    row a group of the warp's 32 (a power of two, no more than the
+    slots need); csrc/netscan.cu's lanes_for_rows."""
+    G = 1
+    while G < 32 and U * 2 * G <= 32 and G < Kx:
+        G *= 2
+    return G
+
+
+def plan_instance(tb: Dict[str, torch.Tensor]) -> str:
+    """The instance that takes a network, by its sizes alone: "warp"
+    within the warp instance's limits (its staged tables and one row's
+    slice in a block's shared memory), else "block"."""
+    z = _sizes(tb)
+    E, M, D, U, Kx = z["E"], z["M"], z["D"], z["U"], z["Kx"]
+    G = _row_lanes(U, Kx)
+    smem = (16 * (E * z["Kin"] + M * z["Kex"]) + 8 * D * Kx
+            + 4 * ((4 * E + 4 * M + 6) // 4 * 4))
+    fits = (E <= WARP_MAX_E and max(z["Kin"], z["Kex"]) <= WARP_MAX_K
+            and M <= WARP_MAX_M and D <= WARP_MAX_D and U <= WARP_MAX_U
+            and -(-Kx // G) <= WARP_ROW_SLOTS and smem <= SMEM_MAX)
+    return "warp" if fits else "block"
+
+
 def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
            t0: torch.Tensor, n_valid: torch.Tensor, beam: torch.Tensor,
-           tb: Dict[str, torch.Tensor], force_global: bool = False
+           tb: Dict[str, torch.Tensor], force_global: bool = False,
+           instance: str = "block"
            ) -> Tuple[Carry, Dict[str, torch.Tensor]]:
-    """Launch the kernel of ``lib`` (a bound kernel-G library) on CUDA
-    tensors; raises on anything it does not take.  Where a row's values,
-    two frames of observations and the tables fit a block's shared
-    memory they live there, else in device memory; ``force_global`` takes
-    device memory in any case (both paths are held to the plain
-    version).  Counts nothing."""
+    """Launch one instance of the kernel of ``lib`` (a bound kernel-G
+    library) on CUDA tensors; raises on anything it does not take (the
+    warp instance on a network past its limits too).  "warp": a warp a
+    row, the tables staged in shared memory.  "block": where a row's
+    values, two frames of observations and the tables fit a block's
+    shared memory they live there, else in device memory;
+    ``force_global`` takes device memory in any case (both paths are
+    held to the plain version).  Counts nothing."""
+    if instance not in INSTANCES:
+        raise ValueError(f"no instance {instance!r}")
+    if instance == "warp" and force_global:
+        raise ValueError("the warp instance has no device-memory path")
     device = _build.cuda_device(obs)
     if obs.dim() != 3:
         raise ValueError("obs must be [B, T, E]")
@@ -277,7 +322,10 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
     recs = {k: torch.empty((B, T, _width(k, E, M, S)), dtype=dt,
                            device=device)
             for k, (dt, _) in RECORDS.items()}
-    use_smem = not force_global and lib.netscan_smem_bytes(
+    warp = instance == "warp"
+    if warp and plan_instance(tb) != "warp":
+        raise ValueError("the network is past the warp instance's limits")
+    use_smem = warp or not force_global and lib.netscan_smem_bytes(
         E, M, S, z["Kin"], z["Kex"], Kx, U) > 0
     scratch = torch.empty(0 if use_smem else
                           B * lib.netscan_scratch_words(E, M, U),
@@ -293,7 +341,7 @@ def launch(lib: ctypes.CDLL, carry: Carry, obs: torch.Tensor,
             beam.data_ptr(), *(t.data_ptr() for t in carry),
             *(t.data_ptr() for t in out_carry),
             *(recs[k].data_ptr() for k in RECORDS), scratch.data_ptr(),
-            int(use_smem), 0, stream)
+            int(use_smem), int(warp), stream)
     _build.check(err, "netscan")
     return out_carry, recs
 
@@ -303,13 +351,17 @@ def netscan(carry: Carry, obs: torch.Tensor, t0: torch.Tensor,
             tb: Dict[str, torch.Tensor]
             ) -> Tuple[Carry, Dict[str, torch.Tensor]]:
     """One block of frames: CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one launch for all T frames), and anything
-    the kernel does not take raises."""
+    tensors launch the instance the network's sizes pick (one launch for
+    all T frames), and anything the kernel does not take raises."""
     args = (carry, obs, t0, n_valid, beam, tb)
     if obs.device.type == "cpu":
         return netscan_plain(*args)
     _build.cuda_device(obs)            # raises before any build
-    out = launch(_lib(), *args)
-    global LAUNCHES
-    LAUNCHES += 1
+    inst = plan_instance(tb)
+    out = launch(_lib(), *args, instance=inst)
+    global LAUNCHES, WARP_LAUNCHES
+    if inst == "warp":
+        WARP_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -397,3 +397,21 @@ def test_distinct_rows_group_equal_sequences(nets, en_kws, net):
         assert U == 2          # the 46 entries' row and the sink's
     if net == "repeated_rows":
         assert U < t.n_models + t.n_sinks
+
+
+@pytest.mark.parametrize("net", NETS + ("en_kws", "random_big"))
+def test_instance_plan(nets, en_kws, net):
+    """Kernel G's instance by the network's sizes alone: a warp a row for
+    the phoneme loops, the KWS nets and the small word networks; the
+    block design for the 1,500-model random network (past every warp
+    limit of models, destinations and distinct rows)."""
+    if net == "random_big":
+        td = tst.NetworkDecoder(synth.random_network(1500, seed=1))
+    else:
+        td = (en_kws if net == "en_kws" else nets[net])[1]
+    tb = td.edge_tables("cpu")
+    want = "block" if net == "random_big" else "warp"
+    assert netscan.plan_instance(tb) == want
+    if net == "random_big":
+        z = netscan._sizes(tb)
+        assert z["M"] > netscan.WARP_MAX_M and z["U"] > netscan.WARP_MAX_U
