@@ -32,33 +32,57 @@
 // moves ~261 MB, 0.078 ms at 3.35 TB/s), but a frame is a chain of three
 // phases, each a max over dense rows (K_in 2, K_ex 1, K_cm 47, K_cs 46 at
 // the CZ loop) that needs the phase before: the latency of one row's
-// frames, repeated T times, is the time.
+// frames, repeated T times, is the time, and B 1 costs nearly what B 256
+// does.
 //
-// Design: a block per row, 256 threads, three barriers a frame.  Measured
-// on the CZ loop (PERF.md): a thread per destination finding each slot's
-// source through two dependent table loads took ~25,200 clocks a frame;
-// this design takes ~6,500.
-// * Each dense row is a list of 16-byte slots, made once on the host
-//   (ops/netscan.slot_arrays): the source as an index into the phase's
-//   value array ([entry | alpha | NEG] for the in-model pass, [alpha' |
-//   NEG] for the exits, [exit values | NEG] for the closure and sinks; a
-//   pad or a START edge reads the NEG sentinel with weight 0, so its value
-//   is NEG exactly, as JAX's), the edge id, the word-time source of the
-//   edge (of edge 0 for a pad, as JAX's clip; -1 where the closure edge
-//   resets the word time) and the weight: one shared load a slot.
-// * A group of L lanes takes a destination (L from the row's width: 1 for
-//   2 slots, 4 for 47, so the CZ loop's 47 entries and its sink take one
-//   round of the block's 64 groups), each lane a strided share of its
-//   slots, then a shuffle reduction keeping the larger value and, on equal
-//   values, the smaller slot: the first maximum, as JAX's argmax.
-// * The slots, the carry and the frame's values live in shared memory,
-//   and the next frame's observations are copied in by cp.async while a
-//   frame runs, where they fit (up to 227 KB); otherwise the values sit
-//   in a per-row scratch in device memory and the slots and observations
-//   are read from device memory (both held to the plain version).  The
-//   kernel is a template on the two, so the compiler knows each access's
-//   memory space.
-// * Records are stored as they are made, contiguous in the destination.
+// The closure's and the sinks' rows are reduced once for each DISTINCT
+// row (ops/netscan.distinct_rows: rows equal as sequences of (source,
+// weight bits), length included, take the same first maximum at the same
+// slot whatever their edge ids; the CZ loop's 46 entry rows are one), and
+// each destination then reads its own edge id and word-time source at
+// the winning slot from a per-destination table.  Exact: rows that differ
+// in a source, a weight, a START edge's slot or their length stay apart.
+//
+// Two instances, picked by the network's sizes (ops/netscan.plan_instance
+// holds the same limits):
+// * The warp instance: a warp a row, up to W_ROWS rows a block sharing
+//   the staged per-destination table, as many blocks as the SMs take at
+//   B.  Limits: E <= 256 (8 states a lane), K_in and K_ex <= 4, M <= 64,
+//   M + S <= 96, U <= 32 distinct rows with a lane's strided share of its
+//   row <= 24 slots, the table beside one row's slice in shared memory.
+//   Each lane holds its states' in-model slots, its models' exit slots
+//   and its share of one distinct row in registers across the frames; the
+//   states' values sit in the warp's slice of shared memory (a slot reads
+//   any state); the beam max is one redux on the floats' ordered integer
+//   keys; the G lanes of a distinct row merge its first maximum by
+//   shuffles and each destination takes it from the row's first lane;
+//   three __syncwarp a frame and no block barrier.
+// * The block instance, every other network (the 1,500-model random net,
+//   300-keyword KWS nets): a block of 256 threads a row, four barriers a
+//   frame.  A group of L lanes takes an in-model or exit destination (L
+//   from the row's width), each lane a strided share of its slots, then
+//   a shuffle reduction keeping the larger value and, on equal values,
+//   the smaller slot: the first maximum, as JAX's argmax; the distinct
+//   rows take G lanes each.  The slots, the carry and the frame's values
+//   live in shared memory, and the next frame's observations are copied
+//   in by cp.async while a frame runs, where they fit (up to 227 KB);
+//   otherwise the values sit in a per-row scratch in device memory and
+//   the tables and observations are read from device memory (both held
+//   to the plain version).  The kernel is a template on the two, and the
+//   staged tables' pointers are offsets from the shared array, so every
+//   access's memory space is known (a pointer aligned through an integer
+//   made every slot read two generic 32-bit loads).
+//
+// Measured (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W; CZ loop, T 500,
+// held, clocks a frame at B 256 / B 1; devtools/netscan_variants.py in
+// turns): the first kernel, a thread per destination, ~25,200; the block
+// design with every closure and sink row reduced, 6,258 / 5,280; the
+// closure over distinct rows, 5,084 / 4,630; the warp instance 3,106-3,129
+// / 3,089-3,112.  Lost: the records and observations through pointers
+// advanced a frame at a time (3,869 / 3,314); the winners' ids and
+// word-time sources in registers with the slot count a template
+// parameter (3,252 / 2,687: faster alone, slower at B 256); the shuffle
+// rounds unrolled (3,853 / 3,282).
 
 #include <cuda_runtime.h>
 
@@ -272,7 +296,8 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
   const int4* s_ex = SMEM ? staged + n_in : tex.slot;
   const int2* s_row = SMEM ? staged_rows : cx.row;
   const int2* s_dst = SMEM ? staged_rows + (size_t)U * Kx : cx.dst;
-  int* staged_len = reinterpret_cast<int*>(staged_rows + (size_t)(U + D) * Kx);
+  int* staged_len =
+      reinterpret_cast<int*>(staged_rows + (size_t)(U + D) * Kx);
   const int* s_len = SMEM ? staged_len : cx.len;
   const int* s_of = SMEM ? staged_len + U : cx.of;
   if (SMEM) {
@@ -778,16 +803,13 @@ int lanes_for_rows(int U, int Kx, int threads) {
   return G;
 }
 
-// lanes a distinct row in the warp instance (U <= 32 rows in one warp)
-int warp_lanes_for_rows(int U, int Kx) { return lanes_for_rows(U, Kx, 32); }
-
 // The warp instance's plan: rows a block (as many blocks as the SMs take
 // at B, up to W_ROWS rows a block, as shared memory holds) and its
 // dynamic shared memory; false when the network is past the instance's
 // limits.
 bool warp_plan(int B, int E, int M, int S, int Kin, int Kex, int Kx, int U,
                int* rows, size_t* smem) {
-  const int G = warp_lanes_for_rows(U, Kx);
+  const int G = lanes_for_rows(U, Kx, 32);
   if (E > 256 || Kin > W_K || Kex > W_K || M > 32 * W_MPL ||
       M + S > 32 * W_DPL || U > 32 || (Kx + G - 1) / G > W_CR)
     return false;
@@ -844,11 +866,11 @@ int launch_warp(int B, int T, int E, int M, int S, int n_cs, int Kin,
                 static_cast<float*>(entry_out),
                 static_cast<int*>(entry_edge_out),
                 static_cast<int*>(entry_wt_out)};
-  g.rec = Records{static_cast<int*>(in_am),       static_cast<int*>(ex_am),
-                  static_cast<int*>(cm_am),       static_cast<int*>(r_entry_edge),
-                  static_cast<float*>(entry_val), static_cast<float*>(sink_val),
-                  static_cast<int*>(cs_am),       static_cast<int*>(sink_wt),
-                  static_cast<float*>(exit_val)};
+  g.rec = Records{static_cast<int*>(in_am), static_cast<int*>(ex_am),
+                  static_cast<int*>(cm_am), static_cast<int*>(r_entry_edge),
+                  static_cast<float*>(entry_val),
+                  static_cast<float*>(sink_val), static_cast<int*>(cs_am),
+                  static_cast<int*>(sink_wt), static_cast<float*>(exit_val)};
   g.B = B;
   g.T = T;
   g.E = E;
@@ -859,7 +881,7 @@ int launch_warp(int B, int T, int E, int M, int S, int n_cs, int Kin,
   g.Kex = Kex;
   g.Kx = Kx;
   g.U = U;
-  g.G = warp_lanes_for_rows(U, Kx);
+  g.G = lanes_for_rows(U, Kx, 32);
   g.SG = (Kx + g.G - 1) / g.G;
   g.rows = rows;
   k<<<(B + rows - 1) / rows, 32 * rows, smem,

@@ -29,8 +29,9 @@ scan_variants.held_ms, the card held while the host enqueues), with the
 SM clock under load and clocks a frame, and at B 132 (a row on each SM)
 and 264 (two) held.  With ``--ablate`` the last source is built again
 once for each of the ABLATIONS below (wrong results: timed, not checked;
-a miss is reported) and timed on the instances the cut belongs to.  One JSON line per build,
-check and timing; the card's name and power limit first.
+a miss is reported) and timed on the instances the cut belongs to.  One
+JSON line per build, check and timing; the card's name and power limit
+first.
 """
 
 from __future__ import annotations
