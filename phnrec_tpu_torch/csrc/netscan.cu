@@ -50,13 +50,16 @@
 //   B.  Limits: E <= 256 (8 states a lane), K_in and K_ex <= 4, M <= 64,
 //   M + S <= 96, U <= 32 distinct rows with a lane's strided share of its
 //   row <= 24 slots, the table beside one row's slice in shared memory.
-//   Each lane holds its states' in-model slots, its models' exit slots
-//   and its share of one distinct row in registers across the frames; the
-//   states' values sit in the warp's slice of shared memory (a slot reads
-//   any state); the beam max is one redux on the floats' ordered integer
-//   keys; the G lanes of a distinct row merge its first maximum by
-//   shuffles and each destination takes it from the row's first lane;
-//   three __syncwarp a frame and no block barrier.
+//   Each lane holds its states' in-model slots and its models' exit slots
+//   (source, weight, edge id, word-time source; the slot count a template
+//   parameter, 2 or 4, so the compares are straight-line code) and its
+//   share of one distinct row in registers across the frames; the states'
+//   values sit in the warp's slice of shared memory (a slot reads any
+//   state); the next frame's observations come into the slice by
+//   cp.async, each lane its own states'; the beam max is one redux on the
+//   floats' ordered integer keys; the G lanes of a distinct row merge its
+//   first maximum by shuffles and each destination takes it from the
+//   row's first lane; three __syncwarp a frame and no block barrier.
 // * The block instance, every other network (the 1,500-model random net,
 //   300-keyword KWS nets): a block of 256 threads a row, four barriers a
 //   frame.  A group of L lanes takes an in-model or exit destination (L
@@ -77,12 +80,15 @@
 // held, clocks a frame at B 256 / B 1; devtools/netscan_variants.py in
 // turns): the first kernel, a thread per destination, ~25,200; the block
 // design with every closure and sink row reduced, 6,258 / 5,280; the
-// closure over distinct rows, 5,084 / 4,630; the warp instance 3,106-3,129
-// / 3,089-3,112.  Lost: the records and observations through pointers
-// advanced a frame at a time (3,869 / 3,314); the winners' ids and
-// word-time sources in registers with the slot count a template
-// parameter (3,252 / 2,687: faster alone, slower at B 256); the shuffle
-// rounds unrolled (3,853 / 3,282).
+// closure over distinct rows, 5,082-5,084 / 4,630-4,664; the first warp
+// instance (the winners' ids read from staged slot tables, a loop break
+// at each row's K, the next frame's observations loaded into registers)
+// 3,106-3,129 / 3,089-3,113; the winners' ids and word-time sources in
+// registers, no breaks, 3,252 / 2,687 (the register prefetch's load then
+// stalled a row at B 132 and up); the observations by cp.async, 2,267 /
+// 2,252.  Lost: the records and observations through pointers advanced a
+// frame at a time (3,869 / 3,314); the shuffle rounds unrolled (3,853 /
+// 3,282); cp.async observations alone (3,213 / 3,198).
 
 #include <cuda_runtime.h>
 
@@ -476,7 +482,8 @@ netscan_kernel(Net net, int T, const float* __restrict__ obs,
 //
 // Limits (ops/netscan.py holds the same numbers; a network past any of
 // them takes the block instance): E <= 32 x 8 states (EPL states a lane,
-// state e = j * 32 + lane), K_in and K_ex <= W_K slots, M <= 32 x W_MPL
+// state e = j * 32 + lane), K_in and K_ex <= W_K slots (KM: 2 or W_K, a
+// template parameter), M <= 32 x W_MPL
 // models, M + S <= 32 x W_DPL destinations, U <= 32 distinct closure /
 // sink rows and a lane's share of its row (ceil(Kx / G) strided slots,
 // G lanes a row) <= W_CR, and the staged tables beside one row's slice
@@ -501,21 +508,18 @@ struct WarpArgs {
 };
 
 // 4-byte words of a row's slice: vin [M + E + 1], win [M + E], na [E + 1],
-// nwt [E], xv [M + 1], xwt [M], rounded up to 16 bytes
+// nwt [E], xv [M + 1], xwt [M], obs [2][E], rounded up to 16 bytes
 __host__ __device__ inline int warp_slice_words(int E, int M) {
-  return (4 * E + 4 * M + 3 + 3) / 4 * 4;
+  return (6 * E + 4 * M + 3 + 3) / 4 * 4;
 }
 
-// bytes of the tables a block stages: the in-model and exit slots (their
-// edge ids and word-time sources are read at the winners) and the
-// destinations' (edge id, word-time source) by slot
-__host__ __device__ inline size_t warp_table_bytes(int E, int M, int D,
-                                                   int Kin, int Kex,
-                                                   int Kx) {
-  return 16 * ((size_t)E * Kin + (size_t)M * Kex) + 8 * (size_t)D * Kx;
+// bytes of the table a block stages: the destinations' (edge id,
+// word-time source) by slot
+__host__ __device__ inline size_t warp_table_bytes(int D, int Kx) {
+  return 8 * (size_t)D * Kx;
 }
 
-template <int EPL>
+template <int EPL, int KM>
 __global__ void __launch_bounds__(32 * W_ROWS)
 netscan_warp_kernel(const WarpArgs g) {
   extern __shared__ __align__(16) float smem[];
@@ -523,20 +527,17 @@ netscan_warp_kernel(const WarpArgs g) {
   const int Kin = g.Kin, Kex = g.Kex, Kx = g.Kx, G = g.G, SG = g.SG;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // the block's tables, then a slice a row
-  int4* s_in = reinterpret_cast<int4*>(smem);
-  int4* s_ex = s_in + (size_t)E * Kin;
-  int2* s_dst = reinterpret_cast<int2*>(s_ex + (size_t)M * Kex);
-  stage(s_in, g.in_slot, (size_t)E * Kin);
-  stage(s_ex, g.ex_slot, (size_t)M * Kex);
+  // the block's table, then a slice a row
+  int2* s_dst = reinterpret_cast<int2*>(smem);
   stage(s_dst, g.cx_dst, (size_t)D * Kx);
-  const size_t tab_words = warp_table_bytes(E, M, D, Kin, Kex, Kx) / 4;
+  const size_t tab_words = warp_table_bytes(D, Kx) / 4;
   float* vin = smem + tab_words + (size_t)warp * warp_slice_words(E, M);
   int* win = reinterpret_cast<int*>(vin + M + E + 1);  // [entry_wt | wt]
   float* na = reinterpret_cast<float*>(win + M + E);   // [cut alpha | NEG]
   int* nwt = reinterpret_cast<int*>(na + E + 1);
   float* xv = reinterpret_cast<float*>(nwt + E);       // [exit values | NEG]
   int* xwt = reinterpret_cast<int*>(xv + M + 1);
+  float* obs_s = reinterpret_cast<float*>(xwt + M);     // [2][E]
   __syncthreads();  // the tables are read by every warp of the block
   const int b = blockIdx.x * g.rows + warp;
   if (b >= g.B) return;
@@ -568,30 +569,42 @@ netscan_warp_kernel(const WarpArgs g) {
   }
 
   // each lane's slots, held in registers across the frames: its states'
-  // in-model slots, its models' exit slots and its share of one distinct
-  // row (u = lane / G, strided slots j = lane % G + G * s)
-  int isrc[EPL][W_K], xsrc[W_MPL][W_K], csrc[W_CR];
-  float iw[EPL][W_K], xw[W_MPL][W_K], cw[W_CR], o[EPL];
+  // in-model slots and its models' exit slots (source, weight, edge id,
+  // word-time source; past a row's K the NEG sentinel with weight -inf,
+  // which never wins a strict compare) and its share of one distinct row
+  // (u = lane / G, strided slots j = lane % G + G * s)
+  int isrc[EPL][KM], iid[EPL][KM], iz[EPL][KM];
+  int xsrc[W_MPL][KM], xid[W_MPL][KM], xz[W_MPL][KM], csrc[W_CR];
+  float iw[EPL][KM], xw[W_MPL][KM], cw[W_CR];
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
     const int e = j * 32 + lane;
 #pragma unroll
-    for (int k = 0; k < W_K; ++k) {
-      const int4 sl = e < E && k < Kin ? g.in_slot[(size_t)e * Kin + k]
-                                       : make_int4(M + E, -1, 0, 0);
+    for (int k = 0; k < KM; ++k) {
+      const int4 sl = e < E && k < Kin
+                          ? g.in_slot[(size_t)e * Kin + k]
+                          : make_int4(M + E, 0, 0, __float_as_int(-INFINITY));
       isrc[j][k] = sl.x;
+      iid[j][k] = sl.y;
+      iz[j][k] = sl.z;
       iw[j][k] = __int_as_float(sl.w);
     }
-    o[j] = e < E && T > 0 ? g.obs[(size_t)b * T * E + e] : 0.f;
+    // frame 0's observations, each lane its own states' (the lane
+    // reads only what it copied: no barrier, only its own wait)
+    if (e < E && T > 0) cp_async4(obs_s + e, g.obs + (size_t)b * T * E + e);
   }
+  cp_async_commit();
 #pragma unroll
   for (int j = 0; j < W_MPL; ++j) {
     const int m = j * 32 + lane;
 #pragma unroll
-    for (int k = 0; k < W_K; ++k) {
-      const int4 sl = m < M && k < Kex ? g.ex_slot[(size_t)m * Kex + k]
-                                       : make_int4(E, -1, 0, 0);
+    for (int k = 0; k < KM; ++k) {
+      const int4 sl = m < M && k < Kex
+                          ? g.ex_slot[(size_t)m * Kex + k]
+                          : make_int4(E, 0, 0, __float_as_int(-INFINITY));
       xsrc[j][k] = sl.x;
+      xid[j][k] = sl.y;
+      xz[j][k] = sl.z;
       xw[j][k] = __int_as_float(sl.w);
     }
   }
@@ -614,6 +627,20 @@ netscan_warp_kernel(const WarpArgs g) {
     const int t = tb + 1 + i;
     const bool valid = t <= nv;
     const size_t fr = (size_t)b * T + i;
+    // this frame's observations are in; the next frame's are copied in
+    // by cp.async while this one runs
+    const float* ob = obs_s + (i & 1) * E;
+    cp_async_wait_all();
+    if (i + 1 < T) {
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        const int e = j * 32 + lane;
+        if (e < E)
+          cp_async4(obs_s + ((i + 1) & 1) * E + e,
+                    g.obs + (fr + 1) * E + e);
+      }
+      cp_async_commit();
+    }
 #pragma unroll
     for (int j = 0; j < W_DPL; ++j) {
       const int d = j * 32 + lane;
@@ -631,30 +658,21 @@ netscan_warp_kernel(const WarpArgs g) {
     for (int j = 0; j < EPL; ++j) {
       const int e = j * 32 + lane;
       float best = vin[isrc[j][0]] + iw[j][0];
-      int kb = 0;
+      int id = iid[j][0], z = iz[j][0];
 #pragma unroll
-      for (int k = 1; k < W_K; ++k) {
-        if (k >= Kin) break;
+      for (int k = 1; k < KM; ++k) {
         const float v = vin[isrc[j][k]] + iw[j][k];
         if (v > best) {
           best = v;
-          kb = k;
+          id = iid[j][k];
+          z = iz[j][k];
         }
       }
-      a[j] = best + o[j];
-      awt[j] = 0;
+      a[j] = best + ob[e < E ? e : E - 1];
+      awt[j] = win[z];
       if (e < E) {
-        const int4 sl = s_in[e * Kin + kb];
-        awt[j] = win[sl.z];
-        rec.in_am[fr * E + e] = sl.y;
+        rec.in_am[fr * E + e] = id;
         lmax = fmaxf(lmax, a[j]);
-      }
-    }
-    if (i + 1 < T) {
-#pragma unroll
-      for (int j = 0; j < EPL; ++j) {
-        const int e = j * 32 + lane;
-        if (e < E) o[j] = g.obs[(fr + 1) * E + e];
       }
     }
     // the beam against the row's best state
@@ -675,21 +693,20 @@ netscan_warp_kernel(const WarpArgs g) {
     for (int j = 0; j < W_MPL; ++j) {
       const int m = j * 32 + lane;
       float best = na[xsrc[j][0]] + xw[j][0];
-      int kb = 0;
+      int id = xid[j][0], z = xz[j][0];
 #pragma unroll
-      for (int k = 1; k < W_K; ++k) {
-        if (k >= Kex) break;
+      for (int k = 1; k < KM; ++k) {
         const float v = na[xsrc[j][k]] + xw[j][k];
         if (v > best) {
           best = v;
-          kb = k;
+          id = xid[j][k];
+          z = xz[j][k];
         }
       }
       if (m < M) {
-        const int4 sl = s_ex[m * Kex + kb];
         xv[m] = best;
-        xwt[m] = nwt[sl.z];
-        rec.ex_am[fr * M + m] = sl.y;
+        xwt[m] = nwt[z];
+        rec.ex_am[fr * M + m] = id;
         rec.exit_val[fr * M + m] = best;
       }
     }
@@ -775,15 +792,16 @@ netscan_warp_kernel(const WarpArgs g) {
 
 using WarpKernel = void (*)(const WarpArgs);
 
-// the states-a-lane instances, E <= 32 x EPL
+// the states-a-lane instances, E <= 32 x EPL, at KM slots a state
+template <int KM>
 WarpKernel warp_kernel_for(int E) {
-  if (E <= 32) return netscan_warp_kernel<1>;
-  if (E <= 64) return netscan_warp_kernel<2>;
-  if (E <= 96) return netscan_warp_kernel<3>;
-  if (E <= 128) return netscan_warp_kernel<4>;
-  if (E <= 160) return netscan_warp_kernel<5>;
-  if (E <= 192) return netscan_warp_kernel<6>;
-  if (E <= 256) return netscan_warp_kernel<8>;
+  if (E <= 32) return netscan_warp_kernel<1, KM>;
+  if (E <= 64) return netscan_warp_kernel<2, KM>;
+  if (E <= 96) return netscan_warp_kernel<3, KM>;
+  if (E <= 128) return netscan_warp_kernel<4, KM>;
+  if (E <= 160) return netscan_warp_kernel<5, KM>;
+  if (E <= 192) return netscan_warp_kernel<6, KM>;
+  if (E <= 256) return netscan_warp_kernel<8, KM>;
   return nullptr;
 }
 
@@ -818,7 +836,7 @@ bool warp_plan(int B, int E, int M, int S, int Kin, int Kex, int Kx, int U,
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  const size_t tab = warp_table_bytes(E, M, M + S, Kin, Kex, Kx);
+  const size_t tab = warp_table_bytes(M + S, Kx);
   const size_t slice = 4 * (size_t)warp_slice_words(E, M);
   int w = (B + n_sm - 1) / n_sm;
   w = w < 1 ? 1 : (w > W_ROWS ? W_ROWS : w);
@@ -842,7 +860,8 @@ int launch_warp(int B, int T, int E, int M, int S, int n_cs, int Kin,
                 void* exit_val, void* stream) {
   int rows;
   size_t smem;
-  const WarpKernel k = warp_kernel_for(E);
+  const WarpKernel k = Kin <= 2 && Kex <= 2 ? warp_kernel_for<2>(E)
+                                             : warp_kernel_for<W_K>(E);
   if (!k || !warp_plan(B, E, M, S, Kin, Kex, Kx, U, &rows, &smem))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(

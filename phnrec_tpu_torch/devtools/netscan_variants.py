@@ -67,8 +67,6 @@ ABLATIONS = (
     ("no_closure_sinks", ("block",),
      ((r"u0 < U; u0 \+= groups", "u0 < 0; u0 += groups"),
       (r"d = tid; d < D; d \+= THREADS", "d = tid; d < 0; d += THREADS"))),
-    ("no_frame_barriers", ("block",),
-     ((r"\n    __syncthreads\(\);\n", "\n"),)),
     ("warp_no_in_model_loads", ("warp",),
      ((r"vin\[isrc\[j\]\[(0|k)\]\] \+ ", ""),)),
     ("warp_no_exit_loads", ("warp",),

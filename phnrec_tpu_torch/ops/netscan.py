@@ -261,13 +261,13 @@ def _row_lanes(U: int, Kx: int) -> int:
 
 def plan_instance(tb: Dict[str, torch.Tensor]) -> str:
     """The instance that takes a network, by its sizes alone: "warp"
-    within the warp instance's limits (its staged tables and one row's
-    slice in a block's shared memory), else "block"."""
+    within the warp instance's limits (its staged table of the
+    destinations' slots and one row's slice in a block's shared memory),
+    else "block"."""
     z = _sizes(tb)
     E, M, D, U, Kx = z["E"], z["M"], z["D"], z["U"], z["Kx"]
     G = _row_lanes(U, Kx)
-    smem = (16 * (E * z["Kin"] + M * z["Kex"]) + 8 * D * Kx
-            + 4 * ((4 * E + 4 * M + 6) // 4 * 4))
+    smem = 8 * D * Kx + 4 * ((6 * E + 4 * M + 6) // 4 * 4)
     fits = (E <= WARP_MAX_E and max(z["Kin"], z["Kex"]) <= WARP_MAX_K
             and M <= WARP_MAX_M and D <= WARP_MAX_D and U <= WARP_MAX_U
             and -(-Kx // G) <= WARP_ROW_SLOTS and smem <= SMEM_MAX)
