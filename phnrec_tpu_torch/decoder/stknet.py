@@ -309,8 +309,8 @@ def device_rows(v, dtype, device, n: int) -> torch.Tensor:
     array or tensor goes through pinned memory by a non-blocking copy (a
     pageable copy would wait for all the work queued before it)."""
     device = torch.device(device)
-    if torch.is_tensor(v) and v.device == device:
-        return v.to(dtype).expand(n).contiguous()
+    if torch.is_tensor(v) and v.device.type != "cpu":
+        return v.to(device=device, dtype=dtype).expand(n).contiguous()
     a = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
     if a.dim() == 0:
         return torch.full((n,), a.item(), dtype=dtype, device=device)

@@ -23,7 +23,10 @@ the in-model pass plus the observation; the beam cut against the row's
 best; the exits from the cut alpha; the closure into the model entries
 (cut by the same threshold, word time reset to t where the edge crosses
 words) and into the sinks.  The kernel is equal to the plain version in
-every record and the carry, float bits included.
+every record and the carry, float bits included.  It has two instances,
+picked by the network's sizes (``plan_instance``): a warp a row within
+the WARP_* limits below, a block a row past them; each counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -114,23 +117,22 @@ def distinct_rows(rows, sentinel: int) -> Dict[str, np.ndarray]:
         destination's own slots, read at the winning slot."""
     Kx = max(len(r) for r in rows)
     index: Dict[bytes, int] = {}
+    first = []
     of = np.empty(len(rows), np.int32)
-    for d, r in enumerate(rows):
-        of[d] = index.setdefault(np.ascontiguousarray(r[:, [0, 3]])
-                                 .tobytes(), len(index))
-    first = {}
-    for d, u in enumerate(of):
-        first.setdefault(int(u), rows[d])
-    cx_row = np.zeros((len(index), Kx, 2), np.int32)
-    cx_row[..., 0] = sentinel
     cx_dst = np.zeros((len(rows), Kx, 2), np.int32)
-    for u, r in first.items():
-        cx_row[u, :len(r)] = r[:, [0, 3]]
     for d, r in enumerate(rows):
+        key = np.ascontiguousarray(r[:, [0, 3]]).tobytes()
+        if key not in index:
+            index[key] = len(first)
+            first.append(r[:, [0, 3]])
+        of[d] = index[key]
         cx_dst[d, :len(r)] = r[:, [1, 2]]
+    cx_row = np.zeros((len(first), Kx, 2), np.int32)
+    cx_row[..., 0] = sentinel
+    for u, r in enumerate(first):
+        cx_row[u, :len(r)] = r
     return {"cx_row": cx_row,
-            "cx_len": np.asarray([len(first[u]) for u in range(len(index))],
-                                 np.int32),
+            "cx_len": np.asarray([len(r) for r in first], np.int32),
             "cx_of": of, "cx_dst": cx_dst}
 
 
