@@ -2,7 +2,7 @@
 csrc/netscan.cu) on one CUDA card, each with its own wrapper.
 
     python3 -m phnrec_tpu_torch.devtools.netscan_variants [--ablate] \\
-        [--sass] [--instance warp|block] \\
+        [--sass DIR] [--instance warp|block] \\
         SOURCE.cu[:WRAPPER.py] [SOURCE.cu[:WRAPPER.py] ...]
 
 A source without a wrapper file is launched by the package's
@@ -17,7 +17,7 @@ an older wrapper runs its one design.
 
 Every source is built (package nvcc flags, into
 build/phnrec_tpu_torch/variants/, registers and spills printed; with
-``--sass`` its SASS is written to chiprun_out/netscan_sass_<tag>.txt) and
+``--sass DIR`` its SASS is written to DIR/netscan_sass_<tag>.txt) and
 each run is held bit for bit to the plain version (carry and all nine
 records) on the CZ stkint phoneme loop at B 256 x T 500 with ragged rows
 and at B 1 x T 500, the same with the per-row values in device memory
@@ -147,11 +147,10 @@ def _launch(mod, lib, inst, args, tb, **kw):
     return mod.launch(lib, *args, tb, **kw)
 
 
-def _sass(tag: str, lib) -> None:
+def _sass(tag: str, out: Path) -> None:
     cuobjdump = Path(netscan._build.find_nvcc()).with_name("cuobjdump")
     so = netscan._build.BUILD_DIR / "variants" / f"{tag}.so"
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     text = subprocess.run([str(cuobjdump), "-sass", str(so)],
                           capture_output=True, text=True).stdout
     path = out / f"netscan_sass_{tag}.txt"
@@ -171,13 +170,15 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    ablate, sass = "--ablate" in argv, "--sass" in argv
-    only = None
-    if "--instance" in argv:
-        i = argv.index("--instance")
-        only = argv[i + 1]
-        argv = argv[:i] + argv[i + 2:]
-    argv = [a for a in argv if a not in ("--ablate", "--sass")]
+    ablate = "--ablate" in argv
+    argv = [a for a in argv if a != "--ablate"]
+    opts = {}
+    for flag in ("--instance", "--sass"):
+        if flag in argv:
+            i = argv.index(flag)
+            opts[flag] = argv[i + 1]
+            argv = argv[:i] + argv[i + 2:]
+    only, sass = opts.get("--instance"), opts.get("--sass")
     variants = []
     for i, arg in enumerate(argv):
         src, _, wrap = arg.partition(":")
@@ -185,7 +186,7 @@ def main(argv) -> int:
         tag = f"v{i}_{Path(src).stem}"
         variants.append((tag, mod, mod.bind(build(tag, Path(src)))))
         if sass:
-            _sass(tag, variants[-1][2])
+            _sass(tag, Path(sass))
     ablated = []
     if ablate:
         src, _, wrap = argv[-1].partition(":")
