@@ -37,35 +37,51 @@
 // as kernel B's do.  Records are [n, F, .], ids int16 or int32 (the
 // caller's choice: int16 where every id table fits), -1 kept.
 //
-// What bounds it on the H100: as kernel B, the chain of dependent steps in
-// a frame and the 512-odd dependent frames of a block (latency, far below
-// the memory rate: ~1.3 kB of records a frame and stream at the CZ loop);
-// the records add stores that nothing waits on.
+// What bounds it on the H100: the chain of dependent steps in a frame and
+// the 512-odd dependent frames of a block (latency, far below the memory
+// rate: ~1.3 kB of records a frame and stream at the CZ loop), and what a
+// frame issues on one warp scheduler: the records' stores, the
+// observations' copies, the closure.
 //
-// Design: kernel B's (one warp a stream, its states in registers, the
-// beam max by redux, the closure and the sinks over the distinct
-// destination columns with the first maximum kept, the tables staged in
-// shared memory where they fit; the parts both use are in netdense.cuh),
-// with these changes: each lane holds its
-// states' three candidate edge ids in registers beside their weights, and
-// the in-model pass selects the winner's id as it selects its value; the
-// exit ids of the first 64 models sit in registers; the closure's second
-// pass looks the winning source's id up in an [M + S][P] id table beside
-// the weights (shared memory with them, or device memory); the warp's
-// slice of shared memory holds the carried entry edges where B's held the
-// entry word times; the id type is a template parameter; the records of
-// the carry entering frame f+1 are stored by the lanes that make it, from
-// registers, in frame f's closure pass.
+// Design: one warp a stream (four a block), its states in registers
+// (EPL a lane), each lane's three candidate edge ids in registers beside
+// their weights, the in-model pass selecting the winner's id with its
+// value, the beam max by redux (netdense.cuh), the tables staged in shared
+// memory where they fit; each destination of the first 64 owns a lane
+// (lane, lane + 32), which keeps its model's carried entry and entry edge
+// and its exit id in registers and stores the records of the carry
+// entering each frame at the frame's start; the observations come by
+// cp.async, the warp's lanes side by side, three frames ahead in a ring
+// of the warp's slice.  Two instances of the closure and the sinks, a
+// template parameter the launch plan picks by the network's sizes:
+// * redux (at most RED_COLUMNS distinct columns, 64 destinations and
+//   RED_EPL states a lane; a phoneme loop's network): each column's first
+//   maximum over the exits straight from registers, a lane's own exit
+//   slots ascending (their edge weights into each column held in
+//   registers) then the warp's by two reduxes, the largest value over the
+//   floats' order-keeping ints and the smallest source holding it; each
+//   destination picks its column's pair and looks its edge id up in an
+//   [M + S][P] id table.  No shared round trip but the new entries.
+// * general: the exits staged in the warp's slice, each distinct column's
+//   best source over G lanes (kept in the lanes and fetched by shuffles
+//   where the columns fit one round of the warp, else through shared
+//   memory), then the destinations; past 64 destinations their carries in
+//   the slice.
+// The id type is a template parameter.
 //
-// Measured (PERF.md, CZ stkint loop, n 256 x F 512, NVIDIA H100 80GB
-// HBM3, 700 W, devtools/netdecode_variants.py in turns): the first
-// version, which loaded each state's winning id from device memory, chose
-// the id width by a run-time flag at every store and stored each frame's
-// carry records from shared memory at the frame's start, took 0.780 ms
-// held, 3,014 clocks a frame; the ids in registers and the width a
-// template parameter 0.549 (2,122); the carry records from the closure
-// pass 0.435 (1,682), kernel B's clocks.  32-bit record offsets in place
-// of 64-bit ones were slower (0.484, 1,872).
+// Measured (PERF.md, CZ stkint loop, n 256 x F 512, int16 ids, NVIDIA
+// H100 80GB HBM3, 700 W, devtools/netdecode_variants.py in turns with PR
+// 17's source): PR 12's design 1,686-1,699 clocks a frame (held 0.436 ms;
+// n 1 1,666): its closure's second pass ~560 clocks (the uv / uk round
+// trip, divergent destinations, a branch on the next frame's carry
+// records), the whole closure ~660, and at n 256 the next frame's
+// observations loaded into registers mid-frame were waited on.  The
+// carries in lanes and a cp.async ring (each lane its own states) 1,640;
+// the redux closure 1,312 (a first cut whose columns' results sat in an
+// indexed array went to local memory: 1,505; one with the observations
+// back in registers 1,949-1,994); the ring filled coalesced 1,273 (n 1
+// 1,241, n 132 1,273, n 264 1,273).  Staging in_am to store it coalesced
+// was slower (1,671).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,7 +120,105 @@ __device__ __forceinline__ void put_id(void* p, size_t i, int v) {
   static_cast<IdT*>(p)[i] = (IdT)v;
 }
 
-template <int EPL, bool SMEM_TAB, typename IdT>
+constexpr int OBS_RING = 4;      // observation rows a warp keeps: 3 in flight
+constexpr int RED_COLUMNS = 4;   // distinct columns the redux closure takes
+constexpr int RED_EPL = 8;       // states a lane it takes (registers)
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One stream's observation row into a ring slot, the warp's lanes side
+// by side (coalesced); the row is the warp's after every lane's wait and
+// a __syncwarp.
+template <int EPL>
+__device__ __forceinline__ void fetch_obs(float* slot, const float* src,
+                                          int E, int lane) {
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const int e = 32 * j + lane;
+    if (e < E) cp_async4(slot + e, src + e);
+  }
+}
+
+// best_sources (netdense.cuh) where every distinct column fits one round
+// of the warp (U << lg <= 32): nothing is stored, every lane of column
+// u's group returns its best value and source.
+__device__ __forceinline__ void best_in_lanes(const float* xv,
+                                              const float* tab, int P,
+                                              const ColumnSplit& c, int lane,
+                                              float& v, int& k) {
+  const int u = lane >> c.lg, g = lane & (c.G - 1);
+  const float* t = tab + (size_t)u * P;
+  v = NEG;
+  k = -1;
+  const int r1 = min(g * c.SG + c.SG, c.M4);
+#pragma unroll 4
+  for (int r = g * c.SG; r < r1; r += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(xv + r);
+    const float4 p = *reinterpret_cast<const float4*>(t + r);
+    take(v, k, x.x + p.x, r);
+    take(v, k, x.y + p.y, r + 1);
+    take(v, k, x.z + p.z, r + 2);
+    take(v, k, x.w + p.w, r + 3);
+  }
+  for (int off = 1; off < c.G; off <<= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, k, off);
+    if (ov > v || (ov == v && ok < k)) {
+      v = ov;
+      k = ok;
+    }
+  }
+}
+
+// The first maximum of the warp's (value, source) pairs, exactly as the
+// ascending strict-greater walk from (NEG, -1) gives it: the largest value
+// by one redux over the order-keeping ints, the smallest source holding
+// it by another; (NEG, -1) where no value is above NEG.
+__device__ __forceinline__ void warp_first_max(float v, int k, float& bv,
+                                               int& bk) {
+  const float m = warp_max(v);
+  const int km = __reduce_min_sync(0xffffffffu, v == m ? k : 0x7fffffff);
+  bv = m > NEG ? m : NEG;
+  bk = m > NEG ? km : -1;
+}
+
+// One distinct column's first maximum over the warp's exits (the redux
+// instance): each lane's exit slots ascending (x = the beamed value + the
+// exit weight, + the slot's edge weight into the column), then
+// warp_first_max; (NEG, -1) for a column past U (``on`` false).
+template <int EPL>
+__device__ __forceinline__ void redux_column(
+    const float (&na)[EPL], const float (&wx)[EPL], const float (&tbu)[EPL],
+    const int (&mo)[EPL], unsigned last, bool on, float& v, int& k) {
+  float lv = NEG;
+  int lk = -1;
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const float c = na[j] + wx[j] + tbu[j];
+    const bool gt = (last >> j & 1) && c > lv;
+    lv = gt ? c : lv;
+    lk = gt ? mo[j] : lk;
+  }
+  v = NEG;
+  k = -1;
+  if (on) warp_first_max(lv, lk, v, k);
+}
+
+template <int EPL, bool SMEM_TAB, typename IdT, bool RED>
 __global__ void __launch_bounds__(32 * MAX_STREAMS_PER_BLOCK)
 net_decode_kernel(const Args g) {
   extern __shared__ __align__(16) float smem[];
@@ -114,10 +228,11 @@ net_decode_kernel(const Args g) {
   const int U_pad = (U + 31) / 32 * 32;
   // [U_pad][P] table, [D] column map and [D][P] ids (if staged), then per
   // warp: [P] exit value, [M] entry, [M] entry edge, [U] best value and
-  // [U] best source of each column
+  // [U] best source of each column, the observation ring [OBS_RING][32 EPL]
   const size_t tab_floats =
       SMEM_TAB ? (size_t)U_pad * P + (D + 3) / 4 * 4 + (size_t)D * P : 0;
-  const int slice = P + (2 * M + 2 * U + 3) / 4 * 4;
+  const int head = P + (2 * M + 2 * U + 3) / 4 * 4;
+  const int slice = head + OBS_RING * 32 * EPL;
   float* tab_s = smem;
   int* col_s = reinterpret_cast<int*>(smem + (size_t)U_pad * P);
   int* ids_s = col_s + (D + 3) / 4 * 4;
@@ -126,6 +241,7 @@ net_decode_kernel(const Args g) {
   int* eg = reinterpret_cast<int*>(en + M);
   float* uv = reinterpret_cast<float*>(eg + M);
   int* uk = reinterpret_cast<int*>(uv + U);
+  float* ring = xv + head;
 
   if (SMEM_TAB) {
     const float4* src = reinterpret_cast<const float4*>(g.tab);
@@ -140,6 +256,9 @@ net_decode_kernel(const Args g) {
   const int* col_of = SMEM_TAB ? col_s : g.col_of;
   const int* ids = SMEM_TAB ? ids_s : g.ids;
   const ColumnSplit cs = column_split(U, M);
+  // (general instance) every distinct column's best in lanes where the
+  // columns fit one round of the warp, else through uv / uk
+  const bool one = (U << cs.lg) <= 32;
 
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= n) return;
@@ -147,8 +266,24 @@ net_decode_kernel(const Args g) {
   const float bm = g.beam[b];
   const size_t rb = (size_t)b * F;   // the stream's first record row
 
-  float a[EPL], ws[EPL], wa[EPL], we[EPL], wx[EPL], o[EPL];
+  // the first frames' observations, one commit group a row; the slots
+  // past E read 0 (no copy writes them)
+#pragma unroll
+  for (int j = 0; j < EPL; ++j)
+    if (32 * j + lane >= E)
+      for (int i = 0; i < OBS_RING; ++i)
+        ring[i * 32 * EPL + 32 * j + lane] = 0.f;
+  for (int i = 0; i < OBS_RING - 1; ++i) {
+    if (i < F)
+      fetch_obs<EPL>(ring + i * 32 * EPL, g.obs + (rb + i) * E, E, lane);
+    cp_async_commit();
+  }
+
+  float a[EPL], ws[EPL], wa[EPL], we[EPL], wx[EPL];
   int mo[EPL], id_self[EPL], id_adv[EPL], id_ent[EPL];
+  // (redux instance) the edge weight from slot j's model into distinct
+  // column u
+  float tb[RED ? RED_COLUMNS : 1][RED ? EPL : 1];
   unsigned last = 0;  // bit j: slot j is its model's last state
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
@@ -161,34 +296,61 @@ net_decode_kernel(const Args g) {
     mo[j] = in ? e / g.S_M : 0;
     wx[j] = in ? g.w_exit[mo[j]] : 0.f;
     if (in && e % g.S_M == g.S_M - 1) last |= 1u << j;
-    o[j] = (in && F > 0) ? g.obs[rb * E + e] : 0.f;
     id_self[j] = in ? g.id_in[4 * e] : -1;
     id_adv[j] = in ? g.id_in[4 * e + 1] : -1;
     id_ent[j] = in ? g.id_in[4 * e + 2] : -1;
+    if constexpr (RED) {
+#pragma unroll
+      for (int u = 0; u < RED_COLUMNS; ++u)
+        tb[u][j] = u < U ? tab[u * P + mo[j]] : NEG;
+    }
   }
-  const int xid[2] = {lane < M ? g.id_exit[lane] : -1,
-                      lane + 32 < M ? g.id_exit[lane + 32] : -1};
+  // destinations lane and lane + 32: their column, exit edge and (models)
+  // carried entry and entry edge, in registers
+  int cu[2], xid[2], eg_r[2];
+  float en_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int d = 32 * h + lane;
+    cu[h] = d < D ? col_of[d] : 0;
+    xid[h] = d < M ? g.id_exit[d] : -1;
+    en_r[h] = d < M ? g.entry0[(size_t)b * M + d] : NEG;
+    eg_r[h] = d < M ? g.edge0[(size_t)b * M + d] : -1;
+  }
   for (int m = lane; m < M; m += 32) {
     en[m] = g.entry0[(size_t)b * M + m];
     eg[m] = g.edge0[(size_t)b * M + m];
   }
   for (int r = M + lane; r < P; r += 32) xv[r] = 0.f;
-  const int cu[2] = {lane < D ? col_of[lane] : 0,
-                     lane + 32 < D ? col_of[lane + 32] : 0};
   __syncwarp();
-
-  // frame 0's records of the carry entering it, and the exit edges (the
-  // later frames' are written as their carry is made)
-  if (F > 0)
-    for (int m = lane; m < M; m += 32) {
-      g.entry_val[rb * M + m] = en[m];
-      put_id<IdT>(g.entry_edge, rb * M + m, eg[m]);
-      put_id<IdT>(g.ex_am, rb * M + m,
-                  m < 64 ? xid[m >> 5] : __ldg(g.id_exit + m));
-    }
 
   for (int f = 0; f < F; ++f) {
     const size_t row = rb + f;
+    cp_async_wait<OBS_RING - 2>();   // the observations of frame f
+    __syncwarp();
+    if (f + OBS_RING - 1 < F)
+      fetch_obs<EPL>(ring + (f + OBS_RING - 1) % OBS_RING * 32 * EPL,
+                     g.obs + (row + OBS_RING - 1) * E, E, lane);
+    cp_async_commit();
+    const float* o = ring + f % OBS_RING * 32 * EPL + lane * EPL;
+    // -- the records of the carry entering the frame, from registers
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = 32 * h + lane;
+      if (d < M) {
+        g.entry_val[row * M + d] = en_r[h];
+        put_id<IdT>(g.entry_edge, row * M + d, eg_r[h]);
+        put_id<IdT>(g.ex_am, row * M + d, xid[h]);
+      }
+    }
+    if constexpr (!RED) {
+#pragma unroll 1
+      for (int m = 64 + lane; m < M; m += 32) {
+        g.entry_val[row * M + m] = en[m];
+        put_id<IdT>(g.entry_edge, row * M + m, eg[m]);
+        put_id<IdT>(g.ex_am, row * M + m, __ldg(g.id_exit + m));
+      }
+    }
     // -- in-model pass; the state below a lane's first is the last of the
     // lane below
     float pa = __shfl_up_sync(0xffffffffu, a[EPL - 1], 1);
@@ -212,76 +374,119 @@ net_decode_kernel(const Args g) {
       na[j] = v + o[j];
       nid[j] = id;
     }
-    if (f + 1 < F) {
-#pragma unroll
-      for (int j = 0; j < EPL; ++j) {
-        const int e = lane * EPL + j;
-        if (e < E) o[j] = g.obs[(row + 1) * E + e];
-      }
-    }
     // -- beam against the stream's best state
     float mx = na[0];
 #pragma unroll
     for (int j = 1; j < EPL; ++j) mx = fmaxf(mx, na[j]);
     const float thresh = warp_max(mx) - bm;
 #pragma unroll
-    for (int j = 0; j < EPL; ++j) {
-      na[j] = na[j] >= thresh ? na[j] : NEG;
-      if (last >> j & 1) xv[mo[j]] = na[j] + wx[j];
-    }
+    for (int j = 0; j < EPL; ++j) na[j] = na[j] >= thresh ? na[j] : NEG;
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
       const int e = lane * EPL + j;
       if (e < E) put_id<IdT>(g.in_am, row * E + e, nid[j]);
     }
-    __syncwarp();
-
-    // -- closure and sinks, 1: the best source of each distinct column
     const bool live = f < nv;
-    best_sources(xv, tab, P, U, cs, lane, uv, uk);
-    __syncwarp();
-    // 2: each destination takes its distinct column's best and its own
-    // edge id, two destinations a lane
-    for (int d0 = 0; d0 < D; d0 += 64) {
-      int dd[2], uu[2], kk[2];
-      float vv[2];
+
+    if constexpr (RED) {
+      // -- closure and sinks, 1: each distinct column's first maximum over
+      // the exits, a lane's own (ascending) then the warp's by redux; the
+      // columns' results in scalars (an array here went to local memory)
+      static_assert(RED_COLUMNS == 4, "the columns' scalars below");
+      float v0, v1, v2, v3;
+      int k0, k1, k2, k3;
+      redux_column<EPL>(na, wx, tb[0], mo, last, 0 < U, v0, k0);
+      redux_column<EPL>(na, wx, tb[1], mo, last, 1 < U, v1, k1);
+      redux_column<EPL>(na, wx, tb[2], mo, last, 2 < U, v2, k2);
+      redux_column<EPL>(na, wx, tb[3], mo, last, 3 < U, v3, k3);
+      // 2: each destination (D <= 64) takes its column's best and its own
+      // edge id
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        dd[h] = d0 + 32 * h + lane;
-        uu[h] = d0 ? (dd[h] < D ? col_of[dd[h]] : 0) : cu[h];
+        const int d = 32 * h + lane, c = cu[h];
+        const float v = c == 3 ? v3 : c == 2 ? v2 : c == 1 ? v1 : v0;
+        const int k = c == 3 ? k3 : c == 2 ? k2 : c == 1 ? k1 : k0;
+        if (d < D) {
+          const int id = k >= 0 ? ids[d * P + k] : -1;
+          if (d < M) {
+            put_id<IdT>(g.cm_am, row * M + d, id);
+            if (live) {
+              en_r[h] = v >= thresh ? v : NEG;
+              eg_r[h] = id;
+              en[d] = en_r[h];
+            }
+          } else {
+            g.sink_val[row * S + (d - M)] = v;
+            put_id<IdT>(g.cs_am, row * S + (d - M), id);
+          }
+        }
       }
+    } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        vv[h] = uv[uu[h]];
-        kk[h] = uk[uu[h]];
+      for (int j = 0; j < EPL; ++j)
+        if (last >> j & 1) xv[mo[j]] = na[j] + wx[j];
+      __syncwarp();
+      // -- closure and sinks, 1: the best source of each distinct column
+      float bv = NEG;
+      int bk = -1;
+      if (one) {
+        best_in_lanes(xv, tab, P, cs, lane, bv, bk);
+      } else {
+        best_sources(xv, tab, P, U, cs, lane, uv, uk);
+        __syncwarp();
       }
+      // 2: each destination takes its distinct column's best and its own
+      // edge id; the first 64 keep their carry in registers
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int d = dd[h], k = kk[h];
+        const int d = 32 * h + lane;
+        float v;
+        int k;
+        if (one) {
+          v = __shfl_sync(0xffffffffu, bv, cu[h] << cs.lg);
+          k = __shfl_sync(0xffffffffu, bk, cu[h] << cs.lg);
+        } else {
+          v = uv[cu[h]];
+          k = uk[cu[h]];
+        }
+        if (d < D) {
+          const int id = k >= 0 ? ids[(size_t)d * P + k] : -1;
+          if (d < M) {
+            put_id<IdT>(g.cm_am, row * M + d, id);
+            if (live) {
+              en_r[h] = v >= thresh ? v : NEG;
+              eg_r[h] = id;
+              en[d] = en_r[h];
+            }
+          } else {
+            g.sink_val[row * S + (d - M)] = v;
+            put_id<IdT>(g.cs_am, row * S + (d - M), id);
+          }
+        }
+      }
+#pragma unroll 1
+      for (int d0 = 64; d0 < D; d0 += 32) {   // wide networks
+        const int d = d0 + lane;
+        const int u = d < D ? col_of[d] : 0;
+        float v;
+        int k;
+        if (one) {
+          v = __shfl_sync(0xffffffffu, bv, u << cs.lg);
+          k = __shfl_sync(0xffffffffu, bk, u << cs.lg);
+        } else {
+          v = uv[u];
+          k = uk[u];
+        }
         if (d >= D) continue;
         const int id = k >= 0 ? ids[(size_t)d * P + k] : -1;
         if (d < M) {
           put_id<IdT>(g.cm_am, row * M + d, id);
-          float ne;
-          int ng;
           if (live) {
-            ne = vv[h] >= thresh ? vv[h] : NEG;
-            ng = id;
-            en[d] = ne;
-            eg[d] = ng;
-          } else {
-            ne = en[d];
-            ng = eg[d];
-          }
-          if (f + 1 < F) {  // the next frame's records of its carry
-            const size_t nx = (row + 1) * M + d;
-            g.entry_val[nx] = ne;
-            put_id<IdT>(g.entry_edge, nx, ng);
-            put_id<IdT>(g.ex_am, nx,
-                        d < 64 ? xid[h] : __ldg(g.id_exit + d));
+            en[d] = v >= thresh ? v : NEG;
+            eg[d] = id;
           }
         } else {
-          g.sink_val[row * S + (d - M)] = vv[h];
+          g.sink_val[row * S + (d - M)] = v;
           put_id<IdT>(g.cs_am, row * S + (d - M), id);
         }
       }
@@ -290,7 +495,7 @@ net_decode_kernel(const Args g) {
 #pragma unroll
       for (int j = 0; j < EPL; ++j) a[j] = na[j];
     }
-    __syncwarp();
+    __syncwarp();   // the new entries, before the next in-model pass
   }
 
 #pragma unroll
@@ -298,10 +503,22 @@ net_decode_kernel(const Args g) {
     const int e = lane * EPL + j;
     if (e < E) g.alpha_out[(size_t)b * E + e] = a[j];
   }
-  for (int m = lane; m < M; m += 32) {
-    g.entry_out[(size_t)b * M + m] = en[m];
-    g.edge_out[(size_t)b * M + m] = eg[m];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int d = 32 * h + lane;
+    if (d < M) {
+      g.entry_out[(size_t)b * M + d] = en_r[h];
+      g.edge_out[(size_t)b * M + d] = eg_r[h];
+    }
   }
+  if constexpr (!RED) {
+#pragma unroll 1
+    for (int m = 64 + lane; m < M; m += 32) {
+      g.entry_out[(size_t)b * M + m] = en[m];
+      g.edge_out[(size_t)b * M + m] = eg[m];
+    }
+  }
+  cp_async_wait<0>();   // no copy outlives the block
 }
 
 using Kernel = void (*)(const Args);
@@ -311,17 +528,17 @@ using Kernel = void (*)(const Args);
 template <bool SMEM_TAB>
 Kernel pick16(int epl) {
   switch (epl) {
-    case 1: return net_decode_kernel<1, SMEM_TAB, int16_t>;
-    case 2: return net_decode_kernel<2, SMEM_TAB, int16_t>;
-    case 3: return net_decode_kernel<3, SMEM_TAB, int16_t>;
-    case 4: return net_decode_kernel<4, SMEM_TAB, int16_t>;
-    case 5: return net_decode_kernel<5, SMEM_TAB, int16_t>;
-    case 6: return net_decode_kernel<6, SMEM_TAB, int16_t>;
-    case 8: return net_decode_kernel<8, SMEM_TAB, int16_t>;
-    case 12: return net_decode_kernel<12, SMEM_TAB, int16_t>;
-    case 16: return net_decode_kernel<16, SMEM_TAB, int16_t>;
-    case 24: return net_decode_kernel<24, SMEM_TAB, int16_t>;
-    default: return net_decode_kernel<32, SMEM_TAB, int16_t>;
+    case 1: return net_decode_kernel<1, SMEM_TAB, int16_t, false>;
+    case 2: return net_decode_kernel<2, SMEM_TAB, int16_t, false>;
+    case 3: return net_decode_kernel<3, SMEM_TAB, int16_t, false>;
+    case 4: return net_decode_kernel<4, SMEM_TAB, int16_t, false>;
+    case 5: return net_decode_kernel<5, SMEM_TAB, int16_t, false>;
+    case 6: return net_decode_kernel<6, SMEM_TAB, int16_t, false>;
+    case 8: return net_decode_kernel<8, SMEM_TAB, int16_t, false>;
+    case 12: return net_decode_kernel<12, SMEM_TAB, int16_t, false>;
+    case 16: return net_decode_kernel<16, SMEM_TAB, int16_t, false>;
+    case 24: return net_decode_kernel<24, SMEM_TAB, int16_t, false>;
+    default: return net_decode_kernel<32, SMEM_TAB, int16_t, false>;
   }
 }
 
@@ -330,15 +547,43 @@ Kernel pick16(int epl) {
 // time, not results)
 template <bool SMEM_TAB>
 Kernel pick32(int epl) {
-  if (epl <= 1) return net_decode_kernel<1, SMEM_TAB, int>;
-  if (epl <= 2) return net_decode_kernel<2, SMEM_TAB, int>;
-  if (epl <= 4) return net_decode_kernel<4, SMEM_TAB, int>;
-  if (epl <= 8) return net_decode_kernel<8, SMEM_TAB, int>;
-  if (epl <= 16) return net_decode_kernel<16, SMEM_TAB, int>;
-  return net_decode_kernel<32, SMEM_TAB, int>;
+  if (epl <= 1) return net_decode_kernel<1, SMEM_TAB, int, false>;
+  if (epl <= 2) return net_decode_kernel<2, SMEM_TAB, int, false>;
+  if (epl <= 4) return net_decode_kernel<4, SMEM_TAB, int, false>;
+  if (epl <= 8) return net_decode_kernel<8, SMEM_TAB, int, false>;
+  if (epl <= 16) return net_decode_kernel<16, SMEM_TAB, int, false>;
+  return net_decode_kernel<32, SMEM_TAB, int, false>;
+}
+
+// The redux instance (U <= RED_COLUMNS, M + S <= 64, tables staged): the
+// states-per-lane instances up to RED_EPL, int16 at each, int32 at the
+// powers of two.
+Kernel pick_redux(int epl, bool id16) {
+  if (!id16) {
+    if (epl <= 1) return net_decode_kernel<1, true, int, true>;
+    if (epl <= 2) return net_decode_kernel<2, true, int, true>;
+    if (epl <= 4) return net_decode_kernel<4, true, int, true>;
+    return net_decode_kernel<8, true, int, true>;
+  }
+  switch (epl) {
+    case 1: return net_decode_kernel<1, true, int16_t, true>;
+    case 2: return net_decode_kernel<2, true, int16_t, true>;
+    case 3: return net_decode_kernel<3, true, int16_t, true>;
+    case 4: return net_decode_kernel<4, true, int16_t, true>;
+    case 5: return net_decode_kernel<5, true, int16_t, true>;
+    case 6: return net_decode_kernel<6, true, int16_t, true>;
+    default: return net_decode_kernel<8, true, int16_t, true>;
+  }
 }
 
 }  // namespace
+
+// Whether a launch takes the redux instance: few distinct columns, every
+// destination in a lane's two registers, the states a lane within
+// RED_EPL (epl_k: the instance's), the tables in shared memory.
+static bool redux_instance(int U, int D, int epl_k, bool smem_tab) {
+  return U <= RED_COLUMNS && D <= 64 && epl_k <= RED_EPL && smem_tab;
+}
 
 // One block of frames of the decode-mode dense network step for n streams:
 // obs [n, F, E] f32; carry alpha [n, E], entry [n, M] f32, entry edge
@@ -364,8 +609,11 @@ extern "C" int phn_net_decode(
     return cudaErrorInvalidValue;
   const int U_pad = (U + 31) / 32 * 32, D = M + S;
   const int epl = states_per_lane(E);
+  int epl_k = epl;   // int32 ids: the power-of-two instance at or above
+  while (!id16 && (epl_k & (epl_k - 1))) ++epl_k;
   const size_t slice =
-      sizeof(float) * (P + (2 * (size_t)M + 2 * (size_t)U + 3) / 4 * 4);
+      sizeof(float) * (P + (2 * (size_t)M + 2 * (size_t)U + 3) / 4 * 4 +
+                       (size_t)OBS_RING * 32 * epl_k);
   const size_t tables =
       sizeof(float) * ((size_t)U_pad * P + ((size_t)D + 3) / 4 * 4 +
                        (size_t)D * P);
@@ -375,8 +623,10 @@ extern "C" int phn_net_decode(
   cudaError_t err = plan_blocks(tables, slice, &w, &smem_tab, &smem);
   if (err != cudaSuccess) return err;
   const Kernel k =
-      id16 ? (smem_tab ? pick16<true>(epl) : pick16<false>(epl))
-           : (smem_tab ? pick32<true>(epl) : pick32<false>(epl));
+      redux_instance(U, D, epl_k, smem_tab)
+          ? pick_redux(epl, id16)
+          : id16 ? (smem_tab ? pick16<true>(epl) : pick16<false>(epl))
+                 : (smem_tab ? pick32<true>(epl) : pick32<false>(epl));
   err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

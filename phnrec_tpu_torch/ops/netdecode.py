@@ -24,6 +24,13 @@ bit-equal to the plain version wherever their value is live (> NEG / 2)
 where the new entry is, entry_edge where the carried entry is, cs_am where
 the sink value is (``compare_live``); dead entries hold other values and
 ids, which no walk reaches.
+
+The kernel has two instances of one design, picked by the network's sizes
+(``plan_instance``): the redux instance (few distinct columns, at most 64
+destinations, a phoneme loop's network) takes each column's best source
+by two warp reductions over the exits in registers; the general instance
+stages the exits in shared memory and reduces each column over lanes.
+Both count as this kernel's launches.
 """
 
 from __future__ import annotations
@@ -39,6 +46,13 @@ from phnrec_tpu_torch.ops import _build, netstep, nettrace
 
 LAUNCHES = 0
 MAX_E = netstep.MAX_E
+# the redux instance (csrc/netdecode.cu): networks of at most REDUX_COLUMNS
+# distinct destination columns and 64 destinations, at most REDUX_EPL
+# states a lane (the instance's: int32 ids round the count up to a power
+# of two); the general instance takes the rest
+REDUX_COLUMNS = 4
+REDUX_EPL = 8
+EPLS = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32)   # netdense.cuh's instances
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 ID_KEYS = ("in_am", "ex_am", "cm_am", "entry_edge", "cs_am")
@@ -121,6 +135,16 @@ def check_limits(E: int, S: int, F: int, n: int) -> None:
         raise ValueError("block too large for 32-bit offsets")
 
 
+def plan_instance(E: int, D: int, U: int, id16: bool) -> str:
+    """The instance a launch takes, by the network's sizes: "redux" or
+    "general" (as phn_net_decode picks it)."""
+    epl = next(c for c in EPLS if 32 * c >= E)
+    if not id16:
+        epl = 1 << (epl - 1).bit_length()
+    return ("redux" if U <= REDUX_COLUMNS and D <= 64 and epl <= REDUX_EPL
+            else "general")
+
+
 def id_tables(dense, structure: dict, P: int) -> Dict[str, np.ndarray]:
     """The kernel's id tables: id_in [E, 4] i32 (per state, the edge ids
     of its self, advance and entry candidates, -1 where the candidate has
@@ -164,6 +188,11 @@ class NetDecode:
             w_self=structure["w_self"], w_adv=structure["w_adv"],
             w_entry=structure["w_entry"], w_exit=structure["w_exit"],
             tab=tab, col_of=col_of, **id_tables(dense, structure, self.P))
+
+    def instance(self, id_dtype=torch.int32) -> str:
+        """The kernel instance a launch with ``id_dtype`` ids takes."""
+        return plan_instance(self.E, self.M + self.S, self.U,
+                             id_dtype == torch.int16)
 
     def _tables(self, device):
         return _device_cache(self, device, lambda d: {

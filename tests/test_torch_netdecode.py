@@ -289,6 +289,31 @@ def test_limits_match_the_source():
         netdecode.check_limits(netdecode.MAX_E + 1, 1, 4, 4)
 
 
+def test_instance_plan_matches_the_source():
+    """Kernel E's instance plan (ops/netdecode.py) and the redux
+    instance's limits in csrc/netdecode.cu and netdense.cuh agree; the CZ
+    loop takes the redux instance at either id width, wider nets the
+    general one."""
+    import re
+    src = open(_build.CSRC / "netdecode.cu").read()
+    header = open(_build.CSRC / "netdense.cuh").read()
+    assert f"constexpr int RED_COLUMNS = {netdecode.REDUX_COLUMNS};" in src
+    assert f"constexpr int RED_EPL = {netdecode.REDUX_EPL};" in src
+    assert "U <= RED_COLUMNS && D <= 64 && epl_k <= RED_EPL" in src
+    epls = re.search(r"constexpr int EPLS\[\] = \{([^}]*)\};", header)
+    assert tuple(int(v) for v in epls.group(1).split(",")) == netdecode.EPLS
+    for E, D, U, id16, want in ((138, 47, 2, True, "redux"),
+                                (138, 47, 2, False, "redux"),
+                                (256, 64, 4, True, "redux"),
+                                (257, 64, 4, True, "general"),
+                                (200, 64, 4, False, "redux"),
+                                (300, 64, 4, False, "general"),
+                                (138, 65, 2, True, "general"),
+                                (144, 52, 12, True, "general"),
+                                (1020, 345, 200, False, "general")):
+        assert netdecode.plan_instance(E, D, U, id16) == want, (E, D, U)
+
+
 @pytest.mark.parametrize("which", ["tiny", "words"])
 def test_traceback_host_matches_jax(packages, which):
     """traceback_host over a whole utterance's records, over the window
