@@ -177,6 +177,10 @@ KERNELS = {
     "phnloop_fb": dict(module=phnloop_fb, counter="LAUNCHES",
                        source=CSRC + "trainfb.cu",
                        replaces="phnrec_tpu/decoder/forward_backward.py:44"),
+    "phnloop_fb_group": dict(
+        module=phnloop_fb, counter="GROUP_LAUNCHES",
+        source=CSRC + "trainfb.cu",
+        replaces="phnrec_tpu/decoder/forward_backward.py:44"),
     "graph_fb": dict(module=trainfb, counter="LAUNCHES",
                      source=CSRC + "trainfb.cu",
                      replaces="phnrec_tpu/train/fb.py:92"),
@@ -202,6 +206,9 @@ WIDE_KERNELS = ("mlp_fused_wide", "mlp_bf16x3_wide")
 # kernels K and K', on a cluster and one block an utterance
 GRAPH_KERNELS = ("graph_fb", "graph_align", "graph_fb_cluster",
                  "graph_align_cluster")
+# kernel J's two instances: a block an utterance (past 1,024 states), a
+# group of warps an utterance
+J_KERNELS = ("phnloop_fb", "phnloop_fb_group")
 # kernel A against cuBLAS float32: both sum in another order, and fexp is a
 # step function of its argument (steps of 2^-20 relative), so outputs differ
 # by a few ulp of the sums; probabilities within 2e-5, raw logits within 1e-4.
@@ -2583,9 +2590,10 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     ids); the CZ loop with int32 ids (its instance rounds the states a
     lane up to a power of two); n 1 and 13 (no multiple of the 4 streams
     a block); every stream dead; a carry passed between two blocks, which
-    must equal one.  max_abs_err: the largest |kernel - plain| over the
-    live values (entry_val, sink_val, the carry's alpha and entry) of
-    every case and beam, 0 where they are bit-equal.  Then kernel H's
+    must equal one; both instances (redux: the CZ loop; general: the EN
+    KWS and wide nets) must be reached.  max_abs_err: the largest |kernel
+    - plain| over the live values (entry_val, sink_val, the carry's alpha
+    and entry) of every case and beam, 0 where they are bit-equal.  Then kernel H's
     int16 instance on E's records of the CZ case: equal to the
     plain walk over E's records and over the plain version's (a dead
     entry's id never reaches a walk), with and without committed
@@ -2606,6 +2614,7 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
     if None in blks.values():
         raise AssertionError(f"the structure gate rejected a net: {blks}")
     out, bad, h16, err = None, [], None, 0.0
+    instances = set()
     for case, (net, cn, cF, kw) in cases.items():
         dense, blk = nets[net], blks[net]
         kw = dict(kw)
@@ -2634,6 +2643,7 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
             rec = dict(case=case, n=cn, F=cF, M=dense.M, E=dense.E,
                        S=dense.n_sinks, distinct_columns=blk.U, beam=bw,
                        ids=str(ids).split(".")[-1],
+                       instance=blk.instance(ids),
                        live_entry_share=float(
                            (want[1]["entry_val"] > NEG / 2).float().mean()),
                        bit_equal=all(checks.values()),
@@ -2653,12 +2663,16 @@ def check_netdecode(nets: dict, cz_dec, dev, n: int = 256,
                 rec.update(out)
                 h16 = check_nettrace_i16(cz_dec, got, want, nv, dev)
             phase("netdecode", **rec)
+            instances.add(rec["instance"])
             if not all(checks.values()):
                 bad.append((case, bw, {k: v for k, v in checks.items()
                                        if not v}))
     if bad:
         raise AssertionError(f"netdecode differs from the plain version: "
                              f"{bad}")
+    if instances != {"redux", "general"}:
+        raise AssertionError(f"the case list missed an instance of kernel "
+                             f"E: {instances}")
     # over every case and beam: the live values' largest difference
     out["max_abs_err"] = err
     return out, h16
@@ -2983,7 +2997,9 @@ def check_trainfb_cases(dev, models) -> dict:
     res = trainfb_variants.check_cases(
         phnloop_fb.phnloop_fb, trainfb.graph_fb, trainfb.graph_align, dev,
         models, fb_one=lambda *a: trainfb.launch_fb(lib, *a, cluster=0),
-        align_one=lambda *a: trainfb.launch_align(lib, *a, cluster=0))
+        align_one=lambda *a: trainfb.launch_align(lib, *a, cluster=0),
+        j_block=lambda *a: phnloop_fb.launch(lib, *a, instance="block"),
+        j_instance=phnloop_fb.plan_instance)
     err = {"graph_fb": 0.0, "graph_fb_cluster": 0.0}
     for r in res["cases"]:
         if r["kernel"] == "graph_fb+graph_align":
@@ -2993,11 +3009,21 @@ def check_trainfb_cases(dev, models) -> dict:
             err[k] = max(err[k], r["abs_err"])
             err["graph_fb"] = max(err["graph_fb"], r["one_block_abs_err"])
     paths = {w: sorted({r[w] for r in res["cases"] if w in r})
-             for w in ("cluster", "align_cluster")}
+             for w in ("cluster", "align_cluster", "instance")}
+    # J's largest |kernel - plain| by instance: the planned one, and the
+    # block instance forced on every case
+    j_recs = [r for r in res["cases"] if r["kernel"] == "phnloop_fb"]
+    j_err = {"group": max(r["abs_err"] for r in j_recs
+                          if r["instance"] == "group"),
+             "block": max(max(r["block_abs_err"] for r in j_recs),
+                          max(r["abs_err"] for r in j_recs
+                              if r["instance"] == "block"))}
     phase("trainfb_cases", tol=trainfb_variants.TOL, paths=paths, **res)
     if not res["ok"]:
         raise AssertionError(f"kernel J, K or K' differs: {res}")
-    if not all(0 in p and len(p) > 1 for p in paths.values()):
+    if not all(0 in paths[w] and len(paths[w]) > 1
+               for w in ("cluster", "align_cluster")) or \
+            paths["instance"] != ["block", "group"]:
         raise AssertionError(f"the case list missed a design: {paths}")
     inp = trainfb_variants.timing_inputs(dev, models)
     ns, k = inp["ns"], inp["k"]
@@ -3008,12 +3034,16 @@ def check_trainfb_cases(dev, models) -> dict:
              "graph_align": lambda: trainfb.graph_align_plain(*k)}
     plain_ms = {w: cuda_ms(f, iters=1, warmup=1) for w, f in plain.items()}
     out = {}
+    j_plain = cuda_ms(lambda: phnloop_fb.phnloop_fb_plain(*inp["j"]),
+                      iters=1, warmup=1)
     for name, fn, t_p, work, err_k in (
-            ("phnloop_fb", lambda: phnloop_fb.phnloop_fb(*inp["j"]),
-             cuda_ms(lambda: phnloop_fb.phnloop_fb_plain(*inp["j"]),
-                     iters=1, warmup=1),
-             _phnloop_fb_work(1, 500, 46, 3, 138),
-             res["max_abs_err"]["phnloop_fb"]),
+            ("phnloop_fb", lambda: phnloop_fb.launch(lib, *inp["j"],
+                                                     instance="block"),
+             j_plain, _phnloop_fb_work(1, 500, 46, 3, 138),
+             j_err["block"]),
+            ("phnloop_fb_group", lambda: phnloop_fb.phnloop_fb(*inp["j"]),
+             j_plain, _phnloop_fb_work(1, 500, 46, 3, 138),
+             j_err["group"]),
             ("graph_fb", lambda: trainfb.launch_fb(lib, *k, cluster=0),
              plain_ms["graph_fb"], _graph_fb_work(S, T, ns),
              err["graph_fb"]),
@@ -3031,7 +3061,12 @@ def check_trainfb_cases(dev, models) -> dict:
         out[name] = dict(max_abs_err=err_k, ms=t_k, held_ms=held,
                          plain_ms=t_p, **bound(*work, PEAK_FP32))
         out[name]["bound_share"] = out[name]["bound_ms"] / held
-    out["phnloop_fb"]["shape"] = "B 1 x T 500 x P 46 x S 3"
+    for name in J_KERNELS:
+        out[name]["shape"] = "B 1 x T 500 x P 46 x S 3"
+        out[name]["step_clocks"] = clocks(
+            lambda: phnloop_fb.launch(lib, *inp["j"], instance=(
+                "group" if name.endswith("group") else "block")),
+            out[name]["held_ms"], 2 * 500)
     for name in GRAPH_KERNELS:
         align = name.startswith("graph_align")
         w = "graph_align" if align else "graph_fb"
@@ -3263,7 +3298,7 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
     utts, lp, n_frames, labels = train_turns.posterior_inputs(
         sr, B, seconds)
     models = trainfb_variants.hmm_set(tmp, sr.phonemes)
-    tr_counts = (*GRAPH_KERNELS, "phnloop_fb")
+    tr_counts = (*GRAPH_KERNELS, *J_KERNELS)
     reset_counts(tr_counts)
     out, lls = {}, []
     stages: dict = {}
@@ -3305,12 +3340,17 @@ def train_posteriors(sr, cpu_sr, tmp: str, dev, B: int = 256,
     a_card = _reestimate(base, utts[:8], "baum_welch", dev)[0]
     a_cpu = _reestimate(base, utts[:8], "baum_welch", "cpu")[0]
     err = _acc_err(a_card, a_cpu)
-    # the phoneme-loop occupancies of 16 utterances (kernel J)
+    # the phoneme-loop occupancies of 16 utterances (kernel J's group
+    # instance), then of one seeded utterance on a loop of 400 x 3 states
+    # (the block instance)
     t = time.perf_counter()
     rows = [occupancies(sr.loop_spec, lp[b, : n_frames[b]]).sum(1)
             for b in range(min(16, B))]
     occ_s = time.perf_counter() - t
-    launches["phnloop_fb"] = read_counts(("phnloop_fb",))["phnloop_fb"]
+    wide = sr.loop_spec._replace(n_phonemes=400)
+    rows.append(occupancies(wide, trainfb_variants.logpost(
+        np.random.default_rng(25), 1, 60, 1200, dev)[0]).sum(1))
+    launches.update(read_counts(J_KERNELS))
     row_err = float(max(np.abs(r - 1.0).max() for r in rows))
     audio_s = B * seconds
     first = out["iter1_baum_welch"]["wall_s"]

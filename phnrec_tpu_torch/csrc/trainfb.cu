@@ -27,7 +27,21 @@
 // steps with a barrier each, and K's [S, S] lse costs S^2 exps a frame (S
 // 256: 65,536 a frame, two passes over log_A each).  Neither is near the
 // card's bytes or operations: the bound is the chain of dependent steps
-// and what one step costs.
+// and what one step costs.  J's forward and backward chains do not depend
+// on each other.
+//
+// Two instances of J; the wrapper's plan (ops/phnloop_fb.py) takes the
+// group instance up to 1,024 states, the block design past them.  At the
+// CZ loop (46 x 3, one utterance of 500 frames; PERF.md, NVIDIA H100 80GB
+// HBM3, 700 W, devtools/trainfb_variants.py in turns) the block design
+// took 2,144-2,172 clocks a step (a frame of one scan): five and six
+// block barriers a frame, two logaddexps a state.  Measured on the way:
+// a warp an utterance, its states in registers, 3,959 (its logaddexps
+// issued from one scheduler); a group of warps a scan with one logaddexp
+// a state and one barrier a frame, the scans one after the other, 1,795
+// (1,313 with the lanes' slots free of branches); the two scans side by
+// side 773 (held 0.391 ms from 1.095; 518 from 1,950 at 32 states, 1,907
+// from 3,709 at 1,024); the same on at most two warps a scan 1,020.
 //
 // Two designs of K and K'; the wrapper's plan (ops/trainfb.py) takes the
 // cluster kernels where log_A's slices fit a cluster's shared memory (S
@@ -37,8 +51,9 @@
 // stays in shared memory and the carries move block to block (1.3-1.7 us
 // a step, PERF.md).
 //
-// Design of J and the one-block kernels: one block per utterance (a
-// bucket's B utterances in parallel), the frame loop inside the kernel.
+// Design of J's block instance and the one-block kernels: one block per
+// utterance (a bucket's B utterances in parallel), the frame loop inside
+// the kernel.  (J's group instance: its section below.)
 // * J: a thread per (p, s) (P*S <= 1,024 threads; more take a strided
 //   loop), alpha / beta of the current frame in shared memory for the
 //   neighbour state, the two per-frame lses as block reductions (warp
@@ -181,6 +196,295 @@ __global__ void phnloop_fb_kernel(const float* __restrict__ lp, int T, int D,
       bt[k] = lae(lae(stay, adv), ext);
     }
     __syncthreads();
+  }
+}
+
+// ----------------------------------------------- kernel J, group instance
+// The forward and the backward scan do not depend on each other: a block
+// an utterance runs them side by side, nw <= J_WARPS warps each, each
+// direction with its own named barrier.  In a
+// direction thread i holds states i * EPL .. i * EPL + EPL - 1 in
+// registers (EPL the smallest of J_EPLS with J_WARPS * 32 * EPL >= P*S;
+// nw = P*S / (32 EPL) rounded up).  A step computes each state with one
+// logaddexp (the third candidate is NEG, and lae(x, NEG) == x exactly),
+// the neighbour state by one shuffle and across warps through shared
+// memory; each lse takes a warp's max by redux over the floats'
+// order-keeping ints, each lane's exps in slot order, a five-round xor
+// butterfly, then the warps' (max, sum) pairs combine as
+// sum_w s_w exp(m_w - M).  One barrier a step (the pairs and the boundary
+// states double-buffered).  Observation rows come by cp.async into each
+// thread's own slots of a ring, two frames ahead; alpha / beta are stored
+// from registers.
+
+constexpr int J_GROUP_MAX = 1024;   // states the group instance takes
+constexpr int J_EPLS[] = {1, 2, 4, 8};
+constexpr int J_WARPS = 4;          // warps a direction, at most
+constexpr int J_RING = 3;           // observation rows a thread keeps
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// lae's value with a select in place of its branch, so a thread's slots
+// interleave (the same number: the infinities' rule picks a)
+__device__ __forceinline__ float lae_sel(float a, float b) {
+  const float r = fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+  return isinf(a) && a == b ? a : r;
+}
+
+// The largest of a warp's floats, exactly: max over the integers that
+// order the floats as their values do (no NaN here).
+__device__ __forceinline__ float warp_max(float v) {
+  int i = __float_as_int(v);
+  i = __reduce_max_sync(0xffffffffu, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// A warp's share of an lse over the slots of ``mask``: its max m (-inf
+// where the warp has none) and the sum of exp(x - m') over them (m' = m,
+// 0 where m is not finite), each lane's exps in slot order, then the
+// butterfly; every lane gets both.
+template <int EPL>
+__device__ __forceinline__ void warp_lse_part(const float (&x)[EPL],
+                                              unsigned mask, float& m,
+                                              float& s) {
+  m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) m = fmaxf(m, mask >> j & 1 ? x[j] : -INFINITY);
+  m = warp_max(m);
+  const float mm = isfinite(m) ? m : 0.0f;
+  s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const float e = expf(x[j] - mm);
+    s += mask >> j & 1 ? e : 0.0f;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+}
+
+// The lse from nw warps' (max, sum) pairs: M the largest max (0 where not
+// finite), sum_w s_w exp(m'_w - M) in warp order, log of it + M.
+__device__ __forceinline__ float combine_lse(const float* pm, const float* ps,
+                                            int nw) {
+  float m[J_WARPS], s[J_WARPS];
+#pragma unroll
+  for (int w = 0; w < J_WARPS; ++w) {
+    m[w] = w < nw ? pm[w] : -INFINITY;
+    s[w] = w < nw ? ps[w] : 0.0f;
+  }
+  float M = m[0];
+#pragma unroll
+  for (int w = 1; w < J_WARPS; ++w) M = fmaxf(M, m[w]);
+  if (!isfinite(M)) M = 0.0f;
+  float sum = 0.0f;
+#pragma unroll
+  for (int w = 0; w < J_WARPS; ++w) {
+    const float e = s[w] * expf((isfinite(m[w]) ? m[w] : 0.0f) - M);
+    sum += m[w] > -INFINITY ? e : 0.0f;
+  }
+  return logf(sum) + M;
+}
+
+// This thread's states of one observation row into its ring slots.
+template <int EPL>
+__device__ __forceinline__ void fetch_states(float* slot, const float* src,
+                                             int k0, int PS) {
+#pragma unroll
+  for (int j = 0; j < EPL; ++j)
+    if (k0 + j < PS) cp_async4(slot + k0 + j, src + k0 + j);
+}
+
+// lp [B, T, D] (columns p*S + s), alpha / beta [B, T, P*S], like [B];
+// P*S <= 32 * EPL * nw, a block of 2 nw warps an utterance.  Shared, a
+// direction each: the ring [J_RING][32 nw EPL], then [2][J_WARPS] maxima,
+// [2][J_WARPS] sums, [2][J_WARPS] boundary states.
+// The barrier of one direction's warps (id 1 forwards, 2 backwards).
+__device__ __forceinline__ void direction_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int EPL>
+__global__ void __launch_bounds__(64 * J_WARPS)
+phnloop_fb_group_kernel(const float* __restrict__ lp, int T, int D, int P,
+                        int S, float w_pen, float tr_c, float tr_n,
+                        float* __restrict__ alpha, float* __restrict__ beta,
+                        float* __restrict__ like) {
+  extern __shared__ __align__(16) float smem[];
+  // warps [0, nw) run the forward scan, [nw, 2 nw) the backward one
+  const int nw = blockDim.x >> 6;
+  const bool bwd = threadIdx.x >= 32 * nw;
+  const int tid = threadIdx.x - (bwd ? 32 * nw : 0);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x;
+  const int PS = P * S, W = 32 * nw * EPL;
+  float* ring = smem + (bwd ? J_RING * W + 6 * J_WARPS : 0);
+  float* pm = ring + J_RING * W;      // [2][J_WARPS]
+  float* psum = pm + 2 * J_WARPS;     // [2][J_WARPS]
+  float* bnd = psum + 2 * J_WARPS;    // [2][J_WARPS]
+  const float* obs = lp + (size_t)b * T * D;
+  float* al = alpha + (size_t)b * T * PS;
+  float* be = beta + (size_t)b * T * PS;
+  const float NEG = -FLT_MAX;   // the phoneme loop's NEG_INF
+  const int k0 = tid * EPL;
+  const int threads = 32 * nw;
+
+  unsigned in = 0, first = 0, last = 0;   // bit j: slot j's state is ...
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const int k = k0 + j;
+    if (k < PS) {
+      in |= 1u << j;
+      if (k % S == 0) first |= 1u << j;
+      if (k % S == S - 1) last |= 1u << j;
+    }
+  }
+
+  float a[EPL];
+  if (!bwd) {
+    // forwards: a holds alpha_{t-1}; bnd[c][w] the last state of warp w - 1
+    // at a step of parity c
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) a[j] = NEG;
+    float entry = w_pen;   // the reference quirk: w_penalty at t = 0
+    for (int r = 0; r < J_RING - 1; ++r) {
+      if (r < T) fetch_states<EPL>(ring + r * W, obs + (size_t)r * D, k0, PS);
+      cp_async_commit();
+    }
+    for (int t = 0; t < T; ++t) {
+      const int c = t & 1;
+      cp_async_wait<J_RING - 2>();   // this thread's states of row t
+      if (t + J_RING - 1 < T)
+        fetch_states<EPL>(ring + (t + J_RING - 1) % J_RING * W,
+                          obs + (size_t)(t + J_RING - 1) * D, k0, PS);
+      cp_async_commit();
+      const float* o = ring + t % J_RING * W + k0;
+      float pa = __shfl_up_sync(0xffffffffu, a[EPL - 1], 1);
+      if (lane == 0) pa = warp && t ? bnd[(c ^ 1) * J_WARPS + warp] : NEG;
+      float x[EPL];
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        const float stay = a[j] + tr_c;
+        // the state's other candidate: the loop node's entry (first states)
+        // or the state below; lae of the NEG third is the identity
+        const float other =
+            first >> j & 1 ? entry : (j ? a[j - 1] : pa) + tr_n;
+        const float v = lae_sel(stay, other) + o[j];
+        x[j] = in >> j & 1 ? v : NEG;
+      }
+      float* arow = al + (size_t)t * PS + k0;
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        a[j] = x[j];
+        if (in >> j & 1) arow[j] = x[j];
+        x[j] = a[j] + tr_n;
+      }
+      // the loop node: lse over the exit states + tr_n, then the penalty
+      float m, s;
+      warp_lse_part<EPL>(x, last, m, s);
+      if (lane == 0) {
+        pm[c * J_WARPS + warp] = m;
+        psum[c * J_WARPS + warp] = s;
+      }
+      if (lane == 31 && warp + 1 < nw) bnd[c * J_WARPS + warp + 1] = a[EPL - 1];
+      direction_sync(1, threads);
+      entry = combine_lse(pm + c * J_WARPS, psum + c * J_WARPS, nw) + w_pen;
+    }
+    // log_like: lse over the exit states of alpha_T
+    {
+      float m, s;
+      warp_lse_part<EPL>(a, last, m, s);
+      const int c = T & 1;
+      if (lane == 0) {
+        pm[c * J_WARPS + warp] = m;
+        psum[c * J_WARPS + warp] = s;
+      }
+      direction_sync(1, threads);
+      if (tid == 0)
+        like[b] = combine_lse(pm + c * J_WARPS, psum + c * J_WARPS, nw);
+    }
+    return;
+  }
+
+  // backwards: a holds beta_t; bnd[c][w] the first state's beta + obs of
+  // warp w + 1 at a step of parity c
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) a[j] = last >> j & 1 ? 0.0f : NEG;
+  for (int r = 0; r < J_RING - 1; ++r) {
+    if (r < T)
+      fetch_states<EPL>(ring + r * W, obs + (size_t)(T - 1 - r) * D, k0, PS);
+    cp_async_commit();
+  }
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i, c = i & 1;
+    cp_async_wait<J_RING - 2>();
+    if (i + J_RING - 1 < T)
+      fetch_states<EPL>(ring + (i + J_RING - 1) % J_RING * W,
+                        obs + (size_t)(t - J_RING + 1) * D, k0, PS);
+    cp_async_commit();
+    const float* o = ring + i % J_RING * W + k0;
+    float bo[EPL];
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      if (in >> j & 1) be[(size_t)t * PS + k0 + j] = a[j];
+      const float v = a[j] + o[j];
+      bo[j] = in >> j & 1 ? v : NEG;
+    }
+    // re-entry: lse over the P first states of beta_t + obs_t
+    float m, s;
+    warp_lse_part<EPL>(bo, first, m, s);
+    if (lane == 0) {
+      pm[c * J_WARPS + warp] = m;
+      psum[c * J_WARPS + warp] = s;
+      if (warp) bnd[c * J_WARPS + warp - 1] = bo[0];
+    }
+    direction_sync(2, threads);
+    const float reentry =
+        combine_lse(pm + c * J_WARPS, psum + c * J_WARPS, nw) + w_pen;
+    float nb = __shfl_down_sync(0xffffffffu, bo[0], 1);
+    if (lane == 31) nb = warp + 1 < nw ? bnd[c * J_WARPS + warp] : NEG;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      const float stay = bo[j] + tr_c;
+      // the exit state's other candidate is the loop node, the rest's the
+      // state above
+      const float other = last >> j & 1
+                              ? tr_n + reentry
+                              : (j < EPL - 1 ? bo[j + 1] : nb) + tr_n;
+      const float v = lae_sel(stay, other);
+      a[j] = in >> j & 1 ? v : NEG;
+    }
+  }
+}
+
+using JGroupKernel = void (*)(const float*, int, int, int, int, float, float,
+                              float, float*, float*, float*);
+
+// The group instance's states a thread for P*S states (0: none takes it).
+inline int j_states_a_thread(int PS) {
+  for (int c : J_EPLS)
+    if (J_WARPS * 32 * c >= PS) return c;
+  return 0;
+}
+
+JGroupKernel j_group_kernel(int epl) {
+  switch (epl) {
+    case 1: return phnloop_fb_group_kernel<1>;
+    case 2: return phnloop_fb_group_kernel<2>;
+    case 4: return phnloop_fb_group_kernel<4>;
+    default: return phnloop_fb_group_kernel<8>;
   }
 }
 
@@ -928,6 +1232,28 @@ extern "C" int phn_loop_fb(const void* lp, int B, int T, int D, int P, int S,
       static_cast<const float*>(lp), T, D, P, S, w_pen, tr_c, tr_n,
       static_cast<float*>(alpha), static_cast<float*>(beta),
       static_cast<float*>(like), static_cast<float*>(scratch));
+  return (int)cudaGetLastError();
+}
+
+// Kernel J's group instance (P*S <= J_GROUP_MAX), the arguments of
+// phn_loop_fb (scratch unused).
+extern "C" int phn_loop_fb_group(const void* lp, int B, int T, int D, int P,
+                                 int S, float w_pen, float tr_c, float tr_n,
+                                 void* alpha, void* beta, void* like,
+                                 void* scratch, void* stream) {
+  (void)scratch;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  if (P <= 0 || S <= 0 || D < P * S || P * S > J_GROUP_MAX)
+    return cudaErrorInvalidValue;
+  const int PS = P * S, epl = j_states_a_thread(PS);
+  const int nw = (PS + 32 * epl - 1) / (32 * epl);
+  const size_t smem =
+      2 * sizeof(float) * ((size_t)J_RING * 32 * nw * epl + 6 * J_WARPS);
+  const JGroupKernel k = j_group_kernel(epl);
+  k<<<B, 64 * nw, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lp), T, D, P, S, w_pen, tr_c, tr_n,
+      static_cast<float*>(alpha), static_cast<float*>(beta),
+      static_cast<float*>(like));
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ build/phnrec_tpu_torch/variants/), prints each build's registers and
 spills, and holds each to the plain versions (ops/phnloop_fb.py,
 ops/trainfb.py) on the case list that chip_smoke.py holds the package's
 kernels to (``check_cases``): J on loops of 4 x 3 to 2,100 x 3 states
-(past 1,024 threads, and with its carries in device memory), K and K' on
+(one state a phoneme, 1,024 states, past 1,024 threads, and with its
+carries in device memory) on the instance its plan picks (reported a
+case) and on the block instance, K and K' on
 padded training graphs of netgen's PDFObsVec HMM set over 46 phonemes at S
 32 to 6,304 (``K_CASES``: the one-block kernels' carries in device memory
 at 6,304; the cluster kernels' largest S and the next bucket past it), B 1
@@ -17,7 +19,9 @@ to 160, ragged n_frames, tie-heavy observations; J and K within TOL relative (of
 max(|x|, 1)), K' bit for bit.  Then it times every build in turns (first
 to last, then last to first) at the training path's shapes (J: one CZ
 utterance, B 1 x T 500 x 46 x 3; K and K': a bucket, B 16 x T 512 x S 256
-with n 385-512) by chip_smoke.py's two timers.  The parent's source is
+with n 385-512) by chip_smoke.py's two timers, then J held at B 1 x T 500
+on loops of 32, 138, 1,024 and 1,025 states (``J_SIZES``), with the
+instance each ran and clocks a step (a frame of one scan).  The parent's source is
 extracted by the caller, e.g.
 ``git show HEAD~1:phnrec_tpu_torch/csrc/trainfb.cu > build/trainfb_ref.cu``.
 ``--repeat N`` runs the case list N times a build (a race between the
@@ -46,6 +50,7 @@ import numpy as np
 import torch
 
 from phnrec_tpu_torch.devtools.mlp_variants import build, cuda_ms
+from phnrec_tpu_torch.devtools.netstep_variants import sm_clock
 from phnrec_tpu_torch.devtools.scan_variants import held_ms
 from phnrec_tpu_torch.io.mmf import parse_mmf
 from phnrec_tpu_torch.netgen import phn_list_to_hmm_defs
@@ -59,10 +64,15 @@ TOL = 1e-5
 # the phoneme-loop scan's arguments after P and S: w_penalty, tr_curr,
 # tr_next (the CZ package's penalty, netgen's 0.5 transitions)
 J_ARGS = (-1.5, float(np.log(0.5)), float(np.log(0.5)))
-# (P, S, B, T): tiny, the CZ loop at B 1 and 16, past 1,024 threads, and
-# past 48 KB of carries (device memory)
+# (P, S, B, T): tiny, the CZ loop at B 1 and 16, one state a phoneme,
+# 1,024 states at B 5 (the group instance's largest), past 1,024 threads,
+# and past 48 KB of carries (device memory)
 J_CASES = ((4, 3, 1, 40), (46, 3, 1, 500), (46, 3, 16, 500),
+           (33, 1, 3, 30), (256, 4, 5, 40),
            (400, 3, 2, 60), (2100, 3, 1, 12))
+# (P, S) of J's timed loops at B 1 x T 500: 32 states (one warp), the CZ
+# loop (138), the group instance's largest (1,024) and the next (1,025)
+J_SIZES = ((16, 2), (46, 3), (256, 4), (205, 5))
 # (phonemes a transcription, S, B, T, ties): S 32, the CZ bucket (256) at
 # B 1 and 16, ties, past 512 columns, past 48 KB of carries; then the
 # phoneme-loop denominator of sMBR (S 138, B 1), S 250 (no multiple of a
@@ -182,14 +192,18 @@ def graphs_ok(rec: dict) -> bool:
 
 
 def check_cases(j, fb, align, dev, models, seed: int = 21,
-                fb_one=None, align_one=None) -> dict:
+                fb_one=None, align_one=None, j_block=None,
+                j_instance=None) -> dict:
     """Kernels ``j`` (J's signature), ``fb`` (K's) and ``align`` (K''s)
     against the plain versions on J_CASES and K_CASES: the case records,
     the worst relative and absolute errors of J and K, and whether K' was
     bit-equal everywhere.  ``fb_one`` and ``align_one``, when given, are
     the one-block design's K and K': held to the plain versions on every
     case as well (``ok`` needs both designs), and whether ``fb`` equals
-    ``fb_one`` bit for bit (``fb_bit_equal_one_block``, reported)."""
+    ``fb_one`` bit for bit (``fb_bit_equal_one_block``, reported).
+    ``j_block``, when given, is J's block instance, held the same way on
+    every J case (``block_rel_err``); ``j_instance(P, S)`` names the
+    instance ``j`` runs on a loop (``instance`` in each J record)."""
     rng = np.random.default_rng(seed)
     names = list(models.hmms)
     recs = []
@@ -197,15 +211,22 @@ def check_cases(j, fb, align, dev, models, seed: int = 21,
     ab = {"phnloop_fb": 0.0, "graph_fb": 0.0}
     for P, S, B, T in J_CASES:
         lp = logpost(rng, B, T, P * S + 2, dev)
-        got = j(lp, P, S, *J_ARGS)
         want = phnloop_fb.phnloop_fb_plain(lp, P, S, *J_ARGS)
-        torch.cuda.synchronize()
-        err = max(rel_err(g, w) for g, w in zip(got, want))
-        rel["phnloop_fb"] = max(rel["phnloop_fb"], err)
-        ab["phnloop_fb"] = max(ab["phnloop_fb"], max(
-            abs_err(g, w) for g, w in zip(got, want)))
-        recs.append(dict(kernel="phnloop_fb", P=P, S=S, B=B, T=T,
-                         rel_err=err))
+        rec = dict(kernel="phnloop_fb", P=P, S=S, B=B, T=T)
+        if j_instance is not None:
+            rec["instance"] = j_instance(P, S)
+        for key, fn in (("", j), ("block_", j_block)):
+            if fn is None:
+                continue
+            got = fn(lp, P, S, *J_ARGS)
+            torch.cuda.synchronize()
+            err = max(rel_err(g, w) for g, w in zip(got, want))
+            rec[key + "rel_err"] = err
+            rec[key + "abs_err"] = max(abs_err(g, w)
+                                       for g, w in zip(got, want))
+            rel["phnloop_fb"] = max(rel["phnloop_fb"], err)
+            ab["phnloop_fb"] = max(ab["phnloop_fb"], rec[key + "abs_err"])
+        recs.append(rec)
     ok = rel["phnloop_fb"] <= TOL
     for n_phn, S, B, T, ties in K_CASES:
         trans = [list(rng.choice(names, n_phn - int(rng.integers(0, 3))))
@@ -233,6 +254,33 @@ def check_cases(j, fb, align, dev, models, seed: int = 21,
         out["fb_bit_equal_one_block"] = all(
             r["fb_bit_equal_one_block"] for r in k_recs)
     return out
+
+
+def j_sizes(libs: dict, order, dev, T: int = 500, seed: int = 23) -> None:
+    """J of every build held at B 1 x T on each loop of J_SIZES, in turns
+    (``order``), with the instance each ran and clocks a step (one frame
+    of one scan: 2 T steps a call)."""
+    rng = np.random.default_rng(seed)
+    for P, S in J_SIZES:
+        lp = logpost(rng, 1, T, P * S, dev)
+        rows = {name: [] for name in libs}
+        for name in order:
+            lib = libs[name]
+            fn = lambda: phnloop_fb.launch(lib, lp, P, S, *J_ARGS)  # noqa
+            rows[name].append(held_ms(fn, iters=5))
+        mhz = sm_clock(lambda: phnloop_fb.launch(libs[order[0]], lp, P, S,
+                                                 *J_ARGS), 1.0)
+        for name, held in rows.items():
+            lib = libs[name]
+            inst = phnloop_fb.plan_instance(P, S, lib)
+            print(json.dumps({
+                "j_size": name, "P": P, "S": S, "states": P * S, "T": T,
+                "instance": inst, "states_a_thread_warps": (
+                    phnloop_fb.group_shape(P * S) if inst == "group"
+                    else None),
+                "held_ms": held, "sm_clock_mhz": mhz,
+                "clocks_a_step": [h * 1e-3 * mhz * 1e6 / (2 * T)
+                                  for h in held]}), flush=True)
 
 
 def timing_inputs(dev, models, seed: int = 22) -> dict:
@@ -366,9 +414,14 @@ def main(argv) -> int:
                 print(json.dumps({"max_active": name, "S": 256, **{
                     w: trainfb.max_active(lib, w == "K'", 256, dev)
                     for w in ("K", "K'")}}), flush=True)
+            if hasattr(lib, "phn_loop_fb_group"):
+                one["j_block"] = lambda *a, lib=lib: phnloop_fb.launch(
+                    lib, *a, instance="block")
             for _ in range(repeat):
-                res = check_cases(**calls(lib), dev=dev, models=models,
-                                  **one)
+                res = check_cases(
+                    **calls(lib), dev=dev, models=models,
+                    j_instance=lambda P, S, lib=lib:
+                    phnloop_fb.plan_instance(P, S, lib), **one)
                 ok = ok and res["ok"]
                 print(json.dumps({"check": name, **res}), flush=True)
         inp = timing_inputs(dev, models)
@@ -385,6 +438,7 @@ def main(argv) -> int:
                 ms[name][f"{k} {w}"].append(timer(fn, iters=5))
     for name, t in ms.items():
         print(json.dumps({"time_ms": name, **t}), flush=True)
+    j_sizes(libs, [*libs, *reversed(libs)], dev)
     if do_sweep:
         sweep(libs, calls, inp["k"], [*libs, *reversed(libs)])
     if do_clusters:

@@ -10,12 +10,19 @@ the lse over the P exit states + tr_next, + w_penalty (already w_penalty at
 t = 0, the reference quirk); backwards each frame the re-entry lse over the
 P first states.  Both versions sum their exps in their own order, so they
 agree with each other and with JAX to a tolerance, not bit for bit.
+
+On the card the kernel has two instances, picked by the loop's size
+(``plan_instance``): up to GROUP_MAX_STATES states a block an utterance
+that runs the two scans side by side, each on a group of at most
+GROUP_WARPS warps with the states in registers and one barrier a frame;
+past it a block an utterance with a thread a state and the frame's
+values in shared memory.  Each has its own launch count.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +30,17 @@ import torch
 from phnrec_tpu_torch.ops import _build
 from phnrec_tpu_torch.ops.trainfb import _f32, _lib, scratch
 
-LAUNCHES = 0
+LAUNCHES = 0         # the block instance
+GROUP_LAUNCHES = 0   # the group instance
+
+# kernel J's instances (csrc/trainfb.cu): up to GROUP_MAX_STATES states a
+# group of warps a scan, GROUP_EPLS states a thread (the smallest that
+# GROUP_WARPS warps hold them in), as few warps as hold them; a thread a
+# state past it
+INSTANCES = ("group", "block")
+GROUP_MAX_STATES = 1024
+GROUP_EPLS = (1, 2, 4, 8)
+GROUP_WARPS = 4
 
 NEG = float(-np.finfo(np.float32).max)   # the phoneme loop's NEG_INF
 
@@ -69,11 +86,30 @@ def phnloop_fb_plain(log_post: torch.Tensor, n_phonemes: int, n_states: int,
     return alphas, betas, like
 
 
+def group_shape(n: int) -> Tuple[int, int]:
+    """The group instance's (states a thread, warps a scan) for a loop of
+    n <= GROUP_MAX_STATES states."""
+    epl = next(c for c in GROUP_EPLS if GROUP_WARPS * 32 * c >= n)
+    return epl, -(-n // (32 * epl))
+
+
+def plan_instance(n_phonemes: int, n_states: int,
+                  lib: Optional[ctypes.CDLL] = None) -> str:
+    """The instance that takes a loop, by its size alone: "group" up to
+    GROUP_MAX_STATES states, else "block" (always "block" for a ``lib``
+    built from a source without the group instance)."""
+    if lib is not None and not hasattr(lib, "phn_loop_fb_group"):
+        return "block"
+    return ("group" if n_phonemes * n_states <= GROUP_MAX_STATES
+            else "block")
+
+
 def launch(lib: ctypes.CDLL, log_post: torch.Tensor, n_phonemes: int,
            n_states: int, w_penalty: float, tr_curr: float,
-           tr_next: float) -> Out:
-    """Launch kernel J of ``lib`` on CUDA tensors; raises on anything it
-    does not take; counts nothing."""
+           tr_next: float, instance: Optional[str] = None) -> Out:
+    """Launch kernel J of ``lib`` on CUDA tensors, the given instance
+    (None: ``plan_instance``); raises on anything it does not take;
+    counts nothing."""
     device = _build.cuda_device(log_post)
     P, S = n_phonemes, n_states
     if log_post.dim() != 3:
@@ -87,27 +123,39 @@ def launch(lib: ctypes.CDLL, log_post: torch.Tensor, n_phonemes: int,
     alpha = torch.empty((B, T, P, S), dtype=torch.float32, device=device)
     beta = torch.empty_like(alpha)
     like = torch.empty(B, dtype=torch.float32, device=device)
-    scr = scratch(lib, B, P * S, device)
+    instance = instance or plan_instance(P, S, lib)
+    if instance not in INSTANCES:
+        raise ValueError(f"no instance {instance!r}")
+    group = instance == "group"
+    if group and plan_instance(P, S) != "group":
+        raise ValueError(f"the group instance takes up to "
+                         f"{GROUP_MAX_STATES} states (got {P * S})")
+    scr = None if group else scratch(lib, B, P * S, device)
+    fn = lib.phn_loop_fb_group if group else lib.phn_loop_fb
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.phn_loop_fb(
+        err = fn(
             log_post.data_ptr(), B, T, D, P, S, _f32(w_penalty),
             _f32(tr_curr), _f32(tr_next), alpha.data_ptr(), beta.data_ptr(),
             like.data_ptr(), None if scr is None else scr.data_ptr(), stream)
-    _build.check(err, "phn_loop_fb")
+    _build.check(err, "phn_loop_fb_group" if group else "phn_loop_fb")
     return alpha, beta, like
 
 
 def phnloop_fb(log_post: torch.Tensor, n_phonemes: int, n_states: int,
                w_penalty: float, tr_curr: float, tr_next: float) -> Out:
     """Kernel J over a batch [B, T, D]: CPU tensors take the plain version;
-    CUDA tensors launch the kernel (one launch, both scans), and anything
-    the kernel does not take raises."""
+    CUDA tensors launch the instance the loop's size picks (one launch,
+    both scans), and anything the kernel does not take raises."""
     args = (n_phonemes, n_states, w_penalty, tr_curr, tr_next)
     if log_post.device.type == "cpu":
         return phnloop_fb_plain(log_post, *args)
     _build.cuda_device(log_post)       # raises before any build
-    out = launch(_lib(), log_post, *args)
-    global LAUNCHES
-    LAUNCHES += 1
+    inst = plan_instance(n_phonemes, n_states)
+    out = launch(_lib(), log_post, *args, instance=inst)
+    global LAUNCHES, GROUP_LAUNCHES
+    if inst == "group":
+        GROUP_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

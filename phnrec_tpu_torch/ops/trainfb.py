@@ -143,6 +143,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.graph_fb.argtypes = [vp] * 6 + [i] * 3 + [vp] * 5
         lib.graph_align.argtypes = [vp] * 5 + [i] * 3 + [vp] * 5
         fns = [lib.phn_loop_fb, lib.graph_fb, lib.graph_align]
+        if hasattr(lib, "phn_loop_fb_group"):
+            lib.phn_loop_fb_group.argtypes = lib.phn_loop_fb.argtypes
+            fns.append(lib.phn_loop_fb_group)
         if hasattr(lib, "graph_fb_cluster"):
             for fn in (lib.graph_fb_cluster, lib.graph_align_cluster):
                 fn.argtypes = [vp] * 5 + [i] * 4 + [vp] * 4

@@ -115,3 +115,133 @@ def test_batch_equals_one_at_a_time():
                                                  *args)
         for x, y in ((a[i], a1[0]), (b[i], b1[0]), (like[i], l1[0])):
             np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-6)
+
+
+def _lae(a, b):
+    """jnp.logaddexp in float32, as kernel J's lae."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        out = np.maximum(a, b) + np.log1p(np.exp(-np.abs(a - b)))
+    return np.where(np.isinf(a) & (a == b), a, out).astype(np.float32)
+
+
+def _group_lse(x, mask, epl):
+    """Kernel J's group lse over the states of ``mask`` (thread i holds
+    states i * epl ..): each warp's max m_w (-inf where it has none), its
+    lanes' exps of x - m_w (0 for m_w where not finite) summed in slot
+    order, the xor butterfly over its 32 lanes; then M the largest m_w (0
+    where not finite) and sum_w s_w exp(m_w - M) in warp order."""
+    nw = x.size // (32 * epl)
+    xs, ms = x.reshape(nw, 32, epl), mask.reshape(nw, 32, epl)
+    lanes = np.arange(32)
+    pm, psum = [], []
+    for w in range(nw):
+        m = xs[w][ms[w]].max() if ms[w].any() else np.float32(-np.inf)
+        mm = np.float32(m if np.isfinite(m) else 0.0)
+        with np.errstate(over="ignore"):   # unmasked states may lie far above
+            e = np.where(ms[w], np.exp(xs[w] - mm), 0).astype(np.float32)
+        s = np.zeros(32, np.float32)
+        for j in range(epl):
+            s = s + e[:, j]
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[lanes ^ o]
+        pm.append(np.float32(m))
+        psum.append(s[0])
+    M = max(pm)
+    M = np.float32(M if np.isfinite(M) else 0.0)
+    tot = np.float32(0)
+    for m, s in zip(pm, psum):
+        if m > -np.inf:
+            mm = np.float32(m if np.isfinite(m) else 0.0)
+            tot = np.float32(tot + s * np.float32(np.exp(mm - M)))
+    return np.float32(np.log(tot) + M)
+
+
+def _group_model(P, S, w, lp, tr=np.float32(np.log(0.5))):
+    """Kernel J's group instance in float32 numpy: log_alpha, log_beta
+    [T, P, S] and log_like."""
+    PS, T = P * S, lp.shape[0]
+    epl, nw = phnloop_fb.group_shape(PS)
+    n = 32 * epl * nw
+    neg = np.float32(phnloop_fb.NEG)
+    k = np.arange(n)
+    live, first, last = k < PS, (k < PS) & (k % S == 0), \
+        (k < PS) & (k % S == S - 1)
+    obs = np.zeros((T, n), np.float32)
+    obs[:, :PS] = lp[:, :PS]
+    w = np.float32(w)
+    alphas, betas = np.empty((T, PS), np.float32), np.empty((T, PS),
+                                                            np.float32)
+    a, entry = np.full(n, neg, np.float32), w
+    for t in range(T):
+        prev = np.concatenate([[neg], a[:-1]]).astype(np.float32)
+        adv = np.where(first, neg, prev + tr)
+        inc = np.where(first, entry, neg)
+        a = np.where(live, _lae(_lae(a + tr, adv), inc) + obs[t], neg)
+        a = a.astype(np.float32)
+        alphas[t] = a[:PS]
+        entry = np.float32(_group_lse((a + tr).astype(np.float32), last, epl)
+                           + w)
+    like = _group_lse(a, last, epl)
+    b = np.where(last, np.float32(0), neg).astype(np.float32)
+    for t in range(T - 1, -1, -1):
+        betas[t] = b[:PS]
+        bo = np.where(live, b + obs[t], neg).astype(np.float32)
+        re = np.float32(_group_lse(bo, first, epl) + w)
+        nxt = np.concatenate([bo[1:], [neg]]).astype(np.float32)
+        adv = np.where(last, neg, nxt + tr)
+        ext = np.where(last, np.float32(tr + re), neg)
+        b = np.where(live, _lae(_lae(bo + tr, adv), ext), neg)
+        b = b.astype(np.float32)
+    return (alphas.reshape(T, P, S), betas.reshape(T, P, S),
+            np.float32(like))
+
+
+@pytest.mark.parametrize("P, S, T, w", [(46, 3, 500, -1.5), (4, 3, 40, 0.5),
+                                        (33, 1, 30, -1.0),
+                                        (200, 5, 20, -0.5)],
+                         ids=["P46S3T500", "P4S3T40", "P33S1T30",
+                              "P200S5T20"])
+def test_group_summation_order_matches_jax(P, S, T, w):
+    """Kernel J's group instance sums each lse's exps per lane, by a
+    butterfly per warp, then across warps: modelled in numpy, within the
+    card's tolerance (trainfb_variants.TOL, relative to max(|x|, 1)) of
+    phnrec_tpu."""
+    from phnrec_tpu_torch.devtools.trainfb_variants import TOL, rel_err
+    lp = _logpost(T, P, S, seed=P * T)
+    want = jfb(JSpec(P, S, w), jnp.asarray(lp))
+    got = _group_model(P, S, w, lp)
+    for g, k in zip(got, ("log_alpha", "log_beta", "log_like")):
+        err = rel_err(torch.from_numpy(np.array(g)),
+                      torch.from_numpy(np.array(getattr(want, k))))
+        assert err <= TOL, (k, err)
+
+
+def test_instance_plan_matches_the_source():
+    """Kernel J's instance plan (ops/phnloop_fb.py) and the group
+    instance's constants and instances in csrc/trainfb.cu agree."""
+    import re
+
+    from phnrec_tpu_torch.ops import _build
+    src = open(_build.CSRC / "trainfb.cu").read()
+    assert (f"constexpr int J_GROUP_MAX = {phnloop_fb.GROUP_MAX_STATES};"
+            in src)
+    assert f"constexpr int J_WARPS = {phnloop_fb.GROUP_WARPS};" in src
+    epls = re.search(r"constexpr int J_EPLS\[\] = \{([^}]*)\};", src)
+    top = phnloop_fb.GROUP_EPLS[-1]
+    assert tuple(int(v) for v in epls.group(1).split(",")) == \
+        phnloop_fb.GROUP_EPLS
+    cases = {int(c) for c in re.findall(
+        r"case (\d+): return phnloop_fb_group_kernel<\1>;", src)}
+    assert cases | {top} == set(phnloop_fb.GROUP_EPLS)
+    assert f"default: return phnloop_fb_group_kernel<{top}>;" in src
+    assert phnloop_fb.GROUP_MAX_STATES == \
+        phnloop_fb.GROUP_WARPS * 32 * top
+    for P, S, inst, shape in ((4, 3, "group", (1, 1)),
+                              (46, 3, "group", (2, 3)),
+                              (16, 2, "group", (1, 1)),
+                              (256, 4, "group", (8, 4)),
+                              (205, 5, "block", None),
+                              (2100, 3, "block", None)):
+        assert phnloop_fb.plan_instance(P, S) == inst
+        if shape:
+            assert phnloop_fb.group_shape(P * S) == shape

@@ -459,8 +459,8 @@ def test_training_modules_and_scans_without_jax():
     assert proc.returncode == 0, proc.stderr
 
     def counts():
-        return (_counts(), phnloop_fb.LAUNCHES, trainfb.LAUNCHES,
-                trainfb.ALIGN_LAUNCHES)
+        return (_counts(), phnloop_fb.LAUNCHES, phnloop_fb.GROUP_LAUNCHES,
+                trainfb.LAUNCHES, trainfb.ALIGN_LAUNCHES)
 
     before = counts()
     lp = torch.log_softmax(torch.randn(2, 7, 14), -1)
