@@ -70,9 +70,10 @@
 // The id type is a template parameter.
 //
 // Measured (PERF.md, CZ stkint loop, n 256 x F 512, int16 ids, NVIDIA
-// H100 80GB HBM3, 700 W, devtools/netdecode_variants.py in turns with PR
-// 17's source): PR 12's design 1,686-1,699 clocks a frame (held 0.436 ms;
-// n 1 1,666): its closure's second pass ~560 clocks (the uv / uk round
+// H100 80GB HBM3, 700 W, devtools/netdecode_variants.py in turns with the
+// source of commit 4eb19bd): the previous design, kernel B's with edge
+// ids, 1,686-1,699 clocks a frame (held 0.436 ms; n 1 1,666): its
+// closure's second pass ~560 clocks (the uv / uk round
 // trip, divergent destinations, a branch on the next frame's carry
 // records), the whole closure ~660, and at n 256 the next frame's
 // observations loaded into registers mid-frame were waited on.  The

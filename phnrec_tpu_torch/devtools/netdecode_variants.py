@@ -51,9 +51,10 @@ F_TIMED = 512
 N_TIMED = (256, 1, 132, 264)   # a warp a stream: 64, 1, 33 and 66 blocks
 
 # regex edits that cut one part out of a kernel: (what, ((pattern, new),
-# ...)); every pattern must hit.  The no_obs_prefetch, no_closure* ones
-# cut PR 17's design (the next frame's observations loaded into registers,
-# the closure's uv / uk round trip), the redux_* ones the redux instance
+# ...)); every pattern must hit.  The no_obs_prefetch and no_closure* ones
+# cut the design of commit 4eb19bd (the next frame's observations loaded
+# into registers, the closure's uv / uk round trip), the redux_* ones the
+# redux instance
 ABLATIONS = (
     ("no_records", ((r"put_id<IdT>\([^;]*;", ";"),
                     (r"g\.(entry_val|sink_val)\[[^;]*;", ";"))),
