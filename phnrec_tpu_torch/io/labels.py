@@ -5,12 +5,12 @@ reference prints times as the frame index followed by a literal "00000"
 (phndec.cpp:230, srec.cpp:137-161: `%d00000`, with a bare `0` for time 0 in
 MLF mode) and scores with printf "%f" (6 decimals).
 
-Copy of phnrec_tpu/io/labels.py without the random-access MLFIndex, which
-only the training and scoring paths use.
+Copy of phnrec_tpu/io/labels.py.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, TextIO
 
@@ -95,6 +95,78 @@ class MLFWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class MLFIndex:
+    """Byte-offset-indexed random-access MLF reader.
+
+    Stand-in for STKLib's buffered, hash-indexed labelreader
+    (labelreader.{cc,h}): one sequential scan records the byte offset of
+    every ``"name"`` entry; lookups seek and parse just that transcription.
+    Names match HTK-style: exact, by ``*/base.ext`` wildcard entry, or by
+    basename stem as a last resort.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._offsets: dict[str, int] = {}
+        self._stems: dict[str, str] = {}
+        with open(path, "rb") as f:
+            while True:
+                off = f.tell()
+                line = f.readline()
+                if not line:
+                    break
+                s = line.strip()
+                if s.startswith(b'"') and s.endswith(b'"'):
+                    name = s[1:-1].decode()
+                    self._offsets[name] = off
+                    stem = os.path.splitext(
+                        os.path.basename(name.lstrip("*/")))[0]
+                    self._stems.setdefault(stem, name)
+
+    def __len__(self) -> int:
+        return len(self._offsets)
+
+    def names(self) -> List[str]:
+        return list(self._offsets)
+
+    def __contains__(self, name: str) -> bool:
+        return self._resolve(name) is not None
+
+    def _resolve(self, name: str) -> "Optional[str]":
+        if name in self._offsets:
+            return name
+        base = os.path.basename(name)
+        for cand in (f"*/{base}", base):
+            if cand in self._offsets:
+                return cand
+        stem = os.path.splitext(base)[0]
+        hit = self._stems.get(stem)
+        if hit is not None:
+            return hit
+        # general wildcard entries, filmatch semantics (filmatch.C)
+        from phnrec_tpu_torch.utils.filmatch import is_pattern, match
+        for entry in self._offsets:
+            if is_pattern(entry) and match(entry, name) is not None:
+                return entry
+        return None
+
+    def get(self, name: str) -> List[Label]:
+        key = self._resolve(name)
+        if key is None:
+            raise KeyError(f"{name!r} not found in MLF {self.path}")
+        labels: List[Label] = []
+        with open(self.path) as f:
+            f.seek(self._offsets[key])
+            f.readline()  # the "name" line itself
+            for line in f:
+                line = line.strip()
+                if line == ".":
+                    break
+                if line:
+                    labels.extend(read_rec([line]))
+        return labels
 
 
 def read_mlf(path: str) -> "dict[str, List[Label]]":
