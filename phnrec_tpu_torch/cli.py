@@ -11,18 +11,20 @@ one MLF or a target column for the output files).
 Flags:
     -c dir   configuration (model package) directory
     -l file  list of files     -i file  input file    -o file  output file
-    -m file  output MLF
+    -m file  output MLF        -a       live audio input (raw samples on
+                                        stdin)
     -s fmt   source format (wf|par|post)   [wf]
     -t fmt   target format (par|post|str)  [str]
     -w fmt   waveform format (lin16|alaw) override
+    -f fmt   live output format (str|strlen|lab)  [str]
     -p num   phoneme insertion penalty override
     -v       verbose
     --exact-exp      use the exact exp instead of the reference's fast-exp
                      bit-parity emulation
     --device DEV     torch device to run on  [cuda]
-
-Not ported yet (each raises NotImplementedError): -a (live audio),
---alize, --profile, --trace.
+    --alize          vadalize output: ALIZE speech segments (vad.py)
+    --profile        print the per-stage wall-clock breakdown at exit
+    --trace=DIR      capture a torch.profiler Chrome trace into DIR
 """
 
 from __future__ import annotations
@@ -30,30 +32,42 @@ from __future__ import annotations
 import getopt
 import sys
 
-_NOT_PORTED = {
-    "-a": "live audio input (-a) is not ported yet (ROADMAP.md, Queue 1 "
-          "item 14: live.py)",
-    "--alize": "--alize output is not ported yet (ROADMAP.md, Queue 1 item "
-               "17: score, VAD, profiling)",
-    "--profile": "--profile is not ported yet (ROADMAP.md, Queue 1 item 17: "
-                 "utils/profiling.py with torch.profiler)",
-    "--trace": "--trace is not ported yet (ROADMAP.md, Queue 1 item 17: "
-               "utils/profiling.py with torch.profiler)",
-}
-
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    for a in argv:
-        key = a.split("=", 1)[0]
-        if key in ("--alize", "--profile", "--trace"):
-            raise NotImplementedError(_NOT_PORTED[key])
+    profile = "--profile" in argv
+    if profile:
+        argv.remove("--profile")
+    trace_dir = None
+    for a in list(argv):
+        if a.startswith("--trace="):
+            trace_dir = a.split("=", 1)[1]
+            argv.remove(a)
+    if not (profile or trace_dir):
+        return _main(argv)
+
+    from phnrec_tpu_torch.utils import profiling
+    profiling.TIMER.enabled = True
+    try:
+        with profiling.trace(trace_dir):
+            rc = _main(argv)
+        if profile:
+            print(profiling.TIMER.summary(), file=sys.stderr)
+        return rc
+    finally:
+        profiling.TIMER.enabled = False
+
+
+def _main(argv) -> int:
     exact_exp = "--exact-exp" in argv
     if exact_exp:
         argv.remove("--exact-exp")
+    alize = "--alize" in argv      # vadalize output mode
+    if alize:
+        argv.remove("--alize")
 
     try:
-        opts, _ = getopt.getopt(argv, "c:l:i:o:m:as:t:w:p:vh",
+        opts, _ = getopt.getopt(argv, "c:l:i:o:m:as:t:w:f:p:vh",
                                 ["device="])
     except getopt.GetoptError as e:
         print(f"ERROR: {e}", file=sys.stderr)
@@ -62,8 +76,6 @@ def main(argv=None) -> int:
     if not opts or "-h" in opt:
         print(__doc__)
         return 1
-    if "-a" in opt:
-        raise NotImplementedError(_NOT_PORTED["-a"])
 
     config_dir = opt.get("-c")
     if not config_dir:
@@ -90,6 +102,36 @@ def main(argv=None) -> int:
     if "-p" in opt:
         sr.set_wpenalty(float(opt["-p"]))
 
+    if "-a" in opt:
+        from phnrec_tpu_torch.live import run_live
+        run_live(sr, out_format=opt.get("-f", "str"))
+        return 0
+
+    if alize and outpf == "str":
+        # vadalize: decode, then write ALIZE speech segments
+        from phnrec_tpu_torch.io import audio, htk
+        from phnrec_tpu_torch.vad import write_alize
+
+        def run_one(source, target):
+            data = (audio.load_waveform_bytes(source) if inpf == "wf"
+                    else htk.read_htk(source)[0])
+            res = sr.process_offline(inpf, "str", data)
+            if target:
+                write_alize(target, res.labels)
+
+        if "-l" in opt:
+            with open(opt["-l"]) as f:
+                for line in f:
+                    parts = line.split()
+                    if not parts:
+                        continue
+                    tgt = (parts[1] if len(parts) > 1 else
+                           sr.compose_target_name(parts[0], "str", False))
+                    run_one(parts[0], tgt)
+        elif "-i" in opt:
+            run_one(opt["-i"], opt.get("-o"))
+        return 0
+
     if "-l" in opt:
         sr.process_file_list(inpf, outpf, opt["-l"], opt.get("-m"))
         return 0
@@ -104,7 +146,7 @@ def main(argv=None) -> int:
             sr.process_file(inpf, outpf, opt["-i"], opt.get("-o"))
         return 0
 
-    print("ERROR: no input (-i or -l)", file=sys.stderr)
+    print("ERROR: no input (-i, -l or -a)", file=sys.stderr)
     return 1
 
 

@@ -103,6 +103,13 @@ def viterbi_scan_batch(spec: PhnLoopSpec, log_post: torch.Tensor,
     return viterbi_block(spec, carry, log_post, plain=plain)[1]
 
 
+def viterbi_scan(spec: PhnLoopSpec, log_post: torch.Tensor,
+                 plain: bool = False) -> History:
+    """Single-utterance wrapper: [T, >=P*S] -> History arrays [T]."""
+    hist = viterbi_scan_batch(spec, log_post[None], plain=plain)
+    return History(*(a[:, 0] for a in hist))
+
+
 def backtrack(hist: History, phonemes: List[str]) -> List[Label]:
     """Full-history replay of PhnDec::Done (phndec.cpp:236-302) on the
     host: the oracle of the device walk."""
@@ -159,14 +166,46 @@ def commit_labels(labels: List[Label], horizon_end: int,
 def backtrack_batch(hist: History, n_frames: np.ndarray,
                     phonemes: List[str]) -> List[List[Label]]:
     """Host replay over [T, B] histories (columns valid up to
-    n_frames[b]).  phnrec_tpu's native C++ route is not ported."""
-    arrs = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
-            for a in hist]
-    if arrs[0].ndim != 2:
+    n_frames[b]): one call of the native C++ walk for the whole batch where
+    the native library builds (phnrec_tpu_torch/native), else the per-row
+    Python replay; the two give identical labels, scores included."""
+    from phnrec_tpu_torch import native
+
+    max_phn, ent, alpha = (
+        np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+        for a in hist)
+    if max_phn.ndim != 2:
         raise ValueError("backtrack_batch expects [T, B] histories")
-    return [backtrack(History(*(a[: int(n_frames[b]), b] for a in arrs)),
-                      phonemes)
-            for b in range(arrs[0].shape[1])]
+    T = max_phn.shape[0]
+    if native.available() and T > 0:
+        # the native walk reads the (prev_phn, length) form in [B, T]
+        length = np.arange(T, dtype=np.int64)[:, None] - ent + 1
+        prev_phn = np.where(ent > 0, np.take_along_axis(
+            max_phn.astype(np.int32), np.maximum(ent - 1, 0), axis=0), -1)
+        segs = native.backtrack_batch(
+            max_phn.T.astype(np.int32), prev_phn.T.astype(np.int32),
+            length.T.astype(np.int32), alpha.T, np.asarray(n_frames))
+        # the likes as the Python replay takes them, float64 differences
+        # of the float32 alphas (the native walk rounds them to float32)
+        a64 = alpha.astype(np.float64)
+        out = []
+        for b, (st, en, ph, _) in enumerate(segs):
+            likes = a64[en - 1, b] - np.where(
+                st > 0, a64[np.maximum(st - 1, 0), b], 0.0)
+            out.append(list(map(Label, st.tolist(), en.tolist(),
+                                [phonemes[i] for i in ph], likes.tolist())))
+        return out
+    return [backtrack(History(*(a[: int(n_frames[b]), b]
+                                for a in (max_phn, ent, alpha))), phonemes)
+            for b in range(max_phn.shape[1])]
+
+
+def decode(spec: PhnLoopSpec, log_post: torch.Tensor,
+           phonemes: List[str]) -> List[Label]:
+    """One utterance's log-posteriors [T, >=P*S] -> labels: the scan
+    (kernel C at B 1 on the card) and the host replay."""
+    return backtrack(History(*(a.cpu() for a in
+                               viterbi_scan(spec, log_post))), phonemes)
 
 
 class Segments(NamedTuple):
@@ -226,20 +265,52 @@ def backtrack_device_committed(spec: PhnLoopSpec, hist: History,
         i32(row_offset), max_segments(spec, T)))
 
 
-def fetch_segments(segs: Segments, cap: int = 128) -> Segments:
-    """Device -> host copy of a Segments batch as numpy arrays: the slots
-    are sliced to ``cap`` (the static T//S + 1 bound is ~5x what speech
-    needs) unless a row holds more.  Raises if a row's count reached the
-    Smax capacity, which would mean the walk truncated it."""
-    count = segs.count.cpu().numpy()
+def fetch_segments_start(segs: Segments, cap: int = 128):
+    """Begin the device -> host copy of a Segments batch: every leaf,
+    ``count`` included, is sliced on the device to ``min(Smax, cap)`` slots
+    (the static T//S + 1 bound is ~5x what speech needs) and copied into
+    pinned host tensors with ``non_blocking=True``, and a CUDA event marks
+    the copies' end, so the host can go on (build the previous batch's
+    labels, enqueue the next batch) while they run.  On CPU tensors it is
+    just the slice.  ``fetch_segments_finish`` completes it."""
+    k = min(segs.phn.shape[1], cap)
+    small = Segments(segs.count, *(a[:, :k] for a in segs[1:]))
+    if segs.count.device.type != "cuda":
+        return segs, small, None
+    host = Segments(*(torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                      for a in small))
+    for h, a in zip(host, small):
+        h.copy_(a, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return segs, host, done
+
+
+def fetch_segments_finish(pending) -> Segments:
+    """Wait for ``fetch_segments_start``'s copies and return the Segments
+    as numpy arrays; a row holding more than the sliced slots is refetched
+    at full width.  Raises if a row's count reached the Smax capacity,
+    which would mean the walk truncated it."""
+    segs, small, done = pending
+    if done is not None:
+        done.synchronize()
+    count = small.count.numpy()
+    out = Segments(count, *(a.numpy() for a in small[1:]))
     smax = segs.phn.shape[1]
     cmax = int(count.max(initial=0))
-    k = smax if cmax > cap else min(smax, cap)
-    out = Segments(count, *(a[:, :k].cpu().numpy() for a in segs[1:]))
+    if cmax > out.phn.shape[1]:
+        out = Segments(count, *(a.cpu().numpy() for a in segs[1:]))
     if smax and cmax >= smax:
         raise AssertionError(
             f"backtrack capacity overflow: count {cmax} reached Smax {smax}")
     return out
+
+
+def fetch_segments(segs: Segments, cap: int = 128) -> Segments:
+    """Device -> host copy of a Segments batch as numpy arrays (see
+    fetch_segments_start): sliced to ``cap`` slots, refetched at full
+    width only if a row holds more."""
+    return fetch_segments_finish(fetch_segments_start(segs, cap))
 
 
 def labels_from_segments(segs: Segments, n_frames: np.ndarray,

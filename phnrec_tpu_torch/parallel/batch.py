@@ -27,6 +27,7 @@ from phnrec_tpu_torch.decoder import phnloop
 from phnrec_tpu_torch.io.audio import ALAW_TABLE_D5
 from phnrec_tpu_torch.io.labels import Label
 from phnrec_tpu_torch.pipeline import resolve_device
+from phnrec_tpu_torch.utils.profiling import TIMER
 
 
 @dataclass
@@ -112,18 +113,22 @@ class BatchPipeline:
         [B, T, D] (wave convert + mel + norms + estimator + both softening
         stages)."""
         sr = self.sr
-        wave = self.convert_wave(wave, n_samples)
-        self._mark("wave_convert")
-        par = sr.frontend(wave, max_frames)
-        self._mark("frontend")
-        par = normalization.frame_norm(par, sr.frame_shift, sr.frame_floor)
-        par = normalization.sentence_norm(par, sr.sent_norm, n_valid=n_frames)
-        self._mark("norms")
-        post = sr.estimator.posteriors_batched(par, n_frames, plain=self.plain,
-                                               mark=self._mark)
-        post = sr.post_soft(post)
-        out = sr.dec_soft(post)
-        self._mark("softening")
+        with TIMER.stage("mel_frontend", block=self.device):
+            wave = self.convert_wave(wave, n_samples)
+            self._mark("wave_convert")
+            par = sr.frontend(wave, max_frames)
+            self._mark("frontend")
+            par = normalization.frame_norm(par, sr.frame_shift,
+                                           sr.frame_floor)
+        with TIMER.stage("posteriors", block=self.device):
+            par = normalization.sentence_norm(par, sr.sent_norm,
+                                              n_valid=n_frames)
+            self._mark("norms")
+            post = sr.estimator.posteriors_batched(
+                par, n_frames, plain=self.plain, mark=self._mark)
+            post = sr.post_soft(post)
+            out = sr.dec_soft(post)
+            self._mark("softening")
         return out
 
     @torch.inference_mode()

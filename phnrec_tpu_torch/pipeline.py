@@ -18,7 +18,11 @@ the staged pairs run file by file through ``params_from_waveform``,
 ``posteriors_from_params`` and ``decode_posteriors`` on the device.  An
 stkint package decodes through ``stk_decoder`` (kernels G and H), as
 phnrec_tpu/pipeline.py:212-221 and :391-400 do; the multi-stream KWS
-server (multistream.py) serves it live.
+server (multistream.py) serves it live.  A phoneme-loop list keeps up to
+three batches in flight (``fetch_segments_start`` / ``_finish``).  The
+stages wave_convert, mel_frontend, posteriors, viterbi and backtrack are
+timed by ``utils.profiling.TIMER`` when it is enabled (the CLI's
+``--profile``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from phnrec_tpu_torch.io.weights import load_phoneme_list
 from phnrec_tpu_torch.posteriors.estimator import build_estimator
 from phnrec_tpu_torch.utils.filename import (change_file_path,
                                              change_file_suffix)
+from phnrec_tpu_torch.utils.profiling import TIMER
 
 # data_format stage ordering (srec.h: dfWaveform < dfParams < dfPosteriors
 # < dfStrings)
@@ -182,14 +187,17 @@ class SpeechRec:
         """wf -> par: [T, n_params] features, frame-normalized but NOT
         sentence-normalized (ProcessOffline runs the sentence norm at the
         par -> post boundary, srec.cpp:977-1000)."""
-        wave, _ = audio.convert_waveform(
-            raw, self.wave_format, scale=self.wave_scale,
-            dc_shift=self.wave_dc_shift, noise_level=self.wave_noise)
+        with TIMER.stage("wave_convert"):
+            wave, _ = audio.convert_waveform(
+                raw, self.wave_format, scale=self.wave_scale,
+                dc_shift=self.wave_dc_shift, noise_level=self.wave_noise)
         T = self.frontend.frame_count(len(wave))
-        par = self.frontend(torch.from_numpy(wave).to(self.device)[None], T)
-        par = normalization.frame_norm(par, self.frame_shift,
-                                       self.frame_floor)
-        return par[0].cpu().numpy()
+        with TIMER.stage("mel_frontend"):
+            par = self.frontend(torch.from_numpy(wave).to(self.device)[None],
+                                T)
+            par = normalization.frame_norm(par, self.frame_shift,
+                                           self.frame_floor)
+            return par[0].cpu().numpy()
 
     @torch.inference_mode()
     def posteriors_from_params(self, par: np.ndarray) -> np.ndarray:
@@ -201,12 +209,13 @@ class SpeechRec:
         if par.shape[1] < n_p:
             raise ValueError("Invalid dimensionality of parameter vectors")
         par = np.array(par[:, :n_p], np.float32)  # truncate, srec.cpp:988
-        x = torch.from_numpy(par).to(self.device)[None]
-        n = torch.tensor([par.shape[0]], dtype=torch.int32,
-                         device=self.device)
-        sent = normalization.sentence_norm(x, self.sent_norm, n_valid=n)
-        post = self.estimator.posteriors_batched(sent, n)
-        return self.post_soft(post)[0].cpu().numpy()
+        with TIMER.stage("posteriors"):
+            x = torch.from_numpy(par).to(self.device)[None]
+            n = torch.tensor([par.shape[0]], dtype=torch.int32,
+                             device=self.device)
+            sent = normalization.sentence_norm(x, self.sent_norm, n_valid=n)
+            post = self.estimator.posteriors_batched(sent, n)
+            return self.post_soft(post)[0].cpu().numpy()
 
     @torch.inference_mode()
     def decode_posteriors(self, post: np.ndarray) -> DecodeResult:
@@ -219,25 +228,29 @@ class SpeechRec:
     def _decode_log_posteriors(self, lp: torch.Tensor) -> DecodeResult:
         """One utterance's decoder-ready log-posteriors [T, D] -> labels."""
         from phnrec_tpu_torch.decoder import phnloop
-        if self.stk_decoder is not None:
-            return DecodeResult(self.stk_decoder.decode(lp))
-        T = lp.shape[0]
-        spec = self.loop_spec
-        hist = phnloop.viterbi_scan_batch(spec, lp[None])
-        # one slot past the T//S + 1 a row can fill (see backtrack_device)
-        segs = phnloop.fetch_segments(phnloop.backtrack_device(
-            spec, hist, torch.tensor([T], device=self.device),
-            smax=phnloop.max_segments(spec, T) + 1))
-        return DecodeResult(phnloop.labels_from_segments(
-            segs, np.asarray([T]), self.phonemes)[0])
+        with TIMER.stage("viterbi", block=self.device):
+            if self.stk_decoder is not None:
+                return DecodeResult(self.stk_decoder.decode(lp))
+            T = lp.shape[0]
+            spec = self.loop_spec
+            hist = phnloop.viterbi_scan_batch(spec, lp[None])
+            # one slot past the T//S + 1 a row can fill (backtrack_device)
+            segs = phnloop.backtrack_device(
+                spec, hist, torch.tensor([T], device=self.device),
+                smax=phnloop.max_segments(spec, T) + 1)
+        with TIMER.stage("backtrack"):
+            segs = phnloop.fetch_segments(segs)
+            return DecodeResult(phnloop.labels_from_segments(
+                segs, np.asarray([T]), self.phonemes)[0])
 
     @torch.inference_mode()
     def _decode_waveform(self, raw: bytes) -> DecodeResult:
         """wf -> str on raw waveform bytes: the batch pipeline's posterior
         stages as a batch of one, then the decoder."""
-        wave, _ = audio.convert_waveform(
-            raw, self.wave_format, scale=self.wave_scale,
-            dc_shift=self.wave_dc_shift, noise_level=self.wave_noise)
+        with TIMER.stage("wave_convert"):
+            wave, _ = audio.convert_waveform(
+                raw, self.wave_format, scale=self.wave_scale,
+                dc_shift=self.wave_dc_shift, noise_level=self.wave_noise)
         bp = self.batch_pipeline
         w, nf, max_frames, ns = bp.to_device(*bp.pad_batch([wave]))
         return self._decode_log_posteriors(
@@ -362,6 +375,19 @@ class SpeechRec:
             raw_int16=self.wave_format == "lin16",
             raw_alaw=self.wave_format == "alaw")
         results: dict = {}
+
+        def finish(pending) -> None:
+            indices, fetched, n_frames = pending
+            labels = phnloop.labels_from_segments(
+                phnloop.fetch_segments_finish(fetched), n_frames,
+                self.phonemes)
+            for idx, labs in zip(indices, labels):
+                results[idx] = labs
+
+        # up to three batches in flight, as phnrec_tpu keeps them: batch
+        # i's segments copy to pinned host memory behind an event while
+        # the card runs batch i+1 and the host builds batch i-1's labels
+        inflight: list = []
         for batch in loader:
             self.log_fn("".join(
                 f"{s} -> {t}\n" for s, t in
@@ -371,13 +397,15 @@ class SpeechRec:
             if self.stk_decoder is not None:
                 labels = self.stk_decoder.decode_batch(
                     bp._post_core(w, nf, max_frames, ns), n_frames)
-            else:
-                segs = phnloop.fetch_segments(
-                    bp._core(w, nf, max_frames, ns))
-                labels = phnloop.labels_from_segments(segs, n_frames,
-                                                      self.phonemes)
-            for idx, labs in zip(batch.indices, labels):
-                results[idx] = labs
+                for idx, labs in zip(batch.indices, labels):
+                    results[idx] = labs
+                continue
+            inflight.append((batch.indices, phnloop.fetch_segments_start(
+                bp._core(w, nf, max_frames, ns)), n_frames))
+            if len(inflight) > 2:
+                finish(inflight.pop(0))
+        for pending in inflight:
+            finish(pending)
 
         mlf = MLFWriter(mlf_path) if mlf_path else None
         try:

@@ -143,10 +143,20 @@ def test_cli_mlf(case):
         [l.rsplit(" ", 1)[0] for l in jl]
 
 
-def test_unported_paths_raise(tmp_path):
-    """What the port does not cover yet raises NotImplementedError naming
-    its ROADMAP item, never a silent fallback."""
+def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
+    """Every path of the port runs: no module raises NotImplementedError,
+    and the CLI's -a, -f, --profile, --trace and --alize, which the port
+    once refused, now decode."""
+    import io
+    import re
+
     from phnrec_tpu_torch import cli
+    pkg_root = os.path.join(REPO, "phnrec_tpu_torch")
+    for root, _, files in os.walk(pkg_root):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(root, f)).read()
+                assert not re.search(r"raise NotImplementedError", src), f
     pkg = synth.write_lcrc_package(tmp_path / "pkg", "tiny", seed=4)
     sr = SpeechRec(pkg, device="cpu")
     # the staged pairs are ported (tests/test_torch_staged.py)
@@ -154,10 +164,27 @@ def test_unported_paths_raise(tmp_path):
     assert par.shape == (3, sr.frontend.n_params)
     assert sr.process_offline("wf", "post", b"\0\0" * 400).shape[0] == 3
     assert isinstance(sr.process_offline("par", "str", par).labels, list)
-    for argv in (["-c", pkg, "-a"], ["-c", pkg, "-i", "x", "--profile"],
-                 ["-c", pkg, "-i", "x", "--trace=d"], ["--alize"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv)
+    raw = synth.synth_audio(np.random.default_rng(3), 12000).astype(
+        "<i2").tobytes()
+    (tmp_path / "x.raw").write_bytes(raw)
+    x = str(tmp_path / "x.raw")
+
+    class Stdin:
+        buffer = io.BytesIO(raw)
+    monkeypatch.setattr(sys, "stdin", Stdin())
+    capsys.readouterr()
+    assert cli.main(["-c", pkg, "-a", "-f", "lab", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    want = sr.process_offline("wf", "str", raw).labels
+    assert len(lines) == len(want) > 0
+    for argv in (["-i", x, "-o", str(tmp_path / "p.rec"), "--profile"],
+                 ["-i", x, "-o", str(tmp_path / "t.rec"),
+                  "--trace=" + str(tmp_path / "d")],
+                 ["-i", x, "-o", str(tmp_path / "v.vad"), "--alize"]):
+        assert cli.main(["-c", pkg, "--device", "cpu"] + argv) == 0
+    assert os.listdir(tmp_path / "d")
+    assert "viterbi" in capsys.readouterr().err
+    assert cli.main(["--alize"]) == 1          # no -c: the usual error
     # the other posterior systems and PLP are ported
     # (tests/test_torch_traps.py): an unknown frontend kind still raises
     cfg = os.path.join(pkg, "config")
