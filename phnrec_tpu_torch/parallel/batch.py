@@ -1,7 +1,11 @@
-"""Batched wav->labels pipeline on one device.
+"""Batched wav->labels pipeline on one device, or split over a mesh.
 
-Counterpart of phnrec_tpu/parallel/batch.py without the mesh: the batch
-runs on the one device the pipeline was built for.
+Counterpart of phnrec_tpu/parallel/batch.py.  Without a mesh the batch runs
+on the one device the pipeline was built for.  With ``mesh`` (a DeviceMesh
+with a "data" dimension, parallel/mesh.py) every rank of the data group
+runs the same ``run_padded`` call: each runs its contiguous share of the
+batch rows on its card, as ``P("data")`` splits them, and the fetched
+segments are all-gathered, so every rank returns every row.
 
     wave [B, L] --frame/mel GEMMs--> params [B, T, D]
       --masked sentence norm--> --LCRC convs--> --MLP kernel x3-->
@@ -45,8 +49,13 @@ class BatchPipeline:
     of ``_core`` (a tracing point; chip_smoke.py records CUDA events
     there)."""
 
-    def __init__(self, sr, device=None, plain: bool = False):
+    def __init__(self, sr, device=None, plain: bool = False, mesh=None):
         self.sr = sr
+        self.mesh = mesh
+        self._axis = None
+        if mesh is not None:
+            from phnrec_tpu_torch.parallel.mesh import data_axis
+            self._axis = data_axis(mesh)
         self.device = (sr.device if device is None
                        else resolve_device(device))
         if self.device != sr.device:
@@ -161,13 +170,45 @@ class BatchPipeline:
 
     def run_padded(self, wave: np.ndarray, n_samples: np.ndarray
                    ) -> BatchResult:
-        w, nf, max_frames, ns = self.to_device(wave, n_samples)
-        segs = phnloop.fetch_segments(self._core(w, nf, max_frames, ns))
-        n_frames = nf.cpu().numpy()
+        n_frames = self.frame_counts(np.asarray(n_samples))
+        if self._axis is None:
+            w, nf, max_frames, ns = self.to_device(wave, n_samples)
+            segs = phnloop.fetch_segments(self._core(w, nf, max_frames, ns))
+        else:
+            segs = self._run_rows(wave, n_samples)
         labels = phnloop.labels_from_segments(segs, n_frames,
                                               self.sr.phonemes)
         return BatchResult(labels=labels, n_frames=n_frames)
 
+    def _run_rows(self, wave: np.ndarray,
+                  n_samples: np.ndarray) -> phnloop.Segments:
+        """This rank's rows through ``_core`` (at the whole batch's padded
+        length, so max_frames is the unsharded run's), then every rank's
+        fetched segments, gathered in row order; slots past a row's count
+        are 0, so the ranks' slot counts pad with zeros."""
+        from phnrec_tpu_torch.parallel.mesh import all_gather_object, rows_of
+        lo, hi = rows_of(wave.shape[0], self._axis)
+        mine = None
+        if hi > lo:
+            w, nf, max_frames, ns = self.to_device(wave[lo:hi],
+                                                   n_samples[lo:hi])
+            mine = phnloop.fetch_segments(self._core(w, nf, max_frames, ns))
+        parts = [p for p in all_gather_object(mine, self._axis)
+                 if p is not None]
+        k = max(p.phn.shape[1] for p in parts)
+        return phnloop.Segments(np.concatenate([p.count for p in parts]), *(
+            np.concatenate([np.pad(a, ((0, 0), (0, k - a.shape[1])))
+                            for a in leaves])
+            for leaves in zip(*(p[1:] for p in parts))))
+
     def run(self, waves: Sequence[np.ndarray]) -> BatchResult:
         wave, n_samples = self.pad_batch(waves)
         return self.run_padded(wave, n_samples)
+
+
+def aggregate_metrics(metrics: dict, mesh) -> dict:
+    """Sum per-rank counters (audio seconds, frames, edits) over the
+    mesh's "data" group: every rank gets the totals."""
+    from phnrec_tpu_torch.parallel.mesh import all_reduce, data_axis
+    total = all_reduce(metrics.values(), data_axis(mesh))
+    return dict(zip(metrics, total))

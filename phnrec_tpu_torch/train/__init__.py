@@ -12,15 +12,15 @@ An utterance's transcription compiles into a dense linear composite HMM
 utterances as kernels K and K' (train.fb, ops/trainfb.py), statistics land
 in fixed-shape accumulator tensors (train.accum), and parameter updates
 are host functions over those accumulators (train.update).  The all-reduce
-of accumulators across a mesh (phnrec_tpu's psum_accumulators) belongs to
-the distributed runner and is not ported yet.
+of accumulators over a mesh's "data" group is psum_accumulators
+(torch.distributed, parallel/mesh.py).
 """
 
 from phnrec_tpu_torch.train.graph import TrainGraph, compile_transcription
 from phnrec_tpu_torch.train.fb import forward_backward, viterbi_align
 from phnrec_tpu_torch.train.accum import Accumulators, make_accumulators, \
-    accumulate_utterance, merge_accumulators, save_accumulators, \
-    load_accumulators
+    accumulate_utterance, merge_accumulators, psum_accumulators, \
+    save_accumulators, load_accumulators
 from phnrec_tpu_torch.train.mbr import accumulate_utterance_mbr, \
     reference_hmm_ids
 from phnrec_tpu_torch.train.update import update_ml, update_mmi, \
@@ -30,7 +30,8 @@ __all__ = [
     "TrainGraph", "compile_transcription",
     "forward_backward", "viterbi_align",
     "Accumulators", "make_accumulators", "accumulate_utterance",
-    "merge_accumulators", "save_accumulators", "load_accumulators",
+    "merge_accumulators", "psum_accumulators", "save_accumulators",
+    "load_accumulators",
     "accumulate_utterance_mbr", "reference_hmm_ids",
     "update_ml", "update_mmi", "mce_weight", "apply_update",
 ]

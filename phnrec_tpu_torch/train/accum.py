@@ -76,12 +76,30 @@ def merge_accumulators(a: Accumulators, b: Accumulators) -> Accumulators:
     return Accumulators(*(None if x is None else x + y for x, y in zip(a, b)))
 
 
-def psum_accumulators(acc: Accumulators, axis_name: str) -> Accumulators:
-    """The all-reduce of accumulators over a mesh axis belongs to the
-    distributed runner, which is not ported yet."""
-    raise NotImplementedError(
-        "psum_accumulators (an all-reduce over a mesh axis) is not ported "
-        "yet (ROADMAP.md, Queue 1 item 16: distributed)")
+def psum_accumulators(acc: Accumulators, mesh_or_group) -> Accumulators:
+    """All-reduce (SUM) of every non-None field over the "data" group of a
+    DeviceMesh, or over a ProcessGroup (parallel/mesh.py): each rank gets
+    the summed Accumulators, as phnrec_tpu's psum over a mesh axis returns
+    them.  ``acc`` itself is left as it was."""
+    import torch.distributed as dist
+
+    from phnrec_tpu_torch.parallel import mesh as meshlib
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh_or_group, DeviceMesh):
+        group = meshlib.data_axis(mesh_or_group).group
+    elif isinstance(mesh_or_group, dist.ProcessGroup):
+        group = mesh_or_group
+    else:
+        raise TypeError("psum_accumulators takes a DeviceMesh with a "
+                        "'data' dimension or a ProcessGroup, not "
+                        f"{type(mesh_or_group).__name__}")
+    out = []
+    for x in acc:
+        if x is not None:
+            x = x.clone()
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        out.append(x)
+    return Accumulators(*out)
 
 
 def stack_graphs(graphs, device) -> Dict[str, torch.Tensor]:

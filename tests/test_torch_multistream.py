@@ -264,9 +264,24 @@ def test_partial_pump_with_one_slow_stream(pkgs, raw):
 
 
 def test_rejects(pkgs, tmp_path):
+    """A mesh must be a DeviceMesh with a "data" dimension; one at world
+    size 1 serves every stream as the unsharded server does (the 2-rank
+    run is tests/test_torch_distributed.py's)."""
+    from tests.test_torch_distributed import one_rank_mesh
     _, sr = pkgs
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MultiStreamRecognizer(sr, 2, mesh=object())
+    with pytest.raises(ValueError, match="'data'"):
+        MultiStreamRecognizer(sr, 2, mesh=one_rank_mesh(tmp_path, ("x",)))
+    raw = synth.synth_audio(np.random.default_rng(1), 6000).astype(
+        "<i2").tobytes()
+    got = []
+    for mesh in (one_rank_mesh(tmp_path), None):
+        ms = MultiStreamRecognizer(sr, 2, mesh=mesh)
+        for i in range(2):
+            ms.process(i, raw[: 4000 * (i + 1)])
+        got.append(ms.finish())
+    assert got[0] == got[1] and any(got[0])
     kws = SpeechRec(synth.write_kws_package(tmp_path / "kws", "tiny"),
                     device="cpu")
     with pytest.raises(ValueError, match="MultiStreamKWS"):

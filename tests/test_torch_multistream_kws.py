@@ -391,8 +391,14 @@ def test_rejects(pkgs, tmp_path):
         MultiStreamKWS(phn, n_streams=2)
     # the phoneme-loop server takes the phoneme-loop package
     assert MultiStreamRecognizer(phn, n_streams=2).results() == [[], []]
-    with pytest.raises(NotImplementedError, match="item 16"):
+    from tests.test_torch_distributed import one_rank_mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MultiStreamKWS(sr, n_streams=2, mesh=object())
+    with pytest.raises(ValueError, match="'data'"):
+        MultiStreamKWS(sr, n_streams=2, mesh=one_rank_mesh(tmp_path, ("x",)))
+    ms = MultiStreamKWS(sr, n_streams=2, mesh=one_rank_mesh(tmp_path))
+    assert ms._nl == 2 and ms.finish() == MultiStreamKWS(
+        sr, n_streams=2).finish()
     # a global <InputXform> is served now: its delay lines ride in the
     # carry (test_delayed_input_xform_matches_jax)
     xf = synth.write_kws_package(tmp_path / "xf", "tiny", input_xform=True)

@@ -367,5 +367,12 @@ def test_rejects(pkgs, tmp_path):
                     device="cpu")
     with pytest.raises(ValueError, match="decode"):
         MultiStreamStkDecode(kws, n_streams=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    from tests.test_torch_distributed import one_rank_mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MultiStreamStkDecode(sr, n_streams=2, mesh=object())
+    with pytest.raises(ValueError, match="'data'"):
+        MultiStreamStkDecode(sr, n_streams=2,
+                             mesh=one_rank_mesh(tmp_path, ("x",)))
+    ms = MultiStreamStkDecode(sr, n_streams=2, mesh=one_rank_mesh(tmp_path))
+    assert ms._nl == 2 and ms.shard_audio(np.zeros((2, 5), np.int16)).shape \
+        == (2, 5)

@@ -175,8 +175,10 @@ def test_unported_paths_raise(tmp_path, monkeypatch, capsys):
     capsys.readouterr()
     assert cli.main(["-c", pkg, "-a", "-f", "lab", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    want = sr.process_offline("wf", "str", raw).labels
-    assert len(lines) == len(want) > 0
+    from phnrec_tpu_torch.live import run_live
+    want = []
+    run_live(sr, out_format="lab", source=x, emit=want.append)
+    assert lines == want and want
     for argv in (["-i", x, "-o", str(tmp_path / "p.rec"), "--profile"],
                  ["-i", x, "-o", str(tmp_path / "t.rec"),
                   "--trace=" + str(tmp_path / "d")],

@@ -346,10 +346,12 @@ def test_save_load_and_psum(sets, tmp_path):
     assert_acc_close(back, jback, rel=0)
     assert float(P.merge_accumulators(back, back).n_frames) == 16.0
     from phnrec_tpu_torch.train.accum import psum_accumulators
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # an axis name is JAX's handle; the port takes a mesh or a group (its
+    # all-reduce: tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         psum_accumulators(acc, "data")
-    assert "psum_accumulators" not in P.__all__
-    assert set(P.__all__) == set(J.__all__) - {"psum_accumulators"}
+    assert P.psum_accumulators is psum_accumulators
+    assert set(P.__all__) == set(J.__all__)
 
 
 def test_pdfobsvec_alignment(sets):
