@@ -18,7 +18,7 @@ scan), G (edge-list network scan), H (its traceback, on a case list of
 networks, ties, beams, carried blocks and committed boundaries; its int16
 instance on E's records), E (the decode-mode network block), J (the
 phoneme-loop forward-backward), K (the training graph's forward-backward)
-and K' (its Viterbi alignment).  Then it drives eight paths of the port:
+and K' (its Viterbi alignment).  Then it drives nine paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
   the CZ SpeechDat LCRC shapes (64 files), and times a batch of 1024 x 5 s
@@ -71,6 +71,24 @@ and K' (its Viterbi alignment).  Then it drives eight paths of the port:
   route (64 CLI par files read back with deltas, a seeded DiagC set of 46
   x 3 x 8 mixtures: Baum-Welch with update_ml, sMBR with update_mmi on 16
   utterances).
+* the host-side entry points: the CZ list decode again with up to three
+  batches in flight and in the serial order (MLFs equal the cli phase's,
+  walls beside its); the CLI's --alize (lines equal labels_to_alize),
+  --profile (the five stages) and --trace=DIR (a Chrome trace naming
+  kernel A's or C's function); the native host library (built by g++;
+  backtrack_batch's native route on the card's History equals the Python
+  replay and kernel D); live input (run_live, the CLI's -a) over 20 s of
+  the CZ serving package and, in KWS mode with the threshold filter, of
+  the EN package, each from a file on the card (lines equal the final
+  labels, which equal StreamingRecognizer fed the same chunks and the CPU
+  port's run_live replaying the card's log-posteriors; the real-time
+  factor and chunks a second), and the CLI's -a in a subprocess reading
+  the bytes from a pipe; torch.distributed at world size 1 (NCCL over a
+  FileStore, a DeviceMesh with a "data" dimension): DistributedRunner
+  over the 64 files with an MLF and a resumed run, aggregate_metrics,
+  BatchPipeline(mesh=) and the three servers with mesh= (4 streams x
+  10 s, shard_audio on the stkint one) against their unsharded runs, and
+  psum_accumulators.
 
 It prints one JSON line of kernel results, each kernel with its launches
 on a path of this run and its time beside its bound (the larger of its
@@ -1056,9 +1074,10 @@ def label_key(labels):
     return [(l.start_frames, l.end_frames, l.name) for l in labels]
 
 
-def run_cli(pkg: str, tmp: str, cpu_sr, dev) -> dict:
+def run_cli(pkg: str, tmp: str, cpu_sr, dev) -> tuple:
     """64 seeded int16 files of 1-8 s through the CLI, the user's entry
-    point; returns each kernel's launch count over the run."""
+    point; returns each kernel's launch count over the run and its wall
+    (s)."""
     from phnrec_tpu_torch import cli
     wav_dir = os.path.join(tmp, "wav")
     os.makedirs(wav_dir)
@@ -1067,6 +1086,7 @@ def run_cli(pkg: str, tmp: str, cpu_sr, dev) -> dict:
     with open(lst, "w") as f:
         f.write("".join(p + "\n" for p in paths))
     reset_counts(BATCH_KERNELS)
+    torch.cuda.synchronize()
     t = time.perf_counter()
     rc = cli.main(["-c", pkg, "-l", lst, "-m", mlf, "--device", str(dev)])
     torch.cuda.synchronize()
@@ -1095,7 +1115,7 @@ def run_cli(pkg: str, tmp: str, cpu_sr, dev) -> dict:
           cpu_reference_equal=same)
     if not all(same):
         raise AssertionError("CLI labels differ from the CPU reference")
-    return launches
+    return launches, wall
 
 
 def timed_batch(sr, dev, B: int = 1024, reference=None, name="batch"):
@@ -3504,6 +3524,381 @@ def device_busy_share(fn, kernels: bool = False):
     return out
 
 
+# -- the host-side remainder: live input, the CLI's VAD / profiling /
+# trace, torch.distributed, the in-flight list decode, the native library
+LIVE_KERNELS = ("mlp_fused", "phnloop_viterbi", "phnloop_viterbi_ragged",
+                "backtrack", "backtrack_committed")
+
+
+def _live_run(sr, path: str, fmt: str, recognizer=None):
+    """live.run_live over a file, its StreamingRecognizer made by
+    ``recognizer`` (a capturing or replaying subclass) when given:
+    (emitted lines, final labels, wall s)."""
+    from phnrec_tpu_torch import live
+    lines = []
+    orig = live.StreamingRecognizer
+    if recognizer is not None:
+        live.StreamingRecognizer = recognizer
+    try:
+        if sr.device.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        labels = live.run_live(sr, out_format=fmt, source=path,
+                               emit=lines.append)
+        if sr.device.type == "cuda":
+            torch.cuda.synchronize()
+        return lines, labels, time.perf_counter() - t
+    finally:
+        live.StreamingRecognizer = orig
+
+
+def _live_chunks(sr, raw: bytes):
+    """The StreamingRecognizer run_live makes, fed run_live's 1/8 s chunks
+    directly."""
+    tp = sr.cfg.get_int("decoder", "time_pruning")
+    rec = StreamingRecognizer(sr, commit_horizon=max(4 * tp, 512))
+    chunk = sr.cfg.get_int("source", "sample_freq") // 8 * 2
+    for i in range(0, len(raw), chunk):
+        rec.process(raw[i: i + chunk])
+    return rec.finish()
+
+
+def live_phase(name: str, sr, cpu_sr, tmp: str, seconds: float = 20.0,
+               seed: int = 61) -> dict:
+    """run_live (the CLI's -a) over ``seconds`` of seeded audio from a
+    file on the card: the emitted lines equal the final labels (in KWS
+    mode: the hits at or above their keyword's threshold); the labels
+    equal StreamingRecognizer fed the same 1/8 s chunks on the card, and
+    the CPU port's run_live on the same bytes decoding the card's
+    log-posteriors (names, boundaries, scores: as phnloop_vs_cpu holds
+    serving); the CPU port's labels from its own log-posteriors are
+    reported.  Returns the bytes, the lines and the launches."""
+    from phnrec_tpu_torch.live import format_live
+    fs = sr.cfg.get_int("source", "sample_freq")
+    raw = synth.synth_audio(np.random.default_rng(seed), int(seconds * fs),
+                            fs).astype("<i2").tobytes()
+    path = os.path.join(tmp, f"{name}.raw")
+    with open(path, "wb") as f:
+        f.write(raw)
+    kws = sr.stk_decoder is not None
+    fmt = "lab" if kws else "str"
+    caps = []
+
+    def capture(s, **kw):
+        caps.append(_SCapture(s, **kw))
+        return caps[-1]
+    _live_run(sr, path, fmt)            # the first run pays one-off costs
+    reset_counts(LIVE_KERNELS + G_KERNELS + ("lrtrace",))
+    lines, labels, wall = _live_run(sr, path, fmt, capture)
+    launches = {k: v for k, v in read_counts(
+        LIVE_KERNELS + G_KERNELS + ("lrtrace",)).items() if v}
+    direct = _live_chunks(sr, raw)
+    replay = _live_run(cpu_sr, path, fmt,
+                       lambda s, **kw: _SReplay(caps[0].lps, s, **kw))
+    own = _live_run(cpu_sr, path, fmt)[1]
+    if kws:
+        thr = sr.stk_decoder.keyword_thresholds
+        want_lines = sorted(format_live(h, fmt) for h in labels
+                            if not h.score < thr.get(h.name))
+        lines_equal = sorted(lines) == want_lines
+    else:
+        lines_equal = "".join(lines).split() == [l.name for l in labels]
+    n_chunks = -(-len(raw) // (fs // 8 * 2))
+    rec = dict(seconds=seconds, chunks=n_chunks, wall_s=wall,
+               real_time_factor=wall / seconds, chunks_per_s=n_chunks / wall,
+               labels=len(labels), lines=len(lines), lines_equal=lines_equal,
+               streaming_equal=full_key(direct) == full_key(labels),
+               cpu_replay_equal=full_key(replay[1]) == full_key(labels),
+               cpu_replay_lines_equal=replay[0] == lines,
+               cpu_own_lp_labels_equal=label_key(own) == label_key(labels),
+               launches=launches)
+    phase(name, **rec)
+    if not (labels and lines_equal and rec["streaming_equal"]
+            and rec["cpu_replay_equal"] and rec["cpu_replay_lines_equal"]):
+        raise AssertionError(f"{name}: {rec}")
+    if not launches.get("mlp_fused") or not (
+            launches.get("lrtrace") if kws else
+            launches.get("phnloop_viterbi")):
+        raise AssertionError(f"{name} skipped a kernel: {launches}")
+    return dict(raw=raw, lines=lines, launches=launches, wall_s=wall)
+
+
+def live_pipe(pkg: str, live: dict, dev) -> None:
+    """python -m phnrec_tpu_torch.cli -a -c PKG -f str in a subprocess,
+    the raw bytes on stdin: its stdout equals live_replay's lines."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "phnrec_tpu_torch.cli", "-a", "-c", pkg,
+         "-f", "str", "--device", str(dev)], input=live["raw"],
+        capture_output=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = proc.stdout.decode().splitlines()
+    rec = dict(rc=proc.returncode, wall_s=time.perf_counter() - t,
+               lines=len(out), equal=out == live["lines"])
+    phase("live_pipe", **rec)
+    if proc.returncode != 0 or not rec["equal"]:
+        raise AssertionError(f"live_pipe: {rec}\n"
+                             f"{proc.stderr.decode()[-2000:]}")
+
+
+def cli_alize_profile(pkg: str, sr, paths, tmp: str, dev) -> None:
+    """The CLI with --alize on four files (lines equal labels_to_alize of
+    the same files' labels), with --profile (the five stages each called)
+    and with --trace=DIR (a Chrome trace naming kernel A's or C's
+    function)."""
+    import contextlib
+    import io
+
+    from phnrec_tpu_torch import cli
+    from phnrec_tpu_torch.vad import labels_to_alize
+    lst = os.path.join(tmp, "alize.scp")
+    with open(lst, "w") as f:
+        f.write("".join(f"{p} {p}.vad\n" for p in paths[:4]))
+    if cli.main(["--alize", "-c", pkg, "-l", lst, "--device", str(dev)]):
+        raise AssertionError("--alize returned an error")
+    alize = [open(p + ".vad").read().splitlines() ==
+             labels_to_alize(sr.process_offline(
+                 "wf", "str", open(p, "rb").read()).labels)
+             for p in paths[:4]]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--profile", "-c", pkg, "-i", paths[0], "-o",
+                       os.path.join(tmp, "p.rec"), "--device", str(dev)])
+    stages = {}
+    for line in err.getvalue().splitlines():
+        parts = line.split()
+        if len(parts) == 4 and parts[1].isdigit():
+            stages[parts[0]] = dict(calls=int(parts[1]),
+                                    seconds=float(parts[2]))
+    five = ("wave_convert", "mel_frontend", "posteriors", "viterbi",
+            "backtrack")
+    trace_dir = os.path.join(tmp, "trace")
+    rc_t = cli.main([f"--trace={trace_dir}", "-c", pkg, "-i", paths[0],
+                     "-o", os.path.join(tmp, "t.rec"), "--device", str(dev)])
+    files = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+    text = "".join(open(os.path.join(trace_dir, f)).read() for f in files)
+    named = [k for k in ("mlp_fused_kernel", "viterbi_kernel",
+                         "backtrack_kernel") if k in text]
+    rec = dict(alize_files=len(alize), alize_equal=alize,
+               profile_rc=rc, stages=stages, trace_rc=rc_t,
+               trace_files=files, trace_bytes=len(text),
+               trace_kernels=named)
+    phase("cli_alize_profile", **rec)
+    if not all(alize) or rc or rc_t or not files or not named or \
+            not all(stages.get(s, {}).get("calls", 0) > 0 for s in five):
+        raise AssertionError(f"cli_alize_profile: {rec}")
+
+
+def list_overlap(pkg: str, tmp: str, cli_wall: float, dev) -> dict:
+    """The CLI list decode of run_cli's 64 CZ files again, with up to three
+    batches in flight (the default), then with each batch's segments
+    waited for before the next batch (the serial order), then in flight
+    again: every MLF equals the cli phase's.  Returns the launches of the
+    first run."""
+    from phnrec_tpu_torch import cli
+    lst = os.path.join(tmp, "list.scp")
+    want = open(os.path.join(tmp, "out.mlf")).read()
+    start = phnloop.fetch_segments_start
+
+    def serial(segs, cap=128):
+        pending = start(segs, cap)
+        if pending[2] is not None:
+            pending[2].synchronize()
+        return pending
+    walls, equal, launches = {}, {}, None
+    for name in ("in_flight", "serial", "in_flight_again"):
+        mlf = os.path.join(tmp, f"overlap_{name}.mlf")
+        if name == "serial":
+            phnloop.fetch_segments_start = serial
+        reset_counts(BATCH_KERNELS)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = cli.main(["-c", pkg, "-l", lst, "-m", mlf, "--device",
+                           str(dev)])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+        finally:
+            phnloop.fetch_segments_start = start
+        launches = launches or read_counts(BATCH_KERNELS)
+        equal[name] = rc == 0 and open(mlf).read() == want
+    phase("list_overlap", files=len(open(lst).read().split()), wall_s=walls, cli_wall_s=cli_wall,
+          mlf_equal=equal, launches=launches)
+    if not all(equal.values()) or not all(launches.values()):
+        raise AssertionError(f"list_overlap: {equal} {launches}")
+    return launches
+
+
+def check_native(dev) -> None:
+    """The native host library is built here, and backtrack_batch's native
+    route on the card's History (kernel C's, at the backtrack phase's
+    shapes) equals the Python replay and kernel D's walk."""
+    from phnrec_tpu_torch import native
+    if not native.available():
+        raise AssertionError("the native host library did not build")
+    P, S, B, T = 46, 3, 256, 500
+    rng = np.random.default_rng(4)
+    spec = phnloop.PhnLoopSpec(n_phonemes=P, n_states=S, w_penalty=-4.6875)
+    lp = torch.from_numpy(np.log(rng.dirichlet(np.ones(P * S), size=(B, T)))
+                          .astype(np.float32)).to(dev)
+    hist = phnloop.viterbi_scan_batch(spec, lp)
+    n_frames = rng.integers(S, T + 1, size=B).astype(np.int32)
+    names = [f"p{i}" for i in range(P)]
+    t = time.perf_counter()
+    got = phnloop.backtrack_batch(hist, n_frames, names)
+    native_ms = (time.perf_counter() - t) * 1e3
+    avail = native.available
+    native.available = lambda: False
+    try:
+        t = time.perf_counter()
+        want = phnloop.backtrack_batch(hist, n_frames, names)
+        python_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        native.available = avail
+    dev_labels = phnloop.labels_from_segments(phnloop.fetch_segments(
+        phnloop.backtrack_device(spec, hist, torch.from_numpy(n_frames))),
+        n_frames, names)
+    rec = dict(available=True, library=str(native.lib_path()), B=B, T=T,
+               native_ms=native_ms, python_ms=python_ms,
+               labels=sum(map(len, got)),
+               python_equal=[full_key(a) for a in got] ==
+               [full_key(b) for b in want],
+               kernel_d_equal=[full_key(a) for a in got] ==
+               [full_key(b) for b in dev_labels])
+    phase("native", **rec)
+    if not rec["python_equal"] or not rec["kernel_d_equal"]:
+        raise AssertionError(f"native: {rec}")
+
+
+def _server_runs(ssr, en_sr, sd_sr, mesh, dev, n: int = 4,
+                 seconds: float = 10.0):
+    """The three servers on 4 streams x 10 s: the phoneme loop and KWS fed
+    2 s chunks through process() (the phoneme loop with commit_horizon
+    256), stkint decode from a card buffer through
+    decode_device_buffer(shard_audio(...)) with record_horizon 256."""
+    out = {}
+    for name, sr, cls, kw in (
+            ("phnloop", ssr, MultiStreamRecognizer,
+             dict(commit_horizon=256)),
+            ("kws", en_sr, MultiStreamKWS, {})):
+        fs = sr.cfg.get_int("source", "sample_freq")
+        rng = np.random.default_rng(71)
+        streams = [synth.synth_audio(rng, int((seconds - i) * fs), fs)
+                   .astype("<i2").tobytes() for i in range(n)]
+        out[name] = _feed_chunks(cls(sr, n, block_frames=512, mesh=mesh,
+                                     **kw), streams)
+    rng = np.random.default_rng(72)
+    audio = np.stack([synth.synth_audio(rng, int(seconds * 8000))
+                      .astype(np.int16) for _ in range(n)])
+    ms = MultiStreamStkDecode(sd_sr, n, block_frames=512, mesh=mesh,
+                              record_horizon=256)
+    buf = ms.shard_audio(audio) if mesh is not None else \
+        torch.from_numpy(audio).to(dev)
+    ms.decode_device_buffer(buf, n_blocks=(len(audio[0]) - 400) // 40960)
+    out["stk"] = ms.finish()
+    return out
+
+
+def distributed_phase(sr, ssr, en_sr, sd_sr, tmp: str, paths, dev) -> dict:
+    """torch.distributed on the card at world size 1 (the machine holds
+    one card): an NCCL group over a FileStore, a DeviceMesh with a "data"
+    dimension.  DistributedRunner over run_cli's 64 files with an MLF
+    (labels equal the cli phase's process_file_list MLF, scores within
+    1e-3), again with its progress file (0 utterances);
+    aggregate_metrics over the mesh equals the local counters;
+    BatchPipeline(mesh=) and the three servers with mesh= equal their
+    unsharded runs; psum_accumulators of one bucket's accumulators equals
+    them.  Returns the runner's launches."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from phnrec_tpu_torch.parallel.batch import (BatchPipeline,
+                                                 aggregate_metrics)
+    from phnrec_tpu_torch.parallel.distributed import (DistributedRunner,
+                                                       RunMetrics)
+    from phnrec_tpu_torch.train import psum_accumulators
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)      # NCCL's device, before any collective
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(tmp, "dist_store"), 1),
+        rank=0, world_size=1, timeout=timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+        lst = os.path.join(tmp, "list.scp")
+        prog = os.path.join(tmp, "progress.jsonl")
+        reset_counts(BATCH_KERNELS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = DistributedRunner(sr, progress_file=prog).run(
+            lst, mlf_path=os.path.join(tmp, "runner.mlf"))
+        wall = time.perf_counter() - t
+        launches = read_counts(BATCH_KERNELS)
+        got = read_mlf(os.path.join(tmp, "runner.mlf"))
+        want = read_mlf(os.path.join(tmp, "out.mlf"))
+        keys_equal = list(got) == list(want) and all(
+            label_key(got[k]) == label_key(want[k]) for k in want)
+        score_err = max((abs(a.score - b.score) for k in want
+                         for a, b in zip(got.get(k, []), want[k])),
+                        default=0.0)
+        text_equal = open(os.path.join(tmp, "runner.mlf")).read() == \
+            open(os.path.join(tmp, "out.mlf")).read()
+        resumed = DistributedRunner(sr, progress_file=prog).run(lst)
+        local = {k: metrics[k] for k in ("audio_seconds", "n_frames",
+                                         "n_utterances", "n_labels")}
+        agg_equal = aggregate_metrics(local, mesh) == local
+
+        rng = np.random.default_rng(81)
+        ns = rng.integers(8000, 40000, 16).astype(np.int32)
+        wave = np.zeros((16, int(ns.max())), np.int16)
+        for i, k in enumerate(ns):
+            wave[i, :k] = synth.synth_audio(rng, int(k))
+        batch_equal = BatchPipeline(sr, mesh=mesh).run_padded(
+            wave, ns).labels == BatchPipeline(sr).run_padded(wave, ns).labels
+
+        reset_counts(KERNELS)
+        sharded = _server_runs(ssr, en_sr, sd_sr, mesh, dev)
+        server_launches = {k: v for k, v in read_counts(KERNELS).items()
+                           if v}
+        whole = _server_runs(ssr, en_sr, sd_sr, None, dev)
+        servers_equal = {k: [full_key(a) for a in sharded[k]] ==
+                         [full_key(b) for b in whole[k]] and any(whole[k])
+                         for k in whole}
+
+        models = trainfb_variants.hmm_set(tmp, sr.phonemes)
+        g = compile_transcription(models, sr.phonemes[:6])
+        acc = make_accumulators(g.index, dev)
+        x = np.log(rng.dirichlet(np.ones(len(sr.phonemes) * 3), size=300)
+                   ).astype(np.float32)
+        from phnrec_tpu_torch.train import accumulate_utterance
+        acc = accumulate_utterance(g, acc, x, 300)
+        summed = psum_accumulators(acc, mesh)
+        psum_equal = all((a is None and b is None) or torch.equal(a, b)
+                         for a, b in zip(summed, acc))
+        rec = dict(world_size=dist.get_world_size(), backend=dist.get_backend(),
+                   runner=dict(files=len(paths), wall_s=wall,
+                               n_utterances=metrics["n_utterances"],
+                               audio_sec_per_s=metrics["audio_sec_per_s"],
+                               launches=launches, labels_equal=keys_equal,
+                               max_score_err=score_err,
+                               mlf_text_equal=text_equal),
+                   resumed_utterances=resumed["n_utterances"],
+                   aggregate_equal=agg_equal, batch_mesh_equal=batch_equal,
+                   servers_mesh_equal=servers_equal,
+                   server_launches=server_launches, psum_equal=psum_equal)
+    finally:
+        dist.destroy_process_group()
+    phase("distributed", **rec)
+    if not (keys_equal and score_err <= 1e-3 and metrics["n_utterances"] ==
+            len(paths) and resumed["n_utterances"] == 0 and agg_equal and
+            batch_equal and all(servers_equal.values()) and psum_equal and
+            all(launches.values())):
+        raise AssertionError(f"distributed: {rec}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ERROR: no CUDA device; chip_smoke.py needs one card",
@@ -3533,7 +3928,11 @@ def main() -> int:
             results["backtrack_committed"] = check_ragged_committed(dev)
         check_viterbi_cases(dev)
         check_walk_cases(dev)
-        launches = run_cli(pkg, tmp, cpu_sr, dev)
+        launches, cli_wall = run_cli(pkg, tmp, cpu_sr, dev)
+        paths = open(os.path.join(tmp, "list.scp")).read().split()
+        list_overlap(pkg, tmp, cli_wall, dev)
+        cli_alize_profile(pkg, sr, paths, tmp, dev)
+        check_native(dev)
         labels_highest = timed_batch(sr, dev)
         precision.set_mode("high")
         timed_batch(sr, dev, reference=labels_highest)
@@ -3546,6 +3945,7 @@ def main() -> int:
         ssr = SpeechRec(spkg, device=dev)
         scpu = SpeechRec(spkg, device="cpu")
         phnloop_vs_cpu(ssr, scpu, dev)
+        live_pipe(spkg, live_phase("live_replay", ssr, scpu, tmp), dev)
         serve, full, walk = phnloop_serving(ssr, dev, time_walk=True)
         results["backtrack"]["serving"] = walk
         launches["phnloop_viterbi_ragged"] = serve["phnloop_viterbi_ragged"]
@@ -3567,6 +3967,7 @@ def main() -> int:
         results["lrtrace"] = check_lrtrace(en_sr.stk_decoder.compiled,
                                            b_out[float(OFF_BEAM)], dev)
         kws_vs_cpu(en_sr, en_cpu, dev)
+        live_phase("live_kws", en_sr, en_cpu, tmp, seed=62)
         launches.update(
             {k: v for k, v in kws_serving(en_sr, dev).items()
              if k in ("netstep", "lrtrace")})
@@ -3605,6 +4006,7 @@ def main() -> int:
         sd_sr = SpeechRec(sd_pkg, device=dev)
         sd_cpu = SpeechRec(sd_pkg, device="cpu")
         stk_serving_vs_cpu(sd_sr, sd_cpu, dev)
+        distributed_phase(sr, ssr, en_sr, sd_sr, tmp, paths, dev)
         serve, results["nettrace"]["int16"]["serving_walks"] = \
             stk_serving(sd_sr, dev)
         launches["netdecode"] = serve["netdecode"]

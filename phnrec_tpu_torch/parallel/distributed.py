@@ -92,15 +92,14 @@ def _world():
     return 0, 1
 
 
-def aggregate_across_hosts(metrics: RunMetrics,
-                           group=None) -> Dict[str, float]:
-    """Sum the counters over every process of ``group`` (None: the default
-    group), the wall clock by its maximum; with one process, the identity."""
+def aggregate_across_hosts(metrics: RunMetrics) -> Dict[str, float]:
+    """Sum the counters over every process of the default group, the wall
+    clock by its maximum; with one process, the identity."""
     vals = [metrics.audio_seconds, metrics.n_frames, metrics.n_utterances,
             metrics.n_labels]
     wall = metrics.wall_seconds
     if _world()[1] > 1:
-        axis = meshlib.group_axis(group)
+        axis = meshlib.world_axis()
         vals = meshlib.all_reduce(vals, axis)
         wall = meshlib.all_reduce([wall], axis, dist.ReduceOp.MAX)[0]
     return RunMetrics(*vals, wall).as_dict()
@@ -119,12 +118,12 @@ class DistributedRunner:
 
     def _shard(self):
         """(shard index, shard count, this rank's index in its data
-        group, the group's size)."""
+        group)."""
         rank, world = _world()
         axis = self.bp._axis
         if axis is None:
-            return rank, world, 0, 1
-        return rank // axis.size, world // axis.size, axis.rank, axis.size
+            return rank, world, 0
+        return rank // axis.size, world // axis.size, axis.rank
 
     def run(self, list_path: str, mlf_path: Optional[str] = None,
             out_dir: Optional[str] = None) -> Dict[str, float]:
@@ -132,7 +131,7 @@ class DistributedRunner:
 
         with open(list_path) as f:
             entries = [line.split()[0] for line in f if line.strip()]
-        shard, n_shards, d_rank, d_size = self._shard()
+        shard, n_shards, d_rank = self._shard()
         local = shard_list(entries, shard, n_shards)
         local = [e for e in local if e not in self.progress.done]
 
@@ -185,8 +184,7 @@ class DistributedRunner:
         """Rank 0 writes every shard's labels, in list order."""
         rank, world = _world()
         if world > 1:
-            parts = meshlib.all_gather_object(
-                results, meshlib.group_axis(None))
+            parts = meshlib.all_gather_object(results, meshlib.world_axis())
             results = {k: v for p in parts for k, v in p.items()}
         if rank != 0:
             return

@@ -45,11 +45,10 @@ def data_axis(mesh) -> DataAxis:
                     mesh.size(names.index("data")), mesh.device_type)
 
 
-def group_axis(group) -> DataAxis:
-    """A DataAxis over a ProcessGroup (None: the default group)."""
-    backend = dist.get_backend(group)
-    return DataAxis(group, dist.get_rank(group), dist.get_world_size(group),
-                    "cuda" if backend == "nccl" else "cpu")
+def world_axis() -> DataAxis:
+    """A DataAxis over the default group (every process)."""
+    return DataAxis(None, dist.get_rank(), dist.get_world_size(),
+                    "cuda" if dist.get_backend() == "nccl" else "cpu")
 
 
 def rows_of(n: int, axis: DataAxis) -> Tuple[int, int]:
