@@ -2,7 +2,7 @@
 
 phnrec_tpu shards a batch or a stream axis with ``P("data")`` over the
 devices of a mesh, under one controller.  The port runs SPMD instead: one
-process per card, every rank running the same driver code, and a
+process per card, every rank running the same program, and a
 ``torch.distributed.device_mesh.DeviceMesh`` whose dimension names include
 "data".  Rank r of a data group of size R owns the r-th contiguous share
 of the rows, as ``P("data")`` splits them; what every rank must see (the
