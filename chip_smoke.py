@@ -2468,7 +2468,8 @@ def stk_live_kws_vs_cpu(sr, cpu_sr, dev, seconds: float = 30.0,
         imp, q = LRTRACE_SETTINGS[[_setting(s) for s in
                                    LRTRACE_SETTINGS].index(name)]
         ref = DeviceKWSTracker(stk.keywords(), stk.time_pruning,
-                               stk.kws_score_pruning, imp, q, **kw)
+                               stk.kws_score_pruning, imp, q, device="cpu",
+                               **kw)
         for sv, sw in sinks:
             ref.feed_sinks(sv.cpu(), sw.cpu())
         ref.finish()

@@ -1149,8 +1149,10 @@ def decode_lrtrace_events(events_np, keywords) -> List[KWSHit]:
 
 
 class DeviceKWSTracker:
-    """LRTrace candidate tracking of one stream, its state carried on the
-    stream's device (phnrec_tpu/decoder/stknet.py:1218-1324, the state
+    """LRTrace candidate tracking of one stream, its state carried on
+    ``device``, the card unless the caller asks for the CPU, as
+    phnrec_tpu's runs on the default device
+    (phnrec_tpu/decoder/stknet.py:1218-1324, the state
     machine of stkinterface.cpp:240-289/349-380): each block of sink
     records runs through ``ops.lrtrace.lrtrace_scan`` at n = 1, which on
     CUDA tensors launches kernel F and nothing else, and on CPU tensors
@@ -1165,7 +1167,7 @@ class DeviceKWSTracker:
                  improve_kwd_estim: bool = False,
                  keyword0_time_quirk: bool = True,
                  word_sinks: Optional[Sequence[int]] = None,
-                 filler_sink: Optional[int] = None, device="cpu"):
+                 filler_sink: Optional[int] = None, device="cuda"):
         self.keywords = list(keywords)
         self.hits: List[KWSHit] = []
         self.t = 0

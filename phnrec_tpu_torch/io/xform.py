@@ -372,7 +372,7 @@ class StreamingXform:
     transformed chunks equal to the whole-utterance apply_instance."""
 
     def __init__(self, inst: XformInstance, lead: Tuple[int, ...] = (),
-                 device="cpu"):
+                 device="cuda"):
         self.inst = inst
         self.state = instance_init_state(inst, lead, device)
 

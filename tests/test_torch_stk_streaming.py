@@ -195,8 +195,8 @@ def test_device_tracker_matches_jax(improve, quirk, K):
     jtr = jst.DeviceKWSTracker(kws, 40, -1e30, word_sinks=ws.numpy(),
                                filler_sink=fs, **kw)
     tr = tst.DeviceKWSTracker(kws, 40, -1e30, word_sinks=ws.numpy(),
-                              filler_sink=fs, **kw)
-    dtr = tst.DeviceKWSTracker(kws, 40, -1e30, **kw)
+                              filler_sink=fs, device="cpu", **kw)
+    dtr = tst.DeviceKWSTracker(kws, 40, -1e30, device="cpu", **kw)
     before = lrtrace.LAUNCHES
     for a, b in ((0, 50), (50, 51), (51, 150)):
         jtr.feed_sinks(sv[a:b].numpy(), sw[a:b].numpy())
