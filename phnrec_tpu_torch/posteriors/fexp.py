@@ -22,6 +22,7 @@ The rules that pin this to phnrec_tpu's definition:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _LN2 = 0.69314718055994530942
@@ -70,3 +71,13 @@ def softmax(x: torch.Tensor, fast: bool = True) -> torch.Tensor:
     shifted = x - torch.amax(x, dim=-1, keepdim=True)
     e = fexp(shifted) if fast else torch.exp(shifted)
     return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def fexp_reference_np(y: np.ndarray) -> np.ndarray:
+    """NumPy oracle for fexp with low word 0 (testing only): builds the
+    double the C macro constructs.  Copy of
+    phnrec_tpu/posteriors/fexp.py::fexp_reference_np."""
+    y = np.atleast_1d(np.asarray(y, dtype=np.float64))
+    i = (FEXP_A * y).astype(np.int64).astype(np.int32) + FEXP_K
+    bits = (i.astype(np.int64) & 0xFFFFFFFF) << 32
+    return bits.view(np.float64)

@@ -1,7 +1,7 @@
 """Split-temporal-context (LCRC) feature assembly as two depthwise convs,
 and the clamped sliding context of the other posterior systems.
 
-Counterpart of phnrec_tpu/posteriors/stc.py (``LCRCAssembler.batched``,
+Counterpart of phnrec_tpu/posteriors/stc.py (``LCRCAssembler`` and
 ``clamped_context``).
 Reference semantics (traps.cpp:285-342): a 31-frame sliding band-energy
 window, initialized by replicating the first mel frame (traps.cpp:186-199);
@@ -90,6 +90,30 @@ class LCRCAssembler(nn.Module):
             win_left[:, None] * M, dtype=torch.float32))
         self.register_buffer("m_right", torch.tensor(
             win_right[:, None] * M, dtype=torch.float32))
+
+    def context_indices(self, num_frames: int) -> torch.Tensor:
+        """[T, trap_len] clip-gather indices: row t covers t-15..t+15."""
+        shift = (self.spec.trap_len - 1) // 2
+        dev = self.m_left.device
+        t = torch.arange(num_frames, device=dev)[:, None]
+        j = torch.arange(self.spec.trap_len, device=dev)[None, :]
+        return torch.clamp(t + j - shift, 0, num_frames - 1)
+
+    def context(self, params: torch.Tensor,
+                n_valid=None) -> torch.Tensor:
+        """[T, nbanks] mel params -> [T, trap_len, nbanks] clamped sliding
+        context, rows from ``n_valid`` on repeating row n_valid-1."""
+        return clamped_context(params, self.spec.trap_len, n_valid)
+
+    def forward(self, params: torch.Tensor, n_valid=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[T, nbanks] mel params (+ the valid count of a padded
+        utterance) -> (left, right) band-net inputs [T, nbanks*n_coefs]
+        each: ``batched`` on one row."""
+        n = None if n_valid is None else torch.as_tensor(
+            n_valid, device=params.device).reshape(1)
+        left, right = self.batched(params[None], n)
+        return left[0], right[0]
 
     def _taps(self, m: torch.Tensor) -> torch.Tensor:
         # [hc, C] -> conv1d weight [nb*C, 1, hc]: output channel g*C + k
