@@ -115,12 +115,6 @@ def test_usage_without_arguments(module, capsys):
     assert "python -m phnrec_tpu_torch.examples." in capsys.readouterr().out
 
 
-def test_every_original_has_a_twin():
-    twins = Path(batch_decode.__file__).parent
-    for f in EXAMPLES.glob("*.py"):
-        assert (twins / f.name).is_file(), f.name
-
-
 def test_batch_decode(data, tmp_path, monkeypatch, capsys):
     want = _run_original("batch_decode", [data["phn"], str(tmp_path / "j"),
                                           *data["audio"]],
