@@ -18,7 +18,7 @@ scan), G (edge-list network scan), H (its traceback, on a case list of
 networks, ties, beams, carried blocks and committed boundaries; its int16
 instance on E's records), E (the decode-mode network block), J (the
 phoneme-loop forward-backward), K (the training graph's forward-backward)
-and K' (its Viterbi alignment).  Then it drives nine paths of the port:
+and K' (its Viterbi alignment).  Then it drives ten paths of the port:
 
 * the batch wav->rec path, once through the CLI on a synthetic package at
   the CZ SpeechDat LCRC shapes (64 files), and times a batch of 1024 x 5 s
@@ -89,6 +89,15 @@ and K' (its Viterbi alignment).  Then it drives nine paths of the port:
   BatchPipeline(mesh=) and the three servers with mesh= (4 streams x
   10 s, shard_audio on the stkint one) against their unsharded runs, and
   psum_accumulators.
+* the last public surface: single-utterance ``posteriors`` of the LCRC,
+  3BT, 1BT and 1BT_DCT estimators at the CZ widths (one 5 s utterance,
+  "highest" and "high"; kernels A / A', the band index, the split paths)
+  held bit for bit to posteriors_batched of the utterance alone and to
+  its row of a batch of 4; and the five twins of examples/ through their
+  main (batch_decode on 16 x 5 s, streaming_decode on 20 s at 250 ms,
+  keyword_spotting on the EN KWS package, multistream_serving on 4 CZ and
+  4 EN KWS files with and without --mesh at world size 1, train_gmm_hmm
+  for 5 iterations), each held to the path it wraps.
 
 It prints one JSON line of kernel results, each kernel with its launches
 on a path of this run and its time beside its bound (the larger of its
@@ -3900,6 +3909,251 @@ def distributed_phase(sr, ssr, en_sr, sd_sr, tmp: str, paths, dev) -> dict:
     return launches
 
 
+# -- the last public surface: single-utterance posteriors and the twins of
+# examples/
+SINGLE_KERNELS = ("mlp_fused", "mlp_bf16x3", *WIDE_KERNELS)
+# (launches, of them with the band index, of them on the split path) of
+# one single-utterance call: LCRC's two band nets and merger; 3BT's and
+# 1BT's band stack and merger (past n_inp 480); 1BT_DCT's merger
+SINGLE_LAUNCHES = {"LCRC": (3, 0, 0), "3BT": (2, 1, 1), "1BT": (2, 1, 1),
+                   "1BT_DCT": (1, 0, 0)}
+
+
+def posteriors_single(srs: dict, dev) -> dict:
+    """``posteriors`` of one 5 s utterance of each system at full width
+    (the CZ LCRC package; 3BT, 1BT and 1BT_DCT at the CZ widths), at
+    "highest" (kernel A) and "high" (A′), held bit for bit to
+    ``posteriors_batched`` of that utterance alone and to its row of
+    ``posteriors_batched`` over 4 utterances of that length.  Kernel A
+    sums a row alike at any row count; A′ picks its tile, and with it the
+    second product's slab depth, by the call's rows (all bands together),
+    so at "high" the row in the batch of 4 is held within TOL_SOFTMAX and
+    its bit-equality reported.  A's or A′'s launches, band-index launches
+    and split-path launches are counted around the single call; its ms
+    and the batch's by cuda_ms.  Returns the launches."""
+    from phnrec_tpu_torch import normalization
+    rng = np.random.default_rng(91)
+    total = dict.fromkeys(SINGLE_KERNELS, 0)
+    recs = {}
+    ok = True
+    for system, sr in srs.items():
+        raws = [synth.synth_audio(rng, 5 * 8000).astype("<i2").tobytes()
+                for _ in range(4)]
+        par = np.stack([sr.params_from_waveform(r) for r in raws])
+        par = torch.from_numpy(par[..., : sr.frontend.n_params]).to(dev)
+        n = torch.full((4,), par.shape[1], dtype=torch.int32, device=dev)
+        x = normalization.sentence_norm(par, sr.sent_norm, n_valid=n)
+        est = sr.estimator
+        for mode in ("highest", "high"):
+            precision.set_mode(mode)
+            kern = "mlp_fused" if mode == "highest" else "mlp_bf16x3"
+            mod = mlp_fused if mode == "highest" else mlp_bf16x3
+            with torch.inference_mode():
+                reset_counts(SINGLE_KERNELS)
+                bands = mod.BAND_LAUNCHES
+                one = est.posteriors(x[0])
+                torch.cuda.synchronize()
+                counts = read_counts(SINGLE_KERNELS)
+                bands = mod.BAND_LAUNCHES - bands
+                alone = torch.equal(one, est.posteriors_batched(
+                    x[:1], n[:1])[0])
+                rows = est.posteriors_batched(x, n)
+                equal = torch.equal(one, rows[0])
+                err = float((one - rows[0]).abs().max())
+                ms = cuda_ms(lambda: est.posteriors(x[0]))
+                batch_ms = cuda_ms(lambda: est.posteriors_batched(x, n))
+            for k, v in counts.items():
+                total[k] += v
+            got = (counts[kern], bands, counts[kern + "_wide"])
+            recs[f"{system}_{mode}"] = dict(
+                frames=par.shape[1], n_out=one.shape[1],
+                bit_equal_alone=alone, bit_equal_in_batch=equal,
+                max_err_in_batch=err,
+                finite=bool(torch.isfinite(one).all()), launches=counts,
+                band_launches=bands, ms=ms, batch_of_4_ms=batch_ms)
+            others = sum(v for k, v in counts.items()
+                         if k not in (kern, kern + "_wide"))
+            ok &= (alone and (equal if mode == "highest" else
+                              err <= TOL_SOFTMAX)
+                   and recs[f"{system}_{mode}"]["finite"]
+                   and got == SINGLE_LAUNCHES[system] and not others)
+    precision.set_mode("highest")
+    phase("posteriors_single", expected=SINGLE_LAUNCHES,
+          tol_high_in_batch=TOL_SOFTMAX, **recs)
+    if not ok:
+        raise AssertionError(f"posteriors_single: {recs}")
+    return total
+
+
+def _run_example(module, args) -> tuple:
+    """A twin's main on the card, its stdout captured, every count set to
+    0 just before and read just after: (lines, wall s, launches)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    reset_counts(KERNELS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(["--device", "cuda", *args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} exited {rc}")
+    return (buf.getvalue().splitlines(), wall,
+            {k: v for k, v in read_counts(KERNELS).items() if v})
+
+
+def _served_lines(ms, paths) -> list:
+    """multistream_serving's feeding (64 KiB chunks, interleaved) and lines,
+    on a server made here."""
+    from phnrec_tpu_torch.io.labels import format_rec_line
+    data = [open(p, "rb").read() for p in paths]
+    offsets = [0] * len(paths)
+    while any(o < len(d) for o, d in zip(offsets, data)):
+        for i, d in enumerate(data):
+            if offsets[i] < len(d):
+                ms.process(i, d[offsets[i]: offsets[i] + 65536])
+                offsets[i] += 65536
+            else:
+                ms.end_stream(i)
+    lines = []
+    for path, labels in zip(paths, ms.finish()):
+        lines += [f"# {path}"] + [format_rec_line(l) for l in labels]
+    return lines
+
+
+def examples_phase(pkg: str, spkg: str, en: str, srs: dict, tmp: str,
+                   dev) -> dict:
+    """The five twins of examples/ through their main on the card, each
+    held to the path it wraps run here: batch_decode on 16 x 5 s CZ files
+    (the .rec files equal BatchPipeline.run's labels), streaming_decode on
+    one 20 s CZ file at 250 ms (the lines equal StreamingRecognizer's fed
+    the same chunks), keyword_spotting on the EN KWS package with two
+    keywords of its phonemes (the hits equal the CPU port's
+    StkNetworkDecoder.decode on the card's log-posteriors),
+    multistream_serving on 4 CZ and 4 EN KWS files, and again with --mesh
+    at world size 1 (the lines equal the servers' own fed the same
+    chunks), train_gmm_hmm for 5 iterations (the log-likelihoods never
+    fall).  Each twin's wall and launches are reported; returns the
+    launches."""
+    from phnrec_tpu_torch.decoder.stknet import StkNetworkDecoder
+    from phnrec_tpu_torch.examples import (batch_decode, keyword_spotting,
+                                           multistream_serving,
+                                           streaming_decode, train_gmm_hmm)
+    from phnrec_tpu_torch.io import audio
+    from phnrec_tpu_torch.io.labels import format_rec_line
+    from phnrec_tpu_torch.parallel.batch import BatchPipeline
+    total, recs, ok = {}, {}, True
+
+    def account(name, wall, launches, need, **checks):
+        nonlocal ok
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        recs[name] = dict(wall_s=wall, launches=launches, **checks)
+        ok &= all(checks.values()) and all(launches.get(k) for k in need)
+
+    rng = np.random.default_rng(95)
+    d = os.path.join(tmp, "examples")
+    os.makedirs(d)
+    cz = [os.path.join(d, f"cz{i:02d}.raw") for i in range(16)]
+    for p in cz:
+        synth.synth_audio(rng, 5 * 8000).astype("<i2").tofile(p)
+    out_dir = os.path.join(d, "rec")
+    lines, wall, launches = _run_example(batch_decode, [pkg, out_dir, *cz])
+    sr = srs["cz"]
+    want = BatchPipeline(sr).run([audio.convert_waveform(
+        audio.load_waveform_bytes(p), sr.wave_format)[0] for p in cz]).labels
+    files_equal = all(
+        open(os.path.join(out_dir, os.path.basename(p)[:-4] + ".rec"))
+        .read() == "".join(format_rec_line(l) + "\n" for l in labels)
+        for p, labels in zip(cz, want))
+    account("batch_decode", wall, launches, BATCH_KERNELS,
+            rec_files_equal=files_equal, lines=len(lines) == len(cz))
+
+    long = os.path.join(d, "cz20.raw")
+    synth.synth_audio(rng, 20 * 8000).astype("<i2").tofile(long)
+    lines, wall, launches = _run_example(streaming_decode,
+                                         [spkg, long, "250"])
+    rec, want, emitted = StreamingRecognizer(srs["cz_serving"]), [], 0
+    raw, chunk = open(long, "rb").read(), 8000 * 250 // 1000 * 2
+    for i in range(0, len(raw), chunk):
+        rec.process(raw[i: i + chunk])
+        settled = rec.results(settled_only=True)
+        want += [f"  [settled] {l.name:6s} "
+                 f"{l.start_frames * 10:6d}..{l.end_frames * 10}ms"
+                 for l in settled[emitted:]]
+        emitted = len(settled)
+    want.append(f"final: {' '.join(l.name for l in rec.finish())}")
+    account("streaming_decode", wall, launches,
+            ("mlp_fused", "phnloop_viterbi"),
+            lines_equal=lines == want, settled=emitted > 0)
+
+    kw_audio = os.path.join(d, "en10.raw")
+    synth.synth_audio(rng, 10 * 16000, 16000).astype("<i2").tofile(kw_audio)
+    seen = {}
+
+    class Recording(StkNetworkDecoder):
+        def decode(self, log_post):
+            seen["dec"], seen["lp"] = self, log_post
+            return super().decode(log_post)
+
+    keyword_spotting.StkNetworkDecoder = Recording
+    try:
+        lines, wall, launches = _run_example(keyword_spotting, [
+            en, kw_audio, *(f"{w}={p}" for w, p in
+                            synth.KEYWORDS["en"].items())])
+    finally:
+        keyword_spotting.StkNetworkDecoder = StkNetworkDecoder
+    dec = seen["dec"]
+    cpu = StkNetworkDecoder(dec.model_set, dec.network, dec.wpenalty, 1.0,
+                            mode="kws", device="cpu")
+    hits = cpu.decode(np.asarray(seen["lp"], np.float32))
+    want = [f"{h.name:12s} {h.start_frames * 10:6d}.."
+            f"{h.end_frames * 10}ms  LR={h.score:.2f}" for h in hits]
+    account("keyword_spotting", wall, launches,
+            (g_counter(dec.decoder),), hits=bool(hits),
+            hits_equal_cpu_port=lines == want)
+
+    en_files = [os.path.join(d, f"en{i}.raw") for i in range(4)]
+    for i, p in enumerate(en_files):
+        synth.synth_audio(rng, (10 - i) * 16000, 16000).astype(
+            "<i2").tofile(p)
+    for name, spec, files, cls, need in (
+            ("multistream_cz", spkg, cz[:4], MultiStreamRecognizer,
+             ("mlp_fused", "phnloop_viterbi_ragged", "backtrack")),
+            ("multistream_kws", en, en_files, MultiStreamKWS,
+             ("mlp_fused", "lrtrace"))):
+        lines, wall, launches = _run_example(multistream_serving,
+                                             [spec, *files])
+        served = _served_lines(cls(srs[name], n_streams=len(files)), files)
+        meshed, mesh_wall, mesh_launches = _run_example(
+            multistream_serving, ["--mesh", spec, *files])
+        account(name, wall, launches, need, lines_equal_server=lines ==
+                served, labels=len(lines) > len(files),
+                mesh_equal=meshed == [f"# sharding {len(files)} streams "
+                                      "over 1 devices"] + lines)
+        account(name + "_mesh", mesh_wall, mesh_launches, need)
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        lines, wall, launches = _run_example(train_gmm_hmm, ["5"])
+    finally:
+        os.chdir(cwd)
+    ll = [float(l.split()[4]) for l in lines if l.startswith("iter ")]
+    account("train_gmm_hmm", wall, launches, (), iterations=len(ll) == 5,
+            never_falls=all(b >= a for a, b in zip(ll, ll[1:])),
+            wrote=os.path.isfile(os.path.join(d, "trained.mmf")),
+            graph_kernels=any(launches.get(k) for k in GRAPH_KERNELS))
+    recs["train_gmm_hmm"]["log_likes"] = ll
+    phase("examples", wall_s=sum(r["wall_s"] for r in recs.values()),
+          **recs)
+    if not ok:
+        raise AssertionError(f"examples: {recs}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ERROR: no CUDA device; chip_smoke.py needs one card",
@@ -4064,6 +4318,19 @@ def main() -> int:
         staged_cli(pkg, tmp, cpu_sr, dev)
         launches.update(train_posteriors(sr, cpu_sr, tmp, dev)["launches"])
         train_gmm(pkg, sr, tmp, dev)
+
+        # the last public surface: single-utterance posteriors of the four
+        # systems, then the five twins of examples/
+        t_surface = time.perf_counter()
+        single = posteriors_single(
+            {"LCRC": sr, **{k: tsrs[k] for k in ("3BT", "1BT", "1BT_DCT")}},
+            dev)
+        twins = examples_phase(pkg, spkg, en, {
+            "cz": sr, "cz_serving": ssr, "multistream_cz": ssr,
+            "multistream_kws": en_sr}, tmp, dev)
+        for k, v in (*single.items(), *twins.items()):
+            launches[k] = launches.get(k, 0) + v
+        phase("surface_total", seconds=time.perf_counter() - t_surface)
 
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")

@@ -28,7 +28,7 @@ import torch.distributed as dist
 from phnrec_tpu_torch.examples import split_device
 from phnrec_tpu_torch.io.labels import format_rec_line
 from phnrec_tpu_torch.multistream import MultiStreamKWS, MultiStreamRecognizer
-from phnrec_tpu_torch.pipeline import SpeechRec
+from phnrec_tpu_torch.pipeline import SpeechRec, resolve_device
 
 
 def _mesh(device: str, n_streams: int, store_dir: str):
@@ -46,7 +46,7 @@ def _mesh(device: str, n_streams: int, store_dir: str):
             dist.init_process_group(backend)
         else:
             if dev.type == "cuda":
-                torch.cuda.set_device(dev)
+                torch.cuda.set_device(resolve_device(dev))
             dist.init_process_group(
                 backend, store=dist.FileStore(
                     os.path.join(store_dir, "store"), 1),

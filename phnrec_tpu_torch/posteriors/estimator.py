@@ -58,8 +58,9 @@ class _Estimator(nn.Module):
         equal to that row bit for bit."""
         params = torch.as_tensor(params, dtype=torch.float32,
                                  device=self.merger.w1.device)
-        n = torch.tensor([params.shape[0]], dtype=torch.int32,
-                         device=params.device)
+        # filled on the device: no host-to-device copy stalls the host
+        n = torch.full((1,), params.shape[0], dtype=torch.int32,
+                       device=params.device)
         return self.posteriors_batched(params[None], n, plain)[0]
 
 
