@@ -4005,20 +4005,12 @@ def _run_example(module, args) -> tuple:
 
 
 def _served_lines(ms, paths) -> list:
-    """multistream_serving's feeding (64 KiB chunks, interleaved) and lines,
-    on a server made here."""
+    """multistream_serving's lines from a server made here, fed as the
+    twin feeds it (64 KiB chunks, interleaved)."""
     from phnrec_tpu_torch.io.labels import format_rec_line
-    data = [open(p, "rb").read() for p in paths]
-    offsets = [0] * len(paths)
-    while any(o < len(d) for o, d in zip(offsets, data)):
-        for i, d in enumerate(data):
-            if offsets[i] < len(d):
-                ms.process(i, d[offsets[i]: offsets[i] + 65536])
-                offsets[i] += 65536
-            else:
-                ms.end_stream(i)
     lines = []
-    for path, labels in zip(paths, ms.finish()):
+    for path, labels in zip(paths, _feed_chunks(
+            ms, [open(p, "rb").read() for p in paths], chunk=65536)):
         lines += [f"# {path}"] + [format_rec_line(l) for l in labels]
     return lines
 

@@ -174,13 +174,12 @@ class MelFrontend(nn.Module):
         vs, st = self.spec.vector_size, self.spec.step
         return 1 if n_samples <= vs else (n_samples - vs) // st + 1
 
-    def frame_indices(self, num_frames: int, device=None) -> torch.Tensor:
-        """[num_frames, vs] sample indices of each frame, on ``device``
-        (the frontend's own by default)."""
+    def frame_indices(self, num_frames: int) -> torch.Tensor:
+        """[num_frames, vs] sample indices of each frame."""
         vs, st = self.spec.vector_size, self.spec.step
-        device = self.dft.device if device is None else device
-        return (torch.arange(num_frames, device=device)[:, None] * st
-                + torch.arange(vs, device=device)[None, :])
+        dev = self.dft.device
+        return (torch.arange(num_frames, device=dev)[:, None] * st
+                + torch.arange(vs, device=dev)[None, :])
 
     def frames_from_wave(self, wave: torch.Tensor,
                          num_frames: int) -> torch.Tensor:
@@ -191,7 +190,7 @@ class MelFrontend(nn.Module):
         L = wave.shape[-1]
         if (num_frames - 1) * st + vs <= L:
             return wave.unfold(-1, vs, st)[..., :num_frames, :]
-        idx = self.frame_indices(num_frames, wave.device)
+        idx = self.frame_indices(num_frames).to(wave.device)
         return wave[..., idx.clamp_(max=L - 1)]
 
     def log_mel_from_frames(self, frames: torch.Tensor) -> torch.Tensor:

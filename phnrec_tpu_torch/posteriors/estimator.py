@@ -54,8 +54,8 @@ class _Estimator(nn.Module):
 
     def posteriors(self, params, plain: bool = False) -> torch.Tensor:
         """[T, nbanks] normalized mel params -> [T, n_out] posteriors:
-        ``posteriors_batched`` on one row, so through the same kernels and
-        equal to that row bit for bit."""
+        ``posteriors_batched`` of the utterance alone (``plain`` as
+        there), so through the same kernels, bit for bit."""
         params = torch.as_tensor(params, dtype=torch.float32,
                                  device=self.merger.w1.device)
         # filled on the device: no host-to-device copy stalls the host
