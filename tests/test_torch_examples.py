@@ -10,7 +10,8 @@ with a patched ``sys.argv``; both print to the captured stdout.
 * streaming_decode: the printed lines equal (settled labels, final).
 * multistream_serving: the labels of a phoneme-loop package equal in
   names and boundaries, scores within TOL_SCORE; ``--mesh`` at world size
-  1 on gloo prints what the run without it prints.  On the KWS package
+  1 on gloo prints what the run without it prints, and so does rank 0 of
+  two gloo ranks under a launcher's environment.  On the KWS package
   the twin's hits equal the port's MultiStreamKWS fed the same chunks,
   and JAX's in keywords, order, start times and scores (within
   TOL_SCORE); their end times follow the posteriors' last bit (LRTrace,
@@ -22,7 +23,10 @@ with a patched ``sys.argv``; both print to the captured stdout.
   the written MMFs' means within 1e-4."""
 
 import importlib.util
+import os
 import shutil
+import socket
+import subprocess
 import sys
 from pathlib import Path
 
@@ -38,7 +42,8 @@ from phnrec_tpu_torch.io.mmf import parse_mmf
 from phnrec_tpu_torch.multistream import MultiStreamKWS
 from phnrec_tpu_torch.pipeline import SpeechRec
 
-EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+REPO = Path(__file__).resolve().parent.parent
+EXAMPLES = REPO / "examples"
 TOL_SCORE = 2e-3
 TOL_POST = 1e-4
 REL_LL = 1e-4
@@ -169,6 +174,40 @@ def test_multistream_phoneme_package(data, tmp_path, monkeypatch, capsys):
     assert meshed[0] == f"# sharding {len(data['audio'])} streams over 1 " \
         "devices"
     assert meshed[1:] == got_lines
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("n_streams", [2, 3])
+def test_multistream_mesh_two_ranks(data, n_streams):
+    """Under a launcher's environment (env://, 2 gloo ranks): rank 0
+    prints every stream's labels as one process does, rank 1 nothing;
+    with 3 streams only rank 0 serves (the most ranks that divide the
+    stream count)."""
+    args = [data["stream"], *data["audio"][:n_streams]]
+    cmd = [sys.executable, "-m",
+           "phnrec_tpu_torch.examples.multistream_serving", "--device",
+           "cpu"]
+    env = dict(os.environ, MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE="2")
+    procs = [subprocess.Popen(cmd + ["--mesh", *args], cwd=REPO,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs[0][1] + outs[1][1]
+    env.pop("WORLD_SIZE")
+    one = subprocess.run(cmd + args, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    served = 2 if n_streams % 2 == 0 else 1
+    assert outs[0][0].splitlines() == [
+        f"# sharding {n_streams} streams over {served} devices",
+        *one.stdout.splitlines()]
+    assert outs[1][0] == ""
 
 
 def test_multistream_kws_package(data, monkeypatch, capsys):
