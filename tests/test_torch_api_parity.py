@@ -47,10 +47,10 @@ RENAMED = {
 }
 # (module, name) of phnrec_tpu kept out of the port, each with its reason
 KEPT_OUT = {
-    # the JAX package's padded-weights pytree, its builder and its forward
-    # function (lane padding to 128, lax.Precision); the port's MLP
-    # module (posteriors/mlp.py) and precision.mlp_passes stand in for
-    # them (ROADMAP.md Queue 1)
+    # the JAX package's padded-weights pytree, the function that makes it
+    # and its forward function (lane padding to 128, lax.Precision); the
+    # port's MLP module (posteriors/mlp.py) and precision.mlp_passes stand
+    # in for them (ROADMAP.md Queue 1)
     ("posteriors/mlp.py", "MLPDevice"),
     ("posteriors/mlp.py", "to_device"),
     ("posteriors/mlp.py", "forward"),
