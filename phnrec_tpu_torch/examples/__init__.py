@@ -22,13 +22,9 @@ from typing import List, Optional, Sequence, Tuple
 
 def split_device(argv: Optional[Sequence[str]]) -> Tuple[str, List[str]]:
     """(the device, the other arguments) of a twin's command line:
-    ``--device DEV`` or ``--device=DEV`` anywhere, ``cuda`` without."""
+    ``--device DEV`` anywhere, ``cuda`` without."""
     args = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
     for i, a in enumerate(args):
-        if a.startswith("--device="):
-            device = a.split("=", 1)[1]
-            return device, args[:i] + args[i + 1:]
         if a == "--device" and i + 1 < len(args):
             return args[i + 1], args[:i] + args[i + 2:]
-    return device, args
+    return "cuda", args

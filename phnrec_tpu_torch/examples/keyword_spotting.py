@@ -4,7 +4,8 @@ utterance by keyword/filler likelihood ratio.
 Twin of examples/keyword_spotting.py on the port: the reference's KWS
 mode (stkinterface.cpp:240-289), a background phoneme loop (filler) in
 parallel with one branch a keyword pronunciation, decoded by
-StkNetworkDecoder (kernel G on the card) over the package's posteriors.
+StkNetworkDecoder (kernel G on the card) over the package's posteriors
+(kernel A or A').
 
     python -m phnrec_tpu_torch.examples.keyword_spotting [--device DEV] PKG_DIR audio.raw "kw1=p h n" [...]
 

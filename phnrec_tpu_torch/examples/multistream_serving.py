@@ -4,10 +4,10 @@ Twin of examples/multistream_serving.py on the port.  Each stream keeps
 the single-stream semantics (replicate-first-frame STC init, 15-frame
 delay gate, repeat-last-frame tail flush) while all of them share one
 batched block a step: MultiStreamKWS for KWS packages (kernels A or A',
-then B or G, then F on the card), MultiStreamRecognizer for the others
-(A or A', C', D).  The streams are fed interleaved in 64 KiB chunks, as
-concurrent sources would arrive; each file is one stream and the
-per-stream .rec lines print at the end.
+then B, or G on a network B does not take, then F on the card),
+MultiStreamRecognizer for the others (A or A', C', D).  The streams are
+fed interleaved in 64 KiB chunks, as concurrent sources would arrive;
+each file is one stream and the per-stream .rec lines print at the end.
 
     python -m phnrec_tpu_torch.examples.multistream_serving [--device DEV] [--mesh] PKG_DIR a.raw b.raw [...]
 

@@ -1,9 +1,10 @@
 """Streaming decode: feed audio in chunks, get phonemes with a fixed lag.
 
 Twin of examples/streaming_decode.py on the port: StreamingRecognizer
-(kernels A or A', C' and D' on the card) prints the settled labels as
-each chunk arrives, then the final labels, which equal the offline decode
-on packages without sentence normalization.
+(kernels A or A' and C on the card; the labels are walked on the host
+over the History copied back) prints the settled labels as each chunk
+arrives, then the final labels, which equal the offline decode on
+packages without sentence normalization.
 
     python -m phnrec_tpu_torch.examples.streaming_decode [--device DEV] PKG_DIR audio.raw [chunk_ms]
 """

@@ -211,11 +211,11 @@ class SpeechRec:
         par = np.array(par[:, :n_p], np.float32)  # truncate, srec.cpp:988
         with TIMER.stage("posteriors"):
             x = torch.from_numpy(par).to(self.device)[None]
-            n = torch.tensor([par.shape[0]], dtype=torch.int32,
-                             device=self.device)
+            n = torch.full((1,), par.shape[0], dtype=torch.int32,
+                           device=self.device)
             sent = normalization.sentence_norm(x, self.sent_norm, n_valid=n)
-            post = self.estimator.posteriors_batched(sent, n)
-            return self.post_soft(post)[0].cpu().numpy()
+            post = self.estimator.posteriors(sent[0])
+            return self.post_soft(post).cpu().numpy()
 
     @torch.inference_mode()
     def decode_posteriors(self, post: np.ndarray) -> DecodeResult:

@@ -52,16 +52,15 @@ class _Estimator(nn.Module):
     """What the three systems share: one utterance's posteriors as a row
     of their batched form."""
 
-    def posteriors(self, params, plain: bool = False) -> torch.Tensor:
+    def posteriors(self, params) -> torch.Tensor:
         """[T, nbanks] normalized mel params -> [T, n_out] posteriors:
-        ``posteriors_batched`` of the utterance alone (``plain`` as
-        there), so through the same kernels, bit for bit."""
+        ``posteriors_batched`` of the utterance alone, so through the same
+        kernels, bit for bit."""
         params = torch.as_tensor(params, dtype=torch.float32,
                                  device=self.merger.w1.device)
-        # filled on the device: no host-to-device copy stalls the host
         n = torch.full((1,), params.shape[0], dtype=torch.int32,
                        device=params.device)
-        return self.posteriors_batched(params[None], n, plain)[0]
+        return self.posteriors_batched(params[None], n)[0]
 
 
 class LCRCEstimator(_Estimator):

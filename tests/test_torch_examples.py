@@ -110,7 +110,7 @@ def test_split_device():
     assert split_device(["a", "b"]) == ("cuda", ["a", "b"])
     assert split_device(["a", "--device", "cpu", "b"]) == ("cpu",
                                                            ["a", "b"])
-    assert split_device(["--device=cuda:1", "a"]) == ("cuda:1", ["a"])
+    assert split_device(["--device", "cuda:1", "a"]) == ("cuda:1", ["a"])
 
 
 @pytest.mark.parametrize("module", [batch_decode, streaming_decode,
