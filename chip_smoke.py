@@ -3508,9 +3508,11 @@ def device_busy_share(fn, kernels: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    # a host range (the program's spans) also shows on the device's
+    # timeline: not work
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA and e.time_range.end >
-                  e.time_range.start]
+                  e.time_range.start and not e.is_user_annotation]
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in dev_events)
     if not spans:

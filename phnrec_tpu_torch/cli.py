@@ -23,7 +23,9 @@ Flags:
                      bit-parity emulation
     --device DEV     torch device to run on  [cuda]
     --alize          vadalize output: ALIZE speech segments (vad.py)
-    --profile        print the per-stage wall-clock breakdown at exit
+    --profile        print the per-stage wall-clock breakdown at exit,
+                     then the recorder's spans (count, total and self
+                     seconds) and counters
     --trace=DIR      capture a torch.profiler Chrome trace into DIR
 """
 
@@ -48,14 +50,17 @@ def main(argv=None) -> int:
 
     from phnrec_tpu_torch.utils import profiling
     profiling.TIMER.enabled = True
+    profiling.RECORDER.enable()
     try:
         with profiling.trace(trace_dir):
             rc = _main(argv)
         if profile:
             print(profiling.TIMER.summary(), file=sys.stderr)
+            print(profiling.RECORDER.snapshot().summary(), file=sys.stderr)
         return rc
     finally:
         profiling.TIMER.enabled = False
+        profiling.RECORDER.disable()
 
 
 def _main(argv) -> int:

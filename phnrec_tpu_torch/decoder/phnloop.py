@@ -29,6 +29,7 @@ import torch
 from phnrec_tpu_torch.io.labels import Label
 from phnrec_tpu_torch.ops import backtrack as backtrack_op
 from phnrec_tpu_torch.ops import phnloop_viterbi
+from phnrec_tpu_torch.utils.profiling import count, span
 
 LOG_0_5 = np.float32(-0.69314718055994530941723212145818)
 NEG_INF = np.float32(-np.finfo(np.float32).max)  # -FLT_MAX, phndec.cpp:63
@@ -290,16 +291,18 @@ def fetch_segments_finish(pending) -> Segments:
     """Wait for ``fetch_segments_start``'s copies and return the Segments
     as numpy arrays; a row holding more than the sliced slots is refetched
     at full width.  Raises if a row's count reached the Smax capacity,
-    which would mean the walk truncated it."""
+    which would mean the walk truncated it.  Span ``fetch.wait``: the wait
+    and any refetch."""
     segs, small, done = pending
-    if done is not None:
-        done.synchronize()
-    count = small.count.numpy()
-    out = Segments(count, *(a.numpy() for a in small[1:]))
-    smax = segs.phn.shape[1]
-    cmax = int(count.max(initial=0))
-    if cmax > out.phn.shape[1]:
-        out = Segments(count, *(a.cpu().numpy() for a in segs[1:]))
+    with span("fetch.wait"):
+        if done is not None:
+            done.synchronize()
+        counts = small.count.numpy()
+        out = Segments(counts, *(a.numpy() for a in small[1:]))
+        smax = segs.phn.shape[1]
+        cmax = int(counts.max(initial=0))
+        if cmax > out.phn.shape[1]:
+            out = Segments(counts, *(a.cpu().numpy() for a in segs[1:]))
     if smax and cmax >= smax:
         raise AssertionError(
             f"backtrack capacity overflow: count {cmax} reached Smax {smax}")
@@ -321,25 +324,30 @@ def labels_from_segments(segs: Segments, n_frames: np.ndarray,
     into per-utterance Label lists.  Segment j's end frame is segment
     j-1's start (j=0 ends at n_frames); its like is the alpha delta to the
     previous-in-time segment (initial mPrevAlpha = 0).  Copy of
-    phnrec_tpu's."""
-    counts = np.asarray(segs.count)
-    start = np.asarray(segs.start, dtype=np.int64)
-    if row_offset is not None:
-        start = start + np.asarray(row_offset, np.int64)[:, None]
-    alpha_end = np.asarray(segs.alpha_end, dtype=np.float64)
-    B = counts.shape[0]
-    # like[j] = alpha_end[j] - alpha_end[j+1] in emission order; slots past
-    # count are zero, so the first-in-time segment subtracts the initial
-    # mPrevAlpha = 0.  end[j] = start[j-1] (j=0 ends at n_frames).
-    likes = alpha_end - np.concatenate(
-        [alpha_end[:, 1:], np.zeros((B, 1))], 1)
-    ends = np.concatenate(
-        [np.asarray(n_frames, dtype=np.int64)[:, None], start[:, :-1]], 1)
-    names = np.asarray(phonemes, dtype=object)[np.asarray(segs.phn)]
-    return [
-        list(map(Label, start[b, k - 1 :: -1].tolist(),
-                 ends[b, k - 1 :: -1].tolist(),
-                 names[b, k - 1 :: -1].tolist(),
-                 likes[b, k - 1 :: -1].tolist())) if k else []
-        for b, k in enumerate(counts.tolist())
-    ]
+    phnrec_tpu's.  Span ``labels.build``, counter ``labels.built``."""
+    with span("labels.build") as traced:
+        counts = np.asarray(segs.count)
+        start = np.asarray(segs.start, dtype=np.int64)
+        if row_offset is not None:
+            start = start + np.asarray(row_offset, np.int64)[:, None]
+        alpha_end = np.asarray(segs.alpha_end, dtype=np.float64)
+        B = counts.shape[0]
+        # like[j] = alpha_end[j] - alpha_end[j+1] in emission order; slots
+        # past count are zero, so the first-in-time segment subtracts the
+        # initial mPrevAlpha = 0.  end[j] = start[j-1] (j=0 ends at
+        # n_frames).
+        likes = alpha_end - np.concatenate(
+            [alpha_end[:, 1:], np.zeros((B, 1))], 1)
+        ends = np.concatenate(
+            [np.asarray(n_frames, dtype=np.int64)[:, None], start[:, :-1]],
+            1)
+        names = np.asarray(phonemes, dtype=object)[np.asarray(segs.phn)]
+        if traced is not None:
+            count("labels.built", int(counts.sum()))
+        return [
+            list(map(Label, start[b, k - 1 :: -1].tolist(),
+                     ends[b, k - 1 :: -1].tolist(),
+                     names[b, k - 1 :: -1].tolist(),
+                     likes[b, k - 1 :: -1].tolist())) if k else []
+            for b, k in enumerate(counts.tolist())
+        ]

@@ -45,6 +45,7 @@ and the labels, are the unsharded run's.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional
 
 import numpy as np
@@ -61,11 +62,14 @@ from phnrec_tpu_torch.io.xform import (apply_instance_stateful_ragged,
                                        instance_init_state)
 from phnrec_tpu_torch.ops import lrtrace, netdecode, netstep
 from phnrec_tpu_torch.streaming import _convert_chunk, _make_posterior_block_fn
+from phnrec_tpu_torch.utils import profiling
 
 # the dense network steps (kernels B and E) take networks of at most this
 # many models + states, as JAX's dense scans do (phnrec_tpu/multistream.py:
 # 1042, 1300); bigger ones run the edge-list scan (kernel G)
 DENSE_MAX = 1024
+# servers made in this process: the serving feed's request ids
+_SERVERS = itertools.count()
 
 class MultiStreamRecognizer:
     """Decode ``n_streams`` independent audio streams in lockstep-batched
@@ -76,7 +80,12 @@ class MultiStreamRecognizer:
     tails and returns per-stream label lists.  ``stage_hook``, when set,
     is called with a stage name after each stage of a block and of
     results() (a tracing point; chip_smoke.py records CUDA events
-    there)."""
+    there).  Traced (utils/profiling.py): spans ``serve.round`` a
+    dispatch (request id (the server's number, its round)),
+    ``serve.launch`` a fused block, ``serve.commit`` a commit with
+    ``fetch.wait`` (its waits on the card), ``serve.commit_streams`` and
+    ``serve.rebase`` inside, counter
+    ``serve.commits``, and ``serve.finish``."""
 
     def __init__(self, sr, n_streams: int, block_frames: int = 128,
                  auto_pump: bool = True, mesh=None,
@@ -128,6 +137,7 @@ class MultiStreamRecognizer:
         self.auto_pump = auto_pump
         self.partial_pump = partial_pump
         self.stage_hook = None
+        self._server, self._round = next(_SERVERS), 0
 
         self._i16 = (sr.wave_format == "lin16" and sr.wave_noise == 0.0)
         dtype = np.int16 if self._i16 else np.float32
@@ -314,20 +324,22 @@ class MultiStreamRecognizer:
                     onst):
         """One multi-stream block: span [N, samples] with v[b] valid new
         frames in row b (v, n_mel, n_dec int32 device tensors)."""
-        s = self.trap_shift
-        ts2 = 2 * s
-        par = self._front(span)                             # [N, block, nb]
-        par, onst = self._onorm(par, v, n_mel, onst)
-        tail_eff = torch.where(primed[:, None, None], mel_tail,
-                               par[:, :1].expand(-1, ts2, -1))
-        ctx = torch.cat([tail_eff, par], dim=1)
-        tidx = (v[:, None] + torch.arange(ts2, device=v.device)[None, :])
-        new_tail = torch.gather(
-            ctx, 1, tidx.long()[:, :, None].expand(-1, -1, ctx.shape[2]))
-        skip = torch.minimum(torch.clamp(s - n_mel, min=0), v)
-        carry, hist = self._decode_ctx(ctx, skip, carry, n_dec, v - skip,
-                                       self.block)
-        return new_tail, primed | (v > 0), carry, hist, onst
+        with profiling.span("serve.launch"):
+            s = self.trap_shift
+            ts2 = 2 * s
+            par = self._front(span)                     # [N, block, nb]
+            par, onst = self._onorm(par, v, n_mel, onst)
+            tail_eff = torch.where(primed[:, None, None], mel_tail,
+                                   par[:, :1].expand(-1, ts2, -1))
+            ctx = torch.cat([tail_eff, par], dim=1)
+            tidx = (v[:, None]
+                    + torch.arange(ts2, device=v.device)[None, :])
+            new_tail = torch.gather(ctx, 1, tidx.long()[:, :, None].expand(
+                -1, -1, ctx.shape[2]))
+            skip = torch.minimum(torch.clamp(s - n_mel, min=0), v)
+            carry, hist = self._decode_ctx(ctx, skip, carry, n_dec,
+                                           v - skip, self.block)
+            return new_tail, primed | (v > 0), carry, hist, onst
 
     def _fused_flush(self, mel_tail, carry, n_mel, n_dec):
         """ProcessTail per stream (srec.cpp:877-927): repeat each row's
@@ -395,6 +407,12 @@ class MultiStreamRecognizer:
         return np.where(lens >= self.vs,
                         (lens - self.vs) // self.step_len + 1, 0)
 
+    def _round_span(self):
+        """The span ``serve.round`` of the next round."""
+        self._round += 1
+        return profiling.span("serve.round",
+                              id=(self._server, self._round - 1))
+
     def _dispatch(self, v: np.ndarray) -> None:
         """One fused block consuming v[b] frames from stream b."""
         need = (self.block - 1) * self.step_len + self.vs
@@ -406,11 +424,12 @@ class MultiStreamRecognizer:
                 self._bufs[b] = self._bufs[b][int(v[b]) * self.step_len:]
         self._buf_len -= v.astype(np.int64) * self.step_len
         r = self._rows
-        self._record(v, self._fused_impl(
-            torch.from_numpy(span).to(self.device), self._i32(v[r]),
-            self._mel_tail, self._primed, self._carry,
-            self._i32(self._n_mel[r]), self._i32(self._n_dec[r]),
-            self._onorm_state))
+        with self._round_span():
+            self._record(v, self._fused_impl(
+                torch.from_numpy(span).to(self.device), self._i32(v[r]),
+                self._mel_tail, self._primed, self._carry,
+                self._i32(self._n_mel[r]), self._i32(self._n_dec[r]),
+                self._onorm_state))
 
     def pump(self) -> int:
         """Dispatch fused blocks per the pump policy: lockstep (every live
@@ -577,11 +596,25 @@ class MultiStreamRecognizer:
         cycle one launch of kernel D' and a fetch of ~7 bytes a segment,
         whatever the stream count."""
         labels_all, a_h = self._walk_window_device(key)
-        for b in range(self._nl):
-            # a_h[b] is the rebased path like at horizon_end - 1
-            self._commit_stream(b, labels_all[b], lambda: a_h[b])
-        self._drop_committed_blocks()
-        self._rebase_alphas()
+        with profiling.span("serve.commit_streams"):
+            for b in range(self._nl):
+                # a_h[b] is the rebased path like at horizon_end - 1
+                self._commit_stream(b, labels_all[b], lambda: a_h[b])
+        self._drop_and_rebase()
+
+    def _wait_card(self) -> None:
+        """Wait for the rounds queued on the card, the span ``fetch.wait``:
+        the commit's first copy of a pageable array to the card would wait
+        for them anyway."""
+        with profiling.span("fetch.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+
+    def _drop_and_rebase(self) -> None:
+        """Drop the committed History blocks and rebase the scores."""
+        with profiling.span("serve.rebase"):
+            self._drop_committed_blocks()
+            self._rebase_alphas()
 
     def _commit_stream(self, b: int, labels: List[Label],
                        like_at_horizon) -> None:
@@ -597,25 +630,30 @@ class MultiStreamRecognizer:
             return
         if self._retained() <= 2 * self.commit_horizon + self.block:
             return
-        key = self._hist_device_uniform()
-        if key is not None:
-            self._commit_device(key)
-            return
-        # streams advanced unevenly: replay each on the host
-        self._hist_to_host()
-        for b in range(self._nl):
-            hist_b = self._stream_hist(b)
-            if hist_b is None:
-                continue
-            labels = phnloop.backtrack_committed(
-                hist_b, int(self._row_offset[b]), int(self._frame0[b]),
-                float(self._alpha0[b]), self.sr.phonemes)
-            h_row = int(self._n_dec[self._lo + b]) - self.commit_horizon \
-                - 1 - int(self._row_offset[b])
-            self._commit_stream(b, labels, lambda: float(
-                hist_b.alpha[h_row]) - float(self._alpha0[b]))
-        self._drop_committed_blocks()
-        self._rebase_alphas()
+        profiling.count("serve.commits")
+        with profiling.span("serve.commit"):
+            self._wait_card()
+            key = self._hist_device_uniform()
+            if key is not None:
+                self._commit_device(key)
+                return
+            # streams advanced unevenly: replay each on the host
+            self._hist_to_host()
+            with profiling.span("serve.commit_streams"):
+                for b in range(self._nl):
+                    hist_b = self._stream_hist(b)
+                    if hist_b is None:
+                        continue
+                    labels = phnloop.backtrack_committed(
+                        hist_b, int(self._row_offset[b]),
+                        int(self._frame0[b]), float(self._alpha0[b]),
+                        self.sr.phonemes)
+                    h_row = int(self._n_dec[self._lo + b]) \
+                        - self.commit_horizon - 1 \
+                        - int(self._row_offset[b])
+                    self._commit_stream(b, labels, lambda: float(
+                        hist_b.alpha[h_row]) - float(self._alpha0[b]))
+            self._drop_and_rebase()
 
     # -- device-resident feeding (serving and benchmark path); with a mesh
     # each buffer holds this rank's rows (shard_audio) ----------------------
@@ -625,10 +663,11 @@ class MultiStreamRecognizer:
         DMA in production, staged audio in benchmarks)."""
         v = np.full(self.n, self.block, np.int64)
         r = self._rows
-        self._record(v, self._fused_impl(
-            span_dev, self._i32(v[r]), self._mel_tail,
-            self._primed, self._carry, self._i32(self._n_mel[r]),
-            self._i32(self._n_dec[r]), self._onorm_state))
+        with self._round_span():
+            self._record(v, self._fused_impl(
+                span_dev, self._i32(v[r]), self._mel_tail,
+                self._primed, self._carry, self._i32(self._n_mel[r]),
+                self._i32(self._n_dec[r]), self._onorm_state))
 
     def dispatch_from_device_buffer(self, audio_dev: torch.Tensor,
                                     sample_offset: int) -> None:
@@ -703,6 +742,10 @@ class MultiStreamRecognizer:
     def finish(self) -> List[List[Label]]:
         """Drain leftovers, flush the STC tail, return every stream's
         results."""
+        with profiling.span("serve.finish", id=(self._server, self._round)):
+            return self._finish()
+
+    def _finish(self) -> List[List[Label]]:
         if not self._flushed:
             self._ended[:] = True
             # pump() with every stream ended drains ALL pending frames

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from phnrec_tpu_torch.io import audio
+from phnrec_tpu_torch.utils.profiling import count
 
 
 def bucket_by_frames(lengths: Sequence[int], max_batch: int = 64,
@@ -58,6 +60,10 @@ class PrefetchLoader:
 
     Bucketing (bucket_by_frames): lengths are rounded up to `granularity`
     samples so at most a handful of padded shapes reach the pipeline.
+
+    Counted (utils/profiling.py): ``loader.batches`` and ``loader.files``
+    as the consumer takes them, ``loader.read_s`` the reader threads'
+    seconds in ``_build_batch``, summed.
     """
 
     def __init__(self, sources: Sequence[str], fmt: str = "lin16",
@@ -178,11 +184,13 @@ class PrefetchLoader:
                 if item is None:
                     return
                 bi, idxs = item
+                t0 = time.perf_counter()
                 try:
                     batch = self._build_batch(idxs)
                 except BaseException as e:  # surfaced on the consumer side
                     errors.append(e)
                     batch = None
+                count("loader.read_s", time.perf_counter() - t0)
                 # in-order release: batches may finish out of order but are
                 # emitted in plan order
                 with slot_lock:
@@ -203,6 +211,8 @@ class PrefetchLoader:
                 for t in threads:
                     t.join()
                 raise errors[0]
+            count("loader.batches")
+            count("loader.files", len(batch.indices))
             yield batch
         for t in threads:
             t.join()
