@@ -21,6 +21,7 @@ Tie-breaking parity:
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -162,6 +163,102 @@ def commit_labels(labels: List[Label], horizon_end: int,
         commit = [Label(l0.start_frames, horizon_end, l0.name,
                         float(like_at_horizon()))]
     return commit, commit[-1].end_frames, float(sum(l.score for l in commit))
+
+
+class Columns(NamedTuple):
+    """Labels as arrays, each row's in time order, phonemes as ids into
+    the phoneme list: padded, row b's ``count[b]`` labels in the first
+    slots of [B, K] (slots past them undefined), or flat, [count.sum()]
+    row after row."""
+
+    count: np.ndarray        # [B] int64
+    start: np.ndarray        # int64 start frame
+    end: np.ndarray          # int64 end frame
+    phn: np.ndarray          # int8 phoneme id
+    like: np.ndarray         # float64
+
+
+def columns_from_segments(segs: Segments, n_frames: np.ndarray,
+                          row_offset: "np.ndarray | None" = None
+                          ) -> Columns:
+    """labels_from_segments' arithmetic, stopped before any Label is made:
+    the segments (reverse time order) as Columns in time order, frames,
+    ids and likes exactly those of labels_from_segments' Labels, padded.
+    Span ``labels.columns``."""
+    with span("labels.columns"):
+        counts = np.asarray(segs.count).astype(np.int64)
+        K = int(counts.max(initial=0))
+        # slot K, where a row of K segments reads its zero past the count
+        W = min(K + 1, segs.start.shape[1])
+        start = np.asarray(segs.start[:, :W], dtype=np.int64)
+        if row_offset is not None:
+            start = start + np.asarray(row_offset, np.int64)[:, None]
+        alpha_end = np.asarray(segs.alpha_end[:, :W], dtype=np.float64)
+        B = counts.shape[0]
+        likes = alpha_end - np.concatenate(
+            [alpha_end[:, 1:], np.zeros((B, 1))], 1)
+        ends = np.concatenate(
+            [np.asarray(n_frames, dtype=np.int64)[:, None], start[:, :-1]],
+            1)
+        # time slot j of row b is segment slot count[b] - 1 - j
+        slot = np.clip(counts[:, None] - 1 - np.arange(K)[None, :], 0,
+                       W - 1)
+        take = lambda a: np.take_along_axis(a, slot, 1)  # noqa: E731
+        return Columns(counts, take(start), take(ends),
+                       take(np.asarray(segs.phn[:, :W])), take(likes))
+
+
+def commit_columns(cols: Columns, horizon_end: np.ndarray,
+                   like_at_horizon: np.ndarray):
+    """commit_labels on every row of padded ``cols`` at once, bit for
+    bit: labels ending by ``horizon_end[b]`` commit; a row where none does
+    and whose first label starts before it commits that label split
+    there, with the like ``like_at_horizon[b]``.  Returns (the committed
+    labels as flat Columns; the new boundary frames [B] and their likes
+    [B], the committed likes summed as Python's ``sum`` adds them; both
+    valid where a row commits)."""
+    B, K = cols.start.shape
+    if K == 0:
+        z = np.zeros(B, np.int64)
+        return Columns(z, *(a.ravel() for a in cols[1:])), z, np.zeros(B)
+    take = ((np.arange(K)[None, :] < cols.count[:, None])
+            & (cols.end <= horizon_end[:, None]))
+    n = take.sum(1)
+    end, like = cols.end, cols.like
+    forced = (n == 0) & (cols.count > 0)
+    forced[forced] = cols.start[forced, 0] < horizon_end[forced]
+    if forced.any():
+        end, like = end.copy(), like.copy()
+        end[forced, 0] = horizon_end[forced]
+        like[forced, 0] = like_at_horizon[forced]
+        take[forced, 0] = True
+        n = n + forced
+    last = K - 1 - np.argmax(take[:, ::-1], axis=1)
+    frame0 = np.take_along_axis(end, last[:, None], 1)[:, 0]
+    # the labels left out add 0.0, which changes no sum
+    alpha0 = _python_sums(np.where(take, like, 0.0)[
+        :, : int(last[n > 0].max(initial=-1)) + 1])
+    return (Columns(n, cols.start[take], end[take], cols.phn[take],
+                    like[take]), frame0, alpha0)
+
+
+def _python_sums(x: np.ndarray) -> np.ndarray:
+    """``sum(row)`` of each row of a float64 [B, K] array, bit for bit as
+    the interpreter adds Python floats: left to right from 0, and from
+    Python 3.12 with Neumaier's compensation (so neither numpy's
+    sequential ``cumsum`` nor its pairwise ``sum`` gives it)."""
+    f = np.zeros(x.shape[0])
+    if sys.version_info < (3, 12):
+        for j in range(x.shape[1]):
+            f = f + x[:, j]
+        return f
+    c = np.zeros(x.shape[0])
+    for j in range(x.shape[1]):
+        xj = x[:, j]
+        t = f + xj
+        c += np.where(np.abs(f) >= np.abs(xj), (f - t) + xj, (xj - t) + f)
+        f = t
+    return np.where((c != 0) & np.isfinite(c), f + c, f)
 
 
 def backtrack_batch(hist: History, n_frames: np.ndarray,

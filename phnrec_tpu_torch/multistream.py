@@ -62,7 +62,7 @@ from phnrec_tpu_torch.io.xform import (apply_instance_stateful_ragged,
                                        instance_init_state)
 from phnrec_tpu_torch.ops import lrtrace, netdecode, netstep
 from phnrec_tpu_torch.streaming import _convert_chunk, _make_posterior_block_fn
-from phnrec_tpu_torch.utils import profiling
+from phnrec_tpu_torch.utils import collector, profiling
 
 # the dense network steps (kernels B and E) take networks of at most this
 # many models + states, as JAX's dense scans do (phnrec_tpu/multistream.py:
@@ -83,9 +83,10 @@ class MultiStreamRecognizer:
     there).  Traced (utils/profiling.py): spans ``serve.round`` a
     dispatch (request id (the server's number, its round)),
     ``serve.launch`` a fused block, ``serve.commit`` a commit with
-    ``fetch.wait`` (its waits on the card), ``serve.commit_streams`` and
-    ``serve.rebase`` inside, counter
-    ``serve.commits``, and ``serve.finish``."""
+    ``fetch.wait`` (its waits on the card), ``labels.columns``,
+    ``serve.commit_streams`` and ``serve.rebase`` inside, counters
+    ``serve.commits`` and ``labels.kept`` (the labels committed as
+    arrays), and ``serve.finish``."""
 
     def __init__(self, sr, n_streams: int, block_frames: int = 128,
                  auto_pump: bool = True, mesh=None,
@@ -156,11 +157,13 @@ class MultiStreamRecognizer:
         self._carry = self._init_decode_carry()
         # per dispatch: (block output on the device, valid rows [N] np)
         self._hist: List = []
-        # fixed-lag commit state (commit_horizon): per-stream committed
-        # labels, boundary frames, path like at the boundary, and the
-        # global frame of each stream's first retained history row (this
-        # rank's rows)
-        self._committed: List[List[Label]] = [[] for _ in range(nl)]
+        # fixed-lag commit state (commit_horizon), this rank's rows: the
+        # committed labels as arrays, flat Columns a commit, until
+        # results() makes them into each stream's Labels (_made); the
+        # boundary frames, path like at the boundary, and the global
+        # frame of each stream's first retained history row
+        self._kept: List[phnloop.Columns] = []
+        self._made: List[List[Label]] = [[] for _ in range(nl)]
         self._frame0 = np.zeros(nl, np.int64)
         self._alpha0 = np.zeros(nl, np.float64)
         self._row_offset = np.zeros(nl, np.int64)
@@ -545,13 +548,12 @@ class MultiStreamRecognizer:
 
     def _walk_window_device(self, key):
         """The committed-window walk on the device (kernel D') over the
-        retained blocks, and each stream's rebased path like at its
-        horizon end (for forced splits).  Only the compact segments and
-        one [N] row cross to the host; the History stays on the device."""
+        retained blocks (T > 0 rows): its segments on the host (starts
+        window-relative), the streams' frame counts, and each stream's
+        rebased path like at its horizon end (for forced splits).  Only
+        the compact segments and one [N] row cross to the host; the
+        History stays on the device."""
         T = sum(key)
-        nl = self._nl
-        if T == 0:
-            return [[] for _ in range(nl)], np.zeros(nl, np.float32)
         hist = self._window(key)
         n_dec = self._n_dec[self._rows]
         n_rel = n_dec - self._row_offset
@@ -563,9 +565,7 @@ class MultiStreamRecognizer:
         self._mark("backtrack")
         a_h = hist.alpha.gather(0, self._i32(h_end_rel).long()[None])[0]
         segs = phnloop.fetch_segments(segs, cap=min(4096, segs.phn.shape[1]))
-        labels = phnloop.labels_from_segments(
-            segs, n_dec, self.sr.phonemes, row_offset=self._row_offset)
-        return labels, a_h.cpu().numpy()
+        return segs, n_dec, a_h.cpu().numpy()
 
     def _rebase_alphas(self) -> None:
         """Subtract each stream's committed like (_alpha0) from its
@@ -594,13 +594,54 @@ class MultiStreamRecognizer:
     def _commit_device(self, key) -> None:
         """The commit with the walk and the rebase on the device: per
         cycle one launch of kernel D' and a fetch of ~7 bytes a segment,
-        whatever the stream count."""
-        labels_all, a_h = self._walk_window_device(key)
+        whatever the stream count.  The walk's labels stay arrays
+        (columns_from_segments) and every stream commits in one pass
+        (commit_columns); the committed ones are kept as arrays and made
+        into Labels once, when results() asks."""
+        segs, n_dec, a_h = self._walk_window_device(key)
+        cols = phnloop.columns_from_segments(segs, n_dec,
+                                             row_offset=self._row_offset)
         with profiling.span("serve.commit_streams"):
-            for b in range(self._nl):
-                # a_h[b] is the rebased path like at horizon_end - 1
-                self._commit_stream(b, labels_all[b], lambda: a_h[b])
+            # a_h[b] is the rebased path like at horizon_end - 1
+            commit, frame0, alpha0 = phnloop.commit_columns(
+                cols, n_dec - self.commit_horizon, a_h)
+            done = commit.count > 0
+            self._frame0[done] = frame0[done]
+            self._alpha0[done] = alpha0[done]
+            self._keep(commit)
         self._drop_and_rebase()
+
+    def _keep(self, commit: phnloop.Columns) -> None:
+        """Keep one commit's labels (flat Columns) as arrays."""
+        n = int(commit.count.sum())
+        if n:
+            self._kept.append(commit)
+            profiling.count("labels.kept", n)
+
+    def _committed_labels(self) -> List[List[Label]]:
+        """Each stream's committed labels: the blocks kept since the last
+        call made into Labels, each label once, in one pass (span
+        ``labels.build``, counter ``labels.built``) and appended to the
+        ones made before.  The pass runs with the collector paused: its
+        Labels of atoms and the lists holding them form no cycle, so a
+        collection could free nothing and would only walk the session's
+        labels again."""
+        if not self._kept:
+            return self._made
+        kept, self._kept = self._kept, []
+        names = np.asarray(self.sr.phonemes, dtype=object)
+        with profiling.span("labels.build") as traced, collector.paused():
+            for n, start, end, phn, like in kept:
+                made = list(map(Label, start.tolist(), end.tolist(),
+                                names[phn].tolist(), like.tolist()))
+                if traced is not None:
+                    profiling.count("labels.built", len(made))
+                o = 0
+                for b, k in enumerate(n.tolist()):
+                    if k:
+                        self._made[b] += made[o: o + k]
+                        o += k
+        return self._made
 
     def _wait_card(self) -> None:
         """Wait for the rounds queued on the card, the span ``fetch.wait``:
@@ -617,13 +658,16 @@ class MultiStreamRecognizer:
             self._rebase_alphas()
 
     def _commit_stream(self, b: int, labels: List[Label],
-                       like_at_horizon) -> None:
+                       like_at_horizon) -> List[Label]:
+        """commit_labels on stream b's window walk: its committed labels,
+        with the boundary moved past them."""
         got = phnloop.commit_labels(
             labels, int(self._n_dec[self._lo + b]) - self.commit_horizon,
             like_at_horizon)
-        if got is not None:
-            commit, self._frame0[b], self._alpha0[b] = got
-            self._committed[b].extend(commit)
+        if got is None:
+            return []
+        commit, self._frame0[b], self._alpha0[b] = got
+        return commit
 
     def _maybe_commit(self) -> None:
         if self.commit_horizon is None or not self._hist:
@@ -640,9 +684,11 @@ class MultiStreamRecognizer:
             # streams advanced unevenly: replay each on the host
             self._hist_to_host()
             with profiling.span("serve.commit_streams"):
+                commits = []
                 for b in range(self._nl):
                     hist_b = self._stream_hist(b)
                     if hist_b is None:
+                        commits.append([])
                         continue
                     labels = phnloop.backtrack_committed(
                         hist_b, int(self._row_offset[b]),
@@ -651,8 +697,17 @@ class MultiStreamRecognizer:
                     h_row = int(self._n_dec[self._lo + b]) \
                         - self.commit_horizon - 1 \
                         - int(self._row_offset[b])
-                    self._commit_stream(b, labels, lambda: float(
-                        hist_b.alpha[h_row]) - float(self._alpha0[b]))
+                    commits.append(self._commit_stream(
+                        b, labels, lambda: float(hist_b.alpha[h_row])
+                        - float(self._alpha0[b])))
+                ids = {p: i for i, p in enumerate(self.sr.phonemes)}
+                flat = [l for c in commits for l in c]
+                self._keep(phnloop.Columns(
+                    np.array([len(c) for c in commits], np.int64),
+                    np.array([l.start_frames for l in flat], np.int64),
+                    np.array([l.end_frames for l in flat], np.int64),
+                    np.array([ids[l.name] for l in flat], np.int8),
+                    np.array([l.score for l in flat], np.float64)))
             self._drop_and_rebase()
 
     # -- device-resident feeding (serving and benchmark path); with a mesh
@@ -741,7 +796,8 @@ class MultiStreamRecognizer:
     # -- results ---------------------------------------------------------
     def finish(self) -> List[List[Label]]:
         """Drain leftovers, flush the STC tail, return every stream's
-        results."""
+        results() (with commit_horizon, the committed labels not yet made
+        into Labels are made here, in one pass)."""
         with profiling.span("serve.finish", id=(self._server, self._round)):
             return self._finish()
 
@@ -799,7 +855,11 @@ class MultiStreamRecognizer:
 
     def results(self) -> List[List[Label]]:
         """Every stream's labels so far: the backtrack of its history
-        (stitched onto the committed prefix with commit_horizon)."""
+        (stitched onto the committed prefix with commit_horizon).  The
+        commits keep their labels as arrays; the labels committed since
+        the last call are made into Labels here, each once, so a server
+        that polls makes them as it goes and one that reads at finish()
+        makes them in one pass."""
         return self._gather(self._local_results())
 
     def _local_results(self) -> List[List[Label]]:
@@ -809,9 +869,15 @@ class MultiStreamRecognizer:
         if self.commit_horizon is not None:
             key = self._hist_device_uniform()
             if key is not None:
-                window, _ = self._walk_window_device(key)
-                return [self._committed[b] + window[b] for b in range(nl)]
+                window = [[] for _ in range(nl)]
+                if sum(key):
+                    segs, n_dec, _ = self._walk_window_device(key)
+                    window = phnloop.labels_from_segments(
+                        segs, n_dec, phonemes, row_offset=self._row_offset)
+                made = self._committed_labels()
+                return [made[b] + window[b] for b in range(nl)]
             self._hist_to_host()
+            made = self._committed_labels()
             out: List[List[Label]] = []
             for b in range(nl):
                 hist_b = self._stream_hist(b)
@@ -820,7 +886,7 @@ class MultiStreamRecognizer:
                         hist_b, int(self._row_offset[b]),
                         int(self._frame0[b]), float(self._alpha0[b]),
                         phonemes)
-                out.append(self._committed[b] + tail)
+                out.append(made[b] + tail)
             return out
         if not self._hist:
             return [[] for _ in range(nl)]

@@ -236,6 +236,176 @@ def test_commit_host_fallback_under_ragged_feeding(pkgs, raw):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("likes", ["walk", "random"])
+@pytest.mark.parametrize("horizon", ["behind_labels", "inside_first",
+                                     "at_boundary", "mixed"])
+@pytest.mark.parametrize("case", [3, 9])
+def test_commit_columns_are_commit_labels_bit_for_bit(case, horizon, likes):
+    """columns_from_segments holds labels_from_segments' Labels as arrays,
+    and commit_columns over every row at once is commit_labels on each
+    row: the same committed labels, boundary frames and boundary likes to
+    the bit, forced splits (a horizon inside a row's first label) and rows
+    that commit nothing included.  A walk's likes sum exactly in any
+    order (differences of float32 scores); random float64 likes in their
+    place hold the boundary like to Python's left-to-right sum."""
+    from tests.test_torch_phnloop_serving import _window_case
+    _, tspec, win, n_rel, f0, ro = _window_case(case, B=4)
+    f0 = np.maximum(f0, ro)
+    names = [f"p{i}" for i in range(tspec.n_phonemes)]
+    segs = phnloop.fetch_segments(phnloop.backtrack_device_committed(
+        tspec, phnloop.History(*(torch.from_numpy(a) for a in win)),
+        *(torch.from_numpy(a.astype(np.int32)) for a in (n_rel, f0, ro))),
+        cap=1000)
+    n_glob = (n_rel + ro).astype(np.int64)
+    labels = phnloop.labels_from_segments(segs, n_glob, names, row_offset=ro)
+    cols = phnloop.columns_from_segments(segs, n_glob, row_offset=ro)
+    assert cols.count.tolist() == [len(ls) for ls in labels]
+    for b, ls in enumerate(labels):
+        k = len(ls)
+        assert [phnloop.Label(*x) for x in zip(
+            cols.start[b, :k].tolist(), cols.end[b, :k].tolist(),
+            [names[i] for i in cols.phn[b, :k]],
+            cols.like[b, :k].tolist())] == ls
+    rng = np.random.default_rng(case)
+    if likes == "random":
+        cols = cols._replace(like=rng.normal(-5, 30, cols.like.shape))
+        labels = [[phnloop.Label(*x) for x in zip(
+            cols.start[b, :k].tolist(), cols.end[b, :k].tolist(),
+            [names[i] for i in cols.phn[b, :k]], cols.like[b, :k].tolist())]
+            for b, k in enumerate(cols.count.tolist())]
+    first = lambda ls: ls[0].start_frames if ls else 0  # noqa: E731
+    h = np.array([{"behind_labels": ls[-2].end_frames + 1 if len(ls) > 1
+                   else first(ls) + 1,
+                   "inside_first": first(ls) + 1,
+                   "at_boundary": first(ls),
+                   "mixed": [first(ls) + 1, first(ls),
+                             ls[len(ls) // 2].end_frames if ls else 0,
+                             n_glob[b]][b % 4]}[horizon]
+                  for b, ls in enumerate(labels)], np.int64)
+    a_h = rng.normal(-40, 20, 4).astype(np.float32)
+    (n, start, end, phn, like), frame0, alpha0 = phnloop.commit_columns(
+        cols, h, a_h)
+    o = 0
+    for b, ls in enumerate(labels):
+        got = phnloop.commit_labels(ls, int(h[b]), lambda: a_h[b])
+        k = int(n[b])
+        made = [phnloop.Label(*x) for x in zip(
+            start[o: o + k].tolist(), end[o: o + k].tolist(),
+            [names[i] for i in phn[o: o + k]], like[o: o + k].tolist())]
+        o += k
+        if got is None:
+            assert k == 0
+            continue
+        commit, f, a = got
+        assert made == commit
+        assert frame0[b] == f
+        assert np.float64(a).tobytes() == alpha0[b].tobytes()
+    assert o == len(start)
+    if horizon == "inside_first":
+        assert (n[cols.count > 0] == 1).all()
+
+
+def _silent_streams(raw):
+    """[3, L] int16 of whole blocks: speech, speech then silence, and
+    silence.  A silent stretch is one long label, which a commit splits
+    at its horizon (a forced commit)."""
+    x, n_blocks = _audio(raw, 1)
+    x = x[0]
+    quiet = np.zeros_like(x)
+    return np.stack([x, np.where(np.arange(x.size) < x.size // 3, x, 0),
+                     quiet]), n_blocks
+
+
+class _JaxCommit:
+    """phnrec_tpu's device commit (its MultiStreamRecognizer.
+    _commit_device, run on this object) on the port's walk of a window:
+    phnrec_tpu's labels_from_segments of the port's segments, then its
+    per-stream policy, boundary frames and likes."""
+
+    def __init__(self, n, horizon, phonemes):
+        self.n, self.commit_horizon, self.phonemes = n, horizon, phonemes
+        self._committed = [[] for _ in range(n)]
+        self._frame0 = np.zeros(n, np.int64)
+        self._alpha0 = np.zeros(n, np.float64)
+        self.forced = 0
+
+    def commit(self, walk, row_offset):
+        from phnrec_tpu.decoder import phnloop as jpl
+        segs, n_dec, a_h = walk
+        labels = jpl.labels_from_segments(segs, n_dec, self.phonemes,
+                                          row_offset=row_offset)
+        h = n_dec - self.commit_horizon
+        self.forced += sum(
+            1 for b, ls in enumerate(labels) if ls and ls[0].start_frames
+            < h[b] and not any(l.end_frames <= h[b] for l in ls))
+        self._n_dec = n_dec
+        self._walk_window_device = lambda key: (labels, a_h)
+        JMS._commit_device(self, None)
+
+    def _drop_committed_blocks(self):
+        self.alpha0 = self._alpha0.copy()
+
+    def _rebase_device(self, r):
+        self._alpha0[:] = 0.0
+
+
+@pytest.mark.parametrize("poll", [False, True])
+def test_lockstep_commits_match_jax(pkgs, raw, monkeypatch, poll):
+    """Lockstep feeding with commit_horizon, read only at finish() or
+    polled after every block: results() and finish() are phnrec_tpu's and
+    the commit points its run's after every block; each commit's boundary
+    frames, likes (to the bit) and committed labels are those of
+    phnrec_tpu's commit on the same walk, forced splits included (the
+    silent streams)."""
+    jsr, sr = pkgs
+    events = []
+    real_walk = MultiStreamRecognizer._walk_window_device
+    real_rebase = MultiStreamRecognizer._drop_and_rebase
+
+    def walk(self, key):
+        segs, n_dec, a_h = out = real_walk(self, key)
+        events.append(("walk", (segs, n_dec.copy(), a_h),
+                       self._row_offset.copy()))
+        return out
+
+    def rebase(self):
+        events.append(("commit", self._frame0.copy(), self._alpha0.copy()))
+        real_rebase(self)
+
+    monkeypatch.setattr(MultiStreamRecognizer, "_walk_window_device", walk)
+    monkeypatch.setattr(MultiStreamRecognizer, "_drop_and_rebase", rebase)
+    audio, _ = _silent_streams(raw)
+    chunk = BLOCK * STEP * 2
+    ms = MultiStreamRecognizer(sr, 3, block_frames=BLOCK, commit_horizon=40)
+    jms = JMS(jsr, 3, block_frames=BLOCK, commit_horizon=40)
+    for c in range(audio.shape[1] * 2 // chunk):
+        for i in range(3):
+            piece = audio[i].tobytes()[c * chunk: (c + 1) * chunk]
+            ms.process(i, piece)
+            jms.process(i, piece)
+        np.testing.assert_array_equal(ms._frame0, jms._frame0)
+        if poll:
+            _assert_same(ms.results(), jms.results())
+    got = ms.finish()
+    _assert_same(got, jms.finish())
+    policy = _JaxCommit(3, 40, sr.phonemes)
+    commits = 0
+    for k, ev in enumerate(events):
+        if ev[0] != "commit":
+            continue
+        assert events[k - 1][0] == "walk"
+        policy.commit(*events[k - 1][1:])
+        np.testing.assert_array_equal(ev[1], policy._frame0)
+        assert ev[2].tobytes() == policy.alpha0.tobytes()
+        commits += 1
+    assert commits >= 3 and policy.forced >= commits
+    fields = lambda ls: [(l.start_frames, l.end_frames, l.name,  # noqa
+                          l.score) for l in ls]
+    want = [fields(c) for c in policy._committed]
+    assert [fields(m) for m in ms._made] == want
+    assert all(fields(g[: len(c)]) == c for g, c in zip(got, want))
+
+
 def test_partial_pump_with_one_slow_stream(pkgs, raw):
     """partial_pump: a stream fed 10x slower does not hold the others
     back (they decode past what it has fed), and the labels are

@@ -173,10 +173,10 @@ def test_each_commit_is_one_serve_commit_with_its_children(sr, audio,
     assert len(commits) >= 2
     assert len(done) == len(commits) == snap.counters["serve.commits"]
     # each commit first waits for the card; the device walk's then
-    # fetches and builds labels; the host replay's (streams advanced
-    # unevenly) walks each stream itself
+    # fetches and keeps its labels as arrays; the host replay's (streams
+    # advanced unevenly) walks each stream itself
     host = ["fetch.wait", "serve.commit_streams", "serve.rebase"]
-    device = sorted(host + ["fetch.wait", "labels.build"])
+    device = sorted(host + ["fetch.wait", "labels.columns"])
     kinds = []
     for c in done:
         kids = sorted(r.name for r in recs if r.parent == c.seq)
@@ -192,7 +192,99 @@ def test_each_commit_is_one_serve_commit_with_its_children(sr, audio,
     (fin,) = [r for r in recs if r.name == "serve.finish"]
     assert fin.id == (server, len(rounds) - sum(
         1 for r in rounds if r.start_ns > fin.start_ns))
+    # the committed labels are made into Labels at finish()
+    builds = [r for r in recs if r.name == "labels.build"]
+    assert builds and all("serve.finish" in _ancestors(r, by_seq)
+                          for r in builds)
     assert snap.spans["serve.launch"].count >= len(rounds)
+
+
+def _lockstep(sr, audio, poll):
+    """A lockstep session of three streams with commits (the device
+    commit), polled by results() after every feed or not; the server and
+    the labels each results() walked in the window (past the committed
+    ones), finish() and a results() after it included."""
+    ms = MultiStreamRecognizer(sr, 3, block_frames=BLOCK, commit_horizon=40)
+    walked = 0
+
+    def read(labels):
+        nonlocal walked
+        walked += sum(len(g) - len(m) for g, m in zip(labels, ms._made))
+        return labels
+    for off in range(0, len(audio), 3000):
+        for i in range(3):
+            ms.process(i, audio[off: off + 3000])
+        if poll:
+            read(ms.results())
+    return ms, read(ms.finish()), read(ms.results()), walked
+
+
+@pytest.mark.parametrize("poll", [False, True])
+def test_committed_labels_are_kept_as_arrays_and_made_once(sr, audio,
+                                                           monkeypatch,
+                                                           poll):
+    """The commits keep their labels as arrays (``labels.kept``) and make
+    no Label (``labels.built`` does not move across a commit); results()
+    makes each committed label once, so over the session ``labels.built``
+    is the committed labels and the labels each read walked in the
+    window, and a read after finish() hands back the same committed
+    Labels."""
+    moved = []
+    real = MultiStreamRecognizer._maybe_commit
+
+    def commit(self):
+        built = lambda: RECORDER.snapshot().counters.get(  # noqa: E731
+            "labels.built", 0)
+        before = built()
+        real(self)
+        moved.append(built() - before)
+    monkeypatch.setattr(MultiStreamRecognizer, "_maybe_commit", commit)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ms, got, again, walked = _lockstep(sr, audio, poll)
+    snap = RECORDER.snapshot()
+    committed = sum(len(m) for m in ms._made)
+    assert snap.counters["serve.commits"] >= 2
+    assert moved and not any(moved)
+    assert snap.counters["labels.kept"] == committed > 0
+    assert snap.counters["labels.built"] == committed + walked
+    for a, g, m in zip(again, got, ms._made):
+        assert all(x is y for x, y in zip(a[: len(m)], g[: len(m)]))
+    if not poll:
+        assert snap.spans["labels.build"].count == 3    # 2 walks, 1 pass
+
+
+@pytest.mark.parametrize("state", ["enabled", "disabled", "raises"])
+def test_the_bulk_pass_pauses_the_collector_and_restores_it(
+        sr, audio, monkeypatch, state):
+    """finish()'s bulk pass makes its Labels with the collector off and
+    leaves it as the caller had it: enabled stays enabled, disabled stays
+    disabled, also when the pass raises."""
+    from phnrec_tpu_torch import multistream
+    ms = MultiStreamRecognizer(sr, 3, block_frames=BLOCK, commit_horizon=40)
+    for i in range(3):
+        ms.process(i, audio)
+    assert ms._kept
+    seen, real = [], multistream.Label
+
+    def label(*a):
+        seen.append(gc.isenabled())
+        if state == "raises":
+            raise RuntimeError("made no label")
+        return real(*a)
+    monkeypatch.setattr(multistream, "Label", label)
+    was = gc.isenabled()
+    try:
+        (gc.disable if state == "disabled" else gc.enable)()
+        if state == "raises":
+            with pytest.raises(RuntimeError, match="made no label"):
+                ms.finish()
+        else:
+            assert all(ms.finish())
+        after = gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert seen and not any(seen)
+    assert after == (state != "disabled")
 
 
 def test_a_collection_inside_a_capture_is_a_gc_span():
