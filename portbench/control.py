@@ -15,7 +15,6 @@ of the control.  The benchmark's own runs never run this.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import shutil
 import sys
@@ -24,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from portbench.run import Spans, setup_cell
+from portbench.run import Spans, reference_module, setup_cell
 
 
 def control_readings(root: Path, name: str, seed: int, device) -> dict:
@@ -36,8 +35,7 @@ def control_readings(root: Path, name: str, seed: int, device) -> dict:
             root, manifest, name, seed, device, tmp, Spans(False))
         driver.sr = None
         driver.free()
-        ref_mod = importlib.import_module(
-            f"portbench.references.{cfg['reference']}")
+        ref_mod = reference_module(cfg)
         driver.answers_for(ref_mod.Reference(cfg, pkg, device,
                                              control=True))
         verdict = driver.judge(ref_mod.Reference(cfg, pkg, device),

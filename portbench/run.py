@@ -4,12 +4,20 @@
 
 from the root of a checkout.  Everything a cell needs is found by name
 from ``BENCHMARK.json``: the configuration's file, the traffic mix
-``portbench/mixes/<traffic>.json`` (whose ``kind`` picks a driver of
-traffic.py), the correctness limits ``portbench/limits/<cell>.json``,
-and each per-layer metric's reader ``portbench/metrics/<metric>.py``.
-The map from the profiler's kernel names to the port's kernels is
-``portbench/kernels.json``; the program's functions that the traced run
-wraps in spans and launch records are ``portbench/hooks.json``.
+``portbench/mixes/<traffic>.json`` (whose ``kind`` picks a driver:
+``traffic.driver_for``), the correctness limits
+``portbench/limits/<cell>.json``, and each per-layer metric's reader
+``portbench/metrics/<metric>.py``.  The configuration names its plain
+reference, ``portbench/references/<reference>.py``, and may name its
+package writer, ``portbench/writers/<writer>.py`` (else
+``portbench/writer.py``); the reference's ``model_macs_per_frame``, where
+it has one, counts the model's work (else ``portbench/work.py``'s).  The
+map from the profiler's kernel names to the port's kernels is
+``portbench/kernels.json`` merged with every ``portbench/kernels/*.json``;
+the program's functions that the traced run wraps in spans and launch
+records are ``portbench/hooks.json`` merged with every
+``portbench/hooks/*.json``.  So a cell of a new kind is added as new
+files and manifest entries alone.
 
 Set-up (``setup_s``, from the first statement of this file): torch and
 the card, the package written from the seed, the cell's inputs, the
@@ -40,6 +48,7 @@ import sys  # noqa: E402
 import tempfile  # noqa: E402
 from collections import defaultdict  # noqa: E402
 from pathlib import Path  # noqa: E402
+from typing import NamedTuple  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "phnrec_tpu")
 
@@ -76,10 +85,83 @@ class Trace:
     """What the per-layer readers read: the window's length, the device's
     busy time, device seconds by kernel, the launches' shapes by kernel,
     host spans, the seconds of each of the window's items (passes,
-    rounds), the valid frames, the configuration."""
+    rounds), the valid frames, the configuration, the model's FLOPs, and
+    the driver's own figures (``extra``: whatever its window returned
+    beyond ``WINDOW_KEYS``)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
+
+
+# what every driver's window returns; the rest is the driver's own
+WINDOW_KEYS = ("wall_s", "item_s", "attempted", "failed", "valid_frames",
+               "metrics")
+
+
+class Launch(NamedTuple):
+    """One call of a function named under the hooks' ``launches``: the
+    shapes of its tensor arguments, positional ones in order, then
+    keyword ones; its int, float and bool positional arguments in order;
+    and its int, float and bool keyword arguments by name."""
+
+    shapes: tuple
+    scalars: tuple
+    named: dict
+
+
+def json_layers(root: Path, name: str) -> list:
+    """(path, content) of ``portbench/<name>.json``, then of every
+    ``portbench/<name>/*.json`` in sorted order."""
+    base = root / "portbench"
+    paths = [base / f"{name}.json"] + sorted((base / name).glob("*.json"))
+    return [(p.relative_to(root).as_posix(), json.loads(p.read_text()))
+            for p in paths]
+
+
+def _add_once(into: dict, owner: dict, part: dict, path: str,
+              what: str) -> None:
+    """``part``'s keys into ``into``; a key that ``owner`` already holds
+    (a file that gave it before) fails, naming both files."""
+    for k, v in part.items():
+        if k in owner:
+            raise ValueError(f"{what} {k!r} is given in both {owner[k]} "
+                             f"and {path}")
+        owner[k] = path
+        into[k] = v
+
+
+def load_kernels(root: Path) -> dict:
+    """Kernel key -> the profiler names' parts it sums:
+    ``portbench/kernels.json`` and every ``portbench/kernels/*.json``."""
+    out, owner = {}, {}
+    for path, part in json_layers(root, "kernels"):
+        _add_once(out, owner, part, path, "kernel key")
+    return out
+
+
+HOOK_SECTIONS = ("spans", "mlp_launches", "launches")
+
+
+def load_hooks(root: Path) -> dict:
+    """``portbench/hooks.json`` and every ``portbench/hooks/*.json``
+    merged: ``spans`` by name, their targets concatenated;
+    ``mlp_launches`` (kernel A's launches, recorded as its rows and
+    widths) and ``launches`` (any function: its ``Launch``), one key in
+    one file only across both sections."""
+    out, owner = {}, {}
+    for path, part in json_layers(root, "hooks"):
+        unknown = set(part) - set(HOOK_SECTIONS)
+        if unknown:
+            raise ValueError(f"{path}: no hook section "
+                             f"{', '.join(sorted(unknown))}")
+        for name, targets in part.get("spans", {}).items():
+            spans = out.setdefault("spans", {})
+            spans[name] = spans.get(name, []) + targets
+        for section in HOOK_SECTIONS[1:]:
+            if section in part:
+                _add_once(out.setdefault(section, {}), owner,
+                          part[section], path, "launch key")
+    return out
 
 
 def _resolve(target: str):
@@ -93,8 +175,8 @@ def _resolve(target: str):
 
 
 def install_hooks(hooks: dict, spans: Spans, launches: dict) -> list:
-    """Wrap the program's functions named in hooks.json; returns how to
-    undo it."""
+    """Wrap the program's functions that the merged hooks name; returns
+    how to undo it, in order (the last wrapper first)."""
     undo = []
 
     def wrap_span(fn, name):
@@ -110,18 +192,43 @@ def install_hooks(hooks: dict, spans: Spans, launches: dict) -> list:
             return fn(x, mean, dev, w1, b1, w2, b2, *a, **kw)
         return wrapped
 
-    for name, targets in hooks["spans"].items():
+    def wrap_record(fn, key):
+        import torch
+        scalar = (bool, int, float)
+
+        def wrapped(*a, **kw):
+            launches[key].append(Launch(
+                tuple(tuple(v.shape) for v in (*a, *kw.values())
+                      if isinstance(v, torch.Tensor)),
+                tuple(v for v in a if isinstance(v, scalar)),
+                {k: v for k, v in kw.items() if isinstance(v, scalar)}))
+            return fn(*a, **kw)
+        return wrapped
+
+    for name, targets in hooks.get("spans", {}).items():
         for target in targets:
             mod, attr = _resolve(target)
             fn = getattr(mod, attr)
             undo.append((mod, attr, fn))
             setattr(mod, attr, wrap_span(fn, name))
-    for key, target in hooks["mlp_launches"].items():
-        mod, attr = _resolve(target)
-        fn = getattr(mod, attr)
-        undo.append((mod, attr, fn))
-        setattr(mod, attr, wrap_launch(fn, key))
-    return undo
+    for section, wrap in (("mlp_launches", wrap_launch),
+                          ("launches", wrap_record)):
+        for key, target in hooks.get(section, {}).items():
+            mod, attr = _resolve(target)
+            fn = getattr(mod, attr)
+            undo.append((mod, attr, fn))
+            setattr(mod, attr, wrap(fn, key))
+    return undo[::-1]
+
+
+def gap_names(hooks: dict, spans: Spans) -> set:
+    """The span names that ``read_profile`` names idle gaps by: the
+    hooks' and the benchmark's, and the program's own, from its
+    recorder's snapshot of the window."""
+    from portbench.metrics._recorder import snapshot
+    snap = snapshot()
+    return set(hooks.get("spans", {})) | set(spans.seconds) | set(
+        snap.spans if snap is not None else ())
 
 
 def read_profile(prof, kernels: dict, span_names):
@@ -207,6 +314,30 @@ def load_reader(root: Path, name: str):
     return mod.read
 
 
+def writer_for(cfg: dict):
+    """The configuration's package writer: ``write_package`` of
+    ``portbench/writers/<cfg["writer"]>.py``, else of writer.py."""
+    if "writer" not in cfg:
+        from portbench.writer import write_package
+        return write_package
+    return importlib.import_module(
+        f"portbench.writers.{cfg['writer']}").write_package
+
+
+def reference_module(cfg: dict):
+    return importlib.import_module(
+        f"portbench.references.{cfg['reference']}")
+
+
+def model_work_for(cfg: dict):
+    """The model's multiply-adds a valid frame, as a function of the
+    configuration: the reference module's ``model_macs_per_frame``, else
+    work.py's (an LCRC system's)."""
+    from portbench import work
+    return getattr(reference_module(cfg), "model_macs_per_frame",
+                   work.model_macs_per_frame)
+
+
 def setup_cell(root: Path, manifest: dict, name: str, seed: int, device,
                tmp: str, spans: Spans):
     """The cell's configuration and limits, the package written from the
@@ -215,14 +346,16 @@ def setup_cell(root: Path, manifest: dict, name: str, seed: int, device,
     import numpy as np
     import torch
 
-    from portbench.traffic import DRIVERS
-    from portbench.writer import seed64, write_package
+    from portbench.traffic import driver_for
+    from portbench.writer import seed64
     cell = next(w for w in manifest["workloads"] if w["name"] == name)
     entry = next(c for c in manifest["configs"]
                  if c["name"] == cell["config"])
     cfg = json.loads((root / entry["file"]).read_text())
     mix = json.loads((root / "portbench" / "mixes"
                       / f"{cell['traffic']}.json").read_text())
+    driver_cls = driver_for(mix["kind"])
+    write_package = writer_for(cfg)
     limits = json.loads((root / "portbench" / "limits"
                          / f"{name}.json").read_text())
     gen = torch.Generator(device=device)
@@ -237,7 +370,7 @@ def setup_cell(root: Path, manifest: dict, name: str, seed: int, device,
     precision.set_mode(cfg["precision"])
     sr = SpeechRec(pkg, device=device)
     marks.append(("program_load", time.perf_counter()))
-    driver = DRIVERS[mix["kind"]](sr, cfg, mix, gen, rng, tmp, device, spans)
+    driver = driver_cls(sr, cfg, mix, gen, rng, tmp, device, spans)
     marks.append(("inputs", time.perf_counter()))
     return cfg, limits, pkg, driver, marks
 
@@ -248,10 +381,10 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     import numpy as np
     import torch
 
-    from portbench.work import PEAK_FP32, model_macs_per_frame
+    from portbench.work import PEAK_FP32
     manifest = json.loads((root / "BENCHMARK.json").read_text())
-    hooks = json.loads((root / "portbench" / "hooks.json").read_text())
-    kernels = json.loads((root / "portbench" / "kernels.json").read_text())
+    hooks = load_hooks(root)
+    kernels = load_kernels(root)
     cuda = device.type == "cuda"
     spans = Spans(trace)
     tmp = tempfile.mkdtemp(prefix="portbench-")
@@ -291,8 +424,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-        ref_mod = importlib.import_module(
-            f"portbench.references.{cfg['reference']}")
+        ref_mod = reference_module(cfg)
         verdict = driver.judge(ref_mod.Reference(cfg, pkg, device),
                                ref_mod.judge)
     finally:
@@ -310,17 +442,19 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     values = dict(out["metrics"], setup_s=setup_s)
     breakdown = None
     if trace:
-        names = set(hooks["spans"]) | set(spans.seconds)
-        busy, by_key, top_ops, idle = (read_profile(prof, kernels, names)
-                                       if cuda else (0.0, {}, [], []))
+        busy, by_key, top_ops, idle = (
+            read_profile(prof, kernels, gap_names(hooks, spans)) if cuda
+            else (0.0, dict.fromkeys(kernels, 0.0), [], []))
         result_device.update(busy_s=busy, window_s=out["wall_s"])
         t = Trace(window_s=out["wall_s"], busy_s=busy, kernel_s=by_key,
                   launches=dict(launches), spans=dict(spans.seconds),
                   item_s=out["item_s"], valid_frames=out["valid_frames"],
                   cfg=cfg,
                   model_flops=2.0 * out["valid_frames"]
-                  * model_macs_per_frame(cfg), peak_fp32=PEAK_FP32,
-                  on_device=cuda)
+                  * model_work_for(cfg)(cfg), peak_fp32=PEAK_FP32,
+                  on_device=cuda,
+                  extra={k: v for k, v in out.items()
+                         if k not in WINDOW_KEYS})
         values = {m["name"]: load_reader(root, m["name"])(t)
                   for m in wanted}
         breakdown = dict(device_ops=top_ops, idle_gaps=idle)

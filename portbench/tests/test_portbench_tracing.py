@@ -3,7 +3,8 @@ traced dry runs report each metric that reads the program's recorder,
 the untraced runs none of them (and leave the recorder off), and the idle
 gaps of a traced archive window are named by the program's spans once
 ``read_profile`` is given their names (the recorder's snapshot holds
-them), beside the names of hooks.json."""
+them, and ``gap_names`` takes them from it), beside the names of
+hooks.json."""
 
 import json
 from collections import defaultdict
@@ -84,7 +85,7 @@ class AsDevice:
 def test_idle_gaps_are_named_by_the_programs_spans(tmp_path):
     root = tiny_root(tmp_path)
     manifest = json.loads((root / "BENCHMARK.json").read_text())
-    hooks = json.loads((root / "portbench" / "hooks.json").read_text())
+    hooks = R.load_hooks(root)
     spans = R.Spans(True)
     _, _, _, driver, _ = R.setup_cell(
         root, manifest, "cz_lcrc_n1500.tiny_archive", SEED, CPU,
@@ -103,8 +104,9 @@ def test_idle_gaps_are_named_by_the_programs_spans(tmp_path):
     program = set(RECORDER.snapshot().spans)
     assert {"list", "list.loader_wait", "labels.build"} <= program
     assert not program & (set(hooks["spans"]) | set(spans.seconds))
-    _, _, _, idle = R.read_profile(
-        AsDevice(prof), {}, set(hooks["spans"]) | set(spans.seconds) | program)
+    names = R.gap_names(hooks, spans)
+    assert names == set(hooks["spans"]) | set(spans.seconds) | program
+    _, _, _, idle = R.read_profile(AsDevice(prof), {}, names)
     by_name = dict(idle)
     named = sum(v for k, v in by_name.items() if k in program)
     assert named > 0

@@ -1,5 +1,7 @@
-"""The general traffic generator: a mix file's ``kind`` picks one of the
-drivers below, and its other keys are the driver's parameters.
+"""The general traffic generator: a mix file's ``kind`` picks its driver
+(``driver_for``: one of the drivers below, else the ``Driver`` class of
+``portbench/drivers/<kind>.py``), and its other keys are the driver's
+parameters.
 
 ``archive``: a corpus of raw lin16 files, decoded to one MLF by the
 program's list path (``SpeechRec.process_file_list("wf", "str", list,
@@ -27,6 +29,7 @@ produced to the reference once the program's state is freed.
 
 from __future__ import annotations
 
+import importlib
 import os
 import statistics
 import time
@@ -259,3 +262,25 @@ class Live:
 
 
 DRIVERS = {"archive": Archive, "live": Live}
+
+
+def driver_for(kind: str):
+    """The driver class of a mix's ``kind``: ``DRIVERS[kind]``, else the
+    ``Driver`` class of ``portbench/drivers/<kind>.py``, which keeps the
+    protocol above (``__init__(sr, cfg, mix, gen, rng, tmp, device,
+    spans)``, ``warmup``, ``window``, ``drain``, ``free``, ``judge``,
+    ``answers_for``).  What ``window`` returns beyond the keys the drivers
+    above return reaches the per-layer readers as ``Trace.extra``."""
+    if kind in DRIVERS:
+        return DRIVERS[kind]
+    module = f"portbench.drivers.{kind}"
+    if kind.isidentifier():
+        try:
+            return importlib.import_module(module).Driver
+        except ModuleNotFoundError as e:
+            if e.name not in (module, "portbench.drivers"):
+                raise
+    raise LookupError(
+        f"no driver for traffic kind {kind!r}: not in portbench.traffic."
+        f"DRIVERS ({', '.join(sorted(DRIVERS))}) and no "
+        f"portbench/drivers/{kind}.py")
