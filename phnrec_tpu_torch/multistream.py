@@ -1107,9 +1107,29 @@ class MultiStreamKWS(MultiStreamRecognizer):
         Label lists, then DROP them (decoded blocks are never re-read),
         and append the final candidate flush once after finish().  Only
         the compact hit rings are fetched; a stream whose ring overflowed
-        (count > H) decodes that block from its dense records."""
-        if self._hist:
+        (count > H) decodes that block from its dense records.  Traced
+        (utils/profiling.py) where there is something to fetch or flush:
+        span ``kws.sync`` around ``kws.fetch`` (the device-to-host copies
+        and their wait) and ``kws.decode`` (the rings and the dense
+        fallback into Labels), counters ``kws.syncs``, ``kws.hits`` (the
+        Labels decoded) and ``kws.overflow_streams`` (the streams'
+        dispatches decoded from the dense records)."""
+        final = self._flushed and not self._final_done
+        if not self._hist and not final:
+            return
+        with profiling.span("kws.sync"):
+            profiling.count("kws.syncs")
+            made = sum(map(len, self._labels))
+            if self._hist:
+                self._decode_pending()
+            if final:
+                self._flush_final()
+            profiling.count("kws.hits", sum(map(len, self._labels)) - made)
+
+    def _decode_pending(self) -> None:
+        with profiling.span("kws.fetch"):
             fetched = self._fetch_rings()
+        with profiling.span("kws.decode"):
             denses = [h["dense"] for h, _ in self._hist]
             self._hist = []
             Kw = len(self._keywords)
@@ -1141,9 +1161,13 @@ class MultiStreamKWS(MultiStreamRecognizer):
                         self._labels[b].extend(map(
                             Label, starts[lo:hi], ends[lo:hi],
                             names[lo:hi], scores[lo:hi]))
-                for b in np.nonzero(~ok_b)[0]:
-                    # rare: some sub-ring overflowed -> decode this
-                    # stream's whole dispatch from the dense records
+                over = np.nonzero(~ok_b)[0]
+                profiling.count("kws.overflow_streams", len(over))
+                for b in over:
+                    # some sub-ring overflowed (with score pruning off,
+                    # every stream's of a 40-keyword network does) ->
+                    # decode this stream's whole dispatch from the dense
+                    # records
                     sub = tuple({k2: v[b].cpu().numpy()
                                  for k2, v in rec.items()}
                                 for rec in dense)
@@ -1151,11 +1175,14 @@ class MultiStreamKWS(MultiStreamRecognizer):
                         Label(h.start, h.end, h.word, h.score)
                         for h in decode_lrtrace_events(
                             sub, self._keywords))
-        if self._flushed and not self._final_done:
-            # StkInterface::Done: flush outstanding candidates from the
-            # final tracker state, per stream in keyword order
-            self._final_done = True
+
+    def _flush_final(self) -> None:
+        """StkInterface::Done: flush outstanding candidates from the
+        final tracker state, per stream in keyword order."""
+        self._final_done = True
+        with profiling.span("kws.fetch"):
             trk = [t.cpu().numpy() for t in self._carry[1]]
+        with profiling.span("kws.decode"):
             sp = float(self._sp)
             for b in range(self._nl):
                 row = tuple(leaf[b] for leaf in trk)

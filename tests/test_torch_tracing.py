@@ -18,7 +18,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from phnrec_tpu_torch import cli, synth
-from phnrec_tpu_torch.multistream import MultiStreamRecognizer
+from phnrec_tpu_torch.multistream import (MultiStreamKWS,
+                                          MultiStreamRecognizer)
 from phnrec_tpu_torch.pipeline import SpeechRec
 from phnrec_tpu_torch.utils import profiling
 from phnrec_tpu_torch.utils.profiling import RECORDER, Recorder
@@ -37,6 +38,13 @@ def pkg(tmp_path_factory):
 @pytest.fixture(scope="module")
 def sr(pkg):
     return SpeechRec(pkg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def kws_sr(tmp_path_factory):
+    return SpeechRec(synth.write_kws_package(
+        tmp_path_factory.mktemp("trk") / "p", "tiny", seed=3,
+        sent_norm=False), device="cpu")
 
 
 @pytest.fixture
@@ -197,6 +205,70 @@ def test_each_commit_is_one_serve_commit_with_its_children(sr, audio,
     assert builds and all("serve.finish" in _ancestors(r, by_seq)
                           for r in builds)
     assert snap.spans["serve.launch"].count >= len(rounds)
+
+
+def test_kws_hit_syncs_are_spans_with_their_fetch_and_decode(kws_sr,
+                                                            audio):
+    """A live KWS session of three streams polled by hits_so_far after
+    every feed: a poll that finds blocks to fetch is one ``kws.sync``
+    holding one ``kws.fetch`` and then one ``kws.decode``, and finish()'s
+    holds another pair for the final flush; the polls that find nothing
+    open no span; ``kws.hits`` counts the Labels delivered."""
+    ms = MultiStreamKWS(kws_sr, 3, block_frames=BLOCK)
+    delivered = polls = 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        for off in range(0, len(audio), 3000):
+            for i in range(3):
+                ms.process(i, audio[off: off + 3000])
+            for i in range(3):
+                delivered += len(ms.hits_so_far(i))
+                polls += 1
+        res = ms.finish()
+        delivered += sum(len(ms.hits_so_far(i)) for i in range(3))
+    snap = RECORDER.snapshot()
+    recs = [r for r in snap.records if r.name != "gc"]
+    syncs = [r for r in recs if r.name == "kws.sync"]
+    assert 2 <= len(syncs) == snap.counters["kws.syncs"] < polls
+    pair = ["kws.fetch", "kws.decode"]
+    for k, sync in enumerate(sorted(syncs, key=lambda r: r.start_ns)):
+        kids = sorted((r for r in recs if r.parent == sync.seq),
+                      key=lambda r: r.start_ns)
+        assert [r.name for r in kids] in (
+            [pair] if k < len(syncs) - 1 else [pair, pair + pair])
+    assert delivered == sum(map(len, res)) == snap.counters["kws.hits"] > 0
+    assert snap.counters.get("kws.overflow_streams", 0) == 0
+
+
+def test_kws_overflow_streams_counts_the_streams_off_the_rings(kws_sr):
+    """Flush events past a ring's H slots (as in
+    test_ring_overflow_decodes_dense_records): ``kws.overflow_streams``
+    counts exactly the streams decoded from the dense records."""
+    N, F, K = 4, 300, 2
+    rng = np.random.default_rng(9)
+    recs = []
+    for r in range(2):
+        emit = rng.random((N, F, K)) < (0.4, 0.05)[r]
+        emit[0] = False
+        emit[3] = rng.random((F, K)) < 0.02             # fits its ring
+        recs.append({
+            "emit": emit,
+            "start": rng.integers(0, 500, (N, F, K)).astype(np.int32),
+            "end": rng.integers(0, 500, (N, F, K)).astype(np.int32),
+            "score": rng.normal(-30, 5, (N, F, K)).astype(np.float32),
+            "new_estim": rng.random((N, F, K)) < 0.3})
+    total = recs[0]["emit"].sum((1, 2)) + recs[1]["emit"].sum((1, 2))
+    over = total > max(64, F // 4)
+    assert over.tolist() == [False, True, True, False]
+    ms = MultiStreamKWS(kws_sr, n_streams=N, block_frames=F)
+    ms._hist = [(ms._compact_events(tuple(
+        {k: torch.from_numpy(v) for k, v in rec.items()} for rec in recs)),
+        np.full(N, F, np.int64))]
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = ms.results()
+    snap = RECORDER.snapshot()
+    assert snap.counters["kws.overflow_streams"] == int(over.sum())
+    assert snap.counters["kws.hits"] == sum(map(len, got)) == total.sum()
+    assert snap.spans["kws.sync"].count == 1
 
 
 def _lockstep(sr, audio, poll):
